@@ -1,0 +1,60 @@
+"""Mixed-precision policy (paper §4.2): bf16 storage and compute, fp32
+accumulation.
+
+A port of the reference's ``core/precision.py`` for the serve slice:
+:class:`Policy`, :data:`MIXED` and :func:`einsum`, whose products all run
+through :func:`repro_torch.kernels.ops.matmul` with an fp32 result, as
+``preferred_element_type=float32`` gives in JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Dtype at each storage/compute boundary."""
+
+    param_dtype: torch.dtype = torch.bfloat16
+    compute_dtype: torch.dtype = torch.bfloat16
+    accum_dtype: torch.dtype = torch.float32
+    master_dtype: torch.dtype = torch.float32
+    reduce_dtype: torch.dtype = torch.float32
+    activation_dtype: torch.dtype = torch.bfloat16
+
+    def cast_compute(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute_dtype) if x.is_floating_point() else x
+
+
+MIXED = Policy()
+
+
+def einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
+           policy: Policy = MIXED) -> torch.Tensor:
+    """A two-operand einsum whose contracted indices are the trailing
+    indices of ``a`` and the leading ones of ``b`` (``bsd,dhk->bshk``,
+    ``bshk,hkd->bsd``, ``bsd,df->bsf``, ``bsf,fd->bsd``, ``bsd,dv->bsv``):
+    one ``(M, K) @ (K, N)`` GEMM with an ``accum_dtype`` result."""
+    ins, out = spec.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    n = sum(c not in out for c in sa)
+    if n == 0 or any(c in out for c in sa[len(sa) - n:]) \
+            or sb[:n] != sa[len(sa) - n:] or out != sa[:len(sa) - n] + sb[n:]:
+        raise ValueError(f"einsum {spec!r} is not a trailing/leading "
+                         "contraction of two operands")
+    if a.dim() != len(sa) or b.dim() != len(sb):
+        raise ValueError(f"einsum {spec!r}: operand ranks {a.dim()}, "
+                         f"{b.dim()}")
+    a, b = policy.cast_compute(a), policy.cast_compute(b)
+    lead, trail = a.shape[:a.dim() - n], b.shape[n:]
+    k = math.prod(a.shape[a.dim() - n:])
+    c = ops.matmul(a.reshape(-1, k).contiguous(),
+                   b.reshape(k, -1).contiguous(),
+                   out_dtype=policy.accum_dtype)
+    return c.reshape(*lead, *trail)

@@ -1,0 +1,70 @@
+"""Mixed-precision GEMM on the card: C = A @ B, bf16 operands, fp32
+accumulator, one downcast (CUDA source: ``csrc/gemm.cu``).
+
+Replaces the TPU kernel ``repro/kernels/gemm.py::matmul``
+(``_matmul_kernel``), dMath's core kernel.  On the serve path every
+projection, MLP and unembed product runs here, at M = batch slots
+(decode) or M = one prefill chunk.  At those M each product does a few
+operations per weight byte, far below the H100's ~295 bf16 FLOP/byte
+ridge, so it is bound by the bytes of B over 3.35 TB/s (the unembed's
+272 MB: ~81 us).  The design keeps B's bytes to one pass: each block owns
+a 64x64 output tile, reads its B column panel once in 32-deep k-steps with
+16-byte loads, and runs bf16 WMMA (tensor cores) into an fp32
+accumulator, so the FLOPs never bound it.  The TPU kernel needs shapes
+that tile exactly; this one masks ragged M, N and K edges itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+
+launches = 0     # kernel launches since the last reset (ops.reset_launches)
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) in ``out_dtype`` (default ``a.dtype``).
+
+    CPU tensors take the plain version (:func:`ref.matmul`); CUDA tensors
+    launch the kernel, which takes contiguous bf16 operands and writes
+    fp32 or bf16, and raise on anything else."""
+    global launches
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return ref.matmul(a, b, out_dtype)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"matmul: operands on {a.device} and {b.device}; "
+                         "the kernel needs both on one CUDA device")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"matmul kernel takes bf16 operands, got "
+                        f"{a.dtype} @ {b.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"matmul kernel writes fp32 or bf16, not {out_dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} do not chain")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul kernel takes contiguous row-major operands")
+    M, K = a.shape
+    N = b.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    fn = _build.function("dmath_gemm_bf16", _ARGTYPES)
+    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+            int(out_dtype == torch.float32),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "matmul")
+    launches += 1
+    return out

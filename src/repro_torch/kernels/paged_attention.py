@@ -1,0 +1,98 @@
+"""Paged decode attention on the card (CUDA source:
+``csrc/paged_attention.cu``).
+
+Replaces the TPU kernel
+``repro/kernels/paged_attention.py::paged_decode_attention``
+(``_paged_decode_kernel``): one query token per sequence against a KV
+pool of fixed-size pages, sequence b's logical page j being physical page
+``block_table[b, j]`` and positions at or past ``seq_lens[b]`` masked.
+It runs at every decode step.  It does 4·Hq·hd FLOPs per live position
+over 4·Hkv·hd bytes of K/V, about 7 FLOP/byte for qwen2's GQA group of
+7, so it is bound by the live K/V bytes over 3.35 TB/s.  The design reads
+only those bytes: one block per (sequence, kv head) carries the g query
+heads as rows (K/V read once for all of them), and walks only the
+positions below ``seq_lens[b]``, where the TPU kernel streams the whole
+table row and masks the tail.
+
+The contract ``seq_lens >= 1`` (page 0 of the row holds position 0) is
+checked by the caller that holds the positions on the host (the serve
+engines), not here: reading device memory would stall the stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build, ref
+
+launches = 0     # kernel launches since the last reset (ops.reset_launches)
+
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 16          # query heads per kv head the kernel holds as rows
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+
+
+def paged_decode_attention(
+    q: torch.Tensor,              # (B, Hq, hd)
+    k_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    v_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    block_table: torch.Tensor,    # (B, n_pages) int32
+    seq_lens: torch.Tensor,       # (B,) int32
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """CPU tensors take the plain version
+    (:func:`ref.paged_decode_attention`); CUDA tensors launch the kernel
+    (contiguous bf16 q and pages, int32 table and lengths, head dim
+    32/64/128, at most 16 query heads per kv head) and raise on anything
+    else."""
+    global launches
+    tensors = (q, k_pages, v_pages, block_table, seq_lens)
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.paged_decode_attention(q, k_pages, v_pages, block_table,
+                                          seq_lens, scale=scale)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged_decode_attention: the kernel needs every "
+                         "tensor on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.bfloat16 for t in (q, k_pages, v_pages)):
+        raise TypeError("paged_decode_attention kernel takes bf16 q and "
+                        "pages")
+    if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_decode_attention kernel takes int32 "
+                        "block_table and seq_lens")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, "
+                         f"pages {tuple(k_pages.shape)}")
+    B, Hq, hd = q.shape
+    P, page, Hkv, hd2 = k_pages.shape
+    if hd2 != hd or Hq % Hkv or block_table.dim() != 2 \
+            or block_table.shape[0] != B or tuple(seq_lens.shape) != (B,):
+        raise ValueError(f"paged_decode_attention: q {tuple(q.shape)}, pages"
+                         f" {tuple(k_pages.shape)}, table "
+                         f"{tuple(block_table.shape)}, lens "
+                         f"{tuple(seq_lens.shape)} do not match")
+    if hd not in HEAD_DIMS or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"paged_decode_attention kernel takes head dim in "
+                         f"{HEAD_DIMS} and <= {MAX_GROUP} query heads per "
+                         f"kv head, got {hd} and {Hq // Hkv}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_decode_attention kernel takes contiguous "
+                         "tensors")
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _build.function("dmath_paged_decode_bf16", _ARGTYPES)
+    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            B, Hq, Hkv, hd, page, block_table.shape[1], float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_decode_attention")
+    launches += 1
+    return out

@@ -1,0 +1,92 @@
+"""Plain PyTorch versions of the ported kernels.
+
+Each function is the semantic definition its CUDA kernel is held against
+(fp32 math throughout), following the JAX reference's ``kernels/ref.py``.
+The wrappers in ``gemm.py``, ``flash_attention.py`` and
+``paged_attention.py`` run them for tensors on the CPU; on the card they
+only serve as the comparison in tests and ``chip_smoke.py``.
+
+One deliberate difference: an attention row with no visible key gives
+zeros, as the model's attention in the reference does
+(``layers.flash_attention_jnp``), where the reference oracle gives NaN.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C = A @ B with fp32 accumulation regardless of storage dtype."""
+    out_dtype = out_dtype or a.dtype
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def attention(
+    q: torch.Tensor,                  # (B, Hq, S, D)
+    k: torch.Tensor,                  # (B, Hkv, T, D)
+    v: torch.Tensor,                  # (B, Hkv, T, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    B, Hq, S, D = q.shape
+    _, Hkv, T, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scores = qf @ kf.transpose(-1, -2)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+
+    qpos = torch.arange(S, device=q.device) + q_offset
+    kpos = torch.arange(T, device=q.device)
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(-1)[:, None], probs, 0.0)
+    return (probs @ vf).to(q.dtype)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,              # (B, Hq, hd) one query token per sequence
+    k_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    v_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    block_table: torch.Tensor,    # (B, n_pages) int32
+    seq_lens: torch.Tensor,       # (B,) int32, live length (pos + 1)
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather-then-attend: logical page j of sequence b is physical page
+    ``block_table[b, j]``; positions ``t >= seq_lens[b]`` are masked."""
+    B, Hq, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    n_pages = block_table.shape[1]
+    g = Hq // Hkv
+    T = n_pages * page
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+
+    tbl = block_table.long()
+    kf = k_pages[tbl].reshape(B, T, Hkv, hd).float()
+    vf = v_pages[tbl].reshape(B, T, Hkv, hd).float()
+    qf = q.float().reshape(B, Hkv, g, hd) * scale
+
+    s = torch.einsum("bkgd,btkd->bkgt", qf, kf)
+    mask = torch.arange(T, device=q.device)[None, :] < seq_lens[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, vf)
+    return out.reshape(B, Hq, hd).to(q.dtype)

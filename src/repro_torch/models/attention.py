@@ -1,0 +1,143 @@
+"""Attention against the paged KV pool: one decode step and one prefill
+chunk, ported from the reference's ``models/attention.py``.
+
+The pages ``(P, page, Hkv, hd)`` are updated **in place**
+(``index_put_``), where the reference's jitted steps donate the pool and
+return a new one; both functions still return the pages so their
+signatures match the reference's.  Indices the reference would clamp on
+device (a chunk past the end of its table row) raise here instead.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core import precision
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.params import ParamSpec
+
+
+def attn_specs(cfg) -> Dict[str, ParamSpec]:
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = {
+        "wq": ParamSpec((D, H, hd)),
+        "wk": ParamSpec((D, Hkv, hd)),
+        "wv": ParamSpec((D, Hkv, hd)),
+        "wo": ParamSpec((H, hd, D), init="scaled",
+                        scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((H, hd), init="zeros")
+        s["bk"] = ParamSpec((Hkv, hd), init="zeros")
+        s["bv"] = ParamSpec((Hkv, hd), init="zeros")
+    return s
+
+
+def _qkv(x, p, cfg, positions, policy):
+    """Projections (+ bias) and rotary; x (B, S, D) -> q, k, v (B, S, H, hd)
+    in x's dtype.  Bias and rotary apply to the fp32 products, as in the
+    reference."""
+    q = precision.einsum("bsd,dhk->bshk", x, p["wq"], policy=policy)
+    k = precision.einsum("bsd,dhk->bshk", x, p["wk"], policy=policy)
+    v = precision.einsum("bsd,dhk->bshk", x, p["wv"], policy=policy)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = layers.rotary(q, positions, cfg.rope_theta)
+    k = layers.rotary(k, positions, cfg.rope_theta)
+    return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
+
+
+def decode_paged(
+    x: torch.Tensor,               # (B, 1, D)
+    p: dict,
+    cfg,
+    k_pages: torch.Tensor,         # (P, page, Hkv, hd), written in place
+    v_pages: torch.Tensor,
+    block_table: torch.Tensor,     # (B, n_pages) int32 logical -> physical
+    pos: torch.Tensor,             # scalar or (B,) position of the new token
+    *,
+    policy=precision.MIXED,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step: the new token's K/V go to physical page
+    ``block_table[b, pos // page]`` at offset ``pos % page``, then
+    attention walks the sequence's pages through
+    :func:`repro_torch.kernels.ops.paged_decode_attention` with
+    ``seq_lens = pos + 1``.  The caller guarantees
+    ``0 <= pos < n_pages * page`` (the engines check it on the host)."""
+    B = x.shape[0]
+    page = k_pages.shape[1]
+    positions = pos[None] if pos.dim() == 0 else pos[:, None]
+    q, k, v = _qkv(x, p, cfg, positions, policy)              # (B,1,H,hd)
+
+    pos_b = pos.expand(B).long()
+    phys = block_table[torch.arange(B, device=x.device), pos_b // page]
+    off = pos_b % page
+    k_pages.index_put_((phys.long(), off), k[:, 0].to(k_pages.dtype))
+    v_pages.index_put_((phys.long(), off), v[:, 0].to(v_pages.dtype))
+
+    seq_lens = (pos_b + 1).to(torch.int32)
+    out = ops.paged_decode_attention(
+        q[:, 0].to(k_pages.dtype).contiguous(), k_pages, v_pages,
+        block_table, seq_lens)                                 # (B,H,hd)
+    y = precision.einsum("bshk,hkd->bsd", out[:, None].to(q.dtype),
+                         p["wo"], policy=policy)
+    return y.to(x.dtype), k_pages, v_pages
+
+
+def prefill_chunk_paged(
+    x: torch.Tensor,               # (1, C, D) one prompt chunk, end-padded
+    p: dict,
+    cfg,
+    k_pages: torch.Tensor,         # (P, page, Hkv, hd), written in place
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,       # (n_pages,) int32 logical -> physical
+    start: int,                    # absolute position of chunk[0]
+    *,
+    policy=precision.MIXED,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fixed-size prefill chunk for ONE sequence.
+
+    Scatters the chunk's K/V into the sequence's pages through the table,
+    gathers the row back in LOGICAL page order and runs flash attention
+    with ``q_offset=start``, so the result does not depend on which
+    physical pages the allocator handed out.  End-padding positions lie
+    beyond every real query's causal horizon.  Only the pages up to the
+    chunk's last position are gathered: the keys after it are masked for
+    every query of the chunk, so leaving them out changes no value.
+
+    Raises when the chunk runs past the end of the table row, where the
+    reference's clamped scatter would overwrite live positions of the
+    row's last page."""
+    C = x.shape[1]
+    page = k_pages.shape[1]
+    n_pages = table_row.shape[0]
+    if start < 0 or start + C > n_pages * page:
+        raise ValueError(
+            f"prefill chunk [{start}, {start + C}) runs past the table row "
+            f"({n_pages} pages of {page}); the chunk size must divide the "
+            "row length")
+    positions = start + torch.arange(C, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions, policy)              # (1,C,H,hd)
+
+    row = table_row.long()
+    phys = row[positions // page]
+    off = positions % page
+    k_pages.index_put_((phys, off), k[0].to(k_pages.dtype))
+    v_pages.index_put_((phys, off), v[0].to(v_pages.dtype))
+
+    n_live = -(-(start + C) // page)
+    shape = (1, n_live * page) + tuple(k_pages.shape[2:])
+    k_row = k_pages[row[:n_live]].reshape(shape)
+    v_row = v_pages[row[:n_live]].reshape(shape)
+    out = ops.attention(
+        q.transpose(1, 2).contiguous(), k_row.transpose(1, 2).contiguous(),
+        v_row.transpose(1, 2).contiguous(), causal=True,
+        softcap=cfg.attn_softcap, q_offset=start,
+    ).transpose(1, 2)                                          # (1,C,H,hd)
+    y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+    return y.to(x.dtype), k_pages, v_pages

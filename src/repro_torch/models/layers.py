@@ -1,0 +1,67 @@
+"""Common layers: norm, activation, rotary, gated MLP, embedding and
+unembedding, ported from the reference's ``models/layers.py``.
+
+Every product runs through :func:`repro_torch.core.precision.einsum`
+(bf16 operands, fp32 accumulation, the GEMM kernel on the card).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import precision
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * w.float()).to(x.dtype)
+
+
+def act_fn(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return (functools.partial(F.gelu, approximate="tanh") if name == "gelu"
+            else F.silu)
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
+           ) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: (S,) or broadcastable."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., None].float() * freqs             # (S, half)
+    cos = torch.cos(angles)[..., None, :]                      # (S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
+
+
+def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
+            policy: precision.Policy = precision.MIXED) -> torch.Tensor:
+    """Gated MLP: act(x @ w_gate) * (x @ w_in) @ w_out."""
+    g = precision.einsum("bsd,df->bsf", x, w_gate, policy=policy)
+    h = precision.einsum("bsd,df->bsf", x, w_in, policy=policy)
+    h = act_fn(act)(g.float()).to(x.dtype) * h.to(x.dtype)
+    out = precision.einsum("bsf,fd->bsd", h, w_out, policy=policy)
+    return out.to(x.dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor, *, scale: bool
+          ) -> torch.Tensor:
+    x = table[tokens]
+    if scale:
+        x = x * torch.tensor(table.shape[-1] ** 0.5, dtype=x.dtype)
+    return x
+
+
+def unembed(x: torch.Tensor, w: torch.Tensor, *,
+            policy: precision.Policy = precision.MIXED) -> torch.Tensor:
+    """fp32 logits (the einsum's accumulator, as in the reference)."""
+    return precision.einsum("bsd,dv->bsv", x, w, policy=policy)

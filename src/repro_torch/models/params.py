@@ -1,0 +1,76 @@
+"""Parameter specs, initialization and loading of the reference's weights.
+
+Parameters are a flat ``dict[str, Tensor]`` whose keys are the JAX params
+pytree's paths joined by dots (``layers.attn.wq``), with the reference's
+layouts: stacked layer params lead with ``L``, ``wq`` is ``(D, H, hd)``
+and ``wo`` ``(H, hd, D)``.  Initialization follows the reference's std and
+``scaled`` rule (``models/params.py``) on an explicit ``torch.Generator``;
+it does not reproduce JAX's random numbers, so tests carry JAX-initialized
+weights over with :func:`from_jax`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"        # normal | zeros | ones | scaled
+    scale: float = 0.02
+
+    def stacked(self, n: int) -> "ParamSpec":
+        """Prepend a layer dimension (the port loops over it)."""
+        return dataclasses.replace(self, shape=(n,) + tuple(self.shape))
+
+
+def init_param(gen: torch.Generator, spec: ParamSpec,
+               device: torch.device) -> torch.Tensor:
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init not in ("normal", "scaled"):
+        raise ValueError(f"unknown init {spec.init!r}")
+    # "scaled" specs carry the output-projection std 0.02/sqrt(2L) as scale
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return (x * spec.scale).to(spec.dtype)
+
+
+def tree_init(seed: int, specs: Mapping[str, ParamSpec],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    """Materialize every spec, in order, from one generator on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return {name: init_param(gen, spec, device)
+            for name, spec in specs.items()}
+
+
+def _to_tensor(arr: Any) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 extension dtype: move the bits, not the values
+        bits = np.ascontiguousarray(arr).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def from_jax(tree: Mapping[str, Any], prefix: str = ""
+             ) -> Dict[str, torch.Tensor]:
+    """The reference's params pytree (nested dicts of arrays, converted to
+    numpy by the caller or here) as the port's flat parameter dict, on the
+    CPU.  bf16 leaves are carried bit for bit."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(from_jax(val, prefix=name + "."))
+        else:
+            out[name] = _to_tensor(val)
+    return out

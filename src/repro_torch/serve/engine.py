@@ -1,0 +1,437 @@
+"""Batched serving engines over the paged KV pool, ported from the
+reference's ``serve/engine.py``.
+
+- :class:`Engine` — static batching on its paged path: fixed slots, each
+  owning a slot-major row of pages; finished slots are refilled from the
+  queue and their prompt prefilled chunk by chunk.  Every slot decodes at
+  its own position.
+- :class:`ContinuousEngine` — continuous batching: per-tick admission
+  through the budget-governed :class:`~repro_torch.serve.scheduler.Scheduler`,
+  one prefill chunk per tick for every mid-prefill sequence, lazy page
+  growth with preempt-and-requeue, and page recycling.
+
+Both run the same model steps (``Model.prefill_chunk_paged`` and
+``Model.decode_step_paged``), and attention gathers pages in logical
+order, so their greedy outputs are identical whatever physical pages the
+allocator hands out.  The model steps update the pool in place; nothing
+crosses to the host per token but the sampled ids.  Greedy sampling is an
+``argmax`` on the device; temperature sampling draws from an explicit
+``torch.Generator``.  The dense-cache static engine and the reference's
+Session arguments (``opcache``, ``registry``, ``cache_key``) come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs as obs_mod
+
+from .blocks import NULL_PAGE, BlockManager, PoolExhausted
+from .scheduler import DeadlineExceeded, Request, Scheduler
+
+__all__ = ["Engine", "ContinuousEngine", "Request"]
+
+
+def _check_chunking(max_seq: int, page_size: int, chunk: int) -> None:
+    """Every prefill chunk must end inside its table row (the row holds
+    ``ceil(max_seq / page_size)`` pages), which holds for every prompt
+    exactly when the chunk size divides the row length."""
+    row = -(-max_seq // page_size) * page_size
+    if row % chunk:
+        raise ValueError(f"prefill_chunk {chunk} does not divide the table "
+                         f"row of {row} positions (max_seq {max_seq}, "
+                         f"page {page_size})")
+
+
+def _check_positions(pos: np.ndarray, limit: int) -> None:
+    """The paged decode contract, checked where the host holds ``pos``:
+    ``0 <= pos < limit``, so ``seq_lens = pos + 1 >= 1`` and the new
+    token's page lies inside its table row."""
+    if pos.size and (pos.min() < 0 or pos.max() >= limit):
+        raise ValueError(f"decode positions {pos.tolist()} outside "
+                         f"[0, {limit})")
+
+
+def _retire(engine, b: int) -> Request:
+    """The retirement path, shared by both engines: release the slot's
+    storage, stamp the request, collect it on ``engine.finished``."""
+    req = engine.active[b]
+    engine._release_slot(req, b)
+    req.done = True
+    req.finish_t = time.perf_counter()
+    engine.finished.append(req)
+    engine.active[b] = None
+    engine.pos[b] = 0
+    engine.obs.counter("serve.retired").inc()
+    return req
+
+
+class _Sampler:
+    """Greedy argmax on the device, or temperature sampling from an
+    explicit generator seeded once per engine."""
+
+    def __init__(self, temperature: float, seed: int, device: torch.device):
+        self.temperature = temperature
+        self.gen = torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, logits: torch.Tensor) -> np.ndarray:
+        if self.temperature == 0.0:
+            return torch.argmax(logits, -1).cpu().numpy()
+        probs = torch.softmax(logits.float() / self.temperature, -1)
+        return torch.multinomial(probs, 1, generator=self.gen)[:, 0] \
+            .cpu().numpy()
+
+
+def _sync(obs, device: torch.device) -> None:
+    if obs.enabled and device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Engine:
+    """Static-batch engine on the paged KV cache: fixed slots, per-slot
+    positions."""
+
+    def __init__(self, model, params, batch_slots: int, max_seq: int,
+                 temperature: float = 0.0, seed: int = 0, obs=None,
+                 page_size: int = 64, prefill_chunk: int = 32):
+        self.obs = obs if obs is not None else obs_mod.NULL
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.B = batch_slots
+        self.T = max_seq
+        self._sample = _Sampler(temperature, seed, self.device)
+        self.page_size = page_size
+        self.prefill_chunk = min(prefill_chunk, max_seq)
+        _check_chunking(max_seq, page_size, self.prefill_chunk)
+        self.cache = model.init_paged_cache(batch_slots, max_seq, page_size)
+        self._pos_limit = self.cache["table"].shape[1] * page_size
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.active: List[Optional[Request]] = [None] * batch_slots
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.refused: List[Request] = []     # deadline-shed queued work
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        if req.submit_t is None:
+            req.submit_t = time.perf_counter()
+        self.queue.append(req)
+
+    def _prefill_chunks(self, row, prompt):
+        """Run a prompt through the chunked paged prefill; returns the
+        final chunk's logits (1, C, V) and the index of its last real
+        position."""
+        C = self.prefill_chunk
+        P = len(prompt)
+        logits = None
+        for start in range(0, P, C):
+            chunk = np.zeros((1, C), np.int64)
+            n = min(C, P - start)
+            chunk[0, :n] = prompt[start:start + n]
+            logits, self.cache = self.model.prefill_chunk_paged(
+                self.params, self.cache,
+                torch.from_numpy(chunk).to(self.device), row, start)
+        return logits, (P - 1) % C if P % C else C - 1 if P else 0
+
+    def _shed_expired(self):
+        """Deadline TTL for queued work (admitted slots always finish):
+        expired requests leave with a structured DeadlineExceeded."""
+        now = time.perf_counter()
+        for req in [r for r in self.queue if r.expired(now)]:
+            self.queue.remove(req)
+            req.refusal = DeadlineExceeded(
+                rid=req.rid, reason="deadline",
+                deadline_s=float(req.deadline_s),
+                waited_s=now - req.submit_t,
+                n_preempted=req.n_preempted)
+            req.done = True
+            req.finish_t = now
+            self.refused.append(req)
+            self.obs.counter("serve.deadline_shed").inc()
+
+    def _admit(self):
+        self._shed_expired()
+        for b in range(self.B):
+            if self.active[b] is None and self.queue:
+                req = self.queue.pop(0)
+                req.admit_t = time.perf_counter()
+                t0 = time.perf_counter() if self.obs.enabled else 0.0
+                # slot-major page ownership: slot b's table row is constant
+                row = self.cache["table"][b]
+                last, idx = self._prefill_chunks(row, req.prompt)
+                last_logits = last[:, idx, :]
+                if self.obs.enabled:
+                    _sync(self.obs, self.device)
+                    self.obs.histogram("serve.prefill_s").observe(
+                        time.perf_counter() - t0)
+                    self.obs.counter("serve.prefills").inc()
+                nxt = self._sample(last_logits)[0]
+                req.out.append(int(nxt))
+                req.first_token_t = time.perf_counter()
+                self.active[b] = req
+                self.pos[b] = len(req.prompt)
+
+    def _release_slot(self, req: Request, b: int):
+        pass                        # fixed rows: nothing to free
+
+    # ------------------------------------------------------------------
+    def step(self) -> int:
+        """One engine tick: admit, decode one token for every active slot."""
+        self._admit()
+        if not any(r is not None for r in self.active):
+            return 0
+        tokens = np.zeros((self.B, 1), np.int64)
+        for b, r in enumerate(self.active):
+            if r is not None:
+                tokens[b, 0] = r.out[-1]
+        # idle slots park at position 0; their garbage write is overwritten
+        # by the next prefill before anything attends it
+        _check_positions(self.pos, self._pos_limit)
+        t0 = time.perf_counter() if self.obs.enabled else 0.0
+        logits, self.cache = self.model.decode_step_paged(
+            self.params, self.cache, torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
+        if self.obs.enabled:
+            _sync(self.obs, self.device)
+            self.obs.histogram("serve.decode_s").observe(
+                time.perf_counter() - t0)
+        nxt = self._sample(logits[:, 0, :])
+        n_active = 0
+        for b, r in enumerate(self.active):
+            if r is None:
+                continue
+            r.out.append(int(nxt[b]))
+            self.pos[b] += 1
+            n_active += 1
+            if len(r.out) >= r.max_new_tokens or self.pos[b] >= self.T - 1:
+                _retire(self, b)
+        self.obs.counter("serve.decode_tokens").inc(n_active)
+        return n_active
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        ticks = 0
+        while (self.queue or any(r is not None for r in self.active)) \
+                and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return list(self.finished)
+
+
+class ContinuousEngine:
+    """Continuous batching over a block-paged KV pool.
+
+    Per tick: admit from the scheduler while slots AND pool headroom
+    allow, run ONE prefill chunk for every mid-prefill sequence, grow
+    page tables lazily for the decode-ready set (preempting the youngest
+    sequence on pool exhaustion), then decode one token for every ready
+    slot at its own position.  Finished sequences retire through the
+    shared :func:`_retire` path and their pages recycle into the free
+    list, so one run admits far more sequences than ``batch_slots``.
+    Idle slots decode token 0 at position 0 against the NULL page.
+    """
+
+    def __init__(self, model, params, batch_slots: int, max_seq: int,
+                 temperature: float = 0.0, seed: int = 0, obs=None,
+                 page_size: int = 64, num_pages: Optional[int] = None,
+                 prefill_chunk: int = 32, policy: str = "fifo"):
+        self.obs = obs if obs is not None else obs_mod.NULL
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.B = batch_slots
+        self.T = max_seq
+        self._sample = _Sampler(temperature, seed, self.device)
+        self.page_size = page_size
+        self.prefill_chunk = min(prefill_chunk, max_seq)
+        _check_chunking(max_seq, page_size, self.prefill_chunk)
+
+        n_row = -(-max_seq // page_size)
+        if num_pages is None:
+            num_pages = 1 + batch_slots * n_row    # full capacity + NULL
+        self.blocks = BlockManager(model.cfg, num_pages=num_pages,
+                                   page_size=page_size, max_seq=max_seq)
+        self.sched = Scheduler(self.blocks, policy=policy)
+        self._pos_limit = n_row * page_size
+
+        self._table_np = np.full((batch_slots, n_row), NULL_PAGE, np.int32)
+        self._table_dirty = True
+        self.cache: Dict[str, torch.Tensor] = model.init_paged_pool(
+            num_pages, page_size)
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.active: List[Optional[Request]] = [None] * batch_slots
+        self.finished: List[Request] = []
+
+    # ------------------------------------------------------------------
+    @property
+    def queue(self) -> List[Request]:
+        return list(self.sched.queue)
+
+    @property
+    def refused(self) -> List[Request]:
+        return list(self.sched.refused)
+
+    @property
+    def shed(self) -> List[Request]:
+        """Queued requests shed on deadline (structured DeadlineExceeded)."""
+        return list(self.sched.shed)
+
+    def submit(self, req: Request):
+        refusal = self.sched.submit(req)
+        if refusal is not None and self.obs.enabled:
+            self.obs.counter("serve.refusals").inc()
+
+    def _release_slot(self, req: Request, b: int):
+        self.blocks.free(req.rid)
+        self._table_np[b] = NULL_PAGE
+        self._table_dirty = True
+
+    # ------------------------------------------------------------------
+    def _admit(self):
+        for req in self.sched.shed_expired():
+            self.obs.counter("serve.deadline_shed").inc()
+        for b in range(self.B):
+            if self.active[b] is not None:
+                continue
+            req = self.sched.next_admission()
+            if req is None:
+                break
+            # admission reserved prompt+max_new headroom; only the prompt
+            # pages are taken now — decode growth allocates lazily
+            self.blocks.alloc(req.rid, len(req.prompt))
+            req.admit_t = time.perf_counter()
+            if self.obs.enabled:
+                self.obs.histogram("serve.queue_wait_s").observe(
+                    req.admit_t - req.submit_t)
+            req.prefill_pos = 0
+            self.active[b] = req
+            self.pos[b] = 0
+
+    def _prefill_tick(self):
+        """ONE chunk for every mid-prefill sequence (interleaved with
+        decode ticks, so long prompts never starve running decodes)."""
+        C = self.prefill_chunk
+        for b, req in enumerate(self.active):
+            if req is None or req.prefill_pos >= len(req.prompt):
+                continue
+            P = len(req.prompt)
+            start = req.prefill_pos
+            n = min(C, P - start)
+            chunk = np.zeros((1, C), np.int64)
+            chunk[0, :n] = req.prompt[start:start + n]
+            row = torch.from_numpy(self.blocks.table_row(req.rid)).to(
+                self.device)
+            t0 = time.perf_counter() if self.obs.enabled else 0.0
+            logits, self.cache = self.model.prefill_chunk_paged(
+                self.params, self.cache,
+                torch.from_numpy(chunk).to(self.device), row, start)
+            if self.obs.enabled:
+                _sync(self.obs, self.device)
+                self.obs.histogram("serve.prefill_s").observe(
+                    time.perf_counter() - t0)
+            req.prefill_pos = start + n
+            if req.prefill_pos >= P:      # final chunk: first token
+                nxt = self._sample(logits[:, n - 1, :])[0]
+                req.out.append(int(nxt))
+                req.first_token_t = time.perf_counter()
+                if self.obs.enabled:
+                    self.obs.histogram("serve.ttft_s").observe(
+                        req.first_token_t - req.submit_t)
+                    self.obs.counter("serve.prefills").inc()
+                self.pos[b] = P
+                self._table_np[b] = self.blocks.table_row(req.rid)
+                self._table_dirty = True
+
+    def _preempt(self, victim: Request):
+        """Free the victim's pages and requeue it at the FRONT (full
+        restart: greedy decode regenerates the same tokens)."""
+        vb = next(b for b, r in enumerate(self.active) if r is victim)
+        self.blocks.free(victim.rid)
+        self._table_np[vb] = NULL_PAGE
+        self._table_dirty = True
+        self.active[vb] = None
+        self.pos[vb] = 0
+        refusal = self.sched.requeue_preempted(victim)
+        self.obs.counter("serve.preemptions").inc()
+        if refusal is not None:
+            self.obs.counter("serve.preempt_refused").inc()
+
+    def _extend_or_preempt(self, ready: List[int]) -> List[int]:
+        """Grow tables so every ready slot can write ``pos[b]``; on pool
+        exhaustion preempt the youngest admitted sequence and retry."""
+        for b in list(ready):
+            req = self.active[b]
+            if req is None:                   # preempted by an earlier
+                continue                      # slot's extend this tick
+            while True:
+                if req is not self.active[b]:
+                    break                     # b itself was preempted
+                try:
+                    before = self.blocks.owned(req.rid)
+                    self.blocks.extend(req.rid, int(self.pos[b]) + 1)
+                    if self.blocks.owned(req.rid) != before:
+                        self._table_np[b] = self.blocks.table_row(req.rid)
+                        self._table_dirty = True
+                    break
+                except PoolExhausted:
+                    victim = self.sched.victim(self.active)
+                    self._preempt(victim)
+        return [b for b in ready if self.active[b] is not None]
+
+    # ------------------------------------------------------------------
+    def step(self) -> int:
+        """One engine tick: admit, prefill one chunk each, extend/preempt,
+        decode one token for every ready slot, retire finished."""
+        self._admit()
+        self._prefill_tick()
+        ready = [b for b, r in enumerate(self.active)
+                 if r is not None and r.prefill_pos >= len(r.prompt)]
+        ready = self._extend_or_preempt(ready)
+        n_ready = len(ready)
+        if n_ready:
+            if self._table_dirty:
+                self.cache["table"] = torch.from_numpy(
+                    self._table_np.copy()).to(self.device)
+                self._table_dirty = False
+            tokens = np.zeros((self.B, 1), np.int64)
+            pos = np.zeros(self.B, np.int64)
+            for b in ready:
+                tokens[b, 0] = self.active[b].out[-1]
+                pos[b] = self.pos[b]
+            _check_positions(pos, self._pos_limit)
+            t0 = time.perf_counter() if self.obs.enabled else 0.0
+            logits, self.cache = self.model.decode_step_paged(
+                self.params, self.cache,
+                torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(pos).to(self.device))
+            if self.obs.enabled:
+                _sync(self.obs, self.device)
+                self.obs.histogram("serve.decode_s").observe(
+                    time.perf_counter() - t0)
+            nxt = self._sample(logits[:, 0, :])
+            for b in ready:
+                r = self.active[b]
+                r.out.append(int(nxt[b]))
+                self.pos[b] += 1
+                if len(r.out) >= r.max_new_tokens \
+                        or self.pos[b] >= self.T - 1:
+                    _retire(self, b)
+            self.obs.counter("serve.decode_tokens").inc(n_ready)
+        if self.obs.enabled:
+            self.obs.gauge("serve.pool_blocks_used").set(
+                self.blocks.used_pages)
+        return n_ready
+
+    def run(self, max_ticks: int = 10_000) -> List[Request]:
+        ticks = 0
+        while (self.sched.queue
+               or any(r is not None for r in self.active)) \
+                and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return list(self.finished)

@@ -1,0 +1,317 @@
+"""The port's kernels, configs and guards against the JAX reference.
+
+Each plain PyTorch version in ``repro_torch.kernels.ref`` (what the
+wrappers run for CPU tensors) is held against the Pallas kernel in
+interpret mode and against ``repro.kernels.ref``, on the same numpy inputs.
+Tolerances are the repo's: fp32 2e-5; bf16 rtol 3e-2, atol 2e-2 (the
+operands round at 8 mantissa bits, sums are taken in fp32 in another
+order).  The ``gpu`` tests hold each CUDA kernel against its plain version
+on the card and skip where there is none.
+"""
+
+import ast
+import dataclasses
+import inspect
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.device import resolve_device  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.serve import blocks as tblocks  # noqa: E402
+from repro_torch.serve import scheduler as tscheduler  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=3e-2, atol=2e-2)}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX reference's modules.  Imported in a fixture, so the ``gpu``
+    tests also run where only the port is installed."""
+    pytest.importorskip("jax")
+    import repro  # noqa: F401  (installs the JAX compat shims)
+    import jax.numpy as jnp
+    from repro.configs import base
+    from repro.kernels import flash_attention, gemm, paged_attention
+    from repro.kernels import ref as jref
+    from repro.models import layers
+    from repro.serve import blocks, scheduler
+    return SimpleNamespace(
+        jnp=jnp, base=base, fa=flash_attention, gemm=gemm,
+        paged=paged_attention, ref=jref, layers=layers, blocks=blocks,
+        scheduler=scheduler,
+        dt={"float32": jnp.float32, "bfloat16": jnp.bfloat16})
+
+
+def _normal(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _pair(J, x, dtype):
+    """The same values as a JAX array and a torch tensor of ``dtype``
+    (bf16 rounded once, on the JAX side, and carried bit for bit)."""
+    j = J.jnp.asarray(x).astype(J.dt[dtype])
+    if dtype == "bfloat16":
+        bits = np.asarray(j).view(np.uint16).copy()
+        return j, torch.from_numpy(bits).view(torch.bfloat16)
+    return j, torch.from_numpy(np.asarray(j).copy())
+
+
+def _close(got, want, dtype, mask=None):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if mask is not None:
+        got, want = got[mask], want[mask]
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# GEMM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 128), (128, 256, 256)])
+def test_matmul_plain_matches_pallas_interpret(J, m, k, n, dtype):
+    ja, ta = _pair(J, _normal(0, (m, k)), dtype)
+    jb, tb = _pair(J, _normal(1, (k, n)), dtype)
+    want = J.gemm.matmul(ja, jb, bm=64, bn=128, bk=128, interpret=True)
+    _close(ops.matmul(ta, tb), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(8, 96, 40), (5, 13, 7), (130, 70, 33)])
+def test_matmul_plain_matches_reference_on_ragged_shapes(J, m, k, n, dtype):
+    ja, ta = _pair(J, _normal(2, (m, k)), dtype)
+    jb, tb = _pair(J, _normal(3, (k, n)), dtype)
+    for out in ("float32", dtype):
+        got = ops.matmul(ta, tb, out_dtype=TDT[out])
+        assert got.dtype == TDT[out] and got.shape == (m, n)
+        _close(got, J.ref.matmul(ja, jb, out_dtype=J.dt[out]), dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+ATTN_CASES = [
+    # (Hq, Hkv, S, T, q_offset, window, softcap)
+    (14, 2, 32, 64, 32, None, None),      # qwen2's GQA group, chunk offset
+    (4, 4, 32, 32, 0, None, None),
+    (4, 1, 16, 64, 48, 24, None),         # sliding window
+    (4, 2, 32, 32, 0, None, 5.0),         # softcap
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,s,t,off,window,softcap", ATTN_CASES)
+def test_attention_plain_matches_pallas_and_reference(
+        J, hq, hkv, s, t, off, window, softcap, dtype):
+    jq, tq = _pair(J, _normal(4, (2, hq, s, 16)), dtype)
+    jk, tk = _pair(J, _normal(5, (2, hkv, t, 16)), dtype)
+    jv, tv = _pair(J, _normal(6, (2, hkv, t, 16)), dtype)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    got = ops.attention(tq, tk, tv, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    # compare only rows with a visible key (the Pallas kernel gives
+    # mean(V) on the others and the reference oracle NaN)
+    qpos = np.arange(s) + off
+    first = np.zeros_like(qpos) if window is None else qpos - window + 1
+    visible = np.minimum(qpos, t - 1) >= np.maximum(first, 0)
+    mask = np.broadcast_to(visible[None, None, :, None], got.shape)
+    _close(got, J.fa.attention(jq, jk, jv, bq=16, bkv=16, interpret=True,
+                              **kw), dtype, mask)
+    _close(got, J.ref.attention(jq, jk, jv, **kw), dtype, mask)
+
+
+def test_attention_rows_without_visible_keys_are_zero(J):
+    """The port follows the model's attention (``flash_attention_jnp``):
+    a fully-masked row is zero."""
+    jq, tq = _pair(J, _normal(7, (1, 2, 8, 16)), "float32")
+    jk, tk = _pair(J, _normal(8, (1, 2, 32, 16)), "float32")
+    jv, tv = _pair(J, _normal(9, (1, 2, 32, 16)), "float32")
+    kw = dict(causal=True, window=1, q_offset=20)      # window=1, T=32:
+    got = ops.attention(tq, tk, tv, **kw)              # rows 12.. see none
+    want = J.layers.flash_attention_jnp(jq, jk, jv, bq=8, bkv=8, **kw)
+    _close(got, want, "float32")
+    assert (got[:, :, 12:] == 0).all() and (got[:, :, :12] != 0).any()
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention
+# ---------------------------------------------------------------------------
+
+def _paged_case(seed, B, Hq, Hkv, hd, page, nb):
+    """(q, k_pages, v_pages) as fp32 numpy, a permuted int32 table that
+    leaves the NULL page 0 out, and ragged int32 lengths >= 1."""
+    rng = np.random.default_rng(seed)
+    P = B * nb + 1
+    q = _normal(seed, (B, Hq, hd))
+    kp = _normal(seed + 1, (P, page, Hkv, hd))
+    vp = _normal(seed + 2, (P, page, Hkv, hd))
+    tbl = (rng.permutation(P - 1) + 1).reshape(B, nb).astype(np.int32)
+    lens = rng.integers(1, nb * page + 1, size=B).astype(np.int32)
+    lens[0] = 1                                   # the contract's edge
+    return q, kp, vp, tbl, lens
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv", [(14, 2), (4, 4), (6, 2)])
+def test_paged_plain_matches_pallas_and_reference(J, hq, hkv, dtype):
+    q, kp, vp, tbl, lens = _paged_case(11, 3, hq, hkv, 16, 8, 4)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(J, x, dtype) for x in (q, kp, vp))
+    j = (jq, jk, jv, J.jnp.asarray(tbl), J.jnp.asarray(lens))
+    t = (tq, tk, tv, torch.from_numpy(tbl), torch.from_numpy(lens))
+    got = ops.paged_decode_attention(*t)
+    assert got.dtype == TDT[dtype] and got.shape == t[0].shape
+    _close(got, J.paged.paged_decode_attention(*j, interpret=True), dtype)
+    _close(got, J.ref.paged_decode_attention(*j), dtype)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels against their plain versions (on the card only)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bf16(seed, shape, dev, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (128, 4864, 896),
+                                   (5, 13, 7), (70, 130, 66)])
+def test_gemm_kernel_matches_plain(cuda, m, k, n):
+    a, b = _bf16(0, (m, k), cuda), _bf16(1, (k, n), cuda, 0.05)
+    for out in (torch.float32, torch.bfloat16):
+        got = ops.matmul(a, b, out_dtype=out)
+        torch.testing.assert_close(got.float(), ref.matmul(a, b, out).float(),
+                                   rtol=3e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,off,window,softcap", [
+    (128, 512, 384, None, None), (37, 100, 50, None, None),
+    (64, 128, 64, 16, 5.0)])
+def test_flash_kernel_matches_plain(cuda, s, t, off, window, softcap):
+    q = _bf16(2, (1, 14, s, 64), cuda)
+    k, v = _bf16(3, (1, 2, t, 64), cuda), _bf16(4, (1, 2, t, 64), cuda)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    torch.testing.assert_close(ops.attention(q, k, v, **kw).float(),
+                               ref.attention(q, k, v, **kw).float(),
+                               rtol=3e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_matches_plain(cuda):
+    q, kp, vp, tbl, lens = _paged_case(5, 8, 14, 2, 64, 64, 4)
+    t = [torch.from_numpy(x).to(torch.bfloat16).to(cuda)
+         for x in (q, kp, vp)]
+    t += [torch.from_numpy(x).to(cuda) for x in (tbl, lens)]
+    torch.testing.assert_close(ops.paged_decode_attention(*t).float(),
+                               ref.paged_decode_attention(*t).float(),
+                               rtol=3e-2, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# Guards
+# ---------------------------------------------------------------------------
+
+def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run("qwen2-0.5b", scheduler="continuous")
+    assert Model(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_wrappers_refuse_mixed_devices():
+    a = torch.zeros(4, 4, dtype=torch.bfloat16)
+    b = torch.zeros(4, 4, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        ops.matmul(a, b)
+    q = torch.zeros(1, 2, 4, 32, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        ops.attention(q, q, q)
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|repro)\b"
+                     r"(?!_torch)", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in files for m in bad.finditer(f.read_text())]
+    assert hits == []
+
+
+# ---------------------------------------------------------------------------
+# Copies pinned to their originals
+# ---------------------------------------------------------------------------
+
+def test_qwen2_config_matches_reference_field_by_field(J):
+    want = J.base.get_config("qwen2-0.5b")
+    got = get_config("qwen2-0.5b")
+    for f in dataclasses.fields(want):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert (got.padded_vocab, got.d_head, got.param_count()) == \
+        (want.padded_vocab, want.d_head, want.param_count())
+    for down in (1, 2, 8, 64):
+        assert dataclasses.asdict(tbase.scale_config(got, down)) == \
+            dataclasses.asdict(J.base.scale_config(want, down))
+    assert tbase.ARCH_IDS == J.base.ARCH_IDS
+    assert tbase.SHAPES == {k: tbase.ShapeConfig(*dataclasses.astuple(v))
+                            for k, v in J.base.SHAPES.items()}
+
+
+def _defs(module, skip=()):
+    """Top-level functions/classes of a module as AST dumps, docstrings
+    stripped (the copies reword only their docstrings)."""
+    tree = ast.parse(inspect.getsource(module))
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) \
+                and node.name not in skip:
+            for sub in ast.walk(node):
+                body = getattr(sub, "body", None)
+                if isinstance(body, list) and body \
+                        and isinstance(body[0], ast.Expr) \
+                        and isinstance(body[0].value, ast.Constant) \
+                        and isinstance(body[0].value.value, str):
+                    sub.body = body[1:] or [ast.Pass()]
+            out[node.name] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("name,tmod,skip", [
+    ("blocks", tblocks, ()),
+    ("scheduler", tscheduler, ()),
+    ("base", tbase, ("get_config", "cells")),
+])
+def test_copied_modules_match_their_originals(J, name, tmod, skip):
+    assert _defs(tmod, skip) == _defs(getattr(J, name), skip)
