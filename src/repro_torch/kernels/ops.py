@@ -15,13 +15,17 @@ from typing import Dict
 from . import flash_attention as _fa
 from . import gemm as _gemm
 from . import paged_attention as _paged
+from . import ref as _ref
+from . import ssd_scan as _ssd
 
 matmul = _gemm.matmul
 attention = _fa.attention
 paged_decode_attention = _paged.paged_decode_attention
+ssd = _ssd.ssd
+ssd_step = _ref.ssd_step     # single-token decode: plain PyTorch everywhere
 
 _KERNELS = {"matmul": _gemm, "attention": _fa,
-            "paged_decode_attention": _paged}
+            "paged_decode_attention": _paged, "ssd": _ssd}
 
 
 def dispatch_report() -> Dict[str, int]:

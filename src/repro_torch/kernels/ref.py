@@ -4,7 +4,11 @@ Each function is the semantic definition its CUDA kernel is held against
 (fp32 math throughout), following the JAX reference's ``kernels/ref.py``.
 The wrappers in ``gemm.py``, ``flash_attention.py`` and
 ``paged_attention.py`` run them for tensors on the CPU; on the card they
-only serve as the comparison in tests and ``chip_smoke.py``.
+only serve as the comparison in tests and ``chip_smoke.py``.  ``ssd`` is
+the sequential definition of the SSD scan, which tests hold the chunked
+plain version (``ssd_scan.ssd_plain``) and the kernel against;
+``ssd_step`` is the single-token decode step, which is plain PyTorch on
+every device, as in the reference.
 
 One deliberate difference: an attention row with no visible key gives
 zeros, as the model's attention in the reference does
@@ -13,7 +17,7 @@ zeros, as the model's attention in the reference does
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -90,3 +94,53 @@ def paged_decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, vf)
     return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def ssd(
+    x: torch.Tensor,               # (B, S, H, P)   inputs per head
+    dt: torch.Tensor,              # (B, S, H)      softplus-activated steps
+    A: torch.Tensor,               # (H,)           negative decay rates
+    Bm: torch.Tensor,              # (B, S, G, N)   input matrices
+    C: torch.Tensor,               # (B, S, G, N)   output matrices
+    *,
+    init_state: Optional[torch.Tensor] = None,   # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (the definition, S steps)::
+
+        h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t x_t^T
+        y_t = C_t^T h_t          (per head; B/C broadcast over groups)
+
+    Returns (y (B, S, H, P) in x's dtype, final state (B, H, P, N) fp32).
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        y, h = ssd_step(x[:, t].float(), dt[:, t], A, Bm[:, t], C[:, t], h)
+        ys.append(y)
+    y = (torch.stack(ys, 1) if ys
+         else torch.zeros((Bsz, 0, H, P), device=x.device))
+    return y.to(x.dtype), h
+
+
+def ssd_step(
+    x: torch.Tensor,               # (B, H, P)   one token
+    dt: torch.Tensor,              # (B, H)
+    A: torch.Tensor,               # (H,)
+    Bm: torch.Tensor,              # (B, G, N)
+    C: torch.Tensor,               # (B, G, N)
+    state: torch.Tensor,           # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the SSD recurrence: (y (B, H, P) in x's dtype,
+    new state (B, H, P, N) fp32)."""
+    rep = x.shape[1] // Bm.shape[1]
+    xf, dtf = x.float(), dt.float()
+    Bf = Bm.float().repeat_interleave(rep, 1)                  # (B,H,N)
+    Cf = C.float().repeat_interleave(rep, 1)
+    decay = torch.exp(dtf * A.float()[None])[..., None, None]
+    upd = (dtf[..., None] * xf)[..., None] * Bf[:, :, None, :]
+    new_state = decay * state.float() + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Cf)
+    return y.to(x.dtype), new_state

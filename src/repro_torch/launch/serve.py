@@ -4,8 +4,10 @@ Builds the model with random weights from ``--seed`` and a serve engine
 directly (the reference goes through ``Session``, which a later slice
 ports), feeds synthetic prompts and reports tokens/s.  ``--scheduler
 continuous`` runs continuous batching over the paged block pool;
-``--scheduler static --paged`` runs the fixed-slot engine on the paged
-cache.  Runs on the card unless ``--device cpu`` is given.
+``--scheduler static`` runs the fixed-slot engine on the model's dense
+cache (the ssm family, e.g. ``--arch mamba2-780m``), or on the paged cache
+with ``--paged`` (the dense family).  Runs on the card unless ``--device
+cpu`` is given; ``--scale-down 1`` keeps the published width.
 """
 
 from __future__ import annotations
@@ -30,9 +32,6 @@ def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
         prefill_chunk: int = 32, num_pages: Optional[int] = None,
         device: str = "cuda"):
     dev = resolve_device(device)
-    if scheduler == "static" and not paged:
-        raise ValueError("the dense-cache static engine is not ported yet; "
-                         "pass --paged or --scheduler continuous")
     cfg = scale_config(get_config(arch), scale_down)
     model = Model(cfg, device=dev)
     params = model.init(seed)
@@ -43,8 +42,8 @@ def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
                                prefill_chunk=prefill_chunk)
     else:
         eng = Engine(model, params, batch_slots=batch_slots,
-                     max_seq=max_seq, seed=seed, page_size=page_size,
-                     prefill_chunk=prefill_chunk)
+                     max_seq=max_seq, seed=seed, paged=paged,
+                     page_size=page_size, prefill_chunk=prefill_chunk)
     rng = np.random.default_rng(seed)
     for rid in range(n_requests):
         eng.submit(Request(
@@ -78,8 +77,8 @@ def main():
     ap.add_argument("--scale-down", type=int, default=64)
     ap.add_argument("--scheduler", choices=("static", "continuous"),
                     default="static",
-                    help="static fixed-slot engine (default; needs --paged) "
-                         "or continuous batching over the paged block pool")
+                    help="static fixed-slot engine (default) or continuous "
+                         "batching over the paged block pool")
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV cache for the static engine")
     ap.add_argument("--page-size", type=int, default=64)

@@ -3,7 +3,8 @@
 Parameters are a flat ``dict[str, Tensor]`` whose keys are the JAX params
 pytree's paths joined by dots (``layers.attn.wq``), with the reference's
 layouts: stacked layer params lead with ``L``, ``wq`` is ``(D, H, hd)``
-and ``wo`` ``(H, hd, D)``.  Initialization follows the reference's std and
+and ``wo`` ``(H, hd, D)``; the SSM's ``A``, ``dt_bias`` and ``D_skip``
+are fp32, the rest bf16.  Initialization follows the reference's std and
 ``scaled`` rule (``models/params.py``) on an explicit ``torch.Generator``;
 it does not reproduce JAX's random numbers, so tests carry JAX-initialized
 weights over with :func:`from_jax`.
@@ -12,6 +13,7 @@ weights over with :func:`from_jax`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -22,7 +24,7 @@ import torch
 class ParamSpec:
     shape: tuple
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"        # normal | zeros | ones | scaled
+    init: str = "normal"   # normal | zeros | ones | scaled | ssm_a | dt_bias
     scale: float = 0.02
 
     def stacked(self, n: int) -> "ParamSpec":
@@ -36,6 +38,16 @@ def init_param(gen: torch.Generator, spec: ParamSpec,
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ssm_a":        # A = -uniform[1, 16]
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        return (-(1.0 + 15.0 * u)).to(spec.dtype)
+    if spec.init == "dt_bias":      # softplus^-1 of dt in [1e-3, 1e-1]
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                       + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
     if spec.init not in ("normal", "scaled"):
         raise ValueError(f"unknown init {spec.init!r}")
     # "scaled" specs carry the output-projection std 0.02/sqrt(2L) as scale

@@ -1,11 +1,14 @@
-"""The dense decoder LM on the paged serve path, ported from the
-reference's ``models/transformer.py``.
+"""The decoder LM on the serve path, ported from the reference's
+``models/transformer.py``: the dense family on the paged cache, and the
+ssm family (mamba2) on its dense cache.
 
 The reference scans one jitted layer body over the stacked params; PyTorch
 runs eagerly, so here a Python loop walks the ``L`` layers, indexing the
-stacked ``(L, ...)`` params and KV pages of each.  Parameters are passed
+stacked ``(L, ...)`` params and caches of each.  Parameters are passed
 explicitly, as in the reference, so both packages' steps take the same
-arguments.  Training (``forward``, ``loss_fn``) and the dense-cache
+arguments.  Caches are updated in place (the reference's jitted steps
+donate them and return new ones); the steps still return them.  The dense
+family's full-sequence ``forward``, ``loss_fn`` and dense-cache
 ``prefill``/``decode_step`` come with later slices.
 """
 
@@ -18,25 +21,34 @@ from torch import nn
 
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.params import ParamSpec, tree_init
 
 Params = Dict[str, torch.Tensor]
 
 
 class Model(nn.Module):
-    """Dense-family decoder (embed -> L x [RMSNorm -> rotary GQA attention
-    -> RMSNorm -> gated MLP] -> RMSNorm -> unembed) on ``device``, which
-    defaults to the card; ``device="cpu"`` runs the plain versions of the
-    kernels."""
+    """Decoder on ``device``, which defaults to the card;
+    ``device="cpu"`` runs the plain versions of the kernels.
+
+    - dense family: embed -> L x [RMSNorm -> rotary GQA attention ->
+      RMSNorm -> gated MLP] -> RMSNorm -> unembed, on the paged cache;
+    - ssm family: embed -> L x [RMSNorm -> Mamba2 mixer] -> RMSNorm ->
+      unembed, on the dense cache (``conv``, ``ssm``, ``bc_conv``).
+
+    ``ssd_chunk`` is accepted for the reference's signature only: the
+    scan's chunk is a tiling choice of its implementations (the CUDA
+    kernel walks 64-step chunks, the plain version ``ops.ssd``'s default),
+    and the result does not depend on it."""
 
     def __init__(self, cfg, *, device: Union[str, torch.device] = "cuda",
-                 policy: precision.Policy = precision.MIXED):
+                 policy: precision.Policy = precision.MIXED,
+                 ssd_chunk: int = 256):
         super().__init__()
-        if cfg.family != "dense" or cfg.qk_norm:
+        if cfg.family not in ("dense", "ssm") or cfg.qk_norm:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family without qk-norm is "
-                "ported so far")
+                f"{cfg.name}: only the dense family without qk-norm and the "
+                "ssm family are ported so far (ROADMAP queue 1, item 11)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = policy
@@ -49,6 +61,9 @@ class Model(nn.Module):
         D, V, F, L = cfg.d_model, cfg.padded_vocab, cfg.d_ff, cfg.n_layers
         out_scale = 0.02 / max(1, 2 * L) ** 0.5
         layer = {
+            "ln1": ParamSpec((D,), init="ones"),
+            **{f"ssm.{k}": s for k, s in ssm.ssm_specs(cfg).items()},
+        } if cfg.family == "ssm" else {
             "ln1": ParamSpec((D,), init="ones"),
             "ln2": ParamSpec((D,), init="ones"),
             **{f"attn.{k}": s for k, s in attention.attn_specs(cfg).items()},
@@ -70,14 +85,14 @@ class Model(nn.Module):
     @staticmethod
     def _layer(params: Params, i: int) -> dict:
         """Layer ``i``'s params as the nested dict the blocks take."""
-        lp: dict = {"attn": {}, "mlp": {}}
+        lp: dict = {}
         for name, val in params.items():
             if name.startswith("layers."):
                 parts = name.split(".")[1:]
                 if len(parts) == 1:
                     lp[parts[0]] = val[i]
                 else:
-                    lp[parts[0]][parts[1]] = val[i]
+                    lp.setdefault(parts[0], {})[parts[1]] = val[i]
         return lp
 
     def _mlp(self, h, lp):
@@ -93,17 +108,19 @@ class Model(nn.Module):
     # block-paged KV cache
     # ------------------------------------------------------------------
     def paged_supported(self) -> bool:
-        """Paged decode covers uniform full-attention layers: no sliding
-        windows, no logit softcap."""
+        """Paged decode covers the dense family's uniform full-attention
+        layers: no sliding windows, no logit softcap."""
         cfg = self.cfg
-        return cfg.window is None and cfg.attn_softcap is None
+        return (cfg.family == "dense" and cfg.window is None
+                and cfg.attn_softcap is None)
 
     def _pages(self, num_pages: int, page_size: int
                ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         if not self.paged_supported():
-            raise ValueError(f"paged decode unsupported for window="
-                             f"{cfg.window} softcap={cfg.attn_softcap}")
+            raise ValueError(f"paged decode unsupported for family="
+                             f"{cfg.family!r} window={cfg.window} "
+                             f"softcap={cfg.attn_softcap}")
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
                  cfg.d_head)
         return {"k_pages": torch.zeros(shape, dtype=torch.bfloat16,
@@ -167,4 +184,112 @@ class Model(nn.Module):
             x = x + a
             h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
             x = x + self._mlp(h, lp)
+        return self._head(params, x), cache
+
+    # ------------------------------------------------------------------
+    # full sequence and the dense cache (ssm family)
+    # ------------------------------------------------------------------
+    def _require_ssm(self, what: str) -> None:
+        if self.cfg.family != "ssm":
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} is ported for the ssm family "
+                "only; the dense family's dense KV cache (the dense-cache "
+                "static Engine) is ROADMAP queue 1, item 5, and its "
+                "full-sequence forward item 3 (use paged=True to serve it)")
+
+    def _mixer_stack(self, params: Params, tokens: torch.Tensor,
+                     with_state: bool, write_state):
+        """Embed -> L x mixer; each layer's state goes to
+        ``write_state(i, (conv, ssm, bc_conv))``.  Returns the residual
+        stream (B, S, D) in bf16."""
+        cfg = self.cfg
+        x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
+        x = x.to(torch.bfloat16)
+        for i in range(cfg.n_layers):
+            lp = self._layer(params, i)
+            h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y, state = ssm.forward(h, lp["ssm"], cfg, policy=self.policy,
+                                   with_state=with_state)
+            x = x + y
+            write_state(i, state)
+        return x
+
+    def forward(self, params: Params, tokens: torch.Tensor,
+                with_cache: bool = False, last_only: bool = False):
+        """Full-sequence forward: (fp32 logits (B, S or 1, V), aux loss 0,
+        stacked per-layer states ``(conv, ssm, bc_conv)`` or None)."""
+        self._require_ssm("the full-sequence forward")
+        states = []
+        x = self._mixer_stack(params, tokens, with_cache,
+                              lambda i, state: states.append(state))
+        if last_only:
+            x = x[:, -1:, :]
+        caches = (tuple(torch.stack(s) for s in zip(*states))
+                  if with_cache else None)
+        return (self._head(params, x),
+                torch.zeros((), dtype=torch.float32, device=x.device),
+                caches)
+
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                last_only: bool = True, cache: dict = None,
+                slot: int = 0) -> Tuple[torch.Tensor, dict]:
+        """Forward over the prompt ``tokens`` (B, S): fp32 logits (of the
+        last position only, by default) and the decode-ready cache, whose
+        ``conv``/``bc_conv`` hold the last W-1 mixer inputs and ``ssm``
+        the fp32 state after the last position.  Given a dense ``cache``
+        (from :meth:`init_cache`), a B = 1 prompt's states are written
+        straight into its row ``slot`` and that cache is returned."""
+        self._require_ssm("the dense-cache prefill")
+        if cache is None:
+            logits, _, (conv, state, bc) = self.forward(
+                params, tokens, with_cache=True, last_only=last_only)
+            return logits, {"conv": conv, "ssm": state, "bc_conv": bc}
+        if tokens.shape[0] != 1:
+            raise ValueError("prefill into a cache row takes one prompt")
+
+        def write(i, state):
+            for name, val in zip(("conv", "ssm", "bc_conv"), state):
+                cache[name][i, slot].copy_(val[0])
+
+        x = self._mixer_stack(params, tokens, True, write)
+        return self._head(params, x[:, -1:] if last_only else x), cache
+
+    def cache_specs(self, batch: int, seq_len: int) -> Dict[str, ParamSpec]:
+        """The dense cache of ``batch`` slots (an SSM's does not grow with
+        ``seq_len``)."""
+        self._require_ssm("the dense cache")
+        cfg = self.cfg
+        L = cfg.n_layers
+        H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        W, di = cfg.conv_width, cfg.d_inner
+        GN2 = 2 * cfg.ssm_groups * cfg.ssm_state
+        return {
+            "ssm": ParamSpec((L, batch, H, P, N), dtype=torch.float32,
+                             init="zeros"),
+            "conv": ParamSpec((L, batch, W - 1, di), init="zeros"),
+            "bc_conv": ParamSpec((L, batch, W - 1, GN2), init="zeros"),
+        }
+
+    def init_cache(self, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
+        return tree_init(0, self.cache_specs(batch, seq_len), self.device)
+
+    def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
+                    pos: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        """One token per slot, ``tokens`` (B, 1).  An SSM's step does not
+        read ``pos`` (taken for the reference's signature).  Returns fp32
+        logits (B, 1, V) and ``cache``, updated in place."""
+        self._require_ssm("the dense-cache decode step")
+        cfg = self.cfg
+        x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
+        x = x.to(torch.bfloat16)
+        for i in range(cfg.n_layers):
+            lp = self._layer(params, i)
+            h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            y, conv, state, bc = ssm.decode_step(
+                h, lp["ssm"], cfg, cache["conv"][i], cache["ssm"][i],
+                cache["bc_conv"][i], policy=self.policy)
+            cache["conv"][i].copy_(conv)
+            cache["ssm"][i].copy_(state)
+            cache["bc_conv"][i].copy_(bc)
+            x = x + y
         return self._head(params, x), cache

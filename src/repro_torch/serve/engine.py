@@ -1,24 +1,27 @@
-"""Batched serving engines over the paged KV pool, ported from the
-reference's ``serve/engine.py``.
+"""Batched serving engines, ported from the reference's
+``serve/engine.py``.
 
-- :class:`Engine` — static batching on its paged path: fixed slots, each
-  owning a slot-major row of pages; finished slots are refilled from the
-  queue and their prompt prefilled chunk by chunk.  Every slot decodes at
-  its own position.
+- :class:`Engine` — static batching: fixed slots, finished slots refilled
+  from the queue, every slot decoding at its own position.  As in the
+  reference, it holds the model's dense cache by default
+  (``paged=False``: ``Model.init_cache``, each prompt prefilled in one
+  B = 1 pass at its exact length and written into its slot's row, then
+  ``Model.decode_step`` over all slots); ``paged=True`` gives each slot a
+  slot-major row of pages and prefills prompts chunk by chunk.
 - :class:`ContinuousEngine` — continuous batching: per-tick admission
   through the budget-governed :class:`~repro_torch.serve.scheduler.Scheduler`,
   one prefill chunk per tick for every mid-prefill sequence, lazy page
   growth with preempt-and-requeue, and page recycling.
 
-Both run the same model steps (``Model.prefill_chunk_paged`` and
-``Model.decode_step_paged``), and attention gathers pages in logical
-order, so their greedy outputs are identical whatever physical pages the
-allocator hands out.  The model steps update the pool in place; nothing
-crosses to the host per token but the sampled ids.  Greedy sampling is an
-``argmax`` on the device; temperature sampling draws from an explicit
-``torch.Generator``.  The dense-cache static engine and the reference's
-Session arguments (``opcache``, ``registry``, ``cache_key``) come with
-later slices.
+The paged static engine and the continuous one run the same model steps
+(``Model.prefill_chunk_paged`` and ``Model.decode_step_paged``), and
+attention gathers pages in logical order, so their greedy outputs are
+identical whatever physical pages the allocator hands out.  The model
+steps update the caches in place; nothing crosses to the host per token
+but the sampled ids.  Greedy sampling is an ``argmax`` on the device;
+temperature sampling draws from an explicit ``torch.Generator``.  The
+reference's Session arguments (``opcache``, ``registry``, ``cache_key``)
+come with later slices.
 """
 
 from __future__ import annotations
@@ -49,9 +52,9 @@ def _check_chunking(max_seq: int, page_size: int, chunk: int) -> None:
 
 
 def _check_positions(pos: np.ndarray, limit: int) -> None:
-    """The paged decode contract, checked where the host holds ``pos``:
-    ``0 <= pos < limit``, so ``seq_lens = pos + 1 >= 1`` and the new
-    token's page lies inside its table row."""
+    """The decode contract, checked where the host holds ``pos``:
+    ``0 <= pos < limit``, so on the paged cache ``seq_lens = pos + 1 >= 1``
+    and the new token's page lies inside its table row."""
     if pos.size and (pos.min() < 0 or pos.max() >= limit):
         raise ValueError(f"decode positions {pos.tolist()} outside "
                          f"[0, {limit})")
@@ -93,12 +96,13 @@ def _sync(obs, device: torch.device) -> None:
 
 
 class Engine:
-    """Static-batch engine on the paged KV cache: fixed slots, per-slot
-    positions."""
+    """Static-batch engine: fixed slots, per-slot positions, on the dense
+    cache (default) or the paged one (``paged=True``)."""
 
     def __init__(self, model, params, batch_slots: int, max_seq: int,
                  temperature: float = 0.0, seed: int = 0, obs=None,
-                 page_size: int = 64, prefill_chunk: int = 32):
+                 paged: bool = False, page_size: int = 64,
+                 prefill_chunk: int = 32):
         self.obs = obs if obs is not None else obs_mod.NULL
         self.model = model
         self.params = params
@@ -106,11 +110,19 @@ class Engine:
         self.B = batch_slots
         self.T = max_seq
         self._sample = _Sampler(temperature, seed, self.device)
+        self.paged = paged
         self.page_size = page_size
         self.prefill_chunk = min(prefill_chunk, max_seq)
-        _check_chunking(max_seq, page_size, self.prefill_chunk)
-        self.cache = model.init_paged_cache(batch_slots, max_seq, page_size)
-        self._pos_limit = self.cache["table"].shape[1] * page_size
+        if paged:
+            _check_chunking(max_seq, page_size, self.prefill_chunk)
+            self.cache = model.init_paged_cache(batch_slots, max_seq,
+                                                page_size)
+            self._pos_limit = self.cache["table"].shape[1] * page_size
+            self._decode = model.decode_step_paged
+        else:
+            self.cache = model.init_cache(batch_slots, max_seq)
+            self._pos_limit = max_seq
+            self._decode = model.decode_step
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
@@ -162,10 +174,19 @@ class Engine:
                 req = self.queue.pop(0)
                 req.admit_t = time.perf_counter()
                 t0 = time.perf_counter() if self.obs.enabled else 0.0
-                # slot-major page ownership: slot b's table row is constant
-                row = self.cache["table"][b]
-                last, idx = self._prefill_chunks(row, req.prompt)
-                last_logits = last[:, idx, :]
+                if self.paged:
+                    # slot-major page ownership: slot b's table row is
+                    # constant
+                    row = self.cache["table"][b]
+                    last, idx = self._prefill_chunks(row, req.prompt)
+                    last_logits = last[:, idx, :]
+                else:
+                    toks = torch.from_numpy(
+                        np.asarray(req.prompt, np.int64)[None]).to(
+                            self.device)
+                    logits, self.cache = self.model.prefill(
+                        self.params, toks, cache=self.cache, slot=b)
+                    last_logits = logits[:, -1, :]
                 if self.obs.enabled:
                     _sync(self.obs, self.device)
                     self.obs.histogram("serve.prefill_s").observe(
@@ -191,10 +212,10 @@ class Engine:
             if r is not None:
                 tokens[b, 0] = r.out[-1]
         # idle slots park at position 0; their garbage write is overwritten
-        # by the next prefill before anything attends it
+        # by the next prefill before anything reads it
         _check_positions(self.pos, self._pos_limit)
         t0 = time.perf_counter() if self.obs.enabled else 0.0
-        logits, self.cache = self.model.decode_step_paged(
+        logits, self.cache = self._decode(
             self.params, self.cache, torch.from_numpy(tokens).to(self.device),
             torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
         if self.obs.enabled:

@@ -232,6 +232,51 @@ def test_paged_kernel_matches_plain(cuda):
                                rtol=3e-2, atol=2e-2)
 
 
+def ssd_case(seed, B, S, H, P, G, N, dtype, device="cpu", init=False):
+    """SSD inputs as the model draws them: A = -U[1, 16] and dt in
+    [1e-3, 0.1] log-uniform (the ``ssm_a`` and ``dt_bias`` inits), x, B, C
+    standard normal in ``dtype``; an fp32 initial state when ``init``."""
+    rng = np.random.default_rng(seed)
+    dt = np.exp(rng.uniform(size=(B, S, H)) * (np.log(0.1) - np.log(1e-3))
+                + np.log(1e-3))
+    arrs = dict(x=rng.standard_normal((B, S, H, P)), dt=dt,
+                A=-rng.uniform(1.0, 16.0, H),
+                Bm=rng.standard_normal((B, S, G, N)),
+                C=rng.standard_normal((B, S, G, N)))
+    if init:
+        arrs["init_state"] = rng.standard_normal((B, H, P, N))
+    out = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+           for k, v in arrs.items()}
+    for k in ("x", "Bm", "C"):
+        out[k] = out[k].to(TDT[dtype])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,G,N,init", [
+    (1, 512, 48, 64, 1, 128, False),     # mamba2-780m's prefill shapes
+    (1, 300, 48, 64, 1, 128, True),      # ragged tail, initial state
+    (2, 200, 4, 32, 2, 16, True),        # two groups
+    (2, 37, 6, 20, 3, 24, False),        # P not a multiple of the slice
+])
+def test_ssd_kernel_matches_plain(cuda, B, S, H, P, G, N, init, dtype):
+    """Tolerances of the reference's SSD kernel test: 2e-4 in fp32 (the
+    same fp32 math chunked at 64 against 256), 5e-2 in bf16 (y is stored
+    in bf16)."""
+    from repro_torch.kernels import ssd_scan
+    case = ssd_case(7, B, S, H, P, G, N, dtype, cuda, init)
+    before = ssd_scan.launches
+    y, state = ops.ssd(**case, chunk=256)
+    assert ssd_scan.launches == before + 1
+    y_want, s_want = ssd_scan.ssd_plain(**case, chunk=256)
+    tol = 5e-2 if dtype == "bfloat16" else 2e-4
+    assert y.dtype == TDT[dtype] and state.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s_want, rtol=tol, atol=tol)
+
+
 # ---------------------------------------------------------------------------
 # Guards
 # ---------------------------------------------------------------------------
@@ -257,6 +302,9 @@ def test_wrappers_refuse_mixed_devices():
     q = torch.zeros(1, 2, 4, 32, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         ops.attention(q, q, q)
+    case = ssd_case(0, 1, 8, 2, 4, 1, 4, "float32")
+    with pytest.raises(ValueError):          # one tensor off the CPU
+        ops.ssd(**dict(case, A=case["A"].to("meta")))
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -152,7 +152,7 @@ def test_continuous_engine_matches_reference_where_margins_allow(
 def test_static_paged_equals_continuous_token_for_token(models):
     """The port's own pin (as the reference's test_serve pins its engines):
     same model steps, physically permuted pages, identical tokens."""
-    static, _ = _port_run(Engine, models)
+    static, _ = _port_run(Engine, models, paged=True)
     assert _port_run(ContinuousEngine, models)[0] == static
     # a pool too small for both slots' growth forces preempt-and-requeue
     # and page recycling; greedy restarts regenerate the same tokens
@@ -163,7 +163,7 @@ def test_static_paged_equals_continuous_token_for_token(models):
 
 def test_engines_refuse_chunks_that_do_not_divide_the_row(models):
     _, _, tmodel, tparams = models
-    for cls in (Engine, ContinuousEngine):
+    for cls, kw in ((Engine, dict(paged=True)), (ContinuousEngine, {})):
         with pytest.raises(ValueError, match="does not divide"):
             cls(tmodel, tparams, batch_slots=2, max_seq=MAX_SEQ,
-                page_size=PAGE, prefill_chunk=24)
+                page_size=PAGE, prefill_chunk=24, **kw)
