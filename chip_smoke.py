@@ -38,7 +38,25 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    host time; hold the card's prefill states and logits against the
    CPU's (with controls that must fail), and prefill-then-decode against
    the full forward.
-6. Print the ``kernels`` JSON line, the card's name and power limit, and
+6. Train qwen2-0.5b at full width (24 layers) through ``Session``.  The
+   train kernels first: ``quantize_int8`` bitwise against its plain
+   version at each of the int8 wire's 9 bucket lengths, a ragged length,
+   exact .5 ties and a zero bucket; the attention backward kernel (and the
+   forward with its log-sum-exp) at the train shape and at ragged, window,
+   softcap and fully-masked shapes; the GEMM's backward products at every
+   train shape; each timed beside its bound, its plain version and a
+   library call.  Then run 2, one rank without a wire (``comms="off"``)
+   on 4 x 512 tokens of ``SyntheticLM(structured=True)``, with its launch
+   counts; the card's 2-layer loss and gradients against the CPU's; and
+   two ranks spawned on the one card over gloo: run 3 (fp32 wire, one
+   step, held to run 2) and run 4, the main path (int8 wire, 6 steps):
+   replicas bitwise equal after every step, step 1 held to run 3, the loss
+   falling, launches per rank equal to the layer loop's (9
+   ``quantize_int8`` per step), a bucket recomputed on the host equal to
+   the wire's and a control without one rank's contribution that must
+   differ; step, device, host, wire and optimizer times, tokens per
+   second, wire bytes and peak memory per rank.
+7. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -766,7 +784,8 @@ def serve_mamba():
     L = cfg.n_layers
     prefills = len(fin)
     expect = {"matmul": (5 * L + 1) * (prefills + steps), "attention": 0,
-              "paged_decode_attention": 0, "ssd": L * prefills}
+              "attention_backward": 0, "paged_decode_attention": 0,
+              "ssd": L * prefills, "quantize_int8": 0}
     print(f"mamba2 launches: {launches} (expected {expect}: {steps} decode "
           f"steps, {prefills} prefills)")
     require(launches["matmul"] > 0 and launches["ssd"] > 0,
@@ -781,6 +800,744 @@ def serve_mamba():
     stats["prefill_decode_vs_forward"] = check_prefill_then_decode(
         cfg, model, params)
     return stats, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train qwen2-0.5b at full width, two ranks on the card
+# ---------------------------------------------------------------------------
+
+# The int8 wire's nine gradient buckets at qwen2-0.5b (the reference's
+# plan at 32 MiB; tests/test_torch_comms.py pins it).
+BUCKETS = (136_134_656, 2_781_056, 19_267_584, 19_267_584, 2_795_520,
+           104_595_456, 104_595_456, 104_595_456, 136_134_656)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, RANKS = 4, 512, 6, 2
+# AdamW moves every weight by about lr from the first step on: a peak of
+# 1e-4 keeps six steps from overshooting (the loss falls on the batches
+# seen and on the first one seen again) while most bf16 weights of
+# magnitude <= 0.05 still change at step 1.
+TRAIN_PEAK, TRAIN_WARMUP = 1e-4, 2
+PROFILED = TRAIN_STEPS - 2          # the int8 step traced by the profiler
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# bf16 gradients, card against plain: the kernels' products round their
+# operands (O, dO, the cotangent) to bf16 where the plain versions keep
+# fp32, and sums run in another order (tests/test_torch_kernels.py).
+GRAD_RTOL, GRAD_ATOL_FRAC = 3e-2, 2e-2
+# Card against CPU, 2 layers: every GEMM's sum order differs and the
+# kernels round at other places, which moves the logits by ~0.3% of the
+# largest at 2 layers (phase 4's check); the CPU port agrees with the
+# reference's gradients to 0.5% relative rms at 2 layers
+# (tests/test_torch_train.py).  Ten times that per leaf: 5% relative rms
+# and 5% of the leaf's largest value; loss rtol 1e-3, grad norm 2e-2.
+CPU_GRAD_TOL, CPU_LOSS_RTOL, CPU_NORM_RTOL = 5e-2, 1e-3, 2e-2
+
+
+def train_adamw():
+    from repro_torch.train import optimizer as opt
+    return opt.AdamWConfig(lr=opt.warmup_cosine(TRAIN_PEAK, TRAIN_WARMUP,
+                                                 TRAIN_STEPS))
+
+
+def train_batches(cfg):
+    from repro_torch.data import SyntheticLM
+    data = iter(SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                            seed=SEED, structured=True))
+    return [next(data) for _ in range(TRAIN_STEPS)]
+
+
+def expected_train_launches(cfg, steps: int, int8: bool):
+    """Per rank.  Each layer runs 7 products and one attention forward;
+    ``remat="full"`` runs every layer's forward again in the backward;
+    each product's backward runs two products (dA, dB), each attention
+    one backward kernel; the head's unembed is not checkpointed; the int8
+    wire quantizes each of its buckets once."""
+    L = cfg.n_layers
+    fwd = 7 * L + 1
+    return {"matmul": steps * (fwd + 7 * L + 2 * fwd),
+            "attention": steps * 2 * L,
+            "attention_backward": steps * L,
+            "paged_decode_attention": 0, "ssd": 0,
+            "quantize_int8": steps * (len(BUCKETS) if int8 else 0)}
+
+
+def event_ms(fn, iters: int = 5, warmup: int = 1) -> float:
+    """Device ms per eager call (CUDA events around ``iters`` calls): for
+    the plain and library versions that run autograd, which a CUDA graph
+    does not capture."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_quantize():
+    """``quantize_int8`` against its plain version, bitwise, at each of
+    the wire's bucket lengths (timed), a ragged length, exact .5 ties and
+    a zero bucket."""
+    from repro_torch.kernels import fused as fused_mod
+    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    print("quantize_int8: n | kernel ms | bound ms (by) | plain ms | "
+          "bitwise equal")
+    g = gen(1300)
+    cases = [(f"bucket {i}", n) for i, n in enumerate(BUCKETS)]
+    cases += [("ragged", 4096 * 37 + 3), ("ties", 100_003), ("zero", 4097)]
+    timed = {}
+    for label, n in cases:
+        x = torch.randn(n, generator=g, device="cuda") * 1e-3
+        if label == "zero":
+            x.zero_()
+        scale = x.abs().max() / torch.full((), 127.0, device="cuda") + 1e-12
+        if label == "ties":
+            scale = torch.full((), 2.0 ** -10, device="cuda")
+            k = torch.randint(-127, 127, (n,), generator=g,
+                              device="cuda").float() + 0.5
+            x = torch.where(torch.arange(n, device="cuda") % 2 == 0,
+                            k * scale, x)
+        got = fused_mod.quantize_int8(x, scale)
+        same = torch.equal(got, ref.quantize_int8(x, scale))
+        require(same, f"quantize_int8 {label} (n={n}) is not bitwise its "
+                "plain version")
+        if label == "zero":
+            require(not bool(got.any()), "a zero bucket quantizes to zero")
+        bms, by = bound(5.0 * n, 3.0 * n, FP32_FLOPS)
+        if label.startswith("bucket"):
+            if n not in timed:
+                timed[n] = (
+                    cuda_ms([lambda: fused_mod.quantize_int8(x, scale)],
+                            iters=20),
+                    event_ms(lambda: ref.quantize_int8(x, scale), iters=3))
+            ms, plain = timed[n]
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("bound_ms", bms)):
+                step[key] += val
+            print(f"quantize_int8 {label} {n} | {ms:.4f} | {bms:.4f} ({by})"
+                  f" | {plain:.4f} | {same}")
+        else:
+            print(f"quantize_int8 {label} {n} | - | {bms:.4f} ({by}) | - | "
+                  f"{same}")
+    print(f"quantize_int8: one step's 9 buckets per rank: {step['ms']:.4f} "
+          f"ms, bound {step['bound_ms']:.4f} ms (bytes), plain "
+          f"{step['plain_ms']:.4f} ms")
+    return dict(name="quantize_int8", route="cuda",
+                source="src/repro_torch/kernels/csrc/quantize.cu",
+                replaces="src/repro/kernels/fused.py:117",
+                case="one train step's 9 gradient buckets of one rank "
+                     f"({sum(BUCKETS)} fp32 elements)",
+                max_abs_err=0.0, bound_by="bytes", library_ms=None, **step)
+
+
+def bwd_inputs(seed, B, hq, hkv, S, T, D=64):
+    return (randn((B, hq, S, D), seed), randn((B, hkv, T, D), seed + 1),
+            randn((B, hkv, T, D), seed + 2), randn((B, hq, S, D), seed + 3))
+
+
+def grads_close(got, want, what):
+    err = 0.0
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        g, w = g.float(), w.float()
+        require(bool(torch.isfinite(g).all()), f"{what} {name}: not finite")
+        atol = GRAD_ATOL_FRAC * float(w.abs().max()) + 1e-6
+        e = (g - w).abs()
+        require(not bool((e > atol + GRAD_RTOL * w.abs()).any()),
+                f"{what} {name}: kernel disagrees with its plain version "
+                f"(max abs err {float(e.max()):.3g}, tolerance {atol:.3g} + "
+                f"{GRAD_RTOL} |ref|)")
+        err = max(err, float(e.max()))
+    return err
+
+
+def check_attention_backward(cfg):
+    """The backward kernel against autograd through the plain attention
+    at the train shape and at small ragged, window and softcap shapes,
+    zero gradients on rows with no visible key; timed at the train shape
+    beside one ``torch.autograd.grad`` through SDPA (timed only), with
+    the forward that keeps its log-sum-exp."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B = TRAIN_BATCH // RANKS
+    cases = [("train", B, H, Hkv, TRAIN_SEQ, TRAIN_SEQ, 0, None, None),
+             ("ragged", 1, 4, 2, 37, 100, 63, None, None),
+             ("window", 2, 6, 3, 96, 96, 0, 24, None),
+             ("softcap", 1, 4, 1, 64, 64, 0, None, 5.0),
+             ("no visible key", 1, 2, 1, 16, 40, 20, 1, None)]
+    errs, row = [], None
+    print("attention backward: case | kernel ms | bound ms (by) | plain ms"
+          " | sdpa backward ms | max abs err")
+    for i, (label, b, hq, hkv, S, T, off, window, cap) in enumerate(cases):
+        q, k, v, do = bwd_inputs(1400 + 10 * i, b, hq, hkv, S, T, hd)
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(fa_mod.attention(*leaves, **kw), leaves,
+                                  do)
+        want = ref.attention_backward(q, k, v, do, **kw)
+        err = grads_close(got, want, f"attention backward {label}")
+        errs.append(err)
+        if window == 1:
+            require(not bool(got[0][:, :, 20:].any()),
+                    "rows with no visible key must get zero gradients")
+        if label != "train":
+            print(f"attention backward {label:15s} | - | - | - | - | "
+                  f"{err:.3g}")
+            continue
+        n = copies(2 * (3 * q.numel() + 2 * k.numel()))
+        sets = [bwd_inputs(1500 + 4 * j, b, hq, hkv, S, T, hd)
+                for j in range(n)]
+        outs = [fa_mod._forward(*s[:3], True, None, None, hd ** -0.5, 0,
+                                with_lse=True) for s in sets]
+        ms = cuda_ms([lambda s=s, o=o: fa_mod.attention_backward(
+            *s[:3], o[0], s[3], o[1]) for s, o in zip(sets, outs)],
+            iters=max(10, 2 * n))
+        fwd = cuda_ms([lambda s=s: fa_mod._forward(
+            *s[:3], True, None, None, hd ** -0.5, 0, with_lse=True)
+            for s in sets], iters=max(10, 2 * n))
+        plain = event_ms(lambda: ref.attention_backward(q, k, v, do, **kw))
+
+        def sdpa():
+            ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = torch.nn.functional.scaled_dot_product_attention(
+                *ls, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(o, ls, do)
+        lib = event_ms(sdpa, iters=10, warmup=2)
+        pairs = S * (S + 1) // 2
+        # recompute QK^T and dP (2 products), dV, dK, dQ (3): 5 products
+        flops = 5 * 2.0 * b * hq * pairs * hd
+        nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * b * hq * S
+        # the inputs are bf16, so the bound is the bf16 tensor-core rate's;
+        # the kernel's own choice of fp32 CUDA cores does not set it
+        bms, by = bound(nbytes, flops)
+        cuda_core = bound(nbytes, flops, FP32_FLOPS)[0]
+        print(f"attention backward {label:15s} | {ms:.4f} | {bms:.4f} ({by})"
+              f" | {plain:.4f} | {lib:.4f} | {err:.3g}; at the fp32 "
+              f"CUDA-core rate the kernel uses: {cuda_core:.4f} ms; the "
+              f"forward with its log-sum-exp {fwd:.4f} ms")
+        row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                   bound_by=by, fp32_cuda_core_bound_ms=cuda_core,
+                   forward_with_lse_ms=fwd,
+                   case=f"one layer's backward on one rank: q ({b},{hq},{S},"
+                        f"{hd}), k/v ({b},{hkv},{T},{hd}), causal")
+    return dict(name="attention_backward", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/layers.py:52",
+                note="no TPU kernel: the reference trains through "
+                     "layers.flash_attention_jnp's autodiff",
+                max_abs_err=max(errs), **row)
+
+
+def check_gemm_backward(cfg):
+    """dA = dC Bᵀ and dB = Aᵀ dC on the GEMM kernel against the plain
+    products at every train shape (M = one rank's 1,024 tokens), timed
+    with the forward product; returns the kernel's ms per train step per
+    rank (the forward, its recompute under remat, the backward)."""
+    M = TRAIN_BATCH // RANKS * TRAIN_SEQ
+    L = cfg.n_layers
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+               fwd_ms=0.0, bwd_ms=0.0)
+    errs = []
+    print("gemm train products: label M K N | fwd ms | dA ms | dB ms | "
+          "bound ms | plain ms | torch.matmul ms | max abs err")
+    for i, (label, K, N, _) in enumerate(gemm_cases(cfg)):
+        calls = 1 if label == "unembed" else L
+        a, b = randn((M, K), 1600 + i), randn((K, N), 1620 + i, 0.05)
+        dc = randn((M, N), 1640 + i)
+        leaves = [a.clone().requires_grad_(True),
+                  b.clone().requires_grad_(True)]
+        got = torch.autograd.grad(
+            gemm_mod.matmul(*leaves, torch.float32), leaves, dc.float())
+        bt, at = b.t().contiguous(), a.t().contiguous()
+        want = (ref.matmul(dc, bt, torch.bfloat16),
+                ref.matmul(at, dc, torch.bfloat16))
+        err = 0.0
+        for g_, w_, nm in zip(got, want, ("dA", "dB")):
+            e = (g_.float() - w_.float()).abs()
+            tol = GRAD_ATOL_FRAC * float(w_.float().abs().max())
+            require(not bool((e > tol + GRAD_RTOL * w_.float().abs()).any()),
+                    f"gemm backward {label} {nm} disagrees with its plain "
+                    f"version (max abs err {float(e.max()):.3g})")
+            err = max(err, float(e.max()))
+        errs.append(err)
+        prods = ((a, b, torch.float32), (dc, bt, torch.bfloat16),
+                 (at, dc, torch.bfloat16))
+        ms = [cuda_ms([lambda x=x, y=y, o=o: gemm_mod.matmul(x, y, o)],
+                      iters=10) for x, y, o in prods]
+        plain = [event_ms(lambda x=x, y=y, o=o: ref.matmul(x, y, o),
+                          iters=3) for x, y, o in prods]
+        lib = [cuda_ms([lambda x=x, y=y: torch.matmul(x, y)], iters=10)
+               for x, y, _ in prods]
+        flops = 2.0 * M * N * K
+        bms = [bound(2 * (x.numel() + y.numel()) + x.shape[0] * y.shape[1]
+                     * (4 if o == torch.float32 else 2), flops)[0]
+               for x, y, o in prods]
+        print(f"gemm train {label:7s} {M} {K} {N} | {ms[0]:.4f} | "
+              f"{ms[1]:.4f} | {ms[2]:.4f} | {sum(bms):.4f} | "
+              f"{sum(plain):.4f} | {sum(lib):.4f} | {err:.3g}")
+        # per step: the forward, its recompute under remat (not the
+        # head's), and the two backward products
+        n = (calls * (1 if label == "unembed" else 2), calls, calls)
+        tot["fwd_ms"] += n[0] * ms[0]
+        tot["bwd_ms"] += calls * (ms[1] + ms[2])
+        for key, vals in (("ms", ms), ("plain_ms", plain),
+                          ("library_ms", lib), ("bound_ms", bms)):
+            tot[key] += sum(c * v for c, v in zip(n, vals))
+    print("gemm: one train step per rank: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tot.items()))
+    return dict(max_abs_err=max(errs), **{f"train_step_{k}": v
+                                          for k, v in tot.items()})
+
+
+def params_digest(params) -> torch.Tensor:
+    """A position-weighted int64 sum of every leaf's bits, per leaf, on
+    the CPU: equal on two ranks iff (but for a 2^-64 chance) the leaves
+    are bitwise equal."""
+    out = []
+    for name in sorted(params):
+        bits = params[name].detach().reshape(-1).view(torch.int16)
+        h = torch.zeros((), dtype=torch.int64, device=bits.device)
+        for s in range(0, bits.numel(), 1 << 24):
+            chunk = bits[s:s + (1 << 24)].to(torch.int64)
+            idx = torch.arange(s, s + chunk.numel(), device=bits.device)
+            h += (chunk * (idx * 2654435761 % 2147483629 + 1)).sum()
+        out.append(h)
+    return torch.stack(out).cpu()
+
+
+def same_on_every_rank(digest: torch.Tensor) -> bool:
+    import torch.distributed as dist
+    hi, lo = digest.clone(), digest.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return torch.equal(hi, lo)
+
+
+@torch.no_grad()
+def step_agreement(got, want, p0, lr, what, quantized=False):
+    """The step tolerance of tests/test_torch_train.py, on the card: at
+    step 1 AdamW moves every weight by about lr whatever its gradient's
+    size, so every weight lies within 2 lr (+20%, + one bf16 ulp) of the
+    other run's; an element moved the other way by more than half an lr
+    is rare (under 0.5% of the model), and the updates differ by under 10%
+    of their rms.  On the int8 wire a weight whose synced gradient rounds
+    to zero moves by its decay only, within lr of the fp32 result: the
+    same bound holds, the moves under half an lr are not counted, and the
+    rms rule does not apply."""
+    worst = against = still = total = 0.0
+    dd = uu = 0.0
+    for name in got:
+        g, w, p = got[name].float(), want[name].float(), p0[name].float()
+        d = (g - w).abs()
+        worst = max(worst, float((d - w.abs() * 2.0 ** -7).max()))
+        ug, uw = g - p, w - p
+        big = (ug.abs() > lr / 2) & (uw.abs() > lr / 2)
+        against += float(((torch.sign(ug) != torch.sign(uw)) & big).sum())
+        still += float((ug.abs() <= lr / 2).sum())
+        total += g.numel()
+        dd += float(((ug - uw) ** 2).sum())
+        uu += float((uw ** 2).sum())
+    rel = math.sqrt(dd / uu)
+    out = dict(max_excess_over_ulp=worst, bound=2.4 * lr,
+               moved_against_frac=against / total, update_rel_rms=rel,
+               moved_under_half_lr_frac=still / total)
+    print(f"{what}: " + ", ".join(f"{k} {v:.4g}" for k, v in out.items()))
+    require(worst <= 2.4 * lr, f"{what}: a weight is more than 2 lr apart")
+    require(against / total < 5e-3, f"{what}: too many weights moved the "
+            "other way")
+    if not quantized:
+        require(rel < 0.1, f"{what}: the updates differ by {rel:.1%} rms")
+    return out
+
+
+def device_breakdown(prof):
+    """Device ms of the profiled step by kernel family (this rank's;
+    ``memcpy`` is the copies, gloo's staging through host memory
+    included, ``other`` every other kernel: the eager PyTorch ops)."""
+    fams = {"gemm": "gemm_kernel", "attention": "flash_attention_kernel",
+            "attention_backward": "attn_bwd", "quantize_int8": "quantize",
+            "memcpy": "emcpy"}
+    out = {k: 0.0 for k in fams}
+    out["other"] = 0.0
+    total = 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):        # kernels, not host ops
+            continue
+        t = e.self_device_time_total / 1e3
+        if t <= 0:
+            continue
+        total += t
+        for k, pat in fams.items():
+            if pat in e.key:
+                out[k] += t
+                break
+        else:
+            out["other"] += t
+    out["device_total"] = total
+    return out
+
+
+def device_intervals(prof):
+    """``[start, end]`` ns of every device activity (kernels and copies)
+    the profiler saw, on the host's epoch clock, to which it aligns the
+    card's timestamps: comparable with ``time.time_ns()`` and across the
+    ranks of one host."""
+    return [[e.start_ns(), e.start_ns() + e.duration_ns()]
+            for e in prof.profiler.kineto_results.events()
+            if "CUDA" in str(e.device_type()) and e.duration_ns() > 0]
+
+
+def union_ns(intervals, lo, hi) -> int:
+    """ns of ``[lo, hi]`` covered by at least one interval."""
+    busy, end = 0, lo
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            busy += e - s
+            end = e
+    return busy
+
+
+def train_rank(rank, init, batches, run2_path, result_path):
+    """One rank of the two-rank train phase (runs 3 and 4, the wire
+    control and the timings); writes its results as JSON to
+    ``result_path`` with the rank's number in place of ``{}`` (a file, not
+    a pipe: the parent reads them after the join, and the profiled step's
+    device intervals would fill a pipe's buffer and block the rank)."""
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.comms import bucketer, compressed
+    from repro_torch.comms.plan import CommsPlan, sync_tree
+    from repro_torch.core.distributed import close_group, init_group
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(init, rank=rank, world_size=RANKS)
+    sess = Session(device="cuda")
+    out = dict(rank=rank)
+    lr1 = TRAIN_PEAK / TRAIN_WARMUP
+
+    # run 3: the fp32 wire, one step from the seed
+    plan3 = sess.plan(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      comms=CommsPlan(schedule="psum"), adamw=train_adamw(),
+                      microbatches=1)
+    sess.init_state(plan3, seed=SEED, name="fp32")
+    m3 = sess.step(plan3, batches[0], name="fp32")
+    p3 = sess.state.pop("fp32")["params"]
+    out["run3"] = {k: float(v) for k, v in m3.items()}
+    require(same_on_every_rank(params_digest(p3)),
+            "fp32 wire: replicas differ after the step")
+    p0 = plan3.model.init(SEED)
+    if rank == 0:
+        run2 = torch.load(run2_path)
+        p2 = {k: v.cuda() for k, v in run2["params"].items()}
+        out["run3_vs_run2"] = step_agreement(
+            p3, p2, p0, lr1, "two ranks, fp32 wire vs one rank, step 1")
+        for k in ("loss", "grad_norm"):
+            rtol = 1e-3 if k == "loss" else 1e-2
+            require(abs(out["run3"][k] - run2["metrics"][k])
+                    <= rtol * abs(run2["metrics"][k]),
+                    f"fp32 wire vs one rank: {k} {out['run3'][k]} vs "
+                    f"{run2['metrics'][k]}")
+        del p2, run2
+    torch.cuda.empty_cache()
+
+    # run 4: the int8 wire, the main path, TRAIN_STEPS steps
+    plan4 = sess.plan(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      comms=CommsPlan(schedule="psum", wire_dtype="int8"),
+                      adamw=train_adamw(), microbatches=1)
+    sess.init_state(plan4, seed=SEED, name="int8")
+    dist.barrier()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, stats = [], [], []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        prof = None
+        if s == PROFILED:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+        dist.barrier()
+        t0, t0_ns = time.perf_counter(), time.time_ns()
+        m = sess.step(plan4, batches[s], name="int8")
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        if prof is not None:
+            t1_ns = time.time_ns()
+            prof.__exit__(None, None, None)
+            out["profile"] = device_breakdown(prof)
+            out["profiled_window_ns"] = [t0_ns, t1_ns]
+            out["device_intervals_ns"] = device_intervals(prof)
+        m = {k: float(v) for k, v in m.items()}
+        losses.append(m["loss"])
+        stats.append(m)
+        params = sess.state["int8"]["params"]
+        require(same_on_every_rank(params_digest(params)),
+                f"int8 wire: replicas differ after step {s + 1}")
+        if s == 0:
+            out["run4_vs_run3"] = step_agreement(
+                params, p3, p0, lr1,
+                "two ranks, int8 wire vs fp32 wire, step 1", quantized=True)
+            require(abs(m["loss"] - out["run3"]["loss"])
+                    <= 1e-6 * abs(out["run3"]["loss"]),
+                    "int8 and fp32 runs start from different losses")
+            del p3, p0
+    out["launches"] = ops.dispatch_report()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out.update(step_wall_ms=walls, losses=losses, stats=stats)
+
+    # the first batch again, after the steps: the group's mean loss
+    state = sess.state["int8"]
+    local = {k: torch.from_numpy(np.asarray(v)).cuda().long()
+             .chunk(RANKS)[rank] for k, v in batches[0].items()}
+    with torch.no_grad():
+        again = plan4.model.loss_fn(state["params"], local)[0].reshape(1)
+    dist.all_reduce(again)
+    out["first_batch_again"] = float(again) / RANKS
+
+    # the step's parts alone, and the control: one bucket recomputed on
+    # the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, _ = step_mod.local_grads(plan4.model, state["params"], local)
+    torch.cuda.synchronize()
+    out["forward_backward_ms"] = 1e3 * (time.perf_counter() - t0)
+    dist.barrier()
+    t0 = time.perf_counter()
+    sync_tree(grads, plan4.comms)
+    torch.cuda.synchronize()
+    out["wire_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    opt.apply(plan4.adamw, state["opt"], grads, state["params"])
+    torch.cuda.synchronize()
+    out["adamw_ms"] = 1e3 * (time.perf_counter() - t0)
+    bplan = bucketer.plan_buckets(grads)
+    require(bplan.bucket_sizes == BUCKETS,
+            f"bucket plan {bplan.bucket_sizes}")
+    out["wire_int32_bytes"] = 4 * sum(bplan.bucket_sizes)
+    out["wire_int8_format_bytes"] = sum(bplan.bucket_sizes)   # 1 B each
+    buckets, absmaxes = bucketer.flatten_buckets_fused(bplan, grads, "int8")
+    i = 1                                   # the smallest bucket
+    wire = compressed.wire_all_reduce(
+        buckets[i].clone(), None, "psum", "int8", absmax=absmaxes[i])
+    mine, my_amax = buckets[i].cpu(), absmaxes[i].cpu().reshape(1)
+    host = [torch.empty_like(mine) for _ in range(RANKS)]
+    dist.all_gather(host, mine)
+    amax = [torch.empty_like(my_amax) for _ in range(RANKS)]
+    dist.all_gather(amax, my_amax)
+    if rank == 0:
+        scale = torch.cat(amax).max() / torch.tensor(127.0) + 1e-12
+        qs = [ref.quantize_int8(b, scale).to(torch.int32) for b in host]
+        full = (sum(qs).float() * scale)
+        partial = qs[0].float() * scale
+        ok = torch.equal(full, wire.cpu())
+        control = torch.equal(partial, wire.cpu())
+        print(f"wire control, bucket {i} ({BUCKETS[i]} elements): host "
+              f"recompute with both ranks == the wire: {ok}; with rank 1's "
+              f"int8 contribution left out: {control} (must be False)")
+        require(ok, "the int8 wire's bucket differs from its host recompute")
+        require(not control, "the control matches: the check cannot see a "
+                "missing rank")
+        out["control"] = dict(bucket=i, both_ranks_equal=ok,
+                              one_rank_equal=control)
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def run_one_rank(cfg, batches):
+    """Run 2: one step on one rank, no wire (path gspmd), the whole batch;
+    saves the params after the step for the two-rank runs."""
+    from repro_torch.api import Session
+    sess = Session(device="cuda")
+    plan = sess.plan(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, comms="off",
+                     adamw=train_adamw(), microbatches=1)
+    require(plan.path == "gspmd", f"comms='off' took path {plan.path}")
+    sess.init_state(plan, seed=SEED)
+    n_params = sum(p.numel() for p in sess.state["train_state"]
+                   ["params"].values())
+    require(n_params == 630_167_424 and cfg.n_layers == 24,
+            f"qwen2-0.5b: {n_params} parameters")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = {k: float(v) for k, v in sess.step(plan, batches[0]).items()}
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches = ops.dispatch_report()
+    expect = expected_train_launches(cfg, 1, int8=False)
+    print(f"run 2 (one rank, no wire, {TRAIN_BATCH}x{TRAIN_SEQ} tokens): "
+          f"{m}, {wall:.1f} ms (first step); launches {launches} "
+          f"(expected {expect})")
+    require(launches == expect, "one-rank train launches do not match the "
+            "layer loop")
+    require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+            "one-rank step: non-finite metrics")
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRAIN_DIR / "run2.pt"
+    torch.save({"params": {k: v.detach().cpu() for k, v in
+                           sess.state["train_state"]["params"].items()},
+                "metrics": m}, path)
+    return path, dict(metrics=m, first_step_wall_ms=wall)
+
+
+def check_train_against_cpu(cfg):
+    """2 layers at full width, one sequence of 128 tokens: loss, grad
+    norm and a few leaves' gradients on the card against the plain
+    versions on the CPU, from the same weights."""
+    import dataclasses
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    small = dataclasses.replace(cfg, n_layers=2)
+    toks = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, 129))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    card = Model(small, device="cuda")
+    params = card.init(SEED)
+    runs = []
+    for m, dev in ((card, "cuda"), (Model(small, device="cpu"), "cpu")):
+        p = {k: v.detach().to(dev).requires_grad_(True)
+             for k, v in params.items()}
+        g, met = step_mod.local_grads(
+            m, p, {k: v.to(dev) for k, v in batch.items()})
+        runs.append((g, float(met["loss"]), float(opt.global_norm(g))))
+    (gc, lc, nc), (gp, lp, np_) = runs
+    out = dict(loss_card=lc, loss_cpu=lp, grad_norm_card=nc,
+               grad_norm_cpu=np_)
+    require(abs(lc - lp) <= CPU_LOSS_RTOL * abs(lp),
+            f"train card vs cpu: loss {lc} vs {lp}")
+    require(abs(nc - np_) <= CPU_NORM_RTOL * abs(np_),
+            f"train card vs cpu: grad norm {nc} vs {np_}")
+    for name in ("embed", "unembed", "layers.attn.wq", "layers.attn.wk",
+                 "layers.attn.bv", "layers.mlp.out", "layers.ln1",
+                 "final_norm"):
+        c, w = gc[name].float().cpu(), gp[name].float()
+        rel = float((c - w).norm() / w.norm())
+        mx = float((c - w).abs().max() / w.abs().max())
+        out[name] = dict(rel_rms=rel, max_abs_frac=mx)
+        require(rel <= CPU_GRAD_TOL and mx <= CPU_GRAD_TOL,
+                f"train card vs cpu: {name} gradient relative rms {rel:.3g},"
+                f" max {mx:.3g} of the largest (tolerance {CPU_GRAD_TOL})")
+    print("train card vs cpu (2 layers, full width, 128 tokens): "
+          + json.dumps(out))
+    return out
+
+
+def steady_wall(rank_result) -> float:
+    """Median wall ms of the steps after the first, the profiled one
+    left out."""
+    return statistics.median(
+        w for i, w in enumerate(rank_result["step_wall_ms"])
+        if i not in (0, PROFILED))
+
+
+def profiled_idle(ranks):
+    """Busy and idle time of the card over the profiled step.
+
+    ``card``: the union of both ranks' device intervals (kernels and
+    copies; the ranks' kernels overlap on the one card) over one window,
+    from the first rank's start to the last rank's end of that step.  Per
+    rank: the step's wall time, the union of its own device intervals, and
+    the rest (host time: its work was not on the card).  The profiler's
+    host tracing slows the step a little, so its wall time runs above the
+    unprofiled steps' median.  If a rank's device intervals do not fall
+    inside its own step on the host clock, the clocks are not aligned and
+    the card's share is not measured (None)."""
+    per_rank, aligned = [], True
+    for r in ranks:
+        lo, hi = r["profiled_window_ns"]
+        iv = r["device_intervals_ns"]
+        require(iv, f"rank {r['rank']}: the profiler saw no device work")
+        slack = 1_000_000
+        aligned &= (min(s for s, _ in iv) >= lo - slack
+                    and max(e for _, e in iv) <= hi + slack)
+        busy = union_ns(iv, min(s for s, _ in iv), max(e for _, e in iv))
+        per_rank.append(dict(wall_ms=(hi - lo) / 1e6, device_ms=busy / 1e6,
+                             host_ms=(hi - lo - busy) / 1e6))
+    card = dict(clocks_aligned=aligned, wall_ms=None, device_busy_ms=None,
+                device_idle_share=None)
+    if aligned:
+        lo = min(r["profiled_window_ns"][0] for r in ranks)
+        hi = max(r["profiled_window_ns"][1] for r in ranks)
+        busy = union_ns([iv for r in ranks
+                         for iv in r["device_intervals_ns"]], lo, hi)
+        card.update(wall_ms=(hi - lo) / 1e6, device_busy_ms=busy / 1e6,
+                    device_idle_share=1 - busy / (hi - lo))
+    print("profiled step: card " + json.dumps(card) + "; per rank "
+          + json.dumps(per_rank))
+    return dict(card=card, ranks=per_rank)
+
+
+def train_phase(cfg):
+    """Run 2 here, runs 3 and 4 in two spawned ranks sharing the card
+    over gloo; the card-vs-CPU check; returns the summary and the launch
+    counts of the main path (run 4, summed over the ranks)."""
+    import torch.multiprocessing as mp
+    batches = train_batches(cfg)
+    run2_path, run2 = run_one_rank(cfg, batches)
+    torch.cuda.empty_cache()
+    cpu_check = check_train_against_cpu(cfg)
+    torch.cuda.empty_cache()
+    init = f"file://{TRAIN_DIR / 'rendezvous'}"
+    (TRAIN_DIR / "rendezvous").unlink(missing_ok=True)
+    results = [TRAIN_DIR / f"rank{r}.json" for r in range(RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    try:
+        mp.spawn(train_rank, args=(init, batches, str(run2_path),
+                                   str(TRAIN_DIR / "rank{}.json")),
+                 nprocs=RANKS, join=True)
+    finally:
+        run2_path.unlink(missing_ok=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    for f in results:
+        f.unlink()
+    expect = expected_train_launches(cfg, TRAIN_STEPS, int8=True)
+    for r in ranks:
+        print(f"rank {r['rank']} launches over {TRAIN_STEPS} int8-wire "
+              f"steps: {r['launches']} (expected {expect})")
+        require(r["launches"]["quantize_int8"] > 0
+                and r["launches"]["attention_backward"] > 0,
+                "a kernel of the train path was never launched")
+        require(r["launches"] == expect,
+                "train launches do not match the layer loop")
+    losses = ranks[0]["losses"]
+    require(all(r["losses"] == losses for r in ranks),
+            "ranks report different losses")
+    again = ranks[0]["first_batch_again"]
+    print(f"int8-wire losses over {TRAIN_STEPS} steps: {losses}; the first "
+          f"batch after them: {again}")
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+            and again < losses[0], "the loss did not fall")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = steady_wall(ranks[0])
+    idle = profiled_idle(ranks)
+    summary = dict(
+        arch=ARCH, params=630_167_424, ranks=RANKS,
+        global_batch_tokens=tokens, steps=TRAIN_STEPS, losses=losses,
+        first_batch_loss_after=again,
+        run2=run2, run3=ranks[0]["run3"],
+        run3_vs_run2=ranks[0]["run3_vs_run2"],
+        run4_vs_run3=ranks[0]["run4_vs_run3"], control=ranks[0]["control"],
+        card_vs_cpu=cpu_check, step_wall_ms_median=wall,
+        tokens_per_s=tokens / (wall / 1e3), profiled_step=idle["card"],
+        per_rank=[dict(
+            rank=r["rank"], step_wall_ms=r["step_wall_ms"],
+            step_wall_ms_median=steady_wall(r),
+            profiled_step=idle["ranks"][i],
+            forward_backward_ms=r["forward_backward_ms"],
+            wire_ms=r["wire_ms"], adamw_ms=r["adamw_ms"],
+            peak_gib=r["peak_gib"], profile=r["profile"])
+            for i, r in enumerate(ranks)],
+        wire_int32_bytes_per_rank=ranks[0]["wire_int32_bytes"],
+        wire_int8_format_bytes_per_rank=ranks[0]["wire_int8_format_bytes"])
+    print("train " + json.dumps(summary), flush=True)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    return summary, launches
 
 
 def main() -> int:
@@ -825,8 +1582,9 @@ def main() -> int:
     L = cfg.n_layers
     per_pass = 7 * L + 1
     expect = {"matmul": per_pass * (steps + chunks),
-              "attention": L * chunks, "paged_decode_attention": L * steps,
-              "ssd": 0}
+              "attention": L * chunks, "attention_backward": 0,
+              "paged_decode_attention": L * steps, "ssd": 0,
+              "quantize_int8": 0}
     print(f"launches: {launches} (expected {expect}: {steps} decode steps, "
           f"{chunks} prefill chunks)")
     require(all(launches[k] > 0 for k in
@@ -853,15 +1611,28 @@ def main() -> int:
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
                                  mamba_stats["gemm_max_abs_err"])
 
-    # 6. results
+    # 6. train qwen2-0.5b at full width, two ranks on the card
+    rows += [check_quantize(), check_attention_backward(cfg)]
+    gemm_train = check_gemm_backward(cfg)
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                 gemm_train.pop("max_abs_err"))
+    rows[0].update(gemm_train)
+    rows[1]["train_forward_with_lse_ms"] = rows[-1].pop("forward_with_lse_ms")
+    _, train_launches = train_phase(cfg)
+
+    # 7. results
     names = {"gemm": "matmul", "flash_attention": "attention",
              "paged_decode_attention": "paged_decode_attention",
-             "ssd": "ssd"}
+             "ssd": "ssd", "quantize_int8": "quantize_int8",
+             "attention_backward": "attention_backward"}
+    train_path = (f"{ARCH} train ({RANKS} ranks, int8 wire, {TRAIN_STEPS} "
+                  "steps)")
     for row in rows:
         op = names[row["name"]]
         row["launches_by_path"] = {ARCH: launches[op],
-                                   MAMBA: mamba_launches[op]}
-        row["launches"] = launches[op] + mamba_launches[op]
+                                   MAMBA: mamba_launches[op],
+                                   train_path: train_launches[op]}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@
 // for the scores and the head dimension for P@V, with the running max,
 // denominator and accumulator kept in fp32 registers.  Key tiles wholly
 // outside the causal/window horizon of the query tile are skipped.  A row
-// with no visible key writes zeros.
+// with no visible key writes zeros.  When the caller asks for it (training),
+// each row's log-sum-exp of its scaled, capped scores is written too, fp32
+// (B,Hq,S), -inf on a row with no visible key: the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -35,8 +38,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       int Hq, int Hkv, int S, int T, int causal, int window,
-                       float softcap, float scale, int q_offset) {
+                       float* __restrict__ lse, int Hq, int Hkv, int S,
+                       int T, int causal, int window, float softcap,
+                       float scale, int q_offset) {
   constexpr int DP = D + 1;
   constexpr int PP = BKV + 1;
   extern __shared__ float smem[];
@@ -152,12 +156,14 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < D / TPR; ++e)
       ob[e * TPR + sub] = __float2bfloat16(acc[e] * inv);
+    if (lse != nullptr && sub == 0)
+      lse[(size_t)bh * S + qi] = l > 0.0f ? m + logf(l) : -INFINITY;
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, int T, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           int B, int Hq, int Hkv, int S, int T, int causal, int window,
            float softcap, float scale, int q_offset, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -167,30 +173,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((S + BQ - 1) / BQ, B * Hq);
   flash_attention_kernel<D><<<grid, THREADS, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, S, T,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), Hq, Hkv, S, T,
       causal, window, softcap, scale, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// window <= 0 means no sliding window; softcap <= 0 means no softcap.
+// window <= 0 means no sliding window; softcap <= 0 means no softcap; lse
+// may be null (serving).
 extern "C" int dmath_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int B,
-                                          int Hq, int Hkv, int S, int T, int D,
+                                          const void* v, void* o, void* lse,
+                                          int B, int Hq, int Hkv, int S,
+                                          int T, int D,
                                           int causal, int window,
                                           float softcap, float scale,
                                           int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, B, Hq, Hkv, S, T, causal, window, softcap,
-                        scale, q_offset, s);
+      return launch<32>(q, k, v, o, lse, B, Hq, Hkv, S, T, causal, window,
+                        softcap, scale, q_offset, s);
     case 64:
-      return launch<64>(q, k, v, o, B, Hq, Hkv, S, T, causal, window, softcap,
-                        scale, q_offset, s);
+      return launch<64>(q, k, v, o, lse, B, Hq, Hkv, S, T, causal, window,
+                        softcap, scale, q_offset, s);
     case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, S, T, causal, window,
+      return launch<128>(q, k, v, o, lse, B, Hq, Hkv, S, T, causal, window,
                          softcap, scale, q_offset, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -13,26 +13,32 @@ from __future__ import annotations
 from typing import Dict
 
 from . import flash_attention as _fa
+from . import fused as _fused
 from . import gemm as _gemm
 from . import paged_attention as _paged
 from . import ref as _ref
 from . import ssd_scan as _ssd
 
-matmul = _gemm.matmul
-attention = _fa.attention
+matmul = _gemm.matmul                  # differentiable: dA, dB on the kernel
+attention = _fa.attention              # differentiable: the backward kernel
 paged_decode_attention = _paged.paged_decode_attention
 ssd = _ssd.ssd
 ssd_step = _ref.ssd_step     # single-token decode: plain PyTorch everywhere
+quantize_int8 = _fused.quantize_int8
 
-_KERNELS = {"matmul": _gemm, "attention": _fa,
-            "paged_decode_attention": _paged, "ssd": _ssd}
+# op -> (module, its launch counter)
+_KERNELS = {"matmul": (_gemm, "launches"), "attention": (_fa, "launches"),
+            "attention_backward": (_fa, "bwd_launches"),
+            "paged_decode_attention": (_paged, "launches"),
+            "ssd": (_ssd, "launches"),
+            "quantize_int8": (_fused, "launches")}
 
 
 def dispatch_report() -> Dict[str, int]:
     """Kernel launches per op since the last :func:`reset_launches`."""
-    return {op: mod.launches for op, mod in _KERNELS.items()}
+    return {op: getattr(mod, attr) for op, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launches() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)

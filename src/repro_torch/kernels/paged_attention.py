@@ -56,6 +56,10 @@ def paged_decode_attention(
     if all(t.device.type == "cpu" for t in tensors):
         return ref.paged_decode_attention(q, k_pages, v_pages, block_table,
                                           seq_lens, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "paged_decode_attention: the kernel has no backward; "
+            "only the dense family's train path is ported")
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_attention: the kernel needs every "
                          "tensor on one CUDA device, got "

@@ -2,9 +2,11 @@
 
 Each function is the semantic definition its CUDA kernel is held against
 (fp32 math throughout), following the JAX reference's ``kernels/ref.py``.
-The wrappers in ``gemm.py``, ``flash_attention.py`` and
-``paged_attention.py`` run them for tensors on the CPU; on the card they
-only serve as the comparison in tests and ``chip_smoke.py``.  ``ssd`` is
+The wrappers in ``gemm.py``, ``flash_attention.py``,
+``paged_attention.py`` and ``fused.py`` run them for tensors on the CPU;
+on the card they only serve as the comparison in tests and
+``chip_smoke.py``.  ``attention_backward`` is autograd through the plain
+``attention``: the definition the backward kernel is held against.  ``ssd`` is
 the sequential definition of the SSD scan, which tests hold the chunked
 plain version (``ssd_scan.ssd_plain``) and the kernel against;
 ``ssd_step`` is the single-token decode step, which is plain PyTorch on
@@ -12,7 +14,8 @@ every device, as in the reference.
 
 One deliberate difference: an attention row with no visible key gives
 zeros, as the model's attention in the reference does
-(``layers.flash_attention_jnp``), where the reference oracle gives NaN.
+(``layers.flash_attention_jnp``), where the reference oracle gives NaN;
+its gradients are zero too.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     """C = A @ B with fp32 accumulation regardless of storage dtype."""
     out_dtype = out_dtype or a.dtype
     return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Round/clip/cast against a precomputed (group-agreed) scale:
+    ``clip(round(x / scale), ±127)`` as int8, with IEEE fp32 division and
+    round-half-to-even, as the reference's ``ref.quantize_int8``."""
+    v = x.float()
+    return torch.clamp(torch.round(v / scale.float()), -127, 127).to(
+        torch.int8)
 
 
 def attention(
@@ -59,10 +71,22 @@ def attention(
         mask &= kpos[None, :] <= qpos[:, None]
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
-    scores = scores.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(scores, dim=-1)
-    probs = torch.where(mask.any(-1)[:, None], probs, 0.0)
+    # a row with no visible key softmaxes zeros instead of all -inf, so
+    # neither its output nor its gradient sees a NaN; it is then zeroed
+    seen = mask.any(-1)[:, None]
+    scores = torch.where(seen, scores.masked_fill(~mask, float("-inf")), 0.0)
+    probs = torch.where(seen, torch.softmax(scores, dim=-1), 0.0)
     return (probs @ vf).to(q.dtype)
+
+
+def attention_backward(q, k, v, d_out, **kw
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention` for the cotangent ``d_out``, by
+    autograd through it, in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention(*leaves, **kw)
+        return torch.autograd.grad(out, leaves, d_out)
 
 
 def paged_decode_attention(

@@ -122,6 +122,10 @@ def ssd(
                                    else [])
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_plain(x, dt, A, Bm, C, chunk=chunk, init_state=init_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssd: the kernel has no backward; "
+            "only the dense family's train path is ported")
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError("ssd: the kernel needs every tensor on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")

@@ -1,5 +1,6 @@
-"""Attention against the paged KV pool: one decode step and one prefill
-chunk, ported from the reference's ``models/attention.py``.
+"""Attention, ported from the reference's ``models/attention.py``: the
+full-sequence forward of the train path, and against the paged KV pool
+one decode step and one prefill chunk.
 
 The pages ``(P, page, Hkv, hd)`` are updated **in place**
 (``index_put_``), where the reference's jitted steps donate the pool and
@@ -10,7 +11,7 @@ device (a chunk past the end of its table row) raise here instead.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,6 +51,31 @@ def _qkv(x, p, cfg, positions, policy):
     q = layers.rotary(q, positions, cfg.rope_theta)
     k = layers.rotary(k, positions, cfg.rope_theta)
     return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
+
+
+def forward(
+    x: torch.Tensor,               # (B, S, D)
+    p: dict,
+    cfg,
+    *,
+    policy=precision.MIXED,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Full-sequence causal attention (train): projections and rotary at
+    positions 0..S-1, :func:`repro_torch.kernels.ops.attention` over the
+    whole sequence, output projection.  The reference's single-device
+    ``head_tp`` branch; its sharded branches wait for the distributed
+    slices (ROADMAP queue 1, item 7)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions, policy)              # (B,S,H,hd)
+    out = ops.attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=True, window=window,
+        softcap=cfg.attn_softcap,
+    ).transpose(1, 2)                                          # (B,S,H,hd)
+    y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+    return y.to(x.dtype)
 
 
 def decode_paged(

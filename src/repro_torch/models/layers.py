@@ -1,5 +1,6 @@
-"""Common layers: norm, activation, rotary, gated MLP, embedding and
-unembedding, ported from the reference's ``models/layers.py``.
+"""Common layers: norm, activation, rotary, gated MLP, embedding,
+unembedding and the LM loss, ported from the reference's
+``models/layers.py``.
 
 Every product runs through :func:`repro_torch.core.precision.einsum`
 (bf16 operands, fp32 accumulation, the GEMM kernel on the card).
@@ -8,11 +9,14 @@ Every product runs through :func:`repro_torch.core.precision.einsum`
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import precision
+
+NEG = -1e30
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -65,3 +69,25 @@ def unembed(x: torch.Tensor, w: torch.Tensor, *,
             policy: precision.Policy = precision.MIXED) -> torch.Tensor:
     """fp32 logits (the einsum's accumulator, as in the reference)."""
     return precision.einsum("bsd,dv->bsv", x, w, policy=policy)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, vocab_real: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over the labels >= 0 and its denominator (the
+    count of those labels, at least 1), as the reference's ``lm_loss``.
+    Vocab padding columns (``>= vocab_real``) are masked to ``NEG``.  The
+    gold logit is gathered where the reference reduces an iota == label
+    mask: the same value (a sum of one logit and zeros), without a
+    second (B, S, V) tensor."""
+    V = logits.shape[-1]
+    lf = logits.float()
+    pad = torch.arange(V, device=lf.device) >= vocab_real
+    lf = torch.where(pad, NEG, lf)
+    logz = torch.logsumexp(lf, dim=-1)                       # (B, S)
+    valid = labels >= 0
+    gold = torch.gather(lf, -1, torch.where(valid, labels, 0).long()
+                        [..., None])[..., 0]
+    validf = valid.float()
+    nll = (logz - gold) * validf
+    denom = torch.clamp(validf.sum(), min=1.0)
+    return nll.sum() / denom, denom

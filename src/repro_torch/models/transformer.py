@@ -1,15 +1,21 @@
-"""The decoder LM on the serve path, ported from the reference's
-``models/transformer.py``: the dense family on the paged cache, and the
-ssm family (mamba2) on its dense cache.
+"""The decoder LM, ported from the reference's ``models/transformer.py``:
+the dense family's full-sequence forward and loss (the train path) and
+its steps on the paged cache, and the ssm family (mamba2) on its dense
+cache.
 
 The reference scans one jitted layer body over the stacked params; PyTorch
-runs eagerly, so here a Python loop walks the ``L`` layers, indexing the
-stacked ``(L, ...)`` params and caches of each.  Parameters are passed
-explicitly, as in the reference, so both packages' steps take the same
-arguments.  Caches are updated in place (the reference's jitted steps
-donate them and return new ones); the steps still return them.  The dense
-family's full-sequence ``forward``, ``loss_fn`` and dense-cache
-``prefill``/``decode_step`` come with later slices.
+runs eagerly, so here a Python loop walks the ``L`` layers.  The train
+forward unbinds each stacked ``(L, ...)`` leaf once, so that autograd
+stacks the per-layer gradients into one tensor, as JAX's scan transpose
+does (indexing ``val[i]`` per layer would make every layer's backward
+write a zero tensor the size of the whole stack).  ``remat="full"``, the
+reference's default, recomputes each layer in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` around the scanned
+body).  Parameters are passed explicitly, as in the reference, so both
+packages' steps take the same arguments.  Caches are updated in place
+(the reference's jitted steps donate them and return new ones); the steps
+still return them.  The dense family's dense-cache ``prefill`` and
+``decode_step`` come with a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
@@ -39,19 +46,27 @@ class Model(nn.Module):
     ``ssd_chunk`` is accepted for the reference's signature only: the
     scan's chunk is a tiling choice of its implementations (the CUDA
     kernel walks 64-step chunks, the plain version ``ops.ssd``'s default),
-    and the result does not depend on it."""
+    and the result does not depend on it.  ``remat`` is ``"full"`` (each
+    layer recomputed in the backward) or ``"none"``."""
 
     def __init__(self, cfg, *, device: Union[str, torch.device] = "cuda",
                  policy: precision.Policy = precision.MIXED,
-                 ssd_chunk: int = 256):
+                 ssd_chunk: int = 256, remat: str = "full"):
         super().__init__()
         if cfg.family not in ("dense", "ssm") or cfg.qk_norm:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense family without qk-norm and the "
                 "ssm family are ported so far (ROADMAP queue 1, item 11)")
+        if remat.startswith("group:"):
+            raise NotImplementedError(
+                f"remat={remat!r}: grouped (sqrt-L) rematerialization is not "
+                "ported yet (ROADMAP queue 1, item 3)")
+        if remat not in ("full", "none"):
+            raise ValueError(f"remat={remat!r}; expected 'full' or 'none'")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = policy
+        self.remat = remat
 
     # ------------------------------------------------------------------
     # parameters
@@ -94,6 +109,41 @@ class Model(nn.Module):
                 else:
                     lp.setdefault(parts[0], {})[parts[1]] = val[i]
         return lp
+
+    @staticmethod
+    def _unbind_layers(params: Params) -> list:
+        """Every layer's params as the nested dicts the blocks take, from
+        one ``unbind`` of each stacked leaf."""
+        out: list = []
+        for name, val in params.items():
+            if not name.startswith("layers."):
+                continue
+            parts = name.split(".")[1:]
+            for i, piece in enumerate(torch.unbind(val, 0)):
+                if len(out) <= i:
+                    out.append({})
+                if len(parts) == 1:
+                    out[i][parts[0]] = piece
+                else:
+                    out[i].setdefault(parts[0], {})[parts[1]] = piece
+        return out
+
+    def _window(self, i: int):
+        """Layer ``i``'s sliding window (gemma3's local layers), or None;
+        the reference's global layers take a window past the sequence,
+        which masks nothing."""
+        cfg = self.cfg
+        if cfg.window is None or cfg.is_global_layer(i):
+            return None
+        return cfg.window
+
+    def _dense_block(self, x, lp, window):
+        cfg = self.cfg
+        h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attention.forward(h, lp["attn"], cfg, policy=self.policy,
+                                  window=window)
+        h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + self._mlp(h, lp)
 
     def _mlp(self, h, lp):
         return layers.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["in"],
@@ -194,8 +244,8 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{self.cfg.name}: {what} is ported for the ssm family "
                 "only; the dense family's dense KV cache (the dense-cache "
-                "static Engine) is ROADMAP queue 1, item 5, and its "
-                "full-sequence forward item 3 (use paged=True to serve it)")
+                "static Engine) is ROADMAP queue 1, item 5 (use paged=True "
+                "to serve it)")
 
     def _mixer_stack(self, params: Params, tokens: torch.Tensor,
                      with_state: bool, write_state):
@@ -217,8 +267,17 @@ class Model(nn.Module):
     def forward(self, params: Params, tokens: torch.Tensor,
                 with_cache: bool = False, last_only: bool = False):
         """Full-sequence forward: (fp32 logits (B, S or 1, V), aux loss 0,
-        stacked per-layer states ``(conv, ssm, bc_conv)`` or None)."""
-        self._require_ssm("the full-sequence forward")
+        stacked per-layer states ``(conv, ssm, bc_conv)`` or None).  The
+        dense family has no cache here yet (``with_cache`` raises)."""
+        if self.cfg.family == "dense":
+            if with_cache:
+                self._require_ssm("the dense KV cache")
+            x = self._dense_stack(params, tokens)
+            if last_only:
+                x = x[:, -1:, :]
+            return (self._head(params, x),
+                    torch.zeros((), dtype=torch.float32, device=x.device),
+                    None)
         states = []
         x = self._mixer_stack(params, tokens, with_cache,
                               lambda i, state: states.append(state))
@@ -229,6 +288,31 @@ class Model(nn.Module):
         return (self._head(params, x),
                 torch.zeros((), dtype=torch.float32, device=x.device),
                 caches)
+
+    def _dense_stack(self, params: Params, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+        """Embed -> L x dense block, each layer checkpointed under
+        ``remat="full"`` while autograd records.  Returns the residual
+        stream (B, S, D) in bf16."""
+        cfg = self.cfg
+        x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
+        x = x.to(torch.bfloat16)
+        remat = self.remat == "full" and torch.is_grad_enabled()
+        for i, lp in enumerate(self._unbind_layers(params)):
+            if remat:
+                x = checkpoint(self._dense_block, x, lp, self._window(i),
+                               use_reentrant=False)
+            else:
+                x = self._dense_block(x, lp, self._window(i))
+        return x
+
+    def loss_fn(self, params: Params, batch: dict):
+        """(mean token loss, metrics ``{loss, aux, tokens}``) of a batch
+        ``{"tokens", "labels"}`` (B, S); labels < 0 are ignored."""
+        logits, aux, _ = self.forward(params, batch["tokens"])
+        loss, denom = layers.lm_loss(logits, batch["labels"],
+                                     vocab_real=self.cfg.vocab_size)
+        return loss, {"loss": loss, "aux": aux, "tokens": denom}
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 last_only: bool = True, cache: dict = None,

@@ -277,6 +277,105 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, G, N, init, dtype):
     torch.testing.assert_close(state, s_want, rtol=tol, atol=tol)
 
 
+def quantize_case(seed, n, kind):
+    """An fp32 gradient bucket of length ``n`` and its scale as the wire
+    computes it (absmax / 127 + 1e-12, fp32).  ``ties`` puts half the
+    elements on exact .5 multiples of a power-of-two scale; ``zero`` is
+    an all-zero bucket, whose scale is 1e-12."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    if kind == "zero":
+        x[:] = 0.0
+    x = torch.from_numpy(x)
+    scale = x.abs().max() / torch.tensor(127.0) + 1e-12
+    if kind == "ties":
+        scale = torch.tensor(2.0 ** -10)
+        k = torch.from_numpy(rng.integers(-127, 127, n)).float() + 0.5
+        x = torch.where(torch.arange(n) % 2 == 0, k * scale, x)
+    return x, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,kind", [
+    (2_781_056, "normal"),        # qwen2-0.5b's smallest gradient bucket
+    (4096 * 37 + 3, "normal"),    # ragged against 4 and against 32x128
+    (5, "ties"), (100_003, "ties"), (4096, "zero"), (1, "normal")])
+def test_quantize_kernel_matches_plain_bitwise(cuda, n, kind):
+    from repro_torch.kernels import fused
+    x, scale = quantize_case(n % 1000, n, kind)
+    want = ref.quantize_int8(x, scale)
+    before = fused.launches
+    got = ops.quantize_int8(x.to(cuda), scale.to(cuda))
+    assert fused.launches == before + 1 and got.dtype == torch.int8
+    assert torch.equal(got.cpu(), want)
+    # and from a bucket that does not start on a 16-byte boundary
+    xo = torch.cat([torch.zeros(1), x]).to(cuda)[1:]
+    assert torch.equal(ops.quantize_int8(xo, scale.to(cuda)).cpu(), want)
+
+
+BWD_CASES = [
+    # (B, Hq, Hkv, S, T, q_offset, window, softcap)
+    (2, 14, 2, 512, 512, 0, None, None),     # the qwen2-0.5b train shape
+    (1, 4, 2, 37, 100, 63, None, None),      # ragged, query offset
+    (2, 6, 3, 96, 96, 0, 24, None),          # sliding window
+    (1, 4, 1, 64, 64, 0, None, 5.0),         # softcap
+    (1, 2, 1, 16, 40, 20, 1, None),          # rows with no visible key
+]
+
+
+def _grads_close(got, want):
+    """bf16 gradients: within 3e-2 of each value plus 2e-2 of the largest
+    (the kernel's products use O and dO rounded to bf16, the plain
+    autograd the fp32 values, and sums run in another order)."""
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=3e-2,
+                                   atol=2e-2 * float(w.abs().max()) + 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,hq,hkv,s,t,off,window,softcap", BWD_CASES)
+def test_attention_backward_kernel_matches_plain(cuda, B, hq, hkv, s, t, off,
+                                                 window, softcap):
+    from repro_torch.kernels import flash_attention as fa
+    q = _bf16(10, (B, hq, s, 64), cuda)
+    k, v = _bf16(11, (B, hkv, t, 64), cuda), _bf16(12, (B, hkv, t, 64), cuda)
+    d_out = _bf16(13, (B, hq, s, 64), cuda)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (fa.launches, fa.bwd_launches)
+    out = ops.attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, d_out)
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = ref.attention_backward(q, k, v, d_out, **kw)
+    _grads_close(got, want)
+    if window == 1:                 # rows 20.. see no key: zero gradients
+        assert (got[0][:, :, 20:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1024, 896, 896), (1024, 896, 128),
+                                   (1024, 4864, 896), (1024, 896, 151_936),
+                                   (70, 130, 66)])
+def test_gemm_backward_kernel_matches_plain(cuda, m, k, n):
+    """dA and dB of ``matmul`` (fp32 result) on the kernel against the
+    plain version's, both from the cotangent rounded to bf16."""
+    from repro_torch.kernels import gemm
+    a, b = _bf16(20, (m, k), cuda), _bf16(21, (k, n), cuda, 0.05)
+    dc = torch.randn((m, n), generator=torch.Generator().manual_seed(22)
+                     ).to(cuda)
+    got = torch.autograd.grad(
+        ops.matmul(a.requires_grad_(True), b.requires_grad_(True),
+                   torch.float32), (a, b), dc)
+    before = gemm.launches
+    g = dc.to(torch.bfloat16)
+    want = (ref.matmul(g, b.detach().t(), torch.bfloat16),
+            ref.matmul(a.detach().t(), g, torch.bfloat16))
+    assert gemm.launches == before
+    _grads_close(got, want)
+
+
 # ---------------------------------------------------------------------------
 # Guards
 # ---------------------------------------------------------------------------
@@ -305,6 +404,8 @@ def test_wrappers_refuse_mixed_devices():
     case = ssd_case(0, 1, 8, 2, 4, 1, 4, "float32")
     with pytest.raises(ValueError):          # one tensor off the CPU
         ops.ssd(**dict(case, A=case["A"].to("meta")))
+    with pytest.raises(ValueError):          # the scale off the CPU
+        ops.quantize_int8(torch.zeros(8), torch.ones((), device="meta"))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
