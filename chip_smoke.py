@@ -56,7 +56,32 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    the wire's and a control without one rank's contribution that must
    differ; step, device, host, wire and optimizer times, tokens per
    second, wire bytes and peak memory per rank.
-7. Print the ``kernels`` JSON line, the card's name and power limit, and
+7. The compressed data-parallel SGD path at full width.  The kernels
+   first: ``quantize_compress`` bitwise (q and scale) against its plain
+   version at each of qwen2-0.5b's 15 leaf lengths (timed), ragged
+   lengths, a bf16 input, an all-zero input, exact .5 ties and a
+   negative absmax; ``matmul_dequant`` (reached through
+   ``ops.matmul_dequant`` only: no model path calls it) at the reference
+   test's tolerances (fp32 2e-5, bf16 2e-2), bf16 and fp32 activations,
+   at qwen2-0.5b's eight decode products (M = 8, timed as one decode
+   step's 169), at a prefill M = 128, the bench shape (8, 1024, 1024) and
+   the ragged shapes, timed beside ``torch.matmul`` on the weights
+   widened beforehand (a yardstick only).  Then two ranks spawned on the
+   card over gloo run ``train.compression.build_dp_sgd_step`` over the
+   model's loss for the schemes ``none``, ``onebit`` and ``int8``, 3
+   steps each from the seed (lr 0.1, momentum 0.9, 4 x 512 tokens of
+   ``SyntheticLM(structured=True)`` a step), each scheme a counted
+   window: params and velocity bitwise equal on both ranks after every
+   step (the error state is each rank's own); launches per rank equal to
+   the layer loop's (``quantize_compress`` 15 per int8 step, 0 for the
+   other schemes); ``none``'s step-1 synced gradients the bf16 mean of
+   the local gradients computed alone, bitwise; int8's within (s0 +
+   s1) / 4 of their fp32 mean, plus fp32 rounding; error feedback exact
+   (int8: deq + err equals v bitwise or within one fp32 spacing; onebit
+   within rtol 1e-5); the first batch's loss lower after ``none``'s
+   steps; step, wire and quantizer times, tokens per second, wire bytes
+   and peak memory per rank.
+8. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -785,7 +810,8 @@ def serve_mamba():
     prefills = len(fin)
     expect = {"matmul": (5 * L + 1) * (prefills + steps), "attention": 0,
               "attention_backward": 0, "paged_decode_attention": 0,
-              "ssd": L * prefills, "quantize_int8": 0}
+              "ssd": L * prefills, "quantize_int8": 0, "quantize_compress": 0,
+              "matmul_dequant": 0}
     print(f"mamba2 launches: {launches} (expected {expect}: {steps} decode "
           f"steps, {prefills} prefills)")
     require(launches["matmul"] > 0 and launches["ssd"] > 0,
@@ -856,7 +882,8 @@ def expected_train_launches(cfg, steps: int, int8: bool):
             "attention": steps * 2 * L,
             "attention_backward": steps * L,
             "paged_decode_attention": 0, "ssd": 0,
-            "quantize_int8": steps * (len(BUCKETS) if int8 else 0)}
+            "quantize_int8": steps * (len(BUCKETS) if int8 else 0),
+            "quantize_compress": 0, "matmul_dequant": 0}
 
 
 def event_ms(fn, iters: int = 5, warmup: int = 1) -> float:
@@ -891,7 +918,7 @@ def check_quantize():
         x = torch.randn(n, generator=g, device="cuda") * 1e-3
         if label == "zero":
             x.zero_()
-        scale = x.abs().max() / torch.full((), 127.0, device="cuda") + 1e-12
+        scale = ref.int8_scale(x.abs().max())
         if label == "ties":
             scale = torch.full((), 2.0 ** -10, device="cuda")
             k = torch.randint(-127, 127, (n,), generator=g,
@@ -929,6 +956,191 @@ def check_quantize():
                 case="one train step's 9 gradient buckets of one rank "
                      f"({sum(BUCKETS)} fp32 elements)",
                 max_abs_err=0.0, bound_by="bytes", library_ms=None, **step)
+
+
+def leaf_lengths(cfg):
+    """(name, elements) of qwen2-0.5b's 15 parameter leaves, in the
+    params' order: the compressed step quantizes each once per int8
+    step."""
+    specs = Model(cfg, device="cpu").param_specs()
+    return [(name, math.prod(spec.shape)) for name, spec in specs.items()]
+
+
+def compress_input(label, n, g):
+    """An input of ``quantize_compress``: fp32 gradient-like values, or
+    bf16 ones; ``zero`` all zeros (scale fl32(1e-12), q 0); ``ties`` the
+    largest magnitude 127 * 2^-10 (scale exactly 2^-10) and every other
+    element an exact .5 multiple of the scale; ``negative`` the largest
+    magnitude on a negative element."""
+    x = torch.randn(n, generator=g, device="cuda") * 1e-3
+    if label == "zero":
+        x.zero_()
+    if label == "ties":
+        k = torch.randint(-127, 127, (n,), generator=g,
+                          device="cuda").float() + 0.5
+        x = torch.where(torch.arange(n, device="cuda") % 2 == 0,
+                        k * 2.0 ** -10, x * 0.1)
+        x[n // 2] = 127 * 2.0 ** -10
+        require(float(ref.int8_scale(x.abs().max())) == 2.0 ** -10,
+                "the ties case's scale is not 2^-10")
+    if label == "negative":
+        x[n // 3] = -2 * x.abs().max()
+    return x.to(torch.bfloat16) if label == "bf16" else x
+
+
+def check_quantize_compress(cfg):
+    """``quantize_compress`` against its plain version, bitwise in q and
+    the scale, at each of qwen2-0.5b's 15 leaf lengths (timed: one int8
+    step of the compressed SGD path on one rank), ragged lengths, a bf16
+    input, an all-zero input, exact .5 ties and a negative absmax.  The
+    bound reads the input once and writes int8 (5 bytes per fp32
+    element); the kernel reads it twice (9 bytes), which is printed as
+    its two-pass floor."""
+    from repro_torch.kernels import fused as fused_mod
+    step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, two_pass_bound_ms=0.0)
+    print("quantize_compress: leaf n | kernel ms | bound ms (by) | two-pass "
+          "ms | plain ms | bitwise equal")
+    g = gen(1700)
+    leaves = dict(leaf_lengths(cfg))
+    cases = list(leaves.items())
+    cases += [("ragged", 4096 * 37 + 3), ("bf16", 1_000_003),
+              ("zero", 4097), ("ties", 100_003), ("negative", 999_999),
+              ("one", 1)]
+    timed = {}
+    for label, n in cases:
+        x = compress_input(label, n, g)
+        q, s = fused_mod.quantize_compress(x)
+        qw, sw = ref.quantize_compress(x)
+        same = torch.equal(q, qw) and torch.equal(s, sw)
+        require(same, f"quantize_compress {label} (n={n}) is not bitwise "
+                "its plain version")
+        if label == "zero":
+            require(not bool(q.any()) and float(s) == float(
+                np.float32(1e-12)), "a zero input gives q 0, scale 1e-12")
+        elt = x.element_size()
+        bms, by = bound((elt + 1.0) * n + 4, 6.0 * n, FP32_FLOPS)
+        two_pass = (2 * elt + 1.0) * n / HBM_BYTES_PER_S * 1e3
+        if label in leaves:
+            if n not in timed:
+                timed[n] = (
+                    cuda_ms([lambda: fused_mod.quantize_compress(x)],
+                            iters=20),
+                    event_ms(lambda: ref.quantize_compress(x), iters=3))
+            ms, plain = timed[n]
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("bound_ms", bms),
+                             ("two_pass_bound_ms", two_pass)):
+                step[key] += val
+            print(f"quantize_compress {label} {n} | {ms:.4f} | {bms:.4f} "
+                  f"({by}) | {two_pass:.4f} | {plain:.4f} | {same}")
+        else:
+            print(f"quantize_compress {label} {n} | - | {bms:.4f} ({by}) | "
+                  f"- | - | {same}")
+    n_all = sum(leaves.values())
+    print(f"quantize_compress: one int8 step's 15 leaves per rank "
+          f"({n_all} elements): {step['ms']:.4f} ms, bound "
+          f"{step['bound_ms']:.4f} ms (bytes), two-pass floor "
+          f"{step['two_pass_bound_ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms")
+    return dict(name="quantize_compress", route="cuda",
+                source="src/repro_torch/kernels/csrc/quantize.cu",
+                replaces="src/repro/kernels/fused.py:77",
+                case="one int8 step of the compressed SGD path on one rank: "
+                     f"qwen2-0.5b's 15 leaves ({n_all} fp32 elements)",
+                max_abs_err=0.0, bound_by="bytes", library_ms=None, **step)
+
+
+# the reference's matmul_dequant tolerances (tests/test_fused_kernels.py)
+DEQUANT_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def check_matmul_dequant(cfg):
+    """``matmul_dequant`` against its plain version at qwen2-0.5b's eight
+    decode products (M = 8) and at a prefill M = 128, at the bench shape
+    (8, 1024, 1024) and the reference test's ragged shapes, for bf16 and
+    fp32 activations, at the reference's tolerances; timed beside its
+    bound, its plain version and ``torch.matmul`` on the already-widened
+    weights (a yardstick only: no library call computes the dequant
+    product).  Weights: normal * 0.05, quantized per column."""
+    shapes = [(M, label, K, N, calls) for M in (SLOTS, CHUNK)
+              for label, K, N, calls in gemm_cases(cfg)]
+    shapes += [(8, "bench", 1024, 1024, 0), (5, "ragged", 300, 77, 0),
+               (130, "ragged", 257, 129, 0)]
+    rows = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                     bytes=0.0, flops=0.0) for dt in DEQUANT_TOL}
+    errs = {dt: 0.0 for dt in DEQUANT_TOL}
+    print("matmul_dequant: dtype label M K N | kernel ms | bound ms (by) | "
+          "plain ms | torch.matmul (widened B) ms | max abs err")
+    for i, (M, label, K, N, calls) in enumerate(shapes):
+        n = copies(K * N)
+        ws = [torch.randn((K, N), generator=gen(1800 + 7 * i + j),
+                          device="cuda") * 0.05 for j in range(n)]
+        qs = [ops.quantize_int8_per_channel(w) for w in ws]
+        del ws
+        for dt, (rtol, atol) in DEQUANT_TOL.items():
+            a = torch.randn((M, K), generator=gen(1900 + i),
+                            device="cuda").to(dt)
+            bq, bs = qs[0]
+            got = gemm_mod.matmul_dequant(a, bq, bs, torch.float32)
+            want = ref.matmul_dequant(a, bq, bs, torch.float32)
+            require(bool(torch.isfinite(got).all()),
+                    f"matmul_dequant {label}: non-finite output")
+            e = (got - want).abs()
+            require(not bool((e > atol + rtol * want.abs()).any()),
+                    f"matmul_dequant {dt} {label} ({M},{K},{N}) disagrees "
+                    f"with its plain version (max abs err "
+                    f"{float(e.max()):.3g}, tolerance {atol} + {rtol} |ref|)")
+            errs[dt] = max(errs[dt], float(e.max()))
+            if label == "ragged":
+                print(f"matmul_dequant {dt} {label} {M} {K} {N} | - | - | - "
+                      f"| - | {float(e.max()):.3g}")
+                continue
+            wide = [q.to(dt) for q, _ in qs[:2]]
+            ms = cuda_ms([lambda q=q, s=s: gemm_mod.matmul_dequant(
+                a, q, s, torch.float32) for q, s in qs], iters=max(20, 4 * n))
+            plain = cuda_ms([lambda q=q, s=s: ref.matmul_dequant(
+                a, q, s, torch.float32) for q, s in qs[:2]], iters=5,
+                warmup=1)
+            lib = cuda_ms([lambda b=b: torch.matmul(a, b) for b in wide],
+                          iters=max(20, 4 * n))
+            nbytes = a.element_size() * M * K + K * N + 4 * N + 4 * M * N
+            flops = 2.0 * M * N * K
+            bms, by = bound(nbytes, flops, BF16_FLOPS if dt == torch.bfloat16
+                            else FP32_FLOPS)
+            print(f"matmul_dequant {dt} {label:7s} {M:4d} {K:5d} {N:6d} | "
+                  f"{ms:.4f} | {bms:.4f} ({by}) | {plain:.4f} | {lib:.4f} | "
+                  f"{float(e.max()):.3g}")
+            if M == SLOTS and calls:
+                for key, val in (("ms", ms), ("plain_ms", plain),
+                                 ("library_ms", lib), ("bound_ms", bms),
+                                 ("bytes", nbytes), ("flops", flops)):
+                    rows[dt][key] += calls * val
+    out = {}
+    for dt, r in rows.items():
+        bms, by = bound(r["bytes"], r["flops"], BF16_FLOPS
+                        if dt == torch.bfloat16 else FP32_FLOPS)
+        out[dt] = dict(r, bound_ms=bms, bound_by=by)
+        print(f"matmul_dequant {dt}: one qwen2-0.5b decode step's 169 "
+              f"products at M={SLOTS}: {r['ms']:.4f} ms, bound {bms:.4f} ms "
+              f"({by}), plain {r['plain_ms']:.4f} ms, torch.matmul on "
+              f"widened weights {r['library_ms']:.4f} ms")
+    bf, f32 = out[torch.bfloat16], out[torch.float32]
+    return dict(name="matmul_dequant", route="cuda",
+                source="src/repro_torch/kernels/csrc/gemm_dequant.cu",
+                replaces="src/repro/kernels/gemm.py:115",
+                case=f"one qwen2-0.5b decode step's 169 products at M={SLOTS}"
+                     ", bf16 activations, int8 weights (no model path calls "
+                     "it: entry point ops.matmul_dequant only)",
+                max_abs_err=errs[torch.bfloat16], ms=bf["ms"],
+                plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
+                bound_by=bf["bound_by"], library_ms=bf["library_ms"],
+                library="torch.matmul on the weights widened to bf16 "
+                        "beforehand (timed only)",
+                fp32_activations=dict(
+                    ms=f32["ms"], plain_ms=f32["plain_ms"],
+                    bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+                    library_ms=f32["library_ms"],
+                    max_abs_err=errs[torch.float32]))
 
 
 def bwd_inputs(seed, B, hq, hkv, S, T, D=64):
@@ -1328,7 +1540,7 @@ def train_rank(rank, init, batches, run2_path, result_path):
     amax = [torch.empty_like(my_amax) for _ in range(RANKS)]
     dist.all_gather(amax, my_amax)
     if rank == 0:
-        scale = torch.cat(amax).max() / torch.tensor(127.0) + 1e-12
+        scale = ref.int8_scale(torch.cat(amax).max())
         qs = [ref.quantize_int8(b, scale).to(torch.int32) for b in host]
         full = (sum(qs).float() * scale)
         partial = qs[0].float() * scale
@@ -1540,6 +1752,285 @@ def train_phase(cfg):
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: compressed data-parallel SGD, qwen2-0.5b at full width
+# ---------------------------------------------------------------------------
+
+DP_SCHEMES, DP_STEPS = ("none", "onebit", "int8"), 3
+# Plain SGD with momentum 0.9 moves a weight by lr times its gradient:
+# most of qwen2-0.5b's bf16 weights (|w| ~ 0.02, one ulp ~ 1e-4) keep
+# their value unless lr * |g| reaches half an ulp, so the rate is far
+# above AdamW's 1e-4.
+DP_LR, DP_MOMENTUM = 0.1, 0.9
+DP_PATH = (f"{ARCH} compressed DP SGD ({RANKS} ranks, int8, {DP_STEPS} "
+           "steps)")
+
+
+def expected_dp_launches(cfg, scheme: str):
+    """Per rank over the ``DP_STEPS`` steps: the train layer loop (remat
+    ``full``, as the model's default), and one ``quantize_compress`` per
+    parameter leaf per int8 step."""
+    expect = expected_train_launches(cfg, DP_STEPS, int8=False)
+    leaves = len(leaf_lengths(cfg))
+    expect["quantize_compress"] = DP_STEPS * leaves if scheme == "int8" else 0
+    return expect
+
+
+def ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in units of fp32 spacing at |b|."""
+    spacing = torch.nextafter(b.abs(), torch.full_like(b, math.inf)) - b.abs()
+    return (a - b).abs() / spacing
+
+
+def dp_step1_check(scheme, synced, local, group_sum):
+    """Checks of step 1 (the seed's params, the first batch), with no
+    kernel of the port launched: ``none`` gives the bf16 mean of the
+    local gradients computed before the steps, bitwise (so the step's
+    local gradients are those); ``int8`` lies within (s0 + s1) / 4 of the
+    fp32 mean of the two local gradients, plus fp32 rounding (each rank's
+    dequantized value lies within half its scale s_r of its gradient)."""
+    from repro_torch.comms import schedules
+    out = {}
+    if scheme == "none":
+        same = all(torch.equal(
+            synced[k], schedules.all_reduce(g.clone()) / torch.full(
+                (), RANKS, dtype=g.dtype, device=g.device))
+            for k, g in local.items())
+        require(same, "none, step 1: the synced gradients are not the mean "
+                "of the local gradients computed alone")
+        out["bf16_mean_bitwise"] = same
+    if scheme == "int8":
+        worst = 0.0
+        for k, g in local.items():
+            v = g.float()
+            exact = schedules.all_reduce(v.clone()) / torch.full(
+                (), RANKS, device=v.device)
+            s_sum = group_sum(ref.int8_scale(v.abs().max()))
+            d = (synced[k] - exact).abs()
+            slack = 2.0 ** -23 * (64 * s_sum + synced[k].abs() + exact.abs())
+            require(not bool((d > s_sum / 4 + slack).any()),
+                    f"int8, step 1, {k}: the synced gradient is more than "
+                    "(s0 + s1) / 4 from the exact mean")
+            worst = max(worst, float(d.max()) / (float(s_sum) / 4))
+        out["max_err_over_quarter_scale_sum"] = worst
+    return out
+
+
+def dp_ef_check(scheme, local, err_digest):
+    """Error feedback at step 1, after the counted window: the quantizer
+    on the local gradients (zero error state) gives the step's new error
+    state, bitwise, and ``deq + err`` gives back ``v``: int8 bitwise or
+    within one rounding (one fp32 spacing of v), onebit within the
+    reference's rtol 1e-5 (``tests/test_properties.py``)."""
+    from repro_torch.train import compression as comp
+    quant = getattr(comp, f"quantize_{scheme}")
+    exact = total = 0
+    worst = 0.0
+    for k, g in local.items():
+        v = g.float()
+        deq, e = quant(g, torch.zeros_like(v))
+        back = deq + e
+        total += v.numel()
+        if scheme == "int8":
+            exact += int((back == v).sum())
+            worst = max(worst, float(ulps_apart(back, v).max()))
+        else:
+            worst = max(worst, float(((back - v).abs() / (
+                1e-6 + 1e-5 * v.abs())).max()))
+        del deq, back
+        err_digest_k = params_digest({k: e})
+        require(torch.equal(err_digest_k, err_digest[k]),
+                f"{scheme}: the step's error state for {k} is not the "
+                "quantizer's")
+    if scheme == "int8":
+        require(worst <= 1.0, f"int8: deq + err is {worst} fp32 spacings "
+                "from v")
+        return dict(bitwise_share=exact / total, max_spacings=worst)
+    require(worst <= 1.0, "onebit: deq + err is beyond rtol 1e-5 of v")
+    return dict(max_over_tolerance=worst)
+
+
+def dp_timings(scheme, loss_fn, params, local0, local):
+    """The step's parts alone, after the counted window: forward and
+    backward on the rank's rows, ``compressed_psum`` (quantize and wire),
+    and the quantizer alone (wire = the difference)."""
+    import torch.distributed as dist
+    from repro_torch.train import compression as comp
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.autograd.grad(loss_fn(params, local0), list(params.values()))
+    torch.cuda.synchronize()
+    out["forward_backward_ms"] = 1e3 * (time.perf_counter() - t0)
+    zeros = comp.init_error_state(local)
+    grads = {k: g.clone() for k, g in local.items()}
+    dist.barrier()
+    t0 = time.perf_counter()
+    comp.compressed_psum(grads, zeros, None, scheme)
+    torch.cuda.synchronize()
+    out["compressed_psum_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["quantizer_ms"] = 0.0
+    if scheme != "none":
+        quant = getattr(comp, f"quantize_{scheme}")
+        t0 = time.perf_counter()
+        for k, g in local.items():
+            quant(g, zeros[k])
+        torch.cuda.synchronize()
+        out["quantizer_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["wire_ms"] = out["compressed_psum_ms"] - out["quantizer_ms"]
+    return out
+
+
+def dp_rank(rank, init, batches, result_path):
+    """One rank of phase 7: ``build_dp_sgd_step`` over the model's loss,
+    ``DP_STEPS`` steps per scheme from the seed's params, each scheme's
+    steps a counted window; writes its results as JSON to ``result_path``
+    with the rank's number in place of ``{}``."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import close_group, init_group
+    from repro_torch.train import compression as comp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(init, rank=rank, world_size=RANKS)
+    cfg = get_config(ARCH)
+    model = Model(cfg, device="cuda")
+
+    def loss_fn(p, b):
+        return model.loss_fn(p, b)[0]
+
+    def group_sum(x: torch.Tensor) -> torch.Tensor:
+        x = x.detach().float().reshape(1).clone()
+        dist.all_reduce(x)
+        return x.reshape(())
+
+    def fresh():
+        return {k: v.requires_grad_(True)
+                for k, v in model.init(SEED).items()}
+
+    gb = [{k: torch.from_numpy(np.asarray(v)).cuda().long()
+           for k, v in b.items()} for b in batches[:DP_STEPS]]
+    local0 = {k: v.chunk(RANKS)[rank] for k, v in gb[0].items()}
+    # step 1's local gradients, computed alone: every scheme's step 1
+    # computes the same ones (the seed's params, this rank's rows of the
+    # first batch; no kernel uses atomics, so bitwise)
+    params = fresh()
+    with torch.no_grad():
+        first_before = float(group_sum(loss_fn(params, local0))) / RANKS
+    local = dict(zip(params, torch.autograd.grad(
+        loss_fn(params, local0), list(params.values()))))
+    del params
+    out = dict(rank=rank, first_batch_before=first_before, schemes={})
+    for scheme in DP_SCHEMES:
+        params = fresh()
+        vel = {k: torch.zeros_like(p) for k, p in params.items()}
+        err = comp.init_error_state(params)
+        step = comp.build_dp_sgd_step(loss_fn, scheme=scheme, lr=DP_LR,
+                                      momentum=DP_MOMENTUM)
+        res = dict(step_wall_ms=[], losses=[])
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(DP_STEPS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            r = step(params, vel, err, gb[s])
+            torch.cuda.synchronize()
+            res["step_wall_ms"].append(1e3 * (time.perf_counter() - t0))
+            res["losses"].append(float(group_sum(r["loss"])) / RANKS)
+            require(same_on_every_rank(params_digest(params))
+                    and same_on_every_rank(params_digest(vel)),
+                    f"{scheme}: replicas differ after step {s + 1}")
+            if s == 0:
+                res["step1"] = dp_step1_check(scheme, r["grads"], local,
+                                              group_sum)
+                err1 = {k: params_digest({k: e}) for k, e in err.items()}
+            del r
+        res["launches"] = ops.dispatch_report()
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        res["vel_dtypes"] = sorted({str(v.dtype) for v in vel.values()})
+        if scheme == "none":
+            with torch.no_grad():
+                res["first_batch_after"] = float(group_sum(
+                    loss_fn(params, local0))) / RANKS
+        else:
+            res["err_same_on_every_rank"] = same_on_every_rank(
+                params_digest(err))
+            res["error_feedback"] = dp_ef_check(scheme, local, err1)
+        res.update(dp_timings(scheme, loss_fn, params, local0, local))
+        res["wire_bytes"] = comp.wire_bytes(params, scheme)
+        out["schemes"][scheme] = res
+        del params, vel, err, step
+        torch.cuda.empty_cache()
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def dp_phase(cfg):
+    """Phase 7: two ranks spawned on the one card over gloo run the three
+    schemes; returns the summary and the int8 run's launch counts summed
+    over the ranks (the path's main window)."""
+    import torch.multiprocessing as mp
+    batches = train_batches(cfg)
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    init = f"file://{TRAIN_DIR / 'rendezvous_dp'}"
+    (TRAIN_DIR / "rendezvous_dp").unlink(missing_ok=True)
+    results = [TRAIN_DIR / f"dp_rank{r}.json" for r in range(RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    mp.spawn(dp_rank, args=(init, batches, str(TRAIN_DIR / "dp_rank{}.json")),
+             nprocs=RANKS, join=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    for f in results:
+        f.unlink()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(arch=ARCH, params=630_167_424, ranks=RANKS,
+                   global_batch_tokens=tokens, steps=DP_STEPS, lr=DP_LR,
+                   momentum=DP_MOMENTUM,
+                   first_batch_before=ranks[0]["first_batch_before"],
+                   schemes={})
+    for scheme in DP_SCHEMES:
+        rs = [r["schemes"][scheme] for r in ranks]
+        expect = expected_dp_launches(cfg, scheme)
+        for r, res in zip(ranks, rs):
+            print(f"rank {r['rank']} {scheme}: launches {res['launches']} "
+                  f"(expected {expect})")
+            require(res["launches"] == expect, f"{scheme}: launches do not "
+                    "match the layer loop")
+        require(all(res["losses"] == rs[0]["losses"] for res in rs),
+                f"{scheme}: ranks report different losses")
+        require(all(map(math.isfinite, rs[0]["losses"])),
+                f"{scheme}: non-finite loss")
+        wall = statistics.median(rs[0]["step_wall_ms"])
+        row = dict(losses=rs[0]["losses"], step_wall_ms_median=wall,
+                   tokens_per_s=tokens / (wall / 1e3),
+                   wire_bytes_per_rank=rs[0]["wire_bytes"],
+                   vel_dtypes=rs[0]["vel_dtypes"],
+                   per_rank=[{k: res[k] for k in (
+                       "step_wall_ms", "peak_gib", "forward_backward_ms",
+                       "compressed_psum_ms", "quantizer_ms", "wire_ms")}
+                       for res in rs],
+                   step1=rs[0]["step1"])
+        for key in ("first_batch_after", "error_feedback",
+                    "err_same_on_every_rank"):
+            if key in rs[0]:
+                row[key] = [res[key] for res in rs] if key != \
+                    "first_batch_after" else rs[0][key]
+        summary["schemes"][scheme] = row
+    none = summary["schemes"]["none"]
+    print(f"compressed DP SGD, none: first batch {summary['first_batch_before']}"
+          f" before the steps, {none['first_batch_after']} after")
+    require(none["first_batch_after"] < summary["first_batch_before"],
+            "none: the first batch's loss did not fall")
+    int8 = [r["schemes"]["int8"]["launches"] for r in ranks]
+    require(all(x["quantize_compress"] > 0 and x["matmul"] > 0
+                and x["attention_backward"] > 0 for x in int8),
+            "a kernel of the compressed DP path was never launched")
+    print("dp_sgd " + json.dumps(summary), flush=True)
+    return summary, {k: sum(x[k] for x in int8) for k in int8[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1584,7 +2075,7 @@ def main() -> int:
     expect = {"matmul": per_pass * (steps + chunks),
               "attention": L * chunks, "attention_backward": 0,
               "paged_decode_attention": L * steps, "ssd": 0,
-              "quantize_int8": 0}
+              "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
     print(f"launches: {launches} (expected {expect}: {steps} decode steps, "
           f"{chunks} prefill chunks)")
     require(all(launches[k] > 0 for k in
@@ -1619,19 +2110,28 @@ def main() -> int:
     rows[0].update(gemm_train)
     rows[1]["train_forward_with_lse_ms"] = rows[-1].pop("forward_with_lse_ms")
     _, train_launches = train_phase(cfg)
+    torch.cuda.empty_cache()
 
-    # 7. results
+    # 7. compressed data-parallel SGD at full width, two ranks on the card
+    rows += [check_quantize_compress(cfg), check_matmul_dequant(cfg)]
+    torch.cuda.empty_cache()
+    _, dp_launches = dp_phase(cfg)
+
+    # 8. results
     names = {"gemm": "matmul", "flash_attention": "attention",
              "paged_decode_attention": "paged_decode_attention",
              "ssd": "ssd", "quantize_int8": "quantize_int8",
-             "attention_backward": "attention_backward"}
+             "attention_backward": "attention_backward",
+             "quantize_compress": "quantize_compress",
+             "matmul_dequant": "matmul_dequant"}
     train_path = (f"{ARCH} train ({RANKS} ranks, int8 wire, {TRAIN_STEPS} "
                   "steps)")
     for row in rows:
         op = names[row["name"]]
         row["launches_by_path"] = {ARCH: launches[op],
                                    MAMBA: mamba_launches[op],
-                                   train_path: train_launches[op]}
+                                   train_path: train_launches[op],
+                                   DP_PATH: dp_launches[op]}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -4,16 +4,21 @@ from the reference's ``comms/compressed.py``.
 - ``bf16``: narrow before the collective, widen after.
 - ``int8``: per-bucket absmax affine quantization.  The group agrees the
   scale with an all-reduce MAX so every rank dequantizes identically,
-  ``scale = absmax / 127 + 1e-12`` in fp32 tensor arithmetic on the
-  device (through a Python float it would round differently), and the
-  reduction itself sums int32 (exact for up to ~2^24 ranks).  The
-  quantize pass is :func:`repro_torch.kernels.ops.quantize_int8`, the
-  CUDA kernel for a bucket on the card.
+  and computes it as the reference does under ``jit`` (``sync_tree``
+  runs inside its ``shard_map``): ``absmax / 127 + 1e-12`` compiled by
+  XLA to ``fma(absmax, fl32(1/127), fl32(1e-12))``, which
+  :func:`repro_torch.kernels.ref.int8_scale` reproduces on the device
+  (IEEE division and a separate add round differently for ~15% of
+  absmax values).  The reduction itself sums int32 (exact for up to
+  ~2^24 ranks).  The quantize pass is
+  :func:`repro_torch.kernels.ops.quantize_int8`, the CUDA kernel for a
+  bucket on the card; its division by the scale stays a true division,
+  as XLA keeps it for a traced divisor.
 
 As in the reference, the int32 sum is what physically crosses the wire
-(4 bytes per element).  Divisions by tensors only: ``tensor / float`` on the card
-multiplies by the reciprocal, which rounds differently from the
-reference.
+(4 bytes per element).  Divisions by tensors only: ``tensor / float``
+on the card multiplies by the reciprocal, which rounds differently from
+the reference.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from . import schedules
 
@@ -31,11 +36,6 @@ from . import schedules
 def _group_max(x: torch.Tensor, group=None) -> torch.Tensor:
     return schedules.all_reduce(x.clone(), group, "psum",
                                 op=dist.ReduceOp.MAX)
-
-
-def _scale(absmax: torch.Tensor) -> torch.Tensor:
-    """absmax / 127 + 1e-12, fp32, on absmax's device."""
-    return absmax.float() / torch.full_like(absmax.float(), 127.0) + 1e-12
 
 
 def wire_all_reduce(x: torch.Tensor, group=None, schedule: str = "psum",
@@ -59,7 +59,7 @@ def wire_all_reduce(x: torch.Tensor, group=None, schedule: str = "psum",
     if wire_dtype == "int8":
         if absmax is None:
             raise ValueError("the fused int8 path needs the packed absmax")
-        scale = _scale(_group_max(absmax, group))
+        scale = ref.int8_scale(_group_max(absmax, group))
         q = ops.quantize_int8(x.float().contiguous(), scale).to(torch.int32)
         summed = schedules.all_reduce(q, group, schedule)
         return (summed.float() * scale).to(out_dtype)

@@ -1,32 +1,43 @@
-"""The int8 wire's quantize pass on the card (CUDA source:
+"""The int8 format's kernels on the card (CUDA source:
 ``csrc/quantize.cu``).
 
-Replaces the TPU kernel ``repro/kernels/fused.py::quantize_int8``
-(``_q_kernel``): ``q = clip(round(x / scale), ±127)`` as int8, against a
-scale the group has already agreed.  On the train path's int8 wire every
-fp32 gradient bucket of every rank passes through it once per step
-(``comms.compressed.wire_all_reduce``).  It reads 4 bytes and
-writes 1 per element, so device memory bounds it.  The TPU kernel pads
-the bucket to whole (32, 128) tiles and slices the result back; this one
-takes the bucket's exact length, so no padded copy is made.  The scale
-stays on the card as a 0-d tensor: the host never reads it.
+- :func:`quantize_int8` replaces the TPU kernel
+  ``repro/kernels/fused.py::quantize_int8`` (``_q_kernel``):
+  ``q = clip(round(x / scale), ±127)`` as int8, against a scale the group
+  has already agreed.  On the train path's int8 wire every fp32 gradient
+  bucket of every rank passes through it once per step
+  (``comms.compressed.wire_all_reduce``).  It reads 4 bytes and writes 1
+  per element, so device memory bounds it.
+- :func:`quantize_compress` replaces ``fused.py::quantize_compress``
+  (``_qc_kernel``): absmax and quantize in one call, the scale taken from
+  the tensor itself.  On the compressed data-parallel SGD path
+  (``train.compression.quantize_int8``) every gradient leaf of every rank
+  passes through it once per int8 step.  It reads the input twice (the
+  absmax launch, then the quantize launch) and writes int8 once: 9 bytes
+  per fp32 element, bound by device memory.
 
-The reference's ``quantize_compress`` (absmax and quantize in one call)
-has no caller on a ported path yet and stays in ROADMAP queue 2.
+The TPU kernels pad to whole (32, 128) tiles and slice the result back;
+these take the exact length, so no padded copy is made.  Scales stay on
+the card as 0-d tensors: the host never reads them.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import _build, ref
 
-launches = 0     # kernel launches since the last reset (ops.reset_launches)
+launches = 0     # quantize_int8 launches since the last reset (ops)
+compress_launches = 0    # quantize_compress calls, each two kernel launches
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p]
+_COMPRESS_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p]
 
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -58,3 +69,33 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     _build.check(rc, "quantize_int8")
     launches += 1
     return q
+
+
+def quantize_compress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8 in ``x``'s shape, scale fp32 0-d on ``x``'s device).  CPU
+    tensors take the plain version (:func:`ref.quantize_compress`); CUDA
+    tensors launch the kernel, which takes a contiguous, non-empty fp32 or
+    bf16 ``x``, and raise on anything else."""
+    global compress_launches
+    if x.device.type == "cpu":
+        return ref.quantize_compress(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_compress: x on {x.device}; the kernel "
+                         "needs a CUDA tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"quantize_compress kernel takes fp32 or bf16 x, "
+                        f"got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("quantize_compress kernel takes a contiguous x")
+    if x.numel() == 0:
+        raise ValueError("quantize_compress: an empty x has no absmax")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    amax = torch.empty((), dtype=torch.int32, device=x.device)
+    fn = _build.function("dmath_quantize_compress", _COMPRESS_ARGTYPES)
+    rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), amax.data_ptr(),
+            q.data_ptr(), scale.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "quantize_compress")
+    compress_launches += 1
+    return q, scale

@@ -25,6 +25,14 @@ type) and is rounded once to the operands' type, bf16, because the
 kernel takes bf16 operands; JAX's transpose multiplies the fp32
 cotangent and rounds the product instead.  The plain version rounds
 dC the same way, so a CPU test sees exactly the card's deviation.
+
+:func:`matmul_dequant` (CUDA source: ``csrc/gemm_dequant.cu``) replaces
+the TPU kernel ``repro/kernels/gemm.py::matmul_dequant``: C = (A @ B_q) ·
+scale[N] with int8 weights widened inside the kernel and the per-column
+scale applied to the fp32 accumulator, so the dequantized B never exists
+in device memory.  It is reached through ``ops.matmul_dequant`` only, as
+in the reference (no model path calls it); at qwen2-0.5b's decode shapes
+it is bound by the int8 bytes of B, half the bf16 GEMM's.
 """
 
 from __future__ import annotations
@@ -36,11 +44,17 @@ import torch
 
 from . import _build, ref
 
-launches = 0     # kernel launches since the last reset (ops.reset_launches)
+launches = 0     # matmul launches since the last reset (ops.reset_launches)
+dequant_launches = 0     # matmul_dequant launches
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
+
+_DEQUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p]
 
 
 class _MatMul(torch.autograd.Function):
@@ -108,4 +122,55 @@ def _product(a: torch.Tensor, b: torch.Tensor,
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(rc, "matmul")
     launches += 1
+    return out
+
+
+def matmul_dequant(a: torch.Tensor, b_q: torch.Tensor, b_scale: torch.Tensor,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) int8, times ``b_scale`` (N,) per column -> (M, N) in
+    ``out_dtype`` (default ``a.dtype``).
+
+    CPU tensors take the plain version (:func:`ref.matmul_dequant`); CUDA
+    tensors launch the kernel, which takes contiguous bf16 or fp32 ``a``,
+    int8 ``b_q`` and fp32 ``b_scale`` on one device and writes fp32 or
+    bf16, and raise on anything else.  Not differentiable (the reference
+    has no backward)."""
+    global dequant_launches
+    out_dtype = out_dtype or a.dtype
+    devs = {t.device for t in (a, b_q, b_scale)}
+    if devs == {torch.device("cpu")}:
+        return ref.matmul_dequant(a, b_q, b_scale, out_dtype)
+    if len(devs) != 1 or a.device.type != "cuda":
+        raise ValueError(f"matmul_dequant: operands on {sorted(map(str, devs))}"
+                         "; the kernel needs all three on one CUDA device")
+    if a.dtype not in (torch.bfloat16, torch.float32) \
+            or b_q.dtype != torch.int8 or b_scale.dtype != torch.float32:
+        raise TypeError(f"matmul_dequant kernel takes bf16/fp32 a, int8 b_q "
+                        f"and fp32 b_scale, got {a.dtype}, {b_q.dtype}, "
+                        f"{b_scale.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"matmul_dequant kernel writes fp32 or bf16, not "
+                        f"{out_dtype}")
+    if a.dim() != 2 or b_q.dim() != 2 or a.shape[1] != b_q.shape[0] \
+            or tuple(b_scale.shape) != (b_q.shape[1],):
+        raise ValueError(f"matmul_dequant: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b_q.shape)} * {tuple(b_scale.shape)} do "
+                         "not chain")
+    if not (a.is_contiguous() and b_q.is_contiguous()
+            and b_scale.is_contiguous()):
+        raise ValueError("matmul_dequant kernel takes contiguous operands")
+    M, K = a.shape
+    N = b_q.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    if K == 0:
+        return out.zero_()
+    fn = _build.function("dmath_gemm_dequant", _DEQUANT_ARGTYPES)
+    rc = fn(a.data_ptr(), int(a.dtype == torch.float32), b_q.data_ptr(),
+            b_scale.data_ptr(), out.data_ptr(), M, N, K,
+            int(out_dtype == torch.float32),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(rc, "matmul_dequant")
+    dequant_launches += 1
     return out

@@ -25,13 +25,19 @@ paged_decode_attention = _paged.paged_decode_attention
 ssd = _ssd.ssd
 ssd_step = _ref.ssd_step     # single-token decode: plain PyTorch everywhere
 quantize_int8 = _fused.quantize_int8
+quantize_compress = _fused.quantize_compress
+matmul_dequant = _gemm.matmul_dequant
+# offline weight preparation: plain PyTorch everywhere, as in the reference
+quantize_int8_per_channel = _ref.quantize_int8_per_channel
 
 # op -> (module, its launch counter)
 _KERNELS = {"matmul": (_gemm, "launches"), "attention": (_fa, "launches"),
             "attention_backward": (_fa, "bwd_launches"),
             "paged_decode_attention": (_paged, "launches"),
             "ssd": (_ssd, "launches"),
-            "quantize_int8": (_fused, "launches")}
+            "quantize_int8": (_fused, "launches"),
+            "quantize_compress": (_fused, "compress_launches"),
+            "matmul_dequant": (_gemm, "dequant_launches")}
 
 
 def dispatch_report() -> Dict[str, int]:

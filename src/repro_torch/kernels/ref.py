@@ -3,7 +3,8 @@
 Each function is the semantic definition its CUDA kernel is held against
 (fp32 math throughout), following the JAX reference's ``kernels/ref.py``.
 The wrappers in ``gemm.py``, ``flash_attention.py``,
-``paged_attention.py`` and ``fused.py`` run them for tensors on the CPU;
+``paged_attention.py``, ``ssd_scan.py`` and ``fused.py`` run them for
+tensors on the CPU;
 on the card they only serve as the comparison in tests and
 ``chip_smoke.py``.  ``attention_backward`` is autograd through the plain
 ``attention``: the definition the backward kernel is held against.  ``ssd`` is
@@ -11,6 +12,12 @@ the sequential definition of the SSD scan, which tests hold the chunked
 plain version (``ssd_scan.ssd_plain``) and the kernel against;
 ``ssd_step`` is the single-token decode step, which is plain PyTorch on
 every device, as in the reference.
+
+The int8 functions round as the reference does under ``jit`` (its
+production form), not as eager JAX does: XLA compiles the scale
+``absmax / 127 + 1e-12`` to ``fma(absmax, fl32(1/127), fl32(1e-12))``,
+which :func:`int8_scale` reproduces; the divisions by a scale stay true
+divisions, as XLA keeps them for a traced divisor.
 
 One deliberate difference: an attention row with no visible key gives
 zeros, as the model's attention in the reference does
@@ -30,6 +37,56 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     """C = A @ B with fp32 accumulation regardless of storage dtype."""
     out_dtype = out_dtype or a.dtype
     return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def matmul_dequant(a: torch.Tensor, b_q: torch.Tensor,
+                   b_scale: torch.Tensor,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """C = (A @ B_q) * scale[N]: the int8 weights widened to ``a``'s dtype
+    (exact, |q| <= 127), the product with an fp32 accumulator, the
+    per-column scale applied to the fp32 result, one cast to
+    ``out_dtype`` (default ``a.dtype``)."""
+    out_dtype = out_dtype or a.dtype
+    c = torch.matmul(a.float(), b_q.to(a.dtype).float())
+    return (c * b_scale.float()[None, :]).to(out_dtype)
+
+
+# fl32(1/127) and fl32(1e-12): the constants of the reference's jitted scale
+_INV127 = float.fromhex("0x1.020408p-7")
+_EPS = float.fromhex("0x1.197998p-40")
+
+
+def int8_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """The int8 format's scale as the reference computes it under ``jit``:
+    ``fmaf(absmax, fl32(1/127), fl32(1e-12))``, fp32, on ``absmax``'s
+    device and of its shape.  Computed in float64, where the product of
+    two fp32 values is exact, with one add and one rounding to fp32 (a
+    double rounding that ``tests/test_torch_comms.py`` pins against the
+    jitted reference over a sweep of absmax values)."""
+    return (absmax.double() * _INV127 + _EPS).float()
+
+
+def quantize_compress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8 in ``x``'s shape, scale fp32 0-d): absmax and quantize in
+    one, ``scale = int8_scale(max|x|)`` and ``q = clip(round(x / scale),
+    ±127)`` with IEEE fp32 division and round-half-to-even; fp32 or bf16
+    ``x`` (widened exactly)."""
+    v = x.float()
+    scale = int8_scale(v.abs().max())
+    q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_int8_per_channel(w: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-column int8 weights for :func:`matmul_dequant`:
+    (q (K, N) int8, scale (N,) fp32), each column's scale
+    ``int8_scale(max |w[:, n]|)``."""
+    v = w.float()
+    scale = int8_scale(v.abs().amax(dim=0))
+    q = torch.clamp(torch.round(v / scale[None, :]), -127, 127).to(
+        torch.int8)
+    return q, scale
 
 
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,11 @@
 - ``sync_tree`` on 2 gloo ranks (two CPU processes) against the
   reference's ``sync_tree`` under ``jax.shard_map`` on 2 fake CPU devices
   (a subprocess started with ``XLA_FLAGS``), bitwise, for the fp32, bf16
-  and int8 wires.
+  and int8 wires;
+- the int8 wire's scale against the reference's jitted one (XLA fuses
+  ``absmax / 127 + 1e-12`` into one fma) over a sweep of absmax values,
+  and a two-rank int8 ``sync_tree`` whose bucket has a scale that IEEE
+  division and a separate add would round differently.
 
 JAX is imported only inside fixtures and the subprocess; inputs come from
 seeded numpy.
@@ -218,9 +222,13 @@ _JAX_SIDE = textwrap.dedent("""
                 d = d.setdefault(key, {})
             d[leaf] = val
         return out
-    stacked = nested({n: jnp.stack([
-        jnp.asarray(data[f"{r}/{n}"].view(jnp.bfloat16)) for r in (0, 1)])
-        for n in names})
+    def load(a):          # bf16 travels as uint16 bits, fp32 as it is
+        return jnp.asarray(a.view(jnp.bfloat16) if a.dtype == np.uint16
+                           else a)
+    def bits(a):
+        return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+    stacked = nested({n: jnp.stack([load(data[f"{r}/{n}"]) for r in (0, 1)])
+                      for n in names})
     mesh = jax.make_mesh((2,), ("data",))
     out = {}
     for i, (sched, wire, bb, fused) in enumerate(wires):
@@ -237,7 +245,7 @@ _JAX_SIDE = textwrap.dedent("""
         for path, leaf in flat:
             name = ".".join(k.key for k in path)
             for r in (0, 1):
-                out[f"{i}/{r}/{name}"] = np.asarray(leaf)[r].view(np.uint16)
+                out[f"{i}/{r}/{name}"] = bits(np.asarray(leaf)[r])
     np.savez(dst, **out)
 """)
 
@@ -252,15 +260,21 @@ _TORCH_RANK = textwrap.dedent("""
     wires = eval(sys.argv[5])
     init_group(init, rank=rank, world_size=2, device="cpu")
     data = np.load(src)
-    grads = {k.split("/", 1)[1]: torch.from_numpy(data[k].copy()).view(
-        torch.bfloat16) for k in data.files if k.startswith(f"{rank}/")}
+    def load(a):          # bf16 travels as uint16 bits, fp32 as it is
+        t = torch.from_numpy(a.copy())
+        return t.view(torch.bfloat16) if a.dtype == np.uint16 else t
+    def bits(t):
+        if t.element_size() == 2:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.view(torch.int32).numpy().view(np.uint32)
+    grads = {k.split("/", 1)[1]: load(data[k]) for k in data.files
+             if k.startswith(f"{rank}/")}
     out = {}
     for i, (sched, wire, bb, _) in enumerate(wires):
         plan = CommsPlan(schedule=sched, wire_dtype=wire, bucket_bytes=bb)
         res = sync_tree(grads, plan)
         for name, leaf in res.items():
-            out[f"{i}/{rank}/{name}"] = leaf.view(torch.int16).numpy() \\
-                .view(np.uint16)
+            out[f"{i}/{rank}/{name}"] = bits(leaf)
     np.savez(dst, **out)
     close_group()
 """)
@@ -288,33 +302,108 @@ def run_ranks(script, tmp_path, args, n=2, timeout=240):
     return outs
 
 
-def test_sync_tree_on_two_gloo_ranks_is_bitwise_the_reference(tmp_path):
-    trees = [_grad_tree(10 + r) for r in (0, 1)]
+def _bits_np(t: torch.Tensor) -> np.ndarray:
+    if t.element_size() == 2:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.view(torch.int32).numpy().view(np.uint32)
+
+
+def _sync_both_sides(tmp_path, trees, wires):
+    """``sync_tree`` of the two ranks' ``trees`` for each of ``wires``: the
+    port's on 2 gloo ranks and the reference's on 2 fake devices, as
+    ``(got, want)`` dicts of bit patterns keyed ``wire/rank/leaf``; the
+    two ports' replicas are checked equal."""
     src = tmp_path / "grads.npz"
-    np.savez(src, **{f"{r}/{k}": v.view(torch.int16).numpy().view(np.uint16)
-                     for r in (0, 1) for k, v in trees[r].items()})
-    wires = repr(WIRES)
+    np.savez(src, **{f"{r}/{k}": _bits_np(v) if v.dtype == torch.bfloat16
+                     else v.numpy() for r in (0, 1)
+                     for k, v in trees[r].items()})
     jax_out = tmp_path / "jax.npz"
     proc = subprocess.run(
-        [sys.executable, "-c", _JAX_SIDE, str(src), str(jax_out), wires],
+        [sys.executable, "-c", _JAX_SIDE, str(src), str(jax_out),
+         repr(wires)],
         env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=2"),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     run_ranks(_TORCH_RANK, tmp_path,
-              lambda r: [str(src), str(tmp_path / f"t{r}.npz"), wires])
-    want = np.load(jax_out)
+              lambda r: [str(src), str(tmp_path / f"t{r}.npz"), repr(wires)])
+    want = dict(np.load(jax_out))
     got = {}
     for r in (0, 1):
         got.update(np.load(tmp_path / f"t{r}.npz"))
-    assert set(got) == set(want.files)
+    assert set(got) == set(want)
+    for i in range(len(wires)):
+        for name in trees[0]:
+            np.testing.assert_array_equal(got[f"{i}/0/{name}"],
+                                          got[f"{i}/1/{name}"])  # replicas
+    return got, want
+
+
+def test_sync_tree_on_two_gloo_ranks_is_bitwise_the_reference(tmp_path):
+    trees = [_grad_tree(10 + r) for r in (0, 1)]
+    got, want = _sync_both_sides(tmp_path, trees, WIRES)
     for i, wire in enumerate(WIRES):
         for name in trees[0]:
-            g0, g1 = got[f"{i}/0/{name}"], got[f"{i}/1/{name}"]
-            np.testing.assert_array_equal(g0, g1)         # replicas agree
-            np.testing.assert_array_equal(g0, want[f"{i}/0/{name}"],
+            np.testing.assert_array_equal(got[f"{i}/0/{name}"],
+                                          want[f"{i}/0/{name}"],
                                           err_msg=f"{wire} {name}")
     # the wire moved something: the int8 result is not the fp32 one
     assert any((got[f"2/0/{n}"] != got[f"0/0/{n}"]).any() for n in trees[0])
+
+
+def _ieee_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """absmax / 127 + 1e-12 with IEEE division and a separate add: what
+    the reference computes eagerly, and not under ``jit``."""
+    return absmax / torch.full_like(absmax, 127.0) + 1e-12
+
+
+def test_int8_scale_is_the_references_jitted_scale(J):
+    """2,048 absmax values from 1e-8 to 1e3 through the reference's
+    expression inside a jitted ``shard_map`` (as ``sync_tree`` runs it),
+    bitwise; the IEEE rounding differs on a share of them, so the sweep
+    can tell the two apart."""
+    from jax.sharding import PartitionSpec as P
+    mesh = J.jax.make_mesh((1,), ("data",))
+    amax = np.geomspace(1e-8, 1e3, 2048).astype(np.float32)
+    jitted = J.jax.jit(J.jax.shard_map(
+        lambda a: J.jax.lax.pmax(a, "data") / 127.0 + 1e-12, mesh=mesh,
+        in_specs=P(), out_specs=P()))
+    want = np.asarray(jitted(J.jnp.asarray(amax)))
+    got = ref.int8_scale(torch.from_numpy(amax))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert (_ieee_scale(torch.from_numpy(amax)).numpy() != want).sum() > 100
+
+
+def test_sync_tree_int8_with_a_disagreeing_scale_is_bitwise_the_reference(
+        tmp_path):
+    """fp32 leaves whose group absmax has a scale that IEEE division
+    rounds one ulp away from the jitted fma: every dequantized value then
+    depends on which, so the wire must take the reference's."""
+    cand = np.geomspace(1e-3, 1.0, 512).astype(np.float32)
+    fma = (cand.astype(np.float64) * float(np.float32(1 / 127))
+           + float(np.float32(1e-12))).astype(np.float32)
+    ieee = _ieee_scale(torch.from_numpy(cand)).numpy()
+    amax = torch.tensor(cand[fma != ieee][0])
+    rng = np.random.default_rng(7)
+    trees = []
+    for r in (0, 1):
+        w = rng.uniform(-1, 1, (33, 70)).astype(np.float32) * float(amax)
+        b = rng.uniform(-1, 1, 257).astype(np.float32) * float(amax) / 2
+        if r == 0:
+            w[5, 9] = -float(amax)       # the group absmax, negative
+        trees.append({"w": torch.from_numpy(w), "b": torch.from_numpy(b)})
+    wires = [("psum", "int8", 1 << 20, "on"), ("psum", "int8", 1 << 20,
+                                               "off")]
+    got, want = _sync_both_sides(tmp_path, trees, wires)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    # with the IEEE scale the sums would come out otherwise
+    scale = _ieee_scale(amax)
+    q = sum(torch.clamp(torch.round(t["w"] / scale), -127, 127)
+            for t in trees)
+    ieee = (q * scale).numpy().view(np.uint32)
+    assert (ieee != got["0/0/w"]).mean() > 0.5
 
 
 def test_comms_plan_resolution():

@@ -313,6 +313,77 @@ def test_quantize_kernel_matches_plain_bitwise(cuda, n, kind):
     assert torch.equal(ops.quantize_int8(xo, scale.to(cuda)).cpu(), want)
 
 
+def compress_case(seed, n, dtype, kind):
+    """An input of ``quantize_compress`` (its scale comes from itself).
+    ``ties``: the largest magnitude 127 * 2^-10, whose scale is exactly
+    2^-10, and every other element an exact .5 multiple of it, so
+    round-half-to-even decides; ``zero``: all zeros (scale fl32(1e-12));
+    ``negative``: the largest magnitude is a negative element."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal(n) * 1e-3).astype(np.float32))
+    if kind == "zero":
+        x.zero_()
+    if kind == "ties":
+        k = torch.from_numpy(rng.integers(-127, 127, n)).float() + 0.5
+        x = torch.where(torch.arange(n) % 2 == 0, k * 2.0 ** -10, x * 0.1)
+        x[n // 2] = 127 * 2.0 ** -10
+        assert float(ref.int8_scale(x.abs().max())) == 2.0 ** -10
+    if kind == "negative":
+        x[n // 3] = -2 * float(x.abs().max())
+    return x.to(TDT[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dtype,kind", [
+    (896, "float32", "normal"),           # qwen2-0.5b's smallest leaf
+    (4_358_144, "float32", "normal"),     # a layer's MLP weight, 4864 x 896
+    (4096 * 37 + 3, "float32", "normal"), (4096 * 37 + 3, "bfloat16",
+                                           "normal"),
+    (1, "bfloat16", "normal"), (5, "float32", "ties"),
+    (100_003, "float32", "ties"), (4097, "float32", "zero"),
+    (1000, "float32", "negative")])
+def test_quantize_compress_kernel_matches_plain_bitwise(cuda, n, dtype,
+                                                        kind):
+    from repro_torch.kernels import fused
+    x = compress_case(n % 1000, n, dtype, kind)
+    qw, sw = ref.quantize_compress(x)
+    before = fused.compress_launches
+    q, s = ops.quantize_compress(x.to(cuda))
+    assert fused.compress_launches == before + 1
+    assert q.dtype == torch.int8 and s.dtype == torch.float32 and s.dim() == 0
+    assert torch.equal(q.cpu(), qw) and torch.equal(s.cpu(), sw)
+    # and from an input that does not start on a 16-byte boundary
+    xo = torch.cat([torch.zeros(1, dtype=x.dtype), x]).to(cuda)[1:]
+    q, s = ops.quantize_compress(xo)
+    assert torch.equal(q.cpu(), qw) and torch.equal(s.cpu(), sw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [
+    (8, 896, 4864), (8, 4864, 896), (8, 896, 128),    # qwen2-0.5b decode
+    (128, 896, 896), (8, 1024, 1024),                 # prefill, bench
+    (5, 300, 77), (130, 257, 129)])                   # ragged
+def test_matmul_dequant_kernel_matches_plain(cuda, m, k, n):
+    """At the reference test's tolerances: fp32 activations 2e-5, bf16
+    activations (and any bf16 output) 2e-2."""
+    from repro_torch.kernels import gemm
+    g = torch.Generator().manual_seed(m * k + n)
+    w = torch.randn((k, n), generator=g) * 0.05
+    bq, bs = (t.to(cuda) for t in ops.quantize_int8_per_channel(w))
+    for dtype in ("float32", "bfloat16"):
+        a = torch.randn((m, k), generator=g).to(TDT[dtype]).to(cuda)
+        for out in (torch.float32, torch.bfloat16):
+            before = gemm.dequant_launches
+            got = ops.matmul_dequant(a, bq, bs, out)
+            assert gemm.dequant_launches == before + 1
+            assert got.dtype == out and got.shape == (m, n)
+            tol = TOL["float32" if dtype == "float32"
+                      and out == torch.float32 else "bfloat16"]
+            torch.testing.assert_close(
+                got.float(), ref.matmul_dequant(a, bq, bs, out).float(),
+                **tol)
+
+
 BWD_CASES = [
     # (B, Hq, Hkv, S, T, q_offset, window, softcap)
     (2, 14, 2, 512, 512, 0, None, None),     # the qwen2-0.5b train shape
@@ -406,6 +477,12 @@ def test_wrappers_refuse_mixed_devices():
         ops.ssd(**dict(case, A=case["A"].to("meta")))
     with pytest.raises(ValueError):          # the scale off the CPU
         ops.quantize_int8(torch.zeros(8), torch.ones((), device="meta"))
+    with pytest.raises(ValueError):
+        ops.quantize_compress(torch.zeros(8, device="meta"))
+    bq = torch.zeros(4, 3, dtype=torch.int8)
+    with pytest.raises(ValueError):          # the scales off the CPU
+        ops.matmul_dequant(torch.zeros(2, 4), bq, torch.ones(3,
+                                                             device="meta"))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
