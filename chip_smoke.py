@@ -15,6 +15,18 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    larger), the plain version's time, and the time of one PyTorch library
    call computing the same function where there is one (timed only; the
    port never calls it).
+   The GEMM runs each qwen2 product at a decode step's M = 8 and a
+   prefill chunk's M = 128, printing its plan (regime, tile, split), and
+   both sums are timed beside ``torch.matmul``.  Then the GEMM's design
+   properties at full width: rows of a 1,024-row product equal the
+   product of those rows alone at M = 1, 8, 44, 64, 65, 128, 300 and
+   1,024, bitwise, for every (K, N) of qwen2-0.5b and mamba2-780m and two
+   ragged ones, in bf16 and fp32; repeated runs give the same bits; A and
+   B passed transposed, as the backward passes them, give the bits of
+   contiguous copies at every train shape; fp32 operands (unit variance,
+   not bf16 values) stay within the reference's fp32 tolerance (rtol
+   1e-5, atol 1e-2), which ``torch.matmul`` with TF32 allowed must fail
+   at every model K and N of 128 and up (a control).
    The SSD scan is checked at mamba2-780m's prefill shapes (bf16 and fp32
    inputs, S = 512 and a ragged 300, two groups, an initial state) at the
    reference SSD test's tolerances, and bounded by fp32 or bf16 peak FLOP/s
@@ -33,7 +45,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    launch-count check (``matmul`` 241 per prefill and per decode step,
    ``ssd`` 48 per prefill); hold the GEMM kernel against its plain
    version at each mamba2 product's shape, at M = 8 (a decode step) and
-   at a ragged prefill M = 300, and time them; split a decode step into
+   at a ragged prefill M = 300, and time them beside ``torch.matmul``;
+   split a decode step into
    GEMM, the plain ``ssd_step`` and convolutions, other device work and
    host time; hold the card's prefill states and logits against the
    CPU's (with controls that must fail), and prefill-then-decode against
@@ -44,9 +57,10 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    exact .5 ties and a zero bucket; the attention backward kernel (and the
    forward with its log-sum-exp) at the train shape and at ragged, window,
    softcap and fully-masked shapes; the GEMM's backward products at every
-   train shape; each timed beside its bound, its plain version and a
-   library call.  Then run 2, one rank without a wire (``comms="off"``)
-   on 4 x 512 tokens of ``SyntheticLM(structured=True)``, with its launch
+   train shape, on the transposed views the backward passes; each timed
+   beside its bound, its plain version and a library call.  Then run 2,
+   one rank without a wire (``comms="off"``) on 4 x 512 tokens of
+   ``SyntheticLM(structured=True)``, with its launch
    counts; the card's 2-layer loss and gradients against the CPU's; and
    two ranks spawned on the one card over gloo: run 3 (fp32 wire, one
    step, held to run 2) and run 4, the main path (int8 wire, 6 steps):
@@ -212,9 +226,17 @@ def gen(seed: int) -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def randn(shape, seed: int, scale: float = 1.0) -> torch.Tensor:
+def randn(shape, seed: int, scale: float = 1.0,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     x = torch.randn(shape, generator=gen(seed), device="cuda")
-    return (x * scale).to(torch.bfloat16)
+    return (x * scale).to(dtype)
+
+
+def fp32_close(got: torch.Tensor, want: torch.Tensor):
+    """(within the reference kernel test's fp32 tolerance, rtol 1e-5 and
+    atol 1e-2 (``tests/test_kernels.py``); the max abs error)."""
+    err = (got - want).abs()
+    return not bool((err > 1e-2 + 1e-5 * want.abs()).any()), float(err.max())
 
 
 # ---------------------------------------------------------------------------
@@ -232,11 +254,21 @@ def gemm_cases(cfg):
             ("out", F, D, L), ("unembed", D, V, 1)]
 
 
+def plan_label(M, K, N, **kw) -> str:
+    pl = gemm_mod.plan(M, K, N, **kw)
+    return f"{pl.regime} {pl.tile_m}x{pl.tile_n} split {pl.split}"
+
+
 def check_gemm(cfg):
-    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                bytes=0.0, flops=0.0)
+    """Each qwen2 product at a decode step's M and a prefill chunk's, with
+    its plan (regime, tile, split): against the plain version, timed with
+    L2-cold weights beside the bound, the plain version and
+    ``torch.matmul``; returns the row with the decode step's sums and the
+    prefill chunk's."""
+    sums = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    bytes=0.0, flops=0.0) for M in (SLOTS, CHUNK)}
     errs = []
-    print("gemm: M K N | kernel ms | bound ms (by) | plain ms | "
+    print("gemm: M K N | plan | kernel ms | bound ms (by) | plain ms | "
           "torch.matmul ms | max abs err")
     for M in (SLOTS, CHUNK):
         for i, (label, K, N, calls) in enumerate(gemm_cases(cfg)):
@@ -256,25 +288,120 @@ def check_gemm(cfg):
             lib = cuda_ms([lambda b=b: torch.matmul(a, b) for b in bs],
                           iters=max(20, 4 * n))
             bms, by = bound(nbytes, flops)
-            print(f"gemm {label:7s} {M:4d} {K:5d} {N:6d} | {ms:.4f} | "
-                  f"{bms:.4f} ({by}) | {plain:.4f} | {lib:.4f} | {err:.3g}")
-            if M == SLOTS:
-                for key, val in (("ms", ms), ("plain_ms", plain),
-                                 ("library_ms", lib), ("bound_ms", bms),
-                                 ("bytes", nbytes), ("flops", flops)):
-                    step[key] += calls * val
-    bms, by = bound(step["bytes"], step["flops"])
-    print(f"gemm: one decode step ({sum(c for *_, c in gemm_cases(cfg))} "
-          f"calls, M={SLOTS}): {step['ms']:.4f} ms, bound {bms:.4f} ms "
-          f"({by}), plain {step['plain_ms']:.4f} ms, torch.matmul "
-          f"{step['library_ms']:.4f} ms")
+            print(f"gemm {label:7s} {M:4d} {K:5d} {N:6d} | "
+                  f"{plan_label(M, K, N)} | {ms:.4f} | {bms:.4f} ({by}) | "
+                  f"{plain:.4f} | {lib:.4f} | {err:.3g}")
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", lib), ("bound_ms", bms),
+                             ("bytes", nbytes), ("flops", flops)):
+                sums[M][key] += calls * val
+    ncalls = sum(c for *_, c in gemm_cases(cfg))
+    rows = {}
+    for M, what in ((SLOTS, "one decode step"), (CHUNK, "one prefill chunk")):
+        t = sums[M]
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"])
+        print(f"gemm: {what} ({ncalls} calls, M={M}): {t['ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+              f"{t['plain_ms']:.4f} ms, torch.matmul {t['library_ms']:.4f} "
+              f"ms ({t['ms'] / t['library_ms']:.2f}x)")
+        rows[M] = t
+    step, chunk = rows[SLOTS], rows[CHUNK]
     return dict(name="gemm", route="cuda",
                 source="src/repro_torch/kernels/csrc/gemm.cu",
                 replaces="src/repro/kernels/gemm.py:45",
-                case=f"one decode step: the 169 products at M={SLOTS}",
+                case=f"one decode step: the {ncalls} products at M={SLOTS}",
                 max_abs_err=max(errs), ms=step["ms"],
-                plain_ms=step["plain_ms"], bound_ms=bms, bound_by=by,
-                library_ms=step["library_ms"])
+                plain_ms=step["plain_ms"], bound_ms=step["bound_ms"],
+                bound_by=step["bound_by"], library_ms=step["library_ms"],
+                prefill_chunk_ms=chunk["ms"],
+                prefill_chunk_library_ms=chunk["library_ms"],
+                prefill_chunk_bound_ms=chunk["bound_ms"],
+                prefill_chunk_plain_ms=chunk["plain_ms"])
+
+
+def check_gemm_properties(cfg, mcfg):
+    """The kernel's design properties at full width, on the card:
+    - row invariance, bitwise: for every (K, N) of qwen2-0.5b and
+      mamba2-780m and two ragged ones, rows taken from a 1,024-row product
+      equal the product of those rows alone at M = 1, 8, 44, 64, 65, 128,
+      300 and 1,024 (every regime, tile and split), bf16 and fp32;
+    - run to run, bitwise: three more runs of each 1,024-row product;
+    - transposed operands, bitwise: A stored (K, M) and B stored (N, K),
+      as the backward passes them, equal the product on contiguous
+      copies, at every train shape (bf16 and fp32);
+    - fp32 operands within the reference's fp32 tolerance (rtol 1e-5,
+      atol 1e-2) of the plain version, on unit-variance operands that are
+      not bf16 values, as the reference's test draws them; at every model
+      K (896 and up) and N of 128 and up (where cuBLAS takes its tensor
+      cores), ``torch.matmul`` with TF32 allowed is a control that must
+      fail the same check (its 10 mantissa bits err by ~4e-4 sqrt(K) per
+      output).
+    Returns the counts of products checked."""
+    kn = sorted({(K, N) for _, K, N, _ in gemm_cases(cfg)}
+                | {(K, N) for _, K, N, _ in mamba_gemm_cases(mcfg)}
+                | {(13, 7), (130, 66)})
+    checked = dict(row_invariance=0, run_to_run=0, transposed=0, fp32=0,
+                   tf32_control=0)
+    fp32_err, tf32_err = 0.0, math.inf   # the kernel's worst, TF32's least
+    for K, N in kn:
+        for dt in (torch.bfloat16, torch.float32):
+            a = randn((1024, K), 1700 + K, dtype=dt)
+            b = randn((K, N), 1701 + N, dtype=dt)
+            full = gemm_mod.matmul(a, b, torch.float32)
+            for m in (1, 8, 44, 64, 65, 128, 300, 1024):
+                rows = torch.randperm(1024, generator=gen(m),
+                                      device="cuda")[:m]
+                part = gemm_mod.matmul(a[rows].contiguous(), b,
+                                       torch.float32)
+                require(torch.equal(part, full[rows]),
+                        f"gemm rows depend on M: K={K} N={N} {dt} M={m} "
+                        f"({plan_label(m, K, N, f32=dt == torch.float32)})"
+                        f", {int((part != full[rows]).sum())} differ")
+                checked["row_invariance"] += 1
+            for _ in range(3):
+                require(torch.equal(gemm_mod.matmul(a, b, torch.float32),
+                                    full),
+                        f"gemm K={K} N={N} {dt}: two runs differ")
+                checked["run_to_run"] += 1
+            if dt == torch.float32:
+                want = ref.matmul(a, b, torch.float32)
+                ok, err = fp32_close(full, want)
+                require(ok, f"gemm fp32 K={K} N={N}: beyond rtol 1e-5, "
+                        f"atol 1e-2 (max abs err {err:.3g})")
+                checked["fp32"] += 1
+                fp32_err = max(fp32_err, err)
+                if K >= 896 and N >= 128:
+                    tf32 = torch.backends.cuda.matmul.allow_tf32
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        control = torch.matmul(a, b)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = tf32
+                    ok, err = fp32_close(control, want)
+                    require(not ok, f"gemm fp32 K={K} N={N}: the check "
+                            f"cannot see TF32 (max abs err {err:.3g})")
+                    checked["tf32_control"] += 1
+                    tf32_err = min(tf32_err, err)
+            del full
+    M = TRAIN_BATCH // RANKS * TRAIN_SEQ
+    for _, K, N, _ in gemm_cases(cfg):
+        for dt in (torch.bfloat16, torch.float32):
+            a = randn((M, K), 1720 + K, dtype=dt)
+            b = randn((K, N), 1721 + N, 0.05, dtype=dt)
+            dc = randn((M, N), 1722 + N, dtype=dt)
+            for x, y in ((dc, b.t()), (a.t(), dc)):
+                got = gemm_mod.matmul(x, y, torch.float32)
+                want = gemm_mod.matmul(x.contiguous(), y.contiguous(),
+                                       torch.float32)
+                require(torch.equal(got, want),
+                        f"gemm transposed operands differ from copies: "
+                        f"{tuple(x.shape)} @ {tuple(y.shape)} {dt}")
+                checked["transposed"] += 1
+    print(f"gemm properties: {checked} products checked, all bitwise; "
+          f"fp32 within tolerance (max abs err at most {fp32_err:.3g}), "
+          f"every TF32 control beyond it (max abs err at least "
+          f"{tf32_err:.3g})", flush=True)
+    return checked
 
 
 def sdpa_mask(S, T, q_offset):
@@ -600,11 +727,13 @@ def mamba_gemm_cases(cfg):
 
 def check_mamba_gemm(cfg):
     """The GEMM kernel against its plain version at each mamba2 product's
-    shape (``wdt``'s N = 48 is the one ragged N of either model, ``w_out``
-    the one K = 3072), at M = 8 (a decode step) and at a ragged prefill
-    M = PREFILL_M, each timed with L2-cold weights.  Returns the sums over
-    the 241 calls of a decode step and of a PREFILL_M-token prefill."""
-    out = dict(gemm_ms=0.0, gemm_bound_ms=0.0, prefill_gemm_ms=0.0,
+    shape (``wdt``'s N = 48 is the one N of either model below a tile,
+    ``w_out`` the one K = 3072), at M = 8 (a decode step) and at a ragged
+    prefill M = PREFILL_M, each timed with L2-cold weights beside
+    ``torch.matmul``.  Returns the sums over the 241 calls of a decode
+    step and of a PREFILL_M-token prefill."""
+    out = dict(gemm_ms=0.0, gemm_library_ms=0.0, gemm_bound_ms=0.0,
+               prefill_gemm_ms=0.0, prefill_gemm_library_ms=0.0,
                prefill_gemm_bound_ms=0.0, gemm_max_abs_err=0.0)
     for M, key in ((SLOTS, "gemm"), (PREFILL_M, "prefill_gemm")):
         for i, (label, K, N, calls) in enumerate(mamba_gemm_cases(cfg)):
@@ -616,10 +745,15 @@ def check_mamba_gemm(cfg):
                           f"mamba2 gemm {label} M={M}")
             ms = cuda_ms([lambda b=b: gemm_mod.matmul(a, b, torch.float32)
                           for b in bs], iters=max(20, 4 * n))
+            lib = cuda_ms([lambda b=b: torch.matmul(a, b) for b in bs],
+                          iters=max(20, 4 * n))
             bms, _ = bound(2 * (M * K + K * N) + 4 * M * N, 2.0 * M * N * K)
-            print(f"mamba2 gemm {label:7s} M={M} K={K} N={N}: {ms:.4f} ms "
-                  f"x {calls} (bound {bms:.4f} ms), max abs err {err:.3g}")
+            print(f"mamba2 gemm {label:7s} M={M} K={K} N={N} "
+                  f"({plan_label(M, K, N)}): {ms:.4f} ms x {calls} (bound "
+                  f"{bms:.4f} ms, torch.matmul {lib:.4f} ms), max abs err "
+                  f"{err:.3g}")
             out[f"{key}_ms"] += calls * ms
+            out[f"{key}_library_ms"] += calls * lib
             out[f"{key}_bound_ms"] += calls * bms
             out["gemm_max_abs_err"] = max(out["gemm_max_abs_err"], err)
     return out
@@ -1242,8 +1376,11 @@ def check_attention_backward(cfg):
 def check_gemm_backward(cfg):
     """dA = dC Bᵀ and dB = Aᵀ dC on the GEMM kernel against the plain
     products at every train shape (M = one rank's 1,024 tokens), timed
-    with the forward product; returns the kernel's ms per train step per
-    rank (the forward, its recompute under remat, the backward)."""
+    with the forward product; the backward products are timed as the
+    backward calls them, on transposed views of A and B (the kernel reads
+    either layout; no copy is made), with their plans; returns the
+    kernel's ms per train step per rank (the forward, its recompute under
+    remat, the backward)."""
     M = TRAIN_BATCH // RANKS * TRAIN_SEQ
     L = cfg.n_layers
     tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
@@ -1259,7 +1396,8 @@ def check_gemm_backward(cfg):
                   b.clone().requires_grad_(True)]
         got = torch.autograd.grad(
             gemm_mod.matmul(*leaves, torch.float32), leaves, dc.float())
-        bt, at = b.t().contiguous(), a.t().contiguous()
+        # the backward passes Bᵀ and Aᵀ as transposed views: no copies
+        bt, at = b.t(), a.t()
         want = (ref.matmul(dc, bt, torch.bfloat16),
                 ref.matmul(at, dc, torch.bfloat16))
         err = 0.0
@@ -1285,7 +1423,9 @@ def check_gemm_backward(cfg):
                for x, y, o in prods]
         print(f"gemm train {label:7s} {M} {K} {N} | {ms[0]:.4f} | "
               f"{ms[1]:.4f} | {ms[2]:.4f} | {sum(bms):.4f} | "
-              f"{sum(plain):.4f} | {sum(lib):.4f} | {err:.3g}")
+              f"{sum(plain):.4f} | {sum(lib):.4f} | {err:.3g} | plans: "
+              f"{plan_label(M, K, N)}; dA {plan_label(M, N, K)}; dB "
+              f"{plan_label(K, M, N, a_transposed=True)}")
         # per step: the forward, its recompute under remat (not the
         # head's), and the two backward products
         n = (calls * (1 if label == "unembed" else 2), calls, calls)
@@ -1365,9 +1505,12 @@ def device_breakdown(prof):
     """Device ms of the profiled step by kernel family (this rank's;
     ``memcpy`` is the copies, gloo's staging through host memory
     included, ``other`` every other kernel: the eager PyTorch ops)."""
-    fams = {"gemm": "gemm_kernel", "attention": "flash_attention_kernel",
-            "attention_backward": "attn_bwd", "quantize_int8": "quantize",
-            "memcpy": "emcpy"}
+    fams = {"gemm": ("gemm_wgmma_kernel", "gemm_f32_kernel",
+                     "reduce_groups_kernel"),
+            "attention": ("flash_attention_kernel",),
+            "attention_backward": ("attn_bwd",),
+            "quantize_int8": ("quantize",),
+            "memcpy": ("emcpy",)}
     out = {k: 0.0 for k in fams}
     out["other"] = 0.0
     total = 0.0
@@ -1378,8 +1521,8 @@ def device_breakdown(prof):
         if t <= 0:
             continue
         total += t
-        for k, pat in fams.items():
-            if pat in e.key:
+        for k, pats in fams.items():
+            if any(pat in e.key for pat in pats):
                 out[k] += t
                 break
         else:
@@ -2056,6 +2199,8 @@ def main() -> int:
     # 3. kernels against their plain versions, times and bounds
     cfg = get_config(ARCH)
     rows = [check_gemm(cfg), check_flash(cfg), check_paged(cfg), check_ssd()]
+    rows[0]["properties_checked"] = check_gemm_properties(
+        cfg, get_config(MAMBA))
     sys.stdout.flush()
 
     # 4. qwen2-0.5b at full width

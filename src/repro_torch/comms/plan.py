@@ -15,6 +15,8 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import precision
+
 from . import bucketer, compressed
 
 
@@ -49,7 +51,9 @@ def sync_tree(grads: Mapping[str, torch.Tensor], plan: CommsPlan,
     """Synchronize a gradient dict over ``group``: bucket -> (compress ->)
     reduce per bucket -> unbucket.  With ``plan.mean`` the result is the
     group mean (each bucket's sum divided by the group size, in fp32),
-    otherwise the sum; leaves come back in their own dtypes.
+    otherwise the sum; leaves come back in their own dtypes.  The mean is
+    the reference's ``b / n`` as XLA compiles it: a multiply by fl32(1/n)
+    in the bucket's dtype (:func:`precision.div_count`).
 
     A narrowing wire always packs with the fused prologue (the bucket
     narrows, or yields its absmax, in the packing pass), so a CUDA
@@ -73,6 +77,6 @@ def sync_tree(grads: Mapping[str, torch.Tensor], plan: CommsPlan,
             absmax=absmaxes[i] if absmaxes is not None else None,
             out_dtype=bplan.dtype)
         if plan.mean:
-            r = r / torch.full((), float(n), dtype=r.dtype, device=r.device)
+            r = precision.div_count(r, n)
         reduced.append(r)
     return bucketer.unflatten_buckets(bplan, reduced)

@@ -4,7 +4,9 @@ accumulation.
 A port of the reference's ``core/precision.py`` for the serve slice:
 :class:`Policy`, :data:`MIXED` and :func:`einsum`, whose products all run
 through :func:`repro_torch.kernels.ops.matmul` with an fp32 result, as
-``preferred_element_type=float32`` gives in JAX.
+``preferred_element_type=float32`` gives in JAX.  :func:`div_count` is
+the reference's division by a count fixed when the program is built (a
+mean over ranks or microbatches), rounded as XLA compiles it.
 """
 
 from __future__ import annotations
@@ -58,3 +60,15 @@ def einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
                    b.reshape(k, -1).contiguous(),
                    out_dtype=policy.accum_dtype)
     return c.reshape(*lead, *trail)
+
+
+def div_count(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x / n`` for a count ``n`` fixed when the program is built, rounded
+    as XLA compiles the reference's division by a trace-time constant: a
+    multiply by fl32(1/n), in fp32 for a 16-bit ``x`` (widened, multiplied,
+    rounded once to ``x``'s dtype).  A division by a tensor is a true
+    division, which rounds otherwise when ``n`` is not a power of two."""
+    inv = float(torch.tensor(1.0) / torch.tensor(float(n)))   # fl32(1/n)
+    if x.dtype in (torch.float32, torch.float64):
+        return x * inv
+    return (x.float() * inv).to(x.dtype)

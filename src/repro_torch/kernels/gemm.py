@@ -1,30 +1,45 @@
-"""Mixed-precision GEMM on the card: C = A @ B, bf16 operands, fp32
-accumulator, one downcast (CUDA source: ``csrc/gemm.cu``).
+"""Mixed-precision GEMM on the card: C = A @ B, fp32 accumulator, one
+downcast (CUDA source: ``csrc/gemm.cu``).
 
 Replaces the TPU kernel ``repro/kernels/gemm.py::matmul``
 (``_matmul_kernel``), dMath's core kernel.  On the serve path every
 projection, MLP and unembed product runs here, at M = batch slots
-(decode) or M = one prefill chunk.  At those M each product does a few
+(decode) or M = one prefill chunk; in training, every forward product
+and both backward products.  At decode each product does a few
 operations per weight byte, far below the H100's ~295 bf16 FLOP/byte
-ridge, so it is bound by the bytes of B over 3.35 TB/s (the unembed's
-272 MB: ~81 us).  The design keeps B's bytes to one pass: each block owns
-a 64x64 output tile, reads its B column panel once in 32-deep k-steps with
-16-byte loads, and runs bf16 WMMA (tensor cores) into an fp32
-accumulator, so the FLOPs never bound it.  The TPU kernel needs shapes
-that tile exactly; this one masks ragged M, N and K edges itself.
+ridge, so B's bytes over 3.35 TB/s bound it (the unembed's 272 MB:
+~81 us); at train shapes (M = 1,024) the large products are bound by the
+tensor cores.  The kernel (see the source's header) runs Cᵀ = Bᵀ·Aᵀ on
+Hopper's wgmma with the weights on the 64-row side and the tokens on the
+narrow side, fed by TMA through a ring of shared-memory stages, and sums
+K in fixed groups of :data:`KG` added in order, so two runs give the same
+bits and row i of C depends on A[i], B, K and N only.
+
+:func:`plan` is the whole policy, a plain function of the shapes, the
+dtype and the layout: ``skinny`` (M <= 64: one consumer warpgroup, the
+token tile rounded up to 8, 16, 32 or 64), ``wide`` (two consumer
+warpgroups, 128 columns by 128 or 64 tokens; also every call whose A is
+stored transposed) or ``fp32`` (CUDA-core FMAs, 64 x 64 tiles), the K
+group depth (a function of K), and a split of K over blocks, one group
+each, when the tiles alone leave the card's 132 SMs short.  A split
+writes each group's sum to fp32 scratch (allocated here with
+``torch.empty``) and a second launch adds them in group order: the same
+adds the unsplit kernel does in registers.  :func:`uses_tma` picks the
+TMA producer when the stored rows are whole 16-byte multiples, else the
+kernel's element-load producer (the same consumer, the same bits).
 
 Training differentiates through :func:`matmul` (a
 ``torch.autograd.Function``): the backward runs dA = dC·Bᵀ and dB = Aᵀ·dC
-on the same kernel.  The kernel reads row-major operands only, so Bᵀ and
-Aᵀ are first made contiguous: one extra read and write of each operand
-per backward product (2·K·N·2 bytes for Bᵀ, 2·M·K·2 for Aᵀ in bf16;
-for the train step at qwen2-0.5b about 3 GB per rank, ~0.9 ms at
-3.35 TB/s), where transposed-operand loads would need strided tiles in
-the kernel.  The cotangent dC arrives in fp32 (the forward's accumulator
-type) and is rounded once to the operands' type, bf16, because the
-kernel takes bf16 operands; JAX's transpose multiplies the fp32
-cotangent and rounds the product instead.  The plain version rounds
-dC the same way, so a CPU test sees exactly the card's deviation.
+on the same kernel with Bᵀ and Aᵀ passed as transposed views (the kernel
+reads either layout), so no transposed copy is made.  The cotangent dC
+arrives in fp32 (the forward's accumulator type) and is rounded once to
+the operands' type, because the kernel takes operands of one type; JAX's
+transpose multiplies the fp32 cotangent and rounds the product instead.
+The plain version rounds dC the same way, so a CPU test sees exactly the
+card's deviation.
+
+fp32 operands (and a bf16 operand beside an fp32 one, promoted as
+``torch.promote_types`` does) take the fp32 kernel.
 
 :func:`matmul_dequant` (CUDA source: ``csrc/gemm_dequant.cu``) replaces
 the TPU kernel ``repro/kernels/gemm.py::matmul_dequant``: C = (A @ B_q) ·
@@ -38,23 +53,111 @@ it is bound by the int8 bytes of B, half the bf16 GEMM's.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from . import _build, ref
 
-launches = 0     # matmul launches since the last reset (ops.reset_launches)
+launches = 0     # matmul products since the last reset (ops.reset_launches)
 dequant_launches = 0     # matmul_dequant launches
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+KG = 256          # the K group depth's unit: summed from zero, added in order
+MAX_GROUPS = 32   # deeper K takes deeper groups (a multiple of KG)
+SMS = 132         # the H100's streaming multiprocessors
+SKINNY_TILES = (8, 16, 32, 64)
+_KINDS = (torch.bfloat16, torch.float32)
+_entry = None     # the C entry, looked up on first launch
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p]
 
 _DEQUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one product runs: ``regime`` (skinny: one consumer warpgroup,
+    a tile of 64 weight columns; wide: two, 128 columns; fp32: CUDA-core
+    FMAs, 64 x 64), the tile (``tile_m`` tokens x ``tile_n`` columns),
+    the K group depth ``kg`` and the count of ``groups``, and ``split``:
+    1, or one block per group (each group's sum goes to scratch and a
+    second pass adds them in order)."""
+
+    regime: str
+    tile_m: int
+    tile_n: int
+    kg: int
+    groups: int
+    split: int
+
+
+def group_depth(K: int) -> int:
+    """The K group depth: KG, or the least multiple of KG that cuts K into
+    at most MAX_GROUPS groups.  A function of K alone."""
+    units = -(-K // KG)
+    return KG * -(-units // MAX_GROUPS)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, *, f32: bool = False,
+         a_transposed: bool = False) -> Plan:
+    """The kernel's plan for an (M, K) @ (K, N) product: a plain function
+    of the shapes, the operand dtype and A's layout.  The K groups depend
+    on K alone and every tile and split adds the same group sums in the
+    same order, so the plan never changes the bits.
+
+    - fp32: 64 x 64 tiles.
+    - skinny (M <= 64, A row-major): 64 columns by M rounded up to 8, 16,
+      32 or 64 tokens.
+    - wide (otherwise): 128 columns by 128 tokens where that gives the
+      card's SMs a tile each, else by 64.
+    A split (one block per group) is taken when the tiles leave SMs idle:
+    fewer tiles than SMs for the skinny and fp32 kernels, fewer than half
+    for the wide one (whose blocks are heavy, and whose scratch would be
+    large)."""
+    kg = group_depth(K)
+    groups = -(-K // kg)
+    tiles_of = lambda tm, tn: -(-M // tm) * -(-N // tn)  # noqa: E731
+    if f32:
+        regime, tm, tn, idle = "fp32", 64, 64, SMS
+    elif M <= SKINNY_TILES[-1] and not a_transposed:
+        regime, tn, idle = "skinny", 64, SMS
+        tm = next(t for t in SKINNY_TILES if t >= M)
+    else:
+        regime, tn, idle = "wide", 128, SMS // 2
+        tm = 128 if tiles_of(128, 128) >= SMS else 64
+    tiles = tiles_of(tm, tn)
+    split = groups if tiles < idle and groups > 1 else 1
+    return Plan(regime, tm, tn, kg, groups, split)
+
+
+def uses_tma(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when both operands' stored rows are whole 16-byte multiples
+    and their bases 16-byte aligned (TMA's rule); else the kernel's
+    element-load producer runs."""
+    return ((a.data_ptr() | b.data_ptr()) % 16 == 0
+            and a.element_size() * max(a.stride()) % 16 == 0
+            and b.element_size() * max(b.stride()) % 16 == 0)
+
+
+def _layout(t: torch.Tensor, what: str) -> int:
+    """0: row-major contiguous; 1: the transpose of a contiguous array."""
+    if t.is_contiguous():
+        return 0
+    if t.t().is_contiguous():
+        return 1
+    raise ValueError(f"matmul kernel takes {what} row-major or as the "
+                     "transpose of a contiguous array, got strides "
+                     f"{t.stride()}")
 
 
 class _MatMul(torch.autograd.Function):
@@ -71,9 +174,9 @@ class _MatMul(torch.autograd.Function):
         g = dc.to(torch.promote_types(a.dtype, b.dtype)).contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _product(g, b.t().contiguous(), a.dtype)
+            da = _product(g, b.t(), a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _product(a.t().contiguous(), g, b.dtype)
+            db = _product(a.t(), g, b.dtype)
         return da, db, None
 
 
@@ -82,9 +185,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     """(M, K) @ (K, N) -> (M, N) in ``out_dtype`` (default ``a.dtype``).
 
     CPU tensors take the plain version (:func:`ref.matmul`); CUDA tensors
-    launch the kernel, which takes contiguous bf16 operands and writes
-    fp32 or bf16, and raise on anything else.  Differentiable: with
-    autograd recording, the backward products run the same way."""
+    launch the kernel, which takes bf16 or fp32 operands (a bf16 one
+    beside an fp32 one is widened first), each row-major or the transpose
+    of a contiguous array, and writes fp32 or bf16; it raises on anything
+    else.  Differentiable: with autograd recording, the backward products
+    run the same way."""
     out_dtype = out_dtype or a.dtype
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _MatMul.apply(a, b, out_dtype)
@@ -93,22 +198,30 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
 
 def _product(a: torch.Tensor, b: torch.Tensor,
              out_dtype: torch.dtype) -> torch.Tensor:
-    global launches
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return ref.matmul(a, b, out_dtype)
-    if a.device.type != "cuda" or b.device != a.device:
+    # The decode step is host-bound, so this path is kept lean: cheap
+    # tensor attributes (``is_cuda``, ``get_device``), the cached plan and
+    # C entry, and the raw stream handle (``torch.cuda.current_stream``
+    # builds a Stream object per call).
+    global launches, _entry
+    if not (a.is_cuda and b.is_cuda):
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return ref.matmul(a, b, out_dtype)
         raise ValueError(f"matmul: operands on {a.device} and {b.device}; "
                          "the kernel needs both on one CUDA device")
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"matmul kernel takes bf16 operands, got "
+    if a.get_device() != b.get_device():
+        raise ValueError(f"matmul: operands on {a.device} and {b.device}; "
+                         "the kernel needs both on one CUDA device")
+    if a.dtype not in _KINDS or b.dtype not in _KINDS:
+        raise TypeError(f"matmul kernel takes bf16 or fp32 operands, got "
                         f"{a.dtype} @ {b.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
+    if out_dtype not in _KINDS:
         raise TypeError(f"matmul kernel writes fp32 or bf16, not {out_dtype}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} do not chain")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul kernel takes contiguous row-major operands")
+    if a.dtype != b.dtype:                 # mixed: widen the bf16 operand
+        a, b = a.float(), b.float()
+    a_t, b_t = _layout(a, "A"), _layout(b, "B")
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
@@ -116,11 +229,20 @@ def _product(a: torch.Tensor, b: torch.Tensor,
         return out
     if K == 0:
         return out.zero_()
-    fn = _build.function("dmath_gemm_bf16", _ARGTYPES)
-    rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-            int(out_dtype == torch.float32),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "matmul")
+    f32 = a.dtype == torch.float32
+    pl = plan(M, K, N, f32=f32, a_transposed=bool(a_t))
+    scratch = (torch.empty((pl.groups, M, N), dtype=torch.float32,
+                           device=a.device).data_ptr()
+               if pl.split > 1 else None)
+    if _entry is None:
+        _entry = _build.function("dmath_gemm", _ARGTYPES)
+    rc = _entry(a.data_ptr(), a_t, b.data_ptr(), b_t, out.data_ptr(),
+                int(out_dtype == torch.float32), scratch, M, N, K, int(f32),
+                pl.kg, pl.tile_m, 1 if pl.tile_n == 64 else 2, pl.split,
+                int(uses_tma(a, b)),
+                torch._C._cuda_getCurrentRawStream(a.get_device()))
+    if rc:
+        _build.check(rc, "matmul")
     launches += 1
     return out
 

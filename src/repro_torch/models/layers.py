@@ -26,10 +26,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     return (xf * w.float()).to(x.dtype)
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.silu is x * sigmoid(x); ``F.silu`` divides by 1 + exp(-x)
+    # instead and rounds an fp32 result otherwise in ~1/4 of values
+    return x * torch.sigmoid(x)
+
+
 def act_fn(name: str):
     # jax.nn.gelu defaults to the tanh approximation
     return (functools.partial(F.gelu, approximate="tanh") if name == "gelu"
-            else F.silu)
+            else _silu)
 
 
 def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -48,11 +54,21 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 
 def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
-            policy: precision.Policy = precision.MIXED) -> torch.Tensor:
-    """Gated MLP: act(x @ w_gate) * (x @ w_in) @ w_out."""
+            policy: precision.Policy = precision.MIXED,
+            wide: bool = False) -> torch.Tensor:
+    """Gated MLP: act(x @ w_gate) * (x @ w_in) @ w_out.
+
+    By default ``act(g)`` and ``h`` are each rounded to ``x``'s dtype and
+    multiplied there, as the reference's ``glu_mlp`` (its paged and decode
+    steps).  ``wide`` multiplies them in fp32 and rounds the product once,
+    as the reference's ``glu_mlp_shardmap`` (its full-sequence forward on
+    one device, where the default plan sets ``seq_parallel_residual``)."""
     g = precision.einsum("bsd,df->bsf", x, w_gate, policy=policy)
     h = precision.einsum("bsd,df->bsf", x, w_in, policy=policy)
-    h = act_fn(act)(g.float()).to(x.dtype) * h.to(x.dtype)
+    if wide:
+        h = (act_fn(act)(g.float()) * h.float()).to(x.dtype)
+    else:
+        h = act_fn(act)(g.float()).to(x.dtype) * h.to(x.dtype)
     out = precision.einsum("bsf,fd->bsd", h, w_out, policy=policy)
     return out.to(x.dtype)
 

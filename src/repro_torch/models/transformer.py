@@ -143,12 +143,16 @@ class Model(nn.Module):
         x = x + attention.forward(h, lp["attn"], cfg, policy=self.policy,
                                   window=window)
         h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + self._mlp(h, lp)
+        return x + self._mlp(h, lp, wide=True)
 
-    def _mlp(self, h, lp):
+    def _mlp(self, h, lp, wide: bool = False):
+        """The gated MLP.  The full-sequence forward (``_dense_block``)
+        takes the ``wide`` form, as the reference's default one-device plan
+        runs ``glu_mlp_shardmap`` there; the paged steps take ``glu_mlp``'s
+        rounding, as the reference's do."""
         return layers.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["in"],
                               lp["mlp"]["out"], act=self.cfg.act,
-                              policy=self.policy)
+                              policy=self.policy, wide=wide)
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         x = layers.rms_norm(x, params["final_norm"], self.cfg.norm_eps)

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comms import schedules
+from repro_torch.core import precision
 from repro_torch.kernels import ops
 
 Tensors = Dict[str, torch.Tensor]
@@ -36,9 +37,11 @@ COMPRESSION_RATIO = {"none": 1.0, "onebit": 1.0 / 32.0, "int8": 1.0 / 4.0}
 
 def quantize_onebit(g: torch.Tensor, err: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """sign(g+err) * mean|g+err|; returns (q, new_err)."""
+    """sign(g+err) * mean|g+err|; returns (q, new_err).  The mean is the
+    sum times fl32(1/numel), as XLA compiles the reference's ``jnp.mean``
+    (a division by a count)."""
     v = g.float() + err
-    scale = torch.mean(torch.abs(v))
+    scale = precision.div_count(torch.sum(torch.abs(v)), v.numel())
     q = torch.sign(v) * scale
     return q, v - q
 
@@ -63,28 +66,20 @@ _QUANTIZERS: Dict[str, Callable] = {
 }
 
 
-def _pmean(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """The reference's ``pmean``: the group sum (in place), then a tensor
-    divide by the group size."""
-    x = schedules.all_reduce(x, group)
-    return x / torch.full((), n, dtype=x.dtype, device=x.device)
-
-
 def compressed_psum(grads: Tensors, errs: Tensors,
                     group: Optional[dist.ProcessGroup] = None,
                     scheme: str = "onebit") -> Tuple[Tensors, Tensors]:
     """Quantize with error feedback locally, then the group mean, leaf by
     leaf.  Returns (reduced grads, new errs); ``scheme='none'`` is the
-    exact baseline (the gradients reduced in place, in their dtype, the
-    error state returned as it is)."""
-    n = dist.get_world_size(group)
+    exact baseline (the gradients' mean in their dtype, the error state
+    returned as it is)."""
     if scheme == "none":
-        return {k: _pmean(g, group, n) for k, g in grads.items()}, errs
+        return {k: schedules.pmean(g, group) for k, g in grads.items()}, errs
     quant = _QUANTIZERS[scheme]
     reduced, new_errs = {}, {}
     for name, g in grads.items():
         q, new_errs[name] = quant(g, errs[name])
-        reduced[name] = _pmean(q, group, n)
+        reduced[name] = schedules.pmean(q, group)
     return reduced, new_errs
 
 

@@ -14,6 +14,7 @@ reference's pipeline path waits for ROADMAP queue 1, item 10.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -21,6 +22,7 @@ import torch.distributed as dist
 
 from repro_torch.comms import plan as comms_plan_mod
 from repro_torch.comms import schedules
+from repro_torch.core import precision
 from repro_torch.train import optimizer as opt
 
 Tensors = Dict[str, torch.Tensor]
@@ -38,7 +40,9 @@ def local_grads(model, params: Tensors, batch: Tensors,
 
     One microbatch gives the gradients in the params' dtypes; more are
     accumulated in fp32 buffers and divided by their count, as the
-    reference's scan does, and the metrics are their means."""
+    reference's scan does, and the metrics are their means (each sum in
+    microbatch order, then the count's fl32 reciprocal, as XLA compiles
+    the reference's ``g / num_microbatches`` and ``jnp.mean``)."""
     names = list(params)
     leaves = [params[n] for n in names]
     if num_microbatches == 1:
@@ -53,10 +57,11 @@ def local_grads(model, params: Tensors, batch: Tensors,
         for n, g in zip(names, torch.autograd.grad(loss, leaves)):
             acc[n] += g.float()
         ms.append({k: v.detach() for k, v in metrics.items()})
-    count = torch.full((), float(num_microbatches), device=leaves[0].device)
-    grads = {n: a / count for n, a in acc.items()}
-    return grads, {k: torch.mean(torch.stack([m[k].float() for m in ms]))
-                   for k in ms[0]}
+    grads = {n: precision.div_count(a, num_microbatches)
+             for n, a in acc.items()}
+    return grads, {k: precision.div_count(
+        functools.reduce(torch.add, [m[k].float() for m in ms]),
+        num_microbatches) for k in ms[0]}
 
 
 def _apply(adamw, state, grads, metrics):
@@ -104,7 +109,7 @@ def comms_train_step(model, adamw: Optional[opt.AdamWConfig] = None,
         grads = comms_plan_mod.sync_tree(grads, comms, group)
         keys = sorted(metrics)
         vec = torch.stack([metrics[k].float() for k in keys])
-        vec = schedules.all_reduce(vec, group) / torch.full_like(vec, n)
+        vec = schedules.pmean(vec, group)
         return _apply(adamw, state, grads, dict(zip(keys, vec.unbind())))
 
     return train_step

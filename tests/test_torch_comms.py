@@ -227,9 +227,10 @@ _JAX_SIDE = textwrap.dedent("""
                            else a)
     def bits(a):
         return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
-    stacked = nested({n: jnp.stack([load(data[f"{r}/{n}"]) for r in (0, 1)])
+    ranks = range(int(sys.argv[4]))
+    stacked = nested({n: jnp.stack([load(data[f"{r}/{n}"]) for r in ranks])
                       for n in names})
-    mesh = jax.make_mesh((2,), ("data",))
+    mesh = jax.make_mesh((len(ranks),), ("data",))
     out = {}
     for i, (sched, wire, bb, fused) in enumerate(wires):
         plan = CommsPlan(schedule=sched, wire_dtype=wire, bucket_bytes=bb,
@@ -244,7 +245,7 @@ _JAX_SIDE = textwrap.dedent("""
         flat = jax.tree_util.tree_flatten_with_path(res)[0]
         for path, leaf in flat:
             name = ".".join(k.key for k in path)
-            for r in (0, 1):
+            for r in ranks:
                 out[f"{i}/{r}/{name}"] = bits(np.asarray(leaf)[r])
     np.savez(dst, **out)
 """)
@@ -257,8 +258,8 @@ _TORCH_RANK = textwrap.dedent("""
     from repro_torch.core.distributed import close_group, init_group
     rank, init, src, dst = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
         sys.argv[4]
-    wires = eval(sys.argv[5])
-    init_group(init, rank=rank, world_size=2, device="cpu")
+    wires, world = eval(sys.argv[5]), int(sys.argv[6])
+    init_group(init, rank=rank, world_size=world, device="cpu")
     data = np.load(src)
     def load(a):          # bf16 travels as uint16 bits, fp32 as it is
         t = torch.from_numpy(a.copy())
@@ -309,32 +310,35 @@ def _bits_np(t: torch.Tensor) -> np.ndarray:
 
 
 def _sync_both_sides(tmp_path, trees, wires):
-    """``sync_tree`` of the two ranks' ``trees`` for each of ``wires``: the
-    port's on 2 gloo ranks and the reference's on 2 fake devices, as
-    ``(got, want)`` dicts of bit patterns keyed ``wire/rank/leaf``; the
-    two ports' replicas are checked equal."""
+    """``sync_tree`` of the ranks' ``trees`` (one per rank) for each of
+    ``wires``: the port's on ``len(trees)`` gloo ranks and the reference's
+    on as many fake devices, as ``(got, want)`` dicts of bit patterns
+    keyed ``wire/rank/leaf``; the port's replicas are checked equal."""
+    n = len(trees)
     src = tmp_path / "grads.npz"
     np.savez(src, **{f"{r}/{k}": _bits_np(v) if v.dtype == torch.bfloat16
-                     else v.numpy() for r in (0, 1)
+                     else v.numpy() for r in range(n)
                      for k, v in trees[r].items()})
     jax_out = tmp_path / "jax.npz"
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_SIDE, str(src), str(jax_out),
-         repr(wires)],
-        env=_env(XLA_FLAGS="--xla_force_host_platform_device_count=2"),
+         repr(wires), str(n)],
+        env=_env(XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"),
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     run_ranks(_TORCH_RANK, tmp_path,
-              lambda r: [str(src), str(tmp_path / f"t{r}.npz"), repr(wires)])
+              lambda r: [str(src), str(tmp_path / f"t{r}.npz"), repr(wires),
+                         str(n)], n=n)
     want = dict(np.load(jax_out))
     got = {}
-    for r in (0, 1):
+    for r in range(n):
         got.update(np.load(tmp_path / f"t{r}.npz"))
     assert set(got) == set(want)
     for i in range(len(wires)):
         for name in trees[0]:
-            np.testing.assert_array_equal(got[f"{i}/0/{name}"],
-                                          got[f"{i}/1/{name}"])  # replicas
+            for r in range(1, n):
+                np.testing.assert_array_equal(got[f"{i}/0/{name}"],
+                                              got[f"{i}/{r}/{name}"])
     return got, want
 
 
@@ -348,6 +352,22 @@ def test_sync_tree_on_two_gloo_ranks_is_bitwise_the_reference(tmp_path):
                                           err_msg=f"{wire} {name}")
     # the wire moved something: the int8 result is not the fp32 one
     assert any((got[f"2/0/{n}"] != got[f"0/0/{n}"]).any() for n in trees[0])
+
+
+def test_sync_tree_on_three_gloo_ranks_is_bitwise_the_reference(tmp_path):
+    """Three ranks, where the mean's 1/3 is inexact: the reference's
+    ``b / n`` compiles to a multiply by fl32(1/3), and its all-reduce adds
+    the ranks in order (a bf16 bucket in fp32), so each wire's mean must
+    round as those do, on every rank."""
+    # bf16 leaves, and fp32 ones, which keep the mean's own rounding
+    for seed, dtype in ((20, torch.bfloat16), (30, torch.float32)):
+        trees = [_grad_tree(seed + r, dtype=dtype) for r in range(3)]
+        work = tmp_path / str(dtype).split(".")[1]    # a fresh rendezvous
+        work.mkdir()
+        got, want = _sync_both_sides(work, trees, WIRES)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key],
+                                          err_msg=f"{dtype} {key}")
 
 
 def _ieee_scale(absmax: torch.Tensor) -> torch.Tensor:
@@ -404,6 +424,33 @@ def test_sync_tree_int8_with_a_disagreeing_scale_is_bitwise_the_reference(
             for t in trees)
     ieee = (q * scale).numpy().view(np.uint32)
     assert (ieee != got["0/0/w"]).mean() > 0.5
+
+
+_SUM_RANK = textwrap.dedent("""
+    import sys
+    import torch
+    import torch.distributed as dist
+    from repro_torch.comms import schedules
+    from repro_torch.core.distributed import close_group, init_group
+    rank, init = int(sys.argv[1]), sys.argv[2]
+    init_group(init, rank=rank, world_size=2, device="cpu")
+    g = torch.Generator().manual_seed(rank)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(4099, generator=g) * 1e3).to(dtype)
+        ring = x.clone()
+        dist.all_reduce(ring)
+        ordered, got = schedules.ordered_sum(x), schedules.all_reduce(x)
+        assert torch.equal(ordered, ring), dtype
+        assert torch.equal(got, ring) and got.data_ptr() != x.data_ptr()
+    close_group()
+""")
+
+
+def test_two_rank_backend_sum_is_bitwise_the_ordered_sum(tmp_path):
+    """At two ranks ``schedules.all_reduce`` keeps the backend's sum: two
+    addends commute, so it gives the rank-ordered sum's bits (a bf16 sum
+    too: one fp32 add rounded once), and returns a new tensor."""
+    run_ranks(_SUM_RANK, tmp_path, lambda r: [])
 
 
 def test_comms_plan_resolution():

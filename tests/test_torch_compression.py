@@ -455,6 +455,129 @@ def test_compressed_psum_on_two_ranks_matches_the_reference(two_ranks,
                                                                    "/1/")])
 
 
+# ---------------------------------------------------------------------------
+# three ranks against three fake devices: compressed_psum alone
+# ---------------------------------------------------------------------------
+
+_JAX_PSUM = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import repro  # noqa: F401
+    import jax, jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+    from repro.train import compression as C
+    src, dst, n = sys.argv[1], sys.argv[2], int(sys.argv[3])
+    d = np.load(src)
+    mesh = jax.make_mesh((n,), ("data",))
+    out = {}
+    for case in ("rand", "grid"):
+        g = {"w": jnp.asarray(d[f"{case}/g/w"].view(jnp.bfloat16)),
+             "b": jnp.asarray(d[f"{case}/g/b"])}
+        e = {k: jnp.asarray(d[f"{case}/e/{k}"]) for k in g}
+        for scheme in ("none", "onebit", "int8"):
+            def body(g, e):
+                g, e = jax.tree.map(lambda a: a[0], (g, e))
+                r, ne = C.compressed_psum(g, e, "data", scheme)
+                return jax.tree.map(lambda a: a[None], (r, ne))
+            r, ne = jax.jit(jax.shard_map(
+                body, mesh=mesh, in_specs=(P("data"), P("data")),
+                out_specs=P("data"), check_vma=False))(g, e)
+            for rank in range(n):
+                for k in ("w", "b"):
+                    out[f"{case}/{scheme}/{rank}/r/{k}"] = \\
+                        np.asarray(r[k].astype(jnp.float32))[rank]
+                    out[f"{case}/{scheme}/{rank}/e/{k}"] = \\
+                        np.asarray(ne[k])[rank]
+    np.savez(dst, **out)
+""")
+
+_TORCH_PSUM = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import close_group, init_group
+    from repro_torch.train import compression as C
+    rank, init, src, dst, n = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
+        sys.argv[4], int(sys.argv[5])
+    init_group(init, rank=rank, world_size=n, device="cpu")
+    d = np.load(src)
+    out = {}
+    for case in ("rand", "grid"):
+        for scheme in ("none", "onebit", "int8"):
+            g = {"w": torch.from_numpy(d[f"{case}/g/w"][rank].copy()).view(
+                     torch.bfloat16),
+                 "b": torch.from_numpy(d[f"{case}/g/b"][rank].copy())}
+            e = {k: torch.from_numpy(d[f"{case}/e/{k}"][rank].copy())
+                 for k in g}
+            r, ne = C.compressed_psum(g, e, None, scheme)
+            for k in ("w", "b"):
+                out[f"{case}/{scheme}/{rank}/r/{k}"] = r[k].float().numpy()
+                out[f"{case}/{scheme}/{rank}/e/{k}"] = ne[k].numpy()
+    np.savez(dst, **out)
+    close_group()
+""")
+
+
+@pytest.fixture(scope="module")
+def three_ranks(J, tmp_path_factory):
+    """``compressed_psum`` of a bf16 and an fp32 leaf with a nonzero error
+    state: the reference on 3 fake devices and the port on 3 gloo ranks,
+    started together.  Two input sets: ``rand`` (normal values) and
+    ``grid`` (multiples of 2^-8 below 1, whose sums of |v| are exact in
+    any order, so onebit's mean |v| is the same number on both sides)."""
+    n, tmp = 3, tmp_path_factory.mktemp("dp3")
+    rng = np.random.default_rng(13)
+    bf16 = lambda a: np.asarray(J.jnp.asarray(a).astype(  # noqa: E731
+        J.jnp.bfloat16)).view(np.uint16)
+    grid = lambda shape, top: (rng.integers(  # noqa: E731
+        -top, top + 1, (n,) + shape) / 256.0).astype(np.float32)
+    inputs = {
+        "rand/g/w": bf16(rng.standard_normal((n, 33, 70)) * 1e-2),
+        "rand/g/b": (rng.standard_normal((n, 257)) * 1e-2).astype(
+            np.float32),
+        "rand/e/w": (rng.standard_normal((n, 33, 70)) * 1e-4).astype(
+            np.float32),
+        "rand/e/b": (rng.standard_normal((n, 257)) * 1e-4).astype(
+            np.float32),
+        "grid/g/w": bf16(grid((33, 70), 200)), "grid/g/b": grid((257,), 200),
+        "grid/e/w": grid((33, 70), 8), "grid/e/b": grid((257,), 8)}
+    src = tmp / "in.npz"
+    np.savez(src, **inputs)
+    jax_out, init = tmp / "jax.npz", f"file://{tmp / 'rendezvous'}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _JAX_PSUM, str(src), str(jax_out), str(n)],
+        env=_env(XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    procs += [subprocess.Popen(
+        [sys.executable, "-c", _TORCH_PSUM, str(r), init, str(src),
+         str(tmp / f"t{r}.npz"), str(n)],
+        env=_env(OMP_NUM_THREADS="2"), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    for p in procs:
+        out = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, out[-4000:]
+    got = {}
+    for r in range(n):
+        got.update(np.load(tmp / f"t{r}.npz"))
+    return SimpleNamespace(n=n, got=got, want=dict(np.load(jax_out)))
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_compressed_psum_on_three_ranks_is_bitwise_the_reference(
+        three_ranks, scheme):
+    """At 3 ranks the mean's 1/3 is inexact and the sum's order shows: the
+    reduced values and new errors bitwise on every rank (onebit on the
+    ``grid`` inputs, whose mean |v| has one value in any order)."""
+    cases = ("grid",) if scheme == "onebit" else ("rand", "grid")
+    for case in cases:
+        for r in range(three_ranks.n):
+            for part in ("r/w", "r/b", "e/w", "e/b"):
+                key = f"{case}/{scheme}/{r}/{part}"
+                np.testing.assert_array_equal(
+                    three_ranks.got[key].view(np.uint32),
+                    three_ranks.want[key].view(np.uint32), key)
+
+
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_dp_sgd_regression_matches_the_reference(two_ranks, scheme):
     """The reference example's regression, 20 steps from zero weights on

@@ -103,6 +103,53 @@ def test_matmul_plain_matches_reference_on_ragged_shapes(J, m, k, n, dtype):
         _close(got, J.ref.matmul(ja, jb, out_dtype=J.dt[out]), dtype)
 
 
+@pytest.mark.parametrize("f32,a_t", [(False, False), (False, True),
+                                       (True, False)])
+def test_gemm_plan_groups_follow_k_and_splits_hold_whole_groups(f32, a_t):
+    """The kernel's plan: the K groups depend on K alone (so no M, tile or
+    split changes the order of the adds), at most 32 of them, each a
+    multiple of 256 deep; a split gives every block exactly one group;
+    the regime follows M and the layout."""
+    from repro_torch.kernels import gemm
+    ms = (1, 8, 44, 64, 65, 128, 300, 1024)
+    ns = (7, 48, 128, 896, 4864, 151_936)
+    for k in (1, 13, 255, 256, 257, 896, 1536, 3072, 4864, 8192, 8193,
+              151_936):
+        pls = [gemm.plan(m, k, n, f32=f32, a_transposed=a_t)
+               for m in ms for n in ns]
+        assert {(pl.kg, pl.groups) for pl in pls} == {
+            (gemm.group_depth(k), -(-k // gemm.group_depth(k)))}
+        pl = pls[0]
+        assert pl.kg % 256 == 0 and 1 <= pl.groups <= 32
+        assert (pl.groups - 1) * pl.kg < k <= pl.groups * pl.kg
+        assert pl.kg == 256 or -(-k // (pl.kg - 256)) > 32
+        for m, pl in zip([m for m in ms for _ in ns], pls):
+            assert pl.split in (1, pl.groups)
+            want = ("fp32" if f32 else "wide" if m > 64 or a_t
+                    else "skinny")
+            assert pl.regime == want
+            assert pl.tile_m in {"fp32": (64,), "wide": (64, 128),
+                                 "skinny": (8, 16, 32, 64)}[pl.regime]
+            assert pl.regime != "skinny" or pl.tile_m >= m
+    # qwen2-0.5b's decode products fill the card by splitting K
+    out = gemm.plan(8, 4864, 896)
+    assert (out.regime, out.tile_m, out.split) == ("skinny", 8, 19)
+    assert gemm.plan(8, 896, 151_936).split == 1
+
+
+def test_gemm_wrapper_reads_layouts_and_tma_alignment():
+    from repro_torch.kernels import gemm
+    x = torch.zeros(6, 16, dtype=torch.bfloat16)
+    assert gemm._layout(x, "A") == 0 and gemm._layout(x.t(), "A") == 1
+    with pytest.raises(ValueError):
+        gemm._layout(x[:, ::2], "A")
+    assert gemm.uses_tma(x, x.t())          # stored rows of 32 bytes
+    y = torch.zeros(6, 13, dtype=torch.bfloat16)    # 26 bytes a row
+    assert not gemm.uses_tma(y, x)
+    assert not gemm.uses_tma(x, y.t())
+    assert gemm.uses_tma(y.float()[:, :12].contiguous(), x)
+
+
 # ---------------------------------------------------------------------------
 # Flash attention
 # ---------------------------------------------------------------------------
@@ -197,15 +244,108 @@ def _bf16(seed, shape, dev, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).to(torch.bfloat16).to(dev)
 
 
+# qwen2-0.5b's products at decode (M = 8), prefill (M = 128) and train
+# (M = 1,024), mamba2-780m's wdt (N = 48) and w_out (K = 3,072) at decode
+# and a ragged prefill (M = 300), and ragged shapes (the element-load
+# producer: a stored row not a multiple of 8 elements)
+GEMM_SHAPES = [(8, 896, 4864), (8, 896, 128), (8, 4864, 896),
+               (128, 4864, 896), (128, 896, 896), (1024, 896, 4864),
+               (1024, 4864, 896), (8, 1536, 48), (300, 1536, 48),
+               (8, 3072, 1536), (300, 3072, 1536), (5, 13, 7), (70, 130, 66)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(8, 896, 4864), (128, 4864, 896),
-                                   (5, 13, 7), (70, 130, 66)])
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
 def test_gemm_kernel_matches_plain(cuda, m, k, n):
+    """bf16 operands at the repo's bf16 tolerance; fp32 operands at the
+    reference kernel test's fp32 tolerance (rtol 1e-5, atol 1e-2:
+    ``tests/test_kernels.py``) on unit-variance operands that are not
+    bf16 values, as that test draws them.  The kernel's CUDA-core FMAs
+    keep it; ``torch.matmul`` with TF32 allowed, a control, must not
+    where K is a model's (its error grows as ~4e-4 sqrt(K)) and M and N
+    are wide enough that cuBLAS takes its tensor cores."""
     a, b = _bf16(0, (m, k), cuda), _bf16(1, (k, n), cuda, 0.05)
     for out in (torch.float32, torch.bfloat16):
         got = ops.matmul(a, b, out_dtype=out)
+        assert got.dtype == out and got.shape == (m, n)
         torch.testing.assert_close(got.float(), ref.matmul(a, b, out).float(),
                                    rtol=3e-2, atol=2e-2)
+    g = torch.Generator().manual_seed(2)
+    a32 = torch.randn((m, k), generator=g).to(cuda)
+    b32 = torch.randn((k, n), generator=g).to(cuda)
+    want = ref.matmul(a32, b32)
+    got = ops.matmul(a32, b32)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-2)
+    if k >= 896 and m >= 128 and n >= 128:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = torch.matmul(a32, b32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(control, want, rtol=1e-5, atol=1e-2)
+    mixed = ops.matmul(a, b32, torch.float32)    # promoted: fp32 @ fp32
+    torch.testing.assert_close(mixed, ref.matmul(a.float(), b32),
+                               rtol=1e-5, atol=1e-2)
+
+
+# (K, N) of qwen2-0.5b's and mamba2-780m's products and the ragged cases
+INVARIANT_KN = [(896, 896), (896, 128), (896, 4864), (4864, 896),
+                (1536, 48), (3072, 1536), (13, 7), (130, 66)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("k,n", INVARIANT_KN)
+def test_gemm_rows_are_invariant_bitwise(cuda, k, n, dtype):
+    """Row i of C depends on A[i], B, K and N only: rows taken from a
+    1,024-row product equal the product of those rows alone, for every M
+    the regimes and splits cut differently."""
+    dt = TDT[dtype]
+    a = _bf16(30, (1024, k), cuda).to(dt)
+    b = _bf16(31, (k, n), cuda, 0.05).to(dt)
+    full = ops.matmul(a, b, torch.float32)
+    for m in (1, 8, 44, 64, 65, 128, 300, 1024):
+        rows = torch.randperm(1024, generator=torch.Generator().manual_seed(m)
+                              )[:m].to(cuda)
+        part = ops.matmul(a[rows].contiguous(), b, torch.float32)
+        assert torch.equal(part, full[rows]), (m, k, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 4864, 896), (1024, 896, 4864),
+                                   (300, 1536, 48), (70, 130, 66)])
+def test_gemm_runs_give_the_same_bits(cuda, m, k, n):
+    a, b = _bf16(40, (m, k), cuda), _bf16(41, (k, n), cuda, 0.05)
+    for dt in (torch.bfloat16, torch.float32):
+        first = ops.matmul(a.to(dt), b.to(dt), torch.float32)
+        for _ in range(3):
+            assert torch.equal(ops.matmul(a.to(dt), b.to(dt), torch.float32),
+                               first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1024, 896, 896), (1024, 896, 151_936),
+                                   (1024, 4864, 896), (8, 896, 128),
+                                   (70, 130, 66)])
+def test_gemm_transposed_operands_are_bitwise_the_copies(cuda, m, k, n):
+    """A stored (K, M) and B stored (N, K), as the backward passes them,
+    give the bits of the same product on contiguous copies, in bf16 and
+    fp32: the backward's dA = dC·Bᵀ and dB = Aᵀ·dC at train shapes."""
+    from repro_torch.kernels import gemm
+    for dt in (torch.bfloat16, torch.float32):
+        a = _bf16(50, (m, k), cuda).to(dt)
+        b = _bf16(51, (k, n), cuda, 0.05).to(dt)
+        dc = _bf16(52, (m, n), cuda).to(dt)
+        for x, y in ((dc, b.t()), (a.t(), dc), (a.t().contiguous().t(), b),
+                     (a, b.t().contiguous().t())):
+            assert gemm._layout(x, "A") + gemm._layout(y, "B") >= 0
+            got = ops.matmul(x, y, torch.float32)
+            want = ops.matmul(x.contiguous(), y.contiguous(), torch.float32)
+            assert torch.equal(got, want), (m, k, n, dt, x.stride(),
+                                            y.stride())
 
 
 @pytest.mark.gpu
@@ -490,6 +630,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                      r"(?!_torch)", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "scripts").glob("*.py"))
     assert len(files) > 10
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in bad.finditer(f.read_text())]

@@ -152,6 +152,67 @@ def test_layers_match_reference():
            exact_fp32=True)
 
 
+def test_glu_mlp_forms_are_bitwise_the_references(models, mesh,
+                                                 monkeypatch):
+    """The default form is the reference's ``glu_mlp`` and the ``wide``
+    one its ``glu_mlp_shardmap`` under a one-device mesh and the default
+    plan, bitwise; the two differ.  The model's full-sequence forward
+    takes the wide form and its paged prefill and decode steps the
+    default one.
+
+    The inputs make every product exact, so that the only roundings left
+    are the forms': x and the gate and in weights are multiples of 1/16
+    below 1 (each sum of 128 products is exact in fp32 in any order), and
+    the out weights pick one hidden unit per column, times a power of
+    two."""
+    jmodel, _, tmodel, tparams = models
+    rng = np.random.default_rng(20)
+    grid = lambda shape: rng.integers(-15, 16, shape) / 16.0  # noqa: E731
+    w_out = np.zeros((256, 128))
+    w_out[rng.permutation(256)[:128], np.arange(128)] = \
+        2.0 ** rng.integers(-1, 2, 128)
+    jx, tx = _bf16(grid((2, 16, 128)))
+    jg, tg = _bf16(grid((128, 256)) / 4)
+    ji, ti = _bf16(grid((128, 256)) / 4)
+    jo, to = _bf16(w_out)
+    with jax.set_mesh(mesh):
+        jplan = plan_for(CFG, mesh)
+        assert jplan.seq_parallel_residual
+        wide = jax.jit(lambda *a: jlayers.glu_mlp_shardmap(
+            *a, act="silu", mesh=mesh, plan=jplan,
+            policy=jprecision.MIXED))(jx, jg, ji, jo)
+    narrow = jax.jit(lambda *a: jlayers.glu_mlp(
+        *a, act="silu", policy=jprecision.MIXED))(jx, jg, ji, jo)
+    bits = lambda a: np.asarray(a).view(np.uint16)  # noqa: E731
+    got_wide = layers.glu_mlp(tx, tg, ti, to, wide=True)
+    got = layers.glu_mlp(tx, tg, ti, to)
+    np.testing.assert_array_equal(got_wide.view(torch.int16).numpy()
+                                  .view(np.uint16), bits(wide))
+    np.testing.assert_array_equal(got.view(torch.int16).numpy()
+                                  .view(np.uint16), bits(narrow))
+    assert (bits(wide) != bits(narrow)).mean() > 0.1
+
+    forms = []
+    real = layers.glu_mlp
+
+    def spy(*a, **k):
+        forms.append(k.get("wide", False))
+        return real(*a, **k)
+
+    monkeypatch.setattr(layers, "glu_mlp", spy)
+    tokens = torch.from_numpy(np.arange(12).reshape(1, 12) % CFG.vocab_size)
+    with torch.no_grad():
+        tmodel.forward(tparams, tokens)
+        assert forms == [True] * CFG.n_layers
+        forms.clear()
+        cache = tmodel.init_paged_cache(1, 64, page_size=16)
+        tmodel.prefill_chunk_paged(tparams, cache, tokens,
+                                   cache["table"][0], 0)
+        tmodel.decode_step_paged(tparams, cache, tokens[:, :1],
+                                 torch.tensor([12]))
+    assert forms == [False] * (2 * CFG.n_layers)
+
+
 def _pool(seed, P, page):
     shape = (P, page, CFG.n_kv_heads, CFG.d_head)
     return _bf16(_normal(seed, shape)), _bf16(_normal(seed + 1, shape))
