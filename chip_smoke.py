@@ -27,6 +27,13 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    not bf16 values) stay within the reference's fp32 tolerance (rtol
    1e-5, atol 1e-2), which ``torch.matmul`` with TF32 allowed must fail
    at every model K and N of 128 and up (a control).
+   Then flash attention's properties at qwen2-0.5b's heads: a
+   300-token prompt in one call and chunk by chunk as the paged prefill
+   runs it give every row the same output and log-sum-exp, bitwise (with
+   and without a window and a softcap); the forward with its
+   log-sum-exp and the backward at the train shape give the same bits
+   run to run; fp32 q, k, v (the CUDA-core kernel) stay within rtol 2e-5,
+   atol 2e-2 of the plain version.
    The SSD scan is checked at mamba2-780m's prefill shapes (bf16 and fp32
    inputs, S = 512 and a ragged 300, two groups, an initial state) at the
    reference SSD test's tolerances, and bounded by fp32 or bf16 peak FLOP/s
@@ -56,7 +63,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    version at each of the int8 wire's 9 bucket lengths, a ragged length,
    exact .5 ties and a zero bucket; the attention backward kernel (and the
    forward with its log-sum-exp) at the train shape and at ragged, window,
-   softcap and fully-masked shapes; the GEMM's backward products at every
+   softcap and fully-masked shapes, the forward timed beside its bound
+   and SDPA at the train shape; the GEMM's backward products at every
    train shape, on the transposed views the backward passes; each timed
    beside its bound, its plain version and a library call.  Then run 2,
    one rank without a wire (``comms="off"``) on 4 x 512 tokens of
@@ -103,6 +111,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -448,6 +457,85 @@ def check_flash(cfg):
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:87",
                 max_abs_err=max(errs), **row)
+
+
+def chunked_like_paged_prefill(q, k, v, window, softcap):
+    """(out, lse) of q (1,H,S,D)'s rows computed chunk by chunk as
+    ``models/attention.prefill_chunk_paged`` calls the kernel: CHUNK query
+    rows (the last end-padded) at ``q_offset = start`` against the keys
+    of the live pages (T a multiple of PAGE; keys past S hold other
+    values, as the padding's keys do there)."""
+    S, hd = q.shape[2], q.shape[3]
+    outs, lses = [], []
+    for start in range(0, S, CHUNK):
+        n, T = min(CHUNK, S - start), -(-(start + CHUNK) // PAGE) * PAGE
+        qc = randn(q.shape[:2] + (CHUNK, hd), 1800 + start)
+        kc = randn(k.shape[:2] + (T, hd), 1801 + start)
+        vc = randn(v.shape[:2] + (T, hd), 1802 + start)
+        qc[:, :, :n] = q[:, :, start:start + n]
+        kc[:, :, :min(T, S)] = k[:, :, :T]
+        vc[:, :, :min(T, S)] = v[:, :, :T]
+        out, lse = fa_mod._forward(qc, kc, vc, True, window, softcap,
+                                   hd ** -0.5, start, with_lse=True)
+        outs.append(out[:, :, :n])
+        lses.append(lse[:, :, :n])
+    return torch.cat(outs, 2), torch.cat(lses, 2)
+
+
+def check_flash_properties(cfg):
+    """The attention kernels' design properties at qwen2-0.5b's heads:
+    - row invariance, bitwise: a 300-token prompt in one call (S = T =
+      300, q_offset 0) and chunk by chunk as the paged prefill runs it
+      give every row the same output and log-sum-exp, with no window or
+      softcap, a window of 100, a softcap of 30, and both;
+    - run to run, bitwise: the forward with its log-sum-exp and the
+      backward at the train shape, run twice more on the same inputs;
+    - fp32 q, k, v (the CUDA-core kernel) on one prefill chunk within the
+      reference kernel test's fp32 tolerance (rtol 2e-5), atol 2e-2,
+      timed.
+    Returns the counts checked, the fp32 error and time."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    checked = dict(row_invariance=0, run_to_run=0)
+    q = randn((1, H, 300, hd), 1810)
+    k, v = randn((1, Hkv, 300, hd), 1811), randn((1, Hkv, 300, hd), 1812)
+    for window, cap in ((None, None), (100, None), (None, 30.0), (100, 30.0)):
+        out, lse = fa_mod._forward(q, k, v, True, window, cap, hd ** -0.5, 0,
+                                   with_lse=True)
+        c_out, c_lse = chunked_like_paged_prefill(q, k, v, window, cap)
+        require(torch.equal(c_out, out) and torch.equal(c_lse, lse),
+                f"flash rows depend on the chunking (window {window}, "
+                f"softcap {cap}): {int((c_out != out).sum())} outputs and "
+                f"{int((c_lse != lse).sum())} log-sum-exps differ")
+        checked["row_invariance"] += 1
+    B, S = TRAIN_BATCH // RANKS, TRAIN_SEQ
+    q, k, v, do = bwd_inputs(1820, B, H, Hkv, S, S, hd)
+    args = (True, None, None, hd ** -0.5, 0)
+    out, lse = fa_mod._forward(q, k, v, *args, with_lse=True)
+    grads = fa_mod.attention_backward(q, k, v, out, do, lse)
+    for _ in range(2):
+        again = fa_mod._forward(q, k, v, *args, with_lse=True)
+        require(torch.equal(again[0], out) and torch.equal(again[1], lse),
+                "flash forward: two runs differ")
+        require(all(torch.equal(a, b) for a, b in zip(
+            fa_mod.attention_backward(q, k, v, out, do, lse), grads)),
+            "attention backward: two runs differ")
+        checked["run_to_run"] += 2
+    start, T = PROMPT_MAX - CHUNK, PROMPT_MAX
+    q = randn((1, H, CHUNK, hd), 1830, dtype=torch.float32)
+    k = randn((1, Hkv, T, hd), 1831, dtype=torch.float32)
+    v = randn((1, Hkv, T, hd), 1832, dtype=torch.float32)
+    kw = dict(causal=True, q_offset=start)
+    want = ref.attention(q, k, v, **kw)
+    err = (fa_mod.attention(q, k, v, **kw) - want).abs()
+    require(not bool((err > 2e-2 + 2e-5 * want.abs()).any()),
+            f"flash fp32: beyond rtol 2e-5, atol 2e-2 (max abs err "
+            f"{float(err.max()):.3g})")
+    f32_ms = cuda_ms([lambda: fa_mod.attention(q, k, v, **kw)], iters=20)
+    print(f"flash properties: {checked} checks, all bitwise; fp32 one "
+          f"chunk within rtol 2e-5, atol 2e-2 (max abs err "
+          f"{float(err.max()):.3g}), {f32_ms:.4f} ms", flush=True)
+    return dict(checked, fp32_max_abs_err=float(err.max()),
+                fp32_chunk_ms=f32_ms)
 
 
 def check_paged(cfg):
@@ -1297,12 +1385,33 @@ def grads_close(got, want, what):
     return err
 
 
+def kernel_us(fn, calls: int = 10):
+    """Device µs per call of ``fn`` in each kernel it launches, by the
+    kernel's name (the profiler's sums over ``calls`` eager calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"(\w+)_kernel\b", e.key)
+        if "CUDA" in str(e.device_type) and name \
+                and e.self_device_time_total > 0:
+            out[name.group(1)] = (out.get(name.group(1), 0.0)
+                                  + e.self_device_time_total / calls)
+    return out
+
+
 def check_attention_backward(cfg):
     """The backward kernel against autograd through the plain attention
     at the train shape and at small ragged, window and softcap shapes,
     zero gradients on rows with no visible key; timed at the train shape
     beside one ``torch.autograd.grad`` through SDPA (timed only), with
-    the forward that keeps its log-sum-exp."""
+    the forward that keeps its log-sum-exp beside its bound and SDPA's
+    forward (``is_causal=True, enable_gqa=True``; timed only)."""
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     B = TRAIN_BATCH // RANKS
     cases = [("train", B, H, Hkv, TRAIN_SEQ, TRAIN_SEQ, 0, None, None),
@@ -1340,6 +1449,10 @@ def check_attention_backward(cfg):
         fwd = cuda_ms([lambda s=s: fa_mod._forward(
             *s[:3], True, None, None, hd ** -0.5, 0, with_lse=True)
             for s in sets], iters=max(10, 2 * n))
+        fwd_lib = cuda_ms([lambda s=s: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               *s[:3], is_causal=True, enable_gqa=True)
+                           for s in sets], iters=max(10, 2 * n))
         plain = event_ms(lambda: ref.attention_backward(q, k, v, do, **kw))
 
         def sdpa():
@@ -1348,21 +1461,28 @@ def check_attention_backward(cfg):
                 *ls, is_causal=True, enable_gqa=True)
             return torch.autograd.grad(o, ls, do)
         lib = event_ms(sdpa, iters=10, warmup=2)
+        split = kernel_us(lambda: fa_mod.attention_backward(
+            *sets[0][:3], outs[0][0], sets[0][3], outs[0][1]))
+        print("attention backward kernels, device µs per call: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
         pairs = S * (S + 1) // 2
         # recompute QK^T and dP (2 products), dV, dK, dQ (3): 5 products
         flops = 5 * 2.0 * b * hq * pairs * hd
         nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * b * hq * S
-        # the inputs are bf16, so the bound is the bf16 tensor-core rate's;
-        # the kernel's own choice of fp32 CUDA cores does not set it
         bms, by = bound(nbytes, flops)
-        cuda_core = bound(nbytes, flops, FP32_FLOPS)[0]
+        # the forward with its log-sum-exp: q, k, v read, out and lse
+        # written; QK^T and PV over the causal pairs
+        fbms, fby = bound(
+            2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * hq * S,
+            2 * 2.0 * b * hq * pairs * hd)
         print(f"attention backward {label:15s} | {ms:.4f} | {bms:.4f} ({by})"
-              f" | {plain:.4f} | {lib:.4f} | {err:.3g}; at the fp32 "
-              f"CUDA-core rate the kernel uses: {cuda_core:.4f} ms; the "
-              f"forward with its log-sum-exp {fwd:.4f} ms")
+              f" | {plain:.4f} | {lib:.4f} | {err:.3g}; the forward with "
+              f"its log-sum-exp {fwd:.4f} ms, bound {fbms:.5f} ({fby}), "
+              f"sdpa forward {fwd_lib:.4f} ms")
         row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                   bound_by=by, fp32_cuda_core_bound_ms=cuda_core,
-                   forward_with_lse_ms=fwd,
+                   bound_by=by, forward_with_lse_ms=fwd,
+                   forward_bound_ms=fbms, forward_bound_by=fby,
+                   forward_library_ms=fwd_lib, kernels_us=split,
                    case=f"one layer's backward on one rank: q ({b},{hq},{S},"
                         f"{hd}), k/v ({b},{hkv},{T},{hd}), causal")
     return dict(name="attention_backward", route="cuda",
@@ -1507,7 +1627,8 @@ def device_breakdown(prof):
     included, ``other`` every other kernel: the eager PyTorch ops)."""
     fams = {"gemm": ("gemm_wgmma_kernel", "gemm_f32_kernel",
                      "reduce_groups_kernel"),
-            "attention": ("flash_attention_kernel",),
+            "attention": ("flash_attention_wgmma_kernel",
+                          "flash_attention_f32_kernel"),
             "attention_backward": ("attn_bwd",),
             "quantize_int8": ("quantize",),
             "memcpy": ("emcpy",)}
@@ -2201,6 +2322,7 @@ def main() -> int:
     rows = [check_gemm(cfg), check_flash(cfg), check_paged(cfg), check_ssd()]
     rows[0]["properties_checked"] = check_gemm_properties(
         cfg, get_config(MAMBA))
+    rows[1]["properties_checked"] = check_flash_properties(cfg)
     sys.stdout.flush()
 
     # 4. qwen2-0.5b at full width
@@ -2253,7 +2375,8 @@ def main() -> int:
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
                                  gemm_train.pop("max_abs_err"))
     rows[0].update(gemm_train)
-    rows[1]["train_forward_with_lse_ms"] = rows[-1].pop("forward_with_lse_ms")
+    for key in ("with_lse_ms", "bound_ms", "bound_by", "library_ms"):
+        rows[1]["train_forward_" + key] = rows[-1].pop("forward_" + key)
     _, train_launches = train_phase(cfg)
     torch.cuda.empty_cache()
 

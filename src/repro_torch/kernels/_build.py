@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` file exposes a plain C interface (no PyTorch headers),
 so ``nvcc`` compiles each in seconds.  At first use the sources are
 compiled in parallel, one ``nvcc`` per file, and linked into
 ``build/repro_torch/libkernels.so`` at the root of the checkout.  The
-library is rebuilt when the hash of the sources or the flags changes; a
-file lock keeps concurrent processes from building over each other.  The
+library is rebuilt when the hash of the sources (the ``.cu`` files and
+the ``.cuh`` headers they include) or the flags changes; a file lock
+keeps concurrent processes from building over each other.  The
 compiler's output, register and shared-memory use included
 (``-Xptxas -v``), is kept in ``build/repro_torch/build.log``.
 
@@ -52,12 +53,18 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()
 
 
+def source_digest(csrc: Path = CSRC) -> str:
+    """The hash that decides a rebuild: the flags, every ``.cu`` source
+    and every ``.cuh`` header under ``csrc``."""
+    return _digest(sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")))
+
+
 def build() -> Path:
     """Compile and link the kernels if the sources changed; returns the
     path of the shared library.  Raises with the compiler's output when a
     source does not compile."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = _digest(sources)
+    digest = source_digest()
     so = BUILD_DIR / "libkernels.so"
     stamp = BUILD_DIR / "libkernels.sha256"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -4,15 +4,20 @@ Replaces the TPU kernel ``repro/kernels/flash_attention.py::attention``
 (``_attn_kernel``): online-softmax attention with GQA (query head h reads
 kv head h // g), causal masking, a sliding window, a tanh logit softcap
 and a query offset.  On the serve path it runs each prefill chunk, q
-(1, Hq, C, hd) against the sequence's keys gathered in logical order.
-There it does ~4·C·T·hd FLOPs per head over ~2·T·hd·Hkv bytes of K/V, so
-at C = 128 it sits under the ridge and moves few bytes: what bounds it
-is latency and the FP32 rate of a small grid.  The design reads each K/V
-tile once per query tile into shared memory, keeps the softmax state in
-fp32 registers, and skips key tiles beyond the causal/window horizon
-(the TPU kernel walks every tile and masks).  ``q_offset``, ``window`` and
-``softcap`` are runtime arguments, where the TPU kernel compiles one
-variant per value.
+(1, Hq, C, hd) against the sequence's keys gathered in logical order;
+in training, each layer's attention over 512-token sequences.  At those
+sizes it is bound by latency, not by bytes or tensor-core work.  bf16
+q, k, v run on Hopper's tensor cores: one warpgroup per 64 query rows,
+QKᵀ and PV on wgmma with P kept in registers, K/V in 64-key tiles
+aligned at key 0 through a cp.async ring, key tiles beyond the
+causal/window horizon skipped (the TPU kernel walks every tile and
+masks).  fp32 q, k, v take a CUDA-core kernel of the same semantics.
+``q_offset``, ``window`` and ``softcap`` are runtime arguments, where the
+TPU kernel compiles one variant per value.
+
+A row's output and log-sum-exp do not depend on S, on its query tile or
+on which prefill chunk it sits in (bitwise, on the card): the dense
+prefill and the chunked paged prefill give the same bits.
 
 Rows with no visible key write zeros, as the model's attention in the
 reference does; the TPU kernel gives mean(V) there.
@@ -21,10 +26,12 @@ Training differentiates through :func:`attention` (a
 ``torch.autograd.Function``).  Its forward then also writes each row's
 log-sum-exp, and its backward is a kernel of the port's own
 (``csrc/flash_attention_bwd.cu``; the reference has no backward kernel
-and trains through ``layers.flash_attention_jnp``): dQ, dK and dV,
-recomputing the probabilities from the log-sum-exp, with the same GQA,
-causal, window, softcap and offset arguments, and zero gradients on rows
-with no visible key.
+and trains through ``layers.flash_attention_jnp``): dQ, dK and dV on
+wgmma, recomputing the probabilities from the log-sum-exp, with the same
+GQA, causal, window, softcap and offset arguments, zero gradients on rows
+with no visible key, and no atomics (the same bits from run to run).
+The backward takes bf16 only: fp32 q, k, v cannot be differentiated on
+the card.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 from . import _build, ref
 
 launches = 0       # forward launches since the last reset (ops.reset_launches)
-bwd_launches = 0   # backward launches (four kernels each), the same way
+bwd_launches = 0   # backward calls (four kernels each), the same way
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -45,6 +52,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
              _P]
 _BWD_ARGTYPES = [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P]
+# the forward's C entry by element type: wgmma for bf16, CUDA cores for fp32
+_ENTRIES = {torch.bfloat16: "dmath_flash_attention_bf16",
+            torch.float32: "dmath_flash_attention_f32"}
 
 
 def _check(q, k, v) -> None:
@@ -53,8 +63,9 @@ def _check(q, k, v) -> None:
             or v.device != q.device:
         raise ValueError(f"attention: tensors on {q.device}, {k.device}, "
                          f"{v.device}; the kernel needs one CUDA device")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("attention kernel takes bf16 q, k, v")
+    if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"attention kernel takes q, k, v all bf16 or all "
+                        f"fp32, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"attention: q {tuple(q.shape)}, k {tuple(k.shape)},"
                          f" v {tuple(v.shape)}; want (B,Hq,S,D), (B,Hkv,T,D)")
@@ -67,6 +78,13 @@ def _check(q, k, v) -> None:
                          f"got {D}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("attention kernel takes contiguous q, k, v")
+
+
+def _check_bf16(q) -> None:
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"attention backward kernel takes bf16 q, k, v, got "
+                        f"{q.dtype}: fp32 attention runs on the card without "
+                        "autograd only")
 
 
 def _args(q, k, causal, window, softcap, scale, q_offset):
@@ -85,7 +103,7 @@ def _forward(q, k, v, causal, window, softcap, scale, q_offset,
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    fn = _build.function("dmath_flash_attention_bf16", _ARGTYPES)
+    fn = _build.function(_ENTRIES[q.dtype], _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None,
             *_args(q, k, causal, window, softcap, scale, q_offset))
@@ -105,20 +123,24 @@ def attention_backward(q, k, v, out, d_out, lse, *, causal: bool = True,
     through the plain version (:func:`ref.attention_backward`)."""
     global bwd_launches
     _check(q, k, v)
+    _check_bf16(q)
     d_out = d_out.to(torch.bfloat16).contiguous()
     if out.shape != q.shape or d_out.shape != q.shape \
-            or lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+            or out.dtype != q.dtype or lse.shape != q.shape[:3] \
+            or lse.dtype != torch.float32:
         raise ValueError("attention_backward: out, d_out and lse do not "
                          "match q")
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # fp32 scratch: delta = rowsum(dO * O), and each query head's dK/dV
-    # share before a kv head's g shares are added
+    # fp32 scratch: delta = rowsum(dO * O), and the shares the last pass
+    # adds in order: dK's and dV's of each query head and parity of its
+    # query tiles, then dQ's of each parity of its key tiles
+    B, Hq, S, D = q.shape
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    part = torch.empty((2,) + q.shape[:2] + k.shape[2:], dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(B * Hq * D * (4 * k.shape[2] + 2 * S),
+                       dtype=torch.float32, device=q.device)
     fn = _build.function("dmath_flash_attention_bwd_bf16", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.contiguous()
             .data_ptr(), d_out.data_ptr(), lse.contiguous().data_ptr(),
@@ -161,10 +183,10 @@ def attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """CPU tensors take the plain version (:func:`ref.attention`, which
-    autograd differentiates); CUDA tensors launch the kernel (contiguous
-    bf16, head dim 32/64/128) and raise on anything else.  With autograd
-    recording, the forward keeps its log-sum-exp and the backward kernel
-    gives the gradients."""
+    autograd differentiates); CUDA tensors launch the kernel (contiguous,
+    all bf16 or all fp32, head dim 32/64/128) and raise on anything else.
+    With autograd recording (bf16 only), the forward keeps its
+    log-sum-exp and the backward kernel gives the gradients."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale, q_offset=q_offset)
@@ -174,6 +196,7 @@ def attention(
                          f"{window} out of range")
     scale = scale if scale is not None else 1.0 / (q.shape[3] ** 0.5)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check_bf16(q)
         return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                      q_offset)
     return _forward(q, k, v, causal, window, softcap, scale, q_offset,

@@ -362,6 +362,109 @@ def test_flash_kernel_matches_plain(cuda, s, t, off, window, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("s,t,off,window,softcap", [
+    (128, 512, 384, None, None), (37, 100, 50, 24, 5.0)])
+def test_flash_head_dims_match_plain(cuda, d, s, t, off, window, softcap):
+    """The kernel's other head dims (32: rows padded to 64 in shared
+    memory; 128: two 64-wide boxes), forward and backward, at the bf16
+    tolerances."""
+    q = _bf16(5, (2, 4, s, d), cuda)
+    k, v = _bf16(6, (2, 2, t, d), cuda), _bf16(7, (2, 2, t, d), cuda)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    torch.testing.assert_close(ops.attention(q, k, v, **kw).float(),
+                               ref.attention(q, k, v, **kw).float(),
+                               rtol=3e-2, atol=2e-2)
+    d_out = _bf16(8, (2, 4, s, d), cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(ops.attention(*leaves, **kw), leaves, d_out)
+    _grads_close(got, ref.attention_backward(q, k, v, d_out, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,t,off,window,softcap", [
+    (128, 512, 384, None, None), (37, 100, 50, None, None),
+    (64, 128, 64, 16, 5.0)])
+def test_flash_fp32_kernel_matches_plain(cuda, s, t, off, window, softcap):
+    """fp32 q, k, v take the CUDA-core kernel, held at the reference
+    kernel test's fp32 tolerance (rtol 2e-5, ``tests/test_kernels.py``)
+    with atol 2e-2; the backward refuses them."""
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn((1, 14, s, 64), generator=g).to(cuda)
+    k = torch.randn((1, 2, t, 64), generator=g).to(cuda)
+    v = torch.randn((1, 2, t, 64), generator=g).to(cuda)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    got = ops.attention(q, k, v, **kw)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref.attention(q, k, v, **kw),
+                               rtol=2e-5, atol=2e-2)
+    with pytest.raises(TypeError, match="bf16"):
+        ops.attention(q.requires_grad_(True), k, v, **kw)
+
+
+def _chunked_like_paged_prefill(q, k, v, chunk=128, page=64, **kw):
+    """(out, lse) of q (1,H,S,D)'s rows computed chunk by chunk as
+    ``attention.prefill_chunk_paged`` calls the kernel: ``chunk`` query
+    rows (the last end-padded) at ``q_offset = start`` against the keys of
+    the live pages (a multiple of ``page``; keys past S hold other
+    values)."""
+    from repro_torch.kernels import flash_attention as fa
+    S, D = q.shape[2], q.shape[3]
+    g = torch.Generator(device=q.device).manual_seed(99)
+    outs, lses = [], []
+    for start in range(0, S, chunk):
+        n, T = min(chunk, S - start), -(-(start + chunk) // page) * page
+        qc = torch.randn(q.shape[:2] + (chunk, D), generator=g,
+                         device=q.device).to(q.dtype)
+        kc, vc = (torch.randn(x.shape[:2] + (T, D), generator=g,
+                              device=q.device).to(q.dtype) for x in (k, v))
+        qc[:, :, :n] = q[:, :, start:start + n]
+        kc[:, :, :min(T, S)] = k[:, :, :T]
+        vc[:, :, :min(T, S)] = v[:, :, :T]
+        out, lse = fa._forward(qc, kc, vc, True, kw.get("window"),
+                               kw.get("softcap"), D ** -0.5, start,
+                               with_lse=True)
+        outs.append(out[:, :, :n])
+        lses.append(lse[:, :, :n])
+    return torch.cat(outs, 2), torch.cat(lses, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,softcap", [(None, None), (100, None),
+                                            (None, 30.0), (100, 30.0)])
+def test_flash_rows_are_invariant_bitwise(cuda, window, softcap):
+    """A 300-token prompt at qwen2's heads in one call (S = T = 300) and
+    chunk by chunk as the paged prefill runs it give each row the same
+    output and log-sum-exp bits."""
+    from repro_torch.kernels import flash_attention as fa
+    q = _bf16(60, (1, 14, 300, 64), cuda)
+    k, v = _bf16(61, (1, 2, 300, 64), cuda), _bf16(62, (1, 2, 300, 64), cuda)
+    out, lse = fa._forward(q, k, v, True, window, softcap, 64 ** -0.5, 0,
+                           with_lse=True)
+    c_out, c_lse = _chunked_like_paged_prefill(q, k, v, window=window,
+                                               softcap=softcap)
+    assert torch.equal(c_out, out) and torch.equal(c_lse, lse)
+
+
+@pytest.mark.gpu
+def test_flash_runs_give_the_same_bits(cuda):
+    """The forward (with its log-sum-exp) and the backward at the train
+    shape, run again on the same inputs, give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    q, d_out = _bf16(70, (2, 14, 512, 64), cuda), _bf16(71, (2, 14, 512, 64),
+                                                        cuda)
+    k, v = _bf16(72, (2, 2, 512, 64), cuda), _bf16(73, (2, 2, 512, 64), cuda)
+    args = (True, None, None, 64 ** -0.5, 0)
+    out, lse = fa._forward(q, k, v, *args, with_lse=True)
+    grads = fa.attention_backward(q, k, v, out, d_out, lse)
+    for _ in range(2):
+        again = fa._forward(q, k, v, *args, with_lse=True)
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+        assert all(torch.equal(a, b) for a, b in zip(
+            fa.attention_backward(q, k, v, out, d_out, lse), grads))
+
+
+@pytest.mark.gpu
 def test_paged_kernel_matches_plain(cuda):
     q, kp, vp, tbl, lens = _paged_case(5, 8, 14, 2, 64, 64, 4)
     t = [torch.from_numpy(x).to(torch.bfloat16).to(cuda)
@@ -623,6 +726,48 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError):          # the scales off the CPU
         ops.matmul_dequant(torch.zeros(2, 4), bq, torch.ones(3,
                                                              device="meta"))
+
+
+def test_build_digest_follows_headers(tmp_path):
+    """The library is rebuilt when a ``.cuh`` header the sources include
+    changes, not only a ``.cu`` source."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert [h.name for h in headers] == ["hopper.cuh"]
+    before = _build.source_digest(csrc)
+    assert _build.source_digest(csrc) == before == _build.source_digest()
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
+    assert _build.source_digest(csrc) != before
+
+
+def test_profiler_families_match_kernel_names():
+    """Every pattern of ``chip_smoke.py``'s profiled kernel families names
+    a ``__global__`` kernel of ``csrc/`` (``memcpy`` names the copies), so
+    a rename cannot move a kernel's time into ``other`` unseen."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "device_breakdown")
+    fams = next(ast.literal_eval(n.value) for n in ast.walk(fn)
+                if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", None) == "fams")
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    names = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        "\n".join(f.read_text() for f in csrc.glob("*.cu"))))
+    assert {"flash_attention_wgmma_kernel", "attn_bwd_dq_kernel"} <= names
+    assert set(fams) >= {"gemm", "attention", "attention_backward"}
+    for fam, pats in fams.items():
+        if fam == "memcpy":
+            continue
+        for pat in pats:
+            assert any(pat in n for n in names), (fam, pat)
+    # no kernel counts in two families
+    for n in names:
+        assert sum(any(p in n for p in pats) for f, pats in fams.items()
+                   if f != "memcpy") <= 1, n
 
 
 def test_port_imports_neither_jax_nor_the_reference():
