@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the kernels: shared-memory
 // addresses, mbarriers, TMA and cp.async copies, wgmma descriptors of
-// 128-byte-swizzled tiles, and wgmma products with B from shared memory
-// and A from shared memory or from registers.
+// 128-byte-swizzled tiles, wgmma products with B from shared memory and A
+// from shared memory or from registers, and the warp-level mma.sync and
+// ldmatrix of the small-tile kernels (paged decode, the SSD scan).
 //
 // A tile here is 64 rows of 64 bf16 (128 bytes a row), 128-byte swizzled,
 // 8 KB, 1024-byte aligned; a wider row is cut into such boxes placed 8 KB
@@ -291,6 +292,86 @@ __device__ __forceinline__ void fence_u32(uint32_t& r) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- mma.sync and ldmatrix (warp-level tensor-core tiles) -------------------
+// Fragments of m16n8k16 (bf16) and m16n8k8 (tf32), with g = lane / 4 and
+// t = lane % 4: the accumulator holds (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1); the A operand of k16 holds (g, 2t..2t+1), (g+8, 2t..2t+1),
+// (g, 2t+8..2t+9), (g+8, 2t+8..2t+9) as bf16 pairs, of k8 (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4); the B operand of k16 holds (k 2t..2t+1, n g) and
+// (k 2t+8..2t+9, n g), of k8 (k t, n g) and (k t+4, n g).
+
+// d += a (16 x 16 bf16) * b (16 x 8 bf16), fp32 accumulate.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a (16 x 8 tf32) * b (8 x 8 tf32), fp32 accumulate.
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane i gives the address
+// of row i % 8 of matrix i / 8; register j receives matrix j's fragment
+// (row lane / 4, columns 2 (lane % 4) and +1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The same, transposed: register j receives rows 2 (lane % 4) and +1 of
+// column lane / 4 of matrix j.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// ---- programmatic dependent launch --------------------------------------------
+// A kernel launched by launch_dependent() may start while the kernel
+// before it on the stream still runs (once every block of that kernel has
+// called grid_launch_dependents() or exited); grid_dependency_wait()
+// blocks until that kernel has completed and its writes are visible.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                             dim3 block, size_t smem, cudaStream_t s,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // ---- cp.async ---------------------------------------------------------------

@@ -6,17 +6,20 @@ Replaces the TPU kernel
 (``_paged_decode_kernel``): one query token per sequence against a KV
 pool of fixed-size pages, sequence b's logical page j being physical page
 ``block_table[b, j]`` and positions at or past ``seq_lens[b]`` masked.
-It runs at every decode step.  It does 4·Hq·hd FLOPs per live position
-over 4·Hkv·hd bytes of K/V, about 7 FLOP/byte for qwen2's GQA group of
-7, so it is bound by the live K/V bytes over 3.35 TB/s.  The design reads
-only those bytes: one block per (sequence, kv head) carries the g query
-heads as rows (K/V read once for all of them), and walks only the
-positions below ``seq_lens[b]``, where the TPU kernel streams the whole
-table row and masks the tail.
+It runs at every decode step, where it is bound by latency, not by its
+~1 MB of K/V.  The kernel is split-sequence flash-decoding: each
+sequence's keys are cut at fixed positions into splits of ``SPLIT`` keys,
+one block per (split, kv head, sequence) with the g query heads of the kv
+head as the rows of one tensor-core tile, and a second kernel adds the
+splits in order (:func:`ref.paged_decode_split_combine` is that order in
+plain PyTorch).  Blocks past a sequence's length exit at once, so only
+live pages are read, where the TPU kernel streams the whole table row
+and masks the tail.
 
-The contract ``seq_lens >= 1`` (page 0 of the row holds position 0) is
+The number of splits follows the table's width, never ``seq_lens``: the
+contract ``seq_lens >= 1`` (page 0 of the row holds position 0) is
 checked by the caller that holds the positions on the host (the serve
-engines), not here: reading device memory would stall the stream.
+engines), not here, since reading device memory would stall the stream.
 """
 
 from __future__ import annotations
@@ -28,13 +31,16 @@ import torch
 
 from . import _build, ref
 
-launches = 0     # kernel launches since the last reset (ops.reset_launches)
+launches = 0     # calls that launched the kernels since the last reset
+                 # (ops.reset_launches); a call runs two device kernels
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 16          # query heads per kv head the kernel holds as rows
+SPLIT = 128             # keys per split (KS in csrc/paged_attention.cu)
+KERNELS_PER_CALL = 2    # the splits, then their ordered combine
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 6 + [_F, _P]
 
 
 def paged_decode_attention(
@@ -48,9 +54,9 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """CPU tensors take the plain version
     (:func:`ref.paged_decode_attention`); CUDA tensors launch the kernel
-    (contiguous bf16 q and pages, int32 table and lengths, head dim
-    32/64/128, at most 16 query heads per kv head) and raise on anything
-    else."""
+    (contiguous bf16 q and pages starting 16-byte aligned, int32 table
+    and lengths, head dim 32/64/128/256, at most 16 query heads per kv
+    head) and raise on anything else."""
     global launches
     tensors = (q, k_pages, v_pages, block_table, seq_lens)
     if all(t.device.type == "cpu" for t in tensors):
@@ -88,14 +94,22 @@ def paged_decode_attention(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention kernel takes contiguous "
                          "tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_decode_attention kernel loads q and the "
+                         "pages 16 bytes at a time: they must start 16-byte "
+                         "aligned")
     scale = scale if scale is not None else 1.0 / (hd ** 0.5)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    n_pages = block_table.shape[1]
+    if out.numel() == 0 or n_pages * page == 0:
+        return out.zero_()
+    splits = -(-n_pages * page // SPLIT)
+    scratch = torch.empty(B * Hq * splits * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     fn = _build.function("dmath_paged_decode_bf16", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, hd, page, block_table.shape[1], float(scale),
+            block_table.data_ptr(), seq_lens.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), B, Hq, Hkv, hd, page, n_pages, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_decode_attention")
     launches += 1

@@ -6,7 +6,9 @@ The wrappers in ``gemm.py``, ``flash_attention.py``,
 ``paged_attention.py``, ``ssd_scan.py`` and ``fused.py`` run them for
 tensors on the CPU;
 on the card they only serve as the comparison in tests and
-``chip_smoke.py``.  ``attention_backward`` is autograd through the plain
+``chip_smoke.py``.  ``paged_decode_split_combine`` is the paged
+kernel's split-and-combine order, for tests.  ``attention_backward`` is
+autograd through the plain
 ``attention``: the definition the backward kernel is held against.  ``ssd`` is
 the sequential definition of the SSD scan, which tests hold the chunked
 plain version (``ssd_scan.ssd_plain``) and the kernel against;
@@ -174,6 +176,62 @@ def paged_decode_attention(
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, vf)
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def paged_decode_split_combine(
+    q: torch.Tensor,              # (B, Hq, hd)
+    k_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    v_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    block_table: torch.Tensor,    # (B, n_pages) int32
+    seq_lens: torch.Tensor,       # (B,) int32
+    *,
+    scale: Optional[float] = None,
+    split: int = 128,
+) -> torch.Tensor:
+    """:func:`paged_decode_attention` in the CUDA kernel's order of work
+    (used by tests only): each sequence's keys cut at fixed positions
+    ``[s * split, (s + 1) * split)``, each split's max, sum and
+    unnormalised output in fp32, then the splits below
+    ``ceil(seq_lens[b] / split)`` rescaled to their common max and added
+    in split order.  Splits past the length are never read."""
+    B, Hq, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    g = Hq // Hkv
+    T = block_table.shape[1] * page
+    ns = -(-T // split)
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+
+    tbl = block_table.long()
+    pad = (0, 0, 0, 0, 0, ns * split - T)
+    kf = torch.nn.functional.pad(
+        k_pages[tbl].reshape(B, T, Hkv, hd).float(), pad)
+    vf = torch.nn.functional.pad(
+        v_pages[tbl].reshape(B, T, Hkv, hd).float(), pad)
+    qf = q.float().reshape(B, Hkv, g, hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, kf) * scale
+    live = torch.arange(ns * split, device=q.device)[None, :] \
+        < seq_lens[:, None]
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    s = s.reshape(B, Hkv, g, ns, split)
+    m = s.amax(-1)                                        # (B,Hkv,g,ns)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bkgst,bstkd->bkgsd", p,
+                       vf.reshape(B, ns, split, Hkv, hd))
+    n_live = -(-seq_lens.long().clamp(min=0, max=T) // split)   # (B,)
+    used = torch.arange(ns, device=q.device)[None, :] < n_live[:, None]
+    m = torch.where(used[:, None, None, :], m, float("-inf"))
+    M = m.amax(-1)                                        # (B,Hkv,g)
+    out = torch.zeros((B, Hkv, g, hd), dtype=torch.float32, device=q.device)
+    den = torch.zeros((B, Hkv, g), dtype=torch.float32, device=q.device)
+    for j in range(ns):                                  # in split order
+        f = torch.where(used[:, None, None, j],
+                        torch.exp(m[..., j] - M), 0.0)
+        den = den + f * l[..., j]
+        out = out + f[..., None] * torch.where(
+            used[:, None, None, j, None], acc[:, :, :, j], 0.0)
+    out = out / torch.where(den > 0, den, 1.0)[..., None]
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 

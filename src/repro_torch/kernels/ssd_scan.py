@@ -3,8 +3,11 @@
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd``
 (``_ssd_kernel``).  On the serve path every prefill runs it once per
 layer, on the mixer's fp32 x, B and C at the prompt's exact length.  The
-kernel walks each (batch, head) through its chunks of 64 steps in order,
-in slices of 16 state columns; its note says what bounds it.
+kernel follows :func:`ssd_plain`'s decomposition as three passes over
+chunks of 64 steps: every chunk's own state at once, the short
+recurrence over the chunks' states in order, then every chunk's outputs
+at once, the products on the tensor cores (3xTF32 for fp32 inputs); its
+note says what bounds it.
 
 Where the reference differs, the port follows what the reference model
 runs (``repro/models/ssm.py::ssd_chunked``), not the Pallas kernel:
@@ -26,11 +29,14 @@ import torch
 
 from . import _build
 
-launches = 0     # kernel launches since the last reset (ops.reset_launches)
+launches = 0     # calls that launched the kernels since the last reset
+                 # (ops.reset_launches); a call runs three device kernels
 
-MAX_STATE = 256  # N the kernel's shared memory holds (two N x 68 fp32 tiles)
+MAX_STATE = 256  # N the kernel's shared memory holds (two 64 x N tiles)
+CHUNK = 64       # the kernel's chunk (Q in csrc/ssd_scan.cu)
+KERNELS_PER_CALL = 3    # chunk states, the recurrence, chunk outputs
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def ssd_plain(
@@ -112,11 +118,11 @@ def ssd(
     """(y (B, S, H, P), final state (B, H, P, N) fp32).
 
     CPU tensors take the plain version (:func:`ssd_plain`, chunked by
-    ``chunk``).  CUDA tensors launch the kernel, which walks chunks of its
-    own length (``chunk`` is accepted for the reference's signature; the
-    result does not depend on it) and takes contiguous x, B and C all
-    bf16 or all fp32, fp32 dt, A and ``init_state``; anything else
-    raises."""
+    ``chunk``).  CUDA tensors launch the kernels, which cut chunks of
+    their own length, :data:`CHUNK` (``chunk`` is accepted for the
+    reference's signature; the result does not depend on it), and take
+    contiguous x, B and C all bf16 or all fp32, fp32 dt, A and
+    ``init_state``; anything else raises."""
     global launches
     tensors = [x, dt, A, Bm, C] + ([init_state] if init_state is not None
                                    else [])
@@ -159,12 +165,23 @@ def ssd(
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if Bsz * H * P * N == 0:
         return y, state.zero_()
+    if S == 0:
+        return y, (state.zero_() if init_state is None
+                   else state.copy_(init_state))
+    nc = -(-S // CHUNK)
+    scratch = torch.empty(Bsz * nc * H * (P * N + 1), dtype=torch.float32,
+                          device=x.device)
+    per16 = 16 // x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, Bm, C))
+    vec_x = int(aligned and P % per16 == 0)
+    vec_bc = int(aligned and N % per16 == 0)
     fn = _build.function("dmath_ssd_scan", _ARGTYPES)
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             C.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), Bsz, S, H, G, P, N,
-            int(x.dtype == torch.bfloat16),
+            y.data_ptr(), state.data_ptr(), scratch.data_ptr(), Bsz, S, H, G,
+            P, N, int(x.dtype == torch.bfloat16), vec_x, vec_bc,
+            int(N % 4 == 0),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ssd")
     launches += 1

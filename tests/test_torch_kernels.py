@@ -228,6 +228,47 @@ def test_paged_plain_matches_pallas_and_reference(J, hq, hkv, dtype):
     _close(got, J.ref.paged_decode_attention(*j), dtype)
 
 
+def _split_lens(split, nb, page):
+    """Lengths at the edges of the kernel's splits: 1, split - 1, split,
+    split + 1 and the full table (the splits past each shorter length
+    are wholly masked)."""
+    return np.array([1, split - 1, split, split + 1, nb * page], np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,hq,hkv", [(16, 14, 2), (256, 4, 2)])
+def test_paged_split_combine_matches_pallas_and_reference(J, hd, hq, hkv,
+                                                          dtype):
+    """The kernel's order of work (splits of 16 keys here, pages of 8)
+    against the gather-then-attend plain version, the Pallas kernel in
+    interpret mode and the reference oracle, at lengths around the split
+    and with splits wholly past the length (no NaN)."""
+    split, page, nb = 16, 8, 6
+    lens = _split_lens(split, nb, page)
+    q, kp, vp, tbl, _ = _paged_case(13, len(lens), hq, hkv, hd, page, nb)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(J, x, dtype) for x in (q, kp, vp))
+    j = (jq, jk, jv, J.jnp.asarray(tbl), J.jnp.asarray(lens))
+    t = (tq, tk, tv, torch.from_numpy(tbl), torch.from_numpy(lens))
+    got = ref.paged_decode_split_combine(*t, split=split)
+    assert got.dtype == TDT[dtype] and got.shape == t[0].shape
+    assert torch.isfinite(got.float()).all()
+    _close(got, ref.paged_decode_attention(*t).float(), dtype)
+    _close(got, J.paged.paged_decode_attention(*j, interpret=True), dtype)
+    _close(got, J.ref.paged_decode_attention(*j), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_at_head_dim_256_matches_pallas(J, dtype):
+    """gemma-2b's head dim, which the reference kernel takes."""
+    q, kp, vp, tbl, lens = _paged_case(17, 3, 8, 1, 256, 16, 3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(J, x, dtype) for x in (q, kp, vp))
+    got = ops.paged_decode_attention(tq, tk, tv, torch.from_numpy(tbl),
+                                     torch.from_numpy(lens))
+    _close(got, J.paged.paged_decode_attention(
+        jq, jk, jv, J.jnp.asarray(tbl), J.jnp.asarray(lens),
+        interpret=True), dtype)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels against their plain versions (on the card only)
 # ---------------------------------------------------------------------------
@@ -475,6 +516,82 @@ def test_paged_kernel_matches_plain(cuda):
                                rtol=3e-2, atol=2e-2)
 
 
+def _paged_cuda(case, dev):
+    q, kp, vp, tbl, lens = case
+    return ([torch.from_numpy(x).to(torch.bfloat16).to(dev)
+             for x in (q, kp, vp)]
+            + [torch.from_numpy(x).to(dev) for x in (tbl, lens)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 7, 16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_paged_kernel_head_dims_and_lengths_match_plain(cuda, hd, g):
+    """Every head dim the kernel takes, at 1, 7 and 16 query heads per kv
+    head, at lengths 1, KS - 1, KS, KS + 1 and the full table (KS the
+    kernel's split)."""
+    from repro_torch.kernels import paged_attention as pa
+    page, nb = 64, 6
+    lens = _split_lens(pa.SPLIT, nb, page)
+    q, kp, vp, tbl, _ = _paged_case(19, len(lens), 2 * g, 2, hd, page, nb)
+    t = _paged_cuda((q, kp, vp, tbl, lens), cuda)
+    before = pa.launches
+    got = ops.paged_decode_attention(*t)
+    assert pa.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(),
+                               ref.paged_decode_attention(*t).float(),
+                               rtol=3e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_bits_follow_the_sequence_alone(cuda):
+    """A sequence's output bits depend on its q, K/V and length only: the
+    same alone as inside a batch of 8 with other lengths, under a
+    permuted page table holding the same logical K/V, and run to run."""
+    q, kp, vp, tbl, lens = _paged_case(23, 8, 14, 2, 64, 64, 16)
+    t = _paged_cuda((q, kp, vp, tbl, lens), cuda)
+    out = ops.paged_decode_attention(*t)
+    assert torch.equal(ops.paged_decode_attention(*t), out)
+    for b in (0, 3, 7):
+        alone = ops.paged_decode_attention(
+            t[0][b:b + 1], t[1], t[2], t[3][b:b + 1].contiguous(),
+            t[4][b:b + 1].contiguous())
+        assert torch.equal(alone[0], out[b]), b
+    perm = np.random.default_rng(29).permutation(kp.shape[0])
+    moved = _paged_cuda((q, kp[np.argsort(perm)], vp[np.argsort(perm)],
+                         perm[tbl].astype(np.int32), lens), cuda)
+    assert torch.equal(ops.paged_decode_attention(*moved), out)
+
+
+@pytest.mark.gpu
+def test_paged_kernel_refuses_what_it_does_not_take(cuda):
+    t = _paged_cuda(_paged_case(31, 2, 4, 2, 64, 16, 2), cuda)
+    with pytest.raises(ValueError):              # head dim 48
+        ops.paged_decode_attention(t[0][..., :48].contiguous(),
+                                   t[1][..., :48].contiguous(),
+                                   t[2][..., :48].contiguous(), *t[3:])
+    wide = _paged_cuda(_paged_case(31, 2, 17, 1, 64, 16, 2), cuda)
+    with pytest.raises(ValueError):              # 17 query heads a kv head
+        ops.paged_decode_attention(*wide)
+    with pytest.raises(TypeError):               # fp32 q
+        ops.paged_decode_attention(t[0].float(), *t[1:])
+    with pytest.raises(TypeError):               # int64 table
+        ops.paged_decode_attention(*t[:3], t[3].long(), t[4])
+    with pytest.raises(ValueError):              # a strided q
+        ops.paged_decode_attention(t[0].transpose(0, 1).contiguous()
+                                   .transpose(0, 1), *t[1:])
+    with pytest.raises(ValueError):              # q on the CPU
+        ops.paged_decode_attention(t[0].cpu(), *t[1:])
+    for i in range(3):                           # a view 2 bytes in
+        flat = torch.empty(t[i].numel() + 1, dtype=t[i].dtype, device=cuda)
+        moved = list(t)
+        moved[i] = flat[1:].view(t[i].shape).copy_(t[i])
+        assert moved[i].is_contiguous() and moved[i].data_ptr() % 16
+        with pytest.raises(ValueError):
+            ops.paged_decode_attention(*moved)
+
+
 def ssd_case(seed, B, S, H, P, G, N, dtype, device="cpu", init=False):
     """SSD inputs as the model draws them: A = -U[1, 16] and dt in
     [1e-3, 0.1] log-uniform (the ``ssm_a`` and ``dt_bias`` inits), x, B, C
@@ -518,6 +635,33 @@ def test_ssd_kernel_matches_plain(cuda, B, S, H, P, G, N, init, dtype):
     assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
     torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(state, s_want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,init", [(1, False), (1, True), (64, False),
+                                    (64, True)])
+def test_ssd_kernel_one_step_and_one_chunk_match_plain(cuda, S, init, dtype):
+    """S = 1 (a one-token prompt) and S = 64 (exactly the kernel's chunk)
+    at mamba2-780m's widths, at the reference SSD test's tolerances."""
+    case = ssd_case(11, 1, S, 48, 64, 1, 128, dtype, cuda, init)
+    from repro_torch.kernels import ssd_scan
+    y, state = ops.ssd(**case)
+    y_want, s_want = ssd_scan.ssd_plain(**case, chunk=256)
+    tol = 5e-2 if dtype == "bfloat16" else 2e-4
+    assert torch.isfinite(y.float()).all() and torch.isfinite(state).all()
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s_want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_runs_give_the_same_bits(cuda, dtype):
+    case = ssd_case(13, 1, 300, 48, 64, 1, 128, dtype, cuda, True)
+    y, state = ops.ssd(**case)
+    for _ in range(2):
+        y2, s2 = ops.ssd(**case)
+        assert torch.equal(y2, y) and torch.equal(s2, state)
 
 
 def quantize_case(seed, n, kind):

@@ -145,6 +145,21 @@ def test_ssd_plain_ragged_tail_and_init_state(J):
         _close(state, s_r, TOL["float32"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 64])
+def test_ssd_plain_at_the_kernels_chunk_matches_model_oracle(J, S, dtype):
+    """One step (a one-token prompt) and exactly one of the CUDA kernel's
+    chunks, chunked as the kernel chunks, against ``ssd_chunked``."""
+    from repro_torch.kernels import ssd_scan
+    case = _reference_case(5, 2, S, 4, 32, 2, 16, dtype)
+    jc = _to_jax(J, case)
+    y, state = ssd_scan.ssd_plain(*_args(case), chunk=ssd_scan.CHUNK)
+    assert y.shape == (2, S, 4, 32) and state.shape == (2, 4, 32, 16)
+    want = J.ssm.ssd_chunked(*_args(jc), chunk=ssd_scan.CHUNK)
+    _close(y, want[0], TOL[dtype])
+    _close(state, want[1], TOL[dtype])
+
+
 def test_ssd_plain_does_not_depend_on_the_chunk():
     case = _reference_case(3, 1, 128, 2, 16, 1, 8, "float32")
     y32, s32 = ops.ssd(*_args(case), chunk=32)
