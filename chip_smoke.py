@@ -86,25 +86,34 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    second, wire bytes and peak memory per rank.
 7. The compressed data-parallel SGD path at full width.  The kernels
    first: ``quantize_compress`` bitwise (q and scale) against its plain
-   version at each of qwen2-0.5b's 15 leaf lengths (timed), ragged
-   lengths, a bf16 input, an all-zero input, exact .5 ties and a
-   negative absmax; ``matmul_dequant`` (reached through
-   ``ops.matmul_dequant`` only: no model path calls it) at the reference
-   test's tolerances (fp32 2e-5, bf16 2e-2), bf16 and fp32 activations,
-   at qwen2-0.5b's eight decode products (M = 8, timed as one decode
-   step's 169), at a prefill M = 128, the bench shape (8, 1024, 1024) and
-   the ragged shapes, timed beside ``torch.matmul`` on the weights
-   widened beforehand (a yardstick only).  Then two ranks spawned on the
-   card over gloo run ``train.compression.build_dp_sgd_step`` over the
-   model's loss for the schemes ``none``, ``onebit`` and ``int8``, 3
-   steps each from the seed (lr 0.1, momentum 0.9, 4 x 512 tokens of
+   version, and its error-feedback form ``quantize_compress_ef`` (the
+   path's quantizer: bf16 gradients, fp32 error drawn at 1e-2 of their
+   scale) bitwise in deq, new error and scale, at each of qwen2-0.5b's 15
+   leaf lengths (both timed, the EF form beside the unfused composition
+   it replaced), ragged lengths, a bf16 input, an all-zero input, exact
+   .5 ties, a negative absmax and n = 1; ``matmul_dequant`` (reached
+   through ``ops.matmul_dequant`` only: no model path calls it), bf16
+   and fp32 activations, at qwen2-0.5b's eight decode products (M = 8,
+   timed as one decode step's 169), at a prefill M = 128, the bench shape
+   (8, 1024, 1024) and the ragged shapes: bitwise ``matmul`` on the
+   widened weights times the scale (fp32 and bf16 outputs), the same bits
+   run to run, rows of an M = 8 call equal to those rows of the M = 128
+   call, the reference test's tolerances (fp32 2e-5, bf16 2e-2) as a
+   second gate; timed beside ``torch.matmul`` on the weights widened
+   beforehand (a yardstick) and ``_weight_int8pack_mm`` where this
+   PyTorch registers it for CUDA (the library call).  Then two ranks
+   spawned on the card over gloo run
+   ``train.compression.build_dp_sgd_step`` over the model's loss for the
+   schemes ``none``, ``onebit`` and ``int8``, 3 steps each from the seed
+   (lr 0.1, momentum 0.9, 4 x 512 tokens of
    ``SyntheticLM(structured=True)`` a step), each scheme a counted
    window: params and velocity bitwise equal on both ranks after every
    step (the error state is each rank's own); launches per rank equal to
-   the layer loop's (``quantize_compress`` 15 per int8 step, 0 for the
-   other schemes); ``none``'s step-1 synced gradients the bf16 mean of
-   the local gradients computed alone, bitwise; int8's within (s0 +
-   s1) / 4 of their fp32 mean, plus fp32 rounding; error feedback exact
+   the layer loop's (``quantize_compress``, counting the EF form, 15 per
+   int8 step, 0 for the other schemes); ``none``'s step-1 synced
+   gradients the bf16 mean of the local gradients computed alone,
+   bitwise; int8's within (s0 + s1) / 4 of their fp32 mean, plus fp32
+   rounding; error feedback exact
    (int8: deq + err equals v bitwise or within one fp32 spacing; onebit
    within rtol 1e-5); the first batch's loss lower after ``none``'s
    steps; step, wire and quantizer times, tokens per second, wire bytes
@@ -235,6 +244,12 @@ def max_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
             f"{what}: kernel disagrees with its plain version "
             f"(max abs err {float(err.max()):.3g})")
     return float(err.max())
+
+
+def same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Bitwise equality of two floating tensors (-0.0 is not 0.0)."""
+    ints = {4: torch.int32, 2: torch.int16}[x.element_size()]
+    return x.dtype == y.dtype and torch.equal(x.view(ints), y.view(ints))
 
 
 def gen(seed: int) -> torch.Generator:
@@ -1367,18 +1382,46 @@ def compress_input(label, n, g):
     return x.to(torch.bfloat16) if label == "bf16" else x
 
 
+def ef_error(label, x, g):
+    """(g, err) of the error-feedback form for a ``compress_input`` x:
+    err drawn at 1e-2 of the gradients' scale (N(0, 1e-5)), g = x; for
+    ``zero`` both zero; for ``ties`` err a whole multiple of 2^-10 at the
+    even elements and g = x - err there (exact in fp32), so v = g + err is
+    x again, its ties included."""
+    n = x.numel()
+    err = torch.randn(n, generator=g, device="cuda") * 1e-5
+    if label == "zero":
+        err.zero_()
+    if label == "ties":
+        j = torch.randint(-3, 4, (n,), generator=g, device="cuda").float()
+        even = torch.arange(n, device="cuda") % 2 == 0
+        err = torch.where(even, j * 2.0 ** -10, err)
+        err[n // 2] = 0.0
+        x = torch.where(even, x - err, x)
+    return x, err
+
+
 def check_quantize_compress(cfg):
-    """``quantize_compress`` against its plain version, bitwise in q and
-    the scale, at each of qwen2-0.5b's 15 leaf lengths (timed: one int8
-    step of the compressed SGD path on one rank), ragged lengths, a bf16
-    input, an all-zero input, exact .5 ties and a negative absmax.  The
-    bound reads the input once and writes int8 (5 bytes per fp32
-    element); the kernel reads it twice (9 bytes), which is printed as
-    its two-pass floor."""
+    """``quantize_compress`` and its error-feedback form against their
+    plain versions, bitwise (q and the scale; deq, new_err and the scale),
+    at each of qwen2-0.5b's 15 leaf lengths, ragged lengths, a bf16 input,
+    an all-zero input, exact .5 ties, a negative absmax and n = 1.  Timed
+    over the 15 leaves (one int8 step of the compressed SGD path on one
+    rank): ``quantize_compress`` on fp32 x, bound 5 bytes an element (x
+    read once, int8 written), two-pass floor 9 (x read twice); the EF form
+    on bf16 g (the path's gradients) and fp32 err, bound 14 bytes an
+    element (g and err read once, deq and new_err written), two-pass floor
+    20 (read twice), beside its plain version and, timed once as a
+    yardstick, the unfused composition it replaced (the earlier
+    ``compression.quantize_int8``: v = g.float() + err, the kernel on v,
+    deq = q * scale, the residual in float64)."""
     from repro_torch.kernels import fused as fused_mod
     step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, two_pass_bound_ms=0.0)
+    ef = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, two_pass_bound_ms=0.0,
+              unfused_ms=0.0)
     print("quantize_compress: leaf n | kernel ms | bound ms (by) | two-pass "
-          "ms | plain ms | bitwise equal")
+          "ms | plain ms | bitwise equal || EF (g dtype): kernel ms | bound "
+          "ms | two-pass ms | plain ms | unfused ms | bitwise equal")
     g = gen(1700)
     leaves = dict(leaf_lengths(cfg))
     cases = list(leaves.items())
@@ -1386,6 +1429,13 @@ def check_quantize_compress(cfg):
               ("zero", 4097), ("ties", 100_003), ("negative", 999_999),
               ("one", 1)]
     timed = {}
+
+    def unfused(gb, err):
+        v = gb.float() + err
+        q, scale = fused_mod.quantize_compress(v)
+        return (q.float() * scale,
+                (v.double() - q.double() * scale.double()).float())
+
     for label, n in cases:
         x = compress_input(label, n, g)
         q, s = fused_mod.quantize_compress(x)
@@ -1396,60 +1446,141 @@ def check_quantize_compress(cfg):
         if label == "zero":
             require(not bool(q.any()) and float(s) == float(
                 np.float32(1e-12)), "a zero input gives q 0, scale 1e-12")
-        elt = x.element_size()
+        # the EF form: bf16 g at the leaves (the path's gradients)
+        gx, err = ef_error(label, x, g)
+        if label in leaves:
+            gx = gx.to(torch.bfloat16)
+        g0, e0 = gx.clone(), err.clone()
+        deq, ne, es = fused_mod.quantize_compress_ef(gx, err)
+        dw, nw, esw = ref.quantize_compress_ef(gx, err)
+        ef_same = (same_bits(deq, dw) and same_bits(ne, nw)
+                   and same_bits(es, esw))
+        require(ef_same, f"quantize_compress_ef {label} (n={n}, "
+                f"{gx.dtype}) is not bitwise its plain version")
+        require(torch.equal(gx, g0) and torch.equal(err, e0),
+                f"quantize_compress_ef {label} changed its inputs")
+        if label == "ties":
+            require(float(es) == 2.0 ** -10, "the EF ties case's scale is "
+                    "not 2^-10")
+        elt, gelt = x.element_size(), gx.element_size()
         bms, by = bound((elt + 1.0) * n + 4, 6.0 * n, FP32_FLOPS)
         two_pass = (2 * elt + 1.0) * n / HBM_BYTES_PER_S * 1e3
+        ebms, eby = bound((gelt + 12.0) * n + 4, 8.0 * n, FP32_FLOPS)
+        etwo = (2 * gelt + 16.0) * n / HBM_BYTES_PER_S * 1e3
         if label in leaves:
             if n not in timed:
                 timed[n] = (
                     cuda_ms([lambda: fused_mod.quantize_compress(x)],
                             iters=20),
-                    event_ms(lambda: ref.quantize_compress(x), iters=3))
-            ms, plain = timed[n]
+                    event_ms(lambda: ref.quantize_compress(x), iters=3),
+                    cuda_ms([lambda: fused_mod.quantize_compress_ef(
+                        gx, err)], iters=20),
+                    event_ms(lambda: ref.quantize_compress_ef(gx, err),
+                             iters=3),
+                    event_ms(lambda: unfused(gx, err), iters=1))
+            ms, plain, ems, eplain, eun = timed[n]
             for key, val in (("ms", ms), ("plain_ms", plain),
                              ("bound_ms", bms),
                              ("two_pass_bound_ms", two_pass)):
                 step[key] += val
+            for key, val in (("ms", ems), ("plain_ms", eplain),
+                             ("bound_ms", ebms),
+                             ("two_pass_bound_ms", etwo),
+                             ("unfused_ms", eun)):
+                ef[key] += val
             print(f"quantize_compress {label} {n} | {ms:.4f} | {bms:.4f} "
-                  f"({by}) | {two_pass:.4f} | {plain:.4f} | {same}")
+                  f"({by}) | {two_pass:.4f} | {plain:.4f} | {same} || "
+                  f"{gx.dtype}: {ems:.4f} | {ebms:.4f} ({eby}) | "
+                  f"{etwo:.4f} | {eplain:.4f} | {eun:.4f} | {ef_same}")
         else:
             print(f"quantize_compress {label} {n} | - | {bms:.4f} ({by}) | "
-                  f"- | - | {same}")
+                  f"- | - | {same} || {gx.dtype}: - | {ebms:.4f} ({eby}) | "
+                  f"- | - | - | {ef_same}")
+        del q, qw, deq, ne, dw, nw
     n_all = sum(leaves.values())
     print(f"quantize_compress: one int8 step's 15 leaves per rank "
-          f"({n_all} elements): {step['ms']:.4f} ms, bound "
-          f"{step['bound_ms']:.4f} ms (bytes), two-pass floor "
-          f"{step['two_pass_bound_ms']:.4f} ms, plain "
+          f"({n_all} fp32 elements): {step['ms']:.4f} ms, bound "
+          f"{step['bound_ms']:.4f} ms (bytes, 5 B an element), two-pass "
+          f"floor {step['two_pass_bound_ms']:.4f} ms (9 B), plain "
           f"{step['plain_ms']:.4f} ms")
+    print(f"quantize_compress_ef: one int8 step's 15 leaves per rank "
+          f"({n_all} elements, bf16 g, fp32 err): {ef['ms']:.4f} ms, bound "
+          f"{ef['bound_ms']:.4f} ms (bytes, 14 B an element: g and err read "
+          f"once, deq and new_err written), two-pass floor "
+          f"{ef['two_pass_bound_ms']:.4f} ms (20 B: read twice), plain "
+          f"{ef['plain_ms']:.4f} ms, the unfused composition it replaced "
+          f"{ef['unfused_ms']:.4f} ms")
     return dict(name="quantize_compress", route="cuda",
                 source="src/repro_torch/kernels/csrc/quantize.cu",
                 replaces="src/repro/kernels/fused.py:77",
-                case="one int8 step of the compressed SGD path on one rank: "
-                     f"qwen2-0.5b's 15 leaves ({n_all} fp32 elements)",
-                max_abs_err=0.0, bound_by="bytes", library_ms=None, **step)
+                case="one int8 step of the compressed SGD path on one rank "
+                     "through the error-feedback form: qwen2-0.5b's 15 "
+                     f"leaves ({n_all} elements, bf16 g, fp32 err)",
+                max_abs_err=0.0, bound_by="bytes", library_ms=None,
+                ms=ef["ms"], plain_ms=ef["plain_ms"],
+                bound_ms=ef["bound_ms"],
+                two_pass_bound_ms=ef["two_pass_bound_ms"],
+                unfused_ms=ef["unfused_ms"],
+                compress_alone=dict(step, case="the same 15 leaves as fp32 "
+                                    "x, quantize_compress (q, scale)"))
 
 
 # the reference's matmul_dequant tolerances (tests/test_fused_kernels.py)
 DEQUANT_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 
 
+def int8pack_mm():
+    """``torch.ops.aten._weight_int8pack_mm`` (A (M, K), B (N, K) int8,
+    scales (N,)) when this PyTorch registers it for CUDA, else None (the
+    reason printed).  Timed only, as the library call beside
+    ``matmul_dequant``; the port never calls it."""
+    try:
+        has = torch._C._dispatch_has_kernel_for_dispatch_key(
+            "aten::_weight_int8pack_mm", "CUDA")
+    except RuntimeError as e:
+        print(f"_weight_int8pack_mm: no such op ({e})")
+        return None
+    print(f"_weight_int8pack_mm registered for CUDA: {has} (torch "
+          f"{torch.__version__})")
+    return torch.ops.aten._weight_int8pack_mm if has else None
+
+
+def dequant_widened(a, bq, bs, out):
+    """What ``matmul_dequant`` is pinned to, bitwise: the GEMM kernel on
+    the weights widened to ``a``'s type, in fp32, times the scale, cast
+    once."""
+    return (gemm_mod.matmul(a, bq.to(a.dtype), torch.float32)
+            * bs[None, :]).to(out)
+
+
 def check_matmul_dequant(cfg):
-    """``matmul_dequant`` against its plain version at qwen2-0.5b's eight
-    decode products (M = 8) and at a prefill M = 128, at the bench shape
-    (8, 1024, 1024) and the reference test's ragged shapes, for bf16 and
-    fp32 activations, at the reference's tolerances; timed beside its
-    bound, its plain version and ``torch.matmul`` on the already-widened
-    weights (a yardstick only: no library call computes the dequant
-    product).  Weights: normal * 0.05, quantized per column."""
+    """``matmul_dequant`` at qwen2-0.5b's eight decode products (M = 8)
+    and at a prefill M = 128, at the bench shape (8, 1024, 1024) and the
+    reference test's ragged shapes, for bf16 and fp32 activations:
+    bitwise ``matmul`` on the widened weights times the scale (fp32 and
+    bf16 outputs), the same bits on a second run, rows of an M = 8 call
+    equal to those rows inside an M = 128 call, and the reference's
+    tolerances against the plain version (fp32 2e-5, bf16 2e-2) as a
+    second gate.  Timed beside its bound, its plain version, the
+    ``matmul`` kernel and ``torch.matmul`` on the already-widened weights
+    (yardsticks) and
+    ``_weight_int8pack_mm`` (bf16, decode products; the library call where
+    this PyTorch has it for CUDA, on B transposed once outside the
+    timing).  Weights: normal * 0.05, quantized per column."""
     shapes = [(M, label, K, N, calls) for M in (SLOTS, CHUNK)
               for label, K, N, calls in gemm_cases(cfg)]
     shapes += [(8, "bench", 1024, 1024, 0), (5, "ragged", 300, 77, 0),
                (130, "ragged", 257, 129, 0)]
-    rows = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                     bytes=0.0, flops=0.0) for dt in DEQUANT_TOL}
+    lib_op = int8pack_mm()
+    rows = {dt: dict(ms=0.0, plain_ms=0.0, widened_ms=0.0, gemm_ms=0.0,
+                     bound_ms=0.0, bytes=0.0, flops=0.0, library_ms=0.0)
+            for dt in DEQUANT_TOL}
     errs = {dt: 0.0 for dt in DEQUANT_TOL}
+    pins = 0
     print("matmul_dequant: dtype label M K N | kernel ms | bound ms (by) | "
-          "plain ms | torch.matmul (widened B) ms | max abs err")
+          "plain ms | matmul kernel (widened B) ms | torch.matmul (widened "
+          "B) ms | _weight_int8pack_mm ms | max abs err | bitwise widened "
+          "matmul, runs, rows")
     for i, (M, label, K, N, calls) in enumerate(shapes):
         n = copies(K * N)
         ws = [torch.randn((K, N), generator=gen(1800 + 7 * i + j),
@@ -1460,6 +1591,24 @@ def check_matmul_dequant(cfg):
             a = torch.randn((M, K), generator=gen(1900 + i),
                             device="cuda").to(dt)
             bq, bs = qs[0]
+            for out in (torch.float32, torch.bfloat16):
+                got = gemm_mod.matmul_dequant(a, bq, bs, out)
+                require(same_bits(got, dequant_widened(a, bq, bs, out)),
+                        f"matmul_dequant {dt} -> {out} {label} ({M},{K},{N})"
+                        " is not bitwise matmul on the widened weights times "
+                        "the scale")
+                require(same_bits(got, gemm_mod.matmul_dequant(
+                    a, bq, bs, out)), f"matmul_dequant {dt} {label} "
+                    f"({M},{K},{N}): two runs differ")
+                pins += 2
+            if M == CHUNK and label != "ragged":
+                # rows of an M = 8 call inside this M = 128 call
+                got = gemm_mod.matmul_dequant(a, bq, bs, torch.float32)
+                require(same_bits(got[:SLOTS], gemm_mod.matmul_dequant(
+                    a[:SLOTS].contiguous(), bq, bs, torch.float32)),
+                    f"matmul_dequant {dt} {label} ({K},{N}): rows of an "
+                    f"M = {SLOTS} call differ from those rows at M = {M}")
+                pins += 1
             got = gemm_mod.matmul_dequant(a, bq, bs, torch.float32)
             want = ref.matmul_dequant(a, bq, bs, torch.float32)
             require(bool(torch.isfinite(got).all()),
@@ -1472,7 +1621,7 @@ def check_matmul_dequant(cfg):
             errs[dt] = max(errs[dt], float(e.max()))
             if label == "ragged":
                 print(f"matmul_dequant {dt} {label} {M} {K} {N} | - | - | - "
-                      f"| - | {float(e.max()):.3g}")
+                      f"| - | - | - | {float(e.max()):.3g} | True")
                 continue
             wide = [q.to(dt) for q, _ in qs[:2]]
             ms = cuda_ms([lambda q=q, s=s: gemm_mod.matmul_dequant(
@@ -1480,45 +1629,69 @@ def check_matmul_dequant(cfg):
             plain = cuda_ms([lambda q=q, s=s: ref.matmul_dequant(
                 a, q, s, torch.float32) for q, s in qs[:2]], iters=5,
                 warmup=1)
-            lib = cuda_ms([lambda b=b: torch.matmul(a, b) for b in wide],
-                          iters=max(20, 4 * n))
+            widened = cuda_ms([lambda b=b: torch.matmul(a, b) for b in wide],
+                              iters=max(20, 4 * n))
+            gemm_wide = cuda_ms([lambda b=b: gemm_mod.matmul(
+                a, b, torch.float32) for b in wide], iters=max(20, 4 * n))
+            lib = None
+            if lib_op is not None and dt == torch.bfloat16:
+                packed = [(q.t().contiguous(), s.to(dt)) for q, s in qs]
+                lib = cuda_ms([lambda q=q, s=s: lib_op(a, q, s)
+                               for q, s in packed], iters=max(20, 4 * n))
+                del packed
             nbytes = a.element_size() * M * K + K * N + 4 * N + 4 * M * N
             flops = 2.0 * M * N * K
             bms, by = bound(nbytes, flops, BF16_FLOPS if dt == torch.bfloat16
                             else FP32_FLOPS)
+            lib_s = "-" if lib is None else f"{lib:.4f}"
             print(f"matmul_dequant {dt} {label:7s} {M:4d} {K:5d} {N:6d} | "
-                  f"{ms:.4f} | {bms:.4f} ({by}) | {plain:.4f} | {lib:.4f} | "
-                  f"{float(e.max()):.3g}")
+                  f"{ms:.4f} | {bms:.4f} ({by}) | {plain:.4f} | "
+                  f"{gemm_wide:.4f} | {widened:.4f} | {lib_s} | "
+                  f"{float(e.max()):.3g} | True")
             if M == SLOTS and calls:
                 for key, val in (("ms", ms), ("plain_ms", plain),
-                                 ("library_ms", lib), ("bound_ms", bms),
-                                 ("bytes", nbytes), ("flops", flops)):
+                                 ("widened_ms", widened),
+                                 ("gemm_ms", gemm_wide), ("bound_ms", bms),
+                                 ("bytes", nbytes), ("flops", flops),
+                                 ("library_ms", lib or 0.0)):
                     rows[dt][key] += calls * val
     out = {}
     for dt, r in rows.items():
         bms, by = bound(r["bytes"], r["flops"], BF16_FLOPS
                         if dt == torch.bfloat16 else FP32_FLOPS)
         out[dt] = dict(r, bound_ms=bms, bound_by=by)
+        lib_s = (f"{r['library_ms']:.4f} ms" if lib_op is not None
+                 and dt == torch.bfloat16 else "none")
         print(f"matmul_dequant {dt}: one qwen2-0.5b decode step's 169 "
               f"products at M={SLOTS}: {r['ms']:.4f} ms, bound {bms:.4f} ms "
-              f"({by}), plain {r['plain_ms']:.4f} ms, torch.matmul on "
-              f"widened weights {r['library_ms']:.4f} ms")
+              f"({by}), plain {r['plain_ms']:.4f} ms, the matmul kernel on "
+              f"widened weights {r['gemm_ms']:.4f} ms, torch.matmul on them "
+              f"{r['widened_ms']:.4f} ms, _weight_int8pack_mm {lib_s}")
+    print(f"matmul_dequant: {pins} bitwise pins held (widened matmul, runs, "
+          "rows)")
     bf, f32 = out[torch.bfloat16], out[torch.float32]
     return dict(name="matmul_dequant", route="cuda",
-                source="src/repro_torch/kernels/csrc/gemm_dequant.cu",
+                source="src/repro_torch/kernels/csrc/gemm.cu",
                 replaces="src/repro/kernels/gemm.py:115",
                 case=f"one qwen2-0.5b decode step's 169 products at M={SLOTS}"
                      ", bf16 activations, int8 weights (no model path calls "
                      "it: entry point ops.matmul_dequant only)",
                 max_abs_err=errs[torch.bfloat16], ms=bf["ms"],
                 plain_ms=bf["plain_ms"], bound_ms=bf["bound_ms"],
-                bound_by=bf["bound_by"], library_ms=bf["library_ms"],
-                library="torch.matmul on the weights widened to bf16 "
-                        "beforehand (timed only)",
+                bound_by=bf["bound_by"],
+                library_ms=bf["library_ms"] if lib_op is not None else None,
+                library=("torch.ops.aten._weight_int8pack_mm on B transposed "
+                         "beforehand, scales in bf16 (timed only)"
+                         if lib_op is not None else "none: "
+                         "_weight_int8pack_mm is not registered for CUDA"),
+                widened_matmul_ms=bf["widened_ms"],
+                gemm_widened_ms=bf["gemm_ms"],
+                bitwise_pins=pins,
                 fp32_activations=dict(
                     ms=f32["ms"], plain_ms=f32["plain_ms"],
                     bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
-                    library_ms=f32["library_ms"],
+                    widened_matmul_ms=f32["widened_ms"],
+                    gemm_widened_ms=f32["gemm_ms"],
                     max_abs_err=errs[torch.float32]))
 
 

@@ -44,6 +44,24 @@
 // - fp32 operands run on CUDA-core FMAs (TF32 would keep 10 mantissa bits
 //   and miss the reference's fp32 tolerance), with the same K groups, the
 //   same split scratch and the same order of adds.
+// - The split's second pass is a programmatic dependent launch: its blocks
+//   are scheduled while the first pass runs and wait for its sums.
+//
+// matmul_dequant (replaces repro/kernels/gemm.py::matmul_dequant,
+// _matmul_dequant_kernel): C = (A @ B_q) * scale[N] with B_q int8, stored
+// (K, N), on the same kernels and the same plan.  bf16 A: the producer
+// warp TMA-loads the int8 tile (64 k rows of 64 bytes, 4 KB, unswizzled)
+// into a third part of the stage beside the activations; each consumer
+// warpgroup widens its tile exactly into the bf16 tile it reads (the
+// swizzled MN-major layout TMA writes for a (K, N) bf16 B) while its
+// wgmmas of the k-step before run, fences the writes to the async proxy,
+// syncs its 128 threads and runs the unchanged wgmma code.  fp32 A: the
+// CUDA-core kernel widens B on its shared-memory load.  The scale
+// multiplies the finished fp32 sum (in the epilogue, or in the split's
+// second pass) before the one cast, so C is bitwise matmul(A, B_q
+// widened, fp32) * scale[None, :], cast once.  At decode the product is
+// bound by the int8 bytes, half the bf16 GEMM's; the widening (three
+// integer and one fp32 instruction per element) hides beside them.
 //
 // cuTensorMapEncodeTiled is looked up with cudaGetDriverEntryPoint, so the
 // library links against the CUDA runtime only (no -lcuda).  A tensor map
@@ -66,6 +84,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BK = 64;               // K per stage: one 128-byte swizzle row
 constexpr int BOX = 64 * BK * 2;     // one 64 x 64 bf16 box: 8 KB
+constexpr int RAW = 64 * BK;         // one 64 x 64 int8 box: 4 KB
 
 __device__ __forceinline__ void store_out(void* out, size_t i, float v,
                                           int out_f32) {
@@ -78,6 +97,8 @@ __device__ __forceinline__ void store_out(void* out, size_t i, float v,
 struct Params {
   const bf16* x;        // A as stored: (M,K) row-major, or (K,M) if TB
   const bf16* w;        // B as stored: (K,N) row-major if TA, else (N,K)
+  const signed char* wq;  // int8 B, (K,N) row-major (matmul_dequant)
+  const float* scale;   // (N,) fp32 column scales (matmul_dequant), or null
   void* out;            // (M,N) row-major, fp32 or bf16
   float* scratch;       // (groups, M, N) group sums when split, else null
   int M, N, K;
@@ -88,6 +109,22 @@ struct Params {
   int out_f32;
   int tma;              // 1: TMA producer; 0: element loads (ragged)
 };
+
+// Four int8 (one word, element 0 in the low byte) -> four bf16 (two
+// words), exactly: byte b offset to b + 128 is the low mantissa byte of
+// the fp32 2^23 + b + 128; less 2^23 + 128 that is b, an integer whose
+// bf16 is the fp32's top half.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
+                                       uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float MAGIC = 8388736.0f;          // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - MAGIC;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - MAGIC;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - MAGIC;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - MAGIC;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
 
 // One (row, col) of a 128-byte-swizzled tile of 64 bf16 per row: the
 // layout TMA's 128-byte swizzle writes, for the element-load producer.
@@ -119,21 +156,28 @@ __device__ __forceinline__ Tile tile_of(int t, int mt, int nt, int bt,
 // on from one tile into the next while the consumers store the last one.
 // With two consumers, setmaxnreg gives them 232 registers each (the
 // accumulator and the running total of a 64 x 128 fragment) and the
-// producer 40.
-template <int NWG, int BT, int TA, int TB>
+// producer 40.  WQ (int8 B, TA only): with TMA a stage also holds the
+// int8 tiles, which TMA completes on raw_full together with the
+// activations; each consumer warpgroup widens its own tile into the bf16
+// tile it reads (while its wgmmas of the k-step before run), fences it to
+// the async proxy and syncs its 128 threads before its wgmmas.
+template <int NWG, int BT, int TA, int TB, bool WQ>
 __global__ void __launch_bounds__(NWG * 128 + 128, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
                   const __grid_constant__ CUtensorMap map_x, Params p) {
   constexpr int STAGES = NWG == 2 ? 5 : 6;
   constexpr int X_BYTES = BT * BK * 2;
-  constexpr int STAGE_BYTES = NWG * BOX + X_BYTES;
+  constexpr int RAW_BYTES = WQ ? NWG * RAW : 0;
+  constexpr int STAGE_BYTES = NWG * BOX + X_BYTES + RAW_BYTES;
   constexpr int NREG = BT / 2;
   constexpr int BN = 64 * NWG;
   static_assert(STAGE_BYTES % 1024 == 0, "stages stay 1024-byte aligned");
   static_assert(TB == 0 || BT % 64 == 0, "MN-major A tiles are whole boxes");
+  static_assert(!WQ || (TA == 1 && TB == 0), "int8 B is stored (K, N)");
 
   __shared__ __align__(8) uint64_t full[STAGES];
   __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t raw_full[STAGES];     // WQ with TMA
   extern __shared__ uint8_t dyn[];
   uint8_t* base = dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
 
@@ -144,10 +188,12 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
   const int nsteps = (p.K + BK - 1) / BK;
   const int spg = p.kg / BK;               // k-steps per K group
 
+  grid_launch_dependents();    // the split's second pass may start its launch
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NWG * 4);     // one arrival per consumer warp
+      if (WQ) mbar_init(&raw_full[s], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -168,7 +214,15 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         uint8_t* st = base + s * STAGE_BYTES;
         const int k0 = ks * BK;
-        if (p.tma) {
+        if (WQ && p.tma) {
+          // the int8 tiles and the activations, completing on raw_full
+          uint8_t* raw = st + NWG * BOX + X_BYTES;
+          mbar_expect_tx(&raw_full[s], RAW_BYTES + X_BYTES);
+          for (int w = 0; w < NWG; ++w)
+            tma_load_2d(raw + w * RAW, &map_w, &raw_full[s], tl.n0 + 64 * w,
+                        k0);
+          tma_load_2d(st + NWG * BOX, &map_x, &raw_full[s], k0, tl.m0);
+        } else if (p.tma) {
           mbar_expect_tx(&full[s], STAGE_BYTES);
           for (int w = 0; w < NWG; ++w) {
             if (TA)
@@ -196,8 +250,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
             const int k = k0 + (TA ? r : c);
             const int n = tl.n0 + 64 * w + (TA ? c : r);
             bf16 v = zero;
-            if (k < p.K && n < p.N)
-              v = TA ? p.w[(size_t)k * p.N + n] : p.w[(size_t)n * p.K + k];
+            if (k < p.K && n < p.N) {
+              if constexpr (WQ)
+                v = __float2bfloat16(
+                    static_cast<float>(p.wq[(size_t)k * p.N + n]));
+              else
+                v = TA ? p.w[(size_t)k * p.N + n] : p.w[(size_t)n * p.K + k];
+            }
             ws[w * 4096 + swz(r, c)] = v;
           }
           // activations: BT rows of 64 k (K-major), or per 64 tokens a
@@ -248,7 +307,33 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
         int prev = -1;
         for (int ks = ka; ks < kb; ++ks, ++it) {
           const int s = it % STAGES;
-          mbar_wait(&full[s], (it / STAGES) & 1);
+          if (WQ && p.tma) {
+            // widen this warpgroup's int8 tile: each thread takes 16 int8
+            // of one k row at a time (a 16-byte read) and writes their 16
+            // bf16 as two swizzled 16-byte chunks of that row
+            mbar_wait(&raw_full[s], (it / STAGES) & 1);
+            uint8_t* wide = base + s * STAGE_BYTES + wg * BOX;
+            const uint8_t* raw = base + s * STAGE_BYTES + NWG * BOX +
+                                 X_BYTES + wg * RAW;
+#pragma unroll
+            for (int c = tid % 128; c < 256; c += 128) {
+              const int k = c >> 2, seg = c & 3;
+              const uint4 r =
+                  *reinterpret_cast<const uint4*>(raw + k * 64 + seg * 16);
+              uint4 a, b;
+              widen4(r.x, a.x, a.y);
+              widen4(r.y, a.z, a.w);
+              widen4(r.z, b.x, b.y);
+              widen4(r.w, b.z, b.w);
+              *reinterpret_cast<uint4*>(wide + swz128(k, 2 * seg)) = a;
+              *reinterpret_cast<uint4*>(wide + swz128(k, 2 * seg + 1)) = b;
+            }
+            // generic-proxy writes, read by wgmma through the async proxy
+            fence_proxy_async();
+            asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+          } else {
+            mbar_wait(&full[s], (it / STAGES) & 1);
+          }
           const uint8_t* wt = base + s * STAGE_BYTES + wg * BOX;
           const uint8_t* xt = base + s * STAGE_BYTES + NWG * BOX;
 #pragma unroll
@@ -303,7 +388,9 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
         const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
         const int n = tl.n0 + 64 * wg + row, m = tl.m0 + col;
         if (m < p.M && n < p.N)
-          store_out(p.out, (size_t)m * p.N + n, tot[i], p.out_f32);
+          store_out(p.out, (size_t)m * p.N + n,
+                    WQ ? __fmul_rn(tot[i], __ldg(p.scale + n)) : tot[i],
+                    p.out_f32);
       }
     }
   }
@@ -313,15 +400,21 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 // A 64 x 64 output tile per block of 16 x 16 threads, each thread 4 x 4
 // outputs (rows ty + 16 i, columns tx + 16 j); K in 16-deep steps through
 // shared memory, every K group summed from zero with fmaf in k order.
+// WQ: W is int8 (K, N), widened to fp32 (exactly) as it is staged, and
+// the sums are scaled by p.scale[n] before the store.
 
 constexpr int F_TILE = 64;
 constexpr int F_BK = 16;
 
+template <bool WQ>
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ X, int x_t,
-                const float* __restrict__ W, int w_t, Params p) {
+                const void* __restrict__ Wv, int w_t, Params p) {
+  const float* W = static_cast<const float*>(Wv);
+  const signed char* Wq = static_cast<const signed char*>(Wv);
   __shared__ float xs[F_BK][F_TILE + 1];
   __shared__ float ws[F_BK][F_TILE + 1];
+  grid_launch_dependents();    // the split's second pass may start its launch
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int n0 = blockIdx.x * F_TILE, m0 = blockIdx.y * F_TILE;
   const int g0 = blockIdx.z * p.groups_per_block;
@@ -349,9 +442,14 @@ gemm_f32_kernel(const float* __restrict__ X, int x_t,
         const int kw = w_t ? e % F_BK : e / F_TILE;
         const int nn = w_t ? e / F_BK : e % F_TILE;
         const int k2 = k0 + kw, n = n0 + nn;
-        ws[kw][nn] = (k2 < kend && n < p.N)
-                         ? (w_t ? W[(size_t)n * p.K + k2] : W[(size_t)k2 * p.N + n])
-                         : 0.0f;
+        float wv = 0.0f;
+        if (k2 < kend && n < p.N) {
+          if constexpr (WQ)
+            wv = static_cast<float>(Wq[(size_t)k2 * p.N + n]);
+          else
+            wv = w_t ? W[(size_t)n * p.K + k2] : W[(size_t)k2 * p.N + n];
+        }
+        ws[kw][nn] = wv;
       }
       __syncthreads();
 #pragma unroll
@@ -388,17 +486,24 @@ gemm_f32_kernel(const float* __restrict__ X, int x_t,
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
       if (m < p.M && n < p.N)
-        store_out(p.out, (size_t)m * p.N + n, tot[i][j], p.out_f32);
+        store_out(p.out, (size_t)m * p.N + n,
+                  WQ ? __fmul_rn(tot[i][j], __ldg(p.scale + n)) : tot[i][j],
+                  p.out_f32);
     }
 }
 
-// The split's second pass: C = ((s_0 + s_1) + s_2) + ..., group order.
+// The split's second pass: C = ((s_0 + s_1) + s_2) + ..., group order,
+// times scale[n] where a scale is given (matmul_dequant).  A programmatic
+// dependent launch: its blocks wait for the first pass's sums.
 __global__ void reduce_groups_kernel(const float* __restrict__ s, void* out,
-                                     int out_f32, size_t MN, int groups) {
+                                     int out_f32, size_t MN, int groups,
+                                     const float* __restrict__ scale, int N) {
+  grid_dependency_wait();
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MN) return;
   float t = s[i];
   for (int g = 1; g < groups; ++g) t += s[(size_t)g * MN + i];
+  if (scale != nullptr) t = __fmul_rn(t, scale[i % N]);
   store_out(out, i, t, out_f32);
 }
 
@@ -428,60 +533,57 @@ EncodeTiled encode_tiled() {
 struct MapSlot {
   CUtensorMap map;
   const void* ptr;
-  int inner, outer, ld, box_outer;
+  int inner, outer, ld, box_outer, int8;
 };
 constexpr int MAP_SLOTS_LOG2 = 10;
 MapSlot map_cache[1 << MAP_SLOTS_LOG2];     // ptr == nullptr: empty
 std::mutex map_mutex;
 
-// A 2-D bf16 tensor map over a row-major (outer, inner) array whose rows
-// are ``ld`` elements apart, read in boxes of (box_outer, 64) with the
-// 128-byte swizzle; out-of-range elements read as zeros.
+// A 2-D tensor map over a row-major (outer, inner) array whose rows are
+// ``ld`` elements apart, read in boxes of (box_outer, 64): bf16 with the
+// 128-byte swizzle, or (int8) bytes unswizzled; out-of-range elements
+// read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer,
-              int ld, int box_outer) {
+              int ld, int box_outer, int int8 = 0) {
   uint64_t h = reinterpret_cast<uintptr_t>(ptr) ^ ((uint64_t)inner << 44) ^
-               ((uint64_t)outer << 24) ^ ((uint64_t)ld << 4) ^ box_outer;
+               ((uint64_t)outer << 24) ^ ((uint64_t)ld << 4) ^ box_outer ^
+               ((uint64_t)int8 << 63);
   MapSlot& slot =
       map_cache[(h * 0x9E3779B97F4A7C15ull) >> (64 - MAP_SLOTS_LOG2)];
   std::lock_guard<std::mutex> lock(map_mutex);
   if (slot.ptr == ptr && slot.inner == inner && slot.outer == outer &&
-      slot.ld == ld && slot.box_outer == box_outer) {
+      slot.ld == ld && slot.box_outer == box_outer && slot.int8 == int8) {
     *map = slot.map;
     return true;
   }
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * (int8 ? 1 : 2)};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
   const cuuint32_t elem[2] = {1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  if (fn(map,
+         int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         2, const_cast<void*>(ptr), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE,
+         int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  slot = MapSlot{*map, ptr, inner, outer, ld, box_outer};
+  slot = MapSlot{*map, ptr, inner, outer, ld, box_outer, int8};
   return true;
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
-template <int NWG, int BT, int TA, int TB>
+template <int NWG, int BT, int TA, int TB, bool WQ>
 cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   constexpr int STAGES = NWG == 2 ? 5 : 6;
-  constexpr int SMEM = STAGES * (NWG * BOX + BT * BK * 2) + 1024;
+  constexpr int SMEM =
+      STAGES * (NWG * BOX + BT * BK * 2 + (WQ ? NWG * RAW : 0)) + 1024;
   constexpr int THREADS = NWG * 128 + 128;
   static int per_sm = 0;                 // resident blocks per SM
   if (per_sm == 0) {
-    auto kernel = gemm_wgmma_kernel<NWG, BT, TA, TB>;
+    auto kernel = gemm_wgmma_kernel<NWG, BT, TA, TB, WQ>;
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
@@ -493,8 +595,9 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   CUtensorMap map_w, map_x;
   if (p.tma) {
     const bool ok =
-        (TA ? make_map(&map_w, p.w, p.N, p.K, p.N, 64)
-            : make_map(&map_w, p.w, p.K, p.N, p.K, 64)) &&
+        (WQ ? make_map(&map_w, p.wq, p.N, p.K, p.N, 64, 1)
+         : TA ? make_map(&map_w, p.w, p.N, p.K, p.N, 64)
+              : make_map(&map_w, p.w, p.K, p.N, p.K, 64)) &&
         (TB ? make_map(&map_x, p.x, p.M, p.K, p.M, 64)
             : make_map(&map_x, p.x, p.K, p.M, p.K, BT));
     if (!ok) return cudaErrorInvalidValue;
@@ -502,27 +605,56 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   const long tiles = (long)((p.M + BT - 1) / BT) *
                      ((p.N + 64 * NWG - 1) / (64 * NWG)) * p.splits;
   const int grid = (int)std::min<long>(tiles, (long)sm_count() * per_sm);
-  gemm_wgmma_kernel<NWG, BT, TA, TB>
+  gemm_wgmma_kernel<NWG, BT, TA, TB, WQ>
       <<<grid, THREADS, SMEM, stream>>>(map_w, map_x, p);
   return cudaGetLastError();
 }
 
-template <int TA, int TB>
+template <int TA, int TB, bool WQ = false>
 cudaError_t launch_bt(const Params& p, int bt, int nwg, cudaStream_t s) {
   if (nwg == 2) {
-    if (bt == 128) return launch_wgmma<2, 128, TA, TB>(p, s);
-    if (bt == 64) return launch_wgmma<2, 64, TA, TB>(p, s);
+    if (bt == 128) return launch_wgmma<2, 128, TA, TB, WQ>(p, s);
+    if (bt == 64) return launch_wgmma<2, 64, TA, TB, WQ>(p, s);
     return cudaErrorInvalidValue;
   }
   if constexpr (TB == 0) {
     switch (bt) {
-      case 8: return launch_wgmma<1, 8, TA, 0>(p, s);
-      case 16: return launch_wgmma<1, 16, TA, 0>(p, s);
-      case 32: return launch_wgmma<1, 32, TA, 0>(p, s);
-      case 64: return launch_wgmma<1, 64, TA, 0>(p, s);
+      case 8: return launch_wgmma<1, 8, TA, 0, WQ>(p, s);
+      case 16: return launch_wgmma<1, 16, TA, 0, WQ>(p, s);
+      case 32: return launch_wgmma<1, 32, TA, 0, WQ>(p, s);
+      case 64: return launch_wgmma<1, 64, TA, 0, WQ>(p, s);
     }
   }
   return cudaErrorInvalidValue;
+}
+
+// The plan's common part of both entries; p.x, p.w or p.wq, p.out and
+// p.scale are set by the caller.
+bool set_plan(Params& p, void* scratch, int M, int N, int K, int kg,
+              int split, int out_f32, int tma) {
+  p.scratch = split > 1 ? static_cast<float*>(scratch) : nullptr;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.kg = kg;
+  p.groups = (K + kg - 1) / kg;
+  if (kg % 256 != 0 || (split > 1 && split != p.groups)) return false;
+  p.groups_per_block = split > 1 ? 1 : p.groups;
+  p.splits = split > 1 ? p.groups : 1;
+  p.out_f32 = out_f32;
+  p.tma = tma;
+  return true;
+}
+
+// The split's second pass, when there is a split.
+cudaError_t finish(const Params& p, cudaError_t e, int split,
+                   cudaStream_t s) {
+  if (e != cudaSuccess || split <= 1) return e;
+  const size_t MN = (size_t)p.M * p.N;
+  return launch_dependent(reduce_groups_kernel,
+                          dim3((unsigned)((MN + 255) / 256)), dim3(256), 0, s,
+                          static_cast<const float*>(p.scratch), p.out,
+                          p.out_f32, MN, p.groups, p.scale, p.N);
 }
 
 }  // namespace
@@ -539,39 +671,56 @@ extern "C" int dmath_gemm(const void* a, int a_t, const void* b, int b_t,
                           int K, int f32, int kg, int bt, int nwg, int split,
                           int tma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Params p;
+  Params p = {};
   p.x = static_cast<const bf16*>(a);
   p.w = static_cast<const bf16*>(b);
   p.out = c;
-  p.scratch = split > 1 ? static_cast<float*>(scratch) : nullptr;
-  p.M = M;
-  p.N = N;
-  p.K = K;
-  p.kg = kg;
-  p.groups = (K + kg - 1) / kg;
-  if (kg % 256 != 0 || (split > 1 && split != p.groups))
+  if (!set_plan(p, scratch, M, N, K, kg, split, out_f32, tma))
     return static_cast<int>(cudaErrorInvalidValue);
-  p.groups_per_block = split > 1 ? 1 : p.groups;
-  p.splits = split > 1 ? p.groups : 1;
-  p.out_f32 = out_f32;
-  p.tma = tma;
   cudaError_t e;
   if (f32) {
     const dim3 grid((N + F_TILE - 1) / F_TILE, (M + F_TILE - 1) / F_TILE,
                     split);
-    gemm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(a), a_t,
-                                         static_cast<const float*>(b), b_t, p);
+    gemm_f32_kernel<false><<<grid, 256, 0, s>>>(static_cast<const float*>(a),
+                                                a_t, b, b_t, p);
     e = cudaGetLastError();
   } else if (b_t) {
     e = a_t ? launch_bt<0, 1>(p, bt, nwg, s) : launch_bt<0, 0>(p, bt, nwg, s);
   } else {
     e = a_t ? launch_bt<1, 1>(p, bt, nwg, s) : launch_bt<1, 0>(p, bt, nwg, s);
   }
-  if (e != cudaSuccess || split <= 1) return static_cast<int>(e);
-  const size_t MN = (size_t)M * N;
-  reduce_groups_kernel<<<(unsigned)((MN + 255) / 256), 256, 0, s>>>(
-      p.scratch, c, out_f32, MN, p.groups);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(finish(p, e, split, s));
+}
+
+// C = (A @ B_q) * scale[None, :].  ``a`` is (M,K) row-major, bf16 (f32 = 0)
+// or fp32 (f32 = 1); ``bq`` is int8 (K,N) row-major; ``scale`` (N,) fp32.
+// The plan's arguments are dmath_gemm's for the same (M, K, N, f32), so
+// C is bitwise that of dmath_gemm on B_q widened to A's type, times the
+// scale, cast once.
+extern "C" int dmath_gemm_dequant(const void* a, const void* bq,
+                                  const void* scale, void* c, int out_f32,
+                                  void* scratch, int M, int N, int K,
+                                  int f32, int kg, int bt, int nwg,
+                                  int split, int tma, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Params p = {};
+  p.x = static_cast<const bf16*>(a);
+  p.wq = static_cast<const signed char*>(bq);
+  p.scale = static_cast<const float*>(scale);
+  p.out = c;
+  if (!set_plan(p, scratch, M, N, K, kg, split, out_f32, tma))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (f32) {
+    const dim3 grid((N + F_TILE - 1) / F_TILE, (M + F_TILE - 1) / F_TILE,
+                    split);
+    gemm_f32_kernel<true><<<grid, 256, 0, s>>>(static_cast<const float*>(a),
+                                               0, bq, 0, p);
+    e = cudaGetLastError();
+  } else {
+    e = launch_bt<1, 0, true>(p, bt, nwg, s);
+  }
+  return static_cast<int>(finish(p, e, split, s));
 }
 
 extern "C" const char* dmath_error_string(int code) {

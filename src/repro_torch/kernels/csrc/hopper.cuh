@@ -374,6 +374,18 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
+// The card's streaming multiprocessors (looked up once), for grids of one
+// wave.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
 // ---- cp.async ---------------------------------------------------------------
 
 // 16 bytes global -> shared; zeros when !valid (src is then not read).

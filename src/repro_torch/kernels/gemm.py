@@ -41,13 +41,18 @@ card's deviation.
 fp32 operands (and a bf16 operand beside an fp32 one, promoted as
 ``torch.promote_types`` does) take the fp32 kernel.
 
-:func:`matmul_dequant` (CUDA source: ``csrc/gemm_dequant.cu``) replaces
-the TPU kernel ``repro/kernels/gemm.py::matmul_dequant``: C = (A @ B_q) ·
-scale[N] with int8 weights widened inside the kernel and the per-column
-scale applied to the fp32 accumulator, so the dequantized B never exists
-in device memory.  It is reached through ``ops.matmul_dequant`` only, as
-in the reference (no model path calls it); at qwen2-0.5b's decode shapes
-it is bound by the int8 bytes of B, half the bf16 GEMM's.
+:func:`matmul_dequant` (the same source) replaces the TPU kernel
+``repro/kernels/gemm.py::matmul_dequant``: C = (A @ B_q) · scale[N] with
+int8 weights widened inside the kernel and the per-column scale applied
+to the finished fp32 sum, so the dequantized B never exists in device
+memory.  It runs the same kernels under the same :func:`plan` as
+:func:`matmul` (bf16 A: the int8 tile TMA-loaded and widened in shared
+memory ahead of wgmma; fp32 A: widened on the CUDA-core kernel's load),
+so its result is bitwise ``matmul(a, b_q.to(a.dtype), torch.float32) *
+b_scale`` cast once, and inherits row invariance and run-to-run bits.  It
+is reached through ``ops.matmul_dequant`` only, as in the reference (no
+model path calls it); at qwen2-0.5b's decode shapes it is bound by the
+int8 bytes of B, half the bf16 GEMM's.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ MAX_GROUPS = 32   # deeper K takes deeper groups (a multiple of KG)
 SMS = 132         # the H100's streaming multiprocessors
 SKINNY_TILES = (8, 16, 32, 64)
 _KINDS = (torch.bfloat16, torch.float32)
-_entry = None     # the C entry, looked up on first launch
+_entry = None     # the C entries, looked up on first launch
+_dequant_entry = None
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -77,10 +83,11 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p]
 
-_DEQUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p]
+_DEQUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +145,17 @@ def plan(M: int, K: int, N: int, *, f32: bool = False,
     tiles = tiles_of(tm, tn)
     split = groups if tiles < idle and groups > 1 else 1
     return Plan(regime, tm, tn, kg, groups, split)
+
+
+def plan_of(a: torch.Tensor, b: torch.Tensor, a_transposed: bool = False
+            ) -> Plan:
+    """The plan of the launch for ``a`` (M, K) @ ``b`` (K, N): the fp32
+    kernel when ``a`` is fp32.  The type of ``b`` plays no part, so an
+    int8 ``b`` (:func:`matmul_dequant`) takes the plan of ``b`` widened to
+    ``a``'s type."""
+    M, K = a.shape
+    return plan(M, K, b.shape[1], f32=a.dtype == torch.float32,
+                a_transposed=a_transposed)
 
 
 def uses_tma(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -229,17 +247,16 @@ def _product(a: torch.Tensor, b: torch.Tensor,
         return out
     if K == 0:
         return out.zero_()
-    f32 = a.dtype == torch.float32
-    pl = plan(M, K, N, f32=f32, a_transposed=bool(a_t))
+    pl = plan_of(a, b, bool(a_t))
     scratch = (torch.empty((pl.groups, M, N), dtype=torch.float32,
                            device=a.device).data_ptr()
                if pl.split > 1 else None)
     if _entry is None:
         _entry = _build.function("dmath_gemm", _ARGTYPES)
     rc = _entry(a.data_ptr(), a_t, b.data_ptr(), b_t, out.data_ptr(),
-                int(out_dtype == torch.float32), scratch, M, N, K, int(f32),
-                pl.kg, pl.tile_m, 1 if pl.tile_n == 64 else 2, pl.split,
-                int(uses_tma(a, b)),
+                int(out_dtype == torch.float32), scratch, M, N, K,
+                int(a.dtype == torch.float32), pl.kg, pl.tile_m,
+                1 if pl.tile_n == 64 else 2, pl.split, int(uses_tma(a, b)),
                 torch._C._cuda_getCurrentRawStream(a.get_device()))
     if rc:
         _build.check(rc, "matmul")
@@ -256,8 +273,9 @@ def matmul_dequant(a: torch.Tensor, b_q: torch.Tensor, b_scale: torch.Tensor,
     tensors launch the kernel, which takes contiguous bf16 or fp32 ``a``,
     int8 ``b_q`` and fp32 ``b_scale`` on one device and writes fp32 or
     bf16, and raise on anything else.  Not differentiable (the reference
-    has no backward)."""
-    global dequant_launches
+    has no backward).  The result is bitwise that of :func:`matmul` on
+    ``b_q.to(a.dtype)`` in fp32, times ``b_scale``, cast once."""
+    global dequant_launches, _dequant_entry
     out_dtype = out_dtype or a.dtype
     devs = {t.device for t in (a, b_q, b_scale)}
     if devs == {torch.device("cpu")}:
@@ -288,11 +306,20 @@ def matmul_dequant(a: torch.Tensor, b_q: torch.Tensor, b_scale: torch.Tensor,
         return out
     if K == 0:
         return out.zero_()
-    fn = _build.function("dmath_gemm_dequant", _DEQUANT_ARGTYPES)
-    rc = fn(a.data_ptr(), int(a.dtype == torch.float32), b_q.data_ptr(),
-            b_scale.data_ptr(), out.data_ptr(), M, N, K,
-            int(out_dtype == torch.float32),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(rc, "matmul_dequant")
+    pl = plan_of(a, b_q)
+    scratch = (torch.empty((pl.groups, M, N), dtype=torch.float32,
+                           device=a.device).data_ptr()
+               if pl.split > 1 else None)
+    if _dequant_entry is None:
+        _dequant_entry = _build.function("dmath_gemm_dequant",
+                                         _DEQUANT_ARGTYPES)
+    rc = _dequant_entry(a.data_ptr(), b_q.data_ptr(), b_scale.data_ptr(),
+                        out.data_ptr(), int(out_dtype == torch.float32),
+                        scratch, M, N, K, int(a.dtype == torch.float32),
+                        pl.kg, pl.tile_m, 1 if pl.tile_n == 64 else 2,
+                        pl.split, int(uses_tma(a, b_q)),
+                        torch._C._cuda_getCurrentRawStream(a.get_device()))
+    if rc:
+        _build.check(rc, "matmul_dequant")
     dequant_launches += 1
     return out

@@ -26,6 +26,8 @@ ssd = _ssd.ssd
 ssd_step = _ref.ssd_step     # single-token decode: plain PyTorch everywhere
 quantize_int8 = _fused.quantize_int8
 quantize_compress = _fused.quantize_compress
+# v = g + err quantized with its error feedback; counted as quantize_compress
+quantize_compress_ef = _fused.quantize_compress_ef
 matmul_dequant = _gemm.matmul_dequant
 # offline weight preparation: plain PyTorch everywhere, as in the reference
 quantize_int8_per_channel = _ref.quantize_int8_per_channel

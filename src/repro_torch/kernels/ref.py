@@ -79,6 +79,20 @@ def quantize_compress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def quantize_compress_ef(g: torch.Tensor, err: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(deq, new_err, scale) of ``v = g.float() + err``: ``q, scale =
+    quantize_compress(v)``, ``deq = q * scale`` in fp32 and the new error
+    ``v - q * scale`` rounded once, as XLA's ``fma(-q, scale, v)`` (exact
+    in float64: q * scale has at most 32 significant bits, and its
+    difference from v spans at most 33)."""
+    v = g.float() + err
+    q, scale = quantize_compress(v)
+    deq = q.float() * scale
+    new_err = (v.double() - q.double() * scale.double()).float()
+    return deq, new_err, scale
+
+
 def quantize_int8_per_channel(w: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-output-column int8 weights for :func:`matmul_dequant`:

@@ -4,12 +4,13 @@ paper's CNTK one-bit column, Table 1) onto ``torch.distributed``:
 
 - ``onebit``: sign + per-tensor L1 scale, residual error feedback (Seide
   et al. 2014), plain PyTorch on every device, as in the reference;
-- ``int8``: per-tensor absmax affine quantization with error feedback.
-  Its quantizer is :func:`repro_torch.kernels.ops.quantize_compress`,
-  the CUDA kernel for a tensor on the card, and it rounds as the
-  reference's does under ``jit`` (the jitted step is its production
-  form): the scale as ``fmaf(absmax, fl32(1/127), fl32(1e-12))``, and the
-  new error as ``fma(-q, scale, v)``, rounded once.
+- ``int8``: per-tensor absmax affine quantization with error feedback,
+  one call of :func:`repro_torch.kernels.ops.quantize_compress_ef` per
+  leaf (the CUDA kernel pair for a tensor on the card), which rounds as
+  the reference's quantizer does under ``jit`` (the jitted step is its
+  production form): ``v = g + err``, the scale as ``fmaf(absmax,
+  fl32(1/127), fl32(1e-12))``, and the new error as ``fma(-q, scale,
+  v)``, rounded once.
 
 Wire format, as in the reference: the all-reduce moves the dequantized
 fp32 values (the gradients' own dtype for ``none``), and
@@ -50,13 +51,9 @@ def quantize_int8(g: torch.Tensor, err: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dequantized values, new_err) of ``v = g + err``: int8 against
     ``v``'s own absmax scale, ``deq = q * scale`` in fp32, and the new
-    error ``v - q * scale`` rounded once, as XLA's ``fma(-q, scale, v)``
-    (exact in float64: q * scale has at most 32 significant bits, and its
-    difference from v spans at most 33)."""
-    v = g.float() + err
-    q, scale = ops.quantize_compress(v)
-    deq = q.float() * scale
-    new_err = (v.double() - q.double() * scale.double()).float()
+    error ``fma(-q, scale, v)``.  New tensors; ``g`` and ``err`` are left
+    as they are."""
+    deq, new_err, _ = ops.quantize_compress_ef(g, err)
     return deq, new_err
 
 

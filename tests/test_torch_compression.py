@@ -220,6 +220,82 @@ def test_quantizers_match_the_jitted_reference(J, seed):
                                atol=1e-6 * float(np.abs(qw).max()))
 
 
+def _ef_case(J, n, dtype, kind="normal"):
+    """(g, err) as JAX arrays and torch tensors: g of ``dtype`` (bf16
+    carried bit for bit), err fp32 at 1e-2 of g's scale.  ``zero``: both
+    all zeros.  ``ties``: v = g + err is 127 * 2^-10 at one element (the
+    scale is exactly 2^-10) and an exact .5 multiple of 2^-10 at every
+    even one, split between g and an err of whole multiples of 2^-10, so
+    round-half-to-even decides after the add."""
+    rng = np.random.default_rng(n)
+    g = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    e = (rng.standard_normal(n) * 1e-5).astype(np.float32)
+    if kind == "zero":
+        g[:], e[:] = 0, 0
+    if kind == "ties":
+        # |k - j| <= 126.5: 8 significant bits, exact in bf16 too
+        k = rng.integers(-124, 124, n) + 0.5
+        j = rng.integers(-3, 4, n)
+        even = np.arange(n) % 2 == 0
+        g = np.where(even, (k - j) * 2.0 ** -10, g * 0.1).astype(np.float32)
+        e = np.where(even, j * 2.0 ** -10, e).astype(np.float32)
+        g[n // 2], e[n // 2] = 127 * 2.0 ** -10, 0.0
+    gj, gt = _pair(J, g, dtype)
+    ej, et = _pair(J, e, "float32")
+    return gj, gt, ej, et
+
+
+def _check_ef(J, gj, gt, ej, et):
+    """``ref.quantize_compress_ef`` and ``compression.quantize_int8``
+    bitwise against the jitted reference quantizer, the scale against the
+    jitted reference's ``quantize_compress`` of v; returns the scale."""
+    g0, e0 = gt.clone(), et.clone()
+    deq, ne, s = ref.quantize_compress_ef(gt, et)
+    dqw, new = J.jax.jit(J.comp.quantize_int8)(gj, ej)
+    _, sw = J.jax.jit(J.ref.quantize_compress)(gj.astype(J.jnp.float32) + ej)
+    assert deq.shape == ne.shape == gt.shape and s.shape == ()
+    _same(deq, dqw)
+    _same(s, sw)
+    if gt.numel() == 1:
+        # XLA's CPU compiler leaves a one-element subtract unfused, so
+        # there the jitted reference rounds v - deq twice; the port keeps
+        # the fma it forms at every other length, held here to an fma
+        # computed independently (exact in float64, rounded once)
+        v = np.asarray(gj.astype(J.jnp.float32) + ej)
+        sv = np.float32(sw)
+        q = np.round(v / sv).astype(np.float64)
+        np.testing.assert_array_equal(np.asarray(new), v - np.asarray(dqw))
+        new = (v.astype(np.float64) - q * np.float64(sv)).astype(np.float32)
+    _same(ne, new)
+    dq2, ne2 = compression.quantize_int8(gt, et)
+    _same(dq2, dqw)
+    _same(ne2, new)
+    assert torch.equal(gt, g0) and torch.equal(et, e0)   # inputs untouched
+    return float(s)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 123, 5000, 65536])
+def test_quantize_compress_ef_is_bitwise_the_jitted_reference(J, n, dtype):
+    """The error-feedback form's plain version and the rewired int8
+    quantizer give the jitted reference quantizer's deq and new error
+    bitwise (its residual is the fma ``fma(-q, scale, v)``; at n = 1 see
+    ``_check_ef``), for bf16 and fp32 gradients."""
+    _check_ef(J, *_ef_case(J, n, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["zero", "ties"])
+def test_quantize_compress_ef_zero_and_ties(J, kind, dtype):
+    gj, gt, ej, et = _ef_case(J, 4097, dtype, kind)
+    s = _check_ef(J, gj, gt, ej, et)
+    if kind == "zero":
+        assert s == float(np.float32(1e-12))
+        assert not compression.quantize_int8(gt, et)[0].any()
+    else:
+        assert s == 2.0 ** -10
+
+
 @pytest.mark.parametrize("scheme", ["onebit", "int8"])
 @pytest.mark.parametrize("seed", [3, 4, 5])
 def test_error_feedback_identity(scheme, seed):

@@ -137,6 +137,27 @@ def test_gemm_plan_groups_follow_k_and_splits_hold_whole_groups(f32, a_t):
     assert gemm.plan(8, 896, 151_936).split == 1
 
 
+@pytest.mark.parametrize("m,k,n", [
+    (8, 896, 896), (8, 896, 128), (8, 896, 4864), (8, 4864, 896),
+    (8, 896, 151936),                                  # qwen2-0.5b decode
+    (128, 896, 896), (128, 896, 4864), (128, 4864, 896),   # prefill chunk
+    (8, 1024, 1024), (5, 300, 77), (130, 257, 129), (1, 20000, 64)])
+@pytest.mark.parametrize("f32", [False, True])
+def test_dequant_plan_is_the_matmul_plan(m, k, n, f32):
+    """``matmul_dequant`` launches under ``plan_of(a, b_q)``: the plan of
+    ``gemm.plan`` for the same (M, K, N, f32), which ``matmul`` takes on
+    the weights widened to the activations' type; the bitwise pin on the
+    card rests on it."""
+    from repro_torch.kernels import gemm
+    dt = torch.float32 if f32 else torch.bfloat16
+    a = torch.empty((m, k), dtype=dt, device="meta")
+    bq = torch.empty((k, n), dtype=torch.int8, device="meta")
+    pl = gemm.plan_of(a, bq)
+    assert pl == gemm.plan(m, k, n, f32=f32)
+    assert pl == gemm.plan_of(a, bq.to(dt))
+    assert pl.regime == ("fp32" if f32 else "skinny" if m <= 64 else "wide")
+
+
 def test_gemm_wrapper_reads_layouts_and_tma_alignment():
     from repro_torch.kernels import gemm
     x = torch.zeros(6, 16, dtype=torch.bfloat16)
@@ -745,6 +766,60 @@ def test_quantize_compress_kernel_matches_plain_bitwise(cuda, n, dtype,
     assert torch.equal(q.cpu(), qw) and torch.equal(s.cpu(), sw)
 
 
+def _same_bits(x, y):
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}[x.element_size()]
+    return x.dtype == y.dtype and torch.equal(x.view(ints), y.view(ints))
+
+
+def ef_case(seed, n, dtype, kind):
+    """(g, err) of the error-feedback form: g is ``compress_case``'s
+    input, err N(0, 1e-5) (1e-2 of g's scale); ``zero``: err zero too;
+    ``ties``: err a whole multiple of 2^-10 at the even elements and g =
+    x - err there (exact in fp32), so v = g + err keeps the ties."""
+    x = compress_case(seed, n, "float32", kind)
+    rng = np.random.default_rng(seed + 1)
+    err = torch.from_numpy((rng.standard_normal(n) * 1e-5).astype(np.float32))
+    if kind == "zero":
+        err.zero_()
+    if kind == "ties":
+        even = torch.arange(n) % 2 == 0
+        j = torch.from_numpy(rng.integers(-3, 4, n)).float()
+        err = torch.where(even, j * 2.0 ** -10, err)
+        err[n // 2] = 0.0
+        x = torch.where(even, x - err, x)
+    return x.to(TDT[dtype]), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,dtype,kind", [
+    (896, "bfloat16", "normal"),          # qwen2-0.5b's smallest leaf
+    (4_358_144, "bfloat16", "normal"),    # a layer's MLP weight, 4864 x 896
+    (4096 * 37 + 3, "float32", "normal"), (4096 * 37 + 3, "bfloat16",
+                                           "normal"),
+    (1, "bfloat16", "normal"), (5, "float32", "ties"),
+    (100_003, "float32", "ties"), (4097, "float32", "zero"),
+    (1000, "float32", "negative")])
+def test_quantize_compress_ef_kernel_matches_plain_bitwise(cuda, n, dtype,
+                                                           kind):
+    """The error-feedback form: deq, new_err and the scale bitwise its
+    plain version's, g and err left as they were, one count under
+    ``quantize_compress``; also from inputs that do not start on a
+    16-byte boundary (the kernels' element path)."""
+    from repro_torch.kernels import fused
+    g, err = ef_case(n % 1000, n, dtype, kind)
+    want = ref.quantize_compress_ef(g, err)
+    gc, ec = g.to(cuda), err.to(cuda)
+    before = fused.compress_launches
+    got = ops.quantize_compress_ef(gc, ec)
+    assert fused.compress_launches == before + 1
+    assert all(_same_bits(x.cpu(), w) for x, w in zip(got, want))
+    assert torch.equal(gc.cpu(), g) and torch.equal(ec.cpu(), err)
+    go = torch.cat([torch.zeros(1, dtype=g.dtype), g]).to(cuda)[1:]
+    eo = torch.cat([torch.zeros(1), err]).to(cuda)[1:]
+    got = ops.quantize_compress_ef(go, eo)
+    assert all(_same_bits(x.cpu(), w) for x, w in zip(got, want))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [
     (8, 896, 4864), (8, 4864, 896), (8, 896, 128),    # qwen2-0.5b decode
@@ -769,6 +844,52 @@ def test_matmul_dequant_kernel_matches_plain(cuda, m, k, n):
             torch.testing.assert_close(
                 got.float(), ref.matmul_dequant(a, bq, bs, out).float(),
                 **tol)
+
+
+DEQUANT_SHAPES = [
+    (8, 896, 4864), (8, 4864, 896), (8, 896, 128),    # qwen2-0.5b decode
+    (128, 896, 896), (8, 1024, 1024),                 # prefill, bench
+    (5, 300, 77), (130, 257, 129)]                    # ragged
+
+
+def _dequant_case(m, k, n, dtype, cuda):
+    g = torch.Generator().manual_seed(m * k + n + 1)
+    w = torch.randn((k, n), generator=g) * 0.05
+    bq, bs = (t.to(cuda) for t in ops.quantize_int8_per_channel(w))
+    a = torch.randn((m, k), generator=g).to(TDT[dtype]).to(cuda)
+    return a, bq, bs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", DEQUANT_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_matmul_dequant_kernel_is_bitwise_the_widened_matmul(cuda, m, k, n,
+                                                             dtype):
+    """The kernel runs the GEMM's mainloop under the same plan as
+    ``matmul`` on the weights widened to the activations' type, so its
+    result is that product in fp32 times the scale, cast once, bitwise;
+    and a second run gives the same bits."""
+    from repro_torch.kernels import gemm
+    a, bq, bs = _dequant_case(m, k, n, dtype, cuda)
+    for out in (torch.float32, torch.bfloat16):
+        got = ops.matmul_dequant(a, bq, bs, out)
+        want = (gemm.matmul(a, bq.to(a.dtype), torch.float32)
+                * bs[None, :]).to(out)
+        assert _same_bits(got, want)
+        assert _same_bits(got, ops.matmul_dequant(a, bq, bs, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(896, 4864), (4864, 896), (257, 129)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_matmul_dequant_rows_are_invariant_bitwise(cuda, k, n, dtype):
+    """Row i of C depends on A[i], B, K and N only: rows of an M = 1, 8,
+    44 or 65 call equal those rows inside an M = 128 call."""
+    a, bq, bs = _dequant_case(128, k, n, dtype, cuda)
+    full = ops.matmul_dequant(a, bq, bs, torch.float32)
+    for m in (1, 8, 44, 65):
+        part = ops.matmul_dequant(a[:m].contiguous(), bq, bs, torch.float32)
+        assert _same_bits(part, full[:m])
 
 
 BWD_CASES = [
