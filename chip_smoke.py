@@ -53,6 +53,17 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    identical greedy tokens, and the card's logits must agree with the
    plain versions' on the CPU on a short prompt.  One decode step is also
    split into its host wall time and its device time.
+4b. Serve the same model, params and requests through the static
+   ``Engine`` on the dense KV cache (the reference's default): launch
+   counts (``matmul`` 169 per prefill and per decode step, ``attention``
+   24 per prefill, ``paged_decode_attention`` 24 per decode step); the
+   dense decode attention (each slot's cache row one page of 1,024)
+   bitwise the same K/V in 64-token pages, straight and permuted; the
+   dense prefill and decode step against the CPU's at phase 4's
+   tolerance; the greedy tokens against the static paged engine's, both
+   paths teacher-forced along the paged streams, logits within phase 4's
+   tolerance and a token parting only at a low-margin step; serve
+   numbers and a decode step split as in phase 4.
 5. Serve mamba2-780m at full width (48 layers) through the dense-cache
    static ``Engine`` (8 slots, the same 16-request set), with its own
    launch-count check (``matmul`` 241 per prefill and per decode step,
@@ -118,18 +129,31 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    within rtol 1e-5); the first batch's loss lower after ``none``'s
    steps; step, wire and quantizer times, tokens per second, wire bytes
    and peak memory per rank.
-8. Print the ``kernels`` JSON line, the card's name and power limit, and
+8. The CLIs, as a user starts them, in a temporary directory removed at
+   the end: ``python -m repro_torch.launch.serve`` on the dense default
+   with ``--metrics`` (phase 4's request shape), then
+   ``python -m repro_torch.launch.train`` at full width on one rank (2 x
+   512 tokens, 4 steps, saves at steps 2 and 4, ``--metrics``), then a
+   resume of a hard-linked copy of step 2 with nothing left to train,
+   whose save must equal the original byte for byte; the JSONL streams
+   and snapshots must parse and hold the histograms and spans; prints
+   the checkpoint's bytes and save seconds.
+9. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import filecmp
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -866,32 +890,38 @@ def agree(got, want, what):
                 rel_rms=rel_rms, greedy_equal=same, steps=len(want))
 
 
-def check_against_cpu(cfg, model, params):
+def check_against_cpu(cfg, model, params, dense=False):
     """A short prompt through prefill and 4 decode steps on the card and
     through the plain versions on the CPU, teacher-forced with the CPU's
-    greedy tokens, held to :func:`agree`."""
+    greedy tokens, held to :func:`agree`: on the paged cache (one prefill
+    chunk), or with ``dense`` on the dense KV cache (the one-slot prefill
+    and the dense decode step)."""
     cpu = Model(cfg, device="cpu")
     cpu_params = {k: v.cpu() for k, v in params.items()}
     prompt = np.random.default_rng(SEED + 1).integers(
         0, cfg.vocab_size, (1, 64)).astype(np.int64)
     runs = []
     for m, p in ((model, params), (cpu, cpu_params)):
-        cache = m.init_paged_cache(1, 128, PAGE)
-        logits, cache = m.prefill_chunk_paged(
-            p, cache, torch.from_numpy(prompt).to(m.device),
-            cache["table"][0], 0)
+        toks = torch.from_numpy(prompt).to(m.device)
+        if dense:
+            cache = m.init_cache(1, 128)
+            logits, cache = m.prefill(p, toks, cache=cache, slot=0)
+        else:
+            cache = m.init_paged_cache(1, 128, PAGE)
+            logits, cache = m.prefill_chunk_paged(p, cache, toks,
+                                                  cache["table"][0], 0)
         out = [logits[0, -1].float().cpu()]
         runs.append((m, p, cache, out))
     for s in range(4):
         tok = int(torch.argmax(runs[1][3][-1]))
         for m, p, cache, out in runs:
-            logits, _ = m.decode_step_paged(
-                p, cache, torch.tensor([[tok]], device=m.device),
-                torch.tensor([64 + s], device=m.device))
+            step = m.decode_step if dense else m.decode_step_paged
+            logits, _ = step(p, cache, torch.tensor([[tok]], device=m.device),
+                             torch.tensor([64 + s], device=m.device))
             out.append(logits[0, 0].float().cpu())
     agree(torch.stack(runs[0][3]), torch.stack(runs[1][3]),
-          "card vs cpu logits (qwen2, full width, 64-token prompt + 4 "
-          "steps)")
+          f"card vs cpu logits (qwen2, full width, {'dense' if dense else 'paged'}"
+          " cache, 64-token prompt + 4 steps)")
 
 
 def wall_and_device(step):
@@ -909,31 +939,225 @@ def wall_and_device(step):
     return statistics.median(walls), cuda_ms([step], iters=5, warmup=1)
 
 
-def step_breakdown(cfg, model, params):
+def step_breakdown(cfg, model, params, dense=False):
     """One full decode step (8 slots, each at a serve-like position):
     host wall time of the eager step, ended by a synchronize, against the
     device time of the same step replayed from a CUDA graph.  Their gap
-    is what the host adds per step."""
-    cache = model.init_paged_cache(SLOTS, MAX_SEQ, PAGE)
+    is what the host adds per step.  On the paged cache, or with
+    ``dense`` on the dense KV cache (the table and ``seq_lens`` made
+    outside the step, as the engine passes them)."""
     rng = np.random.default_rng(SEED + 2)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (SLOTS, 1))).cuda()
     pos = torch.from_numpy(rng.integers(
         PROMPT_MIN, PROMPT_MAX + NEW_TOKENS, SLOTS)).cuda()
+    if dense:
+        cache = model.init_cache(SLOTS, MAX_SEQ)
+        table = torch.arange(SLOTS, dtype=torch.int32,
+                             device="cuda")[:, None]
+        lens = (pos + 1).to(torch.int32)
 
-    def step():
-        return model.decode_step_paged(params, cache, tokens, pos)[0]
+        def step():
+            return model.decode_step(params, cache, tokens, pos,
+                                     block_table=table, seq_lens=lens)[0]
+    else:
+        cache = model.init_paged_cache(SLOTS, MAX_SEQ, PAGE)
+
+        def step():
+            return model.decode_step_paged(params, cache, tokens, pos)[0]
 
     wall, device = wall_and_device(step)
     fams = breakdown_per_call(step, calls=10,
                               busy=("paged_decode_attention",))
-    print(f"decode step (8 slots, full width): eager wall {wall:.3f} ms, "
-          f"device (graph replay) {device:.3f} ms, device idle share of "
+    print(f"decode step (8 slots, full width, "
+          f"{'dense' if dense else 'paged'} cache): eager wall {wall:.3f} "
+          f"ms, device (graph replay) {device:.3f} ms, device idle share of "
           f"the eager step {1 - device / wall:.1%}; profiled eager step, "
           "device ms by kernel family: " + ", ".join(
               f"{k} {v:.4f}" for k, v in fams.items() if v > 0))
     return dict(decode_step_wall_ms=wall, decode_step_device_ms=device,
                 decode_step_profiled_ms=fams)
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: qwen2-0.5b on the dense KV cache (the static engine's default)
+# ---------------------------------------------------------------------------
+
+# Dense against paged: the dense prefill takes the forward's wide fp32 MLP
+# product, the paged prefill chunks glu_mlp's bf16 product (as in the
+# reference), so every layer's activations differ by bf16 roundings, and
+# with random full-width weights that difference grows with depth as the
+# card's against the CPU's does: the prefill logits differ by 0.65% of the
+# largest at 2 layers and 2.30% at 24 on the CPU's plain versions
+# (scripts/dense_paged_depth.py).  So the full-depth tolerance LOGIT_TOL
+# holds here too, with tests/test_torch_serve.py's rule for the tokens: a
+# token may first differ only at a step whose paged top-1/top-2 margin is
+# under twice the tolerance, the history before it being the same.
+
+
+def check_dense_decode_bits(cfg):
+    """The dense decode's attention call (each slot's cache row one page
+    of ``MAX_SEQ`` positions, table ``arange(B)[:, None]``) against the
+    same K/V laid out in 64-token pages, straight and permuted: the same
+    bits; and against its plain version."""
+    B, T, Hkv, hd = SLOTS, MAX_SEQ, cfg.n_kv_heads, cfg.d_head
+    k = randn((B, T, Hkv, hd), SEED + 40)
+    v = randn((B, T, Hkv, hd), SEED + 41)
+    q = randn((B, cfg.n_heads, hd), SEED + 42)
+    lens = np.random.default_rng(SEED + 43).integers(1, T + 1, B)
+    lens[:3] = (1, T, PAGE + 1)
+    lens = torch.from_numpy(lens).to("cuda", torch.int32)
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    dense = ops.paged_decode_attention(q, k, v, table, lens)
+    n_row = T // PAGE
+    kp, vp = k.view(B * n_row, PAGE, Hkv, hd), v.view(B * n_row, PAGE, Hkv,
+                                                          hd)
+    ptable = torch.arange(B * n_row, dtype=torch.int32,
+                          device="cuda").view(B, n_row)
+    perm = torch.randperm(B * n_row, generator=gen(SEED + 44),
+                          device="cuda")
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(B * n_row, device="cuda")
+    paged = ops.paged_decode_attention(q, kp, vp, ptable, lens)
+    permuted = ops.paged_decode_attention(
+        q, kp[perm].contiguous(), vp[perm].contiguous(),
+        inv[ptable.long()].to(torch.int32), lens)
+    same = same_bits(dense, paged) and same_bits(dense, permuted)
+    err = max_err(dense, ref.paged_decode_attention(q, k, v, table, lens),
+                  "dense decode attention")
+    print(f"dense decode attention ({B} slots, one page of {T} a slot, "
+          f"lengths {lens.tolist()}): bitwise the 64-token pages and a "
+          f"permuted paging: {same}; max abs err vs plain {err:.3g}")
+    require(same, "dense decode attention differs from the paged call on "
+            "the same K/V")
+    return err
+
+
+def teacher_forced(model, params, reqs, streams, dense: bool):
+    """Logits (fp32, on the CPU) of each request at steps 0..63, fed the
+    tokens ``streams[i]`` of the paged engine: each prompt prefilled into
+    its own slot (on the dense cache in one pass, or on the paged cache in
+    128-token chunks), then decode steps, all requests batched."""
+    B = len(reqs)
+    out = [[] for _ in reqs]
+    if dense:
+        cache = model.init_cache(B, MAX_SEQ)
+        step = model.decode_step
+    else:
+        cache = model.init_paged_cache(B, MAX_SEQ, PAGE)
+        step = model.decode_step_paged
+    for b, r in enumerate(reqs):
+        P = len(r.prompt)
+        if dense:
+            logits, cache = model.prefill(
+                params, torch.from_numpy(r.prompt[None].astype(np.int64))
+                .cuda(), cache=cache, slot=b)
+            out[b].append(logits[0, -1].float().cpu())
+            continue
+        for start in range(0, P, CHUNK):
+            chunk = np.zeros((1, CHUNK), np.int64)
+            n = min(CHUNK, P - start)
+            chunk[0, :n] = r.prompt[start:start + n]
+            logits, cache = model.prefill_chunk_paged(
+                params, cache, torch.from_numpy(chunk).cuda(),
+                cache["table"][b], start)
+        out[b].append(logits[0, n - 1].float().cpu())
+    for s in range(1, NEW_TOKENS):
+        tok = torch.tensor([[streams[b][s - 1]] for b in range(B)],
+                           device="cuda")
+        pos = torch.tensor([len(r.prompt) + s - 1 for r in reqs],
+                           device="cuda")
+        logits, cache = step(params, cache, tok, pos)
+        for b in range(B):
+            out[b].append(logits[b, 0].float().cpu())
+    return torch.stack([torch.stack(o) for o in out])
+
+
+def dense_against_paged(cfg, model, params, dense_fin, paged_fin):
+    """Greedy tokens of the dense engine against the static paged
+    engine's, by the rule of tests/test_torch_serve.py: both paths teacher
+    forced along the paged streams give logits within ``LOGIT_TOL`` of
+    the largest, and a request's tokens may first differ only at a
+    step whose paged top-1/top-2 margin is under twice that (the history
+    before it being the same).  Prints where each request first
+    diverges."""
+    dense = {r.rid: r.out for r in dense_fin}
+    reqs = sorted(paged_fin, key=lambda r: r.rid)
+    streams = [r.out for r in reqs]
+    diverge = {}
+    for r in reqs:
+        d = next((i for i, (a, b) in enumerate(zip(dense[r.rid], r.out))
+                  if a != b), None)
+        if d is not None:
+            diverge[r.rid] = d
+    print(f"dense vs static paged greedy tokens: {len(reqs) - len(diverge)}"
+          f" of {len(reqs)} requests equal throughout; first divergence "
+          f"by request: {diverge}")
+    pl = teacher_forced(model, params, reqs, streams, dense=False)
+    dl = teacher_forced(model, params, reqs, streams, dense=True)
+    require(bool(torch.isfinite(dl).all()), "dense logits not finite")
+    largest = float(pl.abs().max())
+    atol = LOGIT_TOL * largest
+    diff = float((dl - pl).abs().max())
+    rel_rms = float((dl - pl).norm() / pl.norm())
+    top2 = torch.topk(pl, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]                 # (requests, steps)
+    low = margin <= 2 * atol
+    detail = {}
+    for b, r in enumerate(reqs):
+        if r.rid in diverge:
+            d = diverge[r.rid]
+            detail[r.rid] = dict(diverges_at=d,
+                                 margin_at_divergence=float(margin[b, d]),
+                                 low=bool(low[b, d]))
+    ok = diff <= atol and all(v["low"] for v in detail.values())
+    print(f"dense vs paged teacher-forced logits ({len(reqs)} requests x "
+          f"{NEW_TOKENS} steps): max abs diff {diff:.4g} = "
+          f"{diff / largest:.3%} of the largest (tolerance "
+          f"{LOGIT_TOL:.0%}), relative rms {rel_rms:.3%}; steps with "
+          f"a paged margin under {2 * atol:.3g}: {int(low.sum())} of "
+          f"{low.numel()}; at each divergence: {json.dumps(detail)}")
+    require(ok, "the dense engine's logits or tokens leave the paged "
+            "engine's beyond the margin rule")
+    return dict(equal=len(reqs) - len(diverge), max_abs_diff_frac=diff /
+                largest, rel_rms=rel_rms, low_margin_steps=int(low.sum()),
+                steps=low.numel(), diverged=detail)
+
+
+def serve_dense(cfg, model, params, paged_fin):
+    """Phase 4b: the same model, params and 16 requests through the static
+    engine on the dense KV cache, its launch counts, the dense decode
+    attention's bits, card against CPU, and tokens against the static
+    paged engine's."""
+    serve(Engine, model, params, requests(cfg)[:2])              # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fin, dt, steps = serve(Engine, model, params, requests(cfg))
+    launches = ops.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    L, n = cfg.n_layers, len(fin)
+    expect = {"matmul": (7 * L + 1) * (steps + n), "attention": L * n,
+              "attention_backward": 0, "paged_decode_attention": L * steps,
+              "ssd": 0, "quantize_int8": 0, "quantize_compress": 0,
+              "matmul_dequant": 0}
+    print(f"dense launches: {launches} (expected {expect}: {steps} decode "
+          f"steps, {n} one-call prefills)")
+    require(all(launches[k] > 0 for k in
+                ("matmul", "attention", "paged_decode_attention")),
+            "a kernel of the dense serve path was never launched")
+    require(launches == expect,
+            "dense launch counts do not match the layer loop")
+    stats = serve_stats(ARCH, sum(p.numel() for p in params.values()), fin,
+                        dt, launches, peak, resident)
+    stats.update(decode_steps=steps, prefills=n,
+                 **step_breakdown(cfg, model, params, dense=True))
+    print("serve dense " + json.dumps(stats), flush=True)
+    stats["decode_attention_max_abs_err"] = check_dense_decode_bits(cfg)
+    check_against_cpu(cfg, model, params, dense=True)
+    stats["against_paged"] = dense_against_paged(cfg, model, params, fin,
+                                                 paged_fin)
+    return stats, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2652,6 +2876,121 @@ def dp_phase(cfg):
     return summary, {k: sum(x[k] for x in int8) for k in int8[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the CLIs, as a user starts them
+# ---------------------------------------------------------------------------
+
+def cli(args, timeout: int):
+    """``python -m <args>`` from the checkout's root with its ``src`` on
+    the path; fails the phase on a non-zero exit.  Returns (stdout,
+    seconds)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *args], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    tail = "\n".join(r.stdout.strip().splitlines()[-8:])
+    print(f"$ python -m {' '.join(args)}  ({dt:.1f} s, exit "
+          f"{r.returncode})\n{tail}", flush=True)
+    require(r.returncode == 0, f"{args[0]} failed:\n{r.stderr[-3000:]}")
+    return r.stdout, dt
+
+
+def read_jsonl(path) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def cli_phase(cfg):
+    """Serve the phase-4 request shape through ``repro_torch.launch.serve``
+    (the dense default) with ``--metrics``; train qwen2-0.5b at full width
+    through ``repro_torch.launch.train`` (one rank, 2 x 512 tokens, 4
+    steps, saves at step 2 and the final one) with ``--metrics``; resume a
+    copy of the step-2 checkpoint with nothing left to train, so the
+    state the session restored is saved again, and hold those files to
+    the originals byte for byte (params, both moments, master, step).
+    Everything lives in a temporary directory, removed at the end."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    try:
+        out, serve_s = cli(
+            ["repro_torch.launch.serve", "--arch", ARCH, "--scale-down", "1",
+             "--requests", str(N_REQUESTS), "--batch-slots", str(SLOTS),
+             "--max-seq", str(MAX_SEQ), "--prompt-len",
+             f"{PROMPT_MIN}:{PROMPT_MAX}", "--new-tokens", str(NEW_TOKENS),
+             "--metrics", str(tmp / "serve.jsonl")], timeout=400)
+        snap = json.loads((tmp / "BENCH_serve_metrics.json").read_text())
+        hist = snap["metrics"]["histograms"]
+        kinds = {e["kind"] for e in read_jsonl(tmp / "serve.jsonl")}
+        require(snap["meta"]["serve"]["paged"] is False
+                and snap["meta"]["tokens"] == N_REQUESTS * (NEW_TOKENS - 1)
+                and hist["serve.prefill_s"]["count"] == N_REQUESTS
+                and hist["serve.decode_s"]["count"] > 0
+                and hist["span.build_engine.s"]["count"] == 1
+                and hist["span.serve.s"]["count"] == 1
+                and kinds == {"span", "metrics"},
+                "the serve CLI's snapshot or stream is not what it ran")
+        serve_out = dict(
+            seconds=serve_s, tok_per_s=snap["meta"]["tok_per_s"],
+            prefill_p50_ms=1e3 * hist["serve.prefill_s"]["p50"],
+            decode_p50_ms=1e3 * hist["serve.decode_s"]["p50"],
+            decode_p99_ms=1e3 * hist["serve.decode_s"]["p99"])
+
+        ck, ck2 = tmp / "ck", tmp / "ck2"
+        train = ["repro_torch.launch.train", "--arch", ARCH,
+                 "--scale-down", "1", "--batch", "2", "--seq", "512",
+                 "--comms", "off"]
+        out, train_s = cli(train + ["--steps", "4", "--ckpt-every", "2",
+                                    "--ckpt-dir", str(ck), "--metrics",
+                                    str(tmp / "train.jsonl")], timeout=400)
+        save = re.search(r"checkpoint: step 4, (\d+) bytes in ([\d.]+) s",
+                         out)
+        snap = json.loads((tmp / "BENCH_step_metrics.json").read_text())
+        hist = snap["metrics"]["histograms"]
+        kinds = {e["kind"] for e in read_jsonl(tmp / "train.jsonl")}
+        mgr_steps = sorted(int(d.name.split("_")[1])
+                           for d in ck.glob("step_*"))
+        require(save is not None and mgr_steps == [2, 4]
+                and (ck / "LATEST").read_text() == "4"
+                and hist["span.step.s"]["count"] == 3
+                and all(hist[f"span.{k}.s"]["count"] == 1
+                        for k in ("plan", "build_step", "step_warmup"))
+                and snap["meta"]["kernel_launches"]
+                == expected_train_launches(cfg, 4, int8=False)
+                and kinds == {"span", "plan_resolved", "metrics"},
+                "the train CLI's checkpoints, snapshot or stream are not "
+                "what it ran")
+        ckpt_bytes, save_s = int(save.group(1)), float(save.group(2))
+        shutil.rmtree(ck / "step_4")                 # room for the resume
+        (ck2 / "step_2").mkdir(parents=True)
+        for f in (ck / "step_2").iterdir():           # a copy, as links
+            os.link(f, ck2 / "step_2" / f.name)
+        (ck2 / "LATEST").write_text("2")
+        out, resume_s = cli(train + ["--steps", "2", "--resume",
+                                     "--ckpt-dir", str(ck2)], timeout=400)
+        names = sorted(f.name for f in (ck / "step_2").iterdir())
+        match, mismatch, errors = filecmp.cmpfiles(
+            ck / "step_2", ck2 / "step_2", names, shallow=False)
+        print(f"resume from step 2: {len(match)} of {len(names)} files "
+              "saved again from the restored session equal the originals "
+              f"byte for byte; differ: {mismatch + errors}")
+        require("resumed from step 2" in out and len(match) == len(names)
+                == 4 * 15 + 2, "the resumed state is not the saved one")
+        train_out = dict(seconds=train_s, resume_seconds=resume_s,
+                         step_p50_ms=1e3 * hist["span.step.s"]["p50"],
+                         checkpoint_bytes=ckpt_bytes,
+                         checkpoint_save_s=save_s,
+                         checkpoint_files=len(names))
+        print(f"checkpoint: {ckpt_bytes} bytes ({ckpt_bytes / 2**30:.2f} "
+              f"GiB) saved in {save_s:.3f} s "
+              f"({ckpt_bytes / save_s / 2**30:.2f} GiB/s)")
+        result = dict(serve=serve_out, train=train_out)
+        print("cli " + json.dumps(result), flush=True)
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2720,6 +3059,11 @@ def main() -> int:
     print(f"static paged == continuous greedy tokens: {same}")
     require(same, "static paged and continuous engines disagree")
     check_against_cpu(cfg, model, params)
+
+    # 4b. qwen2-0.5b on the dense KV cache, the static engine's default
+    t4b = time.perf_counter()
+    _, dense_launches = serve_dense(cfg, model, params, static)
+    print(f"phase 4b: {time.perf_counter() - t4b:.1f} s", flush=True)
     del model, params
     torch.cuda.empty_cache()
 
@@ -2744,8 +3088,14 @@ def main() -> int:
     rows += [check_quantize_compress(cfg), check_matmul_dequant(cfg)]
     torch.cuda.empty_cache()
     _, dp_launches = dp_phase(cfg)
+    torch.cuda.empty_cache()
 
-    # 8. results
+    # 8. the serve and train CLIs, checkpoint and resume
+    t8 = time.perf_counter()
+    cli_phase(cfg)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
+
+    # 9. results
     names = {"gemm": "matmul", "flash_attention": "attention",
              "paged_decode_attention": "paged_decode_attention",
              "ssd": "ssd", "quantize_int8": "quantize_int8",
@@ -2757,6 +3107,7 @@ def main() -> int:
     for row in rows:
         op = names[row["name"]]
         row["launches_by_path"] = {ARCH: launches[op],
+                                   f"{ARCH} dense cache": dense_launches[op],
                                    MAMBA: mamba_launches[op],
                                    train_path: train_launches[op],
                                    DP_PATH: dp_launches[op]}

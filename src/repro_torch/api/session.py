@@ -2,16 +2,22 @@
 state on the device and steps it, ported (minimally) from the reference's
 ``api/session.py``.
 
-``Session(device=..., group=...)`` holds the device and the process group
-(None: one rank, or the default group when one is initialized);
+``Session(device=..., group=..., obs=...)`` holds the device, the process
+group (None: one rank, or the default group when one is initialized) and
+the telemetry (:mod:`repro_torch.obs`, the disabled ``NULL`` by default);
 :meth:`Session.plan` resolves the config, the microbatch count, the
 CommsPlan and the dispatch path; :meth:`Session.init_state` makes the
-params and the AdamW state resident on the device, and :meth:`Session.step`
-runs one train step on them in place, the state never leaving the device.
+params and the AdamW state resident on the device (or :meth:`Session.put`
+a restored one), and :meth:`Session.step` runs one train step on them in
+place, the state never leaving the device.  The reference's telemetry
+sites are here: the ``plan``, ``build_step`` and ``step`` /
+``step_warmup`` spans (a step span closes after the card's work) and
+:meth:`Session.publish_metrics`.
 
-Not ported yet: the memory verdict and the planner sweep (``plan`` checks
-no memory budget; ROADMAP queue 1, item 9), the compiled-artifact cache,
-``dryrun`` and ``serve`` on the session (items 6 and 9), telemetry spans.
+Not ported yet (ROADMAP queue 1, item 9): the memory verdict and the
+planner sweep (``plan`` checks no memory budget), the state registry's
+budget accounting, the compiled-artifact cache and its gauges,
+``dryrun`` and ``serve`` on the session.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs as obs_mod
 from repro_torch.comms.plan import CommsPlan
 from repro_torch.configs import get_config, scale_config
 from repro_torch.core.device import resolve_device
@@ -58,7 +65,8 @@ class Session:
     """
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
-                 group: Optional[dist.ProcessGroup] = None):
+                 group: Optional[dist.ProcessGroup] = None,
+                 obs: Optional["obs_mod.Obs"] = None):
         self.device = resolve_device(device)
         if group is None and dist.is_initialized():
             group = dist.group.WORLD
@@ -66,11 +74,29 @@ class Session:
         self.n_ranks = dist.get_world_size(group) if group is not None else 1
         self.state: Dict[str, Any] = {}
         self._steps: Dict[int, Any] = {}
+        # spans and gauges flow through here; the NULL default keeps every
+        # site a no-op (no timing, no synchronize) with telemetry off
+        self.obs = obs if obs is not None else obs_mod.NULL
 
-    def plan(self, arch, *, batch: int, seq: int, comms="auto",
-             adamw: Optional[opt.AdamWConfig] = None,
-             microbatches: Optional[int] = None, scale_down: int = 1,
-             model_kwargs=None) -> ExecutablePlan:
+    def plan(self, arch, **kwargs) -> ExecutablePlan:
+        """Plan one train cell under the ``plan`` span; see :meth:`_plan`
+        for the keywords."""
+        name = arch if isinstance(arch, str) else getattr(
+            arch, "name", type(arch).__name__)
+        with self.obs.span("plan", arch=name, plan_kind="train"):
+            plan = self._plan(arch, **kwargs)
+        if self.obs.enabled:
+            self.obs.event(
+                "plan_resolved", arch=plan.cfg.name, path=plan.path,
+                microbatches=plan.num_microbatches,
+                comms=(plan.comms.schedule if plan.comms is not None
+                       else None), pp=1, ranks=plan.n_ranks)
+        return plan
+
+    def _plan(self, arch, *, batch: int, seq: int, comms="auto",
+              adamw: Optional[opt.AdamWConfig] = None,
+              microbatches: Optional[int] = None, scale_down: int = 1,
+              model_kwargs=None) -> ExecutablePlan:
         """Plan one train cell (``batch`` is the global batch).
 
         ``comms``: ``"auto"`` attaches the default :class:`CommsPlan` on a
@@ -118,10 +144,12 @@ class Session:
         plan is kept beside it, so its id is not reused)."""
         key = id(plan)
         if key not in self._steps:
-            self._steps[key] = (plan, step_mod.dispatch_train_step(
-                plan.model, adamw=plan.adamw,
-                num_microbatches=plan.num_microbatches, comms=plan.comms,
-                group=self.group, path=plan.path))
+            with self.obs.span("build_step", path=plan.path,
+                               arch=plan.cfg.name):
+                self._steps[key] = (plan, step_mod.dispatch_train_step(
+                    plan.model, adamw=plan.adamw,
+                    num_microbatches=plan.num_microbatches,
+                    comms=plan.comms, group=self.group, path=plan.path))
         return self._steps[key][1]
 
     def init_state(self, plan: ExecutablePlan, *, seed: int = 0,
@@ -135,12 +163,9 @@ class Session:
         else:
             params = {k: v.to(self.device, copy=True)
                       for k, v in params.items()}
-        for p in params.values():
-            p.requires_grad_(True)
         adamw = plan.adamw or opt.AdamWConfig()
         state = {"params": params, "opt": opt.init_state(params, adamw)}
-        self.state[name] = state
-        return state
+        return self.put(name, state, kind="train_state")
 
     def step(self, plan: ExecutablePlan, batch, *,
              name: str = "train_state") -> Dict[str, torch.Tensor]:
@@ -154,6 +179,64 @@ class Session:
         if rows != plan.global_batch:
             raise ValueError(f"batch of {rows} rows for a plan of "
                              f"{plan.global_batch}")
-        state, metrics = self.train_step(plan)(self.state[name], batch)
+        warm = id(plan) in self._steps
+        fn = self.train_step(plan)
+        with self.obs.span("step" if warm else "step_warmup",
+                           path=plan.path) as sp:
+            state, metrics = fn(self.state[name], batch)
+            sp.block(metrics)
         self.state[name] = state
+        if self.obs.enabled:
+            self.publish_metrics()
         return metrics
+
+    def publish_metrics(self) -> None:
+        """Mirror session-owned stats into the obs registry: the resident
+        state's bytes and entries (the reference's opcache gauges wait
+        for the compiled-artifact cache, ROADMAP queue 1, item 9)."""
+        total = sum(t.numel() * t.element_size()
+                    for value in self.state.values()
+                    for t in _tensors(value))
+        self.obs.gauge("state.resident_bytes").set(total)
+        self.obs.gauge("state.entries").set(len(self.state))
+
+    def put(self, name: str, value, kind: str = "state"):
+        """Make a tree of tensors resident under ``name``.  A
+        ``"train_state"`` (``{"params", "opt"}``, e.g. restored from a
+        checkpoint) has its params moved to the session's device and
+        marked to take gradients, as :meth:`init_state` leaves them."""
+        if kind == "train_state":
+            value = _to_device(value, self.device)
+            for p in value["params"].values():
+                p.requires_grad_(True)
+        self.state[name] = value
+        return value
+
+    def get(self, name: str):
+        return self.state[name]
+
+    def evict(self, name: str):
+        return self.state.pop(name, None)
+
+
+def _tensors(value):
+    if isinstance(value, torch.Tensor):
+        yield value
+    elif isinstance(value, dict):
+        for v in value.values():
+            yield from _tensors(v)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            yield from _tensors(v)
+
+
+def _to_device(value, device: torch.device):
+    """``value`` with every tensor on ``device`` (tensors already there are
+    kept, not copied)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device)
+    if isinstance(value, dict):
+        return {k: _to_device(v, device) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_device(v, device) for v in value)
+    return value

@@ -32,6 +32,11 @@ from repro_torch.kernels import ops, ref
 
 from . import schedules
 
+#: wire bytes per fp32 byte each format is credited with, as the
+#: reference's telemetry counts them (``comms.*.wire_bytes``); the int8
+#: wire physically moves its int32 sum here, as it does there
+WIRE_RATIO = {None: 1.0, "none": 1.0, "bf16": 0.5, "int8": 0.25}
+
 
 def _group_max(x: torch.Tensor, group=None) -> torch.Tensor:
     return schedules.all_reduce(x.clone(), group, "psum",

@@ -4,7 +4,12 @@
 A :class:`CommsPlan` names the schedule, the wire dtype (fp32 / bf16 /
 int8) and the bucket size; :func:`sync_tree` runs it on a gradient dict
 over a ``torch.distributed`` group (the reference runs it inside a
-``shard_map`` body over mesh axes).
+``shard_map`` body over mesh axes).  With telemetry on
+(:func:`repro_torch.obs.get_active`), every sync adds its buckets and
+credited wire bytes to the ``comms.*`` counters and writes a
+``comms_sync`` event: the reference records them once per compile of its
+step, the port once per step it runs, so a counter over the run divided
+by the steps is the reference's per-step figure.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import precision
 
 from . import bucketer, compressed
@@ -64,11 +70,26 @@ def sync_tree(grads: Mapping[str, torch.Tensor], plan: CommsPlan,
     n = dist.get_world_size(group)
     sched = plan.resolve(n)
     bplan = bucketer.plan_buckets(grads, plan.bucket_bytes)
-    if plan.wire_dtype in ("bf16", "int8"):
+    fused = plan.wire_dtype in ("bf16", "int8")
+    if fused:
         buckets, absmaxes = bucketer.flatten_buckets_fused(
             bplan, grads, plan.wire_dtype)
     else:
         buckets, absmaxes = bucketer.flatten_buckets(bplan, grads), None
+    obs = obs_mod.get_active()
+    if obs.enabled:
+        ratio = compressed.WIRE_RATIO.get(plan.wire_dtype, 1.0)
+        payload = int(sum(4 * bplan.bucket_sizes[i]
+                          for i in range(bplan.num_buckets)) * ratio)
+        obs.counter(f"comms.{sched}.buckets").inc(len(buckets))
+        obs.counter(f"comms.{sched}.wire_bytes").inc(payload)
+        obs.counter("comms.wire_bytes").inc(payload)
+        if fused:
+            obs.counter("comms.fused_pack").inc(len(buckets))
+        obs.event("comms_sync", schedule=sched,
+                  wire_dtype=plan.wire_dtype or "fp32",
+                  buckets=len(buckets), wire_bytes=payload,
+                  fused=fused, ranks=n)
     reduced = []
     for i in range(len(buckets)):
         b, buckets[i] = buckets[i], None         # free each bucket once sent

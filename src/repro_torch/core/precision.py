@@ -6,7 +6,8 @@ A port of the reference's ``core/precision.py`` for the serve slice:
 through :func:`repro_torch.kernels.ops.matmul` with an fp32 result, as
 ``preferred_element_type=float32`` gives in JAX.  :func:`div_count` is
 the reference's division by a count fixed when the program is built (a
-mean over ranks or microbatches), rounded as XLA compiles it.
+mean over ranks or microbatches), rounded as XLA compiles it;
+:func:`lazy_promote` the input pipeline's last-stage promotion.
 """
 
 from __future__ import annotations
@@ -72,3 +73,11 @@ def div_count(x: torch.Tensor, n: int) -> torch.Tensor:
     if x.dtype in (torch.float32, torch.float64):
         return x * inv
     return (x.float() * inv).to(x.dtype)
+
+
+def lazy_promote(x: torch.Tensor, target_dtype: torch.dtype) -> torch.Tensor:
+    """Identity marker for pipeline stages: promote only when actually
+    needed (``x`` itself when it already has ``target_dtype``)."""
+    if x.dtype == target_dtype:
+        return x
+    return x.to(target_dtype)

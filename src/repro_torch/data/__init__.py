@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLM
+from .pipeline import Pipeline, Stage, SyntheticLM
 
-__all__ = ["SyntheticLM"]
+__all__ = ["Pipeline", "Stage", "SyntheticLM"]

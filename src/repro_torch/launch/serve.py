@@ -1,24 +1,32 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Builds the model with random weights from ``--seed`` and a serve engine
-directly (the reference goes through ``Session``, which a later slice
-ports), feeds synthetic prompts and reports tokens/s.  ``--scheduler
-continuous`` runs continuous batching over the paged block pool;
-``--scheduler static`` runs the fixed-slot engine on the model's dense
-cache (the ssm family, e.g. ``--arch mamba2-780m``), or on the paged cache
-with ``--paged`` (the dense family).  Runs on the card unless ``--device
-cpu`` is given; ``--scale-down 1`` keeps the published width.
+directly (the reference goes through ``Session.serve``, which waits for
+the state registry and the memory verdict, ROADMAP queue 1, item 9),
+feeds synthetic prompts and reports tokens/s.  ``--scheduler static`` (the
+default) runs the fixed-slot engine on the model's dense cache, the
+reference's default for every family (qwen2's KV cache, mamba2's
+states), or on the paged cache with ``--paged``; ``--scheduler
+continuous`` runs continuous batching over the paged block pool.
+``--prompt-len N`` gives every prompt N tokens, ``LO:HI`` draws each
+length from [LO, HI].  ``--metrics PATH`` streams the engine's spans and
+latency histograms as JSONL to PATH, prints their p50/p99 and writes a
+``BENCH_serve_metrics.json`` snapshot beside PATH.  Runs on the card
+unless ``--device cpu`` is given; ``--scale-down 1`` keeps the published
+width.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.configs import get_config, scale_config
 from repro_torch.core.device import resolve_device
 from repro_torch.models import Model
@@ -26,45 +34,103 @@ from repro_torch.serve import ContinuousEngine, Engine, Request
 
 
 def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
-        max_seq: int = 128, prompt_len: int = 16, new_tokens: int = 16,
-        scale_down: int = 64, seed: int = 0, paged: bool = False,
+        max_seq: int = 128, prompt_len: Union[int, Tuple[int, int]] = 16,
+        new_tokens: int = 16, scale_down: int = 64, seed: int = 0,
+        metrics: Optional[str] = None, paged: bool = False,
         page_size: int = 64, scheduler: str = "static",
         prefill_chunk: int = 32, num_pages: Optional[int] = None,
         device: str = "cuda"):
     dev = resolve_device(device)
+    # --metrics: stream spans + per-request prefill/decode latency
+    # histograms as JSONL; off -> NULL obs, output unchanged
+    obs = obs_mod.Obs(jsonl=metrics, name=f"serve/{arch}") if metrics \
+        else obs_mod.NULL
+    prev_obs = obs_mod.set_active(obs)
+    try:
+        return _run(arch, obs, dev, n_requests=n_requests,
+                    batch_slots=batch_slots, max_seq=max_seq,
+                    prompt_len=prompt_len, new_tokens=new_tokens,
+                    scale_down=scale_down, seed=seed, metrics=metrics,
+                    paged=paged, page_size=page_size, scheduler=scheduler,
+                    prefill_chunk=prefill_chunk, num_pages=num_pages)
+    finally:
+        obs_mod.set_active(prev_obs)
+        obs.close()
+
+
+def _run(arch, obs, dev, *, n_requests, batch_slots, max_seq, prompt_len,
+         new_tokens, scale_down, seed, metrics, paged, page_size, scheduler,
+         prefill_chunk, num_pages):
     cfg = scale_config(get_config(arch), scale_down)
-    model = Model(cfg, device=dev)
-    params = model.init(seed)
-    if scheduler == "continuous":
-        eng = ContinuousEngine(model, params, batch_slots=batch_slots,
-                               max_seq=max_seq, seed=seed,
-                               page_size=page_size, num_pages=num_pages,
-                               prefill_chunk=prefill_chunk)
-    else:
-        eng = Engine(model, params, batch_slots=batch_slots,
-                     max_seq=max_seq, seed=seed, paged=paged,
-                     page_size=page_size, prefill_chunk=prefill_chunk)
+    with obs.span("build_engine", arch=arch, scheduler=scheduler):
+        model = Model(cfg, device=dev)
+        params = model.init(seed)
+        if scheduler == "continuous":
+            eng = ContinuousEngine(model, params, batch_slots=batch_slots,
+                                   max_seq=max_seq, seed=seed, obs=obs,
+                                   page_size=page_size, num_pages=num_pages,
+                                   prefill_chunk=prefill_chunk)
+        else:
+            eng = Engine(model, params, batch_slots=batch_slots,
+                         max_seq=max_seq, seed=seed, obs=obs, paged=paged,
+                         page_size=page_size, prefill_chunk=prefill_chunk)
     rng = np.random.default_rng(seed)
-    for rid in range(n_requests):
+    lo, hi = (prompt_len, prompt_len) if isinstance(prompt_len, int) \
+        else prompt_len
+    lens = (rng.integers(lo, hi + 1, n_requests) if hi > lo
+            else [lo] * n_requests)
+    for rid, n in enumerate(lens):
         eng.submit(Request(
             rid=rid,
-            prompt=rng.integers(0, cfg.vocab_size, prompt_len,
-                                dtype=np.int32),
+            prompt=rng.integers(0, cfg.vocab_size, int(n), dtype=np.int32),
             max_new_tokens=new_tokens))
     t0 = time.perf_counter()
     total = 0
     ticks = 0
-    while (eng.queue or any(r is not None for r in eng.active)) \
-            and ticks < 10_000:
-        total += eng.step()
-        ticks += 1
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with obs.span("serve", requests=n_requests):
+        while (eng.queue or any(r is not None for r in eng.active)) \
+                and ticks < 10_000:
+            total += eng.step()
+            ticks += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     print(f"{arch}: {n_requests} requests ({len(eng.finished)} finished), "
           f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "
           f"{ticks} ticks) on {dev}")
+    if obs.enabled:
+        for name in ("serve.prefill_s", "serve.decode_s", "serve.ttft_s",
+                     "serve.queue_wait_s"):
+            s = obs.histogram(name).summary()
+            if s.get("count"):
+                print(f"{name}: n={s['count']} p50={s['p50'] * 1e3:.1f}ms "
+                      f"p99={s['p99'] * 1e3:.1f}ms")
+        snap = os.path.join(os.path.dirname(os.path.abspath(metrics)) or ".",
+                            "BENCH_serve_metrics.json")
+        serve_meta = {
+            "scheduler": scheduler,
+            "paged": bool(paged or scheduler == "continuous"),
+            "page_size": page_size, "prefill_chunk": prefill_chunk,
+            "preemptions": obs.counter("serve.preemptions").value,
+            "refusals": len(getattr(eng, "refused", ())),
+        }
+        if hasattr(eng, "blocks"):
+            serve_meta["pool_pages"] = eng.blocks.num_pages
+            serve_meta["pool_pages_used"] = eng.blocks.used_pages
+        obs.snapshot(snap, arch=arch, requests=n_requests,
+                     tokens=total, tok_per_s=total / dt, seconds=dt,
+                     device=str(dev), serve=serve_meta)
+        print(f"metrics: {metrics}  snapshot: {snap}")
     return total, dt
+
+
+def _prompt_len(text: str) -> Union[int, Tuple[int, int]]:
+    if ":" in text:
+        lo, hi = (int(v) for v in text.split(":"))
+        if not 0 < lo <= hi:
+            raise argparse.ArgumentTypeError(f"bad range {text!r}")
+        return lo, hi
+    return int(text)
 
 
 def main():
@@ -73,6 +139,9 @@ def main():
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--prompt-len", type=_prompt_len, default=16,
+                    help="prompt tokens: N, or LO:HI for lengths drawn "
+                         "uniformly from [LO, HI]")
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--scale-down", type=int, default=64)
     ap.add_argument("--scheduler", choices=("static", "continuous"),
@@ -80,21 +149,29 @@ def main():
                     help="static fixed-slot engine (default) or continuous "
                          "batching over the paged block pool")
     ap.add_argument("--paged", action="store_true",
-                    help="block-paged KV cache for the static engine")
+                    help="block-paged KV cache for the static engine "
+                         "(plain-attention archs)")
     ap.add_argument("--page-size", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="prefill chunk tokens; must divide the table row "
-                         "(max-seq rounded up to a page)")
+                    help="prefill chunk tokens (paged/continuous paths); "
+                         "must divide the table row (max-seq rounded up "
+                         "to a page)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="continuous pool pages incl. the NULL page "
                          "(default: full static capacity)")
+    ap.add_argument("--metrics", type=str, default=None, metavar="PATH",
+                    help="write a JSONL telemetry stream (spans, prefill/"
+                         "decode latency histograms) to PATH and a "
+                         "BENCH_serve_metrics.json snapshot beside it; "
+                         "default off")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args()
     run(args.arch, n_requests=args.requests, batch_slots=args.batch_slots,
-        max_seq=args.max_seq, new_tokens=args.new_tokens,
-        scale_down=args.scale_down, seed=args.seed, paged=args.paged,
+        max_seq=args.max_seq, prompt_len=args.prompt_len,
+        new_tokens=args.new_tokens, scale_down=args.scale_down,
+        seed=args.seed, metrics=args.metrics, paged=args.paged,
         page_size=args.page_size, scheduler=args.scheduler,
         prefill_chunk=args.prefill_chunk, num_pages=args.num_pages,
         device=args.device)

@@ -1,0 +1,215 @@
+"""Training driver: ``python -m repro_torch.launch.train --arch <id> [...]``.
+
+A thin CLI over :class:`repro_torch.api.Session`, ported from the
+reference's ``launch/train.py``: config -> ``Session.plan`` ->
+``init_state`` (or a restore from ``--ckpt-dir`` with ``--resume``) ->
+``Session.step`` over ``SyntheticLM(structured=True)`` batches from a
+threaded :class:`~repro_torch.data.Pipeline`, AdamW under
+``warmup_cosine(lr, steps // 10 + 1, steps)``, periodic async checkpoints
+(every ``--ckpt-every`` steps, the reference's ``ckpt_every``) and a
+final blocking one.  Checkpoints are the reference's format and layout,
+so either package's train CLI resumes the other's.  A resume restarts
+the batch stream from its first batch, as the reference's non-resilient
+resume does.
+
+``--metrics PATH`` writes the JSONL stream (spans, counters, events) and,
+at exit, a ``BENCH_step_metrics.json`` snapshot beside PATH (or at
+``--metrics-snapshot``); without it every site is the NULL no-op.  Runs
+on the card unless ``--device cpu`` is given.
+
+Not ported yet, and refused when set: ``--pp`` > 1 and ``--pp-schedule``
+(pipeline, ROADMAP queue 1, item 10); ``--hbm-gib`` and ``--calibration``
+(the memory model and calibration, item 9); ``--resilient`` and
+``--faults`` (item 12).  The memory-model line, the drift report and the
+snapshot's ``drift`` field wait for item 9, and the step-time watchdog
+for item 12: the loop runs without them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional
+
+from repro_torch import obs as obs_mod
+from repro_torch.api import Session
+from repro_torch.checkpoint import CheckpointManager, state_from_tree, \
+    state_tree
+from repro_torch.data import Pipeline, SyntheticLM
+from repro_torch.kernels import ops
+from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+
+
+def _refuse_unported(*, pp, pp_schedule, hbm_gib, calibration, resilient,
+                     faults) -> None:
+    waiting = [("--pp > 1", pp > 1, 10),
+               ("--pp-schedule", pp_schedule is not None, 10),
+               ("--hbm-gib", hbm_gib is not None, 9),
+               ("--calibration", calibration is not None, 9),
+               ("--resilient", resilient, 12),
+               ("--faults", faults is not None, 12)]
+    for flag, given, item in waiting:
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
+        scale_down: int = 64, lr: float = 3e-3, microbatches: int = 1,
+        ckpt_dir: Optional[str] = None, ckpt_every: int = 25,
+        resume: bool = False, log_every: int = 10, seed: int = 0,
+        comms: str = "auto", pp: int = 1, pp_schedule: Optional[str] = None,
+        hbm_gib: Optional[float] = None, metrics: Optional[str] = None,
+        metrics_snapshot: Optional[str] = None,
+        calibration: Optional[str] = None, resilient: bool = False,
+        faults: Optional[str] = None, device: str = "cuda"):
+    _refuse_unported(pp=pp, pp_schedule=pp_schedule, hbm_gib=hbm_gib,
+                     calibration=calibration, resilient=resilient,
+                     faults=faults)
+    # telemetry is strictly opt-in: without --metrics every obs call site
+    # sees the NULL singleton, so numerics and stdout are unchanged
+    obs = obs_mod.Obs(jsonl=metrics, name=f"train/{arch}") if metrics \
+        else obs_mod.NULL
+    prev_obs = obs_mod.set_active(obs)
+    try:
+        return _run(arch, obs, steps=steps, batch=batch, seq=seq,
+                    scale_down=scale_down, lr=lr, microbatches=microbatches,
+                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
+                    log_every=log_every, seed=seed, comms=comms,
+                    metrics=metrics, metrics_snapshot=metrics_snapshot,
+                    device=device)
+    finally:
+        obs_mod.set_active(prev_obs)
+        obs.close()
+
+
+def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
+         ckpt_dir, ckpt_every, resume, log_every, seed, comms, metrics,
+         metrics_snapshot, device):
+    session = Session(device=device, obs=obs)
+    adamw = AdamWConfig(lr=warmup_cosine(lr, steps // 10 + 1, steps))
+    plan = session.plan(arch, batch=batch, seq=seq, microbatches=microbatches,
+                        comms=comms, adamw=adamw, scale_down=scale_down)
+    cfg = plan.cfg
+    if plan.comms is not None:
+        print(f"comms: grad sync via {plan.comms.resolve(plan.n_ranks)} "
+              f"schedule (bucket {plan.comms.bucket_bytes >> 20} MiB)")
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    if resume and mgr is not None:
+        # restore() walks back past torn/missing snapshots to the newest
+        # complete one, and returns None when nothing valid survives: the
+        # run then starts fresh rather than crashing
+        tree = mgr.restore(device=session.device)
+        if tree is not None:
+            state = session.put("train_state", state_from_tree(tree),
+                                kind="train_state")
+            valid = mgr.valid_steps()
+            start_step = valid[-1] if valid else int(state["opt"]["step"])
+            print(f"resumed from step {start_step}")
+        else:
+            session.init_state(plan, seed=seed)
+    else:
+        session.init_state(plan, seed=seed)
+
+    source = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed,
+                         structured=True)
+    pipe = Pipeline(source, [], n_threads=2).start()
+    losses = []
+    try:
+        for i in range(start_step, steps):
+            batch_np = next(pipe)
+            t0 = time.perf_counter()
+            metrics_out = session.step(plan, batch_np)
+            loss = float(metrics_out["loss"])
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            if (i + 1) % log_every == 0 or i == start_step:
+                print(f"step {i + 1:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
+            if mgr is not None and (i + 1) % ckpt_every == 0:
+                mgr.save(i + 1, state_tree(session.get("train_state")))
+        if mgr is not None:
+            t0 = time.perf_counter()
+            mgr.save(steps, state_tree(session.get("train_state")),
+                     blocking=True)
+            d = os.path.join(ckpt_dir, f"step_{steps}")
+            nbytes = sum(os.path.getsize(os.path.join(d, f))
+                         for f in os.listdir(d))
+            print(f"checkpoint: step {steps}, {nbytes} bytes in "
+                  f"{time.perf_counter() - t0:.3f} s ({d})")
+    finally:
+        pipe.stop()
+
+    if obs.enabled:
+        session.publish_metrics()
+        snap_path = metrics_snapshot or os.path.join(
+            os.path.dirname(os.path.abspath(metrics)) or ".",
+            "BENCH_step_metrics.json")
+        obs.snapshot(snap_path, arch=arch, steps=steps,
+                     ranks=plan.n_ranks, device=str(session.device),
+                     batch=batch, seq=seq, scale_down=scale_down,
+                     microbatches=plan.num_microbatches,
+                     pp_schedule="gpipe", calibration=None,
+                     kernel_launches=ops.dispatch_report())
+        print(f"metrics: {metrics}  snapshot: {snap_path}")
+    return losses
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--scale-down", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--ckpt-dir", type=str, default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25,
+                    help="async checkpoint period in steps (the final "
+                         "step is always saved)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--comms", choices=["auto", "off"], default="auto",
+                    help="route DP grad sync through repro_torch.comms "
+                         "(one rank: no wire either way)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel degree (not ported yet)")
+    ap.add_argument("--pp-schedule", choices=["gpipe", "1f1b"],
+                    default=None, help="not ported yet")
+    ap.add_argument("--hbm-gib", type=float, default=None,
+                    help="memory budget (not ported yet)")
+    ap.add_argument("--metrics", type=str, default=None, metavar="PATH",
+                    help="write a JSONL telemetry stream (spans, counters, "
+                         "events) to PATH and a BENCH_step_metrics.json "
+                         "snapshot beside it at exit; default off")
+    ap.add_argument("--metrics-snapshot", type=str, default=None,
+                    metavar="PATH", help="override the snapshot path "
+                    "(default: BENCH_step_metrics.json next to --metrics)")
+    ap.add_argument("--calibration", type=str, default=None, metavar="PATH",
+                    help="fitted calibration table (not ported yet)")
+    ap.add_argument("--resilient", action="store_true",
+                    help="fault-tolerant step loop (not ported yet)")
+    ap.add_argument("--faults", type=str, default=None, metavar="JSON",
+                    help="fault-injection plan (not ported yet)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu for the plain versions")
+    args = ap.parse_args()
+    losses = run(args.arch, steps=args.steps, batch=args.batch,
+                 seq=args.seq, scale_down=args.scale_down, lr=args.lr,
+                 microbatches=args.microbatches, ckpt_dir=args.ckpt_dir,
+                 ckpt_every=args.ckpt_every, resume=args.resume,
+                 seed=args.seed, comms=args.comms, pp=args.pp,
+                 pp_schedule=args.pp_schedule, hbm_gib=args.hbm_gib,
+                 metrics=args.metrics,
+                 metrics_snapshot=args.metrics_snapshot,
+                 calibration=args.calibration, resilient=args.resilient,
+                 faults=args.faults, device=args.device)
+    if losses:
+        print(f"final loss {losses[-1]:.4f} (start {losses[0]:.4f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,14 @@
 """Attention, ported from the reference's ``models/attention.py``: the
-full-sequence forward of the train path, and against the paged KV pool
-one decode step and one prefill chunk.
+full-sequence forward of the train path and the dense prefill, one decode
+step against a dense KV cache, and against the paged KV pool one decode
+step and one prefill chunk.
 
-The pages ``(P, page, Hkv, hd)`` are updated **in place**
-(``index_put_``), where the reference's jitted steps donate the pool and
-return a new one; both functions still return the pages so their
-signatures match the reference's.  Indices the reference would clamp on
-device (a chunk past the end of its table row) raise here instead.
+The caches are updated **in place** (``index_put_``), where the
+reference's jitted steps donate them and return new ones; the functions
+still return them so their signatures match the reference's.  Indices
+the reference would clamp on device (a chunk past the end of its table
+row) raise here instead.  The dense cache's decode step attends through
+the paged-decode kernel, each slot's cache row being one page.
 """
 
 from __future__ import annotations
@@ -60,12 +62,16 @@ def forward(
     *,
     policy=precision.MIXED,
     window: Optional[int] = None,
-) -> torch.Tensor:
-    """Full-sequence causal attention (train): projections and rotary at
-    positions 0..S-1, :func:`repro_torch.kernels.ops.attention` over the
-    whole sequence, output projection.  The reference's single-device
-    ``head_tp`` branch; its sharded branches wait for the distributed
-    slices (ROADMAP queue 1, item 7)."""
+    with_cache: bool = False,
+):
+    """Full-sequence causal attention (train, and the dense prefill):
+    projections and rotary at positions 0..S-1,
+    :func:`repro_torch.kernels.ops.attention` over the whole sequence,
+    output projection.  Returns ``y``, or with ``with_cache`` ``(y, (k,
+    v))``, the rotated keys and values (B, S, Hkv, hd) in x's dtype for
+    the decode cache.  The reference's single-device ``head_tp`` branch;
+    its sharded branches wait for the distributed slices (ROADMAP queue
+    1, item 7)."""
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(x, p, cfg, positions, policy)              # (B,S,H,hd)
@@ -75,7 +81,63 @@ def forward(
         softcap=cfg.attn_softcap,
     ).transpose(1, 2)                                          # (B,S,H,hd)
     y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+    if with_cache:
+        return y.to(x.dtype), (k, v)
     return y.to(x.dtype)
+
+
+def decode(
+    x: torch.Tensor,               # (B, 1, D)
+    p: dict,
+    cfg,
+    k_cache: torch.Tensor,         # (B, T, Hkv, hd), written in place
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,             # scalar or (B,) position of the new token
+    *,
+    policy=precision.MIXED,
+    window: Optional[int] = None,
+    block_table: Optional[torch.Tensor] = None,
+    seq_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step against the dense cache: each slot's new K/V are
+    written at its own position, then attention runs through
+    :func:`repro_torch.kernels.ops.paged_decode_attention` with the cache
+    as a pool of B pages of T positions, slot b's row being page b
+    (``block_table = arange(B)[:, None]``, ``seq_lens = pos + 1``).  The
+    kernel splits at fixed positions whatever the page size and never
+    reads past ``seq_lens``, so positions past a prompt may hold stale
+    values, and its result is bitwise that of the same K/V in any other
+    paging.  A caller stepping every layer passes ``block_table`` and
+    ``seq_lens`` built once per step.  The caller guarantees ``0 <= pos
+    < T``.
+
+    The reference attends with the plain ``layers.decode_attention``,
+    which also takes a sliding window and a softcap; the kernel takes
+    neither, and no config the port builds sets them (gemma3's windowed
+    cache rides with qk-norm, ROADMAP queue 1, item 3), so they raise."""
+    if window is not None or cfg.attn_softcap is not None:
+        raise NotImplementedError(
+            "dense-cache decode with a sliding window or a logit softcap "
+            "is not ported yet: it rides with qk-norm and gemma3's "
+            "windowed cache (ROADMAP queue 1, item 3)")
+    B = x.shape[0]
+    positions = pos[None] if pos.dim() == 0 else pos[:, None]
+    q, k, v = _qkv(x, p, cfg, positions, policy)              # (B,1,H,hd)
+    if block_table is None:
+        block_table = torch.arange(B, dtype=torch.int32,
+                                   device=x.device)[:, None]
+    pos_b = pos.expand(B)
+    if seq_lens is None:
+        seq_lens = (pos_b + 1).to(torch.int32)
+    rows = block_table[:, 0]
+    k_cache.index_put_((rows, pos_b), k[:, 0].to(k_cache.dtype))
+    v_cache.index_put_((rows, pos_b), v[:, 0].to(v_cache.dtype))
+    out = ops.paged_decode_attention(
+        q[:, 0].to(k_cache.dtype).contiguous(), k_cache, v_cache,
+        block_table, seq_lens)                                 # (B,H,hd)
+    y = precision.einsum("bshk,hkd->bsd", out[:, None].to(q.dtype),
+                         p["wo"], policy=policy)
+    return y.to(x.dtype), k_cache, v_cache
 
 
 def decode_paged(

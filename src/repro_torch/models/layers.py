@@ -1,15 +1,19 @@
 """Common layers: norm, activation, rotary, gated MLP, embedding,
-unembedding and the LM loss, ported from the reference's
-``models/layers.py``.
+unembedding, the LM loss and decode attention over a dense cache, ported
+from the reference's ``models/layers.py``.
 
-Every product runs through :func:`repro_torch.core.precision.einsum`
-(bf16 operands, fp32 accumulation, the GEMM kernel on the card).
+Every product of the model's layers runs through
+:func:`repro_torch.core.precision.einsum` (bf16 operands, fp32
+accumulation, the GEMM kernel on the card).  :func:`decode_attention` is
+the plain fp32 function the reference's dense decode step runs; the
+port's decode step attends through the paged-decode kernel instead
+(``attention.decode``), and this function is its oracle.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +55,44 @@ def rotary(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,              # (B, Hq, 1, D) one new token
+    k: torch.Tensor,              # (B, T, Hkv, D) cache, seq-major
+    v: torch.Tensor,
+    pos: torch.Tensor,            # scalar or (B,): index of the new token
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One query token per slot against its dense cache row, in fp32:
+    q widened and scaled, both products fp32 (the reference's
+    ``precision.FULL``), the optional softcap, and keys after ``pos`` (or
+    ``window`` or more before it) masked.  ``pos`` may be per slot."""
+    B, Hq, _, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, Hkv, g, D) * scale
+    s = torch.einsum("bkgd,btkd->bkgt", qf, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(T, device=q.device)
+    if pos.dim() == 0:
+        mask = kpos <= pos
+        if window is not None:
+            mask &= kpos > pos - window
+        mask = mask[None, None, None, :]
+    else:                          # per-slot positions: (B, T) mask
+        mask = kpos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > pos[:, None] - window
+        mask = mask[:, None, None, :]
+    p = torch.softmax(torch.where(mask, s, NEG), dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 
 def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",

@@ -73,16 +73,37 @@ def _to_tensor(arr: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def flat_names(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts as one flat dict whose keys are the paths joined by
+    dots (the port's parameter names); leaves as they are.  A flat dict
+    maps to itself."""
+    out: Dict[str, Any] = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(flat_names(val, prefix=name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def nest_names(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`flat_names`: the reference's nested pytree
+    layout of a flat dict of dotted names."""
+    out: Dict[str, Any] = {}
+    for name, val in flat.items():
+        *parents, leaf = name.split(".")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return out
+
+
 def from_jax(tree: Mapping[str, Any], prefix: str = ""
              ) -> Dict[str, torch.Tensor]:
     """The reference's params pytree (nested dicts of arrays, converted to
     numpy by the caller or here) as the port's flat parameter dict, on the
     CPU.  bf16 leaves are carried bit for bit."""
-    out: Dict[str, torch.Tensor] = {}
-    for key, val in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(val, Mapping):
-            out.update(from_jax(val, prefix=name + "."))
-        else:
-            out[name] = _to_tensor(val)
-    return out
+    return {name: _to_tensor(val)
+            for name, val in flat_names(tree, prefix).items()}

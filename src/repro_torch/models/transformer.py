@@ -1,7 +1,7 @@
 """The decoder LM, ported from the reference's ``models/transformer.py``:
-the dense family's full-sequence forward and loss (the train path) and
-its steps on the paged cache, and the ssm family (mamba2) on its dense
-cache.
+the dense family's full-sequence forward and loss (the train path), its
+steps on the dense KV cache (the static engine's default) and on the
+paged cache, and the ssm family (mamba2) on its dense cache.
 
 The reference scans one jitted layer body over the stacked params; PyTorch
 runs eagerly, so here a Python loop walks the ``L`` layers.  The train
@@ -14,8 +14,11 @@ reference's default, recomputes each layer in the backward
 body).  Parameters are passed explicitly, as in the reference, so both
 packages' steps take the same arguments.  Caches are updated in place
 (the reference's jitted steps donate them and return new ones); the steps
-still return them.  The dense family's dense-cache ``prefill`` and
-``decode_step`` come with a later slice.
+still return them.
+
+The dense prefill runs the full-sequence forward, so its MLP takes the
+wide fp32 product; the decode steps and the paged prefill chunks take
+``glu_mlp``'s bf16 product, as in the reference (``_mlp``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ class Model(nn.Module):
     ``device="cpu"`` runs the plain versions of the kernels.
 
     - dense family: embed -> L x [RMSNorm -> rotary GQA attention ->
-      RMSNorm -> gated MLP] -> RMSNorm -> unembed, on the paged cache;
+      RMSNorm -> gated MLP] -> RMSNorm -> unembed, on the dense KV cache
+      (``k``, ``v``) or the paged one;
     - ssm family: embed -> L x [RMSNorm -> Mamba2 mixer] -> RMSNorm ->
       unembed, on the dense cache (``conv``, ``ssm``, ``bc_conv``).
 
@@ -137,13 +141,18 @@ class Model(nn.Module):
             return None
         return cfg.window
 
-    def _dense_block(self, x, lp, window):
+    def _dense_block(self, x, lp, window, with_cache: bool = False):
+        """One dense layer of the full-sequence forward; with
+        ``with_cache`` returns ``(x, (k, v))``."""
         cfg = self.cfg
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attention.forward(h, lp["attn"], cfg, policy=self.policy,
-                                  window=window)
+        a = attention.forward(h, lp["attn"], cfg, policy=self.policy,
+                              window=window, with_cache=with_cache)
+        a, kv = a if with_cache else (a, None)
+        x = x + a
         h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + self._mlp(h, lp, wide=True)
+        x = x + self._mlp(h, lp, wide=True)
+        return (x, kv) if with_cache else x
 
     def _mlp(self, h, lp, wide: bool = False):
         """The gated MLP.  The full-sequence forward (``_dense_block``)
@@ -241,16 +250,8 @@ class Model(nn.Module):
         return self._head(params, x), cache
 
     # ------------------------------------------------------------------
-    # full sequence and the dense cache (ssm family)
+    # full sequence and the dense cache
     # ------------------------------------------------------------------
-    def _require_ssm(self, what: str) -> None:
-        if self.cfg.family != "ssm":
-            raise NotImplementedError(
-                f"{self.cfg.name}: {what} is ported for the ssm family "
-                "only; the dense family's dense KV cache (the dense-cache "
-                "static Engine) is ROADMAP queue 1, item 5 (use paged=True "
-                "to serve it)")
-
     def _mixer_stack(self, params: Params, tokens: torch.Tensor,
                      with_state: bool, write_state):
         """Embed -> L x mixer; each layer's state goes to
@@ -271,17 +272,21 @@ class Model(nn.Module):
     def forward(self, params: Params, tokens: torch.Tensor,
                 with_cache: bool = False, last_only: bool = False):
         """Full-sequence forward: (fp32 logits (B, S or 1, V), aux loss 0,
-        stacked per-layer states ``(conv, ssm, bc_conv)`` or None).  The
-        dense family has no cache here yet (``with_cache`` raises)."""
+        the stacked per-layer caches or None).  With ``with_cache`` the
+        dense family returns ``(k, v)``, each (L, B, S, Hkv, hd) in bf16,
+        and the ssm family ``(conv, ssm, bc_conv)``."""
         if self.cfg.family == "dense":
-            if with_cache:
-                self._require_ssm("the dense KV cache")
-            x = self._dense_stack(params, tokens)
+            kvs = []
+            x = self._dense_stack(
+                params, tokens,
+                (lambda i, kv: kvs.append(kv)) if with_cache else None)
             if last_only:
                 x = x[:, -1:, :]
+            caches = (tuple(torch.stack(t) for t in zip(*kvs))
+                      if with_cache else None)
             return (self._head(params, x),
                     torch.zeros((), dtype=torch.float32, device=x.device),
-                    None)
+                    caches)
         states = []
         x = self._mixer_stack(params, tokens, with_cache,
                               lambda i, state: states.append(state))
@@ -293,21 +298,26 @@ class Model(nn.Module):
                 torch.zeros((), dtype=torch.float32, device=x.device),
                 caches)
 
-    def _dense_stack(self, params: Params, tokens: torch.Tensor
-                     ) -> torch.Tensor:
+    def _dense_stack(self, params: Params, tokens: torch.Tensor,
+                     write_kv=None) -> torch.Tensor:
         """Embed -> L x dense block, each layer checkpointed under
-        ``remat="full"`` while autograd records.  Returns the residual
-        stream (B, S, D) in bf16."""
+        ``remat="full"`` while autograd records; given ``write_kv``, each
+        layer's rotated keys and values go to ``write_kv(i, (k, v))``.
+        Returns the residual stream (B, S, D) in bf16."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
         remat = self.remat == "full" and torch.is_grad_enabled()
+        with_cache = write_kv is not None
         for i, lp in enumerate(self._unbind_layers(params)):
-            if remat:
-                x = checkpoint(self._dense_block, x, lp, self._window(i),
-                               use_reentrant=False)
+            args = (x, lp, self._window(i), with_cache)
+            out = (checkpoint(self._dense_block, *args, use_reentrant=False)
+                   if remat else self._dense_block(*args))
+            if with_cache:
+                x, kv = out
+                write_kv(i, kv)
             else:
-                x = self._dense_block(x, lp, self._window(i))
+                x = out
         return x
 
     def loss_fn(self, params: Params, batch: dict):
@@ -322,18 +332,32 @@ class Model(nn.Module):
                 last_only: bool = True, cache: dict = None,
                 slot: int = 0) -> Tuple[torch.Tensor, dict]:
         """Forward over the prompt ``tokens`` (B, S): fp32 logits (of the
-        last position only, by default) and the decode-ready cache, whose
-        ``conv``/``bc_conv`` hold the last W-1 mixer inputs and ``ssm``
-        the fp32 state after the last position.  Given a dense ``cache``
-        (from :meth:`init_cache`), a B = 1 prompt's states are written
-        straight into its row ``slot`` and that cache is returned."""
-        self._require_ssm("the dense-cache prefill")
+        last position only, by default) and the decode-ready cache: the
+        dense family's ``k``/``v`` (L, B, S, Hkv, hd) in bf16; the ssm
+        family's ``conv``/``bc_conv`` holding the last W-1 mixer inputs
+        and ``ssm`` the fp32 state after the last position.  Given a dense
+        ``cache`` (from :meth:`init_cache`), a B = 1 prompt's K/V or
+        states are written straight into its row ``slot`` (the dense
+        family's at positions 0..S-1; later positions keep what they
+        held, which decode never reads) and that cache is returned."""
+        self._check_dense_cache()
         if cache is None:
-            logits, _, (conv, state, bc) = self.forward(
+            logits, _, caches = self.forward(
                 params, tokens, with_cache=True, last_only=last_only)
-            return logits, {"conv": conv, "ssm": state, "bc_conv": bc}
+            names = (("k", "v") if self.cfg.family == "dense"
+                     else ("conv", "ssm", "bc_conv"))
+            return logits, dict(zip(names, caches))
         if tokens.shape[0] != 1:
             raise ValueError("prefill into a cache row takes one prompt")
+        if self.cfg.family == "dense":
+            S = tokens.shape[1]
+
+            def write_kv(i, kv):
+                for name, val in zip(("k", "v"), kv):
+                    cache[name][i, slot, :S].copy_(val[0])
+
+            x = self._dense_stack(params, tokens, write_kv)
+            return self._head(params, x[:, -1:] if last_only else x), cache
 
         def write(i, state):
             for name, val in zip(("conv", "ssm", "bc_conv"), state):
@@ -342,12 +366,24 @@ class Model(nn.Module):
         x = self._mixer_stack(params, tokens, True, write)
         return self._head(params, x[:, -1:] if last_only else x), cache
 
+    def _check_dense_cache(self) -> None:
+        if self.cfg.window is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the windowed dense cache (ring-buffer "
+                "local layers) rides with qk-norm and gemma3 (ROADMAP "
+                "queue 1, item 3)")
+
     def cache_specs(self, batch: int, seq_len: int) -> Dict[str, ParamSpec]:
-        """The dense cache of ``batch`` slots (an SSM's does not grow with
-        ``seq_len``)."""
-        self._require_ssm("the dense cache")
+        """The dense cache of ``batch`` slots: the dense family's ``k``
+        and ``v``, (L, batch, seq_len, Hkv, hd) bf16; the ssm family's
+        states, which do not grow with ``seq_len``."""
+        self._check_dense_cache()
         cfg = self.cfg
         L = cfg.n_layers
+        if cfg.family == "dense":
+            shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
+            return {"k": ParamSpec(shape, init="zeros"),
+                    "v": ParamSpec(shape, init="zeros")}
         H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         W, di = cfg.conv_width, cfg.d_inner
         GN2 = 2 * cfg.ssm_groups * cfg.ssm_state
@@ -362,14 +398,39 @@ class Model(nn.Module):
         return tree_init(0, self.cache_specs(batch, seq_len), self.device)
 
     def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
-                    pos: torch.Tensor) -> Tuple[torch.Tensor, dict]:
-        """One token per slot, ``tokens`` (B, 1).  An SSM's step does not
-        read ``pos`` (taken for the reference's signature).  Returns fp32
-        logits (B, 1, V) and ``cache``, updated in place."""
-        self._require_ssm("the dense-cache decode step")
+                    pos: torch.Tensor, *, block_table=None, seq_lens=None
+                    ) -> Tuple[torch.Tensor, dict]:
+        """One token per slot, ``tokens`` (B, 1), at positions ``pos``
+        (scalar or (B,)).  Returns fp32 logits (B, 1, V) and ``cache``,
+        updated in place.
+
+        The dense family attends through the paged-decode kernel with each
+        slot's cache row as one page (``attention.decode``): its (B, 1)
+        ``block_table`` and ``seq_lens = pos + 1`` (int32) are built once
+        per step here unless the caller passes them (the engine keeps the
+        table across steps).  An SSM's step does not read ``pos`` (taken
+        for the reference's signature)."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
+        if cfg.family == "dense":
+            B = tokens.shape[0]
+            if block_table is None:
+                block_table = torch.arange(B, dtype=torch.int32,
+                                           device=x.device)[:, None]
+            if seq_lens is None:
+                seq_lens = (pos.expand(B) + 1).to(torch.int32)
+            for i in range(cfg.n_layers):
+                lp = self._layer(params, i)
+                h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+                a, _, _ = attention.decode(
+                    h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos,
+                    policy=self.policy, block_table=block_table,
+                    seq_lens=seq_lens)
+                x = x + a
+                h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+                x = x + self._mlp(h, lp)
+            return self._head(params, x), cache
         for i in range(cfg.n_layers):
             lp = self._layer(params, i)
             h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -6,7 +6,9 @@
   reference, it holds the model's dense cache by default
   (``paged=False``: ``Model.init_cache``, each prompt prefilled in one
   B = 1 pass at its exact length and written into its slot's row, then
-  ``Model.decode_step`` over all slots); ``paged=True`` gives each slot a
+  ``Model.decode_step`` over all slots; the dense family's step attends
+  through the paged-decode kernel with each slot's row as one page, under
+  a (B, 1) table the engine makes once); ``paged=True`` gives each slot a
   slot-major row of pages and prefills prompts chunk by chunk.
 - :class:`ContinuousEngine` — continuous batching: per-tick admission
   through the budget-governed :class:`~repro_torch.serve.scheduler.Scheduler`,
@@ -123,6 +125,11 @@ class Engine:
             self.cache = model.init_cache(batch_slots, max_seq)
             self._pos_limit = max_seq
             self._decode = model.decode_step
+        # the dense KV cache as one page per slot: the table is made once,
+        # seq_lens (pos + 1) is one host-to-device copy per step
+        self._table = (torch.arange(batch_slots, dtype=torch.int32,
+                                    device=self.device)[:, None]
+                       if "k" in self.cache else None)
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
@@ -214,10 +221,14 @@ class Engine:
         # idle slots park at position 0; their garbage write is overwritten
         # by the next prefill before anything reads it
         _check_positions(self.pos, self._pos_limit)
+        kw = {}
+        if self._table is not None:
+            kw = dict(block_table=self._table, seq_lens=torch.from_numpy(
+                self.pos + np.int32(1)).to(self.device))
         t0 = time.perf_counter() if self.obs.enabled else 0.0
         logits, self.cache = self._decode(
             self.params, self.cache, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
+            torch.from_numpy(self.pos.astype(np.int64)).to(self.device), **kw)
         if self.obs.enabled:
             _sync(self.obs, self.device)
             self.obs.histogram("serve.decode_s").observe(

@@ -448,8 +448,8 @@ def test_dense_engine_matches_reference_where_margins_allow(mamba, J):
 def test_engine_defaults_to_the_dense_cache_as_the_reference(mamba, J):
     """No ``paged`` argument: both packages hold the model's dense cache
     (same keys and shapes); ``paged=True`` gives both the paged cache; an
-    SSM refuses it in both, and the port's dense family refuses the dense
-    cache, which is not ported yet."""
+    SSM refuses it in both.  The dense family holds its dense KV cache by
+    default in both too."""
     jmodel, params, tmodel, tparams, mesh = mamba
     with J.jax.set_mesh(mesh):
         jeng = J.Engine(jmodel, params, batch_slots=3, max_seq=MAX_SEQ)
@@ -474,15 +474,18 @@ def test_engine_defaults_to_the_dense_cache_as_the_reference(mamba, J):
         qparams = qj.init(J.jax.random.PRNGKey(0))
         jpaged = J.Engine(qj, qparams, batch_slots=3, max_seq=MAX_SEQ,
                           paged=True)
-        assert set(J.Engine(qj, qparams, batch_slots=3,
-                            max_seq=MAX_SEQ).cache) == {"k", "v"}
+        jdense = J.Engine(qj, qparams, batch_slots=3, max_seq=MAX_SEQ)
+        assert set(jdense.cache) == {"k", "v"}
     qt = Model(scale_config(get_config("qwen2-0.5b"), 64), device="cpu")
-    tpaged = Engine(qt, from_jax(J.jax.tree.map(np.asarray, qparams)),
-                    batch_slots=3, max_seq=MAX_SEQ, paged=True)
+    qtparams = from_jax(J.jax.tree.map(np.asarray, qparams))
+    tpaged = Engine(qt, qtparams, batch_slots=3, max_seq=MAX_SEQ, paged=True)
     assert {k: tuple(v.shape) for k, v in tpaged.cache.items()} == \
         {k: tuple(v.shape) for k, v in jpaged.cache.items()}
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        Engine(qt, {}, batch_slots=3, max_seq=MAX_SEQ)
+    tdense = Engine(qt, qtparams, batch_slots=3, max_seq=MAX_SEQ)
+    assert not tdense.paged
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tdense.cache.items()} \
+        == {k: (tuple(v.shape), torch.bfloat16)
+            for k, v in jdense.cache.items()}
 
 
 def test_serve_cli_runs_mamba2_on_the_cpu(capsys):
