@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``.
+"""Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
+(``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
+``d256``, ``4c``, ``4d`` and ``6b``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -34,6 +36,13 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    log-sum-exp and the backward at the train shape give the same bits
    run to run; fp32 q, k, v (the CUDA-core kernel) stay within rtol 2e-5,
    atol 2e-2 of the plain version.
+   At head dim 256 (gemma-2b: 8 query heads on one kv head) the flash
+   forward (bf16 and fp32) and the backward against their plain versions
+   at its dense prefill, a prefill chunk, a window, a softcap, rows with
+   no visible key and its train shape; rows bitwise invariant to the
+   chunking, forward and backward run to run bitwise; the forward timed
+   beside its bound, its plain version and SDPA at the 512-token prefill,
+   the backward at the train shape beside ``autograd.grad`` through SDPA.
    Paged decode attention at the serve shape (timed beside SDPA over the
    K/V gathered beforehand, a yardstick only), at head dims 32, 64, 128
    and 256 with 1, 7 and 16 query heads per kv head at lengths 1, KS - 1,
@@ -64,6 +73,38 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    paths teacher-forced along the paged streams, logits within phase 4's
    tolerance and a token parting only at a low-margin step; serve
    numbers and a decode step split as in phase 4.
+4c. Serve gemma3-27b at full width and depth (62 layers, 10 global,
+   window 1,024; 28.4 B parameters drawn on the card from the seed, every
+   earlier model freed) through the static ``Engine`` on its windowed
+   dense cache (8 slots, ``max_seq`` 2,048): 16 requests with prompts of
+   896-1,600 tokens and 64 new, so that rings wrap in prefill and in
+   decode.  Launch counts (``matmul`` 435 per prefill and per decode
+   step, ``attention`` 62 per prefill, ``paged_decode_attention`` 62 per
+   decode step); serve numbers and a decode step split into eager wall
+   and graph-replayed device time, beside the step's 17.0 ms bound;
+   every kernel call of 8 one-slot prefills (prompts of 4-1,600 tokens,
+   past the window) and of two decode steps (a ring of 5 live slots,
+   before, at and past the wrap) against its plain version on the same inputs: each distinct
+   GEMM shape against ``ref.matmul``, each flash call (head dim 128, GQA
+   2, window 1,024 on the local layers) against ``ref.attention``, each
+   local layer's ring against ``decode_attention_ring`` and each global
+   layer's decode against ``ref.paged_decode_attention``; the first 6
+   layers (5 local, 1 global) with the model's own embed, norm
+   and unembed against the CPU's plain versions (a 1,040-token prompt
+   that wraps in the prefill, then 4 decode steps, phase 4's tolerance);
+   prefill-then-decode at full depth against the full windowed forward
+   over the same tokens (5%, derived at ``G3_DEPTH_TOL``); the served
+   tokens of two requests against that forward by the margin rule.  The
+   model is freed before phase 4d.
+4d. Serve gemma-2b at full width and depth (18 layers, head dim 256,
+   MQA) on phase 4's requests: the dense default with its launch counts
+   (``matmul`` 127 per prefill and per decode step, ``attention`` 18 per
+   prefill, ``paged_decode_attention`` 18 per decode step), serve numbers
+   and a decode step split, every kernel call of 8 prefills and a decode
+   step held against its plain version as in 4c (the flash calls at head
+   dim 256), card vs CPU on the dense cache, and the same
+   requests through the static paged ``Engine`` and ``ContinuousEngine``
+   (equal tokens), the dense engine against them by the margin rule.
 5. Serve mamba2-780m at full width (48 layers) through the dense-cache
    static ``Engine`` (8 slots, the same 16-request set), with its own
    launch-count check (``matmul`` 241 per prefill and per decode step,
@@ -95,6 +136,14 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    the wire's and a control without one rank's contribution that must
    differ; step, device, host, wire and optimizer times, tokens per
    second, wire bytes and peak memory per rank.
+6b. Train gemma-2b at full width and depth on one rank through
+   ``Session`` (``comms="off"``, 2 x 512 tokens of
+   ``SyntheticLM(structured=True)``): the first batch's gradients under
+   ``remat="group:3"`` and ``"full"`` from the same params bitwise equal;
+   two steps under ``group:3`` and a third under ``full`` on the first
+   batch again, each step's launches the layer loop's for its remat, the
+   third loss below the first; then the 2-layer loss and gradients
+   against the CPU's, as in phase 6.
 7. The compressed data-parallel SGD path at full width.  The kernels
    first: ``quantize_compress`` bitwise (q and scale) against its plain
    version, and its error-feedback form ``quantize_compress_ef`` (the
@@ -144,6 +193,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import math
@@ -155,6 +205,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -583,6 +634,174 @@ def check_flash_properties(cfg):
                 fp32_chunk_ms=f32_ms)
 
 
+# gemma-2b's attention: head dim 256, 8 query heads on one kv head (MQA).
+# Its prefill on the dense default is one call over the whole prompt
+# (S = T, up to the 512-token prompts of phase 4d); the paged engines call
+# it per 128-token chunk; its train layer is q (2, 8, 512, 256), causal.
+D256_CASES = [
+    # (label, B, S, T, q_offset, window, softcap)
+    ("prefill", 1, 512, 512, 0, None, None),
+    ("chunk", 1, 128, 512, 384, None, None),
+    ("window", 1, 300, 300, 0, 100, None),
+    ("softcap", 1, 256, 256, 0, None, 30.0),
+    # rows 39.. see no key (qpos - 8 >= 31); the others 1 to 8 keys
+    ("no visible key", 1, 64, 32, 0, 8, None),
+    ("train", 2, 512, 512, 0, None, None),
+]
+
+
+def check_flash_d256(cfg):
+    """The flash forward (bf16 on wgmma, fp32 on CUDA cores) and the
+    backward at head dim 256 against their plain versions, at gemma-2b's
+    prefill and train shapes, with a window, a softcap and rows that see
+    no key (zeros, zero gradients); bitwise: a 300-token prompt in one
+    call == chunk by chunk as the paged prefill runs it (with and without
+    a window and a softcap), and the forward and backward run to run.
+    Timed: the forward at the dense prefill's shape beside its bound, its
+    plain version and SDPA, the backward at the train shape beside its
+    bound, its plain version and ``autograd.grad`` through SDPA (both
+    library calls timed only).  Returns the forward's and the backward's
+    rows of the kernels line."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    require(hd == 256 and Hkv == 1, f"{cfg.name}: head dim {hd}")
+    errs = dict(fwd=[], f32=[], bwd=[])
+    fwd_row, bwd_row = {}, {}
+    print("flash D=256: case | bf16 fwd err | fp32 fwd err | bwd err")
+    for i, (label, B, S, T, off, window, cap) in enumerate(D256_CASES):
+        q, k, v, do = bwd_inputs(2000 + 10 * i, B, H, Hkv, S, T, hd)
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+        out = fa_mod.attention(q, k, v, **kw)
+        errs["fwd"].append(max_err(out, ref.attention(q, k, v, **kw),
+                                   f"flash D=256 {label}"))
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        want32 = ref.attention(q32, k32, v32, **kw)
+        e32 = (fa_mod.attention(q32, k32, v32, **kw) - want32).abs()
+        require(not bool((e32 > 2e-2 + 2e-5 * want32.abs()).any()),
+                f"flash D=256 fp32 {label}: beyond rtol 2e-5, atol 2e-2 "
+                f"(max abs err {float(e32.max()):.3g})")
+        errs["f32"].append(float(e32.max()))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(fa_mod.attention(*leaves, **kw), leaves,
+                                  do)
+        errs["bwd"].append(grads_close(
+            got, ref.attention_backward(q, k, v, do, **kw),
+            f"attention backward D=256 {label}"))
+        if label == "no visible key":
+            require(not bool(out[:, :, 39:].any())
+                    and not bool(got[0][:, :, 39:].any())
+                    and bool(out[:, :, :39].any()),
+                    "D=256: rows with no visible key must give zeros and "
+                    "zero gradients")
+        print(f"flash D=256 {label:14s} | {errs['fwd'][-1]:.3g} | "
+              f"{errs['f32'][-1]:.3g} | {errs['bwd'][-1]:.3g}")
+        if label not in ("prefill", "train"):
+            continue
+        n = copies(2 * (3 * q.numel() + 2 * k.numel()))
+        sets = [bwd_inputs(2100 + 4 * j, B, H, Hkv, S, T, hd)
+                for j in range(n)]
+        pairs = S * (S + 1) // 2                          # causal, S == T
+        if label == "prefill":
+            ms = cuda_ms([lambda s=s: fa_mod.attention(*s[:3], **kw)
+                          for s in sets], iters=max(20, 2 * n))
+            plain = cuda_ms([lambda s=s: ref.attention(*s[:3], **kw)
+                             for s in sets[:2]], iters=5, warmup=1)
+            lib = cuda_ms([lambda s=s: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               *s[:3], is_causal=True, enable_gqa=True)
+                           for s in sets], iters=max(20, 2 * n))
+            bms, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                            4.0 * B * H * pairs * hd)
+            f32_ms = cuda_ms([lambda: fa_mod.attention(q32, k32, v32, **kw)],
+                             iters=10)
+            f32_plain = cuda_ms([lambda: ref.attention(q32, k32, v32, **kw)],
+                                iters=5, warmup=1)
+            f32_lib = cuda_ms([lambda: torch.nn.functional
+                               .scaled_dot_product_attention(
+                                   q32, k32, v32, is_causal=True,
+                                   enable_gqa=True)], iters=10)
+            f32_bms, f32_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
+                                    4.0 * B * H * pairs * hd, FP32_FLOPS)
+            print(f"flash D=256 prefill | {ms:.4f} ms | bound {bms:.5f} "
+                  f"({by}) | plain {plain:.4f} | sdpa {lib:.4f}; fp32: "
+                  f"kernel {f32_ms:.4f} | bound {f32_bms:.4f} ({f32_by}, "
+                  f"CUDA cores) | plain {f32_plain:.4f} | sdpa "
+                  f"{f32_lib:.4f}")
+            fwd_row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bms, bound_by=by, fp32_ms=f32_ms,
+                           fp32_bound_ms=f32_bms, fp32_bound_by=f32_by,
+                           fp32_plain_ms=f32_plain, fp32_library_ms=f32_lib,
+                           case=f"{cfg.name} dense prefill: q (1,{H},{S},"
+                                f"{hd}) against k/v (1,{Hkv},{T},{hd}), "
+                                "causal")
+        if label == "train":
+            outs = [fa_mod._forward(*s[:3], True, None, None, hd ** -0.5, 0,
+                                    with_lse=True) for s in sets]
+            ms = cuda_ms([lambda s=s, o=o: fa_mod.attention_backward(
+                *s[:3], o[0], s[3], o[1]) for s, o in zip(sets, outs)],
+                iters=max(10, 2 * n))
+            fwd = cuda_ms([lambda s=s: fa_mod._forward(
+                *s[:3], True, None, None, hd ** -0.5, 0, with_lse=True)
+                for s in sets], iters=max(10, 2 * n))
+            plain = event_ms(lambda: ref.attention_backward(q, k, v, do,
+                                                            **kw))
+
+            def sdpa():
+                ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *ls, is_causal=True, enable_gqa=True)
+                return torch.autograd.grad(o, ls, do)
+            lib = event_ms(sdpa, iters=10, warmup=2)
+            split = kernel_us(lambda: fa_mod.attention_backward(
+                *sets[0][:3], outs[0][0], sets[0][3], outs[0][1]))
+            bms, by = bound(2 * (3 * q.numel() + 4 * k.numel())
+                            + 4 * B * H * S, 5 * 2.0 * B * H * pairs * hd)
+            print(f"attention backward D=256 train | {ms:.4f} ms | bound "
+                  f"{bms:.4f} ({by}) | plain {plain:.4f} | sdpa backward "
+                  f"{lib:.4f} | forward with lse {fwd:.4f}; kernels µs: "
+                  + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in split.items()))
+            bwd_row = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bms, bound_by=by,
+                           forward_with_lse_ms=fwd, kernels_us=split,
+                           case=f"{cfg.name} train layer: q ({B},{H},{S},"
+                                f"{hd}), k/v ({B},{Hkv},{T},{hd}), causal")
+    checked = dict(row_invariance=0, run_to_run=0)
+    q, k, v, _ = bwd_inputs(2200, 1, H, Hkv, 300, 300, hd)
+    for window, cap in ((None, None), (100, None), (None, 30.0), (100, 30.0)):
+        out, lse = fa_mod._forward(q, k, v, True, window, cap, hd ** -0.5, 0,
+                                   with_lse=True)
+        c_out, c_lse = chunked_like_paged_prefill(q, k, v, window, cap)
+        require(torch.equal(c_out, out) and torch.equal(c_lse, lse),
+                f"flash D=256 rows depend on the chunking (window {window},"
+                f" softcap {cap})")
+        checked["row_invariance"] += 1
+    q, k, v, do = bwd_inputs(2210, 2, H, Hkv, 512, 512, hd)
+    args = (True, None, None, hd ** -0.5, 0)
+    out, lse = fa_mod._forward(q, k, v, *args, with_lse=True)
+    grads = fa_mod.attention_backward(q, k, v, out, do, lse)
+    for _ in range(2):
+        again = fa_mod._forward(q, k, v, *args, with_lse=True)
+        require(torch.equal(again[0], out) and torch.equal(again[1], lse),
+                "flash D=256 forward: two runs differ")
+        require(all(torch.equal(a, b) for a, b in zip(
+            fa_mod.attention_backward(q, k, v, out, do, lse), grads)),
+            "attention backward D=256: two runs differ")
+        checked["run_to_run"] += 2
+    print(f"flash D=256 properties: {checked} checks, all bitwise",
+          flush=True)
+    return (dict(name="flash_attention_d256", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention.py:87",
+                 max_abs_err=max(errs["fwd"]),
+                 fp32_max_abs_err=max(errs["f32"]),
+                 properties_checked=checked, **fwd_row),
+            dict(name="attention_backward_d256", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 replaces="src/repro/models/layers.py:52",
+                 note="no TPU kernel: the reference trains through "
+                      "layers.flash_attention_jnp's autodiff",
+                 max_abs_err=max(errs["bwd"]), **bwd_row))
+
+
 def paged_pool(B, Hq, Hkv, hd, n_row, seed):
     """q, a pool of B * n_row + 1 pages (page 0 unused) and a permuted
     table."""
@@ -823,18 +1042,31 @@ def check_ssd():
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
 
-def requests(cfg):
+def requests(cfg, new_tokens=NEW_TOKENS, prompts=(PROMPT_MIN, PROMPT_MAX)):
+    """``N_REQUESTS`` requests, prompt lengths drawn from the seed in the
+    closed range ``prompts``, each to ``new_tokens`` new tokens."""
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, N_REQUESTS)
+    lens = rng.integers(prompts[0], prompts[1] + 1, N_REQUESTS)
     return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, int(n))
-                    .astype(np.int32), max_new_tokens=NEW_TOKENS)
+                    .astype(np.int32), max_new_tokens=new_tokens)
             for i, n in enumerate(lens)]
 
 
-def serve(engine_cls, model, params, reqs, **kw):
+def dense_serve_launches(cfg, steps: int, prefills: int):
+    """Launches of the static engine on the dense cache: 7 products a
+    layer and the unembed per prefill and per decode step, one flash call
+    a layer per prefill, one paged-decode call a layer per decode step."""
+    L = cfg.n_layers
+    return {"matmul": (7 * L + 1) * (steps + prefills),
+            "attention": L * prefills, "attention_backward": 0,
+            "paged_decode_attention": L * steps, "ssd": 0,
+            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+
+
+def serve(engine_cls, model, params, reqs, max_seq=MAX_SEQ, **kw):
     """Drive an engine to completion; returns (finished, seconds, decode
     steps)."""
-    eng = engine_cls(model, params, batch_slots=SLOTS, max_seq=MAX_SEQ,
+    eng = engine_cls(model, params, batch_slots=SLOTS, max_seq=max_seq,
                      page_size=PAGE, prefill_chunk=CHUNK, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -868,12 +1100,12 @@ def serve_stats(arch, n_params, fin, dt, launches, peak, resident):
         launches=launches)
 
 
-def agree(got, want, what):
+def agree(got, want, what, tol=LOGIT_TOL):
     """Logits (steps, V) of the card against a reference: max |diff|
-    within LOGIT_TOL of the largest logit, and greedy tokens equal
+    within ``tol`` of the largest logit, and greedy tokens equal
     wherever the reference's top-1/top-2 margin exceeds twice that."""
     require(bool(torch.isfinite(got).all()), f"{what}: logits not finite")
-    atol = LOGIT_TOL * float(want.abs().max())
+    atol = tol * float(want.abs().max())
     diff = float((got - want).abs().max())
     rel_rms = float((got - want).norm() / want.norm())
     top2 = torch.topk(want, 2, dim=-1).values
@@ -882,7 +1114,7 @@ def agree(got, want, what):
     same = int((got.argmax(-1) == want.argmax(-1)).sum())
     print(f"{what}: max abs diff {diff:.4g} = "
           f"{diff / float(want.abs().max()):.2%} of the largest logit "
-          f"(tolerance {LOGIT_TOL:.0%}), relative rms {rel_rms:.3%}; greedy "
+          f"(tolerance {tol:.0%}), relative rms {rel_rms:.3%}; greedy "
           f"tokens equal on {same}/{len(want)} steps, required on the "
           f"{int(sure.sum())} with a margin over {2 * atol:.3g}: {same_sure}")
     require(diff <= atol and same_sure, f"{what}: logits disagree")
@@ -920,7 +1152,8 @@ def check_against_cpu(cfg, model, params, dense=False):
                              torch.tensor([64 + s], device=m.device))
             out.append(logits[0, 0].float().cpu())
     agree(torch.stack(runs[0][3]), torch.stack(runs[1][3]),
-          f"card vs cpu logits (qwen2, full width, {'dense' if dense else 'paged'}"
+          f"card vs cpu logits ({cfg.name}, full width, "
+          f"{'dense' if dense else 'paged'}"
           " cache, 64-token prompt + 4 steps)")
 
 
@@ -939,20 +1172,20 @@ def wall_and_device(step):
     return statistics.median(walls), cuda_ms([step], iters=5, warmup=1)
 
 
-def step_breakdown(cfg, model, params, dense=False):
-    """One full decode step (8 slots, each at a serve-like position):
-    host wall time of the eager step, ended by a synchronize, against the
-    device time of the same step replayed from a CUDA graph.  Their gap
-    is what the host adds per step.  On the paged cache, or with
-    ``dense`` on the dense KV cache (the table and ``seq_lens`` made
-    outside the step, as the engine passes them)."""
+def step_breakdown(cfg, model, params, dense=False, max_seq=MAX_SEQ,
+                   positions=(PROMPT_MIN, PROMPT_MAX + NEW_TOKENS)):
+    """One full decode step (8 slots, each at a serve-like position drawn
+    from ``positions``): host wall time of the eager step, ended by a
+    synchronize, against the device time of the same step replayed from
+    a CUDA graph.  Their gap is what the host adds per step.  On the
+    paged cache, or with ``dense`` on the dense KV cache (the table and
+    ``seq_lens`` made outside the step, as the engine passes them)."""
     rng = np.random.default_rng(SEED + 2)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (SLOTS, 1))).cuda()
-    pos = torch.from_numpy(rng.integers(
-        PROMPT_MIN, PROMPT_MAX + NEW_TOKENS, SLOTS)).cuda()
+    pos = torch.from_numpy(rng.integers(*positions, SLOTS)).cuda()
     if dense:
-        cache = model.init_cache(SLOTS, MAX_SEQ)
+        cache = model.init_cache(SLOTS, max_seq)
         table = torch.arange(SLOTS, dtype=torch.int32,
                              device="cuda")[:, None]
         lens = (pos + 1).to(torch.int32)
@@ -969,7 +1202,7 @@ def step_breakdown(cfg, model, params, dense=False):
     wall, device = wall_and_device(step)
     fams = breakdown_per_call(step, calls=10,
                               busy=("paged_decode_attention",))
-    print(f"decode step (8 slots, full width, "
+    print(f"decode step ({cfg.name}, 8 slots, full width, "
           f"{'dense' if dense else 'paged'} cache): eager wall {wall:.3f} "
           f"ms, device (graph replay) {device:.3f} ms, device idle share of "
           f"the eager step {1 - device / wall:.1%}; profiled eager step, "
@@ -1136,11 +1369,8 @@ def serve_dense(cfg, model, params, paged_fin):
     fin, dt, steps = serve(Engine, model, params, requests(cfg))
     launches = ops.dispatch_report()
     peak = torch.cuda.max_memory_allocated()
-    L, n = cfg.n_layers, len(fin)
-    expect = {"matmul": (7 * L + 1) * (steps + n), "attention": L * n,
-              "attention_backward": 0, "paged_decode_attention": L * steps,
-              "ssd": 0, "quantize_int8": 0, "quantize_compress": 0,
-              "matmul_dequant": 0}
+    n = len(fin)
+    expect = dense_serve_launches(cfg, steps, n)
     print(f"dense launches: {launches} (expected {expect}: {steps} decode "
           f"steps, {n} one-call prefills)")
     require(all(launches[k] > 0 for k in
@@ -1157,6 +1387,353 @@ def serve_dense(cfg, model, params, paged_fin):
     check_against_cpu(cfg, model, params, dense=True)
     stats["against_paged"] = dense_against_paged(cfg, model, params, fin,
                                                  paged_fin)
+    return stats, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: gemma3-27b at full width and depth on its windowed dense cache
+# ---------------------------------------------------------------------------
+
+GEMMA3 = "gemma3-27b"
+# the config's param_count() (28,417,605,888) plus the qk-norm scales it
+# leaves out: 62 layers x 2 x 128
+GEMMA3_PARAMS = 28_417_621_760
+G3_MAX_SEQ, G3_PROMPTS = 2048, (896, 1600)
+# card against CPU: the first local:global group (layers 0-5, the global
+# one last), a prompt that wraps the 1,024-slot rings in the prefill, then
+# 4 decode steps
+G3_CPU_LAYERS, G3_CPU_PROMPT, G3_DECODE = 6, 1040, 4
+# Prefill-then-decode against the full windowed forward over the same
+# tokens, both on the card at 62 layers: the forward's MLP multiplies
+# act(g) * h in fp32 and rounds once, the decode step rounds both to bf16
+# first (as in the reference), so each decoded token's activations part by
+# bf16 roundings in every layer.  On the CPU's plain versions at gemma3's
+# widths (scripts/ring_decode_depth.py, vocabulary cut to 32,768) the
+# logits part by 0.663% of the largest at 2 layers, 0.979% at 6, 1.362%
+# at 12 and 1.701% at 24, growing as about the square root of depth:
+# ~2.7-3.1% at 62.  Held at 5% (phase 4's LOGIT_TOL), with the margin rule
+# for the tokens.  This drift bounds the decode path's numerics only: on
+# an H100 at 62 layers and the full vocabulary it reads 3.28%, and 2.86%
+# with a planted fault (every ring call's seq_lens one short), so a
+# one-slot ring fault hides in it; :func:`check_layer_calls` and the CPU
+# parity tests (window 16) are what catch one.
+G3_DEPTH_TOL = 5e-2
+
+
+@contextlib.contextmanager
+def held_calls(ring_window=None):
+    """Within the block, the model's kernel calls are each held against
+    the plain version on the same inputs at the bf16 tolerance
+    (:func:`max_err`): ``ops.matmul`` once for each distinct operand
+    shape, strides and dtypes; every ``ops.attention`` call; every
+    ``ops.paged_decode_attention`` call, a local layer's ring (pages of
+    ``ring_window`` slots) against ``decode_attention_ring`` at the
+    positions the caller sets as ``held.pos``, any other against
+    ``ref.paged_decode_attention``.  Yields ``held``, whose ``errs`` maps
+    ``matmul``, ``attention``, ``paged`` and ``ring`` to the errors."""
+    from repro_torch.models import layers as layers_mod
+    kernels = (ops.matmul, ops.attention, ops.paged_decode_attention)
+    held = types.SimpleNamespace(pos=None, errs=dict(
+        matmul=[], attention=[], paged=[], ring=[]))
+    seen = set()
+
+    def matmul(a, b, out_dtype=None):
+        out = kernels[0](a, b, out_dtype)
+        key = (a.shape, a.stride(), b.shape, b.stride(), a.dtype, b.dtype,
+               out_dtype)
+        if key not in seen:
+            seen.add(key)
+            held.errs["matmul"].append(max_err(
+                out, ref.matmul(a, b, out_dtype),
+                f"gemm {tuple(a.shape)} @ {tuple(b.shape)}"))
+        return out
+
+    def attention(q, k, v, **kw):
+        out = kernels[1](q, k, v, **kw)
+        held.errs["attention"].append(max_err(
+            out, ref.attention(q, k, v, **kw),
+            f"flash q {tuple(q.shape)} k {tuple(k.shape)} {kw}"))
+        return out
+
+    def paged(q, k_pages, v_pages, table, seq_lens, **kw):
+        out = kernels[2](q, k_pages, v_pages, table, seq_lens, **kw)
+        if k_pages.shape[1] == ring_window:
+            want = layers_mod.decode_attention_ring(
+                q[:, :, None], k_pages, v_pages, held.pos, **kw)[:, :, 0]
+            held.errs["ring"].append(max_err(
+                out, want, f"ring decode attention at positions "
+                           f"{held.pos.tolist()}"))
+        else:
+            held.errs["paged"].append(max_err(
+                out, ref.paged_decode_attention(q, k_pages, v_pages, table,
+                                                seq_lens, **kw),
+                f"decode attention, seq_lens {seq_lens.tolist()}"))
+        return out
+
+    ops.matmul, ops.attention, ops.paged_decode_attention = (
+        matmul, attention, paged)
+    try:
+        yield held
+    finally:
+        ops.matmul, ops.attention, ops.paged_decode_attention = kernels
+
+
+def check_layer_calls(cfg, model, params, lens, steps, max_seq):
+    """Every kernel call of 8 one-slot prefills (prompts of ``lens``
+    tokens) into a dense cache of 8 slots and of ``steps`` decode steps
+    on it, held by :func:`held_calls` at full shapes.  For gemma3 the
+    prompts run past the window (the flash kernel's window masks them)
+    and the decode steps come on a ring of 5 live slots (where a slot
+    left unread moves the output far more than among 1,024), before the
+    wrap (up to 1,023, ring full), at it (1,024, the first overwrite)
+    and past it; each local layer's ring call is held against
+    ``decode_attention_ring``.  Returns the largest error of each
+    kernel's calls."""
+    W = cfg.window
+    cache = model.init_cache(SLOTS, max_seq)
+    rng = np.random.default_rng(SEED + 8)
+    with held_calls(ring_window=W) as held:
+        for b, n in enumerate(lens):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                 (1, n))).cuda()
+            model.prefill(params, toks, cache=cache, slot=b)
+        for step in range(steps):
+            held.pos = torch.tensor(lens, device="cuda") + step
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                (SLOTS, 1))).cuda()
+            model.decode_step(params, cache, tok, held.pos)
+    errs = held.errs
+    L = cfg.n_layers
+    n_ring = sum(not cfg.is_global_layer(i) for i in range(L)) if W else 0
+    require(len(errs["attention"]) == SLOTS * L
+            and len(errs["ring"]) == steps * n_ring
+            and len(errs["paged"]) == steps * (L - n_ring),
+            f"{cfg.name} held calls: {[(k, len(v)) for k, v in errs.items()]}")
+    out = {k: max(v) for k, v in errs.items() if v}
+    print(f"{cfg.name} kernel calls at full shapes, each within the bf16 "
+          f"tolerance of its plain version (prompts {lens}, {steps} decode "
+          f"steps): {len(errs['matmul'])} distinct GEMM shapes, "
+          f"{len(errs['attention'])} flash calls, {len(errs['ring'])} ring "
+          f"and {len(errs['paged'])} other decode attention calls; max abs "
+          f"err {json.dumps(out)}", flush=True)
+    return out
+
+
+def g3_against_cpu(cfg, params):
+    """The model's first local:global group (layers 0-5) with its own
+    embed, final norm and unembed, on the card and through the plain
+    versions on the CPU: a 1,040-token prompt (the rings wrap in the
+    prefill) into a one-slot cache, then 4 decode steps teacher-forced
+    with the CPU's greedy tokens, held to :func:`agree`."""
+    import dataclasses
+    small = dataclasses.replace(cfg, n_layers=G3_CPU_LAYERS)
+    sub = {k: (v[:G3_CPU_LAYERS] if k.startswith("layers.") else v)
+           for k, v in params.items()}
+    cpu_params = {k: v.cpu() for k, v in sub.items()}
+    prompt = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (1, G3_CPU_PROMPT))
+    T = G3_CPU_PROMPT + G3_DECODE
+    runs = []
+    for m, p in ((Model(small, device="cuda"), sub),
+                 (Model(small, device="cpu"), cpu_params)):
+        cache = m.init_cache(1, T)
+        logits, _ = m.prefill(p, torch.from_numpy(prompt).to(m.device),
+                              cache=cache, slot=0)
+        runs.append((m, p, cache, [logits[0, -1].float().cpu()]))
+    for s in range(G3_DECODE):
+        tok = int(torch.argmax(runs[1][3][-1]))
+        for m, p, cache, out in runs:
+            logits, _ = m.decode_step(
+                p, cache, torch.tensor([[tok]], device=m.device),
+                torch.tensor([G3_CPU_PROMPT + s], device=m.device))
+            out.append(logits[0, 0].float().cpu())
+    return agree(torch.stack(runs[0][3]), torch.stack(runs[1][3]),
+                 f"card vs cpu logits ({cfg.name}, full width, layers 0-5, "
+                 f"{G3_CPU_PROMPT}-token prompt + {G3_DECODE} steps)")
+
+
+def g3_forward_logits(model, params, tokens, first):
+    """fp32 logits of the full windowed forward over ``tokens`` (1, S) at
+    positions ``first``.. (the last position's head only is skipped)."""
+    with torch.no_grad():
+        x = model._dense_stack(params, tokens)
+        return model._head(params, x[:, first:])[0].float()
+
+
+def g3_depth_check(cfg, model, params):
+    """Prefill-then-decode at full depth against the full windowed
+    forward over the same tokens, teacher-forced, on the card: a
+    1,040-token prompt, then 4 decode steps, logits held to
+    ``G3_DEPTH_TOL`` of the largest (the derivation at the constant)."""
+    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (1, G3_CPU_PROMPT + G3_DECODE))).cuda()
+    cache = model.init_cache(1, toks.shape[1])
+    model.prefill(params, toks[:, :G3_CPU_PROMPT], cache=cache, slot=0)
+    steps = []
+    for p in range(G3_CPU_PROMPT, toks.shape[1]):
+        logits, _ = model.decode_step(params, cache, toks[:, p:p + 1],
+                                      torch.tensor([p], device="cuda"))
+        steps.append(logits[0, 0].float())
+    full = g3_forward_logits(model, params, toks, G3_CPU_PROMPT)
+    return agree(torch.stack(steps).cpu(), full.cpu(),
+                 f"prefill-then-decode vs the full forward ({cfg.name}, 62 "
+                 f"layers, {G3_CPU_PROMPT}-token prompt + {G3_DECODE} steps)",
+                 tol=G3_DEPTH_TOL)
+
+
+def g3_tokens_by_margin(cfg, model, params, fin):
+    """The engine's greedy tokens against the full forward over each
+    request's prompt and stream (teacher-forced), for the request with
+    the shortest prompt (its rings wrap in the decode) and the longest:
+    a token may first differ only at a step whose forward top-1/top-2
+    margin is under twice ``G3_DEPTH_TOL`` of the largest logit."""
+    picked = sorted(fin, key=lambda r: len(r.prompt))
+    out = {}
+    for r in (picked[0], picked[-1]):
+        P = len(r.prompt)
+        seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        logits = g3_forward_logits(model, params, torch.from_numpy(
+            seq[None].astype(np.int64)).cuda(), P - 1).cpu()
+        atol = G3_DEPTH_TOL * float(logits.abs().max())
+        top2 = torch.topk(logits, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        want = logits.argmax(-1).tolist()
+        first = next((s for s, (a, b) in enumerate(zip(r.out, want))
+                      if a != b), None)
+        low = first is None or float(margin[first]) <= 2 * atol
+        out[r.rid] = dict(prompt=P, first_divergence=first,
+                          margin_there=None if first is None
+                          else float(margin[first]), low_margin=low)
+        require(low, f"{cfg.name} request {r.rid}: the engine's token {first}"
+                     " leaves the forward's argmax at a margin over twice "
+                     "the tolerance")
+    print(f"served tokens vs the full forward ({cfg.name}, margin rule at "
+          f"{2 * G3_DEPTH_TOL:.0%} of the largest logit): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def serve_gemma3():
+    """Phase 4c: gemma3-27b at full width and depth (62 layers, 10 global)
+    from seed 0, served by the static ``Engine`` on its windowed dense
+    cache (8 slots, ``max_seq`` 2,048): launch counts, serve numbers, a
+    decode step split, every local layer's ring attention against its
+    plain version, the card against the CPU, prefill-then-decode against
+    the full forward, and the served tokens by the margin rule.  Frees
+    the model before it returns."""
+    cfg = get_config(GEMMA3)
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.values())
+    require(n_params == GEMMA3_PARAMS and cfg.n_layers == 62,
+            f"{GEMMA3}: {n_params} parameters")
+    print(f"{GEMMA3}: {n_params} parameters drawn on the card in "
+          f"{init_s:.1f} s, peak {init_peak / 2**30:.2f} GiB", flush=True)
+    # prompts of 896-1,600 tokens: the longer ones wrap the 1,024-slot
+    # rings in the prefill, some of the shorter ones in the decode
+    serve(Engine, model, params, requests(cfg, 2, G3_PROMPTS)[:2],
+          max_seq=G3_MAX_SEQ)                                   # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fin, dt, steps = serve(Engine, model, params,
+                           requests(cfg, prompts=G3_PROMPTS),
+                           max_seq=G3_MAX_SEQ)
+    launches = ops.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(fin)
+    expect = dense_serve_launches(cfg, steps, n)
+    print(f"{GEMMA3} launches: {launches} (expected {expect}: {steps} "
+          f"decode steps, {n} one-call prefills)")
+    require(all(launches[k] > 0 for k in
+                ("matmul", "attention", "paged_decode_attention")),
+            f"a kernel of the {GEMMA3} serve path was never launched")
+    require(launches == expect,
+            f"{GEMMA3} launch counts do not match the layer loop")
+    W = cfg.window
+    stats = serve_stats(GEMMA3, n_params, fin, dt, launches, peak, resident)
+    stats.update(
+        decode_steps=steps, prefills=n, init_s=init_s,
+        init_peak_gib=init_peak / 2**30,
+        prompts_wrapping_in_prefill=sum(len(r.prompt) > W for r in fin),
+        prompts_wrapping_in_decode=sum(
+            len(r.prompt) <= W < len(r.prompt) + len(r.out) - 1
+            for r in fin),
+        decode_step_bound_ms=bound(2 * n_params, 0)[0],
+        **step_breakdown(cfg, model, params, dense=True,
+                         max_seq=G3_MAX_SEQ,
+                         positions=(G3_PROMPTS[0],
+                                    G3_PROMPTS[1] + NEW_TOKENS)))
+    print(f"serve {GEMMA3} " + json.dumps(stats), flush=True)
+    stats["kernel_calls_max_abs_err"] = check_layer_calls(
+        cfg, model, params, [4, 900, 1022, 1023, 1024, 1030, 1400, 1600],
+        steps=2, max_seq=G3_MAX_SEQ)
+    stats["prefill_decode_vs_forward"] = g3_depth_check(cfg, model, params)
+    stats["tokens_by_margin"] = g3_tokens_by_margin(cfg, model, params, fin)
+    stats["card_vs_cpu"] = g3_against_cpu(cfg, params)
+    del model, params
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: gemma-2b at full width and depth (head dim 256, MQA)
+# ---------------------------------------------------------------------------
+
+GEMMA2B = "gemma-2b"
+GEMMA2B_PARAMS = 3_030_460_416
+
+
+def serve_gemma2b():
+    """Phase 4d: gemma-2b (18 layers, head dim 256, one kv head) from seed
+    0, phase 4's requests on the dense default (launch counts, serve
+    numbers, a decode step split), the card against the CPU on the dense
+    cache, and the same requests through the static paged ``Engine`` and
+    ``ContinuousEngine``: those two token for token, the dense engine's
+    against them by the margin rule.  Frees the model before it
+    returns."""
+    cfg = get_config(GEMMA2B)
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    n_params = sum(p.numel() for p in params.values())
+    require(n_params == GEMMA2B_PARAMS and cfg.d_head == 256,
+            f"{GEMMA2B}: {n_params} parameters, head dim {cfg.d_head}")
+    serve(Engine, model, params, requests(cfg, 2)[:2])          # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fin, dt, steps = serve(Engine, model, params, requests(cfg))
+    launches = ops.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(fin)
+    expect = dense_serve_launches(cfg, steps, n)
+    print(f"{GEMMA2B} launches: {launches} (expected {expect}: {steps} "
+          f"decode steps, {n} one-call prefills)")
+    require(launches == expect and launches["attention"] > 0
+            and launches["paged_decode_attention"] > 0,
+            f"{GEMMA2B} launch counts do not match the layer loop")
+    stats = serve_stats(GEMMA2B, n_params, fin, dt, launches, peak, resident)
+    stats.update(decode_steps=steps, prefills=n,
+                 **step_breakdown(cfg, model, params, dense=True))
+    print(f"serve {GEMMA2B} " + json.dumps(stats), flush=True)
+    stats["kernel_calls_max_abs_err"] = check_layer_calls(
+        cfg, model, params, [len(r.prompt) for r in requests(cfg)[:SLOTS]],
+        steps=1, max_seq=MAX_SEQ)
+    check_against_cpu(cfg, model, params, dense=True)
+    static, _, _ = serve(Engine, model, params, requests(cfg), paged=True)
+    cont, _, _ = serve(ContinuousEngine, model, params, requests(cfg))
+    same = {r.rid: r.out for r in static} == {r.rid: r.out for r in cont}
+    print(f"{GEMMA2B} static paged == continuous greedy tokens: {same}")
+    require(same, f"{GEMMA2B}: static paged and continuous engines disagree")
+    stats["against_paged"] = dense_against_paged(cfg, model, params, fin,
+                                                 static)
+    del model, params
+    torch.cuda.empty_cache()
     return stats, launches
 
 
@@ -1488,16 +2065,25 @@ def train_batches(cfg):
     return [next(data) for _ in range(TRAIN_STEPS)]
 
 
-def expected_train_launches(cfg, steps: int, int8: bool):
+def expected_train_launches(cfg, steps: int, int8: bool,
+                            remat: str = "full"):
     """Per rank.  Each layer runs 7 products and one attention forward;
     ``remat="full"`` runs every layer's forward again in the backward;
-    each product's backward runs two products (dA, dB), each attention
-    one backward kernel; the head's unembed is not checkpointed; the int8
-    wire quantizes each of its buckets once."""
+    ``"group:G"`` (G dividing L) each layer's once more and, for each
+    group, its first G - 1 layers' once besides (the group's recompute
+    stops at the last tensor it saves, the input of its last layer,
+    torch.utils.checkpoint's early stop); each product's backward runs
+    two products (dA, dB), each attention one backward kernel; the head's
+    unembed is not checkpointed; the int8 wire quantizes each of its
+    buckets once."""
     L = cfg.n_layers
     fwd = 7 * L + 1
-    return {"matmul": steps * (fwd + 7 * L + 2 * fwd),
-            "attention": steps * 2 * L,
+    redo = L
+    if remat.startswith("group:"):
+        G = int(remat.split(":")[1])
+        redo = L + (L // G) * (G - 1) if L % G == 0 else 0
+    return {"matmul": steps * (fwd + 7 * redo + 2 * fwd),
+            "attention": steps * (L + redo),
             "attention_backward": steps * L,
             "paged_decode_attention": 0, "ssd": 0,
             "quantize_int8": steps * (len(BUCKETS) if int8 else 0),
@@ -2471,6 +3057,8 @@ def check_train_against_cpu(cfg):
     for name in ("embed", "unembed", "layers.attn.wq", "layers.attn.wk",
                  "layers.attn.bv", "layers.mlp.out", "layers.ln1",
                  "final_norm"):
+        if name not in gc:                 # gemma-2b has no QKV bias
+            continue
         c, w = gc[name].float().cpu(), gp[name].float()
         rel = float((c - w).norm() / w.norm())
         mx = float((c - w).abs().max() / w.abs().max())
@@ -2478,8 +3066,8 @@ def check_train_against_cpu(cfg):
         require(rel <= CPU_GRAD_TOL and mx <= CPU_GRAD_TOL,
                 f"train card vs cpu: {name} gradient relative rms {rel:.3g},"
                 f" max {mx:.3g} of the largest (tolerance {CPU_GRAD_TOL})")
-    print("train card vs cpu (2 layers, full width, 128 tokens): "
-          + json.dumps(out))
+    print(f"train card vs cpu ({cfg.name}, 2 layers, full width, 128 "
+          "tokens): " + json.dumps(out))
     return out
 
 
@@ -2595,6 +3183,94 @@ def train_phase(cfg):
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     return summary, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: gemma-2b trained on one rank at full width and depth
+# ---------------------------------------------------------------------------
+
+G2B_TRAIN_BATCH = 2                  # 2 x 512 tokens a step
+
+
+def train_gemma2b():
+    """Phase 6b: gemma-2b (18 layers, head dim 256) through ``Session``
+    on one rank (``comms="off"``), 2 x 512 tokens of
+    ``SyntheticLM(structured=True)`` a step, AdamW at its peak rate from
+    step 1: the gradients of the first batch under ``remat="group:3"``
+    and ``"full"`` from the same params, bitwise equal; two steps under
+    ``"group:3"`` and a third under ``"full"`` on the first batch again,
+    each step's launches exactly the layer loop's for its remat, the
+    third loss below the first; step times and peak memory; then the
+    card's 2-layer loss and gradients against the CPU's.  Returns the
+    summary and the launch counts of the three steps."""
+    from repro_torch.api import Session
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    cfg = get_config(GEMMA2B)
+    data = iter(SyntheticLM(cfg.vocab_size, G2B_TRAIN_BATCH, TRAIN_SEQ,
+                            seed=SEED, structured=True))
+    batches = [next(data), next(data)]
+    sess = Session(device="cuda")
+    adamw = opt.AdamWConfig(lr=opt.warmup_cosine(TRAIN_PEAK, 0, 3))
+    plans = {remat: sess.plan(GEMMA2B, batch=G2B_TRAIN_BATCH, seq=TRAIN_SEQ,
+                              comms="off", microbatches=1, adamw=adamw,
+                              model_kwargs={"remat": remat})
+             for remat in ("group:3", "full")}
+    require(all(p.model.remat == r for r, p in plans.items()),
+            "Session.plan did not pass remat to the model")
+    torch.cuda.reset_peak_memory_stats()
+    sess.init_state(plans["group:3"], seed=SEED)
+    params = sess.state["train_state"]["params"]
+    n_params = sum(p.numel() for p in params.values())
+    require(n_params == GEMMA2B_PARAMS, f"{GEMMA2B}: {n_params} parameters")
+    first = {k: torch.from_numpy(v).cuda().long()
+             for k, v in batches[0].items()}
+    grads = [step_mod.local_grads(plans[r].model, params, first)
+             for r in ("group:3", "full")]
+    same = all(same_bits(grads[0][0][k], grads[1][0][k]) for k in params) \
+        and same_bits(grads[0][1]["loss"], grads[1][1]["loss"])
+    print(f"{GEMMA2B} gradients under remat group:3 and full, same params "
+          f"and batch: bitwise equal {same}", flush=True)
+    require(same, f"{GEMMA2B}: gradients differ between remat modes")
+    del grads
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    losses, walls, total = [], [], {}
+    for remat, batch in (("group:3", batches[0]), ("group:3", batches[1]),
+                         ("full", batches[0])):
+        before = ops.dispatch_report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in sess.step(plans[remat], batch).items()}
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        got = {k: v - before[k] for k, v in ops.dispatch_report().items()}
+        expect = expected_train_launches(cfg, 1, int8=False, remat=remat)
+        require(got == expect, f"{GEMMA2B} {remat} step launches {got}, "
+                               f"expected {expect}")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"{GEMMA2B}: non-finite metrics {m}")
+        losses.append(m["loss"])
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{GEMMA2B} steps (group:3, group:3, full on the first batch "
+          f"again): losses {losses}, wall ms {walls}, peak "
+          f"{peak / 2**30:.2f} GiB; launches {total}", flush=True)
+    require(losses[2] < losses[0], f"{GEMMA2B}: the loss did not fall")
+    del sess, params, plans
+    torch.cuda.empty_cache()
+    cpu_check = check_train_against_cpu(cfg)
+    torch.cuda.empty_cache()
+    tokens = G2B_TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(arch=GEMMA2B, params=n_params, tokens_per_step=tokens,
+                   losses=losses, step_wall_ms=walls,
+                   tokens_per_s_steps_2_3=[tokens / (w / 1e3)
+                                           for w in walls[1:]],
+                   peak_gib=peak / 2**30, remat_grads_bitwise=same,
+                   card_vs_cpu=cpu_check)
+    print("train " + json.dumps(summary), flush=True)
+    return summary, total
 
 
 # ---------------------------------------------------------------------------
@@ -2991,7 +3667,20 @@ def cli_phase(cfg):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
+# device facts and the build, each with the same checks and lines, then
+# its seconds; no kernels line and no ok line
+ALONE = {"d256": lambda: print(json.dumps(
+             check_flash_d256(get_config(GEMMA2B)))),
+         "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b}
+
+
 def main() -> int:
+    only = sys.argv[1:]
+    if any(p not in ALONE for p in only):
+        print(f"chip_smoke: phases to run alone: {list(ALONE)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3012,16 +3701,25 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    for phase in only:
+        t0 = time.perf_counter()
+        ALONE[phase]()
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    if only:
+        return 0
 
     # 3. kernels against their plain versions, times and bounds
+    t3 = time.perf_counter()
     cfg = get_config(ARCH)
     rows = [check_gemm(cfg), check_flash(cfg), check_paged(cfg), check_ssd()]
     rows[0]["properties_checked"] = check_gemm_properties(
         cfg, get_config(MAMBA))
     rows[1]["properties_checked"] = check_flash_properties(cfg)
-    sys.stdout.flush()
+    rows += check_flash_d256(get_config(GEMMA2B))
+    print(f"phase 3: {time.perf_counter() - t3:.1f} s", flush=True)
 
     # 4. qwen2-0.5b at full width
+    t4 = time.perf_counter()
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     n_params = sum(p.numel() for p in params.values())
@@ -3059,6 +3757,7 @@ def main() -> int:
     print(f"static paged == continuous greedy tokens: {same}")
     require(same, "static paged and continuous engines disagree")
     check_against_cpu(cfg, model, params)
+    print(f"phase 4: {time.perf_counter() - t4:.1f} s", flush=True)
 
     # 4b. qwen2-0.5b on the dense KV cache, the static engine's default
     t4b = time.perf_counter()
@@ -3067,13 +3766,26 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
 
+    # 4c. gemma3-27b at full width and depth on its windowed dense cache
+    t4c = time.perf_counter()
+    g3_stats, g3_launches = serve_gemma3()
+    print(f"phase 4c: {time.perf_counter() - t4c:.1f} s", flush=True)
+
+    # 4d. gemma-2b at full width and depth (head dim 256)
+    t4d = time.perf_counter()
+    g2b_stats, g2b_launches = serve_gemma2b()
+    print(f"phase 4d: {time.perf_counter() - t4d:.1f} s", flush=True)
+
     # 5. mamba2-780m at full width
+    t5 = time.perf_counter()
     mamba_stats, mamba_launches = serve_mamba()
     rows[3]["prefill_ms"] = mamba_stats["prefill_profiled_ms"]["ssd_busy"]
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
                                  mamba_stats["gemm_max_abs_err"])
+    print(f"phase 5: {time.perf_counter() - t5:.1f} s", flush=True)
 
     # 6. train qwen2-0.5b at full width, two ranks on the card
+    t6 = time.perf_counter()
     rows += [check_quantize(), check_attention_backward(cfg)]
     gemm_train = check_gemm_backward(cfg)
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
@@ -3083,34 +3795,56 @@ def main() -> int:
         rows[1]["train_forward_" + key] = rows[-1].pop("forward_" + key)
     _, train_launches = train_phase(cfg)
     torch.cuda.empty_cache()
+    print(f"phase 6: {time.perf_counter() - t6:.1f} s", flush=True)
+
+    # 6b. gemma-2b trained on one rank at full width and depth
+    t6b = time.perf_counter()
+    _, g2b_train_launches = train_gemma2b()
+    print(f"phase 6b: {time.perf_counter() - t6b:.1f} s", flush=True)
 
     # 7. compressed data-parallel SGD at full width, two ranks on the card
+    t7 = time.perf_counter()
     rows += [check_quantize_compress(cfg), check_matmul_dequant(cfg)]
     torch.cuda.empty_cache()
     _, dp_launches = dp_phase(cfg)
     torch.cuda.empty_cache()
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
 
     # 8. the serve and train CLIs, checkpoint and resume
     t8 = time.perf_counter()
     cli_phase(cfg)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
 
-    # 9. results
+    # 9. results; 4c's and 4d's kernel calls held at their own shapes
+    g3e = g3_stats["kernel_calls_max_abs_err"]
+    g2e = g2b_stats["kernel_calls_max_abs_err"]
+    for row, err in ((rows[0], g3e["matmul"]), (rows[0], g2e["matmul"]),
+                     (rows[1], g3e["attention"]),
+                     (rows[4], g2e["attention"]),
+                     (rows[2], max(g3e["paged"], g3e["ring"])),
+                     (rows[2], g2e["paged"])):
+        row["max_abs_err"] = max(row["max_abs_err"], err)
     names = {"gemm": "matmul", "flash_attention": "attention",
+             "flash_attention_d256": "attention",
              "paged_decode_attention": "paged_decode_attention",
              "ssd": "ssd", "quantize_int8": "quantize_int8",
              "attention_backward": "attention_backward",
+             "attention_backward_d256": "attention_backward",
              "quantize_compress": "quantize_compress",
              "matmul_dequant": "matmul_dequant"}
     train_path = (f"{ARCH} train ({RANKS} ranks, int8 wire, {TRAIN_STEPS} "
                   "steps)")
+    paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
+             f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
+             train_path: train_launches, DP_PATH: dp_launches}
+    # gemma-2b's attention is the head-dim-256 rows' alone
+    d256 = {f"{GEMMA2B} dense cache": g2b_launches,
+            f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}
     for row in rows:
         op = names[row["name"]]
-        row["launches_by_path"] = {ARCH: launches[op],
-                                   f"{ARCH} dense cache": dense_launches[op],
-                                   MAMBA: mamba_launches[op],
-                                   train_path: train_launches[op],
-                                   DP_PATH: dp_launches[op]}
+        use = (d256 if row["name"].endswith("_d256") else paths
+               if op.startswith("attention") else {**paths, **d256})
+        row["launches_by_path"] = {k: v[op] for k, v in use.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -40,11 +40,17 @@
 //   l and accumulator bitwise unchanged (alpha = 2^0 = 1, P = 0).
 // - D = 32 rows are padded to 64 in shared memory (the padding is never
 //   read by QKᵀ, and P·V's padded output columns are not stored); D = 128
-//   rows are two 64-wide boxes.
+//   rows are two 64-wide boxes, D = 256 rows (gemma-2b) four.  At D = 256
+//   the Q tile and three K/V stages take 230,400 of the 232,448 bytes a
+//   block may have, and the O accumulator 128 of a thread's registers
+//   (64 x 256 fp32 over 128 threads; ptxas: 255 in all, 124 bytes
+//   spilled); P·V is two m64n128k16 products on
+//   the same P fragment (hopper.cuh's wgmma_rs<256>), each output column
+//   summed over the keys as one product would, so rows stay invariant.
 //
 // fp32 q/k/v take the CUDA-core kernel (flash_attention_f32_kernel): each
 // query row owned by 4 neighbouring lanes, scores and P·V as scalar FMAs
-// from fp32 shared memory, 32-query tiles.
+// from fp32 shared memory, 32-query tiles (172,544 bytes of it at D = 256).
 #include <math.h>
 
 #include "hopper.cuh"
@@ -69,6 +75,7 @@ struct Dims {
   static constexpr int DP = 64 * NB;              // row width in smem
   static constexpr int TILE = NB * BOX;           // one 64-row tile
   static constexpr int SMEM = 1024 + TILE + STAGES * 2 * TILE;
+  static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
 };
 
 // cp.async rows [r0, r0 + 64) of a (rows, D) bf16 array into a swizzled
@@ -461,11 +468,15 @@ typedef int (*Launch)(const void*, const void*, const void*, void*, void*,
                       int, int, int, int, int, int, int, float, float, int,
                       cudaStream_t);
 
-int dispatch(Launch l32, Launch l64, Launch l128, const void* q,
+int dispatch(Launch l32, Launch l64, Launch l128, Launch l256, const void* q,
              const void* k, const void* v, void* o, void* lse, int B, int Hq,
              int Hkv, int S, int T, int D, int causal, int window,
              float softcap, float scale, int q_offset, void* stream) {
-  const Launch fn = D == 32 ? l32 : D == 64 ? l64 : D == 128 ? l128 : nullptr;
+  const Launch fn = D == 32    ? l32
+                    : D == 64  ? l64
+                    : D == 128 ? l128
+                    : D == 256 ? l256
+                               : nullptr;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return fn(q, k, v, o, lse, B, Hq, Hkv, S, T, causal, window, softcap, scale,
             q_offset, static_cast<cudaStream_t>(stream));
@@ -482,9 +493,9 @@ extern "C" int dmath_flash_attention_bf16(const void* q, const void* k,
                                           int causal, int window,
                                           float softcap, float scale,
                                           int q_offset, void* stream) {
-  return dispatch(launch_bf16<32>, launch_bf16<64>, launch_bf16<128>, q, k, v,
-                  o, lse, B, Hq, Hkv, S, T, D, causal, window, softcap, scale,
-                  q_offset, stream);
+  return dispatch(launch_bf16<32>, launch_bf16<64>, launch_bf16<128>,
+                  launch_bf16<256>, q, k, v, o, lse, B, Hq, Hkv, S, T, D,
+                  causal, window, softcap, scale, q_offset, stream);
 }
 
 // The same for fp32 q, k, v and out, on CUDA cores.
@@ -495,7 +506,7 @@ extern "C" int dmath_flash_attention_f32(const void* q, const void* k,
                                          int causal, int window,
                                          float softcap, float scale,
                                          int q_offset, void* stream) {
-  return dispatch(launch_f32<32>, launch_f32<64>, launch_f32<128>, q, k, v, o,
-                  lse, B, Hq, Hkv, S, T, D, causal, window, softcap, scale,
-                  q_offset, stream);
+  return dispatch(launch_f32<32>, launch_f32<64>, launch_f32<128>,
+                  launch_f32<256>, q, k, v, o, lse, B, Hq, Hkv, S, T, D,
+                  causal, window, softcap, scale, q_offset, stream);
 }

@@ -11,7 +11,8 @@
 //
 // 1. delta[row] = sum_d dO[row,d] * O[row,d], one warp per query row.
 // 2. dK/dV: one block (one warpgroup) per (batch, query head, 64-key
-//    tile, parity).  Its K and V tiles stay in shared memory and its dK
+//    tile, parity, and at D = 256 half of the columns).  Its K and V
+//    tiles stay in shared memory and its dK
 //    and dV in fp32 registers while it walks the 64-query tiles of its
 //    head that can see its keys and whose index has its parity (Q, dO, lse
 //    and delta through a ring of two stages fed by cp.async):
@@ -22,12 +23,20 @@
 //    Each (query head, parity) writes its share to an fp32 scratch, so a
 //    kv head's g query heads and both halves of each walk run in parallel
 //    blocks (the walk, and so the chain of dependent products, is half as
-//    long).
+//    long).  At D = 256 (gemma-2b) dK and dV would take 256 fp32 registers
+//    a thread together, past the 255 a thread may have, so each block
+//    keeps 128 of their columns: the two column halves recompute the same
+//    Sᵀ and dPᵀ (the same bits) and each writes its own columns (ptxas:
+//    255 registers, 160 bytes spilled).
 // 3. dQ: one block per (batch, query head, 64-query tile, parity), Q and dO
 //    held in shared memory, walking the 64-key tiles of its horizon with
 //    its parity (K and V through a ring of three stages): S = Q·Kᵀ,
 //    dP = dO·Vᵀ, dQ += dS·K (A = dS from registers, B = K MN-major); each
-//    parity's share to fp32 scratch.
+//    parity's share to fp32 scratch.  At D = 256 the K/V ring has two
+//    stages (three would need 263,168 bytes of shared memory, past the
+//    232,448 a block may have); dQ takes 128 registers of a thread (ptxas:
+//    255 in all, 164 bytes spilled), and dS·K is two m64n128k16 products
+//    (hopper.cuh's wgmma_rs<256>).
 // 4. The ordered sums, elementwise: dK, dV of kv head hk = its g query
 //    heads' shares in head order, each head's two parities in order; dQ =
 //    scale (even share + odd share).
@@ -64,6 +73,8 @@ struct Dims {
   static constexpr int NB = D > 64 ? D / 64 : 1;  // 64-wide boxes per row
   static constexpr int DP = 64 * NB;              // row width in smem
   static constexpr int TILE = NB * BOX;
+  static constexpr int DC = DP > 128 ? 128 : DP;  // dK/dV columns a block
+  static constexpr int NSPLIT = DP / DC;          // column splits
 };
 
 __device__ __forceinline__ bool visible(int j, int qpos, int T, int causal,
@@ -165,6 +176,7 @@ template <int D>
 __host__ __device__ constexpr int dkdv_smem() {
   return 1024 + 2 * Dims<D>::TILE + KV_STAGES * dkdv_stage<D>();
 }
+static_assert(dkdv_smem<256>() <= 232448, "a block's shared memory");
 
 template <int D>
 __global__ void __launch_bounds__(128, D > 64 ? 1 : 3)
@@ -177,7 +189,7 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      int Hq, int Hkv, int S, int T, int causal, int window,
                      float softcap, float scale, int q_offset) {
   using Dm = Dims<D>;
-  constexpr int DP = Dm::DP, TILE = Dm::TILE, NO = DP / 2;
+  constexpr int TILE = Dm::TILE, DC = Dm::DC, NO = DC / 2;
   constexpr int STAGE = dkdv_stage<D>();
   extern __shared__ uint8_t dyn[];
   uint8_t* Ks = dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
@@ -188,7 +200,9 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = bh / Hq;
   const int bkv = b * Hkv + (bh % Hq) / (Hq / Hkv);
   const int j0 = blockIdx.x * BT;
-  const int par = blockIdx.z;                 // the query tiles' parity
+  const int par = blockIdx.z % 2;             // the query tiles' parity
+  const int c_lo = (blockIdx.z / 2) * DC;     // this block's dK/dV columns
+  const int c_box = (c_lo / 64) * BOX;        // where they start in a tile
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const bf16* qb = q + (size_t)bh * S * D;
@@ -290,8 +304,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence_reg(dk[i]);
     }
     wg_fence();
-    issue_ay<DP>(dv, pf, dOs);
-    issue_ay<DP>(dk, sf, Qs);
+    issue_ay<DC>(dv, pf, dOs + c_box);
+    issue_ay<DC>(dk, sf, Qs + c_box);
     wg_commit();
     wg_wait_all();
 #pragma unroll
@@ -315,8 +329,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float* pk = part_k + par * shares + ((size_t)bh * T + j) * D;
     float* pv = part_v + par * shares + ((size_t)bh * T + j) * D;
 #pragma unroll
-    for (int g = 0; g < DP / 8; ++g) {
-      const int col = 8 * g + c0;
+    for (int g = 0; g < DC / 8; ++g) {
+      const int col = c_lo + 8 * g + c0;
       if (col < D) {
         *reinterpret_cast<float2*>(pk + col) = make_float2(
             dk[4 * g + 2 * rr] * scale, dk[4 * g + 2 * rr + 1] * scale);
@@ -366,12 +380,17 @@ __global__ void attn_bwd_sum_kernel(const float* __restrict__ part_k,
 
 // ---- dQ --------------------------------------------------------------------
 
-constexpr int DQ_STAGES = 3;
+// the K/V ring's stages: two at D = 256, where three do not fit
+template <int D>
+__host__ __device__ constexpr int dq_stages() {
+  return D > 128 ? 2 : 3;
+}
 
 template <int D>
 __host__ __device__ constexpr int dq_smem() {
-  return 1024 + 2 * Dims<D>::TILE + DQ_STAGES * 2 * Dims<D>::TILE;
+  return 1024 + 2 * Dims<D>::TILE + dq_stages<D>() * 2 * Dims<D>::TILE;
 }
+static_assert(dq_smem<256>() <= 232448, "a block's shared memory");
 
 template <int D>
 __global__ void __launch_bounds__(128)
@@ -384,6 +403,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    int q_offset) {
   using Dm = Dims<D>;
   constexpr int DP = Dm::DP, TILE = Dm::TILE, NO = DP / 2;
+  constexpr int DQ_STAGES = dq_stages<D>();
   extern __shared__ uint8_t dyn[];
   uint8_t* Qs = dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
   uint8_t* dOs = Qs + TILE;
@@ -554,8 +574,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   float* part_k = static_cast<float*>(part);
   float* part_v = part_k + 2 * (size_t)B * Hq * T * D;
   float* part_q = part_v + 2 * (size_t)B * Hq * T * D;
-  attn_bwd_dkdv_kernel<D><<<dim3((T + BT - 1) / BT, B * Hq, 2), 128,
-                            dkdv_smem<D>(), s>>>(
+  attn_bwd_dkdv_kernel<D><<<dim3((T + BT - 1) / BT, B * Hq,
+                                 2 * Dims<D>::NSPLIT),
+                            128, dkdv_smem<D>(), s>>>(
       Q, K, V, dO, L, Dl, part_k, part_v, Hq, Hkv, S, T, causal, window,
       softcap, scale, q_offset);
   err = cudaGetLastError();
@@ -606,6 +627,10 @@ extern "C" int dmath_flash_attention_bwd_bf16(
                         s);
     case 128:
       return launch<128>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq,
+                         Hkv, S, T, causal, window, softcap, scale, q_offset,
+                         s);
+    case 256:
+      return launch<256>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq,
                          Hkv, S, T, causal, window, softcap, scale, q_offset,
                          s);
     default:

@@ -276,11 +276,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
         "n"(TB));
 }
 
+// N = 256 (head dim 256) as two m64n128k16 products on the same A: an
+// MN-major B's 64-wide column blocks lie the descriptor's leading byte
+// offset apart, so the second half starts two blocks on; d's second 64
+// registers are its columns 128..255 in the accumulator layout of one
+// m64n256 product.  Each output sums over k as one product would.
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, acc);
-  else wgmma_rs_n128<TB>(d, a, db, acc);
+  static_assert(N == 64 || N == 128 || (N == 256 && TB == 1),
+                "wgmma_rs: N is 64, 128 or 256 (MN-major B)");
+  if constexpr (N == 64) {
+    wgmma_rs_n64<TB>(d, a, db, acc);
+  } else if constexpr (N == 128) {
+    wgmma_rs_n128<TB>(d, a, db, acc);
+  } else {
+    const uint64_t lbo = (db >> 16) & 0x3FFF;   // 16-byte units
+    wgmma_rs_n128<TB>(d, a, db, acc);
+    wgmma_rs_n128<TB>(d + 64, a, db + 2 * lbo, acc);
+  }
 }
 
 __device__ __forceinline__ void fence_u32(uint32_t& r) {

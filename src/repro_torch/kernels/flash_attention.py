@@ -13,7 +13,8 @@ aligned at key 0 through a cp.async ring, key tiles beyond the
 causal/window horizon skipped (the TPU kernel walks every tile and
 masks).  fp32 q, k, v take a CUDA-core kernel of the same semantics.
 ``q_offset``, ``window`` and ``softcap`` are runtime arguments, where the
-TPU kernel compiles one variant per value.
+TPU kernel compiles one variant per value.  Head dims 32, 64, 128 and 256
+(gemma-2b), where the TPU kernel takes any.
 
 A row's output and log-sum-exp do not depend on S, on its query tile or
 on which prefill chunk it sits in (bitwise, on the card): the dense
@@ -46,7 +47,7 @@ from . import _build, ref
 launches = 0       # forward launches since the last reset (ops.reset_launches)
 bwd_launches = 0   # backward calls (four kernels each), the same way
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
@@ -184,7 +185,8 @@ def attention(
 ) -> torch.Tensor:
     """CPU tensors take the plain version (:func:`ref.attention`, which
     autograd differentiates); CUDA tensors launch the kernel (contiguous,
-    all bf16 or all fp32, head dim 32/64/128) and raise on anything else.
+    all bf16 or all fp32, head dim 32/64/128/256) and raise on anything
+    else.
     With autograd recording (bf16 only), the forward keeps its
     log-sum-exp and the backward kernel gives the gradients."""
     if all(t.device.type == "cpu" for t in (q, k, v)):

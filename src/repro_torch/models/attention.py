@@ -1,14 +1,15 @@
 """Attention, ported from the reference's ``models/attention.py``: the
 full-sequence forward of the train path and the dense prefill, one decode
-step against a dense KV cache, and against the paged KV pool one decode
-step and one prefill chunk.
+step against a dense KV cache or a local layer's sliding-window ring, and
+against the paged KV pool one decode step and one prefill chunk.
 
 The caches are updated **in place** (``index_put_``), where the
 reference's jitted steps donate them and return new ones; the functions
 still return them so their signatures match the reference's.  Indices
 the reference would clamp on device (a chunk past the end of its table
-row) raise here instead.  The dense cache's decode step attends through
-the paged-decode kernel, each slot's cache row being one page.
+row) raise here instead.  The dense cache's decode step, and the ring's,
+attend through the paged-decode kernel, each slot's cache row (or ring)
+being one page.
 """
 
 from __future__ import annotations
@@ -36,13 +37,16 @@ def attn_specs(cfg) -> Dict[str, ParamSpec]:
         s["bq"] = ParamSpec((H, hd), init="zeros")
         s["bk"] = ParamSpec((Hkv, hd), init="zeros")
         s["bv"] = ParamSpec((Hkv, hd), init="zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((hd,), init="ones")
+        s["k_norm"] = ParamSpec((hd,), init="ones")
     return s
 
 
 def _qkv(x, p, cfg, positions, policy):
-    """Projections (+ bias) and rotary; x (B, S, D) -> q, k, v (B, S, H, hd)
-    in x's dtype.  Bias and rotary apply to the fp32 products, as in the
-    reference."""
+    """Projections (+ bias), qk-norm and rotary; x (B, S, D) -> q, k, v
+    (B, S, H, hd) in x's dtype.  Bias, the per-head RMSNorm of q and k and
+    rotary apply to the fp32 products, as in the reference."""
     q = precision.einsum("bsd,dhk->bshk", x, p["wq"], policy=policy)
     k = precision.einsum("bsd,dhk->bshk", x, p["wk"], policy=policy)
     v = precision.einsum("bsd,dhk->bshk", x, p["wv"], policy=policy)
@@ -50,6 +54,9 @@ def _qkv(x, p, cfg, positions, policy):
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = layers.rotary(q, positions, cfg.rope_theta)
     k = layers.rotary(k, positions, cfg.rope_theta)
     return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
@@ -113,31 +120,82 @@ def decode(
 
     The reference attends with the plain ``layers.decode_attention``,
     which also takes a sliding window and a softcap; the kernel takes
-    neither, and no config the port builds sets them (gemma3's windowed
-    cache rides with qk-norm, ROADMAP queue 1, item 3), so they raise."""
+    neither, and no config reaches them (no config sets a softcap;
+    gemma3's global layers take no window and its local layers decode on
+    their ring, :func:`decode_ring`), so they raise."""
     if window is not None or cfg.attn_softcap is not None:
         raise NotImplementedError(
-            "dense-cache decode with a sliding window or a logit softcap "
-            "is not ported yet: it rides with qk-norm and gemma3's "
-            "windowed cache (ROADMAP queue 1, item 3)")
+            "dense-cache decode with a sliding window or a logit softcap: "
+            "the paged-decode kernel takes neither (ROADMAP queue 2, item "
+            "3); a windowed config's local layers decode on their ring "
+            "(attention.decode_ring)")
+    pos_b = pos.expand(x.shape[0])
+    if seq_lens is None:
+        seq_lens = (pos_b + 1).to(torch.int32)
+    return _decode_rows(x, p, cfg, k_cache, v_cache, pos, pos_b,
+                        block_table, seq_lens, policy)
+
+
+def _decode_rows(x, p, cfg, k_rows, v_rows, pos, slot, block_table,
+                 seq_lens, policy):
+    """The one-page-a-slot decode step of :func:`decode` and
+    :func:`decode_ring`: each slot's new K/V written at index ``slot`` of
+    its row ``block_table[b, 0]`` of ``k_rows``/``v_rows`` (in place),
+    then the paged-decode kernel over the rows' first ``seq_lens``
+    entries and the output projection."""
     B = x.shape[0]
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     q, k, v = _qkv(x, p, cfg, positions, policy)              # (B,1,H,hd)
     if block_table is None:
         block_table = torch.arange(B, dtype=torch.int32,
                                    device=x.device)[:, None]
-    pos_b = pos.expand(B)
-    if seq_lens is None:
-        seq_lens = (pos_b + 1).to(torch.int32)
     rows = block_table[:, 0]
-    k_cache.index_put_((rows, pos_b), k[:, 0].to(k_cache.dtype))
-    v_cache.index_put_((rows, pos_b), v[:, 0].to(v_cache.dtype))
+    k_rows.index_put_((rows, slot), k[:, 0].to(k_rows.dtype))
+    v_rows.index_put_((rows, slot), v[:, 0].to(v_rows.dtype))
     out = ops.paged_decode_attention(
-        q[:, 0].to(k_cache.dtype).contiguous(), k_cache, v_cache,
+        q[:, 0].to(k_rows.dtype).contiguous(), k_rows, v_rows,
         block_table, seq_lens)                                 # (B,H,hd)
     y = precision.einsum("bshk,hkd->bsd", out[:, None].to(q.dtype),
                          p["wo"], policy=policy)
-    return y.to(x.dtype), k_cache, v_cache
+    return y.to(x.dtype), k_rows, v_rows
+
+
+def decode_ring(
+    x: torch.Tensor,               # (B, 1, D)
+    p: dict,
+    cfg,
+    k_ring: torch.Tensor,          # (B, W, Hkv, hd) sliding-window ring
+    v_ring: torch.Tensor,
+    pos: torch.Tensor,             # scalar or (B,) position of the new token
+    *,
+    policy=precision.MIXED,
+    block_table: Optional[torch.Tensor] = None,
+    seq_lens: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step of a local (sliding-window) layer on its O(window)
+    ring: each slot's new K/V go to ring slot ``pos mod W``, then
+    attention runs through
+    :func:`repro_torch.kernels.ops.paged_decode_attention` with each
+    slot's ring as one page of W (``block_table = arange(B)[:, None]``)
+    and ``seq_lens = min(pos + 1, W)``.  A ring filled in order holds its
+    live positions (those >= 0 in the reference's
+    ``decode_attention_ring``) at slots j < min(pos + 1, W); the kernel
+    takes the keys as a set, rotated at their absolute positions, and
+    reads nothing past ``seq_lens``, so slots a longer earlier prompt left
+    after a refill are never read.  A caller stepping every layer passes
+    ``block_table`` and ``seq_lens`` built once per step.  The kernel
+    takes no softcap, so one raises, as in :func:`decode`."""
+    if cfg.attn_softcap is not None:
+        raise NotImplementedError(
+            "ring decode with a logit softcap: the paged-decode kernel "
+            "takes none (ROADMAP queue 2, item 3)")
+    W = k_ring.shape[1]
+    pos_b = pos.expand(x.shape[0])
+    if seq_lens is None:
+        seq_lens = torch.clamp(pos_b + 1, max=W).to(torch.int32)
+    return _decode_rows(x, p, cfg, k_ring, v_ring, pos,
+                        torch.remainder(pos_b, W), block_table, seq_lens,
+                        policy)
 
 
 def decode_paged(

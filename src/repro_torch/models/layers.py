@@ -1,13 +1,16 @@
 """Common layers: norm, activation, rotary, gated MLP, embedding,
-unembedding, the LM loss and decode attention over a dense cache, ported
-from the reference's ``models/layers.py``.
+unembedding, the LM loss and decode attention over a dense cache and
+over a sliding-window ring, ported from the reference's
+``models/layers.py``.
 
 Every product of the model's layers runs through
 :func:`repro_torch.core.precision.einsum` (bf16 operands, fp32
 accumulation, the GEMM kernel on the card).  :func:`decode_attention` is
-the plain fp32 function the reference's dense decode step runs; the
-port's decode step attends through the paged-decode kernel instead
-(``attention.decode``), and this function is its oracle.
+the plain fp32 function the reference's dense decode step runs, and
+:func:`decode_attention_ring` its local layers' ring; the port's decode
+steps attend through the paged-decode kernel instead
+(``attention.decode`` and ``attention.decode_ring``), and these functions
+are their oracles.
 """
 
 from __future__ import annotations
@@ -92,6 +95,42 @@ def decode_attention(
         mask = mask[:, None, None, :]
     p = torch.softmax(torch.where(mask, s, NEG), dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v.float())
+    return out.reshape(B, Hq, 1, D).to(q.dtype)
+
+
+def decode_attention_ring(
+    q: torch.Tensor,              # (B, Hq, 1, D)
+    k: torch.Tensor,              # (B, W, Hkv, D) ring buffer
+    v: torch.Tensor,
+    pos: torch.Tensor,            # scalar or (B,): the new token's position
+    *,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Sliding-window decode over a ring-buffer cache, in fp32 as
+    :func:`decode_attention`: slot j holds absolute position ``pos - ((pos
+    - j) mod W)`` (its last write), and slots whose position is negative
+    (not yet written) are masked.  The oracle of the local layers' decode
+    (``attention.decode_ring``), which attends through the paged-decode
+    kernel instead."""
+    B, Hq, _, D = q.shape
+    W, Hkv = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qf = q.float().reshape(B, Hkv, g, D) * scale
+    s = torch.einsum("bkgd,bwkd->bkgw", qf, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    j = torch.arange(W, device=q.device)
+    if pos.dim() == 0:
+        abs_pos = pos - torch.remainder(pos - j, W)
+        mask = (abs_pos >= 0)[None, None, None, :]
+    else:                          # per-slot positions: (B, W) mask
+        abs_pos = pos[:, None] - torch.remainder(pos[:, None] - j[None, :],
+                                                 W)
+        mask = (abs_pos >= 0)[:, None, None, :]
+    p = torch.softmax(torch.where(mask, s, NEG), dim=-1)
+    out = torch.einsum("bkgw,bwkd->bkgd", p, v.float())
     return out.reshape(B, Hq, 1, D).to(q.dtype)
 
 

@@ -32,35 +32,55 @@ class ParamSpec:
         return dataclasses.replace(self, shape=(n,) + tuple(self.shape))
 
 
+def _normal(gen, shape, spec, device) -> torch.Tensor:
+    # "scaled" specs carry the output-projection std 0.02/sqrt(2L) as scale
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(spec.scale)
+
+
+def _ssm_a(gen, shape, spec, device) -> torch.Tensor:
+    # A = -uniform[1, 16]
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return u.mul_(15.0).add_(1.0).neg_()
+
+
+def _dt_bias(gen, shape, spec, device) -> torch.Tensor:
+    # softplus^-1 of dt in [1e-3, 1e-1]
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return dt + torch.log(-torch.expm1(-dt))
+
+
+_DRAWS = {"normal": _normal, "scaled": _normal, "ssm_a": _ssm_a,
+          "dt_bias": _dt_bias}
+
+
 def init_param(gen: torch.Generator, spec: ParamSpec,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, layered: bool = False) -> torch.Tensor:
+    """One leaf of ``spec``.  A layer stack (``layered``: its leading dim
+    is the layer) is drawn one layer at a time into the leaf, each draw
+    in fp32 and scaled in place: gemma3-27b's MLP stacks are 7.2 G
+    elements each, whose one fp32 draw and scaled copy (57 GB) would not
+    fit on the card beside the 14 GB leaf."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    if spec.init == "ssm_a":        # A = -uniform[1, 16]
-        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
-                       device=device)
-        return (-(1.0 + 15.0 * u)).to(spec.dtype)
-    if spec.init == "dt_bias":      # softplus^-1 of dt in [1e-3, 1e-1]
-        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32,
-                       device=device)
-        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
-                       + math.log(1e-3))
-        return (dt + torch.log(-torch.expm1(-dt))).to(spec.dtype)
-    if spec.init not in ("normal", "scaled"):
+    if spec.init not in _DRAWS:
         raise ValueError(f"unknown init {spec.init!r}")
-    # "scaled" specs carry the output-projection std 0.02/sqrt(2L) as scale
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=device)
-    return (x * spec.scale).to(spec.dtype)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for piece in (out.unbind(0) if layered else (out,)):
+        piece.copy_(_DRAWS[spec.init](gen, piece.shape, spec, device))
+    return out
 
 
 def tree_init(seed: int, specs: Mapping[str, ParamSpec],
               device: torch.device) -> Dict[str, torch.Tensor]:
-    """Materialize every spec, in order, from one generator on ``device``."""
+    """Materialize every spec, in order, from one generator on ``device``;
+    the ``layers.*`` leaves are layer stacks."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {name: init_param(gen, spec, device)
+    return {name: init_param(gen, spec, device,
+                             layered=name.startswith("layers."))
             for name, spec in specs.items()}
 
 

@@ -11,14 +11,23 @@ does (indexing ``val[i]`` per layer would make every layer's backward
 write a zero tensor the size of the whole stack).  ``remat="full"``, the
 reference's default, recomputes each layer in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` around the scanned
-body).  Parameters are passed explicitly, as in the reference, so both
-packages' steps take the same arguments.  Caches are updated in place
+body); ``remat="group:G"`` checkpoints each group of G layers and each
+layer inside it (the reference's sqrt-L double remat), and runs without
+remat when G does not divide L, as the reference does.  Parameters are
+passed explicitly, as in the reference, so both packages' steps take the
+same arguments.  Caches are updated in place
 (the reference's jitted steps donate them and return new ones); the steps
 still return them.
 
 The dense prefill runs the full-sequence forward, so its MLP takes the
 wide fp32 product; the decode steps and the paged prefill chunks take
 ``glu_mlp``'s bf16 product, as in the reference (``_mlp``).
+
+A config with a sliding window and a local:global pattern (gemma3) keeps
+the reference's windowed dense cache: its global layers' ``k_g``/``v_g``
+(n_g, B, T, Hkv, hd) and its local layers' O(window) rings ``k_l``/``v_l``
+(n_l, B, W, Hkv, hd), W = min(window, T), ring slot j holding the last
+position p = j (mod W).
 """
 
 from __future__ import annotations
@@ -41,9 +50,11 @@ class Model(nn.Module):
     """Decoder on ``device``, which defaults to the card;
     ``device="cpu"`` runs the plain versions of the kernels.
 
-    - dense family: embed -> L x [RMSNorm -> rotary GQA attention ->
-      RMSNorm -> gated MLP] -> RMSNorm -> unembed, on the dense KV cache
-      (``k``, ``v``) or the paged one;
+    - dense family: embed -> L x [RMSNorm -> rotary GQA attention (with
+      qk-norm where the config sets it) -> RMSNorm -> gated MLP] ->
+      RMSNorm -> unembed, on the dense KV cache (``k``, ``v``; the
+      windowed ``k_g``, ``v_g``, ``k_l``, ``v_l`` for gemma3) or the paged
+      one;
     - ssm family: embed -> L x [RMSNorm -> Mamba2 mixer] -> RMSNorm ->
       unembed, on the dense cache (``conv``, ``ssm``, ``bc_conv``).
 
@@ -51,26 +62,41 @@ class Model(nn.Module):
     scan's chunk is a tiling choice of its implementations (the CUDA
     kernel walks 64-step chunks, the plain version ``ops.ssd``'s default),
     and the result does not depend on it.  ``remat`` is ``"full"`` (each
-    layer recomputed in the backward) or ``"none"``."""
+    layer recomputed in the backward), ``"group:G"`` (each group of G
+    layers and each layer in it) or ``"none"``."""
 
     def __init__(self, cfg, *, device: Union[str, torch.device] = "cuda",
                  policy: precision.Policy = precision.MIXED,
                  ssd_chunk: int = 256, remat: str = "full"):
         super().__init__()
-        if cfg.family not in ("dense", "ssm") or cfg.qk_norm:
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family without qk-norm and the "
-                "ssm family are ported so far (ROADMAP queue 1, item 11)")
-        if remat.startswith("group:"):
-            raise NotImplementedError(
-                f"remat={remat!r}: grouped (sqrt-L) rematerialization is not "
-                "ported yet (ROADMAP queue 1, item 3)")
-        if remat not in ("full", "none"):
-            raise ValueError(f"remat={remat!r}; expected 'full' or 'none'")
+                f"{cfg.name}: only the dense and ssm families are ported so "
+                "far (ROADMAP queue 1, item 11)")
+        group = remat[len("group:"):] if remat.startswith("group:") else ""
+        if remat not in ("full", "none") and not (group.isdigit()
+                                                  and int(group) > 0):
+            raise ValueError(f"remat={remat!r}; expected 'full', 'none' or "
+                             "'group:G' with G >= 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.policy = policy
         self.remat = remat
+        # the reference remats groups only when G divides L, else nothing
+        self._group = (int(group) if group and cfg.n_layers % int(group) == 0
+                       else 0)
+        # layer i's leaves in the dense cache: (name suffix, index), the
+        # windowed cache's global layers in k_g/v_g, its local in k_l/v_l
+        n_glb = 0
+        self._kv_leaf = []
+        for i in range(cfg.n_layers):
+            if not self._windowed():
+                self._kv_leaf.append(("", i))
+            elif cfg.is_global_layer(i):
+                self._kv_leaf.append(("_g", n_glb))
+                n_glb += 1
+            else:
+                self._kv_leaf.append(("_l", i - n_glb))
 
     # ------------------------------------------------------------------
     # parameters
@@ -140,6 +166,13 @@ class Model(nn.Module):
         if cfg.window is None or cfg.is_global_layer(i):
             return None
         return cfg.window
+
+    def _windowed(self) -> bool:
+        """gemma3's interleaved local/global layers: the local layers keep
+        an O(window) ring instead of an O(seq) cache."""
+        cfg = self.cfg
+        return bool(cfg.window and cfg.local_global_pattern
+                    and cfg.family == "dense")
 
     def _dense_block(self, x, lp, window, with_cache: bool = False):
         """One dense layer of the full-sequence forward; with
@@ -301,23 +334,36 @@ class Model(nn.Module):
     def _dense_stack(self, params: Params, tokens: torch.Tensor,
                      write_kv=None) -> torch.Tensor:
         """Embed -> L x dense block, each layer checkpointed under
-        ``remat="full"`` while autograd records; given ``write_kv``, each
-        layer's rotated keys and values go to ``write_kv(i, (k, v))``.
-        Returns the residual stream (B, S, D) in bf16."""
+        ``remat="full"`` while autograd records, and under ``"group:G"``
+        each group of G layers too (when G divides L and no cache is
+        written, as in the reference); given ``write_kv``, each layer's
+        rotated keys and values go to ``write_kv(i, (k, v))``.  Returns
+        the residual stream (B, S, D) in bf16."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
-        remat = self.remat == "full" and torch.is_grad_enabled()
-        with_cache = write_kv is not None
-        for i, lp in enumerate(self._unbind_layers(params)):
-            args = (x, lp, self._window(i), with_cache)
-            out = (checkpoint(self._dense_block, *args, use_reentrant=False)
-                   if remat else self._dense_block(*args))
-            if with_cache:
-                x, kv = out
+        lps = self._unbind_layers(params)
+        G = self._group
+        if G and write_kv is None and torch.is_grad_enabled():
+            for i0 in range(0, cfg.n_layers, G):
+                x = checkpoint(self._dense_layers, x, lps[i0:i0 + G], i0,
+                               True, use_reentrant=False)
+            return x
+        return self._dense_layers(
+            x, lps, 0, self.remat == "full" and torch.is_grad_enabled(),
+            write_kv)
+
+    def _dense_layers(self, x, lps, i0: int, remat: bool, write_kv=None):
+        """Layers ``i0 .. i0 + len(lps) - 1`` of the full-sequence
+        forward, each checkpointed when ``remat``; given ``write_kv``,
+        each layer's keys and values go to ``write_kv(i, (k, v))``."""
+        for i, lp in enumerate(lps, start=i0):
+            args = (x, lp, self._window(i), write_kv is not None)
+            x = (checkpoint(self._dense_block, *args, use_reentrant=False)
+                 if remat else self._dense_block(*args))
+            if write_kv is not None:
+                x, kv = x
                 write_kv(i, kv)
-            else:
-                x = out
         return x
 
     def loss_fn(self, params: Params, batch: dict):
@@ -339,25 +385,44 @@ class Model(nn.Module):
         ``cache`` (from :meth:`init_cache`), a B = 1 prompt's K/V or
         states are written straight into its row ``slot`` (the dense
         family's at positions 0..S-1; later positions keep what they
-        held, which decode never reads) and that cache is returned."""
-        self._check_dense_cache()
-        if cache is None:
-            logits, _, caches = self.forward(
-                params, tokens, with_cache=True, last_only=last_only)
-            names = (("k", "v") if self.cfg.family == "dense"
-                     else ("conv", "ssm", "bc_conv"))
-            return logits, dict(zip(names, caches))
-        if tokens.shape[0] != 1:
+        held, which decode never reads) and that cache is returned.
+
+        A windowed config (gemma3) gives its global layers' K/V as
+        ``k_g``/``v_g`` and its local layers' rings as ``k_l``/``v_l``
+        (W' = min(window, S) slots, slot j holding the last position p =
+        j (mod W')), each gathered per layer as it is computed; written
+        into a cache, a ring narrower than the cache's is padded with
+        zeros at its end, as the reference's one-slot prefill pads it."""
+        if cache is not None and tokens.shape[0] != 1:
             raise ValueError("prefill into a cache row takes one prompt")
         if self.cfg.family == "dense":
             S = tokens.shape[1]
+            ring = (self._ring_positions(S, tokens.device)
+                    if self._windowed() else None)
+            out: Dict[str, list] = {}
 
             def write_kv(i, kv):
-                for name, val in zip(("k", "v"), kv):
-                    cache[name][i, slot, :S].copy_(val[0])
+                suffix, j = self._kv_leaf[i]
+                for name, val in zip(("k" + suffix, "v" + suffix), kv):
+                    if suffix == "_l":
+                        val = val[:, ring]
+                    if cache is None:
+                        out.setdefault(name, []).append(val)
+                        continue
+                    n = val.shape[1]
+                    cache[name][j, slot, :n].copy_(val[0])
+                    if suffix == "_l":
+                        cache[name][j, slot, n:].zero_()
 
             x = self._dense_stack(params, tokens, write_kv)
-            return self._head(params, x[:, -1:] if last_only else x), cache
+            logits = self._head(params, x[:, -1:] if last_only else x)
+            if cache is None:
+                cache = {name: torch.stack(vals) for name, vals in out.items()}
+            return logits, cache
+        if cache is None:
+            logits, _, caches = self.forward(
+                params, tokens, with_cache=True, last_only=last_only)
+            return logits, dict(zip(("conv", "ssm", "bc_conv"), caches))
 
         def write(i, state):
             for name, val in zip(("conv", "ssm", "bc_conv"), state):
@@ -366,20 +431,32 @@ class Model(nn.Module):
         x = self._mixer_stack(params, tokens, True, write)
         return self._head(params, x[:, -1:] if last_only else x), cache
 
-    def _check_dense_cache(self) -> None:
-        if self.cfg.window is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the windowed dense cache (ring-buffer "
-                "local layers) rides with qk-norm and gemma3 (ROADMAP "
-                "queue 1, item 3)")
+    def _ring_positions(self, S: int, device) -> torch.Tensor:
+        """The prompt position each ring slot holds after a prefill of S
+        tokens: slot j of W' = min(window, S) holds the last p = j (mod
+        W'), ``clip(S - 1 - ((S - 1 - j) mod W'), 0, S - 1)``."""
+        W = min(self.cfg.window, max(S, 1))
+        j = torch.arange(W, device=device)
+        return torch.clamp(S - 1 - torch.remainder(S - 1 - j, W), 0, S - 1)
 
     def cache_specs(self, batch: int, seq_len: int) -> Dict[str, ParamSpec]:
         """The dense cache of ``batch`` slots: the dense family's ``k``
-        and ``v``, (L, batch, seq_len, Hkv, hd) bf16; the ssm family's
-        states, which do not grow with ``seq_len``."""
-        self._check_dense_cache()
+        and ``v``, (L, batch, seq_len, Hkv, hd) bf16 (a windowed config's
+        ``k_g``/``v_g`` for its n_g global layers and ``k_l``/``v_l``
+        (n_l, batch, W, Hkv, hd), W = min(window, seq_len), for its local
+        layers' rings); the ssm family's states, which do not grow with
+        ``seq_len``."""
         cfg = self.cfg
         L = cfg.n_layers
+        if self._windowed():
+            n_g = sum(cfg.is_global_layer(i) for i in range(L))
+            W = min(cfg.window, seq_len)
+            g = (n_g, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
+            loc = (L - n_g, batch, W, cfg.n_kv_heads, cfg.d_head)
+            return {"k_g": ParamSpec(g, init="zeros"),
+                    "v_g": ParamSpec(g, init="zeros"),
+                    "k_l": ParamSpec(loc, init="zeros"),
+                    "v_l": ParamSpec(loc, init="zeros")}
         if cfg.family == "dense":
             shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
             return {"k": ParamSpec(shape, init="zeros"),
@@ -408,8 +485,10 @@ class Model(nn.Module):
         slot's cache row as one page (``attention.decode``): its (B, 1)
         ``block_table`` and ``seq_lens = pos + 1`` (int32) are built once
         per step here unless the caller passes them (the engine keeps the
-        table across steps).  An SSM's step does not read ``pos`` (taken
-        for the reference's signature)."""
+        table across steps).  A windowed config's local layers attend on
+        their rings (``attention.decode_ring``) under the same table with
+        ``min(seq_lens, W)``, made once per step.  An SSM's step does not
+        read ``pos`` (taken for the reference's signature)."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
@@ -420,13 +499,19 @@ class Model(nn.Module):
                                            device=x.device)[:, None]
             if seq_lens is None:
                 seq_lens = (pos.expand(B) + 1).to(torch.int32)
+            ring_lens = (torch.clamp(seq_lens, max=cache["k_l"].shape[2])
+                         if "k_l" in cache else None)
             for i in range(cfg.n_layers):
                 lp = self._layer(params, i)
                 h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-                a, _, _ = attention.decode(
-                    h, lp["attn"], cfg, cache["k"][i], cache["v"][i], pos,
-                    policy=self.policy, block_table=block_table,
-                    seq_lens=seq_lens)
+                suffix, j = self._kv_leaf[i]
+                step = attention.decode_ring if suffix == "_l" \
+                    else attention.decode
+                a, _, _ = step(
+                    h, lp["attn"], cfg, cache["k" + suffix][j],
+                    cache["v" + suffix][j], pos, policy=self.policy,
+                    block_table=block_table,
+                    seq_lens=ring_lens if suffix == "_l" else seq_lens)
                 x = x + a
                 h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
                 x = x + self._mlp(h, lp)

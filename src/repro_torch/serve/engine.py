@@ -8,8 +8,10 @@
   B = 1 pass at its exact length and written into its slot's row, then
   ``Model.decode_step`` over all slots; the dense family's step attends
   through the paged-decode kernel with each slot's row as one page, under
-  a (B, 1) table the engine makes once); ``paged=True`` gives each slot a
-  slot-major row of pages and prefills prompts chunk by chunk.
+  a (B, 1) table the engine makes once; a windowed config's local layers
+  the same way on their rings); ``paged=True`` gives each slot a
+  slot-major row of pages and prefills prompts chunk by chunk, and
+  refuses a windowed config, as the reference's does.
 - :class:`ContinuousEngine` — continuous batching: per-tick admission
   through the budget-governed :class:`~repro_torch.serve.scheduler.Scheduler`,
   one prefill chunk per tick for every mid-prefill sequence, lazy page
@@ -125,11 +127,13 @@ class Engine:
             self.cache = model.init_cache(batch_slots, max_seq)
             self._pos_limit = max_seq
             self._decode = model.decode_step
-        # the dense KV cache as one page per slot: the table is made once,
-        # seq_lens (pos + 1) is one host-to-device copy per step
+        # the dense KV cache (and a windowed config's rings) as one page
+        # per slot: the table is made once, seq_lens (pos + 1) is one
+        # host-to-device copy per step
         self._table = (torch.arange(batch_slots, dtype=torch.int32,
                                     device=self.device)[:, None]
-                       if "k" in self.cache else None)
+                       if not paged and model.cfg.family == "dense"
+                       else None)
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []

@@ -205,6 +205,24 @@ def test_attention_plain_matches_pallas_and_reference(
     _close(got, J.ref.attention(jq, jk, jv, **kw), dtype, mask)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t,off,window,softcap", [
+    (16, 32, 16, None, None), (16, 48, 32, 12, None), (24, 32, 8, None, 5.0)])
+def test_attention_plain_at_head_dim_256_matches_pallas(J, s, t, off, window,
+                                                        softcap, dtype):
+    """gemma-2b's head dim and MQA (8 query heads on one kv head), which
+    the CUDA kernels take too: the plain version against the Pallas
+    kernel in interpret mode."""
+    jq, tq = _pair(J, _normal(14, (1, 8, s, 256)), dtype)
+    jk, tk = _pair(J, _normal(15, (1, 1, t, 256)), dtype)
+    jv, tv = _pair(J, _normal(16, (1, 1, t, 256)), dtype)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
+    got = ops.attention(tq, tk, tv, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    _close(got, J.fa.attention(jq, jk, jv, bq=8, bkv=16, interpret=True,
+                              **kw), dtype)
+
+
 def test_attention_rows_without_visible_keys_are_zero(J):
     """The port follows the model's attention (``flash_attention_jnp``):
     a fully-masked row is zero."""
@@ -424,13 +442,14 @@ def test_flash_kernel_matches_plain(cuda, s, t, off, window, softcap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 128, 256])
 @pytest.mark.parametrize("s,t,off,window,softcap", [
     (128, 512, 384, None, None), (37, 100, 50, 24, 5.0)])
 def test_flash_head_dims_match_plain(cuda, d, s, t, off, window, softcap):
     """The kernel's other head dims (32: rows padded to 64 in shared
-    memory; 128: two 64-wide boxes), forward and backward, at the bf16
-    tolerances."""
+    memory; 128: two 64-wide boxes; 256: four, P·V as two 128-wide
+    products and dK/dV in two column halves), forward and backward, at
+    the bf16 tolerances."""
     q = _bf16(5, (2, 4, s, d), cuda)
     k, v = _bf16(6, (2, 2, t, d), cuda), _bf16(7, (2, 2, t, d), cuda)
     kw = dict(causal=True, window=window, softcap=softcap, q_offset=off)
@@ -524,6 +543,41 @@ def test_flash_runs_give_the_same_bits(cuda):
         assert torch.equal(again[0], out) and torch.equal(again[1], lse)
         assert all(torch.equal(a, b) for a, b in zip(
             fa.attention_backward(q, k, v, out, d_out, lse), grads))
+
+
+@pytest.mark.gpu
+def test_flash_head_dim_256_fp32_rows_and_runs(cuda):
+    """gemma-2b's shapes at D = 256 (MQA, 8 query heads): the fp32 kernel
+    at its tolerance, a 300-token prompt in one call and chunk by chunk
+    bitwise (out and log-sum-exp), and the forward and backward at the
+    train shape run to run bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator().manual_seed(80)
+    q32 = torch.randn((1, 8, 100, 256), generator=g).to(cuda)
+    k32, v32 = (torch.randn((1, 1, 150, 256), generator=g).to(cuda)
+                for _ in range(2))
+    kw = dict(causal=True, window=64, softcap=None, q_offset=50)
+    torch.testing.assert_close(ops.attention(q32, k32, v32, **kw),
+                               ref.attention(q32, k32, v32, **kw),
+                               rtol=2e-5, atol=2e-2)
+    q = _bf16(81, (1, 8, 300, 256), cuda)
+    k, v = _bf16(82, (1, 1, 300, 256), cuda), _bf16(83, (1, 1, 300, 256),
+                                                    cuda)
+    out, lse = fa._forward(q, k, v, True, None, None, 256 ** -0.5, 0,
+                           with_lse=True)
+    c_out, c_lse = _chunked_like_paged_prefill(q, k, v)
+    assert torch.equal(c_out, out) and torch.equal(c_lse, lse)
+    q, d_out = _bf16(84, (2, 8, 512, 256), cuda), _bf16(85, (2, 8, 512, 256),
+                                                        cuda)
+    k, v = _bf16(86, (2, 1, 512, 256), cuda), _bf16(87, (2, 1, 512, 256),
+                                                    cuda)
+    args = (True, None, None, 256 ** -0.5, 0)
+    out, lse = fa._forward(q, k, v, *args, with_lse=True)
+    grads = fa.attention_backward(q, k, v, out, d_out, lse)
+    again = fa._forward(q, k, v, *args, with_lse=True)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    assert all(torch.equal(a, b) for a, b in zip(
+        fa.attention_backward(q, k, v, out, d_out, lse), grads))
 
 
 @pytest.mark.gpu
@@ -1051,19 +1105,33 @@ def test_port_imports_neither_jax_nor_the_reference():
 # Copies pinned to their originals
 # ---------------------------------------------------------------------------
 
-def test_qwen2_config_matches_reference_field_by_field(J):
-    want = J.base.get_config("qwen2-0.5b")
-    got = get_config("qwen2-0.5b")
+def _config_matches_reference(J, arch):
+    want = J.base.get_config(arch)
+    got = get_config(arch)
     for f in dataclasses.fields(want):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert (got.padded_vocab, got.d_head, got.param_count()) == \
         (want.padded_vocab, want.d_head, want.param_count())
+    assert [got.is_global_layer(i) for i in range(got.n_layers)] == \
+        [want.is_global_layer(i) for i in range(want.n_layers)]
     for down in (1, 2, 8, 64):
         assert dataclasses.asdict(tbase.scale_config(got, down)) == \
             dataclasses.asdict(J.base.scale_config(want, down))
+
+
+def test_qwen2_config_matches_reference_field_by_field(J):
+    _config_matches_reference(J, "qwen2-0.5b")
     assert tbase.ARCH_IDS == J.base.ARCH_IDS
     assert tbase.SHAPES == {k: tbase.ShapeConfig(*dataclasses.astuple(v))
                             for k, v in J.base.SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "qwen3-14b", "gemma3-27b"])
+def test_dense_family_configs_match_reference_field_by_field(J, arch):
+    """The dense family's config modules, copied from the reference's and
+    registered as it registers them."""
+    _config_matches_reference(J, arch)
+    assert get_config(arch) is tbase._REGISTRY[arch]
 
 
 def _defs(module, skip=()):

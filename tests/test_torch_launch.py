@@ -153,3 +153,18 @@ def test_serve_cli_dense_default_writes_its_snapshot(tmp_path, capsys):
     assert snap["metrics"]["counters"]["serve.decode_tokens"] == total
     lines = metrics.read_text().splitlines()
     assert {json.loads(s)["kind"] for s in lines} == {"span", "metrics"}
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "gemma-2b", "qwen3-14b"])
+def test_clis_take_the_rest_of_the_dense_family(arch, tmp_path):
+    """The serve CLI on the dense default (gemma3-27b's windowed cache,
+    prompts past its cut window of 16) and the train CLI with a
+    checkpoint, at ``--scale-down 64`` on the CPU."""
+    total, _ = tserve.run(arch, n_requests=3, batch_slots=2, max_seq=48,
+                          prompt_len=(10, 20), new_tokens=6, scale_down=64,
+                          device="cpu")
+    assert total == 3 * 5        # the first token of each comes at prefill
+    losses = ttrain.run(arch, steps=2, ckpt_dir=str(tmp_path / "ck"),
+                        device="cpu", **KW)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert os.listdir(tmp_path / "ck")

@@ -213,23 +213,123 @@ def test_loss_and_every_gradient_match_reference(J, cfg):
         _close(g, want[name])
 
 
+def _remat_grads(cfg, params, batch, remat):
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    loss, _ = Model(cfg, device="cpu", remat=remat).loss_fn(p, batch)
+    return loss, dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+
 def test_remat_and_unbound_layers_change_no_gradient():
-    """``remat="full"`` (checkpointed layers) and ``"none"`` give the same
-    gradients bit for bit, and each stacked leaf's gradient is one (L, ...)
+    """``remat="full"`` (checkpointed layers), ``"group:2"`` (checkpointed
+    groups of checkpointed layers) and ``"none"`` give the same gradients
+    bit for bit, and each stacked leaf's gradient is one (L, ...)
     tensor."""
     params = Model(SCALED, device="cpu").init(3)
     batch = {k: torch.from_numpy(v).long()
              for k, v in _batch(SCALED, 2, seed=3).items()}
-    out = []
-    for remat in ("full", "none"):
-        p = {k: v.detach().clone().requires_grad_(True)
-             for k, v in params.items()}
-        loss, _ = Model(SCALED, device="cpu", remat=remat).loss_fn(p, batch)
-        out.append(torch.autograd.grad(loss, list(p.values())))
-    for a, b in zip(*out):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        Model(SCALED, device="cpu", remat="group:2")
+    out = [_remat_grads(SCALED, params, batch, remat)[1]
+           for remat in ("full", "none", "group:2")]
+    for name, g in out[0].items():
+        assert g.shape == params[name].shape
+        for other in out[1:]:
+            assert torch.equal(g, other[name]), name
+    with pytest.raises(ValueError, match="group:G"):
+        Model(SCALED, device="cpu", remat="group:0")
+
+
+@pytest.mark.parametrize("n_layers", [4, 5])
+def test_grouped_remat_matches_reference_and_full(J, n_layers):
+    """``remat="group:2"`` at L = 4 (the groups divide the stack: the
+    reference's sqrt-L double remat) and L = 5 (they do not: both
+    packages run without remat): loss and every gradient against the
+    reference's under the same setting, and bitwise the port's under
+    ``"full"``."""
+    cfg = dataclasses.replace(SCALED, n_layers=n_layers)
+    jmodel, params, _ = _models(J, cfg)
+    jmodel = dataclasses.replace(jmodel, remat="group:2")
+    batch = _batch(cfg, 2)
+    with J.jax.set_mesh(J.mesh):
+        (jloss, _), jgrads = J.jax.jit(J.jax.value_and_grad(
+            jmodel.loss_fn, has_aux=True))(
+            params, {k: J.jnp.asarray(v) for k, v in batch.items()})
+    tbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    loss, grads = _remat_grads(cfg, from_jax(params), tbatch, "group:2")
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=8e-6)
+    want = _leaf_grads(J, jgrads)
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        _close(g, want[name])
+    loss_full, full = _remat_grads(cfg, from_jax(params), tbatch, "full")
+    assert torch.equal(loss, loss_full)
+    for name, g in grads.items():
+        assert torch.equal(g, full[name]), name
+
+
+# the rest of the dense family at its cut widths: gemma3's cut has two
+# layers and so no global one, so it takes seven (a local:global group of
+# five and one, then a local tail)
+NEW_DENSE = {
+    "qwen3-14b": scale_config(get_config("qwen3-14b"), 64),
+    "gemma-2b": scale_config(get_config("gemma-2b"), 64),
+    "gemma3-27b": dataclasses.replace(
+        scale_config(get_config("gemma3-27b"), 64), n_layers=7),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(NEW_DENSE))
+def test_new_dense_archs_step_through_session_as_the_reference(J, arch):
+    """qwen3-14b (qk-norm), gemma-2b (MQA, GeGLU, ``emb_scale``) and
+    gemma3-27b (qk-norm and local:global windows) through
+    ``Session.plan/step`` with ``model_kwargs={"remat": "group:G"}``:
+    the loss and every gradient against the reference's, then two AdamW
+    steps by the step rule.  The qk-norm scales are drawn away from
+    their init of one."""
+    cfg = NEW_DENSE[arch]
+    jmodel, params, _ = _models(J, cfg)
+    attn = params["layers"]["attn"]
+    rng = np.random.default_rng(9)
+    for name in ("q_norm", "k_norm"):
+        if name in attn:
+            attn[name] = np.asarray(J.jnp.asarray(
+                1.0 + 0.3 * rng.standard_normal(attn[name].shape),
+                J.jnp.bfloat16))
+    batches = [b for _, b in zip(range(2), SyntheticLM(
+        cfg.vocab_size, 2, SEQ, seed=2, structured=True))]
+    with J.jax.set_mesh(J.mesh):
+        (jloss, _), jgrads = J.jax.jit(J.jax.value_and_grad(
+            jmodel.loss_fn, has_aux=True))(
+            params, {k: J.jnp.asarray(v) for k, v in batches[0].items()})
+    want = _reference_steps(
+        J, jmodel, params, batches,
+        J.opt.AdamWConfig(lr=J.opt.warmup_cosine(PEAK, WARMUP, TOTAL)))
+    group = next(g for g in (3, 2, 1) if cfg.n_layers % g == 0)
+    sess = Session(device="cpu")
+    plan = sess.plan(cfg, batch=2, seq=SEQ, comms="off",
+                     model_kwargs={"remat": f"group:{group}"},
+                     adamw=topt.AdamWConfig(
+                         lr=topt.warmup_cosine(PEAK, WARMUP, TOTAL)))
+    assert plan.model.remat == f"group:{group}"
+    tparams = {k: v.requires_grad_(True) for k, v in from_jax(params).items()}
+    loss, _ = plan.model.loss_fn(
+        tparams, {k: torch.from_numpy(v).long()
+                  for k, v in batches[0].items()})
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=8e-6)
+    grads = dict(zip(tparams, torch.autograd.grad(loss,
+                                                  list(tparams.values()))))
+    jflat = _leaf_grads(J, jgrads)
+    assert set(grads) == set(jflat)
+    for name, g in grads.items():
+        _close(g, jflat[name])
+    sess.init_state(plan, params=from_jax(params))
+    p0 = _leaf_grads(J, params)
+    lrs = []
+    for b, w in zip(batches, want):
+        m = {k: float(v) for k, v in sess.step(plan, b).items()}
+        lrs.append(m["lr"])
+        got = {k: v.detach().float().numpy()
+               for k, v in sess.state["train_state"]["params"].items()}
+        _steps_agree(m, got, w, p0, lrs)
 
 
 def test_adamw_apply_matches_reference(J):
