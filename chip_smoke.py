@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
-``d256``, ``4c``, ``4d`` and ``6b``, after phases 1 and 2).
+``d256``, ``4c``, ``4d``, ``6b`` and ``9``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -187,7 +187,34 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    whose save must equal the original byte for byte; the JSONL streams
    and snapshots must parse and hold the histograms and spans; prints
    the checkpoint's bytes and save seconds.
-9. Print the ``kernels`` JSON line, the card's name and power limit, and
+9. dMath's distributed linear algebra (``repro_torch.core``) on four
+   ranks spawned on the one card over gloo (a ``file://`` rendezvous under
+   ``build/chip_smoke/``), mesh (data=2, model=2).  qwen2-0.5b's MLP
+   products at 2,048 tokens (up (2048, 896) @ (896, 4864), down (2048,
+   4864) @ (4864, 896)), bf16 under ``MIXED`` and fp32 under ``FULL``,
+   through the six algorithms and ``gemm_auto`` over 4 x 4 operand
+   layouts x {none, rep, row, col, b2d} out layouts: every C gathered and
+   held against the plain product of the global operands (bf16: phase
+   3's rule; fp32, unit-variance operands: the conformance rule rtol
+   2e-5, atol 2e-5 at K = 64, its atol grown by sqrt(K / 64), against the
+   float64 product), every rank's local product against its plain
+   version on the same block, and the wire bytes of every plan whose
+   moves the reference's estimate models equal to its ``est_bytes``.
+   gemma3-27b's MLP up-projection at full width ((2048, 5376) @ (5376,
+   21504), bf16): each algorithm and ``gemm_auto`` from col x row, held
+   once and timed three times (wall ms, the median), the bytes handed to
+   collectives beside the estimate, peak memory per rank, and the local
+   GEMM's device ms beside ``torch.matmul``'s on rank 0.  Every relayout
+   pair of {rep, row, col, b2d} at (4096, 4096), fp32 -> bf16 and back:
+   bf16 alone on the wire, bitwise the local cast.
+   ``add_row_col_sum_matrix`` at 4096 x 4096 (both modes, the
+   deterministic one bitwise run to run) and ``conv2d_halo`` at AlexNet
+   conv2's channels (96 -> 256, 5 x 5 and 3 x 3, B = 32, H = W = 28)
+   against the unsharded fp32 conv; ``Session.tensor``, ``@``, ``+``,
+   ``with_layout``, ``to_global``, the session's table, an op-cache hit.
+   Each rank's ``matmul`` launches equal the local products its plans
+   call for.  These are gloo-through-host-memory times on one card.
+10. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -195,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import filecmp
+import itertools
 import json
 import math
 import os
@@ -3667,12 +3695,497 @@ def cli_phase(cfg):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: dMath's distributed linear algebra, four gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+LINALG_RANKS, LINALG_MESH = 4, (2, 2)          # (data, model)
+LINALG_PATH = "dmath linalg (4 ranks, gloo)"
+QWEN_MLP = ((2048, 896, 4864), (2048, 4864, 896))   # up, down at 2,048 tokens
+GEMMA_UP = (2048, 5376, 21504)                 # gemma3-27b's MLP up at 2,048
+RELAYOUT_SHAPE = (4096, 4096)
+ARCS_SHAPE = (4096, 4096)                      # AlexNet's FC width
+# AlexNet conv2's channels and kernel, and a 3 x 3; the height cut from 27
+# to 28 so that the model axis's 2 ranks divide it
+CONV_X, CONV_KERNELS = (32, 28, 28, 96), ((5, 5, 96, 256), (3, 3, 96, 256))
+LINALG_ALGS = ("local", "row_par", "col_par", "inner_psum", "inner_rs",
+               "summa2d")
+LINALG_IN = {"local": ("rep", "rep"), "row_par": ("row", "rep"),
+             "col_par": ("rep", "col"), "inner_psum": ("col", "row"),
+             "inner_rs": ("col", "row"), "summa2d": ("b2d", "b2d")}
+
+
+def fp32_rule(got: torch.Tensor, want64: torch.Tensor, k: int):
+    """The fp32 rule of ``tests/test_gemm_conformance.py`` (rtol 2e-5,
+    atol 2e-5 at K = 64), its atol grown as the outputs' spread with K,
+    sqrt(K / 64), against the float64 product: (holds, max abs err, the
+    elements past the unscaled rule, which no fp32 order keeps at these
+    K)."""
+    err = (got.double() - want64).abs()
+    tol = 2e-5 * want64.abs()
+    ok = not bool((err > tol + 2e-5 * (k / 64) ** 0.5).any())
+    return ok, float(err.max()), int((err > tol + 2e-5).sum())
+
+
+def linalg_algorithm(name, a, b, mesh, policy):
+    """One of the six GEMM algorithms on this rank's blocks."""
+    from repro_torch.core import gemm as G
+    from repro_torch.core import precision as P
+    if name == "local":
+        return P.matmul(a, b, policy)
+    return {"row_par": G.gemm_row_parallel, "col_par": G.gemm_col_parallel,
+            "inner_psum": G.gemm_inner_psum, "inner_rs": G.gemm_inner_rs,
+            "summa2d": G.gemm_summa2d}[name](a, b, mesh, policy=policy)
+
+
+def linalg_layouts():
+    from repro_torch.core.layout import Layout
+    return {"rep": Layout.replicated(2), "row": Layout.row_sharded(2),
+            "col": Layout.col_sharded(2),
+            "b2d": Layout.blocked_2d(("data", "model"))}
+
+
+def move_kind(src, dst) -> str:
+    """How ``relayout_explicit`` moves ``src`` to ``dst``: what the byte
+    estimate models (``none``, ``slice``, ``gather``, ``all_to_all``) or
+    ``gather_slice``, which it does not (it costs it as an all-to-all)."""
+    if src == dst:
+        return "none"
+    if dst.is_replicated():
+        return "gather"
+    if src.is_replicated():
+        return "slice"
+    s, d = src.sharded_dims(), dst.sharded_dims()
+    if (len(s) == 1 and len(d) == 1 and s != d
+            and src.dims[s[0]] == dst.dims[d[0]]
+            and isinstance(src.dims[s[0]], str)):
+        return "all_to_all"
+    return "gather_slice"
+
+
+def plan_is_modeled(plan, la, lb, lout, c_dtype, dtype) -> bool:
+    """True where the plan's every move is one the estimate models at the
+    dtype it counts: no reduction (the reference reduces in fp32 and
+    models a reduce-scatter at 1/n of its bytes), no gather-then-slice,
+    and a C move only when C has the operands' dtype."""
+    from repro_torch.core import gemm as G
+    if plan.algorithm in ("inner_psum", "inner_rs"):
+        return False
+    moves = [move_kind(la, plan.a_relayout or la),
+             move_kind(lb, plan.b_relayout or lb)]
+    cur = G.native_layout(plan.algorithm)
+    if lout is not None and cur != lout:
+        if c_dtype != dtype:
+            return False
+        moves.append(move_kind(cur, lout))
+    return "gather_slice" not in moves
+
+
+class HeldProducts:
+    """Wraps ``ops.matmul`` in a rank: every local product the linalg
+    layer runs is held against its plain version on the same block (bf16
+    operands: ``ref.matmul`` at phase 3's bf16 rule; fp32: the float64
+    product at :func:`fp32_rule`), except while ``timed`` (the timed
+    repeats of a product held once).  The plain products launch nothing."""
+
+    def __init__(self):
+        self.kernel, self.errs = ops.matmul, {}
+        self.count = self.held = 0
+        self.timed = False
+
+    def __call__(self, a, b, out_dtype=None):
+        c = self.kernel(a, b, out_dtype)
+        self.count += 1
+        if self.timed:
+            return c
+        self.held += 1
+        if a.dtype == torch.float32:
+            ok, err, _ = fp32_rule(c, a.double() @ b.double(), a.shape[1])
+            require(ok, f"local product {tuple(a.shape)} @ {tuple(b.shape)} "
+                    f"fp32: outside the fp32 rule (max err {err:.3g})")
+        else:
+            err = max_err(c, ref.matmul(a, b, out_dtype),
+                          f"local product {tuple(a.shape)} @ "
+                          f"{tuple(b.shape)}")
+        key = "fp32" if a.dtype == torch.float32 else "bf16"
+        self.errs[key] = max(self.errs.get(key, 0.0), err)
+        return c
+
+
+def linalg_sweep(mesh, L, out):
+    """qwen2-0.5b's MLP products at 2,048 tokens, bf16 under MIXED and
+    fp32 under FULL, through the six algorithms and ``gemm_auto`` over 4 x
+    4 operand layouts x 5 out layouts; every C gathered and held against
+    the plain product of the global operands; the wire bytes of every
+    plan whose moves the estimate models equal to its ``est_bytes``.
+    Returns the local products run."""
+    from repro_torch.core import gemm as G
+    from repro_torch.core import precision as P
+    from repro_torch.core.distributed import WIRE
+    from repro_torch.core.redistribute import relayout_explicit
+    products, res = 0, {}
+    rep = L["rep"]
+    for (m, k, n), (pname, dtype) in itertools.product(
+            QWEN_MLP, (("MIXED", torch.bfloat16), ("FULL", torch.float32))):
+        policy = getattr(P, pname)
+        a = randn((m, k), SEED + 90, dtype=dtype)
+        b = randn((k, n), SEED + 91, dtype=dtype)
+        if dtype == torch.float32:
+            want = a.double() @ b.double()
+        else:
+            want = ref.matmul(a, b, torch.float32)
+        worst, unscaled, modeled = 0.0, 0, 0
+
+        def hold(c, lay, what):
+            nonlocal worst, unscaled
+            full = relayout_explicit(c, lay, rep, mesh)
+            require(full.shape == (m, n) and full.dtype == torch.float32,
+                    f"{what}: C {tuple(full.shape)} {full.dtype}")
+            if dtype == torch.float32:
+                ok, err, past = fp32_rule(full, want, k)
+                require(ok, f"{what}: outside the fp32 rule ({err:.3g})")
+                unscaled += past
+            else:
+                err = max_err(full, want, what)
+            worst = max(worst, err)
+
+        for alg in LINALG_ALGS:
+            la, lb = (L[x] for x in LINALG_IN[alg])
+            c = linalg_algorithm(alg, la.block(a, mesh), lb.block(b, mesh),
+                                 mesh, policy)
+            products += 1
+            hold(c, G.native_layout(alg), f"{alg} {pname} {(m, k, n)}")
+        for la, lb, lo in itertools.product(L, L, (None, *L)):
+            lout = None if lo is None else L[lo]
+            ab, bb = L[la].block(a, mesh), L[lb].block(b, mesh)
+            WIRE.reset()
+            c, plan = G.gemm_auto(ab, bb, L[la], L[lb], mesh,
+                                  out_layout=lout, policy=policy)
+            moved = WIRE.total()
+            products += 1
+            if plan_is_modeled(plan, L[la], L[lb], lout, c.dtype, dtype):
+                modeled += 1
+                require(moved == plan.est_bytes,
+                        f"gemm_auto {la} x {lb} -> {lo} {pname}: "
+                        f"{moved} bytes on the wire, the plan estimates "
+                        f"{plan.est_bytes} ({plan.describe()})")
+            hold(c, lout or plan.out_layout,
+                 f"gemm_auto {la} x {lb} -> {lo} {pname} {(m, k, n)}")
+        res[f"{pname} {m}x{k}x{n}"] = dict(
+            max_abs_err=worst, plans_bytes_equal_estimate=modeled,
+            **({"elements_past_unscaled_fp32_rule": unscaled}
+               if dtype == torch.float32 else {}))
+        del a, b, want
+    out["sweep"] = res
+    return products
+
+
+def linalg_full_width(mesh, L, out, held):
+    """gemma3-27b's MLP up-projection at 2,048 tokens, bf16: each
+    algorithm from its own layouts, then ``gemm_auto`` from col x row,
+    once held (this rank's C block against the plain product's, its
+    local product against ``ref.matmul``, the bytes it handed to
+    collectives beside the plan's estimate), then three times timed (wall
+    ms per call, the median of 3, each ended by a synchronize).  Returns
+    the local products run."""
+    import torch.distributed as dist
+    from repro_torch.core import gemm as G
+    from repro_torch.core import precision as P
+    from repro_torch.core.distributed import WIRE
+    m, k, n = GEMMA_UP
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = randn((m, k), SEED + 92)
+    b = randn((k, n), SEED + 93, scale=0.02)
+    want = ref.matmul(a, b, torch.float32)
+    rows, products = {}, 0
+    runs = [(alg, LINALG_IN[alg]) for alg in LINALG_ALGS] \
+        + [("gemm_auto", ("col", "row"))]
+    for name, (la, lb) in runs:
+        ab, bb = L[la].block(a, mesh), L[lb].block(b, mesh)
+        walls = []
+        for i in range(4):
+            held.timed = i > 0
+            dist.barrier()
+            WIRE.reset()
+            t0 = time.perf_counter()
+            if name == "gemm_auto":
+                c, plan = G.gemm_auto(ab, bb, L[la], L[lb], mesh)
+            else:
+                c = linalg_algorithm(name, ab, bb, mesh, P.MIXED)
+            torch.cuda.synchronize()
+            products += 1
+            if i == 0:
+                moved = dict(WIRE.bytes)
+                first = c
+            else:
+                walls.append(1e3 * (time.perf_counter() - t0))
+                require(same_bits(c, first), f"{name}: a repeat changed "
+                        "bits")
+        held.timed = False
+        if name != "gemm_auto":
+            plan = next(p for p in G.gemm_candidates(
+                (m, k), (k, n), a.dtype, L[la], L[lb], mesh,
+                G.native_layout(name)) if p.algorithm == name)
+        lay = G.native_layout(plan.algorithm)
+        err = max_err(c, lay.block(want, mesh), f"{name} at {GEMMA_UP}")
+        total = sum(moved.values())
+        modeled = plan.algorithm not in ("inner_psum", "inner_rs")
+        if modeled:
+            require(total == plan.est_bytes,
+                    f"{name}: {total} bytes on the wire, the plan estimates "
+                    f"{plan.est_bytes}")
+        rows[name] = dict(plan=plan.algorithm, wall_ms=walls,
+                          wall_ms_median=statistics.median(walls),
+                          bytes_by_collective=moved, bytes=total,
+                          est_bytes=plan.est_bytes,
+                          bytes_equal_estimate=modeled,
+                          max_abs_err=err)
+        del ab, bb, c, first
+    out["full_width"] = dict(shape=list(GEMMA_UP), runs=rows,
+                             peak_gib=torch.cuda.max_memory_allocated()
+                             / 2**30)
+    del a, b, want
+    torch.cuda.empty_cache()
+    return products
+
+
+def linalg_relayouts(mesh, L, out):
+    """Every pair of {rep, row, col, b2d} at (4096, 4096), fp32 -> bf16
+    and bf16 -> fp32: only bf16 on the wire, the bytes of every modeled
+    move equal to the estimate at bf16, and the block bitwise the local
+    cast of the whole input."""
+    from repro_torch.core.distributed import WIRE
+    from repro_torch.core.redistribute import (collective_bytes_estimate,
+                                               relayout_explicit)
+    x32 = randn(RELAYOUT_SHAPE, SEED + 94, dtype=torch.float32)
+    x16 = randn(RELAYOUT_SHAPE, SEED + 95)
+    res = dict(pairs=0, bytes=0)
+    for (src, dst), (x, to) in itertools.product(
+            itertools.product(L, L), ((x32, torch.bfloat16),
+                                      (x16, torch.float32))):
+        WIRE.reset()
+        y = relayout_explicit(L[src].block(x, mesh), L[src], L[dst], mesh,
+                              dtype=to)
+        kind = move_kind(L[src], L[dst])
+        wire = WIRE.dtypes
+        require(wire == (set() if kind in ("none", "slice")
+                         else {torch.bfloat16}),
+                f"relayout {src} -> {dst} to {to}: {wire} on the wire")
+        if kind != "gather_slice":
+            est = collective_bytes_estimate(RELAYOUT_SHAPE, torch.bfloat16,
+                                            L[src], L[dst], mesh)
+            require(WIRE.total() == est,
+                    f"relayout {src} -> {dst}: {WIRE.total()} bytes, "
+                    f"estimate {est}")
+        require(same_bits(y, L[dst].block(x.to(to), mesh)),
+                f"relayout {src} -> {dst} to {to}: not the local cast")
+        res["pairs"] += 1
+        res["bytes"] += WIRE.total()
+    out["relayouts"] = res
+
+
+def linalg_primitives(mesh, L, out):
+    """``add_row_col_sum_matrix`` at 4096 x 4096 in both modes against the
+    float64 sums (``tests/test_primitives.py``'s tolerances), the
+    deterministic mode bitwise run to run; ``conv2d_halo`` at AlexNet
+    conv2's channels (unit-variance outputs) against the unsharded fp32
+    conv on one rank and the float64 conv (its 2e-4: TF32 would not keep
+    it)."""
+    import torch.nn.functional as F
+    from repro_torch.core.layout import Layout
+    from repro_torch.core.primitives import (add_row_col_sum_matrix,
+                                             conv2d_halo, local_conv)
+    res = {}
+    mm = randn(ARCS_SHAPE, SEED + 96, dtype=torch.float32)
+    m64 = mm.double()
+    want = L["row"].block(m64 + 0.5 * m64.sum(1, keepdim=True)
+                          + 0.25 * m64.sum(0, keepdim=True), mesh)
+    blk = L["row"].block(mm, mesh)
+    for det, tol in ((True, 1e-5), (False, 5e-2)):
+        got = add_row_col_sum_matrix(blk, 0.5, 0.25, mesh=mesh,
+                                     deterministic=det)
+        err = (got.double() - want).abs()
+        require(not bool((err > tol * 10 + tol * want.abs()).any()),
+                f"add_row_col_sum_matrix (deterministic={det}): max err "
+                f"{float(err.max()):.3g}")
+        if det:
+            again = add_row_col_sum_matrix(blk, 0.5, 0.25, mesh=mesh,
+                                           deterministic=True)
+            require(same_bits(got, again), "add_row_col_sum_matrix: the "
+                    "deterministic mode changed bits run to run")
+        res[f"arcs_{'deterministic' if det else 'fast'}_max_abs_err"] = \
+            float(err.max())
+    x = randn(CONV_X, SEED + 97, dtype=torch.float32)
+    xl = Layout(("data", "model", None, None))
+    for kh, kw, cin, cout in CONV_KERNELS:
+        w = randn((kh, kw, cin, cout), SEED + 98, dtype=torch.float32,
+                  scale=(kh * kw * cin) ** -0.5)
+        got = conv2d_halo(xl.block(x, mesh), w, mesh=mesh)
+        full = local_conv(F.pad(x, (0, 0, 0, 0, kh // 2, kh // 2)), w)
+        exact = F.conv2d(x.double().permute(0, 3, 1, 2),
+                         w.double().permute(3, 2, 0, 1),
+                         padding=(kh // 2, kw // 2)).permute(0, 2, 3, 1)
+        for what, ref_conv in (("unsharded fp32", full), ("float64", exact)):
+            want = xl.block(ref_conv, mesh)
+            err = (got.double() - want).abs()
+            require(not bool((err > 2e-4 + 2e-4 * want.abs()).any()),
+                    f"conv2d_halo {kh}x{kw} against the {what} conv: max "
+                    f"err {float(err.max()):.3g}")
+            res[f"conv_{kh}x{kw}_vs_{what.split()[-1]}_max_abs_err"] = \
+                float(err.max())
+    out["primitives"] = res
+
+
+def linalg_dtensor(mesh, L, out):
+    """``Session.tensor``, ``@``, ``+``, ``with_layout``, ``to_global``, the
+    session's table, and a second ``gemm_auto`` of the same shapes an
+    op-cache hit.  Returns the local products run."""
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.core import REGISTRY
+    from repro_torch.core.opcache import GLOBAL_CACHE
+    m, k, n = QWEN_MLP[0]
+    a = randn((m, k), SEED + 99)
+    b = randn((k, n), SEED + 100)
+    sess = Session(group=dist.group.WORLD, mesh=mesh)
+    before = len(REGISTRY)
+    X = sess.tensor(a, L["row"], name="X")
+    W = sess.tensor(b, L["col"], name="W")
+    Y = X @ W
+    misses = GLOBAL_CACHE.stats()["gemm_auto"].misses
+    hits = GLOBAL_CACHE.stats()["gemm_auto"].hits
+    Y2 = X @ W
+    st = GLOBAL_CACHE.stats()["gemm_auto"]
+    require(st.hits == hits + 1 and st.misses == misses,
+            "a second gemm_auto of the same shapes was not an op-cache hit")
+    Z = (Y + Y2).with_layout(L["b2d"], dtype=torch.bfloat16)
+    full = Z.to_global()
+    err = max_err(full, (2 * ref.matmul(a, b, torch.float32)).to(
+        torch.bfloat16), "DistTensor (X @ W + X @ W)")
+    names = sorted(sess.tensors.layouts())
+    need = {"X", "W", "(X@W)", f"{Z.name}", f"{Z.name}@L[-, -]"}
+    require(need <= set(names) and len(REGISTRY) == before,
+            f"DistTensor names {names}: the session's table must hold "
+            "them and the global one none")
+    out["dtensor"] = dict(names=names, max_abs_err=err,
+                          plan=repr(Y.layout), z=repr(Z))
+    return 2
+
+
+def linalg_rank(rank, init, result_path):
+    """One rank of phase 9; writes its results as JSON to ``result_path``
+    with the rank's number in place of ``{}``."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import Mesh, close_group, init_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_group(init, rank=rank, world_size=LINALG_RANKS)
+    mesh = Mesh(LINALG_MESH, ("data", "model"), dist.group.WORLD)
+    L = linalg_layouts()
+    held = HeldProducts()
+    ops.matmul = held
+    out = dict(rank=rank, coords=mesh.coords, seconds={})
+    dist.barrier()
+    ops.reset_launches()
+    expected = 0
+    for name, part in (("sweep", linalg_sweep),
+                       ("full_width", lambda *a: linalg_full_width(*a, held)),
+                       ("relayouts", linalg_relayouts),
+                       ("primitives", linalg_primitives),
+                       ("dtensor", linalg_dtensor)):
+        t0 = time.perf_counter()
+        expected += part(mesh, L, out) or 0
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+    out["launches"] = ops.dispatch_report()
+    out["expected_matmul"] = expected
+    out["products"], out["held_products"] = held.count, held.held
+    out["held_max_abs_err"] = held.errs
+    ops.matmul = held.kernel
+    # the local GEMMs' device time on rank 0, the others at a barrier
+    m, k, n = GEMMA_UP
+    shapes = {"local": (m, k, n), "row_par": (m // 2, k, n),
+              "col_par": (m, k, n // 2), "inner": (m, k // 2, n),
+              "summa2d": (m // 2, k, n // 2)}
+    times = {}
+    dist.barrier()
+    if rank == 0:
+        for name, (mm, kk, nn) in shapes.items():
+            x = randn((mm, kk), SEED + 101)
+            y = randn((kk, nn), SEED + 102)
+            times[name] = dict(
+                shape=[mm, kk, nn],
+                ms=cuda_ms([lambda: ops.matmul(x, y, torch.float32)], 10),
+                torch_matmul_ms=cuda_ms([lambda: torch.matmul(x, y)], 10))
+            del x, y
+    dist.barrier()
+    out["local_gemm_ms"] = times
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def linalg_phase():
+    """Phase 9: four ranks spawned on the one card over gloo, mesh (data=2,
+    model=2); returns the summary and the ranks' launch counts summed."""
+    import torch.multiprocessing as mp
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    init = f"file://{TRAIN_DIR / 'rendezvous_linalg'}"
+    (TRAIN_DIR / "rendezvous_linalg").unlink(missing_ok=True)
+    results = [TRAIN_DIR / f"linalg_rank{r}.json"
+               for r in range(LINALG_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    mp.spawn(linalg_rank,
+             args=(init, str(TRAIN_DIR / "linalg_rank{}.json")),
+             nprocs=LINALG_RANKS, join=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    for f in results:
+        f.unlink()
+    for r in ranks:
+        print(f"rank {r['rank']} {r['coords']}: launches {r['launches']} "
+              f"(matmul expected {r['expected_matmul']}, held "
+              f"{r['held_products']} of {r['products']}); seconds "
+              f"{r['seconds']}")
+        require(r["launches"]["matmul"] == r["expected_matmul"]
+                == r["products"],
+                "linalg: matmul launches do not match the plans' local "
+                "products")
+        require(all(v == 0 for op, v in r["launches"].items()
+                    if op != "matmul"), "linalg: a kernel other than the "
+                "GEMM was launched")
+    r0 = ranks[0]
+    summary = dict(mesh=dict(zip(("data", "model"), LINALG_MESH)),
+                   ranks=LINALG_RANKS, backend="gloo (host memory), one card",
+                   sweep=r0["sweep"], full_width=r0["full_width"],
+                   full_width_wall_ms_median_by_rank=[
+                       {k: v["wall_ms_median"] for k, v in
+                        r["full_width"]["runs"].items()} for r in ranks],
+                   full_width_bytes_by_rank=[
+                       {k: v["bytes"] for k, v in
+                        r["full_width"]["runs"].items()} for r in ranks],
+                   peak_gib_by_rank=[r["full_width"]["peak_gib"]
+                                     for r in ranks],
+                   local_gemm_ms=r0["local_gemm_ms"],
+                   relayouts=r0["relayouts"], primitives=r0["primitives"],
+                   dtensor=r0["dtensor"],
+                   held_max_abs_err=r0["held_max_abs_err"],
+                   seconds=r0["seconds"],
+                   matmul_launches_by_rank=[r["launches"]["matmul"]
+                                            for r in ranks])
+    print("dmath " + json.dumps(summary), flush=True)
+    return summary, {k: sum(r["launches"][k] for r in ranks)
+                     for k in r0["launches"]}
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
 ALONE = {"d256": lambda: print(json.dumps(
              check_flash_d256(get_config(GEMMA2B)))),
-         "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b}
+         "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b,
+         "9": linalg_phase}
 
 
 def main() -> int:
@@ -3815,7 +4328,12 @@ def main() -> int:
     cli_phase(cfg)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
 
-    # 9. results; 4c's and 4d's kernel calls held at their own shapes
+    # 9. dMath's distributed linear algebra, four ranks on the card
+    t9 = time.perf_counter()
+    _, linalg_launches = linalg_phase()
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
+
+    # 10. results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
     for row, err in ((rows[0], g3e["matmul"]), (rows[0], g2e["matmul"]),
@@ -3836,7 +4354,8 @@ def main() -> int:
                   "steps)")
     paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
              f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
-             train_path: train_launches, DP_PATH: dp_launches}
+             train_path: train_launches, DP_PATH: dp_launches,
+             LINALG_PATH: linalg_launches}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

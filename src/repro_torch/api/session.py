@@ -2,9 +2,12 @@
 state on the device and steps it, ported (minimally) from the reference's
 ``api/session.py``.
 
-``Session(device=..., group=..., obs=...)`` holds the device, the process
-group (None: one rank, or the default group when one is initialized) and
-the telemetry (:mod:`repro_torch.obs`, the disabled ``NULL`` by default);
+``Session(device=..., group=..., obs=..., mesh=...)`` holds the device,
+the process group (None: one rank, or the default group when one is
+initialized), the telemetry (:mod:`repro_torch.obs`, the disabled
+``NULL`` by default), the mesh over the group (``make_host_mesh``'s
+(data=n, model=1) by default) and the layout table of its linalg surface
+(``tensors``; :meth:`Session.tensor` makes a ``DistTensor`` there);
 :meth:`Session.plan` resolves the config, the microbatch count, the
 CommsPlan and the dispatch path; :meth:`Session.init_state` makes the
 params and the AdamW state resident on the device (or :meth:`Session.put`
@@ -32,6 +35,9 @@ from repro_torch import obs as obs_mod
 from repro_torch.comms.plan import CommsPlan
 from repro_torch.configs import get_config, scale_config
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dtensor import DistTensor, TensorRegistry
+from repro_torch.core.layout import Layout
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import Model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import step as step_mod
@@ -66,12 +72,16 @@ class Session:
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  group: Optional[dist.ProcessGroup] = None,
-                 obs: Optional["obs_mod.Obs"] = None):
+                 obs: Optional["obs_mod.Obs"] = None, mesh=None,
+                 tensors: Optional[TensorRegistry] = None):
         self.device = resolve_device(device)
         if group is None and dist.is_initialized():
             group = dist.group.WORLD
         self.group = group
         self.n_ranks = dist.get_world_size(group) if group is not None else 1
+        self.mesh = (mesh if mesh is not None
+                     else mesh_mod.make_host_mesh(group=group))
+        self.tensors = tensors if tensors is not None else TensorRegistry()
         self.state: Dict[str, Any] = {}
         self._steps: Dict[int, Any] = {}
         # spans and gauges flow through here; the NULL default keeps every
@@ -214,6 +224,18 @@ class Session:
 
     def get(self, name: str):
         return self.state[name]
+
+    def tensor(self, data, layout: Optional[Layout] = None, *,
+               name: Optional[str] = None, **kw) -> DistTensor:
+        """A :class:`DistTensor` on the session's mesh: this rank's block
+        of the global ``data`` (a tensor or array, moved to the session's
+        device), registered in ``self.tensors`` so that the tensors
+        derived from it (relayouts, products) land there too."""
+        data = torch.as_tensor(data, device=self.device)
+        if layout is None:
+            layout = Layout.replicated(data.dim())
+        return DistTensor.shard(data, layout, self.mesh, name=name,
+                                registry=self.tensors, **kw)
 
     def evict(self, name: str):
         return self.state.pop(name, None)

@@ -1,10 +1,13 @@
-"""Mixed-precision policy (paper §4.2): bf16 storage and compute, fp32
-accumulation.
+"""Mixed-precision policies (paper §4.2): the dtype at each storage and
+compute boundary.
 
-A port of the reference's ``core/precision.py`` for the serve slice:
-:class:`Policy`, :data:`MIXED` and :func:`einsum`, whose products all run
-through :func:`repro_torch.kernels.ops.matmul` with an fp32 result, as
-``preferred_element_type=float32`` gives in JAX.  :func:`div_count` is
+A port of the reference's ``core/precision.py``: :class:`Policy`, the
+paper's operating points :data:`FULL`, :data:`MIXED` and
+:data:`HALF_STORAGE`, and :func:`matmul` and :func:`einsum`, whose
+products all run through :func:`repro_torch.kernels.ops.matmul` with an
+``accum_dtype`` result, as ``preferred_element_type`` gives in JAX.  fp32
+operands (``FULL``, ``HALF_STORAGE``) take the GEMM kernel's fp32 path,
+FMAs on the CUDA cores: nothing falls to TF32.  :func:`div_count` is
 the reference's division by a count fixed when the program is built (a
 mean over ranks or microbatches), rounded as XLA compiles it;
 :func:`lazy_promote` the input pipeline's last-stage promotion.
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Dict
 
 import torch
 
@@ -31,11 +35,42 @@ class Policy:
     reduce_dtype: torch.dtype = torch.float32
     activation_dtype: torch.dtype = torch.bfloat16
 
-    def cast_compute(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.compute_dtype) if x.is_floating_point() else x
+    def cast_params(self, tree: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        return {k: _maybe_cast(v, self.param_dtype) for k, v in tree.items()}
+
+    def cast_compute(self, *xs: torch.Tensor):
+        out = tuple(_maybe_cast(x, self.compute_dtype) for x in xs)
+        return out[0] if len(out) == 1 else out
+
+    def cast_master(self, tree: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        return {k: _maybe_cast(v, self.master_dtype) for k, v in tree.items()}
 
 
-MIXED = Policy()
+def _maybe_cast(x, dtype: torch.dtype):
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype)
+    return x
+
+
+# The paper's operating points.
+FULL = Policy(param_dtype=torch.float32, compute_dtype=torch.float32,
+              activation_dtype=torch.float32)
+MIXED = Policy()                                  # bf16 storage+compute
+HALF_STORAGE = Policy(compute_dtype=torch.float32)  # store half, compute fp32
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           policy: Policy = MIXED) -> torch.Tensor:
+    """``(..., K) @ (K, N)`` on compute-dtype operands with an
+    ``accum_dtype`` result: one GEMM over ``a``'s flattened rows."""
+    a, b = policy.cast_compute(a, b)
+    if b.dim() != 2:
+        raise ValueError(f"matmul: b must be (K, N), got {tuple(b.shape)}")
+    c = ops.matmul(a.reshape(-1, a.shape[-1]).contiguous(), b.contiguous(),
+                   out_dtype=policy.accum_dtype)
+    return c.reshape(*a.shape[:-1], b.shape[1])
 
 
 def einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
@@ -54,7 +89,7 @@ def einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     if a.dim() != len(sa) or b.dim() != len(sb):
         raise ValueError(f"einsum {spec!r}: operand ranks {a.dim()}, "
                          f"{b.dim()}")
-    a, b = policy.cast_compute(a), policy.cast_compute(b)
+    a, b = policy.cast_compute(a, b)
     lead, trail = a.shape[:a.dim() - n], b.shape[n:]
     k = math.prod(a.shape[a.dim() - n:])
     c = ops.matmul(a.reshape(-1, k).contiguous(),
