@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
-``d256``, ``4c``, ``4d``, ``6b`` and ``9``, after phases 1 and 2).
+``d256``, ``4c``, ``4d``, ``6b``, ``9`` and ``10``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -214,7 +214,33 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    ``with_layout``, ``to_global``, the session's table, an op-cache hit.
    Each rank's ``matmul`` launches equal the local products its plans
    call for.  These are gloo-through-host-memory times on one card.
-10. Print the ``kernels`` JSON line, the card's name and power limit, and
+10. Hybrid data x tensor/sequence parallel training: qwen2-0.5b at full
+   width and depth on four ranks spawned on the one card over gloo,
+   ``Session(mesh=...)`` with ``comms="off"`` (the gspmd path with the
+   implicit gradient sync and ZeRO-1 AdamW), 4 x 512 tokens,
+   ``remat="full"``: 4 steps on (data=2, model=2) (head-TP with the
+   sequence-parallel residual) and 4 on (data=1, model=4) (SP with the
+   local MLP).  Before the spawn, the one-rank step on the card from the
+   same seed and batches is the yardstick, its state after each step
+   saved; a rank starts each step from its blocks of the yardstick's
+   state before it.  Each step's loss and grad norm within rtol 1e-3 of
+   the yardstick's; after each step but the last every rank's param
+   blocks within phase 6's step rule of its params' blocks, and every
+   rank's mu and nu block within the gradient rule of the matching block
+   of its moments (the fp32 rule read beside it).  A witness, not a
+   gate: the one-rank steps again with every batch's rows reversed, free
+   running, and its distance from the yardstick.  Each rank's
+   ``matmul``, flash forward and backward launches equal the layer
+   structure's counts, no other kernel runs, every distinct local GEMM
+   shape (forward, and dA/dB at the same shapes) and every flash case
+   (forward and backward, the SP blocks at their ``q_offset``) is held
+   against its plain version; prints per mesh the step wall (median of
+   steps 2 and 3), the wall of step 4 with its host ms inside the
+   collectives (the card synchronized before each), tokens/s,
+   each rank's peak memory and bytes received per step by collective
+   beside the estimate from the layouts.  Also alone: ``python3
+   chip_smoke.py 10``.
+11. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -4179,13 +4205,517 @@ def linalg_phase():
                      for k in r0["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: hybrid data x tensor/sequence parallel training, four ranks
+# ---------------------------------------------------------------------------
+
+HYBRID_RANKS = 4
+# (mesh (data, model), the plan's attention mode, steps).  Every step
+# starts from the one-rank yardstick's state before it (a rank restarts
+# from its blocks of the yardstick's state after each step), so each
+# step's loss and grad norm differ from the yardstick's by that step's
+# sums (their order, and the shares' bf16 roundings on the wire) alone,
+# and are held at rtol 1e-3.  Step 1 runs the plain checks, steps 2 and 3
+# give the step wall, step 4 is timed with the collectives clocked
+# (``CollectiveClock`` synchronizes the card before each).
+HYBRID = (((2, 2), "head_tp", 4), ((1, 4), "sp", 4))
+HYBRID_PATH = f"{ARCH} hybrid train (4 ranks, gloo, (2,2) and (1,4))"
+HYBRID_DEVICE = "cuda"
+HYBRID_CLOCKED = 3                     # the step (from 0) whose wire is timed
+
+
+def hybrid_yard(t: int) -> Path:
+    """The yardstick's state after step ``t`` (from 1)."""
+    return TRAIN_DIR / f"hybrid_yardstick{t}.pt"
+
+
+def hybrid_session(shape, cfg):
+    """A Session on ``shape`` over the default group, and its train plan
+    (the gspmd path on the mesh)."""
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.core.distributed import Mesh
+    mesh = Mesh(shape, ("data", "model"), dist.group.WORLD)
+    sess = Session(device=HYBRID_DEVICE, group=dist.group.WORLD, mesh=mesh)
+    plan = sess.plan(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, comms="off",
+                     adamw=train_adamw(), microbatches=1)
+    return sess, plan, mesh
+
+
+class HeldKernels:
+    """Wraps ``ops.matmul`` and ``ops.attention`` in a rank: the first call
+    of each distinct case (shapes, dtypes, the flash arguments) is held
+    against its plain version on the same inputs (phase 3's rule); the
+    cases are kept for the backward checks.  The plain versions launch
+    nothing."""
+
+    def __init__(self):
+        self.mm, self.att = ops.matmul, ops.attention
+        self.mm_cases, self.att_cases = {}, {}
+        self.calls = {"matmul": 0, "attention": 0}
+
+    def install(self):
+        ops.matmul, ops.attention = self.matmul, self.attention
+
+    def uninstall(self):
+        ops.matmul, ops.attention = self.mm, self.att
+
+    def matmul(self, a, b, out_dtype=None):
+        # counted before the call: under remat the recompute stops inside
+        # a layer's last product, after its launch (torch.utils.checkpoint)
+        self.calls["matmul"] += 1
+        c = self.mm(a, b, out_dtype)
+        key = (tuple(a.shape), tuple(b.shape), str(a.dtype),
+               str(out_dtype or a.dtype))
+        if key not in self.mm_cases:
+            with torch.no_grad():
+                self.mm_cases[key] = max_err(
+                    c.detach(), ref.matmul(a.detach(), b.detach(), out_dtype),
+                    f"hybrid local product {key}")
+        return c
+
+    def attention(self, q, k, v, **kw):
+        self.calls["attention"] += 1
+        out = self.att(q, k, v, **kw)
+        key = (tuple(q.shape), tuple(k.shape),
+               tuple(sorted((n, x) for n, x in kw.items())))
+        if key not in self.att_cases:
+            with torch.no_grad():
+                want = ref.attention(q.detach(), k.detach(), v.detach(), **kw)
+            self.att_cases[key] = max_err(out.detach(), want,
+                                          f"hybrid flash {key}")
+        return out
+
+    def backward_checks(self):
+        """dA and dB of every distinct forward product (the cotangent in
+        fp32 for an fp32 result), and the flash backward of every distinct
+        case, on random inputs of the case's shapes, against the plain
+        backward: (GEMM max abs err, flash max abs err)."""
+        mm_err = att_err = 0.0
+        for i, (sa, sb, _, od) in enumerate(self.mm_cases):
+            a, b = randn(sa, 2100 + i), randn(sb, 2200 + i, 0.05)
+            out = getattr(torch, od.split(".")[1])
+            dc = randn((sa[0], sb[1]), 2300 + i, dtype=out)
+            leaves = [a.clone().requires_grad_(True),
+                      b.clone().requires_grad_(True)]
+            got = torch.autograd.grad(self.mm(*leaves, out), leaves, dc)
+            g = dc.to(torch.bfloat16)      # the kernel's backward operand
+            want = (ref.matmul(g, b.t(), torch.bfloat16),
+                    ref.matmul(a.t(), g, torch.bfloat16))
+            mm_err = max(mm_err, grads_close(
+                got, want, f"hybrid product backward {sa} @ {sb}"))
+        for i, (sq, sk, kw) in enumerate(self.att_cases):
+            B, hq, S, D = sq
+            q, k, v, d_out = bwd_inputs(2400 + 4 * i, B, hq, sk[1], S, sk[2],
+                                        D)
+            kw = dict(kw)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            got = torch.autograd.grad(self.att(*leaves, **kw), leaves, d_out)
+            want = ref.attention_backward(q, k, v, d_out, **kw)
+            att_err = max(att_err, grads_close(
+                got, want, f"hybrid flash backward {sq} x {sk} {kw}"))
+        return mm_err, att_err
+
+
+class CollectiveClock:
+    """Host seconds inside the counted collectives of
+    ``repro_torch.core.distributed`` (the outermost call only; the card is
+    synchronized first, so a collective's time does not include the
+    kernels queued before it): the wire's share of a step."""
+
+    NAMES = ("all_gather", "all_to_all", "psum", "psum_scatter", "pmax")
+
+    def __init__(self):
+        from repro_torch.core import distributed as D
+        self.D, self.saved, self.seconds, self.depth = D, {}, 0.0, 0
+
+    def _timed(self, fn):
+        def call(*a, **k):
+            if self.depth:
+                return fn(*a, **k)
+            if HYBRID_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.depth -= 1
+        return call
+
+    def __enter__(self):
+        for n in self.NAMES:
+            self.saved[n] = getattr(self.D, n)
+            setattr(self.D, n, self._timed(self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.D, n, fn)
+
+
+def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
+    """Bytes one rank receives in one step, by collective, from the
+    layouts (``WIRE``'s accounting: an all-gather of a block receives the
+    other ranks' blocks; a reduce-scatter, an all-to-all of the pieces,
+    (n - 1)/n of the tensor; a floating sum over n > 2 ranks gathers the
+    line's tensors, over 2 one tensor).  Per layer the forward, its
+    recompute under ``remat="full"`` (which stops after the last product
+    whose inputs the backward keeps: the MLP's reduce-scatter is not run
+    again) and the backward (each collective's transpose); the embedding's
+    all-to-all and the head's gather, each with its transpose; the loss's
+    max and sums over the model axis; the gradient sync onto the ZeRO
+    blocks and the parameters' gather back, in bf16; the grad norm's
+    sum."""
+    import collections
+    from repro_torch.core.replication import zero_layout
+    cfg, plan = model.cfg, model.plan
+    tp, nd = mesh.shape["model"], mesh.shape["data"]
+    b = batch // nd if model.rows_split(batch) else batch
+    act = b * seq * cfg.d_model * 2                   # bf16, whole sequence
+    est = collections.Counter()
+
+    def ag(block, n):
+        est["all_gather"] += (n - 1) * block
+
+    def rs(full, n):
+        est["all_to_all"] += (n - 1) * full // n
+
+    def ps(nbytes, n):
+        est["all_reduce"] += ((n - 1) * nbytes if n > 2
+                              else nbytes if n == 2 else 0)
+
+    L = cfg.n_layers
+    if tp > 1:
+        if plan.attn_mode == "head_tp":
+            # attention and MLP: gather the sequence, reduce-scatter back;
+            # the recompute runs all but the MLP's reduce-scatter
+            for _ in range(L):
+                for _ in range(3 * 2):          # fwd, remat, bwd x 2 gathers
+                    ag(act // tp, tp)
+                for _ in range(3 * 2 - 1):      # the same reduce-scatters
+                    rs(act, tp)
+        else:
+            kv = b * (seq // tp) * cfg.n_kv_heads * cfg.d_head * 2
+            for _ in range(L):
+                for _ in range(2 * 2):          # K and V: fwd and remat
+                    ag(kv, tp)
+                for _ in range(2):              # their transposes
+                    rs(kv * tp, tp)
+        rs(act // tp, tp)                       # embed all-to-all + back
+        rs(act // tp, tp)
+        ag(act // tp, tp)                       # the head's gather
+        rs(act, tp)                             # and its transpose
+        ag(b * seq * 4, tp)                     # the loss's max
+        ps(b * seq * 4, tp)                     # sum of exps
+        ps(b * seq * 4, tp)                     # gold logit
+    if model.rows_split(batch):
+        ps(4, nd)                               # the token count
+        ps(4, nd)                               # the loss
+    specs = model.param_specs()
+    for name, spec in specs.items():
+        storage = spec.layout
+        zero = zero_layout(storage, spec.shape, mesh)
+        block = math.prod(storage.local_shape(spec.shape, mesh)) * 2
+        for a in model.grad_split_axes(name, batch):
+            n = mesh.shape[a]
+            if n == 1 or a in storage.mesh_axes_used():
+                continue
+            if a in zero.mesh_axes_used():
+                rs(block, n)
+                block //= n
+            else:
+                ps(block, n)
+        zblock = math.prod(zero.local_shape(spec.shape, mesh)) * 2
+        for a in reversed([a for a in zero.mesh_axes_used()
+                           if a not in storage.mesh_axes_used()]):
+            ag(zblock, mesh.shape[a])
+            zblock *= mesh.shape[a]
+    for a in ("data", "model"):                 # the grad norm's sum
+        ps(4 * len(specs), mesh.shape[a])
+    return dict(est)
+
+
+def hybrid_one_rank(cfg, batches, steps, keep=False):
+    """``steps`` one-rank steps on the card (path gspmd, no mesh) from the
+    seed: their metrics; with ``keep``, the state after each step but the
+    last goes to :func:`hybrid_yard` (the fp32 master, from which the
+    step wrote the params, and the moments)."""
+    from repro_torch.api import Session
+    sess = Session(device=HYBRID_DEVICE)
+    plan = sess.plan(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, comms="off",
+                     adamw=train_adamw(), microbatches=1)
+    require(plan.path == "gspmd" and plan.model.mesh is None,
+            "the yardstick is the one-rank path")
+    sess.init_state(plan, seed=SEED)
+    metrics = []
+    for t in range(steps):
+        m = sess.step(plan, batches[t])
+        metrics.append({k: float(v) for k, v in m.items()})
+        if keep and t + 1 < steps:
+            opt_state = sess.state["train_state"]["opt"]
+            TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+            torch.save({"step": int(opt_state["step"]),
+                        **{slot: {k: v.cpu() for k, v in
+                                  opt_state[slot].items()}
+                           for slot in ("master", "mu", "nu")}},
+                       hybrid_yard(t + 1))
+    del sess, plan
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def hybrid_yardstick(cfg, batches):
+    """The one-rank yardstick from the seed and batches the ranks use: its
+    metrics for every step, its state after each step but the last saved
+    for the ranks.  Then a witness: the same steps with every batch's rows
+    reversed (the same loss and gradients, summed in another order); its
+    relative distance from the yardstick at each step is what the sums'
+    order alone moves on one rank, free running (not a gate)."""
+    steps = max(n for _, _, n in HYBRID)
+    metrics = hybrid_one_rank(cfg, batches, steps, keep=True)
+    flipped = [{k: np.ascontiguousarray(np.asarray(v)[::-1])
+                for k, v in b.items()} for b in batches]
+    witness = hybrid_one_rank(cfg, flipped, steps)
+    drift = [{k: abs(w[k] / y[k] - 1) for k in ("loss", "grad_norm")}
+             for w, y in zip(witness, metrics)]
+    print(f"hybrid yardstick (one rank): {metrics}", flush=True)
+    print(f"hybrid one-rank witness, rows reversed, free running: relative "
+          f"distance {drift}", flush=True)
+    return metrics, drift
+
+
+def hybrid_after_step(sess, plan, mesh, yard, p_start, lr, what):
+    """After a step from the yardstick's state (``p_start`` this rank's
+    params then): this rank's param blocks within phase 6's step rule of
+    the yardstick's blocks after the step, and its mu and nu blocks within
+    the gradient rule of the yardstick moments' matching blocks.  The fp32
+    rule (rtol 2e-5, atol 2e-5: ``fp32_rule`` at K = 64) is read beside
+    it, not held: the moments come from bf16 gradients summed in another
+    order, so only the rule's absolute atol can hold them, and whether it
+    does depends on the gradients' scale.  Returns the readings."""
+    from repro_torch.train import optimizer as opt
+    zero = opt.ZeroLayouts.of(plan.model.param_specs(), mesh)
+    st = sess.state["train_state"]
+    dev = HYBRID_DEVICE
+    want = {k: zero.storage[k].block(yard["master"][k], mesh).to(dev, p.dtype)
+            for k, p in st["params"].items()}
+    rule = step_agreement({k: v.detach() for k, v in st["params"].items()},
+                          want, p_start, lr, what)
+    errs, fp32 = {}, {}
+    for slot in ("mu", "nu"):
+        err, past, past_rel, total = 0.0, 0, 0, 0
+        for k, got in st["opt"][slot].items():
+            full = yard[slot][k]
+            w = zero.zero[k].block(full, mesh).to(dev)
+            e = (got - w).abs()
+            atol = GRAD_ATOL_FRAC * float(full.abs().max())
+            require(not bool((e > atol + GRAD_RTOL * w.abs()).any()),
+                    f"{what}: {slot} {k} off the yardstick's block (max abs "
+                    f"err {float(e.max()):.3g})")
+            err = max(err, float(e.max()))
+            past += int((e > 2e-5 * w.abs() + 2e-5).sum())
+            past_rel += int((e > 2e-5 * w.abs()).sum())
+            total += e.numel()
+        errs[slot] = err
+        fp32[slot] = dict(holds=past == 0, past_frac=past / total,
+                          past_rtol_alone_frac=past_rel / total)
+    print(f"{what}: moments max abs err {errs}; fp32 rule (read, not held) "
+          f"{fp32}", flush=True)
+    return dict(step_rule=rule, moments_max_abs_err=errs,
+                moments_fp32_rule=fp32)
+
+
+def hybrid_restart(sess, plan, mesh, yard):
+    """Sets this rank's state to its blocks of the yardstick's state
+    ``yard``: master, moments and step, and the params cast from the
+    master as the step writes them."""
+    from repro_torch.train import optimizer as opt
+    zero = opt.ZeroLayouts.of(plan.model.param_specs(), mesh)
+    st = sess.state["train_state"]
+    with torch.no_grad():
+        for slot in ("master", "mu", "nu"):
+            for k, x in st["opt"][slot].items():
+                x.copy_(zero.zero[k].block(yard[slot][k], mesh))
+        for k, p in st["params"].items():
+            p.copy_(zero.storage[k].block(yard["master"][k], mesh))
+        st["opt"]["step"].fill_(yard["step"])
+
+
+def hybrid_rank(rank, init, result_path, yard_metrics):
+    """One rank of phase 10; writes its results as JSON to
+    ``result_path`` with its number in place of ``{}``."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import WIRE, close_group, init_group
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(init, rank=rank, world_size=HYBRID_RANKS,
+               device=HYBRID_DEVICE)
+    cfg = get_config(ARCH)
+    batches = train_batches(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(rank=rank, meshes={})
+    for shape, mode, steps in HYBRID:
+        what = f"hybrid {shape[0]}x{shape[1]} rank {rank}"
+        sess, plan, mesh = hybrid_session(shape, cfg)
+        require(plan.path == "gspmd" and plan.model.mesh is mesh
+                and plan.parallel.attn_mode == mode
+                and plan.parallel.seq_parallel_residual
+                and plan.parallel.ffn_replicated == (mode == "sp"),
+                f"{what}: plan {plan.path} {plan.parallel}")
+        sess.init_state(plan, seed=SEED)
+        held = HeldKernels()
+        walls, metrics, after = [], [], []
+        if HYBRID_DEVICE == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        ops.reset_launches()
+        held.install()
+        for t in range(steps):
+            p_start = {k: v.detach().clone() for k, v in
+                       sess.state["train_state"]["params"].items()}
+            WIRE.reset()
+            dist.barrier()
+            with (CollectiveClock() if t == HYBRID_CLOCKED
+                  else contextlib.nullcontext()) as clock:
+                t0 = time.perf_counter()
+                m = sess.step(plan, batches[t])
+                if HYBRID_DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            if clock is not None:
+                clocked_ms = 1e3 * clock.seconds
+            wire = dict(WIRE.bytes)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if t + 1 < steps:
+                held.uninstall()
+                yard = torch.load(hybrid_yard(t + 1), mmap=True)
+                after.append(hybrid_after_step(
+                    sess, plan, mesh, yard, p_start, metrics[t]["lr"],
+                    f"{what} after step {t + 1}"))
+                hybrid_restart(sess, plan, mesh, yard)
+                del yard
+                held.install()
+            del p_start
+        held.uninstall()
+        launches = ops.dispatch_report()
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if HYBRID_DEVICE == "cuda" else 0.0)
+        mm_bwd, att_bwd = held.backward_checks()
+        dev = [{k: abs(got[k] / want[k] - 1) for k in ("loss", "grad_norm")}
+               for got, want in zip(metrics, yard_metrics)]
+        print(f"{what}: relative distance from the one-rank step {dev}",
+              flush=True)
+        for t, (got, want) in enumerate(zip(metrics, yard_metrics)):
+            for k in ("loss", "grad_norm", "lr"):
+                # each step from the yardstick's state before it: only
+                # the step's sums differ (their order, the wire's bf16)
+                require(math.isclose(got[k], want[k], rel_tol=1e-3),
+                        f"{what} step {t + 1}: {k} {got[k]} against the "
+                        f"one-rank {want[k]}")
+        # the unclocked steps after the first
+        free = [w for t, w in enumerate(walls) if t and t != HYBRID_CLOCKED]
+        out["meshes"][f"{shape[0]}x{shape[1]}"] = dict(
+            mode=mode, steps=steps, metrics=metrics, walls_ms=walls,
+            clocked_step=HYBRID_CLOCKED + 1,
+            clocked_wall_ms=walls[HYBRID_CLOCKED], collective_ms=clocked_ms,
+            wall_ms_median=statistics.median(free),
+            tokens_per_s=tokens / (statistics.median(free) / 1e3),
+            peak_gib=peak, wire_bytes=wire,
+            wire_estimate=hybrid_wire_estimate(plan.model, mesh, TRAIN_BATCH,
+                                               TRAIN_SEQ),
+            launches=launches, forward_calls=held.calls,
+            distance_from_one_rank=dev,
+            expected=expected_train_launches(cfg, steps, int8=False),
+            gemm_cases=len(held.mm_cases), flash_cases=len(held.att_cases),
+            gemm_max_abs_err=max(held.mm_cases.values()),
+            flash_max_abs_err=max(held.att_cases.values()),
+            gemm_backward_max_abs_err=mm_bwd,
+            flash_backward_max_abs_err=att_bwd, after_step=after)
+        del sess, plan
+        if HYBRID_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def hybrid_phase():
+    """Phase 10: the one-rank yardstick (and its witness), then four ranks
+    spawned on the one card over gloo, each mesh in turn; returns the
+    summary and the ranks' launch counts summed over both meshes."""
+    import torch.multiprocessing as mp
+    cfg = get_config(ARCH)
+    init = f"file://{TRAIN_DIR / 'rendezvous_hybrid'}"
+    (TRAIN_DIR / "rendezvous_hybrid").unlink(missing_ok=True)
+    results = [TRAIN_DIR / f"hybrid_rank{r}.json"
+               for r in range(HYBRID_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    yards = [hybrid_yard(t) for t in range(1, max(n for _, _, n in HYBRID))]
+    try:
+        yard_metrics, witness = hybrid_yardstick(cfg, train_batches(cfg))
+        mp.spawn(hybrid_rank,
+                 args=(init, str(TRAIN_DIR / "hybrid_rank{}.json"),
+                       yard_metrics),
+                 nprocs=HYBRID_RANKS, join=True)
+    finally:
+        for f in yards:
+            f.unlink(missing_ok=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    for f in results:
+        f.unlink()
+    total = {}
+    summary = dict(arch=ARCH, ranks=HYBRID_RANKS,
+                   backend="gloo (host memory), one card",
+                   tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+                   yardstick=yard_metrics,
+                   one_rank_rows_reversed_distance=witness, meshes={})
+    for shape, mode, steps in HYBRID:
+        tag = f"{shape[0]}x{shape[1]}"
+        rows = [r["meshes"][tag] for r in ranks]
+        for r, row in zip(ranks, rows):
+            got, want = row["launches"], row["expected"]
+            print(f"hybrid {tag} rank {r['rank']}: launches {got} (expected "
+                  f"{want}); held {row['gemm_cases']} GEMM and "
+                  f"{row['flash_cases']} flash cases; peak "
+                  f"{row['peak_gib']:.3f} GiB; wire per step "
+                  f"{row['wire_bytes']} (estimate {row['wire_estimate']})",
+                  flush=True)
+            require(got == want, f"hybrid {tag} rank {r['rank']}: launches "
+                    "do not match the layer structure")
+            for op, n in got.items():
+                total[op] = total.get(op, 0) + n
+        summary["meshes"][tag] = dict(
+            mode=mode, steps=steps,
+            metrics_rank0=rows[0]["metrics"],
+            step_wall_ms_median_by_rank=[r["wall_ms_median"] for r in rows],
+            step_walls_ms_rank0=rows[0]["walls_ms"],
+            clocked_step=rows[0]["clocked_step"],
+            clocked_wall_ms_by_rank=[r["clocked_wall_ms"] for r in rows],
+            collective_ms_by_rank=[r["collective_ms"] for r in rows],
+            tokens_per_s_by_rank=[r["tokens_per_s"] for r in rows],
+            peak_gib_by_rank=[r["peak_gib"] for r in rows],
+            wire_bytes_per_step_by_rank=[r["wire_bytes"] for r in rows],
+            wire_estimate_by_rank=[r["wire_estimate"] for r in rows],
+            after_step_by_rank=[r["after_step"] for r in rows],
+            distance_from_one_rank_by_rank=[r["distance_from_one_rank"]
+                                            for r in rows],
+            max_abs_err={k: max(r[k] for r in rows) for k in (
+                "gemm_max_abs_err", "flash_max_abs_err",
+                "gemm_backward_max_abs_err", "flash_backward_max_abs_err")})
+    print("hybrid " + json.dumps(summary), flush=True)
+    return summary, total
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
 ALONE = {"d256": lambda: print(json.dumps(
              check_flash_d256(get_config(GEMMA2B)))),
          "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b,
-         "9": linalg_phase}
+         "9": linalg_phase, "10": hybrid_phase}
 
 
 def main() -> int:
@@ -4333,7 +4863,12 @@ def main() -> int:
     _, linalg_launches = linalg_phase()
     print(f"phase 9: {time.perf_counter() - t9:.1f} s", flush=True)
 
-    # 10. results; 4c's and 4d's kernel calls held at their own shapes
+    # 10. hybrid data x tensor/sequence parallel training, four ranks
+    t10 = time.perf_counter()
+    hybrid, hybrid_launches = hybrid_phase()
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # 11. results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
     for row, err in ((rows[0], g3e["matmul"]), (rows[0], g2e["matmul"]),
@@ -4342,6 +4877,16 @@ def main() -> int:
                      (rows[2], max(g3e["paged"], g3e["ring"])),
                      (rows[2], g2e["paged"])):
         row["max_abs_err"] = max(row["max_abs_err"], err)
+    for mesh_row in hybrid["meshes"].values():
+        errs = mesh_row["max_abs_err"]
+        rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                     errs["gemm_max_abs_err"],
+                                     errs["gemm_backward_max_abs_err"])
+        rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                     errs["flash_max_abs_err"])
+        bwd = next(r for r in rows if r["name"] == "attention_backward")
+        bwd["max_abs_err"] = max(bwd["max_abs_err"],
+                                 errs["flash_backward_max_abs_err"])
     names = {"gemm": "matmul", "flash_attention": "attention",
              "flash_attention_d256": "attention",
              "paged_decode_attention": "paged_decode_attention",
@@ -4355,7 +4900,7 @@ def main() -> int:
     paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
              f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
              train_path: train_launches, DP_PATH: dp_launches,
-             LINALG_PATH: linalg_launches}
+             LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

@@ -1,6 +1,7 @@
 """ExecutablePlan and the train-step capability matrix, ported from the
 reference's ``api/plan.py`` for the paths the port has: ``gspmd`` (one
-rank) and ``comms`` (a data-parallel group)."""
+rank, or a ``(data, model)`` mesh with the implicit gradient sync) and
+``comms`` (a data-parallel group)."""
 
 from __future__ import annotations
 
@@ -10,29 +11,31 @@ from typing import Any, Dict
 #: path -> what it supports; ``select_path`` picks the row.
 CAPABILITIES: Dict[str, Dict[str, Any]] = {
     "gspmd": dict(
-        title="one rank",
-        axes="one rank: no gradient sync",
+        title="plain / ZeRO (GSPMD)",
+        axes="pod x data x model — DP x TP, FSDP/ZeRO storage sharding",
         schedules=(),
-        grad_sync="none (the reference's implicit GSPMD psum over the "
-                  "batch axes has nothing to reduce on one rank)",
-        selected_when="no CommsPlan (comms='off' or None)",
+        grad_sync="implicit GSPMD psum over the batch axes",
+        selected_when="no pipe axis and no CommsPlan (the default path)",
     ),
     "comms": dict(
         title="explicit comms sync",
-        axes="a data-parallel torch.distributed group",
+        axes="pod x data only — every non-batch mesh axis must be 1",
         schedules=("psum",),
         grad_sync="repro_torch.comms bucketed (optionally bf16/int8-"
                   "compressed) all-reduce over the group",
-        selected_when="a CommsPlan is attached (comms='auto' attaches one "
-                      "on every group: the port's paths are data-parallel)",
+        selected_when="a CommsPlan is attached and there is no pipe axis "
+                      "(comms='auto' attaches one on a pure-DP mesh)",
     ),
 }
 
 
-def select_path(*, comms=None, pipeline=None) -> str:
-    """The dispatch rule: a pipeline wins (not ported yet), then an
-    attached CommsPlan selects the explicit path, else one rank."""
-    if pipeline is not None:
+def select_path(mesh, *, comms=None, pipeline=None) -> str:
+    """The dispatch rule, as the reference's: a pipe axis (or a
+    PipelineSpec) wins (not ported yet), then an attached CommsPlan
+    selects the explicit path, else the gspmd path.  ``mesh`` is anything
+    with a ``shape`` mapping (or the mapping itself)."""
+    shape = dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
+    if pipeline is not None or shape.get("pipe", 1) > 1:
         raise NotImplementedError("the pipeline path is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
     return "comms" if comms is not None else "gspmd"
@@ -51,3 +54,5 @@ class ExecutablePlan:
     adamw: Any = None
     comms: Any = None                     # CommsPlan routed to the step
     n_ranks: int = 1
+    mesh: Any = None                      # the Session's mesh
+    parallel: Any = None                  # ParallelPlan (plan_for)

@@ -8,10 +8,12 @@ initialized), the telemetry (:mod:`repro_torch.obs`, the disabled
 ``NULL`` by default), the mesh over the group (``make_host_mesh``'s
 (data=n, model=1) by default) and the layout table of its linalg surface
 (``tensors``; :meth:`Session.tensor` makes a ``DistTensor`` there);
-:meth:`Session.plan` resolves the config, the microbatch count, the
-CommsPlan and the dispatch path; :meth:`Session.init_state` makes the
-params and the AdamW state resident on the device (or :meth:`Session.put`
-a restored one), and :meth:`Session.step` runs one train step on them in
+:meth:`Session.plan` resolves the config, the layout plan
+(``plan_for`` on the mesh), the microbatch count, the CommsPlan and the
+dispatch path; :meth:`Session.init_state` makes the params and the AdamW
+state resident on the device, each rank's blocks on a mesh with a model
+axis or a gspmd path over several ranks (or :meth:`Session.put` a
+restored one), and :meth:`Session.step` runs one train step on them in
 place, the state never leaving the device.  The reference's telemetry
 sites are here: the ``plan``, ``build_step`` and ``step`` /
 ``step_warmup`` spans (a step span closes after the card's work) and
@@ -25,6 +27,7 @@ budget accounting, the compiled-artifact cache and its gauges,
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -37,6 +40,7 @@ from repro_torch.configs import get_config, scale_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dtensor import DistTensor, TensorRegistry
 from repro_torch.core.layout import Layout
+from repro_torch.core.planner import plan_for
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import Model
 from repro_torch.train import optimizer as opt
@@ -106,48 +110,57 @@ class Session:
     def _plan(self, arch, *, batch: int, seq: int, comms="auto",
               adamw: Optional[opt.AdamWConfig] = None,
               microbatches: Optional[int] = None, scale_down: int = 1,
-              model_kwargs=None) -> ExecutablePlan:
+              model_kwargs=None, plan_kwargs=None) -> ExecutablePlan:
         """Plan one train cell (``batch`` is the global batch).
 
-        ``comms``: ``"auto"`` attaches the default :class:`CommsPlan` on a
-        process group (the port's paths are data-parallel, so every group
-        takes it, as the reference's pure-DP meshes do; its ``schedule``
-        resolves to ``psum`` on a group of one and raises on a larger one,
-        ROADMAP queue 1, item 8) and, with no group, selects the one-rank
-        path, which has no wire to sync; ``"off"``/``None`` selects the
-        one-rank path, and a ``CommsPlan`` is used as given.  The
-        microbatch count defaults to the reference's rule, clamped to the
-        rank's rows.  No memory budget is checked yet."""
+        The layout plan is :func:`~repro_torch.core.planner.plan_for` on
+        the session's mesh (``plan_kwargs`` go to it).  ``comms``:
+        ``"auto"`` attaches the default :class:`CommsPlan` on a pure-DP
+        mesh of a process group (every non-batch axis of size 1, as the
+        reference's ``dp_only``; its ``schedule`` resolves to ``psum`` on
+        a group of one and raises on a larger one, ROADMAP queue 1, item
+        8), and otherwise selects the ``gspmd`` path, on one rank or on
+        the mesh with the implicit gradient sync; ``"off"``/``None``
+        selects the ``gspmd`` path, and a ``CommsPlan`` is used as given.
+        The microbatch count defaults to the reference's rule, clamped to
+        the rows of a data coordinate.  No memory budget is checked yet."""
         cfg = get_config(arch) if isinstance(arch, str) else arch
         if scale_down > 1:
             cfg = scale_config(cfg, scale_down)
-        if batch % self.n_ranks:
+        mesh = self.mesh
+        parallel = plan_for(cfg, mesh, **(plan_kwargs or {}))
+        nb = math.prod(mesh.shape[a] for a in parallel.batch_axes) or 1
+        if batch % nb:
             raise ValueError(f"a global batch of {batch} does not split "
-                             f"over {self.n_ranks} ranks")
+                             f"over {nb} data ranks")
         nmb = (microbatches if microbatches is not None
-               else default_microbatches(cfg, batch, seq, self.n_ranks))
-        nmb = max(1, min(nmb, batch // self.n_ranks))
-        if (batch // self.n_ranks) % nmb:
+               else default_microbatches(cfg, batch, seq, nb))
+        nmb = max(1, min(nmb, batch // nb))
+        if (batch // nb) % nmb:
             raise ValueError(f"{nmb} microbatches do not split a rank's "
-                             f"{batch // self.n_ranks} rows")
+                             f"{batch // nb} rows")
         comms_plan = None
         if comms == "auto":
-            comms_plan = CommsPlan() if self.group is not None else None
+            dp_only = all(n == 1 for a, n in mesh.shape.items()
+                          if a not in parallel.batch_axes)
+            if self.group is not None and dp_only:
+                comms_plan = parallel.comms
         elif comms not in (None, "off"):
             comms_plan = comms
-        path = select_path(comms=comms_plan)
+        path = select_path(mesh, comms=comms_plan)
         if path == "comms":
             comms_plan.resolve(self.n_ranks)          # raise now, not mid-step
-        elif self.n_ranks > 1:
-            raise NotImplementedError(
-                "the one-rank path on a group of several ranks would train "
-                "each rank apart; attach a CommsPlan (the GSPMD-style "
-                "implicit sync is ROADMAP queue 1, item 7)")
-        model = Model(cfg, device=self.device, **(model_kwargs or {}))
+        # the gspmd path runs the one-rank model on a mesh of one rank
+        on_mesh = path == "gspmd" and mesh.size > 1
+        model = Model(cfg, device=self.device,
+                      mesh=mesh if on_mesh else None,
+                      plan=parallel if on_mesh else None,
+                      **(model_kwargs or {}))
         return ExecutablePlan(cfg=cfg, model=model, path=path,
                               global_batch=batch, seq_len=seq,
                               num_microbatches=nmb, adamw=adamw,
-                              comms=comms_plan, n_ranks=self.n_ranks)
+                              comms=comms_plan, n_ranks=self.n_ranks,
+                              mesh=mesh, parallel=parallel)
 
     def train_step(self, plan: ExecutablePlan) -> Callable:
         """The ``train_step(state, batch)`` of a plan (built once; the
@@ -159,23 +172,47 @@ class Session:
                 self._steps[key] = (plan, step_mod.dispatch_train_step(
                     plan.model, adamw=plan.adamw,
                     num_microbatches=plan.num_microbatches,
-                    comms=plan.comms, group=self.group, path=plan.path))
+                    comms=plan.comms, group=self.group, path=plan.path,
+                    mesh=self.mesh))
         return self._steps[key][1]
 
     def init_state(self, plan: ExecutablePlan, *, seed: int = 0,
                    name: str = "train_state",
                    params: Optional[Dict[str, torch.Tensor]] = None):
         """Initialize the plan's params (from ``seed``, the same on every
-        rank, or the given ``params`` copied to the device) and their
-        AdamW state, and keep them resident under ``name``."""
+        rank, or the given global ``params`` copied to the device) and
+        their AdamW state, and keep them resident under ``name``.  On a
+        mesh each rank keeps its blocks: of the params in their storage
+        layouts, of the state on their ZeRO blocks."""
+        model = plan.model
         if params is None:
-            params = plan.model.init(seed)
+            params = model.init(seed)
         else:
-            params = {k: v.to(self.device, copy=True)
-                      for k, v in params.items()}
+            params = model.shard({k: v.to(self.device, copy=True)
+                                  for k, v in params.items()})
         adamw = plan.adamw or opt.AdamWConfig()
-        state = {"params": params, "opt": opt.init_state(params, adamw)}
+        state = {"params": params, "opt": opt.init_state(
+            params, adamw, zero=self.zero_layouts(plan))}
         return self.put(name, state, kind="train_state")
+
+    def zero_layouts(self, plan: ExecutablePlan
+                     ) -> Optional[opt.ZeroLayouts]:
+        """The plan's ZeRO-1 layouts (None for a model without a mesh)."""
+        model = plan.model
+        return (None if model.mesh is None
+                else opt.ZeroLayouts.of(model.param_specs(), model.mesh))
+
+    def state_layouts(self, plan: ExecutablePlan) -> Dict[str, Any]:
+        """The layout of every leaf of the plan's train state on the mesh
+        (params in storage, the optimizer state on ZeRO blocks), for
+        :meth:`CheckpointManager.save` and ``restore``; None without a
+        mesh."""
+        zero = self.zero_layouts(plan)
+        if zero is None:
+            return None
+        return {"params": dict(zero.storage),
+                "opt": {"step": Layout(()), "mu": dict(zero.zero),
+                        "nu": dict(zero.zero), "master": dict(zero.zero)}}
 
     def step(self, plan: ExecutablePlan, batch, *,
              name: str = "train_state") -> Dict[str, torch.Tensor]:

@@ -16,6 +16,12 @@ write on a background thread; :meth:`CheckpointManager.wait` joins before
 the next save, and an exit handler joins the last one.  ``restore`` walks
 back past torn or missing snapshots and places the leaves on a device.
 
+On a mesh (``save(..., mesh=, layouts=)``) every rank gathers each
+leaf's blocks into its global array, one rank writes it, and every rank
+waits for the write; ``restore(mesh=, layouts=)`` reads each global leaf
+and keeps this rank's block in the layout given, on any mesh: the
+elastic re-shard (the reference's ``restore(shardings=)``).
+
 The port's train state keeps flat dicts of dotted parameter names; the
 reference's is nested.  :func:`state_tree` and :func:`state_from_tree`
 map one to the other (the names ``models.params.from_jax`` maps), so the
@@ -103,6 +109,22 @@ def _unflatten(flat: Dict[str, Any], manifest_tree):
     raise ValueError(f"bad manifest node {manifest_tree!r}")
 
 
+def _map_leaves(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over two trees of one structure."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, o) for v, o in zip(tree, other))
+    return fn(tree, other)
+
+
+def _global(x, layout, mesh):
+    """The global array of this rank's block ``x`` of ``layout``."""
+    from repro_torch.core.layout import Layout, constrain
+    x = x.detach() if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    return constrain(x, Layout.replicated(x.dim()), mesh, src=layout)
+
+
 def _manifest_of(tree, prefix=""):
     if isinstance(tree, dict):
         return {k: _manifest_of(tree[k], f"{prefix}{k}/") for k in sorted(tree)}
@@ -148,30 +170,33 @@ class CheckpointManager:
         atexit.register(_atexit_wait, weakref.ref(self))
 
     # ------------------------------------------------------------------
-    def save(self, step: int, state, blocking: bool = False):
+    def save(self, step: int, state, blocking: bool = False, mesh=None,
+             layouts=None):
         """Snapshot ``state`` (nested dicts, lists and tuples of tensors or
-        arrays) to host memory synchronously, write it to disk async."""
+        arrays) to host memory synchronously, write it to disk async.
+
+        On a ``mesh`` of ranks ``state`` holds this rank's blocks and
+        ``layouts`` (the same tree, a :class:`Layout` per leaf) their
+        layouts: each leaf is gathered whole on every rank, the mesh's
+        first rank writes it (blocking), and every rank waits at a
+        barrier."""
         self.wait()
+        if mesh is not None and mesh.group is not None:
+            import torch.distributed as dist
+            whole = _map_leaves(lambda x, lay: _global(x, lay, mesh), state,
+                                layouts)
+            if mesh.rank == 0:
+                host = {k: _to_host(v) for k, v in _flatten(whole).items()}
+                self._write(step, _manifest_of(whole), host)
+                self._gc()
+            dist.barrier(group=mesh.group)
+            return
         manifest = _manifest_of(state)
         host = {k: _to_host(v) for k, v in _flatten(state).items()}
 
         def _write():
             try:
-                tmp = os.path.join(self.dir, f".tmp_step_{step}")
-                final = os.path.join(self.dir, f"step_{step}")
-                shutil.rmtree(tmp, ignore_errors=True)
-                os.makedirs(tmp)
-                for key, arr in host.items():
-                    fn = key.replace("/", "__") + ".npy"
-                    np.save(os.path.join(tmp, fn), _encode(arr))
-                with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                    json.dump({"step": step, "tree": manifest}, f)
-                shutil.rmtree(final, ignore_errors=True)
-                os.rename(tmp, final)
-                with open(os.path.join(self.dir, ".LATEST_tmp"), "w") as f:
-                    f.write(str(step))
-                os.replace(os.path.join(self.dir, ".LATEST_tmp"),
-                           os.path.join(self.dir, "LATEST"))
+                self._write(step, manifest, host)
                 self._gc()
             except BaseException as e:          # surfaced on next wait()
                 self._error = e
@@ -182,6 +207,23 @@ class CheckpointManager:
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
+
+    def _write(self, step: int, manifest, host: Dict[str, np.ndarray]):
+        tmp = os.path.join(self.dir, f".tmp_step_{step}")
+        final = os.path.join(self.dir, f"step_{step}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        for key, arr in host.items():
+            fn = key.replace("/", "__") + ".npy"
+            np.save(os.path.join(tmp, fn), _encode(arr))
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "tree": manifest}, f)
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        with open(os.path.join(self.dir, ".LATEST_tmp"), "w") as f:
+            f.write(str(step))
+        os.replace(os.path.join(self.dir, ".LATEST_tmp"),
+                   os.path.join(self.dir, "LATEST"))
 
     def wait(self):
         if self._thread is not None:
@@ -256,8 +298,12 @@ class CheckpointManager:
                       if self.validate(s) is None)
 
     def restore(self, step: Optional[int] = None,
-                device: Union[str, torch.device, None] = None):
+                device: Union[str, torch.device, None] = None, mesh=None,
+                layouts=None):
         """Load a checkpoint as tensors (on ``device``, else the CPU).
+        Given a ``mesh`` and ``layouts`` (a tree of the state's structure,
+        a :class:`Layout` per leaf), each leaf is this rank's block of the
+        global array in its layout, on any mesh: the elastic re-shard.
 
         Crash consistency: an EXPLICIT ``step`` is validated and raises
         :class:`FileNotFoundError` with the torn/missing reason (the
@@ -273,7 +319,7 @@ class CheckpointManager:
             if reason is not None:
                 raise FileNotFoundError(
                     f"checkpoint step {step} is not restorable: {reason}")
-            return self._load(step, device)
+            return self._load(step, device, mesh, layouts)
         candidates = sorted(self.all_steps(), reverse=True)
         latest = self.latest_step()
         if latest is not None and latest in candidates:
@@ -285,10 +331,10 @@ class CheckpointManager:
                 if latest is not None and s != latest:
                     print(f"checkpoint: LATEST -> step {latest} is torn or "
                           f"missing; walked back to step {s}")
-                return self._load(s, device)
+                return self._load(s, device, mesh, layouts)
         return None
 
-    def _load(self, step: int, device):
+    def _load(self, step: int, device, mesh=None, layouts=None):
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -296,9 +342,14 @@ class CheckpointManager:
         for node in _manifest_leaves(manifest["tree"]):
             fn = node["key"].replace("/", "__") + ".npy"
             raw = np.load(os.path.join(d, fn))
-            t = _decode(raw, node["dtype"], node["shape"])
-            flat[node["key"]] = t.to(device) if device is not None else t
-        return _unflatten(flat, manifest["tree"])
+            flat[node["key"]] = _decode(raw, node["dtype"], node["shape"])
+        state = _unflatten(flat, manifest["tree"])
+        if mesh is not None:
+            state = _map_leaves(lambda x, lay: lay.block(x, mesh), state,
+                                layouts)
+        if device is not None:
+            state = _map_leaves(lambda x, _: x.to(device), state, state)
+        return state
 
 
 # ---------------------------------------------------------------------------

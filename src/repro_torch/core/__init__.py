@@ -11,7 +11,9 @@ Public surface (the reference's ``repro.core`` exports of these modules):
 - :mod:`~repro_torch.core.precision` policies, :mod:`~repro_torch.core.rng`
 - :class:`~repro_torch.core.opcache.OpCache`
 
-The planner, memory model and autotuner wait for ROADMAP queue 1, item 9.
+The planner's layout part is :mod:`~repro_torch.core.planner`
+(``ParallelPlan``, ``plan_for``); its hybrid sweep, the memory model and
+the autotuner wait for ROADMAP queue 1, item 9.
 """
 
 from . import gemm, opcache, precision, primitives, redistribute, rng

@@ -239,18 +239,31 @@ def psum(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
     return x
 
 
-def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
+def psum_scatter(x: torch.Tensor, mesh: Mesh, axis,
                  dim: int) -> torch.Tensor:
     """This rank's piece along ``dim`` of the line's sum (tiled
     ``jax.lax.psum_scatter``): an all-to-all of the pieces, then their
-    sum in rank order, a 16-bit type in fp32 and rounded once."""
-    pieces = _exchange_pieces(x, mesh, axis, dim)
-    if len(pieces) == 1:
-        return x
-    acc = pieces[0].to(torch.promote_types(x.dtype, torch.float32))
-    for p in pieces[1:]:
-        acc += p
-    return acc.to(x.dtype)
+    sum in rank order, a 16-bit type in fp32 and rounded once.  A tuple
+    of axes scatters the major one first (the transpose of
+    :func:`all_gather`)."""
+    for name in _axes(axis):
+        pieces = _exchange_pieces(x, mesh, name, dim)
+        if len(pieces) == 1:
+            continue
+        acc = pieces[0].to(torch.promote_types(x.dtype, torch.float32))
+        for p in pieces[1:]:
+            acc += p
+        x = acc.to(x.dtype)
+    return x
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """The elementwise maximum over the line, the same on every rank (an
+    all-gather of the line's tensors: a maximum is exact in any order)."""
+    for name in reversed(_axes(axis)):
+        if mesh.shape[name] > 1:
+            x = all_gather(x[None], mesh, name, 0).amax(0)
+    return x
 
 
 def exchange(sends: Dict[int, torch.Tensor], recvs: Dict[int, torch.Tensor],
@@ -277,3 +290,83 @@ def exchange(sends: Dict[int, torch.Tensor], recvs: Dict[int, torch.Tensor],
         WIRE.record("send_recv", _nbytes(t), t.dtype)
         if staged:
             t.copy_(out[j])
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives
+# ---------------------------------------------------------------------------
+#
+# Each rank differentiates its own blocks.  A rank holds the whole
+# gradient of every value it holds (Megatron's convention): where a value
+# the line shares feeds work split over the line, each rank's backward
+# gives a share, and the split's entry sums the shares.  So each
+# collective below has its transpose as its backward, which runs the same
+# counted collectives (``WIRE`` counts both directions), and ``dtype``
+# keeps the wire narrow both ways: the forward casts ``x`` to ``dtype``
+# before a narrowing collective and after a widening one, and the
+# backward casts the gradient back to ``x``'s dtype the same way.
+
+def _on_wire(fn, x: torch.Tensor, dtype: Optional[torch.dtype]):
+    if dtype is None or dtype == x.dtype:
+        return fn(x)
+    if dtype.itemsize < x.dtype.itemsize:
+        return fn(x.to(dtype))
+    return fn(x).to(dtype)
+
+
+class _Collective(torch.autograd.Function):
+    """``fwd`` forward, ``bwd`` (its transpose) backward."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, dtype):
+        ctx.bwd, ctx.dtype = bwd, x.dtype
+        out = _on_wire(fwd, x, dtype)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _on_wire(ctx.bwd, g.contiguous(), ctx.dtype), None, None, None
+
+
+def all_gather_ad(x: torch.Tensor, mesh: Mesh, axis, dim: int,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`all_gather` of a block whose gathered value feeds work split
+    over ``axis``; backward: the reduce-scatter of the shares."""
+    return _Collective.apply(
+        x, lambda t: all_gather(t, mesh, axis, dim),
+        lambda g: psum_scatter(g, mesh, axis, dim), dtype)
+
+
+def psum_scatter_ad(x: torch.Tensor, mesh: Mesh, axis, dim: int,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`psum_scatter` of this rank's share; backward: the all-gather
+    of the pieces' gradients (each share's gradient is the sum's)."""
+    return _Collective.apply(
+        x, lambda t: psum_scatter(t, mesh, axis, dim),
+        lambda g: all_gather(g, mesh, axis, dim), dtype)
+
+
+def all_to_all_ad(x: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,
+                  concat_dim: int,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`all_to_all`; backward: the inverse all-to-all."""
+    return _Collective.apply(
+        x, lambda t: all_to_all(t, mesh, axis, split_dim, concat_dim),
+        lambda g: all_to_all(g, mesh, axis, concat_dim, split_dim), dtype)
+
+
+def psum_ad(x: torch.Tensor, mesh: Mesh, axis,
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`psum` of shares (Megatron's g): every rank holds the sum,
+    and each share's gradient is the sum's, so the backward is the
+    identity."""
+    return _Collective.apply(x, lambda t: psum(t, mesh, axis),
+                             lambda g: g, dtype)
+
+
+def copy_ad(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """The identity on a value every rank of the line holds, entering work
+    split over ``axis`` (Megatron's f): the backward sums the ranks'
+    shares (:func:`psum`)."""
+    return _Collective.apply(x, lambda t: t, lambda g: psum(g, mesh, axis),
+                             None)

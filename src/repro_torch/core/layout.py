@@ -191,18 +191,60 @@ class Layout:
 
 
 def constrain(x: torch.Tensor, layout: Layout, mesh,
-              src: Optional[Layout] = None) -> torch.Tensor:
-    """This rank's block of ``x`` in ``layout``.
+              src: Optional[Layout] = None, manual: Sequence[str] = ()
+              ) -> torch.Tensor:
+    """This rank's block of ``x`` in ``layout``, differentiably.
 
     The reference's ``with_sharding_constraint`` lets GSPMD find the
     move; a block carries no layout of its own, so the port needs the
-    layout ``x`` is in (``src``) and raises without one."""
+    layout ``x`` is in (``src``) and raises without one.  The move is
+    :func:`~repro_torch.core.redistribute.relayout_explicit`, and its
+    backward the move back (the transpose of a relayout of one global
+    value: a gathered value's gradient is whole on every rank, so the
+    backward of a gather is this rank's slice).
+
+    ``manual``: the axes the caller has already split the work over (the
+    reference's manual ``shard_map`` axes, e.g. ``data`` on the comms
+    path's (n, 1) mesh).  They are dropped from both layouts, since the
+    block is already local over them; a constraint left equal to its
+    source is the identity."""
     if src is None:
         raise ValueError(
             "constrain: a block does not know its layout; pass src= (the "
             "layout x is in), there is no partitioner to infer it")
-    from .redistribute import relayout_explicit
-    return relayout_explicit(x, src, layout, mesh)
+    for name in manual:
+        layout, src = layout.drop_axis(name), src.drop_axis(name)
+    if layout == src:
+        return x
+    return _Relayout.apply(x, src, layout, mesh)
+
+
+class _Relayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, dst, mesh):
+        from .redistribute import relayout_explicit
+        ctx.args = (src, dst, mesh)
+        out = relayout_explicit(x, src, dst, mesh)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        from .redistribute import relayout_explicit
+        src, dst, mesh = ctx.args
+        return (relayout_explicit(g.contiguous(), dst, src, mesh), None,
+                None, None)
+
+
+def batch_block(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """This rank's rows of a global batch leaf: its block of the layout
+    that shards dim 0 over ``axes`` (the rows of the rank's data
+    coordinate, ``np.unravel_index(rank, shape)``'s, not of its raw rank),
+    or the whole leaf when ``axes`` cannot split its rows (the reference's
+    ``_maybe_batch``: a batch smaller than the data axes)."""
+    n = math.prod(mesh.shape[a] for a in axes)
+    if n == 1 or x.shape[0] % n or x.shape[0] < n:
+        return x
+    return Layout((tuple(axes),) + (None,) * (x.dim() - 1)).block(x, mesh)
 
 
 def best_divisor_axis(size: int, mesh, candidates: Sequence[str]

@@ -1,0 +1,223 @@
+"""Per-architecture layout planner — hybrid parallelism (paper §4), ported
+from the reference's ``core/planner.py``: its layout part.
+
+dMath trains with *hybrid* data/model parallelism (DP where activations
+dominate, MP where parameters dominate).  On a named ``(data, model)``
+mesh (``pod`` before ``data`` where there is one):
+
+  batch        -> ("pod", "data")                     (pure DP axes)
+  FFN / vocab  -> "model"                             (tensor parallel)
+  attention    -> "model" on heads if both head counts divide the axis,
+                  else sequence-parallel over "model" (SP)
+  storage      -> parameter sharding over "data" (FSDP) for a stack whose
+                  use-time bytes pass ``fsdp_tensor_bytes``
+
+:class:`ParallelPlan` is the reference's whole (every parameter and
+activation layout method); :func:`plan_for` and
+:func:`approx_param_count` are the reference's.  ``plan.comms`` is the
+port's default :class:`~repro_torch.comms.plan.CommsPlan` (the cost
+model's choice waits for ``comms/topology.py``, ROADMAP queue 1, item 8)
+and ``plan.pipeline`` is None (item 10).  The hybrid sweep
+(``score_hybrid_candidates``, ``best_hybrid``), the memory verdict and
+calibration wait for item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+from .layout import Layout
+
+GiB = 1024**3
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelPlan:
+    """All layout decisions for one (config, mesh) cell."""
+
+    batch_axes: Tuple[str, ...]         # ("data",) or ("pod", "data")
+    tp_axis: str                        # tensor/expert/sequence axis
+    attn_mode: str                      # "head_tp" | "sp" | "none"
+    fsdp: bool                          # shard weight storage over data axis
+    seq_parallel_residual: bool         # shard residual stream on seq dim
+    ffn_replicated: bool = False        # SP small-FFN: fully local MLP
+    fsdp_axis: str = "data"
+    n_layers: int = 1                   # for per-tensor FSDP sizing
+    fsdp_tensor_bytes: float = 4 * GiB  # FSDP only stacks bigger than this
+    comms: Optional[object] = None      # repro_torch.comms.CommsPlan
+    pipeline: Optional[object] = None   # PipelineSpec (not ported)
+
+    # ---- parameter layouts --------------------------------------------------
+    def _maybe_fsdp(self, layout: Layout, shape, mesh, dim: int) -> Layout:
+        """Shard ``dim`` over the FSDP axis, but only for a tensor whose
+        whole-stack use-time footprint (bf16 bytes x ``n_layers`` over its
+        TP shards) reaches ``fsdp_tensor_bytes``."""
+        if not self.fsdp or layout.dims[dim] is not None:
+            return layout
+        if self.fsdp_axis in layout.mesh_axes_used():
+            return layout
+        tp_shards = 1
+        for ax in layout.mesh_axes_used():
+            tp_shards *= mesh.shape.get(ax, 1)
+        use_bytes = 2.0 * math.prod(shape) * self.n_layers / tp_shards
+        if use_bytes < self.fsdp_tensor_bytes:
+            return layout
+        n = mesh.shape.get(self.fsdp_axis, 1)
+        if shape[dim] % n == 0:
+            return layout.with_dim(dim, self.fsdp_axis)
+        return layout
+
+    def embed(self, shape, mesh) -> Layout:
+        # (V, D): shard D so the token gather is comm-free; FSDP on V
+        return self._maybe_fsdp(Layout((None, self.tp_axis)), shape, mesh, 0)
+
+    def unembed(self, shape, mesh) -> Layout:
+        # (D, V): vocab-TP (the paper's model-parallel FC classifier)
+        return self._maybe_fsdp(Layout((None, self.tp_axis)), shape, mesh, 0)
+
+    def attn_qkv(self, shape, mesh) -> Layout:
+        # (D, H, hd) col-parallel on heads, or replicated under SP
+        if self.attn_mode == "head_tp":
+            return self._maybe_fsdp(
+                Layout((None, self.tp_axis, None)), shape, mesh, 0)
+        return self._maybe_fsdp(Layout((None, None, None)), shape, mesh, 0)
+
+    def attn_out(self, shape, mesh) -> Layout:
+        # (H, hd, D) row-parallel on heads
+        if self.attn_mode == "head_tp":
+            return self._maybe_fsdp(
+                Layout((self.tp_axis, None, None)), shape, mesh, 2)
+        return self._maybe_fsdp(Layout((None, None, None)), shape, mesh, 2)
+
+    def ffn_in(self, shape, mesh) -> Layout:      # (D, F) col-parallel
+        if self.ffn_replicated:
+            return self._maybe_fsdp(Layout((None, None)), shape, mesh, 0)
+        return self._maybe_fsdp(Layout((None, self.tp_axis)), shape, mesh, 0)
+
+    def ffn_out(self, shape, mesh) -> Layout:     # (F, D) row-parallel
+        if self.ffn_replicated:
+            return self._maybe_fsdp(Layout((None, None)), shape, mesh, 1)
+        return self._maybe_fsdp(Layout((self.tp_axis, None)), shape, mesh, 1)
+
+    def experts(self, shape, mesh) -> Layout:     # (E, D, F) expert-parallel
+        return self._maybe_fsdp(
+            Layout((self.tp_axis, None, None)), shape, mesh, 1)
+
+    def router(self, shape, mesh) -> Layout:      # (D, E) replicated
+        return Layout((None, None))
+
+    def vector(self, shape, mesh) -> Layout:      # norms, biases: replicated
+        return Layout.replicated(len(shape))
+
+    def head_vector(self, shape, mesh) -> Layout:
+        # per-head scalars (SSD A, dt_bias, D-skip): (H,) over model
+        n = mesh.shape.get(self.tp_axis, 1)
+        if shape[0] % n == 0:
+            return Layout((self.tp_axis,))
+        return Layout((None,))
+
+    def conv1d(self, shape, mesh) -> Layout:      # (width, channels)
+        n = mesh.shape.get(self.tp_axis, 1)
+        if shape[-1] % n == 0:
+            return Layout((None,) * (len(shape) - 1) + (self.tp_axis,))
+        return Layout.replicated(len(shape))
+
+    # ---- activation layouts -------------------------------------------------
+    def hidden(self, seq_sharded: Optional[bool] = None) -> Layout:
+        # (B, S, D) residual stream
+        seq = self.seq_parallel_residual if seq_sharded is None else seq_sharded
+        return Layout((self.batch_axes, self.tp_axis if seq else None, None))
+
+    def heads_act(self) -> Layout:
+        # (B, S, H, hd) attention activations under head-TP
+        return Layout((self.batch_axes, None, self.tp_axis, None))
+
+    def seq_act(self) -> Layout:
+        # (B, S, ...) under SP: sequence over model axis
+        return Layout((self.batch_axes, self.tp_axis, None, None))
+
+    def logits(self) -> Layout:
+        return Layout((self.batch_axes, None, self.tp_axis))
+
+    def tokens(self) -> Layout:
+        return Layout((self.batch_axes, None))
+
+    def kv_cache(self, batch: int, mesh) -> Layout:
+        """(L|sites, B, S, Hkv, hd): flash-decoding layout, seq over model;
+        a batch the data axes cannot split gives them to the sequence."""
+        nb = math.prod(mesh.shape[a] for a in self.batch_axes)
+        if batch % nb == 0 and batch >= nb:
+            return Layout((None, self.batch_axes, self.tp_axis, None, None))
+        seq_axes = tuple(self.batch_axes) + (self.tp_axis,)
+        return Layout((None, None, seq_axes, None, None))
+
+    def ssm_state(self, batch: int, mesh) -> Layout:
+        """(L, B, H, hd, N) decode state: heads over model."""
+        nb = math.prod(mesh.shape[a] for a in self.batch_axes)
+        b_ax = self.batch_axes if batch % nb == 0 and batch >= nb else None
+        return Layout((None, b_ax, self.tp_axis, None, None))
+
+
+def approx_param_count(cfg) -> int:
+    """Rough parameter count from the config (the reference's; it feeds
+    the comms cost model, which needs it within ~2x)."""
+    D = getattr(cfg, "d_model", 0) or 0
+    V = getattr(cfg, "vocab_size", 0) or 0
+    L = max(1, getattr(cfg, "n_layers", 1) or 1)
+    H = getattr(cfg, "n_heads", 0) or 0
+    Hkv = getattr(cfg, "n_kv_heads", 0) or H
+    hd = getattr(cfg, "head_dim", 0) or 0
+    F = getattr(cfg, "d_ff", 0) or 0
+    E = getattr(cfg, "n_experts", 0) or 1
+    attn = D * (H + 2 * Hkv) * hd + H * hd * D
+    ffn = 3 * D * F * E
+    return 2 * V * D + L * (attn + ffn)
+
+
+def plan_for(cfg, mesh, *, fsdp_tensor_bytes: float = 4 * GiB,
+             seq_parallel_residual: Optional[bool] = None) -> ParallelPlan:
+    """The plan for a model config on a mesh (anything with a ``shape``
+    mapping of axis sizes)."""
+    from repro_torch.comms.plan import CommsPlan
+
+    tp_axis = "model"
+    tp = mesh.shape.get(tp_axis, 1)
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+    # head-TP only if both head counts divide the axis; attention-free
+    # (SSM) archs have no attention layout at all
+    n_heads = getattr(cfg, "n_heads", 0) or 0
+    n_kv = getattr(cfg, "n_kv_heads", 0) or 0
+    if n_heads == 0:
+        attn_mode = "none"
+    elif n_heads % tp == 0 and n_kv % tp == 0:
+        attn_mode = "head_tp"
+    else:
+        attn_mode = "sp"
+
+    if seq_parallel_residual is None:
+        # sequence-sharded residuals for every mode (Megatron-SP)
+        seq_parallel_residual = True
+
+    # SP keeps its weights replicated at use anyway; when the whole FFN
+    # bank fits a device, the MLP stays replicated and fully local over
+    # the sequence shards
+    ffn_replicated = False
+    if attn_mode == "sp" and getattr(cfg, "d_ff", 0):
+        ffn_bytes = 2 * 3 * cfg.n_layers * cfg.d_model * cfg.d_ff
+        ffn_replicated = ffn_bytes < 4 * GiB
+
+    return ParallelPlan(
+        batch_axes=batch_axes,
+        tp_axis=tp_axis,
+        attn_mode=attn_mode,
+        fsdp=True,                  # gated per tensor (_maybe_fsdp)
+        seq_parallel_residual=seq_parallel_residual,
+        ffn_replicated=ffn_replicated,
+        n_layers=max(1, getattr(cfg, "n_layers", 1)),
+        fsdp_tensor_bytes=fsdp_tensor_bytes,
+        comms=CommsPlan(),
+        pipeline=None,
+    )

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from . import distributed as D
-from .layout import Layout
+from .layout import Layout, axis_names
 
 
 def relayout(x: torch.Tensor, dst: Layout, mesh: "D.Mesh",
@@ -76,6 +76,29 @@ def _move(x: torch.Tensor, src: Layout, dst: Layout, mesh) -> torch.Tensor:
             and isinstance(src.dims[src_dims[0]], str)):
         i, j = src_dims[0], dst_dims[0]
         return D.all_to_all(x, mesh, src.dims[i], split_dim=j, concat_dim=i)
+
+    # one axis moves from dim i to dim j, every other dim as it was (the
+    # residual stream's (batch, None, model) -> (batch, model, None)):
+    # an all-to-all over that axis alone
+    moved = [d for d in range(src.ndim) if src.dims[d] != dst.dims[d]]
+    if (len(moved) == 2 and all(isinstance(src.dims[d], (str, type(None)))
+                                and isinstance(dst.dims[d], (str, type(None)))
+                                for d in moved)):
+        i, j = moved if src.dims[moved[0]] is not None else moved[::-1]
+        if (src.dims[j] is None and dst.dims[i] is None
+                and src.dims[i] == dst.dims[j]):
+            return D.all_to_all(x, mesh, src.dims[i], split_dim=j,
+                                concat_dim=i)
+
+    # src refines dst (each dim's dst axes lead its src axes): gather the
+    # extra axes alone, minor first
+    if all(axis_names(s)[:len(axis_names(d))] == axis_names(d)
+           for s, d in zip(src.dims, dst.dims)):
+        for dim in reversed(range(src.ndim)):
+            extra = axis_names(src.dims[dim])[len(axis_names(dst.dims[dim])):]
+            if extra:
+                x = D.all_gather(x, mesh, extra, dim)
+        return x
 
     # anything else: gather fully, then slice
     full = _move(x, src, Layout.replicated(src.ndim), mesh)

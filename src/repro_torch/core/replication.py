@@ -12,19 +12,21 @@ all-gather:
 - *replication*: the relayout from the storage layout to the use layout
   (:func:`gathered`), or to replicated (:func:`replicate_now`).
 
-The train step does not use them yet (ROADMAP queue 1, item 7: ZeRO-1 in
-the step is the next slice's); the reference overlaps the gather with the
-previous layer's compute through XLA's scheduler, which an eager relayout
-does not.
+The train step keeps its optimizer state on :func:`zero_layout` blocks
+(:func:`to_zero` takes a block's piece, :func:`from_zero` gathers the
+new parameters back); the reference overlaps the gather with the
+previous layer's compute through XLA's scheduler, which an eager
+relayout does not.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
 
-from .layout import Layout
+from .layout import Layout, axis_names
 from .redistribute import relayout_explicit
 
 
@@ -60,10 +62,47 @@ def zero_layout_tree(param_layouts: Dict[str, Layout],
 
 
 def gathered(param: torch.Tensor, storage: Layout, use_layout: Layout,
-             mesh) -> torch.Tensor:
+             mesh, split: Sequence[str] = ()) -> torch.Tensor:
     """This rank's block of a parameter in its use layout, from its block
-    in the storage layout (the storage -> use boundary)."""
-    return relayout_explicit(param, storage, use_layout, mesh)
+    in the storage layout (the storage -> use boundary), differentiably.
+    ``split``: the axes over which the use splits its work (an FSDP
+    weight gathered over ``data``, where each data rank runs its own
+    rows): there the gather's backward is the reduce-scatter of the
+    ranks' shares; over any other axis, the slice of the whole
+    gradient."""
+    from .distributed import all_gather_ad
+    from .layout import constrain
+    for dim in range(storage.ndim):
+        for name in axis_names(storage.dims[dim]):
+            if name in split and name not in use_layout.mesh_axes_used():
+                param = all_gather_ad(param, mesh, name, dim)
+                storage = storage.drop_axis(name)
+    return constrain(param, use_layout, mesh, src=storage)
+
+
+def to_zero(x: torch.Tensor, storage: Layout, zero: Layout, mesh
+            ) -> torch.Tensor:
+    """This rank's block in ``zero`` (a :func:`zero_layout` of
+    ``storage``: axes added on dims ``storage`` leaves whole) from its
+    block in ``storage``: a local slice, no communication."""
+    for dim in range(zero.ndim):
+        extra = axis_names(zero.dims[dim])[len(axis_names(storage.dims[dim])):]
+        if extra:
+            n = math.prod(mesh.shape[a] for a in extra)
+            i = 0
+            for a in extra:
+                i = i * mesh.shape[a] + mesh.coords[a]
+            size = x.shape[dim] // n
+            x = x.narrow(dim, i * size, size)
+    return x.contiguous()
+
+
+def from_zero(x: torch.Tensor, zero: Layout, storage: Layout, mesh
+              ) -> torch.Tensor:
+    """This rank's block in ``storage`` from its block in ``zero``: the
+    all-gather of the axes the ZeRO layout added (the parameter
+    replication after the update)."""
+    return relayout_explicit(x, zero, storage, mesh)
 
 
 def replicate_now(param: torch.Tensor, storage: Layout, mesh

@@ -97,12 +97,17 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
               f"schedule (bucket {plan.comms.bucket_bytes >> 20} MiB)")
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    # on a mesh the checkpoint holds the global arrays: each rank's blocks
+    # are gathered at a save and taken again at a restore
+    lays = session.state_layouts(plan)
+    on_mesh = ({} if lays is None else
+               dict(mesh=session.mesh, layouts=state_tree(lays)))
     start_step = 0
     if resume and mgr is not None:
         # restore() walks back past torn/missing snapshots to the newest
         # complete one, and returns None when nothing valid survives: the
         # run then starts fresh rather than crashing
-        tree = mgr.restore(device=session.device)
+        tree = mgr.restore(device=session.device, **on_mesh)
         if tree is not None:
             state = session.put("train_state", state_from_tree(tree),
                                 kind="train_state")
@@ -129,11 +134,12 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
             if (i + 1) % log_every == 0 or i == start_step:
                 print(f"step {i + 1:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
             if mgr is not None and (i + 1) % ckpt_every == 0:
-                mgr.save(i + 1, state_tree(session.get("train_state")))
+                mgr.save(i + 1, state_tree(session.get("train_state")),
+                         **on_mesh)
         if mgr is not None:
             t0 = time.perf_counter()
             mgr.save(steps, state_tree(session.get("train_state")),
-                     blocking=True)
+                     blocking=True, **on_mesh)
             d = os.path.join(ckpt_dir, f"step_{steps}")
             nbytes = sum(os.path.getsize(os.path.join(d, f))
                          for f in os.listdir(d))

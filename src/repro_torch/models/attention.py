@@ -10,36 +10,58 @@ the reference would clamp on device (a chunk past the end of its table
 row) raise here instead.  The dense cache's decode step, and the ring's,
 attend through the paged-decode kernel, each slot's cache row (or ring)
 being one page.
+
+On a ``(data, model)`` mesh :func:`forward` dispatches on the plan's
+``attn_mode`` as the reference's does: head-TP over the sequence-sharded
+residual (:func:`_tp_attention_shardmap`: the bf16 residual gathered
+over the model axis, this rank's heads over the whole sequence, the
+partial out-projection reduce-scattered in bf16), head-TP over a
+replicated residual (the reference's constrained branch, for
+``seq_parallel_residual=False``), or sequence-parallel attention
+(:func:`_sp_attention`: the local query block against the gathered K/V
+at ``q_offset = idx * S/tp``) where the head counts do not divide the
+axis.  qk-norm, windows and the softcap apply as on one rank.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import precision
+from repro_torch.core.layout import Layout, constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, plan_layout
 
 
-def attn_specs(cfg) -> Dict[str, ParamSpec]:
+def attn_specs(cfg, plan=None, mesh=None) -> Dict[str, ParamSpec]:
+    """The attention leaves; given a plan and a mesh, with the plan's
+    layouts (the reference's ``attn_specs``)."""
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    lay = functools.partial(plan_layout, plan, mesh)
     s = {
-        "wq": ParamSpec((D, H, hd)),
-        "wk": ParamSpec((D, Hkv, hd)),
-        "wv": ParamSpec((D, Hkv, hd)),
+        "wq": ParamSpec((D, H, hd), layout=lay("attn_qkv", (D, H, hd))),
+        "wk": ParamSpec((D, Hkv, hd), layout=lay("attn_qkv", (D, Hkv, hd))),
+        "wv": ParamSpec((D, Hkv, hd), layout=lay("attn_qkv", (D, Hkv, hd))),
         "wo": ParamSpec((H, hd, D), init="scaled",
-                        scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+                        scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5,
+                        layout=lay("attn_out", (H, hd, D))),
     }
+    head = (plan.tp_axis if plan is not None and plan.attn_mode == "head_tp"
+            else None)
+    vec = None if plan is None else Layout((head, None))
     if cfg.qkv_bias:
-        s["bq"] = ParamSpec((H, hd), init="zeros")
-        s["bk"] = ParamSpec((Hkv, hd), init="zeros")
-        s["bv"] = ParamSpec((Hkv, hd), init="zeros")
+        s["bq"] = ParamSpec((H, hd), init="zeros", layout=vec)
+        s["bk"] = ParamSpec((Hkv, hd), init="zeros", layout=vec)
+        s["bv"] = ParamSpec((Hkv, hd), init="zeros", layout=vec)
     if cfg.qk_norm:
-        s["q_norm"] = ParamSpec((hd,), init="ones")
-        s["k_norm"] = ParamSpec((hd,), init="ones")
+        norm = None if plan is None else Layout((None,))
+        s["q_norm"] = ParamSpec((hd,), init="ones", layout=norm)
+        s["k_norm"] = ParamSpec((hd,), init="ones", layout=norm)
     return s
 
 
@@ -62,6 +84,15 @@ def _qkv(x, p, cfg, positions, policy):
     return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
 
 
+def _flash(q, k, v, cfg, window, q_offset=0):
+    """:func:`ops.attention` on (B, S, H, hd) tensors, causal."""
+    return ops.attention(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(), causal=True, window=window,
+        softcap=cfg.attn_softcap, q_offset=q_offset,
+    ).transpose(1, 2)                                          # (B,S,H,hd)
+
+
 def forward(
     x: torch.Tensor,               # (B, S, D)
     p: dict,
@@ -70,6 +101,9 @@ def forward(
     policy=precision.MIXED,
     window: Optional[int] = None,
     with_cache: bool = False,
+    mesh=None,
+    plan=None,
+    hidden: Optional[Layout] = None,
 ):
     """Full-sequence causal attention (train, and the dense prefill):
     projections and rotary at positions 0..S-1,
@@ -77,8 +111,13 @@ def forward(
     output projection.  Returns ``y``, or with ``with_cache`` ``(y, (k,
     v))``, the rotated keys and values (B, S, Hkv, hd) in x's dtype for
     the decode cache.  The reference's single-device ``head_tp`` branch;
-    its sharded branches wait for the distributed slices (ROADMAP queue
-    1, item 7)."""
+    Given a ``mesh`` and its ``plan``, ``x`` is this rank's block of the
+    residual in the ``hidden`` layout and ``p`` this rank's blocks; the
+    result is in the same layout (no cache: serving on a mesh raises in
+    the model)."""
+    if mesh is not None:
+        return _forward_mesh(x, p, cfg, plan, mesh, hidden, policy=policy,
+                             window=window)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(x, p, cfg, positions, policy)              # (B,S,H,hd)
@@ -91,6 +130,58 @@ def forward(
     if with_cache:
         return y.to(x.dtype), (k, v)
     return y.to(x.dtype)
+
+
+def _forward_mesh(x, p, cfg, plan, mesh, hidden, *, policy, window):
+    tp = plan.tp_axis
+    if plan.attn_mode == "head_tp" and plan.seq_parallel_residual:
+        return _tp_attention_shardmap(x, p, cfg, plan, mesh, policy=policy,
+                                      window=window)
+    if plan.attn_mode == "head_tp":
+        # the residual is whole on every rank of the axis; each runs its
+        # heads, and the out-projection's shares are summed in bf16
+        x = dist_mod.copy_ad(x, mesh, tp)
+        positions = torch.arange(x.shape[1], device=x.device)
+        q, k, v = _qkv(x, p, cfg, positions, policy)
+        out = _flash(q, k, v, cfg, window)
+        y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+        return dist_mod.psum_ad(y.to(x.dtype), mesh, tp)
+    seq = Layout((hidden.dims[0], tp, None))
+    out = _sp_attention(constrain(x, seq, mesh, src=hidden), p, cfg, plan,
+                        mesh, policy=policy, window=window)
+    y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+    return constrain(y.to(x.dtype), hidden, mesh, src=seq)
+
+
+def _tp_attention_shardmap(x, p, cfg, plan, mesh, *, policy, window):
+    """Head-TP attention with explicit bf16 collectives: gather the
+    sequence-sharded residual (B, S/tp, D) once, project this rank's
+    heads (the weights' head blocks), flash over the whole sequence, the
+    partial out-projection, and the bf16 reduce-scatter back onto the
+    sequence shards."""
+    tp = plan.tp_axis
+    xg = dist_mod.all_gather_ad(x, mesh, tp, 1)                # bf16 wire
+    positions = torch.arange(xg.shape[1], device=x.device)
+    q, k, v = _qkv(xg, p, cfg, positions, policy)
+    out = _flash(q, k, v, cfg, window)
+    y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+    return dist_mod.psum_scatter_ad(y.to(x.dtype), mesh, tp, 1)
+
+
+def _sp_attention(x, p, cfg, plan, mesh, *, policy, window):
+    """Sequence-parallel attention: ``x`` is this rank's sequence block
+    (B, S/tp, D); its queries at positions ``idx * S/tp + j`` attend to
+    the K/V all-gathered over the model axis, with ``q_offset = idx *
+    S/tp`` (the only collectives).  Returns the block of the attention
+    output (B, S/tp, H, hd)."""
+    tp = plan.tp_axis
+    s_loc = x.shape[1]
+    off = mesh.coords[tp] * s_loc
+    positions = off + torch.arange(s_loc, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions, policy)
+    kg = dist_mod.all_gather_ad(k, mesh, tp, 1)                # (B,S,Hkv,hd)
+    vg = dist_mod.all_gather_ad(v, mesh, tp, 1)
+    return _flash(q, kg, vg, cfg, window, q_offset=off)
 
 
 def decode(

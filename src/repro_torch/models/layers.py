@@ -11,6 +11,16 @@ the plain fp32 function the reference's dense decode step runs, and
 steps attend through the paged-decode kernel instead
 (``attention.decode`` and ``attention.decode_ring``), and these functions
 are their oracles.
+
+On a ``(data, model)`` mesh each rank runs its blocks
+(:mod:`repro_torch.core.planner`'s layouts): :func:`embed_shard_map`
+takes from its D-column block of the table, :func:`glu_mlp_shardmap`
+gathers the sequence-sharded bf16 residual, runs its column and row
+blocks and reduce-scatters the bf16 result, :func:`glu_mlp` with
+``tp_axis`` is the reference's GSPMD-style MLP on a replicated residual,
+and :func:`lm_loss_sharded` is the loss over vocab shards.  Every
+collective is one of :mod:`repro_torch.core.distributed`'s counted,
+differentiable ones.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import precision
 
 NEG = -1e30
@@ -136,22 +147,55 @@ def decode_attention_ring(
 
 def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
             policy: precision.Policy = precision.MIXED,
-            wide: bool = False) -> torch.Tensor:
+            wide: bool = False, mesh=None,
+            tp_axis: Optional[str] = None) -> torch.Tensor:
     """Gated MLP: act(x @ w_gate) * (x @ w_in) @ w_out.
 
     By default ``act(g)`` and ``h`` are each rounded to ``x``'s dtype and
     multiplied there, as the reference's ``glu_mlp`` (its paged and decode
     steps).  ``wide`` multiplies them in fp32 and rounds the product once,
     as the reference's ``glu_mlp_shardmap`` (its full-sequence forward on
-    one device, where the default plan sets ``seq_parallel_residual``)."""
+    one device, where the default plan sets ``seq_parallel_residual``).
+
+    With ``tp_axis`` (the reference's ``h_layout`` / ``out_layout`` MLP of
+    the ``seq_parallel_residual=False`` plan): ``x`` is the residual every
+    rank of the axis holds, the weights are this rank's column (gate,
+    in) and row (out) blocks, ``g`` and ``h`` are pinned in the
+    activation dtype, and the row products' shares are summed over the
+    axis in fp32 (the reference's constraint on the fp32 product)."""
+    if tp_axis is not None:
+        x = dist_mod.copy_ad(x, mesh, tp_axis)
     g = precision.einsum("bsd,df->bsf", x, w_gate, policy=policy)
     h = precision.einsum("bsd,df->bsf", x, w_in, policy=policy)
+    if tp_axis is not None:
+        g, h = g.to(policy.activation_dtype), h.to(policy.activation_dtype)
     if wide:
         h = (act_fn(act)(g.float()) * h.float()).to(x.dtype)
     else:
         h = act_fn(act)(g.float()).to(x.dtype) * h.to(x.dtype)
     out = precision.einsum("bsf,fd->bsd", h, w_out, policy=policy)
+    if tp_axis is not None:
+        out = dist_mod.psum_ad(out, mesh, tp_axis)
     return out.to(x.dtype)
+
+
+def glu_mlp_shardmap(x, w_gate, w_in, w_out, *, act: str, mesh, plan,
+                     policy: precision.Policy = precision.MIXED
+                     ) -> torch.Tensor:
+    """Tensor-parallel gated MLP with explicit bf16 collectives: gather
+    the sequence-sharded residual ``x`` (B, S/tp, D) over the model axis,
+    the column blocks (D, F/tp), ``act(g) * h`` in fp32, the row block
+    (F/tp, D), and the bf16 reduce-scatter back onto the sequence shards.
+    The backward is the transpose: a reduce-scatter of d_x, an
+    all-gather of d_out, both bf16."""
+    tp = plan.tp_axis
+    xg = dist_mod.all_gather_ad(x, mesh, tp, 1)                # bf16 wire
+    g = precision.einsum("bsd,df->bsf", xg, w_gate, policy=policy)
+    h = precision.einsum("bsd,df->bsf", xg, w_in, policy=policy)
+    h = act_fn(act)(g.float()) * h.float()
+    out = precision.einsum("bsf,fd->bsd", h.to(x.dtype), w_out,
+                           policy=policy)
+    return dist_mod.psum_scatter_ad(out.to(x.dtype), mesh, tp, 1)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, *, scale: bool
@@ -159,6 +203,19 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, *, scale: bool
     x = table[tokens]
     if scale:
         x = x * torch.tensor(table.shape[-1] ** 0.5, dtype=x.dtype)
+    return x
+
+
+def embed_shard_map(tokens: torch.Tensor, table: torch.Tensor, mesh, *,
+                    tp_axis: str, scale: bool) -> torch.Tensor:
+    """This rank's rows ``tokens`` (B, S) against its (V, D/tp) column
+    block of the table: a local take, (B, S, D/tp), the block of
+    ``Layout((batch, None, tp_axis))``.  The backward scatter-adds into
+    the block (duplicate ids add up).  The scale is the whole width's."""
+    x = table[tokens]
+    if scale:
+        d_full = table.shape[-1] * mesh.shape[tp_axis]
+        x = x * torch.tensor(d_full ** 0.5, dtype=x.dtype)
     return x
 
 
@@ -188,3 +245,59 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, vocab_real: int
     nll = (logz - gold) * validf
     denom = torch.clamp(validf.sum(), min=1.0)
     return nll.sum() / denom, denom
+
+
+class _VocabShardedLoss(torch.autograd.Function):
+    """Cross-entropy of this rank's rows over logits sharded on the vocab
+    (the block (B, S, V/tp) from column ``v0``): forward with a max and a
+    sum across the axis; backward, softmax minus one-hot on the local
+    shard, scaled by the row's validity over the global denominator."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh, axis, v0, vocab_real, denom):
+        lf = logits.float()
+        col = v0 + torch.arange(lf.shape[-1], device=lf.device)
+        lf = torch.where(col >= vocab_real, NEG, lf)
+        m = dist_mod.pmax(lf.amax(-1), mesh, axis)               # (B, S)
+        se = dist_mod.psum(torch.exp(lf - m[..., None]).sum(-1), mesh, axis)
+        logz = m + torch.log(se)
+        hit = col == labels[..., None]
+        gold = dist_mod.psum(torch.where(hit, lf, 0.0).sum(-1), mesh, axis)
+        validf = (labels >= 0).float()
+        ctx.save_for_backward(lf, logz, hit, validf, denom)
+        ctx.dtype = logits.dtype
+        return ((logz - gold) * validf).sum() / denom
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, logz, hit, validf, denom = ctx.saved_tensors
+        p = torch.exp(lf - logz[..., None])
+        d = (p - hit.float()) * (validf * (g / denom))[..., None]
+        return d.to(ctx.dtype), None, None, None, None, None, None
+
+
+def lm_loss_sharded(logits: torch.Tensor, labels: torch.Tensor, *,
+                    vocab_real: int, mesh, tp_axis: str, batch_axes
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`lm_loss` on this rank's rows and vocab shard: ``logits``
+    (B, S, V/tp), this rank's block of ``Layout((batch, None, tp))``,
+    ``labels`` (B, S) its rows.  The log-sum-exp takes a max and a sum
+    across ``tp_axis``; the gold logit is a masked local sum plus a sum
+    across it; padding columns (at or past ``vocab_real``) are masked on
+    whichever shard holds them; the denominator counts the valid labels
+    of every rank (a sum over ``batch_axes``, empty when the rows are not
+    split).  Returns ``(share, loss, denom)``: ``share``, this rank's
+    rows' part of the mean, is what the rank differentiates (the loss is
+    their sum over ``batch_axes``, and the same on every rank of
+    ``tp_axis``: each seeds its backward with one, and the gradient of
+    its local logits is whole); ``loss`` is the mean over the global
+    batch."""
+    v0 = logits.shape[-1] * mesh.coords[tp_axis]
+    valid = (labels >= 0).float().sum()
+    denom = torch.clamp(dist_mod.psum(valid, mesh, batch_axes), min=1.0) \
+        if batch_axes else torch.clamp(valid, min=1.0)
+    share = _VocabShardedLoss.apply(logits, labels, mesh, tp_axis, v0,
+                                    vocab_real, denom)
+    loss = dist_mod.psum(share.detach(), mesh, batch_axes) if batch_axes \
+        else share.detach()
+    return share, loss, denom

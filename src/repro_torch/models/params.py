@@ -8,16 +8,25 @@ are fp32, the rest bf16.  Initialization follows the reference's std and
 ``scaled`` rule (``models/params.py``) on an explicit ``torch.Generator``;
 it does not reproduce JAX's random numbers, so tests carry JAX-initialized
 weights over with :func:`from_jax`.
+
+On a mesh each spec carries its :class:`~repro_torch.core.layout.Layout`
+(the planner's, as the reference's specs do) and each rank keeps its
+block of every leaf: :func:`tree_init` draws the whole leaf from the seed,
+as on one rank, and keeps the block, so every mesh holds the one-rank
+params bit for bit; :func:`from_jax` and :func:`shard_tree` give each
+rank its block of a global dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.core.layout import Layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,10 +35,21 @@ class ParamSpec:
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"   # normal | zeros | ones | scaled | ssm_a | dt_bias
     scale: float = 0.02
+    layout: Optional[Layout] = None     # on a mesh: the planner's layout
 
     def stacked(self, n: int) -> "ParamSpec":
-        """Prepend a layer dimension (the port loops over it)."""
-        return dataclasses.replace(self, shape=(n,) + tuple(self.shape))
+        """Prepend a layer dimension (the port loops over it), left whole
+        by the layout."""
+        return dataclasses.replace(
+            self, shape=(n,) + tuple(self.shape),
+            layout=(None if self.layout is None
+                    else Layout((None,) + self.layout.dims)))
+
+
+def plan_layout(plan, mesh, method: str, shape) -> Optional[Layout]:
+    """``plan.<method>(shape, mesh)``, the planner's layout of a leaf, or
+    None without a plan (one rank)."""
+    return None if plan is None else getattr(plan, method)(shape, mesh)
 
 
 def _normal(gen, shape, spec, device) -> torch.Tensor:
@@ -75,13 +95,26 @@ def init_param(gen: torch.Generator, spec: ParamSpec,
 
 
 def tree_init(seed: int, specs: Mapping[str, ParamSpec],
-              device: torch.device) -> Dict[str, torch.Tensor]:
+              device: torch.device, mesh=None) -> Dict[str, torch.Tensor]:
     """Materialize every spec, in order, from one generator on ``device``;
-    the ``layers.*`` leaves are layer stacks."""
+    the ``layers.*`` leaves are layer stacks.  With a ``mesh``, each leaf
+    is drawn whole and this rank keeps its block of the spec's layout."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return {name: init_param(gen, spec, device,
-                             layered=name.startswith("layers."))
-            for name, spec in specs.items()}
+    out = {}
+    for name, spec in specs.items():
+        leaf = init_param(gen, spec, device,
+                          layered=name.startswith("layers."))
+        out[name] = (leaf if mesh is None or spec.layout is None
+                     else spec.layout.block(leaf, mesh))
+    return out
+
+
+def shard_tree(tree: Mapping[str, torch.Tensor],
+               layouts: Mapping[str, Layout], mesh
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's block of each global leaf in its layout."""
+    return {name: layouts[name].block(val, mesh)
+            for name, val in tree.items()}
 
 
 def _to_tensor(arr: Any) -> torch.Tensor:
@@ -120,10 +153,13 @@ def nest_names(flat: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def from_jax(tree: Mapping[str, Any], prefix: str = ""
+def from_jax(tree: Mapping[str, Any], prefix: str = "", mesh=None,
+             layouts: Optional[Mapping[str, Layout]] = None
              ) -> Dict[str, torch.Tensor]:
     """The reference's params pytree (nested dicts of arrays, converted to
     numpy by the caller or here) as the port's flat parameter dict, on the
-    CPU.  bf16 leaves are carried bit for bit."""
-    return {name: _to_tensor(val)
-            for name, val in flat_names(tree, prefix).items()}
+    CPU.  bf16 leaves are carried bit for bit.  Given a ``mesh`` and each
+    leaf's layout (``Model.param_layouts()``), this rank's blocks."""
+    out = {name: _to_tensor(val)
+           for name, val in flat_names(tree, prefix).items()}
+    return out if mesh is None else shard_tree(out, layouts, mesh)

@@ -28,20 +28,41 @@ the reference's windowed dense cache: its global layers' ``k_g``/``v_g``
 (n_g, B, T, Hkv, hd) and its local layers' O(window) rings ``k_l``/``v_l``
 (n_l, B, W, Hkv, hd), W = min(window, T), ring slot j holding the last
 position p = j (mod W).
+
+On a ``(data, model)`` mesh (``Model(cfg, mesh=..., plan=...)``, the
+plan from :func:`repro_torch.core.planner.plan_for` by default) each rank
+holds its blocks of the params in the plan's layouts and runs the
+reference's train forward on them: the D-sharded embedding relayed onto
+the residual's layout, ``_dense_block``'s routing (head-TP or SP
+attention; the local MLP under ``ffn_replicated``, the bf16
+gather/reduce-scatter MLP under ``seq_parallel_residual``, the
+GSPMD-style MLP otherwise), FSDP leaves gathered at use, the
+vocab-parallel head and loss.  ``forward`` and ``loss_fn`` take the
+global batch and run this rank's rows (all of them when the batch
+cannot split over the data axes, the reference's ``_maybe_batch``).
+Serving on a mesh, and the ssm family on any mesh, raise: ROADMAP queue
+1, items 13 and 11.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
+from repro_torch.core.layout import Layout, batch_block, constrain
+from repro_torch.core.planner import plan_for
+from repro_torch.core.replication import gathered
 from repro_torch.models import attention, layers, ssm
-from repro_torch.models.params import ParamSpec, tree_init
+from repro_torch.models.params import (ParamSpec, plan_layout, shard_tree,
+                                      tree_init)
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,12 +88,20 @@ class Model(nn.Module):
 
     def __init__(self, cfg, *, device: Union[str, torch.device] = "cuda",
                  policy: precision.Policy = precision.MIXED,
-                 ssd_chunk: int = 256, remat: str = "full"):
+                 ssd_chunk: int = 256, remat: str = "full", mesh=None,
+                 plan=None):
         super().__init__()
         if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense and ssm families are ported so "
                 "far (ROADMAP queue 1, item 11)")
+        if mesh is not None and cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name} on a mesh: the ssm family's sharded forward "
+                "(ssm.forward_shardmap) is ROADMAP queue 1, item 11")
+        self.mesh = mesh
+        self.plan = (plan if plan is not None or mesh is None
+                     else plan_for(cfg, mesh))
         group = remat[len("group:"):] if remat.startswith("group:") else ""
         if remat not in ("full", "none") and not (group.isdigit()
                                                   and int(group) > 0):
@@ -102,30 +131,149 @@ class Model(nn.Module):
     # parameters
     # ------------------------------------------------------------------
     def param_specs(self) -> Dict[str, ParamSpec]:
-        cfg = self.cfg
+        """Every leaf's spec; on a mesh with the plan's layouts (the
+        reference's ``param_specs`` and ``_layer_specs``)."""
+        cfg, plan, mesh = self.cfg, self.plan, self.mesh
         D, V, F, L = cfg.d_model, cfg.padded_vocab, cfg.d_ff, cfg.n_layers
         out_scale = 0.02 / max(1, 2 * L) ** 0.5
+        lay = functools.partial(plan_layout, plan, mesh)
         layer = {
             "ln1": ParamSpec((D,), init="ones"),
             **{f"ssm.{k}": s for k, s in ssm.ssm_specs(cfg).items()},
         } if cfg.family == "ssm" else {
-            "ln1": ParamSpec((D,), init="ones"),
-            "ln2": ParamSpec((D,), init="ones"),
-            **{f"attn.{k}": s for k, s in attention.attn_specs(cfg).items()},
-            "mlp.gate": ParamSpec((D, F)),
-            "mlp.in": ParamSpec((D, F)),
-            "mlp.out": ParamSpec((F, D), init="scaled", scale=out_scale),
+            "ln1": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
+            "ln2": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
+            **{f"attn.{k}": s for k, s in
+               attention.attn_specs(cfg, plan, mesh).items()},
+            "mlp.gate": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
+            "mlp.in": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
+            "mlp.out": ParamSpec((F, D), init="scaled", scale=out_scale,
+                                 layout=lay("ffn_out", (F, D))),
         }
         return {
-            "embed": ParamSpec((V, D)),
-            "unembed": ParamSpec((D, V)),
-            "final_norm": ParamSpec((D,), init="ones"),
+            "embed": ParamSpec((V, D), layout=lay("embed", (V, D))),
+            "unembed": ParamSpec((D, V), layout=lay("unembed", (D, V))),
+            "final_norm": ParamSpec((D,), init="ones",
+                                    layout=lay("vector", (D,))),
             **{f"layers.{k}": s.stacked(L) for k, s in layer.items()},
         }
 
+    def param_layouts(self) -> Dict[str, Layout]:
+        """Each leaf's storage layout on the mesh."""
+        if not hasattr(self, "_layouts"):
+            self._layouts = {k: s.layout
+                             for k, s in self.param_specs().items()}
+        return self._layouts
+
     def init(self, seed: int) -> Params:
-        """Random weights from ``seed`` on the model's device."""
-        return tree_init(seed, self.param_specs(), self.device)
+        """Random weights from ``seed`` on the model's device; on a mesh,
+        this rank's blocks of the one-rank weights."""
+        return tree_init(seed, self.param_specs(), self.device, self.mesh)
+
+    def shard(self, params: Params) -> Params:
+        """This rank's blocks of global params (the model's device)."""
+        params = {k: v.to(self.device) for k, v in params.items()}
+        return (params if self.mesh is None
+                else shard_tree(params, self.param_layouts(), self.mesh))
+
+    # ------------------------------------------------------------------
+    # the mesh
+    # ------------------------------------------------------------------
+    def rows_split(self, batch: int) -> bool:
+        """Whether a global batch of ``batch`` rows splits over the plan's
+        batch axes (else every rank runs all of them)."""
+        n = math.prod(self.mesh.shape[a] for a in self.plan.batch_axes)
+        return batch % n == 0 and batch >= n
+
+    def row_axes(self, batch: int) -> Tuple[str, ...]:
+        """The mesh axes a global batch of ``batch`` rows splits over:
+        the plan's batch axes, or none (one rank, or rows that do not
+        split).  Every layout of a forward on the mesh is taken from this
+        value, which the forward passes down: nothing of it is kept on
+        the model, so a recompute in the backward sees its own forward's
+        rows."""
+        if self.mesh is None or not self.rows_split(batch):
+            return ()
+        return self.plan.batch_axes
+
+    def grad_split_axes(self, name: str, batch: int) -> Tuple[str, ...]:
+        """The mesh axes over which this rank's gradient of leaf ``name``
+        is a share (the work using it was split there), for a global
+        batch of ``batch`` rows: the batch axes when the rows split, and
+        the model axis for a leaf the model axis replicates wherever each
+        rank runs its own part of the sequence or heads with it (the norms
+        on sequence-sharded residuals, every SP weight, qk-norm scales on
+        a rank's own heads).  A leaf every rank of the axis uses on the
+        same values (the norms and the local MLP on a replicated residual
+        under ``seq_parallel_residual=False``) is whole on each."""
+        plan, mesh = self.plan, self.mesh
+        axes = list(self.row_axes(batch))
+        tp = plan.tp_axis
+        if mesh.shape.get(tp, 1) > 1 and \
+                tp not in self.param_layouts()[name].mesh_axes_used():
+            leaf = name.split(".")[-1]
+            same = not plan.seq_parallel_residual and (
+                leaf in ("ln1", "ln2", "final_norm")
+                or (plan.ffn_replicated and ".mlp." in name))
+            if not same:
+                axes.append(tp)
+        return tuple(axes)
+
+    def _servable(self, what: str) -> None:
+        """The serving entry points run one rank's code path on whole
+        leaves: on a mesh they raise."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh: serving on a mesh (the sequence-sharded "
+                "KV cache, flash-decoding's psum) is ROADMAP queue 1, item "
+                "13; serve from a Model without one")
+
+    def _hidden(self, rows: Tuple[str, ...]) -> Layout:
+        """The residual's layout for a batch split over ``rows`` (the
+        batch axes dropped when the rows do not split)."""
+        lay = self.plan.hidden()
+        return Layout((rows or None,) + lay.dims[1:])
+
+    def _use(self, val: torch.Tensor, storage: Layout,
+             rows: Tuple[str, ...]) -> torch.Tensor:
+        """A leaf (or a layer's slice) at its use layout: gathered over the
+        FSDP axis where it is stored sharded there (its gradient comes
+        back summed over the ``rows`` the batch split over)."""
+        plan = self.plan
+        if not plan.fsdp or plan.fsdp_axis not in storage.mesh_axes_used():
+            return val
+        return gathered(val, storage, storage.drop_axis(plan.fsdp_axis),
+                        self.mesh, split=rows)
+
+    def _use_layer(self, lp: dict, rows: Tuple[str, ...]) -> dict:
+        """One layer's params (nested as :meth:`_layer` nests them) at
+        their use layouts."""
+        lays = {name[len("layers."):]: Layout(lay.dims[1:])
+                for name, lay in self.param_layouts().items()
+                if name.startswith("layers.")}
+        return {k: ({kk: self._use(vv, lays[f"{k}.{kk}"], rows)
+                     for kk, vv in v.items()}
+                    if isinstance(v, dict) else self._use(v, lays[k], rows))
+                for k, v in lp.items()}
+
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               rows: Tuple[str, ...]) -> torch.Tensor:
+        """Embed -> bf16 residual: on a mesh, this rank's rows (those of
+        its coordinate on ``rows``) against its D-column block, relayed
+        onto the residual's layout (an all-to-all over the model axis onto
+        the sequence shards)."""
+        cfg = self.cfg
+        if self.mesh is None:
+            x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
+            return x.to(torch.bfloat16)
+        plan, mesh = self.plan, self.mesh
+        table = self._use(params["embed"], self.param_layouts()["embed"],
+                          rows)
+        x = layers.embed_shard_map(
+            batch_block(tokens, mesh, rows), table, mesh,
+            tp_axis=plan.tp_axis, scale=cfg.emb_scale).to(torch.bfloat16)
+        return constrain(x, self._hidden(rows), mesh,
+                         src=Layout((rows or None, None, plan.tp_axis)))
 
     @staticmethod
     def _layer(params: Params, i: int) -> dict:
@@ -174,10 +322,15 @@ class Model(nn.Module):
         return bool(cfg.window and cfg.local_global_pattern
                     and cfg.family == "dense")
 
-    def _dense_block(self, x, lp, window, with_cache: bool = False):
+    def _dense_block(self, x, lp, window, with_cache: bool = False,
+                     rows: Tuple[str, ...] = ()):
         """One dense layer of the full-sequence forward; with
-        ``with_cache`` returns ``(x, (k, v))``."""
+        ``with_cache`` returns ``(x, (k, v))``.  On a mesh ``rows`` are the
+        axes the batch splits over (:meth:`row_axes`)."""
         cfg = self.cfg
+        if self.mesh is not None:
+            return self._dense_block_mesh(x, self._use_layer(lp, rows),
+                                          window, rows)
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
         a = attention.forward(h, lp["attn"], cfg, policy=self.policy,
                               window=window, with_cache=with_cache)
@@ -186,6 +339,27 @@ class Model(nn.Module):
         h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + self._mlp(h, lp, wide=True)
         return (x, kv) if with_cache else x
+
+    def _dense_block_mesh(self, x, lp, window, rows: Tuple[str, ...]):
+        """``_dense_block`` on this rank's blocks (the reference's routing:
+        the local MLP under ``ffn_replicated``, the bf16 shard_map MLP
+        under ``seq_parallel_residual``, else the GSPMD-style one)."""
+        cfg, plan, mesh = self.cfg, self.plan, self.mesh
+        h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + attention.forward(h, lp["attn"], cfg, policy=self.policy,
+                                  window=window, mesh=mesh, plan=plan,
+                                  hidden=self._hidden(rows))
+        h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        w = (lp["mlp"]["gate"], lp["mlp"]["in"], lp["mlp"]["out"])
+        if plan.ffn_replicated:
+            f = layers.glu_mlp(h, *w, act=cfg.act, policy=self.policy)
+        elif plan.seq_parallel_residual:
+            f = layers.glu_mlp_shardmap(h, *w, act=cfg.act, mesh=mesh,
+                                        plan=plan, policy=self.policy)
+        else:
+            f = layers.glu_mlp(h, *w, act=cfg.act, policy=self.policy,
+                               mesh=mesh, tp_axis=plan.tp_axis)
+        return x + f
 
     def _mlp(self, h, lp, wide: bool = False):
         """The gated MLP.  The full-sequence forward (``_dense_block``)
@@ -196,9 +370,26 @@ class Model(nn.Module):
                               lp["mlp"]["out"], act=self.cfg.act,
                               policy=self.policy, wide=wide)
 
-    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Params, x: torch.Tensor,
+              last_only: bool = False,
+              rows: Tuple[str, ...] = ()) -> torch.Tensor:
+        """Final norm and unembed: fp32 logits; on a mesh this rank's
+        vocab block (B, S, V/tp), the residual gathered over the sequence
+        (or entering the vocab split whole) for it, ``rows`` being the
+        axes the batch splits over."""
         x = layers.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return layers.unembed(x, params["unembed"], policy=self.policy)
+        if self.mesh is not None:
+            mesh, tp = self.mesh, self.plan.tp_axis
+            x = (dist_mod.all_gather_ad(x, mesh, tp, 1)
+                 if self.plan.seq_parallel_residual
+                 else dist_mod.copy_ad(x, mesh, tp))
+            w = self._use(params["unembed"], self.param_layouts()["unembed"],
+                          rows)
+        else:
+            w = params["unembed"]
+        if last_only:
+            x = x[:, -1:, :]
+        return layers.unembed(x, w, policy=self.policy)
 
     # ------------------------------------------------------------------
     # block-paged KV cache
@@ -212,6 +403,7 @@ class Model(nn.Module):
 
     def _pages(self, num_pages: int, page_size: int
                ) -> Dict[str, torch.Tensor]:
+        self._servable("the paged cache")
         cfg = self.cfg
         if not self.paged_supported():
             raise ValueError(f"paged decode unsupported for family="
@@ -248,6 +440,7 @@ class Model(nn.Module):
         whose logical->physical row is ``table_row``, ``start`` being the
         absolute position of ``tokens[0, 0]``.  Returns fp32 logits
         (1, C, V) and ``cache``, whose pages were updated in place."""
+        self._servable("prefill_chunk_paged")
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
@@ -268,6 +461,7 @@ class Model(nn.Module):
         """One token per slot, ``tokens`` (B, 1) at positions ``pos``
         (scalar or (B,)), against ``cache["table"]``.  Returns fp32 logits
         (B, 1, V) and ``cache``, whose pages were updated in place."""
+        self._servable("decode_step_paged")
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
@@ -309,15 +503,16 @@ class Model(nn.Module):
         dense family returns ``(k, v)``, each (L, B, S, Hkv, hd) in bf16,
         and the ssm family ``(conv, ssm, bc_conv)``."""
         if self.cfg.family == "dense":
+            if with_cache:
+                self._servable("forward with_cache")
             kvs = []
             x = self._dense_stack(
                 params, tokens,
                 (lambda i, kv: kvs.append(kv)) if with_cache else None)
-            if last_only:
-                x = x[:, -1:, :]
             caches = (tuple(torch.stack(t) for t in zip(*kvs))
                       if with_cache else None)
-            return (self._head(params, x),
+            return (self._head(params, x, last_only,
+                               self.row_axes(tokens.shape[0])),
                     torch.zeros((), dtype=torch.float32, device=x.device),
                     caches)
         states = []
@@ -340,25 +535,27 @@ class Model(nn.Module):
         rotated keys and values go to ``write_kv(i, (k, v))``.  Returns
         the residual stream (B, S, D) in bf16."""
         cfg = self.cfg
-        x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
-        x = x.to(torch.bfloat16)
+        rows = self.row_axes(tokens.shape[0])
+        x = self._embed(params, tokens, rows)
         lps = self._unbind_layers(params)
         G = self._group
         if G and write_kv is None and torch.is_grad_enabled():
             for i0 in range(0, cfg.n_layers, G):
                 x = checkpoint(self._dense_layers, x, lps[i0:i0 + G], i0,
-                               True, use_reentrant=False)
+                               True, None, rows, use_reentrant=False)
             return x
         return self._dense_layers(
             x, lps, 0, self.remat == "full" and torch.is_grad_enabled(),
-            write_kv)
+            write_kv, rows)
 
-    def _dense_layers(self, x, lps, i0: int, remat: bool, write_kv=None):
+    def _dense_layers(self, x, lps, i0: int, remat: bool, write_kv=None,
+                      rows: Tuple[str, ...] = ()):
         """Layers ``i0 .. i0 + len(lps) - 1`` of the full-sequence
         forward, each checkpointed when ``remat``; given ``write_kv``,
-        each layer's keys and values go to ``write_kv(i, (k, v))``."""
+        each layer's keys and values go to ``write_kv(i, (k, v))``.  The
+        batch splits over ``rows``, passed to each (re)computed block."""
         for i, lp in enumerate(lps, start=i0):
-            args = (x, lp, self._window(i), write_kv is not None)
+            args = (x, lp, self._window(i), write_kv is not None, rows)
             x = (checkpoint(self._dense_block, *args, use_reentrant=False)
                  if remat else self._dense_block(*args))
             if write_kv is not None:
@@ -368,8 +565,19 @@ class Model(nn.Module):
 
     def loss_fn(self, params: Params, batch: dict):
         """(mean token loss, metrics ``{loss, aux, tokens}``) of a batch
-        ``{"tokens", "labels"}`` (B, S); labels < 0 are ignored."""
+        ``{"tokens", "labels"}`` (B, S); labels < 0 are ignored.  On a
+        mesh the batch is the global one and the first value is this
+        rank's rows' share of the mean (:func:`layers.lm_loss_sharded`),
+        which the rank differentiates; the metrics hold the global
+        mean."""
         logits, aux, _ = self.forward(params, batch["tokens"])
+        if self.mesh is not None:
+            rows = self.row_axes(batch["tokens"].shape[0])
+            share, loss, denom = layers.lm_loss_sharded(
+                logits, batch_block(batch["labels"], self.mesh, rows),
+                vocab_real=self.cfg.vocab_size, mesh=self.mesh,
+                tp_axis=self.plan.tp_axis, batch_axes=rows)
+            return share, {"loss": loss, "aux": aux, "tokens": denom}
         loss, denom = layers.lm_loss(logits, batch["labels"],
                                      vocab_real=self.cfg.vocab_size)
         return loss, {"loss": loss, "aux": aux, "tokens": denom}
@@ -393,6 +601,7 @@ class Model(nn.Module):
         j (mod W')), each gathered per layer as it is computed; written
         into a cache, a ring narrower than the cache's is padded with
         zeros at its end, as the reference's one-slot prefill pads it."""
+        self._servable("prefill")
         if cache is not None and tokens.shape[0] != 1:
             raise ValueError("prefill into a cache row takes one prompt")
         if self.cfg.family == "dense":
@@ -472,6 +681,7 @@ class Model(nn.Module):
         }
 
     def init_cache(self, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
+        self._servable("init_cache")
         return tree_init(0, self.cache_specs(batch, seq_len), self.device)
 
     def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
@@ -489,6 +699,7 @@ class Model(nn.Module):
         their rings (``attention.decode_ring``) under the same table with
         ``min(seq_lens, W)``, made once per step.  An SSM's step does not
         read ``pos`` (taken for the reference's signature)."""
+        self._servable("decode_step")
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
