@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
-``d256``, ``4c``, ``4d``, ``6b``, ``9`` and ``10``, after phases 1 and 2).
+``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
+checks), ``6b``, ``9``, ``10`` and ``11``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -128,14 +129,20 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    one rank without a wire (``comms="off"``) on 4 x 512 tokens of
    ``SyntheticLM(structured=True)``, with its launch
    counts; the card's 2-layer loss and gradients against the CPU's; and
-   two ranks spawned on the one card over gloo: run 3 (fp32 wire, one
-   step, held to run 2) and run 4, the main path (int8 wire, 6 steps):
+   two ranks spawned on the one card over gloo: run 3 (fp32 wire, psum,
+   one step, held to run 2) and run 4, the main path (int8 wire, 6 steps,
+   ``CommsPlan(schedule="auto")`` resolved by the topology cost model to
+   ``tree``, as the reference's at two ranks, the schedule printed; a
+   line of two is the backend's all-reduce, the same bits as ``psum``):
    replicas bitwise equal after every step, step 1 held to run 3, the loss
    falling, launches per rank equal to the layer loop's (9
    ``quantize_int8`` per step), a bucket recomputed on the host equal to
    the wire's and a control without one rank's contribution that must
    differ; step, device, host, wire and optimizer times, tokens per
-   second, wire bytes and peak memory per rank.
+   second, wire bytes and peak memory per rank; then ``tree`` beside
+   ``psum`` on the int8 wire, interleaved psum, tree, tree, psum:
+   ``sync_tree`` alone on the same gradients (bitwise equal) and whole
+   steps.
 6b. Train gemma-2b at full width and depth on one rank through
    ``Session`` (``comms="off"``, 2 x 512 tokens of
    ``SyntheticLM(structured=True)``): the first batch's gradients under
@@ -240,7 +247,34 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    each rank's peak memory and bytes received per step by collective
    beside the estimate from the layouts.  Also alone: ``python3
    chip_smoke.py 10``.
-11. Print the ``kernels`` JSON line, the card's name and power limit, and
+11. The all-reduce schedules, the topology's link fit and the memory
+   verdict (also alone: ``python3 chip_smoke.py 11``).  Four ranks
+   spawned on the one card over gloo run ``psum``, ``ring``, ``rsag`` and
+   ``tree`` over the 4-rank ``model`` line of a (1, 4) mesh and ``hier``
+   over (data, model) of (2, 2) with ``intra_axis="model"``, on fp32 and
+   bf16 buckets of an odd size (262,147 elements: padding) and of 4 MiB,
+   and the int8 wire (``quantize_int8`` on the card) through each: every
+   rank's result the same bits, each bitwise the same schedule run on
+   CPU tensors in the same ranks (a control with rank 0's bucket one ulp
+   up must break that for the ring), each within ``tests/test_comms.py``'s
+   tolerances of the fp64 sum; each schedule's bytes received per rank
+   (``WIRE``) beside ``allreduce_design``'s, equal where the dataflow is
+   the modelled one (psum gathers, and says so); launches 5
+   ``quantize_int8`` per rank.  Then every schedule timed at 4 KiB to
+   16 MiB by factors of 4 (median of 3 after a warm-up, the slowest
+   rank's wall), each run a ``collective_sample`` event through ``obs``,
+   one link fitted (``calibrate.fit_link``: alpha, bandwidth, residual;
+   the table saved to ``build/chip_smoke/calibration.json``) and, per
+   size, the fastest schedule measured beside ``best_schedule`` under the
+   fitted and the nominal links (a finding; the gate is a positive
+   link).  Then, in this process: ``Session()``'s budget is the h100
+   entry, ``plan("gemma3-27b", batch=2, seq=512)`` raises
+   ``PlanMemoryError`` with ``torch.cuda.memory_allocated()`` unchanged,
+   the model's peak per rank for phase 10's meshes beside the peaks
+   phase 10 measured, ``best_hybrid`` for qwen2-0.5b on 4 devices; and
+   the train CLI for 2 steps at phase 8's depth with ``--hbm-gib 80
+   --calibration`` that table, and its drift report.
+12. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -2920,7 +2954,7 @@ def train_rank(rank, init, batches, run2_path, result_path):
                       microbatches=1)
     sess.init_state(plan3, seed=SEED, name="fp32")
     m3 = sess.step(plan3, batches[0], name="fp32")
-    p3 = sess.state.pop("fp32")["params"]
+    p3 = sess.evict("fp32")["params"]
     out["run3"] = {k: float(v) for k, v in m3.items()}
     require(same_on_every_rank(params_digest(p3)),
             "fp32 wire: replicas differ after the step")
@@ -2939,11 +2973,16 @@ def train_rank(rank, init, batches, run2_path, result_path):
         del p2, run2
     torch.cuda.empty_cache()
 
-    # run 4: the int8 wire, the main path, TRAIN_STEPS steps
+    # run 4: the int8 wire, the main path, TRAIN_STEPS steps; its schedule
+    # resolved by the topology cost model (the reference's tree at 2)
     plan4 = sess.plan(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                      comms=CommsPlan(schedule="psum", wire_dtype="int8"),
+                      comms=CommsPlan(schedule="auto", wire_dtype="int8"),
                       adamw=train_adamw(), microbatches=1)
     sess.init_state(plan4, seed=SEED, name="int8")
+    out["schedule"] = plan4.comms.resolve(sess.mesh, 4 * sum(
+        p.numel() for p in sess.get("int8")["params"].values()))
+    require(out["schedule"] == "tree",
+            f"the int8 wire resolved to {out['schedule']}, not tree")
     dist.barrier()
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -3003,7 +3042,7 @@ def train_rank(rank, init, batches, run2_path, result_path):
     out["forward_backward_ms"] = 1e3 * (time.perf_counter() - t0)
     dist.barrier()
     t0 = time.perf_counter()
-    sync_tree(grads, plan4.comms)
+    sync_tree(grads, plan4.comms, sess.mesh, ("data",))
     torch.cuda.synchronize()
     out["wire_ms"] = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
@@ -3018,7 +3057,8 @@ def train_rank(rank, init, batches, run2_path, result_path):
     buckets, absmaxes = bucketer.flatten_buckets_fused(bplan, grads, "int8")
     i = 1                                   # the smallest bucket
     wire = compressed.wire_all_reduce(
-        buckets[i].clone(), None, "psum", "int8", absmax=absmaxes[i])
+        buckets[i].clone(), sess.mesh, ("data",), out["schedule"], "int8",
+        absmax=absmaxes[i])
     mine, my_amax = buckets[i].cpu(), absmaxes[i].cpu().reshape(1)
     host = [torch.empty_like(mine) for _ in range(RANKS)]
     dist.all_gather(host, mine)
@@ -3039,9 +3079,52 @@ def train_rank(rank, init, batches, run2_path, result_path):
                 "missing rank")
         out["control"] = dict(bucket=i, both_ranks_equal=ok,
                               one_rank_equal=control)
+    del wire, buckets, absmaxes
+    out["tree_vs_psum"] = tree_against_psum(sess, plan4, grads, batches)
     Path(result_path.format(rank)).write_text(json.dumps(out))
     dist.barrier()
     close_group()
+
+
+def tree_against_psum(sess, plan4, grads, batches):
+    """Run 4's schedule (``tree``) beside ``psum`` on the same int8 wire in
+    this run, interleaved psum, tree, tree, psum: ``sync_tree`` alone on
+    the same gradients (the two must give the same bits: two addends
+    commute and the int8 wire sums int32), then whole steps on run 4's
+    state.  Returns the ms of each by schedule."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.comms.plan import sync_tree
+    order = ("psum", "tree", "tree", "psum")
+    comms = {s: dataclasses.replace(plan4.comms, schedule=s)
+             for s in ("psum", "tree")}
+    sync_ms = {s: [] for s in comms}
+    digests = {}
+    for s in order:
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        synced = sync_tree(grads, comms[s], sess.mesh, ("data",))
+        torch.cuda.synchronize()
+        sync_ms[s].append(1e3 * (time.perf_counter() - t0))
+        digests[s] = params_digest(synced)
+        del synced
+    require(torch.equal(digests["psum"], digests["tree"]),
+            "at two ranks tree and psum synced different bits")
+    plans = {"tree": plan4,
+             "psum": sess.plan(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               comms=comms["psum"], adamw=plan4.adamw,
+                               microbatches=1)}
+    step_ms = {s: [] for s in plans}
+    for k, s in enumerate(order):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        sess.step(plans[s], batches[k], name="int8")
+        torch.cuda.synchronize()
+        step_ms[s].append(1e3 * (time.perf_counter() - t0))
+    return dict(order=order, sync_tree_ms=sync_ms, step_ms=step_ms,
+                same_bits=True)
 
 
 def run_one_rank(cfg, batches):
@@ -3209,6 +3292,18 @@ def train_phase(cfg):
     again = ranks[0]["first_batch_again"]
     print(f"int8-wire losses over {TRAIN_STEPS} steps: {losses}; the first "
           f"batch after them: {again}")
+    print(f"int8 wire: schedule {ranks[0]['schedule']} (CommsPlan 'auto' "
+          f"through the topology); sync_tree alone "
+          f"{[r['wire_ms'] for r in ranks]} ms, step wall median "
+          f"{[steady_wall(r) for r in ranks]} ms per rank", flush=True)
+    for r in ranks:
+        tp = r["tree_vs_psum"]
+        print(f"rank {r['rank']}, tree beside psum in this run (order "
+              f"{'/'.join(tp['order'])}; the same bits: {tp['same_bits']}):"
+              f" sync_tree alone tree {tp['sync_tree_ms']['tree']} ms, psum "
+              f"{tp['sync_tree_ms']['psum']} ms; steps tree "
+              f"{tp['step_ms']['tree']} ms, psum {tp['step_ms']['psum']} ms",
+              flush=True)
     require(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
             and again < losses[0], "the loss did not fall")
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3221,6 +3316,7 @@ def train_phase(cfg):
         run2=run2, run3=ranks[0]["run3"],
         run3_vs_run2=ranks[0]["run3_vs_run2"],
         run4_vs_run3=ranks[0]["run4_vs_run3"], control=ranks[0]["control"],
+        schedule=ranks[0]["schedule"],
         card_vs_cpu=cpu_check, step_wall_ms_median=wall,
         tokens_per_s=tokens / (wall / 1e3), profiled_step=idle["card"],
         per_rank=[dict(
@@ -3229,6 +3325,7 @@ def train_phase(cfg):
             profiled_step=idle["ranks"][i],
             forward_backward_ms=r["forward_backward_ms"],
             wire_ms=r["wire_ms"], adamw_ms=r["adamw_ms"],
+            tree_vs_psum=r["tree_vs_psum"],
             peak_gib=r["peak_gib"], profile=r["profile"])
             for i, r in enumerate(ranks)],
         wire_int32_bytes_per_rank=ranks[0]["wire_int32_bytes"],
@@ -3368,7 +3465,7 @@ def dp_step1_check(scheme, synced, local, group_sum):
     out = {}
     if scheme == "none":
         same = all(torch.equal(
-            synced[k], schedules.all_reduce(g.clone()) / torch.full(
+            synced[k], schedules.group_reduce(g.clone()) / torch.full(
                 (), RANKS, dtype=g.dtype, device=g.device))
             for k, g in local.items())
         require(same, "none, step 1: the synced gradients are not the mean "
@@ -3378,7 +3475,7 @@ def dp_step1_check(scheme, synced, local, group_sum):
         worst = 0.0
         for k, g in local.items():
             v = g.float()
-            exact = schedules.all_reduce(v.clone()) / torch.full(
+            exact = schedules.group_reduce(v.clone()) / torch.full(
                 (), RANKS, device=v.device)
             s_sum = group_sum(ref.int8_scale(v.abs().max()))
             d = (synced[k] - exact).abs()
@@ -4709,13 +4806,403 @@ def hybrid_phase():
     return summary, total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the all-reduce schedules, the link fit, the memory verdict and
+# the train CLI with a calibration table
+# ---------------------------------------------------------------------------
+
+SCHED_RANKS = 4
+SCHED_PATH = "comms schedules (4 ranks, gloo, int8 wire)"
+SCHED_ODD = 262_147                   # elements: padded at 4 and at 2
+SCHED_BYTES = 4 << 20                 # a 4 MiB bucket
+SCHED_FLAT = ("psum", "ring", "rsag", "tree")
+FIT_SIZES = tuple(4096 * 4 ** k for k in range(7))     # 4 KiB .. 16 MiB
+CALIBRATION = TRAIN_DIR / "calibration.json"
+SCHED_DEVICE = "cuda"                 # "cpu" for a rehearsal off the card
+#: phase 10's peaks per rank as PERF.md records them (H100 80GB HBM3,
+#: 700 W), printed when phase 10 did not run in this invocation
+HYBRID_PEAK_RECORDED = {"2x2": 5.905, "1x4": 7.822}
+
+
+def sched_cases():
+    """(name, schedule, wire, dtype, elements): fp32 and bf16 buckets of
+    an odd size and of 4 MiB, and the int8 wire (fp32 in) at 4 MiB,
+    through each flat schedule on the 4-rank line and ``hier`` on
+    (2, 2)."""
+    out = []
+    for sched in SCHED_FLAT + ("hier",):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (SCHED_ODD, SCHED_BYTES // dtype.itemsize):
+                out.append((f"{sched}-{str(dtype)[6:]}-{n}", sched, None,
+                            dtype, n))
+        out.append((f"{sched}-int8wire", sched, "int8", torch.float32,
+                    SCHED_BYTES // 4))
+    return out
+
+
+def sched_input(case, rank: int, device) -> torch.Tensor:
+    """Rank ``rank``'s bucket of ``case``, from a seed (ranks of unlike
+    scale); any rank can make any rank's."""
+    name, _, _, dtype, n = case
+    seed = SEED + 1000 * rank + sum(map(ord, name))
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, generator=g) * 10.0 ** ((rank - 1.5) / 2)
+    return x.to(dtype).to(device)
+
+
+def sched_meshes():
+    """The 4-rank ``model`` line of (1, 4) and (data, model) of (2, 2)
+    over the default group: (mesh, reduce axes, intra axis) by kind."""
+    import torch.distributed as dist
+    from repro_torch.core.distributed import Mesh
+    world = dist.group.WORLD
+    return {"flat": (Mesh((1, 4), ("data", "model"), world), ("model",),
+                     "model"),
+            "hier": (Mesh((2, 2), ("data", "model"), world),
+                     ("data", "model"), "model")}
+
+
+def sched_run(case, x, meshes):
+    from repro_torch.comms import compressed, schedules
+    _, sched, wire, _, _ = case
+    mesh, axes, intra = meshes["hier" if sched == "hier" else "flat"]
+    if wire is None:
+        return schedules.all_reduce(x, mesh, axes, sched, intra)
+    return compressed.wire_all_reduce(x, mesh, axes, sched, wire, intra)
+
+
+def sched_design(sched: str, nbytes: int):
+    """(steps, wire bytes) the cost model gives one all-reduce of
+    ``nbytes`` per rank: ``allreduce_design`` for a flat schedule on 4
+    ranks, its two flat phases for ``hier`` on (2, 2)."""
+    from repro_torch.comms import topology
+    if sched != "hier":
+        return topology.allreduce_design(nbytes, sched, SCHED_RANKS)
+    ni = nn = 2
+    return (2 * (ni - 1) + 2 * (nn - 1),
+            2 * nbytes * (ni - 1) / ni + 2 * (nbytes / ni) * (nn - 1) / nn)
+
+
+def sched_sync() -> None:
+    if SCHED_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def int_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view({1: torch.int8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
+
+
+def sched_rank(rank, init, result_path, fit):
+    """One rank of phase 11: every case on the card and on CPU tensors in
+    the same group, the failing control, the wire bytes, and (``fit``)
+    the timed sizes; writes its results as JSON to ``result_path`` with
+    its number in place of ``{}``."""
+    import hashlib
+    import torch.distributed as dist
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.core.distributed import close_group, init_group
+    init_group(init, rank=rank, world_size=SCHED_RANKS,
+               device=SCHED_DEVICE)
+    meshes = sched_meshes()
+    out = dict(rank=rank, digest={}, same_as_cpu={}, wire={}, err={})
+    dist.barrier()
+    ops.reset_launches()
+    for case in sched_cases():
+        name, sched, wire, dtype, n = case
+        x = sched_input(case, rank, SCHED_DEVICE)
+        dist_mod.WIRE.reset()
+        y = sched_run(case, x, meshes)
+        sched_sync()
+        out["wire"][name] = dist_mod.WIRE.total()
+        y_cpu = sched_run(case, x.cpu(), meshes)
+        require(y.dtype == dtype and y.shape == x.shape,
+                f"{name}: {y.dtype} {tuple(y.shape)}")
+        out["same_as_cpu"][name] = torch.equal(int_bits(y.cpu()),
+                                               int_bits(y_cpu))
+        out["digest"][name] = hashlib.sha256(
+            int_bits(y.cpu()).numpy().tobytes()).hexdigest()
+        xs = [sched_input(case, r, "cpu").double()
+              for r in range(SCHED_RANKS)]
+        want = sum(xs)
+        big = float(want.abs().max())
+        if wire == "int8":
+            scale = max(float(v.abs().max()) for v in xs) / 127
+            rtol, atol = 0.0, SCHED_RANKS * scale / 2 + 1e-6 * big
+        elif dtype == torch.bfloat16:
+            rtol, atol = 2e-2, 0.16 * big / 8
+        else:
+            rtol, atol = 1e-5, 8e-5 * big / 8
+        if sched == "hier":
+            atol *= 2
+        excess = float(((y.cpu().double() - want).abs()
+                        - (atol + rtol * want.abs())).max())
+        out["err"][name] = dict(max_abs=float((y.cpu().double() - want)
+                                             .abs().max()),
+                                within=excess <= 0)
+        if name == f"ring-float32-{SCHED_BYTES // 4}":
+            # the control: rank 0's bucket moved by one ulp
+            moved = (torch.nextafter(x, torch.full_like(x, math.inf))
+                     if rank == 0 else x)
+            y2 = sched_run(case, moved, meshes)
+            out["control_differs"] = not torch.equal(
+                int_bits(y2.cpu()), int_bits(y_cpu))
+    sched_sync()
+    out["launches"] = ops.dispatch_report()
+    if fit:
+        out["samples"] = sched_timings(meshes)
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def sched_timings(meshes):
+    """Each schedule at each of ``FIT_SIZES`` (fp32): one warm-up, then 3
+    runs, each the slowest rank's wall from a barrier to its own
+    synchronize; the median."""
+    import torch.distributed as dist
+    rows = []
+    for nbytes in FIT_SIZES:
+        g = torch.Generator(device=SCHED_DEVICE).manual_seed(SEED + nbytes)
+        x = torch.randn(nbytes // 4, generator=g, device=SCHED_DEVICE)
+        for sched in SCHED_FLAT + ("hier",):
+            case = ("fit", sched, None, torch.float32, x.numel())
+            sched_run(case, x, meshes)
+            walls = []
+            for _ in range(3):
+                sched_sync()
+                dist.barrier()
+                t0 = time.perf_counter()
+                sched_run(case, x, meshes)
+                sched_sync()
+                walls.append(time.perf_counter() - t0)
+            t = torch.tensor(walls, dtype=torch.float64)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            steps, wire = sched_design(sched, nbytes)
+            rows.append(dict(schedule=sched, nbytes=nbytes, steps=steps,
+                             wire_bytes=wire,
+                             seconds=statistics.median(t.tolist())))
+    return rows
+
+
+def sched_link_fit(samples):
+    """Record every timed run as a ``collective_sample`` event through
+    ``obs``, fit one link with ``calibrate.fit_link`` over them, save the
+    table (``calibrate.fit``) to ``CALIBRATION``, and print, per size,
+    the fastest schedule measured beside ``best_schedule`` under the
+    fitted link and under the nominal links.  A finding, not a gate: the
+    gate is a positive link."""
+    import warnings
+    from repro_torch import obs as obs_mod
+    from repro_torch.comms import topology
+    from repro_torch.core import calibrate
+    from repro_torch.core.distributed import Mesh
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    stream = TRAIN_DIR / "collective_samples.jsonl"
+    obs = obs_mod.Obs(jsonl=str(stream), name="chip_smoke/11")
+    for row in samples:
+        obs.event("collective_sample", **row)
+    obs.close()
+    events = [e for e in read_jsonl(stream)
+              if e["kind"] == "collective_sample"]
+    stream.unlink()
+    link, meta = calibrate.fit_link(events)
+    require(link is not None and link.latency_s > 0
+            and link.bandwidth_Bps > 0, f"link fit: {meta}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", calibrate.CalibrationWarning)
+        table = calibrate.fit(events, {"meta": {}, "metrics": {}},
+                              sources=["chip_smoke.py phase 11"])
+    table.save(str(CALIBRATION))
+    fitted = dict(alpha_us=link.latency_s * 1e6,
+                  bandwidth_GBps=link.bandwidth_Bps / 1e9,
+                  residual_rms_rel=meta["residual_rms_rel"],
+                  samples=meta["n_samples"])
+    print(f"link fit over {meta['n_samples']} collective samples: alpha "
+          f"{fitted['alpha_us']:.1f} us, bandwidth "
+          f"{fitted['bandwidth_GBps']:.3f} GB/s, relative residual "
+          f"{fitted['residual_rms_rel']:.3f} (the nominals: PCIE_GEN3 2 us "
+          "12 GB/s, FDR_IB 5 us 6.8 GB/s)", flush=True)
+    line = Mesh((1, 4), ("data", "model"))
+    nominal = topology.topology_from_mesh(line)
+    fit_topo = topology.topology_from_mesh(line, intra=link, inter=link)
+    by_size = []
+    for nbytes in FIT_SIZES:
+        ms = {r["schedule"]: 1e3 * r["seconds"] for r in samples
+              if r["nbytes"] == nbytes}
+        flat = {k: v for k, v in ms.items() if k != "hier"}
+        row = dict(nbytes=nbytes, ms=ms,
+                   fastest_measured=min(flat, key=flat.get),
+                   best_fitted=fit_topo.best_schedule(nbytes),
+                   best_nominal=nominal.best_schedule(nbytes))
+        by_size.append(row)
+        print(f"  {nbytes:>9} B: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ms.items())
+            + f" ms; fastest flat {row['fastest_measured']}, best_schedule "
+            f"fitted {row['best_fitted']}, nominal {row['best_nominal']}")
+    return dict(link=fitted, by_size=by_size)
+
+
+def memory_verdict(hybrid=None):
+    """Phase 11(d), in this process alone: the session's budget is the
+    card's entry; gemma3-27b's one-rank train cell is refused before a
+    byte is allocated; the model's peak per rank for phase 10's meshes
+    beside the peaks phase 10 measured; ``best_hybrid`` for qwen2-0.5b
+    on 4 devices."""
+    from repro_torch.api import PlanMemoryError, Session
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.core.planner import best_hybrid
+    sess = Session()
+    require(sess.budget == mem_mod.HBM_BUDGETS["h100"],
+            f"the session's budget is {sess.budget.describe()}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    refusal = None
+    try:
+        sess.plan(GEMMA3, batch=2, seq=512)
+    except PlanMemoryError as e:
+        refusal = e
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    require(refusal is not None, "gemma3-27b's one-rank cell was planned")
+    require(after == before, f"the refused plan allocated {after - before} "
+            "bytes on the card")
+    peak = mem_mod.peak_stage_footprint(refusal.footprints).total / 2**30
+    print(f"memory verdict: gemma3-27b, one rank, 2 x 512 tokens: refused "
+          f"({peak:.1f} GiB per device vs {sess.budget.describe()}); "
+          f"allocated before/after {before}/{after} bytes", flush=True)
+    cfg = get_config(ARCH)
+    meshes = {}
+    for shape, _, _ in HYBRID:
+        tag = f"{shape[0]}x{shape[1]}"
+        fps = mem_mod.footprints_for_mesh(
+            cfg, Mesh(shape, ("data", "model")), global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ)
+        pred = mem_mod.peak_stage_footprint(fps).total / 2**30
+        if hybrid is not None:
+            meas, src = max(hybrid["meshes"][tag]["peak_gib_by_rank"]), \
+                "phase 10, this run"
+        else:
+            meas, src = HYBRID_PEAK_RECORDED[tag], "phase 10, PERF.md"
+        meshes[tag] = dict(predicted_gib=pred, measured_gib=meas,
+                           measured_over_predicted=meas / pred, source=src)
+        print(f"  qwen2-0.5b hybrid {tag}, {TRAIN_BATCH} x {TRAIN_SEQ} "
+              f"tokens: the model's peak {pred:.3f} GiB per rank, measured "
+              f"{meas:.3f} ({src}), ratio {meas / pred:.3f}")
+    best = best_hybrid(cfg, 4, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       hbm_budget=sess.budget)
+    print(f"  best_hybrid(qwen2-0.5b, 4 devices, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}) = (dp, tp, pp) {best}", flush=True)
+    return dict(refused_peak_gib=peak, allocated_delta=after - before,
+                hybrid=meshes, best_hybrid=list(best))
+
+
+def calibrated_cli():
+    """Phase 11(e): the train CLI at phase 8's depth for 2 steps with
+    ``--hbm-gib 80 --calibration`` the table fitted in (c), and its drift
+    report."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cal_"))
+    try:
+        out, dt = cli(["repro_torch.launch.train", "--arch", ARCH,
+                       "--scale-down", "1", "--batch", "2", "--seq", "512",
+                       "--comms", "off", "--steps", "2", "--hbm-gib", "80",
+                       "--calibration", str(CALIBRATION), "--metrics",
+                       str(tmp / "train.jsonl")], timeout=300)
+        lines = out.splitlines()
+        at = next(i for i, ln in enumerate(lines)
+                  if ln.startswith("drift report"))
+        print("\n".join(lines[at:at + 5]))
+        snap = json.loads((tmp / "BENCH_step_metrics.json").read_text())
+        rows = {r["name"]: r for r in snap["meta"]["drift"]["rows"]}
+        require("calibration: CalibrationTable(" in out
+                and "override 80.0 GiB" in out
+                and snap["meta"]["calibration"] == str(CALIBRATION)
+                and set(rows) == {"peak_bytes", "step_time_s"},
+                "the calibrated train CLI's lines or snapshot are not what "
+                "it ran")
+        return dict(seconds=dt, drift=rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sched_phase(hybrid=None, fit=True):
+    """Phase 11: four ranks spawned on the one card over gloo run (a) every
+    schedule on the card and on CPU tensors, (b) count the wire, (c) time
+    the fit sizes; then, here, the link fit, (d) the memory verdict and
+    (e) the calibrated train CLI.  Returns the summary and the ranks'
+    launch counts summed."""
+    import torch.multiprocessing as mp
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    init = f"file://{TRAIN_DIR / 'rendezvous_sched'}"
+    (TRAIN_DIR / "rendezvous_sched").unlink(missing_ok=True)
+    results = [TRAIN_DIR / f"sched_rank{r}.json" for r in range(SCHED_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    mp.spawn(sched_rank, args=(init, str(TRAIN_DIR / "sched_rank{}.json"),
+                               fit), nprocs=SCHED_RANKS, join=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    for f in results:
+        f.unlink()
+    r0 = ranks[0]
+    cases = sched_cases()
+    for name, sched, wire, _, _ in cases:
+        require(all(r["digest"][name] == r0["digest"][name] for r in ranks),
+                f"{name}: the ranks' results differ")
+        require(all(r["same_as_cpu"][name] for r in ranks),
+                f"{name}: the card's result is not the CPU tensors' bits")
+        require(all(r["err"][name]["within"] for r in ranks),
+                f"{name}: past the reference test's tolerance of the fp64 "
+                f"sum ({r0['err'][name]})")
+    require(all(r["control_differs"] for r in ranks),
+            "the control (rank 0's input one ulp up) matches: the check "
+            "cannot see a changed input")
+    print(f"schedules: {len(cases)} cases, every rank the same bits, each "
+          "bitwise its CPU-tensor run, within the reference test's "
+          "tolerance of the fp64 sum; the ring's control with rank 0's "
+          "bucket one ulp up differs: True", flush=True)
+    wire = {}
+    for sched in SCHED_FLAT + ("hier",):
+        name = f"{sched}-float32-{SCHED_BYTES // 4}"
+        got = r0["wire"][name]
+        want = sched_design(sched, SCHED_BYTES)[1]
+        wire[sched] = dict(received=got, modelled=want)
+        why = ("" if got == want else "; psum adds in rank order by "
+               "gathering the line's tensors, (n - 1) of them, not the "
+               "modelled 2 (n - 1) / n")
+        print(f"  wire per rank, {sched}, {SCHED_BYTES} B fp32: {got} bytes "
+              f"received, modelled {want:.0f}{why}")
+        require(got == want or sched == "psum",
+                f"{sched}: wire bytes {got} differ from the model's {want}")
+    int8_cases = 5 if SCHED_DEVICE == "cuda" else 0
+    expect = {op: (int8_cases if op == "quantize_int8" else 0)
+              for op in r0["launches"]}
+    for r in ranks:
+        require(r["launches"] == expect, f"schedules rank {r['rank']}: "
+                f"launches {r['launches']} (expected {expect})")
+    summary = dict(ranks=SCHED_RANKS, backend="gloo (host memory), one card",
+                   cases=len(cases), wire=wire,
+                   max_abs_err={k: v["max_abs"] for k, v in
+                                r0["err"].items()},
+                   launches_by_rank=[r["launches"] for r in ranks])
+    if fit:
+        summary["link"] = sched_link_fit(r0["samples"])
+    summary["memory"] = memory_verdict(hybrid)
+    if fit:
+        summary["calibrated_cli"] = calibrated_cli()
+    print("schedules " + json.dumps(summary), flush=True)
+    return summary, {k: sum(r["launches"][k] for r in ranks)
+                     for k in r0["launches"]}
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
 ALONE = {"d256": lambda: print(json.dumps(
              check_flash_d256(get_config(GEMMA2B)))),
          "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b,
-         "9": linalg_phase, "10": hybrid_phase}
+         "6": lambda: train_phase(get_config(ARCH)),
+         "9": linalg_phase, "10": hybrid_phase, "11": sched_phase}
 
 
 def main() -> int:
@@ -4868,7 +5355,12 @@ def main() -> int:
     hybrid, hybrid_launches = hybrid_phase()
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
 
-    # 11. results; 4c's and 4d's kernel calls held at their own shapes
+    # 11. the all-reduce schedules, the link fit and the memory verdict
+    t11 = time.perf_counter()
+    _, sched_launches = sched_phase(hybrid)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+
+    # 12. results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
     for row, err in ((rows[0], g3e["matmul"]), (rows[0], g2e["matmul"]),
@@ -4900,7 +5392,8 @@ def main() -> int:
     paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
              f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
              train_path: train_launches, DP_PATH: dp_launches,
-             LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches}
+             LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
+             SCHED_PATH: sched_launches}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

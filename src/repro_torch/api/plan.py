@@ -6,7 +6,7 @@ rank, or a ``(data, model)`` mesh with the implicit gradient sync) and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 #: path -> what it supports; ``select_path`` picks the row.
 CAPABILITIES: Dict[str, Dict[str, Any]] = {
@@ -20,9 +20,10 @@ CAPABILITIES: Dict[str, Dict[str, Any]] = {
     "comms": dict(
         title="explicit comms sync",
         axes="pod x data only — every non-batch mesh axis must be 1",
-        schedules=("psum",),
+        schedules=(),
         grad_sync="repro_torch.comms bucketed (optionally bf16/int8-"
-                  "compressed) all-reduce over the group",
+                  "compressed) ring | rsag | tree | hierarchical "
+                  "all-reduce over the batch axes",
         selected_when="a CommsPlan is attached and there is no pipe axis "
                       "(comms='auto' attaches one on a pure-DP mesh)",
     ),
@@ -43,7 +44,10 @@ def select_path(mesh, *, comms=None, pipeline=None) -> str:
 
 @dataclasses.dataclass
 class ExecutablePlan:
-    """A dispatchable train plan: ``Session.plan``'s return value."""
+    """A dispatchable train plan, ``Session.plan``'s return value, with
+    its memory verdict: the per-stage footprints against the budget it
+    was priced against and, when the planner's sweep ran, its scores
+    and per-candidate refusals."""
 
     cfg: Any                              # ModelConfig
     model: Any                            # repro_torch.models.Model
@@ -56,3 +60,14 @@ class ExecutablePlan:
     n_ranks: int = 1
     mesh: Any = None                      # the Session's mesh
     parallel: Any = None                  # ParallelPlan (plan_for)
+    schedule: str = "gpipe"               # pipeline schedule (none yet)
+    pipeline: Any = None                  # PipelineSpec (not ported)
+    budget: Any = None                    # MemoryBudget it was priced against
+    footprints: Tuple = ()                # per-stage Footprints
+    refused: Mapping = dataclasses.field(default_factory=dict)
+    scores: Optional[Mapping] = None      # sweep scores when it ran
+
+    def fits(self) -> bool:
+        if not self.footprints or self.budget is None:
+            return True
+        return all(f.fits(self.budget) for f in self.footprints)

@@ -1,28 +1,32 @@
 """The Session: the entry point that plans a train cell, initializes its
-state on the device and steps it, ported (minimally) from the reference's
+state on the device and steps it, ported from the reference's
 ``api/session.py``.
 
-``Session(device=..., group=..., obs=..., mesh=...)`` holds the device,
-the process group (None: one rank, or the default group when one is
-initialized), the telemetry (:mod:`repro_torch.obs`, the disabled
+``Session(device=..., group=..., obs=..., mesh=..., hbm_gib=...)`` holds
+the device, the process group (None: one rank, or the default group when
+one is initialized), the telemetry (:mod:`repro_torch.obs`, the disabled
 ``NULL`` by default), the mesh over the group (``make_host_mesh``'s
-(data=n, model=1) by default) and the layout table of its linalg surface
-(``tensors``; :meth:`Session.tensor` makes a ``DistTensor`` there);
-:meth:`Session.plan` resolves the config, the layout plan
-(``plan_for`` on the mesh), the microbatch count, the CommsPlan and the
-dispatch path; :meth:`Session.init_state` makes the params and the AdamW
-state resident on the device, each rank's blocks on a mesh with a model
-axis or a gspmd path over several ranks (or :meth:`Session.put` a
+(data=n, model=1) by default), the gradient-sync :attr:`topology`, the
+per-device memory :attr:`budget` (the card's entry of
+``core.memory.HBM_BUDGETS`` by its name, ``cpu`` on the CPU, or
+``hbm_gib``), the persistent :attr:`state` registry held to that budget
+and the layout table of its linalg surface (``tensors``;
+:meth:`Session.tensor` makes a ``DistTensor`` there).
+:meth:`Session.plan` resolves the config, the layout plan (``plan_for``
+on the mesh), the microbatch count, the CommsPlan and the dispatch path,
+and prices the cell with the memory model before anything is allocated:
+a cell that does not fit raises :class:`~repro_torch.api.errors.
+PlanMemoryError`.  :meth:`Session.init_state` makes the params and the
+AdamW state resident on the device, each rank's blocks on a mesh with a
+model axis or a gspmd path over several ranks (or :meth:`Session.put` a
 restored one), and :meth:`Session.step` runs one train step on them in
 place, the state never leaving the device.  The reference's telemetry
 sites are here: the ``plan``, ``build_step`` and ``step`` /
 ``step_warmup`` spans (a step span closes after the card's work) and
 :meth:`Session.publish_metrics`.
 
-Not ported yet (ROADMAP queue 1, item 9): the memory verdict and the
-planner sweep (``plan`` checks no memory budget), the state registry's
-budget accounting, the compiled-artifact cache and its gauges,
-``dryrun`` and ``serve`` on the session.
+Not ported yet (ROADMAP queue 1, item 9): the compiled-artifact cache and
+its gauges, ``dryrun``, ``serve`` and ``describe`` on the session.
 """
 
 from __future__ import annotations
@@ -35,18 +39,21 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs as obs_mod
-from repro_torch.comms.plan import CommsPlan
 from repro_torch.configs import get_config, scale_config
+from repro_torch.core import memory as mem_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dtensor import DistTensor, TensorRegistry
 from repro_torch.core.layout import Layout
-from repro_torch.core.planner import plan_for
+from repro_torch.core.planner import (comms_plan_for, grad_sync_topology,
+                                      plan_for, score_hybrid_candidates)
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import Model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import step as step_mod
 
+from .errors import PlanMemoryError
 from .plan import ExecutablePlan, select_path
+from .state import StateRegistry
 
 
 def default_microbatches(cfg, global_batch: int, seq_len: int, n_ranks: int,
@@ -63,7 +70,7 @@ def default_microbatches(cfg, global_batch: int, seq_len: int, n_ranks: int,
 
 
 class Session:
-    """One device, one process group, one resident train state per name.
+    """One device, one process group, one persistent state registry.
 
     Lifecycle::
 
@@ -77,7 +84,8 @@ class Session:
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  group: Optional[dist.ProcessGroup] = None,
                  obs: Optional["obs_mod.Obs"] = None, mesh=None,
-                 tensors: Optional[TensorRegistry] = None):
+                 tensors: Optional[TensorRegistry] = None, *,
+                 hbm_gib: Optional[float] = None):
         self.device = resolve_device(device)
         if group is None and dist.is_initialized():
             group = dist.group.WORLD
@@ -85,8 +93,11 @@ class Session:
         self.n_ranks = dist.get_world_size(group) if group is not None else 1
         self.mesh = (mesh if mesh is not None
                      else mesh_mod.make_host_mesh(group=group))
+        self.budget = mem_mod.budget_for(hbm_gib=hbm_gib, device=self.device)
+        self.topology = grad_sync_topology(self.mesh)
         self.tensors = tensors if tensors is not None else TensorRegistry()
-        self.state: Dict[str, Any] = {}
+        # each rank's registry holds its own tensors: one device's budget
+        self.state = StateRegistry(budget=self.budget, n_devices=1)
         self._steps: Dict[int, Any] = {}
         # spans and gauges flow through here; the NULL default keeps every
         # site a no-op (no timing, no synchronize) with telemetry off
@@ -110,20 +121,32 @@ class Session:
     def _plan(self, arch, *, batch: int, seq: int, comms="auto",
               adamw: Optional[opt.AdamWConfig] = None,
               microbatches: Optional[int] = None, scale_down: int = 1,
-              model_kwargs=None, plan_kwargs=None) -> ExecutablePlan:
+              model_kwargs=None, plan_kwargs=None,
+              check_memory: bool = True, sweep: bool = False
+              ) -> ExecutablePlan:
         """Plan one train cell (``batch`` is the global batch).
 
         The layout plan is :func:`~repro_torch.core.planner.plan_for` on
         the session's mesh (``plan_kwargs`` go to it).  ``comms``:
-        ``"auto"`` attaches the default :class:`CommsPlan` on a pure-DP
-        mesh of a process group (every non-batch axis of size 1, as the
-        reference's ``dp_only``; its ``schedule`` resolves to ``psum`` on
-        a group of one and raises on a larger one, ROADMAP queue 1, item
-        8), and otherwise selects the ``gspmd`` path, on one rank or on
-        the mesh with the implicit gradient sync; ``"off"``/``None``
-        selects the ``gspmd`` path, and a ``CommsPlan`` is used as given.
-        The microbatch count defaults to the reference's rule, clamped to
-        the rows of a data coordinate.  No memory budget is checked yet."""
+        ``"auto"`` attaches the cost model's :class:`CommsPlan` over the
+        session's :attr:`topology` (``comms_plan_for``, which
+        ``plan_for(...).comms`` equals) on a pure-DP mesh of a process group
+        (every non-batch axis of size 1, as the reference's ``dp_only``),
+        and otherwise selects the ``gspmd`` path, on one rank or on the
+        mesh with the implicit gradient sync; ``"off"``/``None`` selects
+        the ``gspmd`` path, and a ``CommsPlan`` is used as given.  The
+        microbatch count defaults to the reference's rule, clamped to the
+        rows of a data coordinate.
+
+        The memory verdict is the reference's: the cell's per-stage
+        footprints (``core.memory.footprints_for_mesh``) against
+        :attr:`budget`.  ``check_memory`` (default) raises
+        :class:`PlanMemoryError` for a cell that does not fit, with the
+        sweep's per-candidate refusals when no factorization fits either;
+        ``sweep=True`` always runs the sweep (``plan.scores``,
+        ``plan.refused``) and raises when it refuses every candidate.
+        The verdict runs before the model is built and before anything
+        is allocated on the card."""
         cfg = get_config(arch) if isinstance(arch, str) else arch
         if scale_down > 1:
             cfg = scale_config(cfg, scale_down)
@@ -144,12 +167,32 @@ class Session:
             dp_only = all(n == 1 for a, n in mesh.shape.items()
                           if a not in parallel.batch_axes)
             if self.group is not None and dp_only:
-                comms_plan = parallel.comms
+                comms_plan = comms_plan_for(cfg, mesh, topo=self.topology)
         elif comms not in (None, "off"):
             comms_plan = comms
         path = select_path(mesh, comms=comms_plan)
-        if path == "comms":
-            comms_plan.resolve(self.n_ranks)          # raise now, not mid-step
+
+        # the memory verdict, before anything is built or allocated
+        moment_itemsize = (adamw.moment_dtype.itemsize
+                           if adamw is not None else 4)
+        footprints = tuple(mem_mod.footprints_for_mesh(
+            cfg, mesh, global_batch=batch, seq_len=seq,
+            num_microbatches=nmb, moment_itemsize=moment_itemsize))
+        fits = all(f.fits(self.budget) for f in footprints)
+        refused: dict = {}
+        scores = None
+        if sweep or (check_memory and not fits):
+            scores, refused = score_hybrid_candidates(
+                cfg, mesh.size, global_batch=batch, seq_len=seq,
+                hbm_budget=self.budget, return_refused=True)
+            if sweep and not scores:
+                raise PlanMemoryError.all_refused(refused, self.budget,
+                                                  mesh.size)
+        if check_memory and not fits:
+            raise PlanMemoryError.for_cell(
+                footprints, self.budget,
+                refused=refused if not scores else None)
+
         # the gspmd path runs the one-rank model on a mesh of one rank
         on_mesh = path == "gspmd" and mesh.size > 1
         model = Model(cfg, device=self.device,
@@ -160,7 +203,9 @@ class Session:
                               global_batch=batch, seq_len=seq,
                               num_microbatches=nmb, adamw=adamw,
                               comms=comms_plan, n_ranks=self.n_ranks,
-                              mesh=mesh, parallel=parallel)
+                              mesh=mesh, parallel=parallel,
+                              budget=self.budget, footprints=footprints,
+                              refused=refused, scores=scores)
 
     def train_step(self, plan: ExecutablePlan) -> Callable:
         """The ``train_step(state, batch)`` of a plan (built once; the
@@ -230,37 +275,37 @@ class Session:
         fn = self.train_step(plan)
         with self.obs.span("step" if warm else "step_warmup",
                            path=plan.path) as sp:
-            state, metrics = fn(self.state[name], batch)
+            state, metrics = fn(self.state.get(name), batch)
             sp.block(metrics)
-        self.state[name] = state
+        self.state.update(name, state)
         if self.obs.enabled:
             self.publish_metrics()
         return metrics
 
     def publish_metrics(self) -> None:
-        """Mirror session-owned stats into the obs registry: the resident
-        state's bytes and entries (the reference's opcache gauges wait
-        for the compiled-artifact cache, ROADMAP queue 1, item 9)."""
-        total = sum(t.numel() * t.element_size()
-                    for value in self.state.values()
-                    for t in _tensors(value))
-        self.obs.gauge("state.resident_bytes").set(total)
+        """Mirror session-owned stats into the obs registry: the state
+        registry's resident bytes and entries (the reference's opcache
+        gauges wait for the compiled-artifact cache, ROADMAP queue 1,
+        item 9)."""
+        self.obs.gauge("state.resident_bytes").set(self.state.total_bytes())
         self.obs.gauge("state.entries").set(len(self.state))
 
     def put(self, name: str, value, kind: str = "state"):
-        """Make a tree of tensors resident under ``name``.  A
-        ``"train_state"`` (``{"params", "opt"}``, e.g. restored from a
-        checkpoint) has its params moved to the session's device and
-        marked to take gradients, as :meth:`init_state` leaves them."""
+        """Make a tree of tensors persistent under ``name``, accounted
+        against the session's budget (a put past it raises
+        :class:`PlanMemoryError`).  A ``"train_state"`` (``{"params",
+        "opt"}``, e.g. restored from a checkpoint) has its params moved
+        to the session's device and marked to take gradients, as
+        :meth:`init_state` leaves them."""
         if kind == "train_state":
             value = _to_device(value, self.device)
             for p in value["params"].values():
                 p.requires_grad_(True)
-        self.state[name] = value
+        self.state.put(name, value, kind=kind)
         return value
 
     def get(self, name: str):
-        return self.state[name]
+        return self.state.get(name)
 
     def tensor(self, data, layout: Optional[Layout] = None, *,
                name: Optional[str] = None, **kw) -> DistTensor:
@@ -275,18 +320,7 @@ class Session:
                                 registry=self.tensors, **kw)
 
     def evict(self, name: str):
-        return self.state.pop(name, None)
-
-
-def _tensors(value):
-    if isinstance(value, torch.Tensor):
-        yield value
-    elif isinstance(value, dict):
-        for v in value.values():
-            yield from _tensors(v)
-    elif isinstance(value, (list, tuple)):
-        for v in value:
-            yield from _tensors(v)
+        return self.state.evict(name)
 
 
 def _to_device(value, device: torch.device):

@@ -8,7 +8,8 @@ world size and a rendezvous address, here or through ``RANK``,
 current.  The backend is gloo by default: several ranks can share one
 card through it (NCCL refuses two ranks on one device), and gloo stages
 a CUDA tensor through host memory for a collective; NCCL, for ranks that
-each have their own card, is the same call with ``backend="nccl"``.
+each have their own card, is the same call with ``backend="nccl"`` (its
+selection by ``init_group`` waits for ROADMAP queue 1, item 8).
 
 A :class:`Mesh` names the axes of a grid of ranks, as ``jax.make_mesh``
 does of devices: rank r of the group sits at ``np.unravel_index(r,
@@ -26,7 +27,7 @@ rank order; point-to-point sends of a CUDA tensor end the process
 :func:`exchange` copies through host memory itself.  A reduce-scatter is
 an all-to-all and then the rank-ordered sum of the pieces (the bytes of a
 ring reduce-scatter, and the reference's order of adds); an all-reduce is
-``comms.schedules.all_reduce`` on the axis's group (rank order).
+``comms.schedules.group_reduce`` on the axis's group (rank order).
 """
 
 from __future__ import annotations
@@ -224,7 +225,7 @@ def _exchange_pieces(x: torch.Tensor, mesh: Mesh, axis: str,
 
 def psum(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
     """The sum over the line, the same on every rank: a floating sum adds
-    the ranks in order (``comms.schedules.all_reduce``)."""
+    the ranks in order (``comms.schedules.group_reduce``)."""
     from repro_torch.comms import schedules
     for name in reversed(_axes(axis)):
         n = mesh.shape[name]
@@ -235,7 +236,7 @@ def psum(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
         # all-reduce receives 2 (n - 1) / n of one (n = 2: one tensor)
         WIRE.record("all_reduce", (n - 1) * _nbytes(x) if ordered
                     else 2 * (n - 1) * _nbytes(x) // n, x.dtype)
-        x = schedules.all_reduce(x.contiguous(), mesh.axis_group(name))
+        x = schedules.group_reduce(x.contiguous(), mesh.axis_group(name))
     return x
 
 

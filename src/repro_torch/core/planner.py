@@ -15,11 +15,15 @@ mesh (``pod`` before ``data`` where there is one):
 :class:`ParallelPlan` is the reference's whole (every parameter and
 activation layout method); :func:`plan_for` and
 :func:`approx_param_count` are the reference's.  ``plan.comms`` is the
-port's default :class:`~repro_torch.comms.plan.CommsPlan` (the cost
-model's choice waits for ``comms/topology.py``, ROADMAP queue 1, item 8)
-and ``plan.pipeline`` is None (item 10).  The hybrid sweep
-(``score_hybrid_candidates``, ``best_hybrid``), the memory verdict and
-calibration wait for item 9.
+cost model's gradient-sync :class:`~repro_torch.comms.plan.CommsPlan`
+(:func:`comms_plan_for`, scored over the batch axes by
+:func:`grad_sync_topology`); ``plan.pipeline`` is None (ROADMAP queue 1,
+item 10).  The hybrid sweep (:func:`score_hybrid_candidates`,
+:func:`best_hybrid`) scores every (dp, tp, pp) factorization with the
+alpha-beta links, ``pipeline/costs.py`` and the memory model, refusing
+what does not fit, pipeline candidates included though the port cannot
+run them yet.  Links, the FLOPs rate and the step overhead are the
+reference's nominals unless a calibration table is active.
 """
 
 from __future__ import annotations
@@ -176,12 +180,172 @@ def approx_param_count(cfg) -> int:
     return 2 * V * D + L * (attn + ffn)
 
 
+def grad_sync_topology(mesh):
+    """The two-level topology of the gradient-sync group (the batch axes):
+    ``data`` is the fast level (chips inside a pod), ``pod`` the slow
+    one, so a multi-pod mesh gets a hierarchical schedule."""
+    from repro_torch.comms import topology as topo_mod
+
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    intra, inter = topo_mod.default_links()
+    return topo_mod.Topology(
+        intra_axes=tuple(a for a in batch_axes if a == "data"),
+        inter_axes=tuple(a for a in batch_axes if a != "data"),
+        axis_sizes={a: mesh.shape[a] for a in batch_axes},
+        intra=intra, inter=inter)
+
+
+def score_comms_schedules(nbytes: int, mesh, topo=None) -> dict:
+    """Cost-model seconds per all-reduce schedule for one ``nbytes`` sync
+    (paper §3.2: the shape of the data and the concurrency decide)."""
+    topo = topo or grad_sync_topology(mesh)
+    return topo.schedule_scores(nbytes)
+
+
+def comms_plan_for(cfg, mesh, *, wire_dtype: Optional[str] = None,
+                   bucket_bytes: Optional[int] = None, topo=None):
+    """The gradient-sync :class:`~repro_torch.comms.plan.CommsPlan` of a
+    cell: the cost model's argmin at the bucket's size (buckets are what
+    cross the wire), scored over the batch axes only."""
+    from repro_torch.comms import bucketer
+    from repro_torch.comms.plan import CommsPlan
+
+    topo = topo or grad_sync_topology(mesh)
+    bucket_bytes = bucket_bytes or bucketer.DEFAULT_BUCKET_BYTES
+    grad_bytes = 4 * approx_param_count(cfg)
+    msg = min(grad_bytes, bucket_bytes) or bucket_bytes
+    scores = score_comms_schedules(msg, mesh, topo)
+    schedule = min(scores, key=scores.get)
+    return CommsPlan(schedule=schedule, wire_dtype=wire_dtype,
+                     bucket_bytes=bucket_bytes, intra_axis="data")
+
+
+def score_hybrid_candidates(cfg, n_devices: int, *, global_batch: int,
+                            seq_len: int,
+                            num_microbatches: Optional[int] = None,
+                            intra=None, inter=None,
+                            device_flops: Optional[float] = None,
+                            step_overhead_s: Optional[float] = None,
+                            schedule: str = "gpipe",
+                            hbm_budget=None, check_memory: bool = True,
+                            return_refused: bool = False):
+    """Cost-model seconds per (dp, tp, pp) factorization of ``n_devices``
+    (paper §4), the reference's formula:
+
+    - compute: 6 * params * tokens FLOPs over all devices;
+    - TP: 4 residual-stream all-reduces per layer on the intranode link;
+    - PP: the bubble stretches compute by 1 / (1 - bubble) and the
+      stage-boundary transfers pay their critical-path alpha-beta term
+      on the internode link (``pipeline/costs.py``);
+    - DP: one gradient all-reduce of the 1/(tp*pp) shard, the best
+      schedule over the dp group.
+
+    Infeasible cells (head or layer counts that do not divide, a batch
+    smaller than dp) are left out; cells whose peak stage footprint
+    (``core/memory.py``) passes ``hbm_budget.usable`` are **refused**,
+    not scored (``return_refused=True`` also gives ``{(dp, tp, pp, M):
+    reason}``).  Links, the FLOPs rate and the step overhead resolve
+    through the active calibration table (the nominals without one);
+    explicit arguments win."""
+    from repro_torch.comms import topology as topo_mod
+    from repro_torch.core import calibrate as cal_mod
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.pipeline import costs as pipe_costs
+
+    if intra is None or inter is None:
+        d_intra, d_inter = topo_mod.default_links()
+        intra = intra or d_intra
+        inter = inter or d_inter
+    flops = device_flops if device_flops is not None \
+        else pipe_costs.device_flops()
+    overhead = step_overhead_s if step_overhead_s is not None \
+        else cal_mod.step_overhead_s()
+    budget = mem_mod.as_budget(hbm_budget)
+    n_params = approx_param_count(cfg)
+    L = max(1, getattr(cfg, "n_layers", 1) or 1)
+    heads = getattr(cfg, "n_heads", 0) or 0
+    D = getattr(cfg, "d_model", 1) or 1
+    scores: dict = {}
+    refused: dict = {}
+    for dp in range(1, n_devices + 1):
+        if n_devices % dp or global_batch % dp:
+            continue
+        for tp in range(1, n_devices // dp + 1):
+            if (n_devices // dp) % tp:
+                continue
+            pp = n_devices // (dp * tp)
+            if L % pp:
+                continue
+            if tp > 1 and (heads == 0 or heads % tp):
+                continue
+            local_batch = global_batch // dp
+            M = num_microbatches or max(1, min(4 * pp, local_batch))
+            M = math.gcd(local_batch, M) or 1
+
+            if check_memory:
+                stages = mem_mod.estimate_stage_footprints(
+                    cfg, local_batch=local_batch, seq_len=seq_len,
+                    n_stages=pp, num_microbatches=M,
+                    schedule=schedule if pp > 1 else None,
+                    zero_shards=dp, tp_shards=tp)
+                peak = mem_mod.peak_stage_footprint(stages)
+                if not peak.fits(budget):
+                    refused[(dp, tp, pp, M)] = (
+                        f"peak stage {peak.total / mem_mod.GIB:.2f} GiB > "
+                        f"usable {budget.usable / mem_mod.GIB:.2f} GiB "
+                        f"({budget.platform})")
+                    continue
+
+            t_comp = (6.0 * n_params * global_batch * seq_len
+                      / n_devices / flops)
+            t_tp = 0.0
+            if tp > 1:
+                ar_bytes = 2 * local_batch * seq_len * D    # bf16 stream
+                wire = 2.0 * ar_bytes * (tp - 1) / tp
+                t_tp = 4 * (L // pp) * (
+                    M * 2 * (tp - 1) * intra.latency_s
+                    + wire / intra.bandwidth_Bps)
+            act = pipe_costs.boundary_act_bytes(
+                max(1, local_batch // M), seq_len, D)
+            t_pipe = pipe_costs.pipeline_step_seconds(
+                t_comp + t_tp, pp, M, act, inter)
+            t_dp = 0.0
+            if dp > 1:
+                topo = topo_mod.Topology(
+                    intra_axes=(), inter_axes=("data",),
+                    axis_sizes={"data": dp}, intra=intra, inter=inter)
+                grad_bytes = int(4 * n_params / (tp * pp))
+                t_dp = min(topo.schedule_scores(grad_bytes).values())
+            scores[(dp, tp, pp)] = t_pipe + t_dp + overhead
+    if return_refused:
+        return scores, refused
+    return scores
+
+
+def best_hybrid(cfg, n_devices: int, **kwargs):
+    """argmin (dp, tp, pp) over :func:`score_hybrid_candidates`: the
+    fastest plan that fits.  When every factorization is refused the
+    error lists each (dp, tp, pp, M) with its reason.  With
+    ``return_refused=True``, ``(best, refused)``."""
+    want_refused = kwargs.pop("return_refused", False)
+    scores, refused = score_hybrid_candidates(cfg, n_devices,
+                                              return_refused=True, **kwargs)
+    if not scores:
+        detail = "; ".join(
+            f"(dp={k[0]}, tp={k[1]}, pp={k[2]}, M={k[3]}): {v}"
+            for k, v in sorted(refused.items()))
+        raise ValueError(
+            f"no feasible (dp, tp, pp) for {n_devices} devices"
+            + (f" — all candidates refused by the memory model: {detail}"
+               if refused else ""))
+    best = min(scores, key=scores.get)
+    return (best, refused) if want_refused else best
+
+
 def plan_for(cfg, mesh, *, fsdp_tensor_bytes: float = 4 * GiB,
              seq_parallel_residual: Optional[bool] = None) -> ParallelPlan:
     """The plan for a model config on a mesh (anything with a ``shape``
     mapping of axis sizes)."""
-    from repro_torch.comms.plan import CommsPlan
-
     tp_axis = "model"
     tp = mesh.shape.get(tp_axis, 1)
     batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
@@ -218,6 +382,6 @@ def plan_for(cfg, mesh, *, fsdp_tensor_bytes: float = 4 * GiB,
         ffn_replicated=ffn_replicated,
         n_layers=max(1, getattr(cfg, "n_layers", 1)),
         fsdp_tensor_bytes=fsdp_tensor_bytes,
-        comms=CommsPlan(),
+        comms=comms_plan_for(cfg, mesh),
         pipeline=None,
     )

@@ -1,8 +1,8 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Builds the model with random weights from ``--seed`` and a serve engine
-directly (the reference goes through ``Session.serve``, which waits for
-the state registry and the memory verdict, ROADMAP queue 1, item 9),
+directly (the reference goes through ``Session.serve``, not ported yet:
+ROADMAP queue 1, item 9),
 feeds synthetic prompts and reports tokens/s.  ``--scheduler static`` (the
 default) runs the fixed-slot engine on the model's dense cache, the
 reference's default for every family (qwen2's KV cache, mamba2's

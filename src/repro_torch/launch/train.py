@@ -14,15 +14,24 @@ resume does.
 
 ``--metrics PATH`` writes the JSONL stream (spans, counters, events) and,
 at exit, a ``BENCH_step_metrics.json`` snapshot beside PATH (or at
-``--metrics-snapshot``); without it every site is the NULL no-op.  Runs
-on the card unless ``--device cpu`` is given.
+``--metrics-snapshot``) whose meta holds the cell (arch, mesh, batch,
+seq, ...) and the drift report; without it every site is the NULL no-op.
+Runs on the card unless ``--device cpu`` is given.
+
+``Session.plan`` prices the cell with the memory model against the card's
+budget (or ``--hbm-gib``) before anything is allocated, and the CLI
+prints the model's peak (a cell that does not fit raises
+``PlanMemoryError``).  ``--calibration PATH`` installs a fitted
+:class:`~repro_torch.core.calibrate.CalibrationTable` for the run.  With
+``--metrics`` the run ends with the peak gauges (the model's peak,
+calibrated and raw, and ``torch.cuda.max_memory_allocated`` over the
+steps on the card) and the drift report (predicted vs measured step time
+and peak; the CPU measures no peak, so that row is left out).
 
 Not ported yet, and refused when set: ``--pp`` > 1 and ``--pp-schedule``
-(pipeline, ROADMAP queue 1, item 10); ``--hbm-gib`` and ``--calibration``
-(the memory model and calibration, item 9); ``--resilient`` and
-``--faults`` (item 12).  The memory-model line, the drift report and the
-snapshot's ``drift`` field wait for item 9, and the step-time watchdog
-for item 12: the loop runs without them.
+(pipeline, ROADMAP queue 1, item 10); ``--resilient`` and ``--faults``
+(item 12).  The step-time watchdog waits for item 12: the loop runs
+without it.
 """
 
 from __future__ import annotations
@@ -32,21 +41,22 @@ import os
 import time
 from typing import Optional
 
+import torch
+
 from repro_torch import obs as obs_mod
 from repro_torch.api import Session
 from repro_torch.checkpoint import CheckpointManager, state_from_tree, \
     state_tree
+from repro_torch.core import memory as mem_mod
 from repro_torch.data import Pipeline, SyntheticLM
 from repro_torch.kernels import ops
+from repro_torch.obs import report as report_mod
 from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
 
 
-def _refuse_unported(*, pp, pp_schedule, hbm_gib, calibration, resilient,
-                     faults) -> None:
+def _refuse_unported(*, pp, pp_schedule, resilient, faults) -> None:
     waiting = [("--pp > 1", pp > 1, 10),
                ("--pp-schedule", pp_schedule is not None, 10),
-               ("--hbm-gib", hbm_gib is not None, 9),
-               ("--calibration", calibration is not None, 9),
                ("--resilient", resilient, 12),
                ("--faults", faults is not None, 12)]
     for flag, given, item in waiting:
@@ -64,37 +74,63 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         metrics_snapshot: Optional[str] = None,
         calibration: Optional[str] = None, resilient: bool = False,
         faults: Optional[str] = None, device: str = "cuda"):
-    _refuse_unported(pp=pp, pp_schedule=pp_schedule, hbm_gib=hbm_gib,
-                     calibration=calibration, resilient=resilient,
+    _refuse_unported(pp=pp, pp_schedule=pp_schedule, resilient=resilient,
                      faults=faults)
     # telemetry is strictly opt-in: without --metrics every obs call site
     # sees the NULL singleton, so numerics and stdout are unchanged
     obs = obs_mod.Obs(jsonl=metrics, name=f"train/{arch}") if metrics \
         else obs_mod.NULL
     prev_obs = obs_mod.set_active(obs)
+    # calibrated planning is opt-in and scoped to this run: the table is
+    # the active one before any plan or topology is built
+    from repro_torch.core import calibrate
+    prev_cal = None
+    if calibration:
+        table = calibrate.load(calibration)
+        prev_cal = calibrate.set_active(table)
+        print(f"calibration: {table.describe()}  [{calibration}]")
     try:
         return _run(arch, obs, steps=steps, batch=batch, seq=seq,
                     scale_down=scale_down, lr=lr, microbatches=microbatches,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
                     log_every=log_every, seed=seed, comms=comms,
-                    metrics=metrics, metrics_snapshot=metrics_snapshot,
-                    device=device)
+                    hbm_gib=hbm_gib, metrics=metrics,
+                    metrics_snapshot=metrics_snapshot,
+                    calibration=calibration, device=device)
     finally:
+        if calibration:
+            calibrate.set_active(prev_cal)
         obs_mod.set_active(prev_obs)
         obs.close()
 
 
+def _measure_peak(session, plan, obs) -> None:
+    """Publish the steps' measured peak (on the card) beside the memory
+    model's, calibrated (what the drift report judges) and raw (what the
+    fitter regresses the scale from)."""
+    peak = mem_mod.peak_stage_footprint(plan.footprints)
+    measured = mem_mod.measured_peak_bytes(session.device)
+    if measured is not None:
+        obs.gauge(report_mod.MEASURED_PEAK_GAUGE).set(measured)
+    obs.gauge(report_mod.PREDICTED_PEAK_GAUGE).set(
+        float(peak.calibrated_total))
+    obs.gauge(report_mod.PREDICTED_RAW_PEAK_GAUGE).set(float(peak.total))
+
+
 def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
-         ckpt_dir, ckpt_every, resume, log_every, seed, comms, metrics,
-         metrics_snapshot, device):
-    session = Session(device=device, obs=obs)
+         ckpt_dir, ckpt_every, resume, log_every, seed, comms, hbm_gib,
+         metrics, metrics_snapshot, calibration, device):
+    session = Session(device=device, obs=obs, hbm_gib=hbm_gib)
     adamw = AdamWConfig(lr=warmup_cosine(lr, steps // 10 + 1, steps))
     plan = session.plan(arch, batch=batch, seq=seq, microbatches=microbatches,
                         comms=comms, adamw=adamw, scale_down=scale_down)
     cfg = plan.cfg
+    peak = mem_mod.peak_stage_footprint(plan.footprints)
+    print(f"memory model: predicted peak {peak.total / mem_mod.GIB:.3f} "
+          f"GiB/device vs {plan.budget.describe()} -> fits")
     if plan.comms is not None:
-        print(f"comms: grad sync via {plan.comms.resolve(plan.n_ranks)} "
-              f"schedule (bucket {plan.comms.bucket_bytes >> 20} MiB)")
+        print(f"comms: grad sync via {plan.comms.schedule} schedule "
+              f"(bucket {plan.comms.bucket_bytes >> 20} MiB)")
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     # on a mesh the checkpoint holds the global arrays: each rank's blocks
@@ -122,6 +158,8 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
     source = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed,
                          structured=True)
     pipe = Pipeline(source, [], n_threads=2).start()
+    if session.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(session.device)
     losses = []
     try:
         for i in range(start_step, steps):
@@ -150,14 +188,21 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
 
     if obs.enabled:
         session.publish_metrics()
+        _measure_peak(session, plan, obs)
+        drift = report_mod.session_drift_report(
+            plan, {"metrics": obs.metrics.summary()})
+        print("drift report (predicted vs measured):")
+        print(drift.table())
         snap_path = metrics_snapshot or os.path.join(
             os.path.dirname(os.path.abspath(metrics)) or ".",
             "BENCH_step_metrics.json")
         obs.snapshot(snap_path, arch=arch, steps=steps,
                      ranks=plan.n_ranks, device=str(session.device),
-                     batch=batch, seq=seq, scale_down=scale_down,
+                     mesh=dict(session.mesh.shape), batch=batch, seq=seq,
+                     scale_down=scale_down,
                      microbatches=plan.num_microbatches,
-                     pp_schedule="gpipe", calibration=None,
+                     pp_schedule="gpipe", calibration=calibration,
+                     drift=drift.to_dict(),
                      kernel_launches=ops.dispatch_report())
         print(f"metrics: {metrics}  snapshot: {snap_path}")
     return losses
@@ -186,7 +231,9 @@ def main():
     ap.add_argument("--pp-schedule", choices=["gpipe", "1f1b"],
                     default=None, help="not ported yet")
     ap.add_argument("--hbm-gib", type=float, default=None,
-                    help="memory budget (not ported yet)")
+                    help="per-device memory budget in GiB for the plan's "
+                         "memory verdict (default: the card's entry, "
+                         "h100 80 GiB; cpu 16 GiB)")
     ap.add_argument("--metrics", type=str, default=None, metavar="PATH",
                     help="write a JSONL telemetry stream (spans, counters, "
                          "events) to PATH and a BENCH_step_metrics.json "
@@ -195,7 +242,9 @@ def main():
                     metavar="PATH", help="override the snapshot path "
                     "(default: BENCH_step_metrics.json next to --metrics)")
     ap.add_argument("--calibration", type=str, default=None, metavar="PATH",
-                    help="fitted calibration table (not ported yet)")
+                    help="fitted calibration table (python -m "
+                         "repro_torch.fit) the planner and the drift report "
+                         "use for this run")
     ap.add_argument("--resilient", action="store_true",
                     help="fault-tolerant step loop (not ported yet)")
     ap.add_argument("--faults", type=str, default=None, metavar="JSON",

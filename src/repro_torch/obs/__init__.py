@@ -7,10 +7,10 @@ ported from the reference's ``repro.obs``.
   (host phases time directly; device work registers outputs via
   ``Span.block`` so the span closes after ``torch.cuda.synchronize``),
 - :mod:`repro_torch.obs.sink` — the JSONL event stream + atomic
-  ``BENCH_*.json`` snapshot writer (a copy).
-
-The reference's ``obs/report.py`` (the predicted-vs-measured drift report)
-waits for the planner and the memory model (ROADMAP queue 1, item 9).
+  ``BENCH_*.json`` snapshot writer (a copy),
+- :mod:`repro_torch.obs.report` — the predicted-vs-measured drift report
+  (the planner's step time and the memory model's peak against the
+  measured ones; ``python -m repro_torch.obs.report`` gates on it).
 
 The :class:`Obs` facade bundles one registry + tracer + sink;
 :data:`NULL` is the disabled singleton every instrumented call site

@@ -160,10 +160,11 @@ def comms_train_step(model, adamw: Optional[opt.AdamWConfig] = None,
                      mesh=None) -> Callable:
     """The data-parallel path: each rank differentiates its share of the
     batch, then ONE bucketed (optionally bf16/int8-compressed) sync per
-    step runs over the group (``comms.plan.sync_tree``, after the
-    microbatch loop), the metrics are averaged over the group as the
-    reference's ``pmean`` does, and every rank applies AdamW to the same
-    gradients."""
+    step runs over the mesh's batch axes (``comms.plan.sync_tree``, after
+    the microbatch loop, its schedule resolved by the topology cost model
+    when the plan says ``auto``), the metrics are averaged over the group
+    as the reference's ``pmean`` does, and every rank applies AdamW to
+    the same gradients."""
     from repro_torch.launch.mesh import make_host_mesh
     adamw = adamw or opt.AdamWConfig()
     comms = comms or comms_plan_mod.CommsPlan()
@@ -178,7 +179,8 @@ def comms_train_step(model, adamw: Optional[opt.AdamWConfig] = None,
         local = rows_of(batch, mesh)
         grads, metrics = local_grads(model, state["params"], local,
                                      num_microbatches)
-        grads = comms_plan_mod.sync_tree(grads, comms, group)
+        grads = comms_plan_mod.sync_tree(grads, comms, mesh,
+                                         batch_axes_of(mesh))
         keys = sorted(metrics)
         vec = torch.stack([metrics[k].float() for k in keys])
         vec = schedules.pmean(vec, group)

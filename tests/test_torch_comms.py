@@ -199,8 +199,12 @@ def test_bucket_plan_and_fused_absmaxes_match_the_reference(J, bucket_bytes):
 # (schedule, wire, bucket_bytes, fused): ``fused`` is the reference's pack
 # path; the port always packs a narrowing wire fused, and its result equals
 # the reference's unfused one too.
+# ``auto`` resolves through the topology cost model on both sides: ``tree``
+# at 2 ranks and at 3 (whose tree is the psum fallback).
 WIRES = [("psum", None, 64 * 1024, "auto"), ("psum", "bf16", 64 * 1024, "on"),
-         ("psum", "int8", 64 * 1024, "on"), ("psum", "int8", 1 << 20, "off")]
+         ("psum", "int8", 64 * 1024, "on"), ("psum", "int8", 1 << 20, "off"),
+         ("auto", None, 64 * 1024, "auto"), ("auto", "bf16", 64 * 1024, "on"),
+         ("auto", "int8", 64 * 1024, "on")]
 
 _JAX_SIDE = textwrap.dedent("""
     import sys
@@ -256,6 +260,7 @@ _TORCH_RANK = textwrap.dedent("""
     import torch
     from repro_torch.comms.plan import CommsPlan, sync_tree
     from repro_torch.core.distributed import close_group, init_group
+    from repro_torch.launch.mesh import make_host_mesh
     rank, init, src, dst = int(sys.argv[1]), sys.argv[2], sys.argv[3], \\
         sys.argv[4]
     wires, world = eval(sys.argv[5]), int(sys.argv[6])
@@ -273,7 +278,7 @@ _TORCH_RANK = textwrap.dedent("""
     out = {}
     for i, (sched, wire, bb, _) in enumerate(wires):
         plan = CommsPlan(schedule=sched, wire_dtype=wire, bucket_bytes=bb)
-        res = sync_tree(grads, plan)
+        res = sync_tree(grads, plan, make_host_mesh(), ("data",))
         for name, leaf in res.items():
             out[f"{i}/{rank}/{name}"] = bits(leaf)
     np.savez(dst, **out)
@@ -439,7 +444,7 @@ _SUM_RANK = textwrap.dedent("""
         x = (torch.randn(4099, generator=g) * 1e3).to(dtype)
         ring = x.clone()
         dist.all_reduce(ring)
-        ordered, got = schedules.ordered_sum(x), schedules.all_reduce(x)
+        ordered, got = schedules.ordered_sum(x), schedules.group_reduce(x)
         assert torch.equal(ordered, ring), dtype
         assert torch.equal(got, ring) and got.data_ptr() != x.data_ptr()
     close_group()
@@ -447,18 +452,33 @@ _SUM_RANK = textwrap.dedent("""
 
 
 def test_two_rank_backend_sum_is_bitwise_the_ordered_sum(tmp_path):
-    """At two ranks ``schedules.all_reduce`` keeps the backend's sum: two
+    """At two ranks ``schedules.group_reduce`` keeps the backend's sum: two
     addends commute, so it gives the rank-ordered sum's bits (a bf16 sum
     too: one fp32 add rounded once), and returns a new tensor."""
     run_ranks(_SUM_RANK, tmp_path, lambda r: [])
 
 
 def test_comms_plan_resolution():
-    assert CommsPlan().resolve(1) == "psum"
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        CommsPlan().resolve(2)
-    assert CommsPlan(schedule="psum").resolve(8) == "psum"
+    """``auto`` resolves through the topology cost model at the bucket's
+    size, to the reference's choices for a 32 MiB bucket: ``psum`` on one
+    rank (every score 0), ``tree`` on a (data=2, model=1) mesh, ``psum``
+    at 4 (``psum``, ``ring`` and ``rsag`` tie: the first key) and
+    ``hier`` on (pod=2, data=2) with ``data`` the fast axis; a named
+    schedule resolves to itself.  An unknown schedule raises."""
+    from repro_torch.core.distributed import Mesh
+    big = 1 << 30
+    assert CommsPlan().resolve(Mesh((1, 1), ("data", "model")), big) \
+        == "psum"
+    assert CommsPlan().resolve(Mesh((2, 1), ("data", "model")), big) \
+        == "tree"
+    assert CommsPlan().resolve(Mesh((4, 1), ("data", "model")), big) \
+        == "psum"
+    assert CommsPlan(intra_axis="data").resolve(
+        Mesh((2, 2), ("pod", "data")), big) == "hier"
+    assert CommsPlan(schedule="ring").resolve(
+        Mesh((4, 1), ("data", "model")), 8) == "ring"
     from repro_torch.comms import schedules
     x = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        schedules.all_reduce(x, None, "ring")
+    with pytest.raises(ValueError, match="unknown schedule"):
+        schedules.all_reduce(x, Mesh((1, 2), ("data", "model")),
+                             ("data",), "butterfly")

@@ -99,14 +99,69 @@ def test_train_cli_resume_restores_the_saved_state_bitwise(tmp_path,
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("pp", 2, 10), ("pp_schedule", "1f1b", 10), ("hbm_gib", 8.0, 9),
-    ("calibration", "table.json", 9), ("resilient", True, 12),
+    ("pp", 2, 10), ("pp_schedule", "1f1b", 10), ("resilient", True, 12),
     ("faults", "[]", 12)])
 def test_train_cli_refuses_flags_that_wait_for_later_items(flag, value,
                                                            item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1, item {item}"):
         ttrain.run(ARCH, steps=1, device="cpu", **{flag: value}, **KW)
+
+
+def test_train_cli_hbm_gib_is_the_plans_budget(capsys):
+    """``--hbm-gib`` is the budget the memory verdict prices the cell
+    against: the memory-model line names it, and a budget the cell does
+    not fit refuses the run before a step, with the footprint table."""
+    from repro_torch.api import PlanMemoryError
+    losses = ttrain.run(ARCH, steps=1, device="cpu", hbm_gib=8.0, **KW)
+    assert len(losses) == 1
+    out = capsys.readouterr().out
+    assert "memory model: predicted peak" in out
+    assert "vs override 8.0 GiB (usable 7.2 GiB @ headroom 0.90) -> fits" \
+        in out
+    with pytest.raises(PlanMemoryError, match="refusing to launch") as e:
+        ttrain.run(ARCH, steps=1, device="cpu", hbm_gib=0.001, **KW)
+    assert "step " not in capsys.readouterr().out
+    assert e.value.budget.hbm_bytes == int(0.001 * 2**30)
+    assert e.value.footprints and "OOM" in str(e.value)
+
+
+def test_train_cli_calibration_loads_a_fitted_table_and_reports_drift(
+        tmp_path, capsys):
+    """A run with ``--metrics`` ends with the drift report and writes its
+    rows under the snapshot's ``drift``; ``repro_torch.fit`` fits a table
+    from that run (steady steps give the FLOPs rate), and
+    ``--calibration`` loads it: the table is described, the drift report
+    is printed again (its step-time row now from the fitted rate), the
+    snapshot names the table, and the active table is cleared after the
+    run.  On the CPU no peak is measured, so the report has no peak
+    row."""
+    from repro_torch import fit as tfit
+    from repro_torch.core import calibrate
+    first = tmp_path / "a" / "train.jsonl"
+    ttrain.run(ARCH, steps=5, device="cpu", metrics=str(first), **KW)
+    out = capsys.readouterr().out
+    assert "drift report (predicted vs measured):" in out
+    snap = json.loads((first.parent / "BENCH_step_metrics.json")
+                      .read_text())
+    rows = snap["meta"]["drift"]["rows"]
+    assert [r["name"] for r in rows] == ["step_time_s"]
+    assert snap["meta"]["mesh"] == {"data": 1, "model": 1}
+    table = tfit.fit_from_files([str(first)])
+    assert table.device_flops and table.device_flops > 0
+    path = table.save(str(tmp_path / "calibration.json"))
+    second = tmp_path / "b" / "train.jsonl"
+    ttrain.run(ARCH, steps=5, device="cpu", metrics=str(second),
+               calibration=path, **KW)
+    out = capsys.readouterr().out
+    assert f"calibration: {table.describe()}  [{path}]" in out
+    assert "drift report (predicted vs measured):" in out
+    assert calibrate.active() is None
+    snap = json.loads((second.parent / "BENCH_step_metrics.json")
+                      .read_text())
+    assert snap["meta"]["calibration"] == path
+    row, = snap["meta"]["drift"]["rows"]
+    assert row["name"] == "step_time_s" and row["predicted"] > 0
 
 
 def test_train_cli_main_writes_metrics_under_its_directory(tmp_path,

@@ -212,7 +212,9 @@ def test_session_and_sync_tree_record_the_references_sites(tmp_path):
     prev = tobs.set_active(obs)
     try:
         grads = {"a": torch.ones(1000), "b": torch.ones(24)}
-        sync_tree(grads, CommsPlan(schedule="psum", wire_dtype="int8"))
+        from repro_torch.launch.mesh import make_host_mesh
+        sync_tree(grads, CommsPlan(schedule="psum", wire_dtype="int8"),
+                  make_host_mesh(), ("data",))
     finally:
         tobs.set_active(prev)
         dist.destroy_process_group()

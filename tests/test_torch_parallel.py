@@ -638,7 +638,7 @@ def test_differentiable_collectives_keep_the_wire_narrow_both_ways(both):
 # ---------------------------------------------------------------------------
 
 DENSE = ("qwen2-0.5b", "gemma-2b", "gemma3-27b", "qwen3-14b")
-MESHES = [(2, 2), (1, 4), (4, 1), (2, 4), (1, 1)]
+MESHES = [(2, 2), (1, 4), (4, 1), (2, 4), (1, 1), (2, 2, 1)]
 
 
 @pytest.fixture(scope="module")
@@ -667,15 +667,21 @@ _FIELDS = ("batch_axes", "tp_axis", "attn_mode", "fsdp",
            "n_layers", "fsdp_tensor_bytes")
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+_COMMS = ("schedule", "wire_dtype", "bucket_bytes", "mean", "intra_axis")
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("arch", DENSE + ("mamba2-780m",))
 def test_plan_and_every_layout_are_the_references(J, arch, shape):
-    """``plan_for``'s fields, and for the dense configs every leaf's
-    storage layout and ZeRO layout, equal the reference's on a
-    shape-only mesh (no ranks), at full width; forced FSDP too.  The ssm
-    family's leaves wait for its sharded forward (ROADMAP queue 1, item
-    11): its plan alone is pinned."""
-    axes = ("data", "model")
+    """``plan_for``'s fields, its gradient-sync ``comms`` plan field for
+    field (the cost model's schedule: ``tree`` at data = 2, ``psum`` at
+    4, ``hier`` on (pod, data) = (2, 2)), and for the dense configs every
+    leaf's storage layout and ZeRO layout, equal the reference's on a
+    shape-only mesh (no ranks), at full width; forced FSDP too.  A
+    three-axis shape is (pod, data, model).  The ssm family's leaves wait
+    for its sharded forward (ROADMAP queue 1, item 11): its plan alone
+    is pinned."""
+    axes = ("pod", "data", "model")[-len(shape):]
     tmesh = Mesh(shape, axes)
     jmesh = SimpleNamespace(shape=dict(zip(axes, shape)))
     for kw in ({}, dict(fsdp_tensor_bytes=0)):
@@ -684,7 +690,9 @@ def test_plan_and_every_layout_are_the_references(J, arch, shape):
             jcfg, jmesh, **kw)
         assert {f: getattr(got, f) for f in _FIELDS} == \
             {f: getattr(want, f) for f in _FIELDS}
-        assert got.pipeline is None and got.comms is not None
+        assert got.pipeline is None
+        assert {f: getattr(got.comms, f) for f in _COMMS} == \
+            {f: getattr(want.comms, f) for f in _COMMS}
         if cfg.family != "dense":
             continue
         specs = Model(cfg, device="cpu", mesh=tmesh, plan=got).param_specs()

@@ -504,7 +504,8 @@ def test_default_comms_steps_with_and_without_a_group(tmp_path):
         plan1, got = one_step()
     finally:
         close_group()
-    assert plan1.path == "comms" and plan1.comms.resolve(1) == "psum"
+    assert plan1.path == "comms" and plan1.comms.schedule == "psum"
+    assert plan1.comms.resolve(plan1.mesh, 1 << 30) == "psum"
     for k in want:
         assert torch.equal(got[k], want[k]), k
 
