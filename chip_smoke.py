@@ -2,7 +2,7 @@
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
-checks), ``6b``, ``9``, ``10`` and ``11``, after phases 1 and 2).
+checks), ``6b``, ``9``, ``10``, ``11`` and ``12``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -274,7 +274,32 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    phase 10 measured, ``best_hybrid`` for qwen2-0.5b on 4 devices; and
    the train CLI for 2 steps at phase 8's depth with ``--hbm-gib 80
    --calibration`` that table, and its drift report.
-12. Print the ``kernels`` JSON line, the card's name and power limit, and
+12. The whole Session (also alone: ``python3 chip_smoke.py 12``).  (a)
+   ``Session.plan("qwen2-0.5b", batch=8, seq=1024, kind="decode")`` and
+   ``Session.serve`` at full width and depth on 8 of phase 4's requests
+   with 32 new tokens, the static engine on the dense cache and then the
+   continuous one: launch counts, greedy tokens bitwise those of the same
+   engine built directly on the same params, tok/s and TTFT p50.  (b) A
+   second ``serve`` under the same name: the params' storages the same,
+   ``memory_allocated`` grown by the new cache's bytes alone (within the
+   allocator's 512-byte rounding), no copy of a weight's shape in the
+   profile, the steps op-cache hits (``describe()`` printed), cold start
+   and restart ms, and its tokens the first engine's.  (c) A continuous
+   pool over a budget that holds the params and half the pool: refused
+   with ``PlanMemoryError`` and ``memory_allocated`` unchanged.  (d)
+   ``AutoTuner.pick`` over qwen2-0.5b's forward and backward at 2 x 512
+   under remat ``none``, ``full`` and ``group:4``, each candidate's
+   workspace its dry-traced peak, the budget between the two largest:
+   ``none`` alone disqualified; each candidate's traced and measured
+   peak and ms.  (e) ``python -m repro_torch.launch.dryrun --arch
+   qwen2-0.5b --shape train_4k`` (16 x 16, 256 fake ranks) passes.  (f)
+   One rank's 2 x 512 step: the dry trace's peak over one real step's
+   ``max_memory_allocated`` within 0.5-2.0; phase 10's (2, 2) cell traced
+   on 4 fake ranks: its bytes per collective equal to
+   ``hybrid_wire_estimate`` and 875,241,216 in all.  (g) The backend
+   ``init_group`` picks: gloo for four ranks on one card, NCCL for one
+   rank (an all-reduce on it).
+13. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -310,11 +335,11 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import Model, ssm  # noqa: E402
 from repro_torch.serve import ContinuousEngine, Engine, Request  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-BF16_FLOPS = 989e12                # dense bf16 tensor-core peak
-TF32_FLOPS = 495e12                # dense TF32 tensor-core peak
-FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
-L2_BYTES = 50e6
+# the card's peaks and each kernel's bytes and FLOPs: one source
+from repro_torch.kernels import roofline  # noqa: E402
+from repro_torch.kernels.roofline import (BF16_FLOPS, FP32_FLOPS,  # noqa: E402
+                                          HBM_BYTES_PER_S, L2_BYTES,
+                                          TF32_FLOPS, bound)
 RTOL, ATOL = 3e-2, 2e-2            # bf16: 8 mantissa bits, fp32 sums
 # the reference's SSD test (tests/test_kernels.py): the same fp32 math in
 # another order; y stored in bf16
@@ -355,12 +380,6 @@ SLOTS, MAX_SEQ, PAGE, CHUNK = 8, 1024, 64, 128
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def cuda_ms(calls, iters: int, warmup: int = 3) -> float:
@@ -465,8 +484,7 @@ def check_gemm(cfg):
           "torch.matmul ms | max abs err")
     for M in (SLOTS, CHUNK):
         for i, (label, K, N, calls) in enumerate(gemm_cases(cfg)):
-            nbytes = 2 * (M * K + K * N) + 4 * M * N
-            flops = 2.0 * M * N * K
+            nbytes, flops = roofline.matmul_cost(M, K, N)
             n = copies(2 * K * N)
             a = randn((M, K), 100 + i)
             bs = [randn((K, N), 200 + i + 17 * j, 0.05) for j in range(n)]
@@ -609,10 +627,9 @@ def check_flash(cfg):
           "| max abs err")
     for start in range(0, PROMPT_MAX, CHUNK):
         T = start + CHUNK             # the chunk's live pages, gathered
-        qs = H * CHUNK * hd
-        nbytes = 2 * (2 * qs + 2 * Hkv * T * hd)
-        pairs = CHUNK * start + CHUNK * (CHUNK + 1) // 2    # causal, visible
-        flops = 4.0 * H * pairs * hd
+        nbytes, flops = roofline.attention_cost(      # causal, visible
+            (1, H, CHUNK, hd), (1, Hkv, T, hd),
+            roofline.causal_pairs(CHUNK, T, start))
         n = copies(nbytes)
         sets = [(randn((1, H, CHUNK, hd), 300 + j),
                  randn((1, Hkv, T, hd), 400 + j),
@@ -797,8 +814,8 @@ def check_flash_d256(cfg):
                            .scaled_dot_product_attention(
                                *s[:3], is_causal=True, enable_gqa=True)
                            for s in sets], iters=max(20, 2 * n))
-            bms, by = bound(2 * (2 * q.numel() + 2 * k.numel()),
-                            4.0 * B * H * pairs * hd)
+            bms, by = bound(*roofline.attention_cost(q.shape, k.shape,
+                                                     pairs))
             f32_ms = cuda_ms([lambda: fa_mod.attention(q32, k32, v32, **kw)],
                              iters=10)
             f32_plain = cuda_ms([lambda: ref.attention(q32, k32, v32, **kw)],
@@ -807,8 +824,8 @@ def check_flash_d256(cfg):
                                .scaled_dot_product_attention(
                                    q32, k32, v32, is_causal=True,
                                    enable_gqa=True)], iters=10)
-            f32_bms, f32_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
-                                    4.0 * B * H * pairs * hd, FP32_FLOPS)
+            f32_bms, f32_by = bound(*roofline.attention_cost(
+                q.shape, k.shape, pairs, itemsize=4), FP32_FLOPS)
             print(f"flash D=256 prefill | {ms:.4f} ms | bound {bms:.5f} "
                   f"({by}) | plain {plain:.4f} | sdpa {lib:.4f}; fp32: "
                   f"kernel {f32_ms:.4f} | bound {f32_bms:.4f} ({f32_by}, "
@@ -841,8 +858,8 @@ def check_flash_d256(cfg):
             lib = event_ms(sdpa, iters=10, warmup=2)
             split = kernel_us(lambda: fa_mod.attention_backward(
                 *sets[0][:3], outs[0][0], sets[0][3], outs[0][1]))
-            bms, by = bound(2 * (3 * q.numel() + 4 * k.numel())
-                            + 4 * B * H * S, 5 * 2.0 * B * H * pairs * hd)
+            bms, by = bound(*roofline.attention_backward_cost(
+                q.shape, k.shape, pairs))
             print(f"attention backward D=256 train | {ms:.4f} ms | bound "
                   f"{bms:.4f} ({by}) | plain {plain:.4f} | sdpa backward "
                   f"{lib:.4f} | forward with lse {fwd:.4f}; kernels µs: "
@@ -959,9 +976,8 @@ def check_paged(cfg):
     table = torch.from_numpy(table.astype(np.int32)).cuda()
     seq_lens = torch.from_numpy(lens.astype(np.int32)).cuda()
     live = int(lens.sum())
-    nbytes = 2 * (2 * SLOTS * H * hd) + 2 * 2 * live * Hkv * hd \
-        + 4 * (table.numel() + SLOTS)
-    flops = 4.0 * H * hd * live
+    nbytes, flops = roofline.paged_decode_cost(SLOTS, H, Hkv, hd, live,
+                                               table.numel())
     n = copies(2 * 2 * P * PAGE * Hkv * hd)
     q = randn((SLOTS, H, hd), 600)
     pools = [(randn((P, PAGE, Hkv, hd), 700 + j),
@@ -1034,15 +1050,8 @@ def ssd_cost(inp):
     x, Bm = inp["x"], inp["Bm"]
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    es = x.element_size()
-    nbytes = es * (2 * x.numel() + 2 * Bm.numel()) \
-        + 4 * (inp["dt"].numel() + H + B * H * P * N
-               * (2 if inp["init_state"] is not None else 1))
-    flops = 0.0
-    for t0 in range(0, S, SSD_Q):
-        q = min(SSD_Q, S - t0)
-        tri = q * (q + 1) // 2
-        flops += B * H * (2 * tri * N + 2 * tri * P + 4 * q * N * P)
+    nbytes, flops = roofline.ssd_cost(B, S, H, P, G, N, x.element_size(),
+                                      inp["init_state"] is not None, SSD_Q)
     fp32 = x.dtype == torch.float32
     return (nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS,
             TF32_FLOPS if fp32 else BF16_FLOPS)
@@ -1151,11 +1160,31 @@ def dense_serve_launches(cfg, steps: int, prefills: int):
             "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
 
 
+def continuous_serve_launches(cfg, steps: int, fin):
+    """Launches of the continuous engine over the finished requests
+    ``fin``: 7 products a layer and the unembed per decode step and per
+    ``CHUNK``-token prefill chunk, one flash call a layer per chunk, one
+    paged-decode call a layer per decode step; and the chunks."""
+    chunks = sum(-(-len(r.prompt) // CHUNK) for r in fin)
+    L = cfg.n_layers
+    return {"matmul": (7 * L + 1) * (steps + chunks),
+            "attention": L * chunks, "attention_backward": 0,
+            "paged_decode_attention": L * steps, "ssd": 0,
+            "quantize_int8": 0, "quantize_compress": 0,
+            "matmul_dequant": 0}, chunks
+
+
 def serve(engine_cls, model, params, reqs, max_seq=MAX_SEQ, **kw):
-    """Drive an engine to completion; returns (finished, seconds, decode
-    steps)."""
-    eng = engine_cls(model, params, batch_slots=SLOTS, max_seq=max_seq,
-                     page_size=PAGE, prefill_chunk=CHUNK, **kw)
+    """Drive a new engine to completion; returns (finished, seconds,
+    decode steps)."""
+    return drive(engine_cls(model, params, batch_slots=SLOTS,
+                            max_seq=max_seq, page_size=PAGE,
+                            prefill_chunk=CHUNK, **kw), reqs)
+
+
+def drive(eng, reqs):
+    """Drive ``eng`` over ``reqs`` to completion; returns (finished,
+    seconds, decode steps)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
@@ -1169,7 +1198,7 @@ def serve(engine_cls, model, params, reqs, max_seq=MAX_SEQ, **kw):
     # each prompt is prefilled exactly once
     require(len(eng.finished) == len(reqs) and not eng.refused
             and not any(r.n_preempted for r in eng.finished),
-            f"{engine_cls.__name__}: {len(eng.finished)} of {len(reqs)} "
+            f"{type(eng).__name__}: {len(eng.finished)} of {len(reqs)} "
             "requests finished without preemption")
     return eng.finished, dt, steps
 
@@ -1861,7 +1890,7 @@ def check_mamba_gemm(cfg):
                           for b in bs], iters=max(20, 4 * n))
             lib = cuda_ms([lambda b=b: torch.matmul(a, b) for b in bs],
                           iters=max(20, 4 * n))
-            bms, _ = bound(2 * (M * K + K * N) + 4 * M * N, 2.0 * M * N * K)
+            bms, _ = bound(*roofline.matmul_cost(M, K, N))
             print(f"mamba2 gemm {label:7s} M={M} K={K} N={N} "
                   f"({plan_label(M, K, N)}): {ms:.4f} ms x {calls} (bound "
                   f"{bms:.4f} ms, torch.matmul {lib:.4f} ms), max abs err "
@@ -2223,7 +2252,7 @@ def check_quantize():
                 "plain version")
         if label == "zero":
             require(not bool(got.any()), "a zero bucket quantizes to zero")
-        bms, by = bound(5.0 * n, 3.0 * n, FP32_FLOPS)
+        bms, by = bound(*roofline.quantize_int8_cost(n), FP32_FLOPS)
         if label.startswith("bucket"):
             if n not in timed:
                 timed[n] = (
@@ -2361,9 +2390,10 @@ def check_quantize_compress(cfg):
             require(float(es) == 2.0 ** -10, "the EF ties case's scale is "
                     "not 2^-10")
         elt, gelt = x.element_size(), gx.element_size()
-        bms, by = bound((elt + 1.0) * n + 4, 6.0 * n, FP32_FLOPS)
+        bms, by = bound(*roofline.quantize_compress_cost(n, elt), FP32_FLOPS)
         two_pass = (2 * elt + 1.0) * n / HBM_BYTES_PER_S * 1e3
-        ebms, eby = bound((gelt + 12.0) * n + 4, 8.0 * n, FP32_FLOPS)
+        ebms, eby = bound(*roofline.quantize_compress_ef_cost(n, gelt),
+                          FP32_FLOPS)
         etwo = (2 * gelt + 16.0) * n / HBM_BYTES_PER_S * 1e3
         if label in leaves:
             if n not in timed:
@@ -2537,8 +2567,8 @@ def check_matmul_dequant(cfg):
                 lib = cuda_ms([lambda q=q, s=s: lib_op(a, q, s)
                                for q, s in packed], iters=max(20, 4 * n))
                 del packed
-            nbytes = a.element_size() * M * K + K * N + 4 * N + 4 * M * N
-            flops = 2.0 * M * N * K
+            nbytes, flops = roofline.matmul_dequant_cost(M, K, N,
+                                                         a.element_size())
             bms, by = bound(nbytes, flops, BF16_FLOPS if dt == torch.bfloat16
                             else FP32_FLOPS)
             lib_s = "-" if lib is None else f"{lib:.4f}"
@@ -2702,14 +2732,12 @@ def check_attention_backward(cfg):
               + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
         pairs = S * (S + 1) // 2
         # recompute QK^T and dP (2 products), dV, dK, dQ (3): 5 products
-        flops = 5 * 2.0 * b * hq * pairs * hd
-        nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 4 * b * hq * S
-        bms, by = bound(nbytes, flops)
+        bms, by = bound(*roofline.attention_backward_cost(q.shape, k.shape,
+                                                          pairs))
         # the forward with its log-sum-exp: q, k, v read, out and lse
         # written; QK^T and PV over the causal pairs
-        fbms, fby = bound(
-            2 * (2 * q.numel() + 2 * k.numel()) + 4 * b * hq * S,
-            2 * 2.0 * b * hq * pairs * hd)
+        fbms, fby = bound(*roofline.attention_cost(q.shape, k.shape, pairs,
+                                                   lse=True))
         print(f"attention backward {label:15s} | {ms:.4f} | {bms:.4f} ({by})"
               f" | {plain:.4f} | {lib:.4f} | {err:.3g}; the forward with "
               f"its log-sum-exp {fwd:.4f} ms, bound {fbms:.5f} ({fby}), "
@@ -2772,10 +2800,9 @@ def check_gemm_backward(cfg):
                           iters=3) for x, y, o in prods]
         lib = [cuda_ms([lambda x=x, y=y: torch.matmul(x, y)], iters=10)
                for x, y, _ in prods]
-        flops = 2.0 * M * N * K
-        bms = [bound(2 * (x.numel() + y.numel()) + x.shape[0] * y.shape[1]
-                     * (4 if o == torch.float32 else 2), flops)[0]
-               for x, y, o in prods]
+        bms = [bound(*roofline.matmul_cost(
+                   x.shape[0], x.shape[1], y.shape[1], 2, 2,
+                   4 if o == torch.float32 else 2))[0] for x, y, o in prods]
         print(f"gemm train {label:7s} {M} {K} {N} | {ms[0]:.4f} | "
               f"{ms[1]:.4f} | {ms[2]:.4f} | {sum(bms):.4f} | "
               f"{sum(plain):.4f} | {sum(lib):.4f} | {err:.3g} | plans: "
@@ -5195,6 +5222,365 @@ def sched_phase(hybrid=None, fit=True):
                      for k in r0["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the whole Session: serve on persistent state through the op
+# cache, restart, the budget's refusal, autotune, the dry traces, the
+# backend
+# ---------------------------------------------------------------------------
+
+SESSION_REQUESTS, SESSION_NEW = 8, 32
+SESSION_PATH = f"{ARCH} Session.serve (dense, restart, continuous)"
+TUNE_PATH = f"{ARCH} autotune (fwd + bwd, 2 x 512, 3 remat candidates)"
+TUNE_BATCH, TUNE_SEQ = 2, 512
+TUNE_REMAT = ("none", "full", "group:4")
+#: phase 10's wire per rank per step at (2, 2) on four H100s, the
+#: layouts' estimate
+HYBRID_WIRE_2X2 = 875_241_216
+
+
+def timed_serve(sess, plan, **kw):
+    """``sess.serve`` and its wall ms."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = sess.serve(plan, batch_slots=SLOTS, max_seq=MAX_SEQ, seed=SEED,
+                     **kw)
+    torch.cuda.synchronize()
+    return eng, 1e3 * (time.perf_counter() - t0)
+
+
+def tokens_of(fin):
+    return {r.rid: list(map(int, r.out)) for r in fin}
+
+
+def weight_copies(prof, params) -> list:
+    """Copy operators in a profile whose input has a weight's shape."""
+    shapes = {tuple(v.shape) for v in params.values()}
+    return [e.name for e in prof.events()
+            if e.name in ("aten::copy_", "aten::_to_copy", "aten::to")
+            and any(tuple(s) in shapes for s in (e.input_shapes or ())
+                    if s)]
+
+
+def session_serve(cfg):
+    """Phase 12 (a)-(c): ``Session.plan(kind="decode")`` and
+    ``Session.serve``, dense then continuous, each against the same
+    engine built directly on the same params (bitwise tokens); a restart
+    under the same name (the same storages, the new cache's bytes alone,
+    no weight copy, the steps from the op cache); an over-budget pool
+    refused before anything is allocated."""
+    from repro_torch.api import PlanMemoryError, Session
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.serve.blocks import kv_bytes_per_block
+
+    def fresh(n=SESSION_REQUESTS):          # new Request objects each run
+        return requests(cfg, new_tokens=SESSION_NEW)[:n]
+
+    sess = Session()
+    plan = sess.plan(ARCH, batch=SLOTS, seq=MAX_SEQ, kind="decode")
+    require(plan.path == "decode" and plan.model.mesh is None,
+            f"the decode plan: path {plan.path}")
+    out = dict(plan=plan.describe())
+    launches = {}
+
+    # (a) dense, cold: the params are drawn here; a direct engine on two
+    # requests warms the kernels first when this phase runs alone
+    eng, cold_ms = timed_serve(sess, plan, name="qwen2")
+    params = sess.get("qwen2/params")
+    drive(Engine(plan.model, params, SLOTS, MAX_SEQ, seed=SEED), fresh(2))
+    ops.reset_launches()
+    fin, dt, steps = drive(eng, fresh())
+    launches["dense"] = ops.dispatch_report()
+    want = dense_serve_launches(cfg, steps, len(fin))
+    require(launches["dense"] == want, f"Session.serve dense launches "
+            f"{launches['dense']} (expected {want})")
+    direct, _, _ = drive(Engine(plan.model, params, SLOTS, MAX_SEQ,
+                                seed=SEED), fresh())
+    same = tokens_of(fin) == tokens_of(direct)
+    require(same, "Session.serve's dense tokens differ from the engine "
+            "built directly on the same params")
+    out["dense"] = serve_stats(ARCH, sum(p.numel() for p in params.values()),
+                               fin, dt, launches["dense"], 0, 0)
+    print(f"session dense: {out['dense']['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{out['dense']['ttft_p50_ms']:.1f} ms; tokens bitwise the direct "
+          f"engine's: {same}", flush=True)
+
+    # (b) restart under the same name
+    ptrs = {k: v.data_ptr() for k, v in params.items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
+        eng2, restart_ms = timed_serve(sess, plan, name="qwen2")
+    grown = torch.cuda.memory_allocated() - before
+    cache_bytes = mem_mod.tree_bytes(eng2.cache)
+    htod = [e for e in prof.events() if "Memcpy HtoD" in e.name]
+    copies_ = weight_copies(prof, params)
+    same_ptrs = {k: v.data_ptr() for k, v in eng2.params.items()} == ptrs
+    stats = sess.opcache.stats()
+    hits = {op: stats[op].hits for op in ("serve_decode", "serve_prefill")}
+    print(f"session restart: cold start {cold_ms:.1f} ms, restart "
+          f"{restart_ms:.1f} ms; params' storages the same: {same_ptrs}; "
+          f"memory_allocated grew {grown} bytes for a {cache_bytes}-byte "
+          f"cache; {len(htod)} host-to-device copies, {len(copies_)} of a "
+          f"weight's shape; op-cache hits {hits}", flush=True)
+    print(sess.describe(), flush=True)
+    require(same_ptrs, "the restarted engine's params are other tensors")
+    require(0 <= grown - cache_bytes <= 512 * (len(eng2.cache) + 2),
+            f"the restart allocated {grown} bytes for a {cache_bytes}-byte "
+            "cache")
+    require(not copies_, f"the restart copied a weight: {copies_}")
+    require(all(h >= 1 for h in hits.values()),
+            f"the restart's steps are not op-cache hits: {hits}")
+    ops.reset_launches()
+    fin2, _, steps2 = drive(eng2, fresh())
+    launches["restart"] = ops.dispatch_report()
+    want = dense_serve_launches(cfg, steps2, len(fin2))
+    require(launches["restart"] == want, f"Session.serve restart launches "
+            f"{launches['restart']} (expected {want})")
+    require(tokens_of(fin2) == tokens_of(fin), "the restarted engine's "
+            "tokens differ")
+    del eng, eng2
+    out.update(cold_start_ms=cold_ms, restart_ms=restart_ms,
+               restart_allocated=grown, cache_bytes=cache_bytes,
+               htod_copies=len(htod), op_cache_hits=hits)
+
+    # (a) continuous, on the same params
+    ckw = dict(name="qwen2", scheduler="continuous", page_size=PAGE,
+               prefill_chunk=CHUNK)
+    eng3, _ = timed_serve(sess, plan, **ckw)
+    ops.reset_launches()
+    fin3, dt3, steps3 = drive(eng3, fresh())
+    launches["continuous"] = ops.dispatch_report()
+    want, _ = continuous_serve_launches(cfg, steps3, fin3)
+    require(launches["continuous"] == want, f"Session.serve continuous "
+            f"launches {launches['continuous']} (expected {want})")
+    direct3, _, _ = drive(ContinuousEngine(
+        plan.model, params, SLOTS, MAX_SEQ, seed=SEED, page_size=PAGE,
+        prefill_chunk=CHUNK), fresh())
+    same3 = tokens_of(fin3) == tokens_of(direct3)
+    require(same3, "Session.serve's continuous tokens differ from the "
+            "engine built directly on the same params")
+    out["continuous"] = serve_stats(ARCH, 0, fin3, dt3,
+                                    launches["continuous"], 0, 0)
+    print(f"session continuous: {out['continuous']['tok_per_s']:.1f} tok/s, "
+          f"TTFT p50 {out['continuous']['ttft_p50_ms']:.1f} ms; tokens "
+          f"bitwise the direct engine's: {same3}", flush=True)
+    out["registry"] = {k: [e.kind, e.nbytes] for k in sess.state.keys()
+                       for e in [sess.state.entry(k)]}
+    del eng3
+
+    # (c) a pool over the budget: the params and half the pool fit
+    n_pages = 1 + SLOTS * (MAX_SEQ // PAGE)
+    pool = n_pages * kv_bytes_per_block(cfg, PAGE)
+    pbytes = mem_mod.tree_bytes(params)
+    hbm_gib = (pbytes + pool / 2) / mem_mod.DEFAULT_HEADROOM / mem_mod.GIB
+    tight = Session(hbm_gib=hbm_gib)
+    tight.put("qwen2/params", params, kind="params")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    refusal = None
+    try:
+        tight.serve(tight.plan(ARCH, batch=SLOTS, seq=MAX_SEQ,
+                               kind="decode"),
+                    batch_slots=SLOTS, max_seq=MAX_SEQ, name="qwen2",
+                    scheduler="continuous", page_size=PAGE,
+                    prefill_chunk=CHUNK, num_pages=n_pages)
+    except PlanMemoryError as e:
+        refusal = str(e)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"session budget: a {pool}-byte pool beside {pbytes} bytes of "
+          f"params under {tight.budget.describe()}: refused "
+          f"{refusal is not None}; allocated before/after {before}/{after}",
+          flush=True)
+    require(refusal is not None, "the over-budget pool was allocated")
+    require(after == before, f"the refused pool allocated {after - before} "
+            "bytes")
+    out["refused_pool"] = dict(pool_bytes=pool, params_bytes=pbytes,
+                               hbm_gib=hbm_gib, allocated_delta=after - before)
+    total = {k: sum(v[k] for v in launches.values())
+             for k in launches["dense"]}
+    return out, total
+
+
+def fwd_bwd(model, params, batch):
+    """The loss's forward and the gradients of every param."""
+    loss, _ = model.loss_fn(params, batch)
+    return torch.autograd.grad(loss, list(params.values()))
+
+
+def dry_peak(model, fn) -> int:
+    """The dry trace's peak of ``fn(model, params, batch)`` on fake
+    tensors of the model's params and a 2 x 512 batch."""
+    from repro_torch.core import dry
+    with dry.fake_mode():
+        params = {k: v.requires_grad_(True) for k, v in
+                  model.init(SEED).items()}
+        batch = {k: torch.zeros((TUNE_BATCH, TUNE_SEQ), dtype=torch.long,
+                                device="cuda") for k in ("tokens", "labels")}
+        with dry.traced(params) as trace:
+            fn(model, params, batch)
+    return trace.peak_bytes
+
+
+def session_autotune(cfg):
+    """Phase 12 (d): ``AutoTuner.pick`` over the forward and backward at
+    2 x 512 under remat none, full and group:4, each candidate's
+    workspace its dry-traced peak, the budget between the largest two
+    peaks; each candidate's peak measured (the params counted, as the
+    trace counts them) and its µs a call (3 calls) printed beside."""
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.core.autotune import AutoTuner, Candidate
+    params = {k: v.requires_grad_(True) for k, v in
+              Model(cfg, device="cuda").init(SEED).items()}
+    batch = {k: torch.from_numpy(v[:TUNE_BATCH, :TUNE_SEQ]).long().cuda()
+             for k, v in train_batches(cfg)[0].items()}
+    models = {r: Model(cfg, device="cuda", remat=r) for r in TUNE_REMAT}
+    rows = {}
+    ops.reset_launches()
+    for remat, model in models.items():
+        traced = dry_peak(model, fwd_bwd)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd(model, params, batch)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base \
+            + mem_mod.tree_bytes(params)
+        rows[remat] = dict(traced_peak=traced, measured_peak=measured)
+    peaks = sorted(r["traced_peak"] for r in rows.values())
+    require(rows["none"]["traced_peak"] == peaks[-1] > peaks[-2],
+            f"remat none is not the largest traced peak: {rows}")
+    budget = (peaks[-1] + peaks[-2]) // 2
+    tuner = AutoTuner(budget_bytes=budget, warmup=1, iters=3)
+    choice = tuner.pick(
+        ("fwd_bwd", ARCH, TUNE_BATCH, TUNE_SEQ),
+        [Candidate(r, lambda m=m: fwd_bwd(m, params, batch),
+                   workspace_bytes=rows[r]["traced_peak"])
+         for r, m in models.items()])
+    launches = ops.dispatch_report()
+    for remat, model in models.items():
+        rows[remat]["us"] = 1e6 * event_ms(
+            lambda m=model: fwd_bwd(m, params, batch), iters=3) / 1e3
+        r = rows[remat]
+        print(f"autotune {remat:8s}: traced peak {r['traced_peak']} B, "
+              f"measured {r['measured_peak']} B (ratio "
+              f"{r['traced_peak'] / r['measured_peak']:.3f}), "
+              f"{r['us']:.0f} us a call", flush=True)
+    print(f"autotune: budget {budget} B; choice {choice.name} "
+          f"({choice.us_per_call:.0f} us a call in the tuner), "
+          f"disqualified {list(choice.disqualified)}", flush=True)
+    require(choice.disqualified == ("none",) and choice.name != "none",
+            f"the budget did not disqualify remat none alone: {choice}")
+    return dict(budget=budget, choice=choice.name,
+                us_per_call=choice.us_per_call,
+                disqualified=list(choice.disqualified), candidates=rows), \
+        launches
+
+
+def session_dry(cfg):
+    """Phase 12 (e)-(g): the dry-run CLI in a subprocess on 16 x 16; one
+    rank's 2 x 512 step dry-traced against its measured peak; phase 10's
+    (2, 2) cell dry-traced on 4 fake ranks, its wire against the
+    layouts' estimate; the backend ``init_group`` picks."""
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.core.distributed import (close_group, init_group,
+                                              select_backend)
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    # (e)
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    text, secs = cli(["repro_torch.launch.dryrun", "--arch", ARCH, "--shape",
+                      "train_4k", "--out", str(TRAIN_DIR / "dryrun")],
+                     timeout=300)
+    shutil.rmtree(TRAIN_DIR / "dryrun", ignore_errors=True)
+    require(text.strip().splitlines()[-1] == "ALL DRY-RUN CELLS PASSED",
+            "the dry run did not pass")
+    out["dryrun_cli"] = dict(seconds=secs, line=next(
+        ln for ln in text.splitlines() if ln.startswith("OK ")))
+    # (f) one rank: traced against measured
+    sess = Session()
+    plan = sess.plan(ARCH, batch=TUNE_BATCH, seq=TUNE_SEQ, comms="off",
+                     adamw=train_adamw())
+    trace, _ = sess.dryrun(plan)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sess.init_state(plan, seed=SEED)
+    batch = {k: v[:TUNE_BATCH, :TUNE_SEQ]
+             for k, v in train_batches(cfg)[0].items()}
+    sess.step(plan, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base
+    ratio = trace.peak_bytes / measured
+    print(f"dry trace, one rank, {TUNE_BATCH} x {TUNE_SEQ}: traced peak "
+          f"{trace.peak_bytes} B, one step's max_memory_allocated {measured} "
+          f"B, ratio {ratio:.3f} (traced {trace.trace_s:.2f} s, kernels "
+          f"{trace.kernel_calls})", flush=True)
+    require(0.5 <= ratio <= 2.0, f"traced/measured peak {ratio:.3f} is "
+            "outside 0.5-2.0")
+    sess.evict("train_state")
+    del sess
+    out["one_rank"] = dict(traced_peak=trace.peak_bytes, measured=measured,
+                           ratio=ratio, trace_s=trace.trace_s)
+    # (f) phase 10's (2, 2) cell on 4 fake ranks
+    with fake_world(HYBRID_RANKS):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        sess = Session(mesh=mesh)
+        plan = sess.plan(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, comms="off",
+                         adamw=train_adamw(), microbatches=1)
+        trace, meta = sess.dryrun(plan)
+        est = hybrid_wire_estimate(plan.model, mesh, TRAIN_BATCH, TRAIN_SEQ)
+    print(f"dry trace, phase 10's (2, 2) cell ({meta['plan']['attn_mode']}, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}): peak {trace.peak_bytes} B a rank, "
+          f"wire {trace.wire_bytes} B a rank a step {trace.collectives} "
+          f"(estimate {sum(est.values())}, phase 10 measured "
+          f"{HYBRID_WIRE_2X2})", flush=True)
+    require(trace.collectives == est
+            and trace.wire_bytes == HYBRID_WIRE_2X2,
+            "the traced wire differs from the layouts' estimate")
+    out["hybrid_2x2"] = dict(traced_peak=trace.peak_bytes,
+                             wire_bytes=trace.wire_bytes,
+                             collectives=trace.collectives)
+    # (g) the backend: four ranks on the one card, and one rank alone
+    cards = torch.cuda.device_count()
+    four = select_backend("cuda", cards, HYBRID_RANKS, 0)
+    (TRAIN_DIR / "rendezvous_nccl").unlink(missing_ok=True)
+    init_group(f"file://{TRAIN_DIR / 'rendezvous_nccl'}", rank=0,
+               world_size=1)
+    one = dist.get_backend()
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    close_group()
+    (TRAIN_DIR / "rendezvous_nccl").unlink(missing_ok=True)
+    print(f"init_group's backend on {cards} card(s): {four} for "
+          f"{HYBRID_RANKS} ranks (phases 6, 7, 9-11), {one} for one rank "
+          f"(an all-reduce on it: {x.tolist()})", flush=True)
+    require(four == "gloo" and one == "nccl" and x.tolist() == [1.0] * 4,
+            f"init_group chose {four} and {one}")
+    out["backend"] = {f"{HYBRID_RANKS} ranks": four, "1 rank": one}
+    return out
+
+
+def session_phase():
+    """Phase 12: (a)-(c) serve through the Session, (d) autotune, (e)-(g)
+    the dry traces and the backend.  Returns the summary and the
+    launches by path."""
+    cfg = get_config(ARCH)
+    summary, serve_launches = session_serve(cfg)
+    torch.cuda.empty_cache()
+    summary["autotune"], tune_launches = session_autotune(cfg)
+    torch.cuda.empty_cache()
+    summary.update(session_dry(cfg))
+    torch.cuda.empty_cache()
+    print("session " + json.dumps(summary), flush=True)
+    return summary, {SESSION_PATH: serve_launches, TUNE_PATH: tune_launches}
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
@@ -5202,7 +5588,8 @@ ALONE = {"d256": lambda: print(json.dumps(
              check_flash_d256(get_config(GEMMA2B)))),
          "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b,
          "6": lambda: train_phase(get_config(ARCH)),
-         "9": linalg_phase, "10": hybrid_phase, "11": sched_phase}
+         "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
+         "12": session_phase}
 
 
 def main() -> int:
@@ -5260,13 +5647,7 @@ def main() -> int:
     fin, dt, steps = serve(ContinuousEngine, model, params, requests(cfg))
     launches = ops.dispatch_report()
     peak = torch.cuda.max_memory_allocated()
-    chunks = sum(-(-len(r.prompt) // CHUNK) for r in fin)
-    L = cfg.n_layers
-    per_pass = 7 * L + 1
-    expect = {"matmul": per_pass * (steps + chunks),
-              "attention": L * chunks, "attention_backward": 0,
-              "paged_decode_attention": L * steps, "ssd": 0,
-              "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+    expect, chunks = continuous_serve_launches(cfg, steps, fin)
     print(f"launches: {launches} (expected {expect}: {steps} decode steps, "
           f"{chunks} prefill chunks)")
     require(all(launches[k] > 0 for k in
@@ -5360,7 +5741,12 @@ def main() -> int:
     _, sched_launches = sched_phase(hybrid)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
-    # 12. results; 4c's and 4d's kernel calls held at their own shapes
+    # 12. the whole Session: serve, restart, refusal, autotune, dry runs
+    t12 = time.perf_counter()
+    _, session_launches = session_phase()
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+
+    # results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
     for row, err in ((rows[0], g3e["matmul"]), (rows[0], g2e["matmul"]),
@@ -5393,7 +5779,7 @@ def main() -> int:
              f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
              train_path: train_launches, DP_PATH: dp_launches,
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
-             SCHED_PATH: sched_launches}
+             SCHED_PATH: sched_launches, **session_launches}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

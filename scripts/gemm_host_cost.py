@@ -12,6 +12,11 @@ For qwen2-0.5b at full width (random weights from seed 0):
   same operands, and, where the tree's wrapper has a plan
   (``gemm.plan``), for its C entry alone, called with arguments made
   before the clock starts (the launches and the C side's host work).
+- where the tree's wrappers test for a fake tensor (the dry trace's
+  ``isinstance(a, FakeTensor)``, once a call in ``gemm._product`` and in
+  ``paged_decode_attention``), host microseconds per call of that test
+  alone over the same 169 operands, beside the same loop calling a
+  function that does nothing; their difference is the test's cost.
 - one eager decode step (8 slots, ``Model.decode_step_paged``): its host
   time to the call's return and its wall time to a synchronize, medians
   of 20.
@@ -124,6 +129,13 @@ def main() -> int:
     out["torch_matmul_host_us_per_call"] = host_us(torch.matmul, products,
                                                    args.steps)
     out["gemm_entry_host_us_per_call"] = entry_us(products, args.steps)
+    from repro_torch.kernels import gemm
+    fake_cls = getattr(gemm, "FakeTensor", None)
+    if fake_cls is not None:
+        out["fake_test_host_us_per_call"] = host_us(
+            lambda a, b: isinstance(a, fake_cls), products, args.steps)
+        out["empty_call_host_us_per_call"] = host_us(
+            lambda a, b: None, products, args.steps)
     del products
 
     model = Model(cfg, device="cuda")

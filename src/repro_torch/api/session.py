@@ -1,32 +1,41 @@
-"""The Session: the entry point that plans a train cell, initializes its
-state on the device and steps it, ported from the reference's
-``api/session.py``.
+"""The Session: the entry point that plans a cell, keeps its state on
+the device and steps, serves and dry-runs it, ported from the
+reference's ``api/session.py``.
 
-``Session(device=..., group=..., obs=..., mesh=..., hbm_gib=...)`` holds
-the device, the process group (None: one rank, or the default group when
-one is initialized), the telemetry (:mod:`repro_torch.obs`, the disabled
-``NULL`` by default), the mesh over the group (``make_host_mesh``'s
-(data=n, model=1) by default), the gradient-sync :attr:`topology`, the
+``Session(device=..., group=..., obs=..., mesh=..., hbm_gib=...,
+opcache=..., state=..., tensors=...)`` holds the device, the process
+group (None: one rank, or the default group when one is initialized),
+the telemetry (:mod:`repro_torch.obs`, the disabled ``NULL`` by
+default), the mesh over the group (``make_host_mesh``'s (data=n,
+model=1) by default), the gradient-sync :attr:`topology`, the
 per-device memory :attr:`budget` (the card's entry of
 ``core.memory.HBM_BUDGETS`` by its name, ``cpu`` on the CPU, or
-``hbm_gib``), the persistent :attr:`state` registry held to that budget
-and the layout table of its linalg surface (``tensors``;
-:meth:`Session.tensor` makes a ``DistTensor`` there).
-:meth:`Session.plan` resolves the config, the layout plan (``plan_for``
-on the mesh), the microbatch count, the CommsPlan and the dispatch path,
-and prices the cell with the memory model before anything is allocated:
-a cell that does not fit raises :class:`~repro_torch.api.errors.
-PlanMemoryError`.  :meth:`Session.init_state` makes the params and the
-AdamW state resident on the device, each rank's blocks on a mesh with a
-model axis or a gspmd path over several ranks (or :meth:`Session.put` a
-restored one), and :meth:`Session.step` runs one train step on them in
-place, the state never leaving the device.  The reference's telemetry
-sites are here: the ``plan``, ``build_step`` and ``step`` /
-``step_warmup`` spans (a step span closes after the card's work) and
-:meth:`Session.publish_metrics`.
+``hbm_gib``), the compiled-artifact cache :attr:`opcache` (an
+:class:`~repro_torch.core.opcache.OpCache`: the port runs eagerly, so an
+entry is a step built once, and its "compile" is that build), the
+persistent :attr:`state` registry held to that budget and the layout
+table of its linalg surface (``tensors``; :meth:`Session.tensor` makes a
+``DistTensor`` there).
 
-Not ported yet (ROADMAP queue 1, item 9): the compiled-artifact cache and
-its gauges, ``dryrun``, ``serve`` and ``describe`` on the session.
+:meth:`Session.plan` plans one (config, shape) cell: ``shape=`` (a
+``SHAPES`` name or a ``ShapeConfig``) or ``batch=``/``seq=`` with
+``kind=`` (``train``, ``prefill``, ``decode``, ``long_decode``).  A train
+cell resolves the layout plan (``plan_for`` on the mesh), the microbatch
+count, the CommsPlan and the dispatch path, and is priced with the
+memory model before anything is allocated: one that does not fit raises
+:class:`~repro_torch.api.errors.PlanMemoryError`.  A serve cell's path
+is its kind, and it gets no footprint verdict.  :meth:`Session.init_state`
+makes the params and the AdamW state resident (each rank's blocks on a
+mesh), :meth:`Session.step` runs the step, built through the op cache,
+on them in place; :meth:`Session.serve` builds an engine on params kept
+under ``{name}/params`` (a second engine of that name reuses the same
+tensors: no re-init, no host-to-device copy) with its cache in the
+registry; :meth:`Session.dryrun` traces the cell's step for this rank on
+fake tensors (:mod:`repro_torch.core.dry`) without running it;
+:meth:`Session.describe` reports the session, the registry and the
+cache.  The reference's telemetry sites are here: the ``plan``,
+``build_step``, ``lower`` and ``step`` / ``step_warmup`` spans (a step
+span closes after the card's work) and :meth:`Session.publish_metrics`.
 """
 
 from __future__ import annotations
@@ -39,11 +48,13 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs as obs_mod
-from repro_torch.configs import get_config, scale_config
+from repro_torch.configs import (SHAPES, ShapeConfig, default_microbatches,
+                                 get_config, scale_config)
 from repro_torch.core import memory as mem_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dtensor import DistTensor, TensorRegistry
 from repro_torch.core.layout import Layout
+from repro_torch.core.opcache import OpCache
 from repro_torch.core.planner import (comms_plan_for, grad_sync_topology,
                                       plan_for, score_hybrid_candidates)
 from repro_torch.launch import mesh as mesh_mod
@@ -56,19 +67,6 @@ from .plan import ExecutablePlan, select_path
 from .state import StateRegistry
 
 
-def default_microbatches(cfg, global_batch: int, seq_len: int, n_ranks: int,
-                         budget_bytes: float = 3.0 * 2**30) -> int:
-    """Smallest power-of-two microbatch count keeping the rematerialized
-    residual stream under ``budget_bytes`` per rank (the reference's
-    ``configs.default_microbatches``)."""
-    b_loc = max(1, global_batch // n_ranks)
-    resid = cfg.n_layers * b_loc * seq_len * cfg.d_model * 2
-    nmb = 1
-    while resid / nmb > budget_bytes and nmb < b_loc:
-        nmb *= 2
-    return nmb
-
-
 class Session:
     """One device, one process group, one persistent state registry.
 
@@ -79,13 +77,18 @@ class Session:
         sess.init_state(plan, seed=0)             # params+opt on device
         for batch in data:
             metrics = sess.step(plan, batch)      # state stays resident
+
+        serve = sess.plan("qwen2-0.5b", batch=8, seq=1024, kind="decode")
+        engine = sess.serve(serve, batch_slots=8, max_seq=1024)
     """
 
     def __init__(self, device: Union[str, torch.device] = "cuda",
                  group: Optional[dist.ProcessGroup] = None,
                  obs: Optional["obs_mod.Obs"] = None, mesh=None,
                  tensors: Optional[TensorRegistry] = None, *,
-                 hbm_gib: Optional[float] = None):
+                 hbm_gib: Optional[float] = None,
+                 opcache: Optional[OpCache] = None,
+                 state: Optional[StateRegistry] = None):
         self.device = resolve_device(device)
         if group is None and dist.is_initialized():
             group = dist.group.WORLD
@@ -95,52 +98,59 @@ class Session:
                      else mesh_mod.make_host_mesh(group=group))
         self.budget = mem_mod.budget_for(hbm_gib=hbm_gib, device=self.device)
         self.topology = grad_sync_topology(self.mesh)
+        self.opcache = opcache if opcache is not None else OpCache("session")
         self.tensors = tensors if tensors is not None else TensorRegistry()
         # each rank's registry holds its own tensors: one device's budget
-        self.state = StateRegistry(budget=self.budget, n_devices=1)
-        self._steps: Dict[int, Any] = {}
+        self.state = state if state is not None else StateRegistry(
+            budget=self.budget, n_devices=1)
         # spans and gauges flow through here; the NULL default keeps every
         # site a no-op (no timing, no synchronize) with telemetry off
         self.obs = obs if obs is not None else obs_mod.NULL
 
     def plan(self, arch, **kwargs) -> ExecutablePlan:
-        """Plan one train cell under the ``plan`` span; see :meth:`_plan`
-        for the keywords."""
+        """Plan one cell under the ``plan`` span; see :meth:`_plan` for
+        the keywords."""
         name = arch if isinstance(arch, str) else getattr(
             arch, "name", type(arch).__name__)
-        with self.obs.span("plan", arch=name, plan_kind="train"):
+        with self.obs.span("plan", arch=name,
+                           plan_kind=kwargs.get("kind", "train")):
             plan = self._plan(arch, **kwargs)
         if self.obs.enabled:
             self.obs.event(
-                "plan_resolved", arch=plan.cfg.name, path=plan.path,
-                microbatches=plan.num_microbatches,
+                "plan_resolved", arch=plan.cfg.name, shape=plan.shape.name,
+                path=plan.path, microbatches=plan.num_microbatches,
                 comms=(plan.comms.schedule if plan.comms is not None
                        else None), pp=1, ranks=plan.n_ranks)
         return plan
 
-    def _plan(self, arch, *, batch: int, seq: int, comms="auto",
+    def _plan(self, arch, *, shape: Union[str, ShapeConfig, None] = None,
+              batch: Optional[int] = None, seq: Optional[int] = None,
+              kind: str = "train", comms="auto",
               adamw: Optional[opt.AdamWConfig] = None,
               microbatches: Optional[int] = None, scale_down: int = 1,
               model_kwargs=None, plan_kwargs=None,
               check_memory: bool = True, sweep: bool = False
               ) -> ExecutablePlan:
-        """Plan one train cell (``batch`` is the global batch).
+        """Plan one cell: ``shape`` (a ``SHAPES`` name or a
+        ``ShapeConfig``), or ``batch`` (the global batch) and ``seq`` with
+        ``kind``.
 
         The layout plan is :func:`~repro_torch.core.planner.plan_for` on
-        the session's mesh (``plan_kwargs`` go to it).  ``comms``:
-        ``"auto"`` attaches the cost model's :class:`CommsPlan` over the
-        session's :attr:`topology` (``comms_plan_for``, which
-        ``plan_for(...).comms`` equals) on a pure-DP mesh of a process group
-        (every non-batch axis of size 1, as the reference's ``dp_only``),
-        and otherwise selects the ``gspmd`` path, on one rank or on the
-        mesh with the implicit gradient sync; ``"off"``/``None`` selects
-        the ``gspmd`` path, and a ``CommsPlan`` is used as given.  The
-        microbatch count defaults to the reference's rule, clamped to the
-        rows of a data coordinate.
+        the session's mesh (``plan_kwargs`` go to it).  For a train cell,
+        ``comms``: ``"auto"`` attaches the cost model's :class:`CommsPlan`
+        over the session's :attr:`topology` (``comms_plan_for``, which
+        ``plan_for(...).comms`` equals) on a pure-DP mesh of a process
+        group (every non-batch axis of size 1, as the reference's
+        ``dp_only``), and otherwise selects the ``gspmd`` path, on one
+        rank or on the mesh with the implicit gradient sync;
+        ``"off"``/``None`` selects the ``gspmd`` path, and a ``CommsPlan``
+        is used as given.  The microbatch count defaults to the
+        reference's rule, clamped to the rows of a data coordinate.  A
+        serve cell's path is its kind.
 
-        The memory verdict is the reference's: the cell's per-stage
-        footprints (``core.memory.footprints_for_mesh``) against
-        :attr:`budget`.  ``check_memory`` (default) raises
+        The memory verdict (train cells) is the reference's: the cell's
+        per-stage footprints (``core.memory.footprints_for_mesh``)
+        against :attr:`budget`.  ``check_memory`` (default) raises
         :class:`PlanMemoryError` for a cell that does not fit, with the
         sweep's per-candidate refusals when no factorization fits either;
         ``sweep=True`` always runs the sweep (``plan.scores``,
@@ -150,41 +160,75 @@ class Session:
         cfg = get_config(arch) if isinstance(arch, str) else arch
         if scale_down > 1:
             cfg = scale_config(cfg, scale_down)
+        if isinstance(shape, str):
+            shape = SHAPES[shape]
+        if shape is None:
+            if batch is None or seq is None:
+                raise ValueError("Session.plan needs shape= or both batch= "
+                                 "and seq=")
+            shape = ShapeConfig(f"custom_{kind}", seq, batch, kind)
         mesh = self.mesh
         parallel = plan_for(cfg, mesh, **(plan_kwargs or {}))
-        nb = math.prod(mesh.shape[a] for a in parallel.batch_axes) or 1
-        if batch % nb:
-            raise ValueError(f"a global batch of {batch} does not split "
-                             f"over {nb} data ranks")
-        nmb = (microbatches if microbatches is not None
-               else default_microbatches(cfg, batch, seq, nb))
-        nmb = max(1, min(nmb, batch // nb))
-        if (batch // nb) % nmb:
-            raise ValueError(f"{nmb} microbatches do not split a rank's "
-                             f"{batch // nb} rows")
-        comms_plan = None
-        if comms == "auto":
-            dp_only = all(n == 1 for a, n in mesh.shape.items()
-                          if a not in parallel.batch_axes)
-            if self.group is not None and dp_only:
-                comms_plan = comms_plan_for(cfg, mesh, topo=self.topology)
-        elif comms not in (None, "off"):
-            comms_plan = comms
-        path = select_path(mesh, comms=comms_plan)
+        train = shape.kind == "train"
+        nmb, comms_plan = 1, None
+        footprints: tuple = ()
+        refused: dict = {}
+        scores = None
+        if train:
+            batch = shape.global_batch
+            nb = math.prod(mesh.shape[a] for a in parallel.batch_axes) or 1
+            if batch % nb:
+                raise ValueError(f"a global batch of {batch} does not split "
+                                 f"over {nb} data ranks")
+            nmb = (microbatches if microbatches is not None
+                   else default_microbatches(cfg, shape, mesh, parallel))
+            nmb = max(1, min(nmb, batch // nb))
+            if (batch // nb) % nmb:
+                raise ValueError(f"{nmb} microbatches do not split a rank's "
+                                 f"{batch // nb} rows")
+            if comms == "auto":
+                dp_only = all(n == 1 for a, n in mesh.shape.items()
+                              if a not in parallel.batch_axes)
+                if self.group is not None and dp_only:
+                    comms_plan = comms_plan_for(cfg, mesh, topo=self.topology)
+            elif comms not in (None, "off"):
+                comms_plan = comms
+            footprints, refused, scores = self._verdict(
+                cfg, shape, nmb, adamw, check_memory, sweep)
+        path = select_path(mesh, comms=comms_plan) if train else shape.kind
 
-        # the memory verdict, before anything is built or allocated
+        # the gspmd path (and a serve cell, which raises at serving: item
+        # 13) runs the model on the mesh of several ranks
+        on_mesh = mesh.size > 1 and path != "comms"
+        model = Model(cfg, device=self.device,
+                      mesh=mesh if on_mesh else None,
+                      plan=parallel if on_mesh else None,
+                      **(model_kwargs or {}))
+        return ExecutablePlan(cfg=cfg, model=model, path=path, shape=shape,
+                              num_microbatches=nmb, adamw=adamw,
+                              comms=comms_plan, n_ranks=self.n_ranks,
+                              mesh=mesh, parallel=parallel,
+                              budget=self.budget, footprints=footprints,
+                              refused=refused, scores=scores)
+
+    def _verdict(self, cfg, shape, nmb, adamw, check_memory, sweep):
+        """A train cell's memory verdict: (footprints, refused, scores),
+        raising :class:`PlanMemoryError` as :meth:`_plan` says."""
+        mesh = self.mesh
         moment_itemsize = (adamw.moment_dtype.itemsize
                            if adamw is not None else 4)
         footprints = tuple(mem_mod.footprints_for_mesh(
-            cfg, mesh, global_batch=batch, seq_len=seq,
-            num_microbatches=nmb, moment_itemsize=moment_itemsize))
+            cfg, mesh, global_batch=shape.global_batch,
+            seq_len=shape.seq_len, num_microbatches=nmb,
+            moment_itemsize=moment_itemsize))
         fits = all(f.fits(self.budget) for f in footprints)
         refused: dict = {}
         scores = None
         if sweep or (check_memory and not fits):
             scores, refused = score_hybrid_candidates(
-                cfg, mesh.size, global_batch=batch, seq_len=seq,
-                hbm_budget=self.budget, return_refused=True)
+                cfg, mesh.size, global_batch=shape.global_batch,
+                seq_len=shape.seq_len, hbm_budget=self.budget,
+                return_refused=True)
             if sweep and not scores:
                 raise PlanMemoryError.all_refused(refused, self.budget,
                                                   mesh.size)
@@ -192,34 +236,39 @@ class Session:
             raise PlanMemoryError.for_cell(
                 footprints, self.budget,
                 refused=refused if not scores else None)
+        return footprints, refused, scores
 
-        # the gspmd path runs the one-rank model on a mesh of one rank
-        on_mesh = path == "gspmd" and mesh.size > 1
-        model = Model(cfg, device=self.device,
-                      mesh=mesh if on_mesh else None,
-                      plan=parallel if on_mesh else None,
-                      **(model_kwargs or {}))
-        return ExecutablePlan(cfg=cfg, model=model, path=path,
-                              global_batch=batch, seq_len=seq,
-                              num_microbatches=nmb, adamw=adamw,
-                              comms=comms_plan, n_ranks=self.n_ranks,
-                              mesh=mesh, parallel=parallel,
-                              budget=self.budget, footprints=footprints,
-                              refused=refused, scores=scores)
+    # ------------------------------------------------------------------
+    # the train-step dispatcher, through the compiled-artifact cache
+    # ------------------------------------------------------------------
+    def _step_key(self, plan: ExecutablePlan, **extra):
+        return self.opcache.key_for(
+            "train_step", (),
+            mesh_shape=tuple(self.mesh.shape.items()),
+            model=id(plan.model), path=plan.path,
+            nmb=plan.num_microbatches, schedule=plan.schedule,
+            adamw=id(plan.adamw), comms=repr(plan.comms), **extra)
 
-    def train_step(self, plan: ExecutablePlan) -> Callable:
-        """The ``train_step(state, batch)`` of a plan (built once; the
-        plan is kept beside it, so its id is not reused)."""
-        key = id(plan)
-        if key not in self._steps:
+    def train_step(self, plan: ExecutablePlan, **extra) -> Callable:
+        """The ``train_step(state, batch)`` of a train plan, built once
+        under the reference's key in :attr:`opcache` (repeated calls are
+        cache hits; the entry keeps the model alive, so its id is not
+        reused)."""
+        if plan.kind != "train":
+            raise ValueError(
+                f"train_step needs a train plan, got kind={plan.kind!r}")
+
+        def build():
             with self.obs.span("build_step", path=plan.path,
                                arch=plan.cfg.name):
-                self._steps[key] = (plan, step_mod.dispatch_train_step(
+                return step_mod.dispatch_train_step(
                     plan.model, adamw=plan.adamw,
                     num_microbatches=plan.num_microbatches,
                     comms=plan.comms, group=self.group, path=plan.path,
-                    mesh=self.mesh))
-        return self._steps[key][1]
+                    mesh=self.mesh)
+
+        return self.opcache.get_or_build(self._step_key(plan, **extra),
+                                         "train_step", build)
 
     def init_state(self, plan: ExecutablePlan, *, seed: int = 0,
                    name: str = "train_state",
@@ -229,6 +278,10 @@ class Session:
         their AdamW state, and keep them resident under ``name``.  On a
         mesh each rank keeps its blocks: of the params in their storage
         layouts, of the state on their ZeRO blocks."""
+        return self.put(name, self._new_state(plan, seed, params),
+                        kind="train_state")
+
+    def _new_state(self, plan: ExecutablePlan, seed: int, params=None):
         model = plan.model
         if params is None:
             params = model.init(seed)
@@ -238,7 +291,9 @@ class Session:
         adamw = plan.adamw or opt.AdamWConfig()
         state = {"params": params, "opt": opt.init_state(
             params, adamw, zero=self.zero_layouts(plan))}
-        return self.put(name, state, kind="train_state")
+        for p in state["params"].values():
+            p.requires_grad_(True)
+        return state
 
     def zero_layouts(self, plan: ExecutablePlan
                      ) -> Optional[opt.ZeroLayouts]:
@@ -271,7 +326,7 @@ class Session:
         if rows != plan.global_batch:
             raise ValueError(f"batch of {rows} rows for a plan of "
                              f"{plan.global_batch}")
-        warm = id(plan) in self._steps
+        warm = self._step_key(plan) in self.opcache
         fn = self.train_step(plan)
         with self.obs.span("step" if warm else "step_warmup",
                            path=plan.path) as sp:
@@ -279,14 +334,23 @@ class Session:
             sp.block(metrics)
         self.state.update(name, state)
         if self.obs.enabled:
-            self.publish_metrics()
+            self._publish_state()
         return metrics
 
     def publish_metrics(self) -> None:
-        """Mirror session-owned stats into the obs registry: the state
-        registry's resident bytes and entries (the reference's opcache
-        gauges wait for the compiled-artifact cache, ROADMAP queue 1,
-        item 9)."""
+        """Mirror session-owned stats into the obs registry: per-op
+        compiled-artifact cache hit/miss/compile counts and the persistent
+        state registry's resident bytes and entries."""
+        for op, st in self.opcache.stats().items():
+            self.obs.gauge(f"opcache.{op}.hits").set(st.hits)
+            self.obs.gauge(f"opcache.{op}.misses").set(st.misses)
+            self.obs.gauge(f"opcache.{op}.compiles").set(st.compiles)
+        self._publish_state()
+
+    def _publish_state(self) -> None:
+        """The registry's gauges, which :meth:`step` refreshes after every
+        step (the reference's step publishes the cache's too; here
+        :meth:`publish_metrics` does, when the caller asks)."""
         self.obs.gauge("state.resident_bytes").set(self.state.total_bytes())
         self.obs.gauge("state.entries").set(len(self.state))
 
@@ -321,6 +385,135 @@ class Session:
 
     def evict(self, name: str):
         return self.state.evict(name)
+
+    # ------------------------------------------------------------------
+    # dryrun: trace the dispatched step on fake tensors
+    # ------------------------------------------------------------------
+    def dryrun(self, plan: ExecutablePlan, *, seed: int = 0):
+        """Trace (not run) the cell's step for this rank ->
+        ``(trace, meta)``, a :class:`repro_torch.core.dry.Trace`: the
+        step's peak of live bytes, FLOPs, bytes accessed and collectives.
+
+        Train cells trace the SAME dispatched train step
+        :meth:`train_step` builds, through the same op cache, on fake
+        params, optimizer state and batch (``FakeTensorMode``: nothing is
+        allocated).  Serve cells raise ``NotImplementedError``: serving on
+        a mesh is ROADMAP queue 1, item 13.  On a mesh the session's group
+        should be torch's ``fake`` backend (``launch/dryrun.py``), so that
+        the collectives return at once; their bytes are counted all the
+        same."""
+        from repro_torch.core import dry
+
+        cfg, shape = plan.cfg, plan.shape
+        if shape.kind != "train":
+            raise NotImplementedError(
+                f"dryrun of a {shape.kind!r} cell: the port traces train "
+                "steps only; serving on a mesh is ROADMAP queue 1, item 13")
+        specs, _ = plan.batch_specs()
+        with dry.fake_mode():
+            batch = {k: torch.zeros(v.shape, dtype=torch.long,
+                                    device=self.device)
+                     for k, v in specs.items()}
+            args = (self._new_state(plan, seed), batch)
+            fn = self.train_step(plan, sharded=True)
+            meta = {"step": "train_step", "path": plan.path,
+                    "microbatches": plan.num_microbatches, "pp": 1,
+                    "moment_itemsize": (plan.adamw.moment_dtype.itemsize
+                                        if plan.adamw else 4)}
+            with self.obs.span("lower", step=meta["step"], arch=cfg.name,
+                               shape=shape.name):
+                with dry.traced(args) as trace:
+                    fn(*args)
+        meta.update(arch=cfg.name, shape=shape.name, plan={
+            "attn_mode": plan.parallel.attn_mode,
+            "fsdp": plan.parallel.fsdp,
+            "seq_parallel_residual": plan.parallel.seq_parallel_residual,
+            "batch_axes": list(plan.parallel.batch_axes)})
+        return trace, meta
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+    def serve(self, plan: ExecutablePlan, *, batch_slots: int,
+              max_seq: int, temperature: float = 0.0, seed: int = 0,
+              name: str = "serve", paged: bool = False,
+              page_size: int = 64, scheduler: str = "static",
+              num_pages: Optional[int] = None, prefill_chunk: int = 32,
+              policy: str = "fifo"):
+        """Build a serving engine on the session's persistent state.
+
+        Params live in the state registry under ``{name}/params`` (reused
+        across engines: restarting a server never re-initializes or
+        re-uploads weights); the engine's prefill/decode steps come from
+        the session's compiled-artifact cache.
+
+        ``scheduler="static"`` (default) builds the fixed-slot
+        :class:`~repro_torch.serve.Engine` with its KV cache registered
+        under ``{name}/kv_cache``; ``paged=True`` allocates that cache as
+        a pool of ``page_size`` pages behind an indices table and decodes
+        through the paged attention kernel (plain-attention families
+        only).
+
+        ``scheduler="continuous"`` builds the continuous-batching
+        :class:`~repro_torch.serve.ContinuousEngine`: a block-paged KV pool
+        registered under ``{name}/kv_pool`` (footprint-accounted: an
+        over-budget pool is refused with a :class:`PlanMemoryError` before
+        it is allocated), per-tick admission governed by the block
+        manager, ``prefill_chunk``-token prefill chunks interleaved with
+        decode, and preempt-and-requeue on pool exhaustion.
+        ``num_pages`` overrides the pool size (default: full static
+        capacity clamped to the budget); ``policy`` is the queue order
+        (``fifo`` | ``priority``).
+        """
+        from repro_torch.serve import ContinuousEngine, Engine
+
+        model = plan.model
+        pname = f"{name}/params"
+        if pname in self.state:
+            params = self.state.get(pname)
+            # the registry key is caller-chosen: refuse to hand one
+            # model's weights to a different architecture/scale
+            want = model.param_specs()
+            same = (set(params) == set(want)
+                    and all(tuple(params[k].shape) == tuple(want[k].shape)
+                            for k in want))
+            if not same:
+                raise ValueError(
+                    f"persistent params {pname!r} were initialized for a "
+                    f"different model than {plan.cfg.name!r} (pytree or "
+                    f"shapes differ); evict them or serve under another "
+                    f"name=")
+        else:
+            params = model.init(seed)
+            self.state.put(pname, params, kind="params")
+        if scheduler == "continuous":
+            return ContinuousEngine(
+                model, params, batch_slots, max_seq,
+                temperature=temperature, seed=seed, opcache=self.opcache,
+                registry=self.state, cache_key=f"{name}/kv_pool",
+                obs=self.obs, page_size=page_size, num_pages=num_pages,
+                prefill_chunk=prefill_chunk, policy=policy)
+        if scheduler != "static":
+            raise ValueError(f"scheduler={scheduler!r}; expected "
+                             "static | continuous")
+        return Engine(model, params, batch_slots, max_seq,
+                      temperature=temperature, seed=seed,
+                      opcache=self.opcache, registry=self.state,
+                      cache_key=f"{name}/kv_cache", obs=self.obs,
+                      paged=paged, page_size=page_size,
+                      prefill_chunk=prefill_chunk)
+
+    # ------------------------------------------------------------------
+    def describe(self) -> str:
+        lines = [f"Session(mesh={dict(self.mesh.shape)}, "
+                 f"budget={self.budget.describe()})",
+                 self.state.report()]
+        stats = self.opcache.stats()
+        if stats:
+            lines.append("compiled-artifact cache: " + ", ".join(
+                f"{op}: {st.compiles} compiles / {st.hits} hits"
+                for op, st in sorted(stats.items())))
+        return "\n".join(lines)
 
 
 def _to_device(value, device: torch.device):

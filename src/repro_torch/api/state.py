@@ -116,6 +116,19 @@ class StateRegistry:
             self._table[name] = StateEntry(tree, nb, old.kind)
             return self._table[name]
 
+    def replace_value(self, name: str, tree: Any) -> StateEntry:
+        """Swap an entry's value WITHOUT re-walking the tree for bytes:
+        for fixed-size buffers (a serve engine's KV cache, whose stand-in
+        was put first)."""
+        with self._lock:
+            if name not in self._table:
+                raise KeyError(
+                    f"no persistent state named {name!r} to replace; "
+                    f"known: {sorted(self._table)}")
+            old = self._table[name]
+            self._table[name] = StateEntry(tree, old.nbytes, old.kind)
+            return self._table[name]
+
     def get(self, name: str) -> Any:
         with self._lock:
             if name not in self._table:

@@ -1,14 +1,16 @@
 """Model/shape config schema + registry (``--arch <id>`` selection).
 
 A copy of the JAX reference's ``configs/base.py``; the port keeps its own
-copy so it never imports the reference.  ``cells`` is left out until every
-architecture's config module is ported.
+copy so it never imports the reference.  ``cells`` is the reference's over
+the architectures whose config module is ported: the dense family and
+mamba2 (the others come with ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import importlib.util
 from typing import Dict, Optional, Tuple
 
 _REGISTRY: Dict[str, "ModelConfig"] = {}
@@ -191,6 +193,24 @@ def get_config(name: str) -> ModelConfig:
 
 def all_archs() -> Tuple[str, ...]:
     return tuple(ARCH_IDS)
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) cells of the architectures whose config module
+    the port has; long_500k only for sub-quadratic families."""
+    out = []
+    for a in ARCH_IDS:
+        mod = a.replace("-", "_").replace(".", "_")
+        if importlib.util.find_spec(f"repro_torch.configs.{mod}") is None:
+            continue
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if s.kind == "long_decode" and not cfg.supports_long_context():
+                if include_skipped:
+                    out.append((a, s.name, "SKIP: quadratic attention at 500k"))
+                continue
+            out.append((a, s.name, None) if include_skipped else (a, s.name))
+    return out
 
 
 def scale_config(cfg: ModelConfig, down: int) -> ModelConfig:

@@ -9,7 +9,8 @@ Public surface (the reference's ``repro.core`` exports of these modules):
 - :func:`~repro_torch.core.redistribute.relayout` / ``relayout_explicit``
 - :func:`~repro_torch.core.gemm.gemm_auto` and the named GEMM algorithms
 - :mod:`~repro_torch.core.precision` policies, :mod:`~repro_torch.core.rng`
-- :class:`~repro_torch.core.opcache.OpCache`
+- :class:`~repro_torch.core.opcache.OpCache`,
+  :class:`~repro_torch.core.autotune.AutoTuner`
 
 - :class:`~repro_torch.core.planner.ParallelPlan`,
   :func:`~repro_torch.core.planner.plan_for` and the cost model's
@@ -18,12 +19,12 @@ Public surface (the reference's ``repro.core`` exports of these modules):
   the module)
 - :mod:`~repro_torch.core.memory` (budgets, the footprint model) and
   :mod:`~repro_torch.core.calibrate` (the fitter; imported on use)
-
-The autotuner waits for ROADMAP queue 1, item 9.
+- :mod:`~repro_torch.core.dry` (the dry trace on fake tensors; imported
+  on use)
 """
 
-from . import (gemm, memory, opcache, planner, precision, primitives,
-               redistribute, rng)
+from . import (autotune, gemm, memory, opcache, planner, precision,
+               primitives, redistribute, rng)
 from .distributed import Mesh
 from .dtensor import REGISTRY, DistTensor, TensorRegistry
 from .layout import Layout, best_divisor_axis, constrain
@@ -46,5 +47,5 @@ __all__ = [
     "zero_layout", "zero_layout_tree", "gathered", "replicate_now",
     "use_layout_of",
     "gemm", "precision", "redistribute", "memory", "opcache", "planner",
-    "rng", "primitives",
+    "autotune", "rng", "primitives",
 ]

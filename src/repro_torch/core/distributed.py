@@ -5,11 +5,11 @@ Nothing tells a program of its cluster: each rank is given its rank, the
 world size and a rendezvous address, here or through ``RANK``,
 ``WORLD_SIZE`` and ``DMATH_INIT_METHOD`` (a ``file://`` path or
 ``tcp://127.0.0.1:<port>``).  A rank on the card first makes its device
-current.  The backend is gloo by default: several ranks can share one
-card through it (NCCL refuses two ranks on one device), and gloo stages
-a CUDA tensor through host memory for a collective; NCCL, for ranks that
-each have their own card, is the same call with ``backend="nccl"`` (its
-selection by ``init_group`` waits for ROADMAP queue 1, item 8).
+current.  :func:`init_group` takes NCCL when every rank has a card of
+its own and gloo otherwise (:func:`select_backend`): several ranks can
+share one card through gloo (NCCL refuses two ranks on one device), and
+gloo stages a CUDA tensor through host memory for a collective
+(:func:`exchange` does so itself, on gloo only).
 
 A :class:`Mesh` names the axes of a grid of ranks, as ``jax.make_mesh``
 does of devices: rank r of the group sits at ``np.unravel_index(r,
@@ -44,19 +44,45 @@ import torch.distributed as dist
 from repro_torch.core.device import resolve_device
 
 
+def select_backend(device_type: str, device_count: int, world_size: int,
+                   local_rank: int) -> str:
+    """The backend :func:`init_group` takes by default: ``nccl`` when every
+    rank of the group has a card of its own (on the card, at least as many
+    cards as ranks, this rank's card ``cuda:<local_rank>``), ``gloo``
+    otherwise: on the CPU, and for ranks that share a card, which NCCL
+    refuses.  Nothing tells a program of a cluster, so the ranks are taken
+    to be on one machine."""
+    if device_type == "cuda" and world_size <= device_count \
+            and 0 <= local_rank < device_count:
+        return "nccl"
+    return "gloo"
+
+
 def init_group(init_method: Optional[str] = None, *,
                rank: Optional[int] = None, world_size: Optional[int] = None,
-               backend: str = "gloo",
+               backend: Optional[str] = None,
                device: Union[str, torch.device] = "cuda"
                ) -> dist.ProcessGroup:
-    """Join the default process group and return it; on the card, the
-    rank's device (``cuda:0`` unless given) becomes current first."""
+    """Join the default process group and return it.  ``backend=None``
+    takes :func:`select_backend`'s choice for this machine's cards (the
+    local rank is ``LOCAL_RANK``, else the rank).  On the card the rank's
+    device becomes current first: ``cuda:<local rank>`` under NCCL when
+    ``device`` names no index, else the one given (``cuda:0`` unless
+    given)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev.index or 0)
     rank = int(os.environ["RANK"]) if rank is None else rank
     world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
                   else world_size)
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    if backend is None:
+        backend = select_backend(
+            dev.type, torch.cuda.device_count() if dev.type == "cuda" else 0,
+            world_size, local_rank)
+    if dev.type == "cuda":
+        index = dev.index
+        if index is None:
+            index = local_rank if backend == "nccl" else 0
+        torch.cuda.set_device(index)
     init_method = init_method or os.environ["DMATH_INIT_METHOD"]
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size)
@@ -153,18 +179,21 @@ class Mesh:
 # ---------------------------------------------------------------------------
 
 class WireCounter:
-    """Bytes this rank received from other ranks by collective, and the
-    dtypes that crossed, since the last :meth:`reset`."""
+    """Bytes this rank received from other ranks by collective, the calls
+    by collective and the dtypes that crossed, since the last
+    :meth:`reset`."""
 
     def __init__(self):
         self.reset()
 
     def reset(self) -> None:
         self.bytes: Dict[str, int] = collections.defaultdict(int)
+        self.calls: Dict[str, int] = collections.defaultdict(int)
         self.dtypes: set = set()
 
     def record(self, op: str, nbytes: int, dtype: torch.dtype) -> None:
         self.bytes[op] += int(nbytes)
+        self.calls[op] += 1
         self.dtypes.add(dtype)
 
     def total(self) -> int:

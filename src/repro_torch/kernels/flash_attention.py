@@ -41,8 +41,9 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from . import _build, ref
+from . import _build, ref, roofline
 
 launches = 0       # forward launches since the last reset (ops.reset_launches)
 bwd_launches = 0   # backward calls (four kernels each), the same way
@@ -60,8 +61,8 @@ _ENTRIES = {torch.bfloat16: "dmath_flash_attention_bf16",
 
 def _check(q, k, v) -> None:
     """Raise unless the kernels take (q, k, v) as given."""
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
+    if (q.device.type != "cuda" and not isinstance(q, FakeTensor)) \
+            or k.device != q.device or v.device != q.device:
         raise ValueError(f"attention: tensors on {q.device}, {k.device}, "
                          f"{v.device}; the kernel needs one CUDA device")
     if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -96,6 +97,15 @@ def _args(q, k, causal, window, softcap, scale, q_offset):
             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _pairs(q, k, causal, window, q_offset) -> int:
+    """(query, key) pairs a call attends, for its cost: all of them, or
+    the causal ones within the window."""
+    S, T = q.shape[2], k.shape[2]
+    if not causal:
+        return S * T
+    return roofline.causal_pairs(S, T, q_offset, window)
+
+
 def _forward(q, k, v, causal, window, softcap, scale, q_offset,
              with_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     global launches
@@ -103,6 +113,11 @@ def _forward(q, k, v, causal, window, softcap, scale, q_offset,
     lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
+        return out, lse
+    if isinstance(q, FakeTensor):          # a dry trace: no launch
+        roofline.DRY.record("attention", roofline.attention_cost(
+            q.shape, k.shape, _pairs(q, k, causal, window, q_offset),
+            q.element_size(), with_lse))
         return out, lse
     fn = _build.function(_ENTRIES[q.dtype], _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -142,6 +157,12 @@ def attention_backward(q, k, v, out, d_out, lse, *, causal: bool = True,
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     part = torch.empty(B * Hq * D * (4 * k.shape[2] + 2 * S),
                        dtype=torch.float32, device=q.device)
+    if isinstance(q, FakeTensor):          # a dry trace: no launch
+        roofline.DRY.record("attention_backward",
+                            roofline.attention_backward_cost(
+                                q.shape, k.shape,
+                                _pairs(q, k, causal, window, q_offset)))
+        return dq, dk, dv
     fn = _build.function("dmath_flash_attention_bwd_bf16", _BWD_ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.contiguous()
             .data_ptr(), d_out.data_ptr(), lse.contiguous().data_ptr(),
@@ -189,7 +210,8 @@ def attention(
     else.
     With autograd recording (bf16 only), the forward keeps its
     log-sum-exp and the backward kernel gives the gradients."""
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    if all(t.device.type == "cpu" for t in (q, k, v)) \
+            and not isinstance(q, FakeTensor):
         return ref.attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale, q_offset=q_offset)
     _check(q, k, v)

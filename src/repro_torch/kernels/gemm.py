@@ -63,8 +63,9 @@ import functools
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from . import _build, ref
+from . import _build, ref, roofline
 
 launches = 0     # matmul products since the last reset (ops.reset_launches)
 dequant_launches = 0     # matmul_dequant launches
@@ -221,7 +222,8 @@ def _product(a: torch.Tensor, b: torch.Tensor,
     # C entry, and the raw stream handle (``torch.cuda.current_stream``
     # builds a Stream object per call).
     global launches, _entry
-    if not (a.is_cuda and b.is_cuda):
+    fake = isinstance(a, FakeTensor)       # a dry trace: no launch
+    if not (a.is_cuda and b.is_cuda or fake):
         if a.device.type == "cpu" and b.device.type == "cpu":
             return ref.matmul(a, b, out_dtype)
         raise ValueError(f"matmul: operands on {a.device} and {b.device}; "
@@ -248,6 +250,8 @@ def _product(a: torch.Tensor, b: torch.Tensor,
     if K == 0:
         return out.zero_()
     pl = plan_of(a, b, bool(a_t))
+    if fake:
+        return _dry(a, b, out, pl)
     scratch = (torch.empty((pl.groups, M, N), dtype=torch.float32,
                            device=a.device).data_ptr()
                if pl.split > 1 else None)
@@ -261,6 +265,20 @@ def _product(a: torch.Tensor, b: torch.Tensor,
     if rc:
         _build.check(rc, "matmul")
     launches += 1
+    return out
+
+
+def _dry(a, b, out, pl: Plan) -> torch.Tensor:
+    """The launch's shape function, for fake tensors: the split's fp32
+    scratch, as the kernel's wrapper allocates it (``out`` is allocated
+    already), and the product's cost in ``roofline.DRY``."""
+    if pl.split > 1:
+        torch.empty((pl.groups,) + tuple(out.shape), dtype=torch.float32,
+                    device=a.device)
+    M, K = a.shape
+    roofline.DRY.record("matmul", roofline.matmul_cost(
+        M, K, b.shape[1], a.element_size(), b.element_size(),
+        out.element_size()))
     return out
 
 

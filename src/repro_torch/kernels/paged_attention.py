@@ -28,8 +28,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from . import _build, ref
+from . import _build, ref, roofline
 
 launches = 0     # calls that launched the kernels since the last reset
                  # (ops.reset_launches); a call runs two device kernels
@@ -59,14 +60,16 @@ def paged_decode_attention(
     head) and raise on anything else."""
     global launches
     tensors = (q, k_pages, v_pages, block_table, seq_lens)
-    if all(t.device.type == "cpu" for t in tensors):
+    fake = isinstance(q, FakeTensor)       # a dry trace: no launch
+    if all(t.device.type == "cpu" for t in tensors) and not fake:
         return ref.paged_decode_attention(q, k_pages, v_pages, block_table,
                                           seq_lens, scale=scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "paged_decode_attention: the kernel has no backward; "
             "only the dense family's train path is ported")
-    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+    if (q.device.type != "cuda" and not fake) \
+            or any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_attention: the kernel needs every "
                          "tensor on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
@@ -94,7 +97,7 @@ def paged_decode_attention(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_decode_attention kernel takes contiguous "
                          "tensors")
-    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+    if not fake and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("paged_decode_attention kernel loads q and the "
                          "pages 16 bytes at a time: they must start 16-byte "
                          "aligned")
@@ -106,6 +109,13 @@ def paged_decode_attention(
     splits = -(-n_pages * page // SPLIT)
     scratch = torch.empty(B * Hq * splits * (hd + 2), dtype=torch.float32,
                           device=q.device)
+    if fake:
+        # the data decides the live positions: the table's capacity
+        roofline.DRY.record("paged_decode_attention",
+                            roofline.paged_decode_cost(
+                                B, Hq, Hkv, hd, B * n_pages * page,
+                                block_table.numel()))
+        return out
     fn = _build.function("dmath_paged_decode_bf16", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), scratch.data_ptr(),

@@ -1,0 +1,260 @@
+"""Dry run of the production meshes: ``python -m repro_torch.launch.dryrun
+--arch <id> --shape <cell> | --all [--both-meshes | --multi-pod]``.
+
+The reference lowers and compiles every (architecture x input shape)
+cell on 256 or 512 fake XLA devices and records the compiled program's
+memory and cost analyses and the collectives parsed from its HLO.  The
+port's counterpart, for rank 0 of the same mesh, without running it:
+
+- one process joins torch's ``fake`` process-group backend at 256 ranks
+  (16x16) or 512 (--multi-pod: 2x16x16), and ``make_production_mesh``
+  runs over that group (its collectives return at once);
+- ``Session.plan`` plans the cell as the reference's ``build_lowered``
+  does (per-arch overrides, ``check_memory=False``: the dry run reports
+  the verdict), and ``Session.dryrun`` traces the dispatched train step
+  on fake params, optimizer state and batch (:mod:`repro_torch.core.dry`);
+- each cell's JSON has the reference's keys where the meaning is the
+  same: ``memory.peak_bytes`` (the traced peak of live bytes),
+  ``cost.flops`` and ``cost.bytes_accessed`` (the plain operators' and
+  the kernels' counts), ``collectives`` (count and bytes received by
+  collective, ``core.distributed.WIRE``), ``collective_wire_bytes``,
+  ``n_collectives`` and ``memory_model`` (the memory model's predicted
+  peak against the traced one, and ``fits``); the reference's
+  ``lower_s`` and ``compile_s`` are ``trace_s``.
+
+The traced device is ``cuda`` where a card is present and ``cpu``
+otherwise (autograd cannot take fake CUDA tensors without one); nothing
+runs on either, and the kernel wrappers take fake tensors of either to
+their shape functions, so the numbers are the same.
+
+Cells the port cannot run on a mesh print ``SKIP`` with their ROADMAP
+item, never as passes: every prefill/decode/long_decode cell (serving
+on a mesh, queue 1, item 13), mamba2 on a mesh (item 11).  ``--pp`` > 1
+(the pipeline, item 10), ``--hlo-out`` (no HLO here) and ``--comms
+auto`` are refused: both production meshes have model = 16, so ``auto``
+plans the gspmd path, the same as ``off``.
+``--all`` runs every cell on both meshes (the reference's ``--all
+--both-meshes``), or on the 2x16x16 alone with ``--multi-pod``.  Results
+land in ``experiments/dryrun_torch/<cell>.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import obs as obs_mod
+from repro_torch.api import Session
+from repro_torch.configs import SHAPES, cells, get_config
+from repro_torch.core import memory as mem_mod
+from repro_torch.launch.mesh import make_production_mesh
+
+# Per-arch baseline overrides, the reference's (memory-driven), for the
+# ported architectures.
+OVERRIDES: Dict[str, Dict[str, Any]] = {
+    # qwen3-14b: FSDP the 2.1 GiB q/o stacks; sqrt-L remat
+    "qwen3-14b": {"model_kwargs": {"remat": "group:8"},
+                  "plan_kwargs": {"fsdp_tensor_bytes": 1.5 * 2**30},
+                  "train_microbatches": 8},
+    # small archs fit at 1-2 microbatches
+    "mamba2-780m": {"train_microbatches": 1},
+    "gemma-2b": {"train_microbatches": 2,
+                 "plan_kwargs": {"fsdp_tensor_bytes": 1 * 2**30}},
+}
+
+
+def default_device() -> str:
+    """The traced device: ``cuda`` where a card is present, else ``cpu``
+    (nothing runs on either: the tensors are fake)."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """This process as rank 0 of a ``world_size``-rank group of torch's
+    ``fake`` backend (collectives return at once), for the block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def skip_reason(arch: str, shape_name: str) -> Optional[str]:
+    """Why the port cannot dry-run a cell on a mesh, naming its ROADMAP
+    item, or None."""
+    if SHAPES[shape_name].kind != "train":
+        return ("serving on a mesh (the sequence-sharded KV cache) is "
+                "ROADMAP queue 1, item 13")
+    if get_config(arch).family != "dense":
+        return (f"the {get_config(arch).family} family on a mesh "
+                "(ssm.forward_shardmap) is ROADMAP queue 1, item 11")
+    return None
+
+
+def build_traced(arch: str, shape_name: str, session: Session, *,
+                 microbatches: Optional[int] = None, model_kwargs=None,
+                 plan_kwargs=None, scale_down: int = 1):
+    """Plan + trace one cell through the Session -> ``(trace, meta,
+    plan)``.  ``check_memory=False``: the dry run reports the verdict.
+    ``comms`` is ``"off"``, the reference's default; ``scale_down`` cuts
+    the config (``scale_config``) for a test."""
+    over = OVERRIDES.get(arch, {})
+    plan = session.plan(
+        arch, shape=shape_name, scale_down=scale_down,
+        microbatches=(microbatches if microbatches is not None
+                      else over.get("train_microbatches")),
+        comms="off",
+        model_kwargs={**over.get("model_kwargs", {}), **(model_kwargs or {})},
+        plan_kwargs={**over.get("plan_kwargs", {}), **(plan_kwargs or {})},
+        check_memory=False)
+    trace, meta = session.dryrun(plan)
+    return trace, meta, plan
+
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
+             microbatches: Optional[int] = None, model_kwargs=None,
+             plan_kwargs=None, hbm_gib: Optional[float] = None,
+             obs: Optional["obs_mod.Obs"] = None,
+             scale_down: int = 1) -> Dict[str, Any]:
+    """One cell on the production mesh, on a fake group of its size.
+    ``hbm_gib`` defaults to the H100's entry of the memory model."""
+    obs = obs if obs is not None else obs_mod.Obs(name="dryrun")
+    n_chips = 512 if multi_pod else 256
+    if hbm_gib is None:
+        hbm_gib = mem_mod.HBM_BUDGETS["h100"].hbm_bytes / mem_mod.GIB
+    with fake_world(n_chips):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        session = Session(device=default_device(), mesh=mesh,
+                          hbm_gib=hbm_gib, obs=obs)
+        trace, meta, plan = build_traced(
+            arch, shape_name, session, microbatches=microbatches,
+            model_kwargs=model_kwargs, plan_kwargs=plan_kwargs,
+            scale_down=scale_down)
+    by_op = {op: {"count": trace.collective_calls.get(op, 0),
+                  "wire_bytes": b} for op, b in trace.collectives.items()}
+    result = {
+        **meta,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "n_chips": n_chips,
+        "device": str(session.device),
+        "trace_s": round(trace.trace_s, 2),
+        "memory": {"state_bytes": trace.state_bytes,
+                   "peak_bytes": trace.peak_bytes},
+        "cost": {"flops": trace.flops,
+                 "bytes_accessed": trace.bytes_accessed,
+                 "kernel_flops": trace.kernel_flops,
+                 "kernel_calls": trace.kernel_calls},
+        "collectives": by_op,
+        "collective_wire_bytes": trace.wire_bytes,
+        "n_collectives": sum(trace.collective_calls.values()),
+    }
+    if meta.get("step") == "train_step":
+        budget = session.budget
+        fps = plan.footprints
+        peak = mem_mod.peak_stage_footprint(fps)
+        print(f"memory model ({arch} {shape_name}):")
+        print(mem_mod.footprint_table(fps, budget))
+        result["memory_model"] = {
+            "budget": {"platform": budget.platform,
+                       "hbm_bytes": budget.hbm_bytes,
+                       "headroom": budget.headroom,
+                       "usable_bytes": budget.usable},
+            "per_stage": [{k: getattr(f, k) for k in f._FIELDS}
+                          for f in fps],
+            "per_stage_total_bytes": [f.total for f in fps],
+            "predicted_peak_bytes": peak.total,
+            "measured_peak_bytes": trace.peak_bytes,
+            "fits": all(f.fits(budget) for f in fps),
+        }
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="production-mesh dry run")
+    ap.add_argument("--arch", type=str, default=None)
+    ap.add_argument("--shape", type=str, default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=None)
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages (refused above 1: ROADMAP queue "
+                         "1, item 10)")
+    ap.add_argument("--hbm-gib", type=float, default=None,
+                    help="per-device HBM budget in GiB for the footprint "
+                         "verdict (default: the H100's entry)")
+    ap.add_argument("--comms", choices=["auto", "off"], default="off",
+                    help="refused unless off: on both production meshes "
+                         "auto plans the same gspmd path")
+    ap.add_argument("--out", type=str, default="experiments/dryrun_torch")
+    ap.add_argument("--hlo-out", type=str, default=None,
+                    help="refused: the port lowers no HLO")
+    ap.add_argument("--metrics", type=str, default=None, metavar="PATH",
+                    help="also stream the plan/lower spans as JSONL to PATH")
+    args = ap.parse_args(argv)
+    if args.pp > 1:
+        ap.error(f"--pp {args.pp}: the pipeline path is not ported yet "
+                 "(ROADMAP queue 1, item 10)")
+    if args.hlo_out:
+        ap.error("--hlo-out: the port traces eagerly and lowers no HLO")
+    if args.comms != "off":
+        ap.error(f"--comms {args.comms}: both production meshes have "
+                 "model=16, where the planner takes the gspmd path; only "
+                 "off is traced")
+
+    if args.all:
+        todo = list(cells())
+    elif args.arch and args.shape:
+        todo = [(args.arch, args.shape)]
+    else:
+        ap.error("--arch and --shape (or --all)")
+    obs = obs_mod.Obs(jsonl=args.metrics, name="dryrun")
+    os.makedirs(args.out, exist_ok=True)
+    # --all covers both meshes unless --multi-pod names one
+    meshes = ([False, True] if args.both_meshes
+              or (args.all and not args.multi_pod) else [args.multi_pod])
+    failures = []
+    for arch, shape in todo:
+        for mp in meshes:
+            tag = f"{arch}_{shape}_{'2x16x16' if mp else '16x16'}"
+            why = skip_reason(arch, shape)
+            if why is not None:
+                print(f"SKIP {tag}: {why}")
+                continue
+            try:
+                res = run_cell(arch, shape, multi_pod=mp,
+                               microbatches=args.microbatches,
+                               hbm_gib=args.hbm_gib, obs=obs)
+                with open(os.path.join(args.out, tag + ".json"), "w") as f:
+                    json.dump(res, f, indent=1)
+                gib = res["memory"]["peak_bytes"] / 2**30
+                mm = res.get("memory_model")
+                pred = (f", pred {mm['predicted_peak_bytes'] / 2**30:.2f} "
+                        f"GiB {'fits' if mm['fits'] else 'OOM'}"
+                        if mm else "")
+                print(f"OK   {tag}: peak {gib:.2f} GiB/dev{pred}, "
+                      f"flops {res['cost']['flops']:.3e}, "
+                      f"colls {res['n_collectives']} "
+                      f"({res['collective_wire_bytes'] / 2**30:.2f} GiB "
+                      f"wire), trace {res['trace_s']}s", flush=True)
+            except Exception as e:  # noqa: BLE001 — report and continue
+                failures.append((tag, str(e)[:200]))
+                print(f"FAIL {tag}: {str(e)[:200]}", flush=True)
+    obs.close()
+    if failures:
+        raise SystemExit(f"{len(failures)} dry-run failures: "
+                         + "; ".join(t for t, _ in failures))
+    print("ALL DRY-RUN CELLS PASSED")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Builds the model with random weights from ``--seed`` and a serve engine
-directly (the reference goes through ``Session.serve``, not ported yet:
-ROADMAP queue 1, item 9),
-feeds synthetic prompts and reports tokens/s.  ``--scheduler static`` (the
+A thin CLI over :class:`repro_torch.api.Session`, as the reference's:
+``Session.plan`` (decode kind) -> ``Session.serve`` (the engine on the
+session's persistent params, random from ``--seed``, and its KV cache,
+the steps from the session's compiled-artifact cache); feeds synthetic
+prompts and reports tokens/s.  ``--scheduler static`` (the
 default) runs the fixed-slot engine on the model's dense cache, the
 reference's default for every family (qwen2's KV cache, mamba2's
 states), or on the paged cache with ``--paged``; ``--scheduler
@@ -27,10 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch import obs as obs_mod
-from repro_torch.configs import get_config, scale_config
+from repro_torch.api import Session
 from repro_torch.core.device import resolve_device
-from repro_torch.models import Model
-from repro_torch.serve import ContinuousEngine, Engine, Request
+from repro_torch.serve import Request
 
 
 def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
@@ -61,19 +61,18 @@ def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
 def _run(arch, obs, dev, *, n_requests, batch_slots, max_seq, prompt_len,
          new_tokens, scale_down, seed, metrics, paged, page_size, scheduler,
          prefill_chunk, num_pages):
-    cfg = scale_config(get_config(arch), scale_down)
+    session = Session(device=dev)
+    plan = session.plan(arch, batch=batch_slots, seq=max_seq, kind="decode",
+                        scale_down=scale_down)
+    cfg = plan.cfg
+    # the stream holds the engine's spans and histograms only (the plan's
+    # event is left out of it)
+    session.obs = obs
     with obs.span("build_engine", arch=arch, scheduler=scheduler):
-        model = Model(cfg, device=dev)
-        params = model.init(seed)
-        if scheduler == "continuous":
-            eng = ContinuousEngine(model, params, batch_slots=batch_slots,
-                                   max_seq=max_seq, seed=seed, obs=obs,
-                                   page_size=page_size, num_pages=num_pages,
-                                   prefill_chunk=prefill_chunk)
-        else:
-            eng = Engine(model, params, batch_slots=batch_slots,
-                         max_seq=max_seq, seed=seed, obs=obs, paged=paged,
-                         page_size=page_size, prefill_chunk=prefill_chunk)
+        eng = session.serve(plan, batch_slots=batch_slots, max_seq=max_seq,
+                            seed=seed, paged=paged, page_size=page_size,
+                            scheduler=scheduler, prefill_chunk=prefill_chunk,
+                            num_pages=num_pages)
     rng = np.random.default_rng(seed)
     lo, hi = (prompt_len, prompt_len) if isinstance(prompt_len, int) \
         else prompt_len
@@ -99,6 +98,7 @@ def _run(arch, obs, dev, *, n_requests, batch_slots, max_seq, prompt_len,
           f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, "
           f"{ticks} ticks) on {dev}")
     if obs.enabled:
+        session.publish_metrics()
         for name in ("serve.prefill_s", "serve.decode_s", "serve.ttft_s",
                      "serve.queue_wait_s"):
             s = obs.histogram(name).summary()

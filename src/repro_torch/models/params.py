@@ -96,12 +96,15 @@ def init_param(gen: torch.Generator, spec: ParamSpec,
 
 def tree_init(seed: int, specs: Mapping[str, ParamSpec],
               device: torch.device, mesh=None) -> Dict[str, torch.Tensor]:
-    """Materialize every spec, in order, from one generator on ``device``;
-    the ``layers.*`` leaves are layer stacks.  With a ``mesh``, each leaf
+    """Materialize every spec, in order, from one generator on ``device``
+    (made at the first random leaf, so a tree of zeros and ones also
+    takes ``device="meta"``); the ``layers.*`` leaves are layer stacks.  With a ``mesh``, each leaf
     is drawn whole and this rank keeps its block of the spec's layout."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = None
     out = {}
     for name, spec in specs.items():
+        if gen is None and spec.init in _DRAWS:
+            gen = torch.Generator(device=device).manual_seed(seed)
         leaf = init_param(gen, spec, device,
                           layered=name.startswith("layers."))
         out[name] = (leaf if mesh is None or spec.layout is None

@@ -401,9 +401,10 @@ class Model(nn.Module):
         return (cfg.family == "dense" and cfg.window is None
                 and cfg.attn_softcap is None)
 
-    def _pages(self, num_pages: int, page_size: int
+    def _pages(self, num_pages: int, page_size: int, device=None
                ) -> Dict[str, torch.Tensor]:
         self._servable("the paged cache")
+        device = self.device if device is None else device
         cfg = self.cfg
         if not self.paged_supported():
             raise ValueError(f"paged decode unsupported for family="
@@ -412,26 +413,30 @@ class Model(nn.Module):
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
                  cfg.d_head)
         return {"k_pages": torch.zeros(shape, dtype=torch.bfloat16,
-                                       device=self.device),
+                                       device=device),
                 "v_pages": torch.zeros(shape, dtype=torch.bfloat16,
-                                       device=self.device)}
+                                       device=device)}
 
     def init_paged_cache(self, batch: int, seq_len: int,
-                         page_size: int = 64) -> Dict[str, torch.Tensor]:
+                         page_size: int = 64, device=None
+                         ) -> Dict[str, torch.Tensor]:
         """Page pool plus a slot-major table: slot b owns pages
-        ``[b*nb, (b+1)*nb)``, ``nb = ceil(seq_len / page_size)``."""
+        ``[b*nb, (b+1)*nb)``, ``nb = ceil(seq_len / page_size)``.  Each
+        cache constructor takes ``device="meta"`` for its stand-in (shapes
+        and dtypes, no storage)."""
         nb = -(-seq_len // page_size)
-        cache = self._pages(batch * nb, page_size)
+        cache = self._pages(batch * nb, page_size, device)
         cache["table"] = torch.arange(
-            batch * nb, dtype=torch.int32, device=self.device
+            batch * nb, dtype=torch.int32,
+            device=self.device if device is None else device
         ).reshape(batch, nb)
         return cache
 
-    def init_paged_pool(self, num_pages: int, page_size: int = 64
-                        ) -> Dict[str, torch.Tensor]:
+    def init_paged_pool(self, num_pages: int, page_size: int = 64,
+                        device=None) -> Dict[str, torch.Tensor]:
         """Bare page pool for a continuous-batching allocator; page 0 is
         the NULL page that idle slots and unallocated table tails use."""
-        return self._pages(num_pages, page_size)
+        return self._pages(num_pages, page_size, device)
 
     def prefill_chunk_paged(self, params: Params, cache: dict,
                             tokens: torch.Tensor, table_row: torch.Tensor,
@@ -680,9 +685,11 @@ class Model(nn.Module):
             "bc_conv": ParamSpec((L, batch, W - 1, GN2), init="zeros"),
         }
 
-    def init_cache(self, batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, seq_len: int, device=None
+                   ) -> Dict[str, torch.Tensor]:
         self._servable("init_cache")
-        return tree_init(0, self.cache_specs(batch, seq_len), self.device)
+        return tree_init(0, self.cache_specs(batch, seq_len),
+                         self.device if device is None else device)
 
     def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
                     pos: torch.Tensor, *, block_table=None, seq_lens=None

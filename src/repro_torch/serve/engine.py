@@ -23,9 +23,22 @@ attention gathers pages in logical order, so their greedy outputs are
 identical whatever physical pages the allocator hands out.  The model
 steps update the caches in place; nothing crosses to the host per token
 but the sampled ids.  Greedy sampling is an ``argmax`` on the device;
-temperature sampling draws from an explicit ``torch.Generator``.  The
-reference's Session arguments (``opcache``, ``registry``, ``cache_key``)
-come with later slices.
+temperature sampling draws from an explicit ``torch.Generator``.
+
+The Session's arguments, as in the reference: ``opcache`` (an
+:class:`~repro_torch.core.opcache.OpCache`) hands out the prefill and
+decode step callables under the reference's ops and keys, so a second
+engine on the same model and shapes reuses them (the port runs eagerly:
+an entry is the model's step, built once); ``registry`` (a
+:class:`~repro_torch.api.state.StateRegistry`) with ``cache_key`` holds
+the engine's KV cache (static) or page pool and table (continuous) as
+one entry accounted against the session's budget.  The entry's
+stand-in (``meta`` tensors of the same shapes) is put first, so a cache
+that does not fit raises :class:`~repro_torch.api.errors.PlanMemoryError`
+before anything is allocated; the continuous pool's default size is
+clamped to the registry's headroom
+(:func:`~repro_torch.serve.blocks.pool_pages_for_budget`).  The steps
+update the cache in place, so the entry never needs refreshing.
 """
 
 from __future__ import annotations
@@ -38,7 +51,8 @@ import torch
 
 from repro_torch import obs as obs_mod
 
-from .blocks import NULL_PAGE, BlockManager, PoolExhausted
+from .blocks import (NULL_PAGE, BlockManager, PoolExhausted,
+                     pool_pages_for_budget)
 from .scheduler import DeadlineExceeded, Request, Scheduler
 
 __all__ = ["Engine", "ContinuousEngine", "Request"]
@@ -62,6 +76,43 @@ def _check_positions(pos: np.ndarray, limit: int) -> None:
     if pos.size and (pos.min() < 0 or pos.max() >= limit):
         raise ValueError(f"decode positions {pos.tolist()} outside "
                          f"[0, {limit})")
+
+
+def _make_prefill_fn(model):
+    """Prefill one request into cache row ``slot`` (a B = 1 forward),
+    returning the last position's logits.  A free function closing over
+    the model only, as the reference's: the cached step may outlive its
+    engine in a Session's op cache."""
+
+    def prefill_slot(params, cache, tokens, slot):
+        logits, cache = model.prefill(params, tokens, cache=cache, slot=slot)
+        return logits[:, -1, :], cache
+
+    return prefill_slot
+
+
+def _cached(opcache, model, op, build, **static):
+    """``build()``, or the op cache's entry for ``op`` on this model at
+    these shapes (the reference's key)."""
+    if opcache is None:
+        return build()
+    mesh = getattr(model, "mesh", None)
+    key = opcache.key_for(op, (), mesh_shape=(
+        tuple(mesh.shape.items()) if hasattr(mesh, "shape") else ()),
+        model=id(model), **static)
+    return opcache.get_or_build(key, op, build)
+
+
+def _resident(registry, cache_key, make):
+    """The cache ``make(device)`` builds, held in ``registry`` under
+    ``cache_key`` when one is given: its ``meta`` stand-in is put first,
+    so an entry over the budget raises before the allocation."""
+    if registry is None or cache_key is None:
+        return make(None)
+    registry.put(cache_key, make("meta"), kind="kv_cache")
+    cache = make(None)
+    registry.replace_value(cache_key, cache)
+    return cache
 
 
 def _retire(engine, b: int) -> Request:
@@ -104,8 +155,9 @@ class Engine:
     cache (default) or the paged one (``paged=True``)."""
 
     def __init__(self, model, params, batch_slots: int, max_seq: int,
-                 temperature: float = 0.0, seed: int = 0, obs=None,
-                 paged: bool = False, page_size: int = 64,
+                 temperature: float = 0.0, seed: int = 0,
+                 opcache=None, registry=None, cache_key: str = None,
+                 obs=None, paged: bool = False, page_size: int = 64,
                  prefill_chunk: int = 32):
         self.obs = obs if obs is not None else obs_mod.NULL
         self.model = model
@@ -117,16 +169,27 @@ class Engine:
         self.paged = paged
         self.page_size = page_size
         self.prefill_chunk = min(prefill_chunk, max_seq)
+        step = lambda op, build: _cached(  # noqa: E731
+            opcache, model, op, build, B=batch_slots, T=max_seq,
+            paged=paged, page=page_size, chunk=self.prefill_chunk)
         if paged:
             _check_chunking(max_seq, page_size, self.prefill_chunk)
-            self.cache = model.init_paged_cache(batch_slots, max_seq,
-                                                page_size)
+            self.cache = _resident(
+                registry, cache_key, lambda dev: model.init_paged_cache(
+                    batch_slots, max_seq, page_size, device=dev))
             self._pos_limit = self.cache["table"].shape[1] * page_size
-            self._decode = model.decode_step_paged
+            self._decode = step("serve_decode_paged",
+                                lambda: model.decode_step_paged)
+            self._prefill_chunk_fn = step("serve_prefill_chunk",
+                                          lambda: model.prefill_chunk_paged)
         else:
-            self.cache = model.init_cache(batch_slots, max_seq)
+            self.cache = _resident(
+                registry, cache_key, lambda dev: model.init_cache(
+                    batch_slots, max_seq, device=dev))
             self._pos_limit = max_seq
-            self._decode = model.decode_step
+            self._decode = step("serve_decode", lambda: model.decode_step)
+            self._prefill_one = step("serve_prefill",
+                                     lambda: _make_prefill_fn(model))
         # the dense KV cache (and a windowed config's rings) as one page
         # per slot: the table is made once, seq_lens (pos + 1) is one
         # host-to-device copy per step
@@ -157,7 +220,7 @@ class Engine:
             chunk = np.zeros((1, C), np.int64)
             n = min(C, P - start)
             chunk[0, :n] = prompt[start:start + n]
-            logits, self.cache = self.model.prefill_chunk_paged(
+            logits, self.cache = self._prefill_chunk_fn(
                 self.params, self.cache,
                 torch.from_numpy(chunk).to(self.device), row, start)
         return logits, (P - 1) % C if P % C else C - 1 if P else 0
@@ -195,9 +258,8 @@ class Engine:
                     toks = torch.from_numpy(
                         np.asarray(req.prompt, np.int64)[None]).to(
                             self.device)
-                    logits, self.cache = self.model.prefill(
-                        self.params, toks, cache=self.cache, slot=b)
-                    last_logits = logits[:, -1, :]
+                    last_logits, self.cache = self._prefill_one(
+                        self.params, self.cache, toks, b)
                 if self.obs.enabled:
                     _sync(self.obs, self.device)
                     self.obs.histogram("serve.prefill_s").observe(
@@ -273,9 +335,11 @@ class ContinuousEngine:
     """
 
     def __init__(self, model, params, batch_slots: int, max_seq: int,
-                 temperature: float = 0.0, seed: int = 0, obs=None,
-                 page_size: int = 64, num_pages: Optional[int] = None,
-                 prefill_chunk: int = 32, policy: str = "fifo"):
+                 temperature: float = 0.0, seed: int = 0,
+                 opcache=None, registry=None, cache_key: str = None,
+                 obs=None, page_size: int = 64,
+                 num_pages: Optional[int] = None, prefill_chunk: int = 32,
+                 policy: str = "fifo"):
         self.obs = obs if obs is not None else obs_mod.NULL
         self.model = model
         self.params = params
@@ -289,7 +353,13 @@ class ContinuousEngine:
 
         n_row = -(-max_seq // page_size)
         if num_pages is None:
-            num_pages = 1 + batch_slots * n_row    # full capacity + NULL
+            # full static capacity (+ the NULL page), clamped to the
+            # registry's remaining budget
+            num_pages = 1 + batch_slots * n_row
+            if registry is not None and registry.capacity is not None:
+                headroom = registry.capacity - registry.total_bytes()
+                num_pages = min(num_pages, pool_pages_for_budget(
+                    headroom, model.cfg, page_size))
         self.blocks = BlockManager(model.cfg, num_pages=num_pages,
                                    page_size=page_size, max_seq=max_seq)
         self.sched = Scheduler(self.blocks, policy=policy)
@@ -297,8 +367,24 @@ class ContinuousEngine:
 
         self._table_np = np.full((batch_slots, n_row), NULL_PAGE, np.int32)
         self._table_dirty = True
-        self.cache: Dict[str, torch.Tensor] = model.init_paged_pool(
-            num_pages, page_size)
+
+        def make(dev):
+            pool = model.init_paged_pool(num_pages, page_size, device=dev)
+            pool["table"] = torch.from_numpy(self._table_np.copy()).to(
+                self.device if dev is None else dev)
+            return pool
+
+        # the pool and its table: one registry entry
+        self.cache: Dict[str, torch.Tensor] = _resident(registry, cache_key,
+                                                        make)
+        # the same ops (and keys) as the static paged engine
+        step = lambda op, build: _cached(  # noqa: E731
+            opcache, model, op, build, B=batch_slots, T=max_seq, paged=True,
+            page=page_size, chunk=self.prefill_chunk)
+        self._decode = step("serve_decode_paged",
+                            lambda: model.decode_step_paged)
+        self._prefill_chunk_fn = step("serve_prefill_chunk",
+                                      lambda: model.prefill_chunk_paged)
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.finished: List[Request] = []
@@ -363,7 +449,7 @@ class ContinuousEngine:
             row = torch.from_numpy(self.blocks.table_row(req.rid)).to(
                 self.device)
             t0 = time.perf_counter() if self.obs.enabled else 0.0
-            logits, self.cache = self.model.prefill_chunk_paged(
+            logits, self.cache = self._prefill_chunk_fn(
                 self.params, self.cache,
                 torch.from_numpy(chunk).to(self.device), row, start)
             if self.obs.enabled:
@@ -441,7 +527,7 @@ class ContinuousEngine:
                 pos[b] = self.pos[b]
             _check_positions(pos, self._pos_limit)
             t0 = time.perf_counter() if self.obs.enabled else 0.0
-            logits, self.cache = self.model.decode_step_paged(
+            logits, self.cache = self._decode(
                 self.params, self.cache,
                 torch.from_numpy(tokens).to(self.device),
                 torch.from_numpy(pos).to(self.device))
