@@ -2,7 +2,8 @@
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
-checks), ``6b``, ``9``, ``10``, ``11`` and ``12``, after phases 1 and 2).
+checks), ``6b``, ``6c``, ``9``, ``10``, ``11`` and ``12``, after phases 1
+and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -151,6 +152,24 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    batch again, each step's launches the layer loop's for its remat, the
    third loss below the first; then the 2-layer loss and gradients
    against the CPU's, as in phase 6.
+6c. The SSD backward kernel first (``check_ssd_backward``): its six
+   gradients (dx, ddt, dA, dB, dC, d init_state) against autograd
+   through ``ssd_plain`` at mamba2-780m's widths, bf16 and fp32, S = 512
+   (the train shape, 2 x 512), a ragged 300 and one chunk of 64, one and
+   two groups, with and without an initial state and a final-state
+   cotangent, each within its dtype's SSD_TOL of its largest magnitude;
+   two more runs bitwise; once through the autograd wrapper (one forward
+   and one backward launch); the train shape timed beside its bound, the
+   plain version and the forward.  Then mamba2-780m trained on one rank
+   at full width and depth (48 layers) through ``Session``
+   (``comms="off"``, ``remat="full"``, AdamW at its peak rate from step
+   1, 2 x 512 tokens of ``SyntheticLM(structured=True)``): three steps,
+   the third on the first batch again with its loss below the first,
+   each step's launches the layer loop's (the SSD forward twice a layer,
+   its backward once); step ms and the peak; a fourth step profiled for
+   the card's idle share; every SSD backward call of one more forward and
+   backward held against the plain version at its own shapes; the
+   2-layer loss and gradients against the CPU's, as in phase 6.
 7. The compressed data-parallel SGD path at full width.  The kernels
    first: ``quantize_compress`` bitwise (q and scale) against its plain
    version, and its error-feedback form ``quantize_compress_ef`` (the
@@ -244,8 +263,16 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    against its plain version; prints per mesh the step wall (median of
    steps 2 and 3), the wall of step 4 with its host ms inside the
    collectives (the card synchronized before each), tokens/s,
-   each rank's peak memory and bytes received per step by collective
-   beside the estimate from the layouts.  Also alone: ``python3
+   each rank's peak memory and bytes received per step by collective,
+   equal to the estimate from the layouts.  Then mamba2-780m at full
+   width cut to 8 layers on (2, 2) with the sequence-parallel residual
+   (the mixer on 24 of the 48 SSD heads a rank: a bf16 gather of the
+   residual, bf16 convolutions and scan inputs, the gated norm's fp32
+   sum of squares, the bf16 reduce-scatter), 2 steps, held the same way
+   against the same cut on one rank on a (1, 1) mesh (the same mixer's
+   numerics; the distance from the model without a mesh, whose mixer
+   runs fp32, is printed), every distinct SSD forward and backward case
+   held against its plain version.  Also alone: ``python3
    chip_smoke.py 10``.
 11. The all-reduce schedules, the topology's link fit and the memory
    verdict (also alone: ``python3 chip_smoke.py 11``).  Four ranks
@@ -281,8 +308,10 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    continuous one: launch counts, greedy tokens bitwise those of the same
    engine built directly on the same params, tok/s and TTFT p50.  (b) A
    second ``serve`` under the same name: the params' storages the same,
-   ``memory_allocated`` grown by the new cache's bytes alone (within the
-   allocator's 512-byte rounding), no copy of a weight's shape in the
+   the allocator's requested bytes grown by the new cache's bytes alone
+   (within its 512-byte rounding; ``memory_allocated``, which counts a
+   reused cached block up to 1 MiB larger than the request, printed
+   beside), no copy of a weight's shape in the
    profile, the steps op-cache hits (``describe()`` printed), cold start
    and restart ms, and its tokens the first engine's.  (c) A continuous
    pool over a budget that holds the params and half the pool: refused
@@ -1027,17 +1056,18 @@ def check_paged(cfg):
 
 
 def ssd_inputs(seed: int, S: int, G: int, dtype, init: bool, H=48, P=64,
-               N=128):
-    """mamba2-780m's prefill shapes, decay drawn as the model's inits
-    draw it (A = -U[1, 16], dt log-uniform in [1e-3, 0.1])."""
+               N=128, B=1):
+    """mamba2-780m's prefill shapes (a batch of ``B``), decay drawn as the
+    model's inits draw it (A = -U[1, 16], dt log-uniform in [1e-3,
+    0.1])."""
     g = gen(seed)
-    u = torch.rand((1, S, H), generator=g, device="cuda")
+    u = torch.rand((B, S, H), generator=g, device="cuda")
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     A = -(1.0 + 15.0 * torch.rand(H, generator=g, device="cuda"))
-    x = torch.randn((1, S, H, P), generator=g, device="cuda").to(dtype)
-    Bm = torch.randn((1, S, G, N), generator=g, device="cuda").to(dtype)
-    C = torch.randn((1, S, G, N), generator=g, device="cuda").to(dtype)
-    init_state = (torch.randn((1, H, P, N), generator=g, device="cuda")
+    x = torch.randn((B, S, H, P), generator=g, device="cuda").to(dtype)
+    Bm = torch.randn((B, S, G, N), generator=g, device="cuda").to(dtype)
+    C = torch.randn((B, S, G, N), generator=g, device="cuda").to(dtype)
+    init_state = (torch.randn((B, H, P, N), generator=g, device="cuda")
                   if init else None)
     return dict(x=x, dt=dt, A=A, Bm=Bm, C=C, init_state=init_state)
 
@@ -1135,6 +1165,157 @@ def check_ssd():
                 timed_cases=times, **row)
 
 
+# The SSD backward against autograd through ``ssd_plain`` on the same
+# inputs: each gradient within its dtype's SSD_TOL (the forward's, the
+# reference SSD test's: 2e-4 fp32, 5e-2 bf16) of the largest magnitude of
+# that gradient (the same math in another order; bf16 dx, dB and dC
+# stored in bf16, the bf16 path's products in one TF32 rounding).
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "d_init")
+
+
+def ssd_bwd_close(label, got, want, tol):
+    """The gradients ``got`` against ``want``, each held within ``tol`` of
+    its largest magnitude: (max abs error, that error over the largest
+    magnitude) of each."""
+    errs = {}
+    for name, g, w in zip(SSD_BWD_NAMES, got, want):
+        if w is None:
+            require(g is None, f"ssd backward {label}: an unexpected {name}")
+            continue
+        g, w = g.float(), w.float()
+        require(bool(torch.isfinite(g).all()),
+                f"ssd backward {label}: non-finite {name}")
+        e = float((g - w).abs().max())
+        lim = tol * float(w.abs().max())
+        require(e <= lim, f"ssd backward {label}: {name} disagrees with the "
+                          f"plain version (max abs err {e:.3g}, tolerance "
+                          f"{lim:.3g})")
+        errs[name] = (e, e / max(float(w.abs().max()), 1e-30))
+    return errs
+
+
+def ssd_bwd_call(inp, dy, d_state):
+    """The forward kernels' call, then the backward kernels' on its
+    scratch: the six gradients."""
+    _, _, scratch = ssd_mod._forward(inp["x"], inp["dt"], inp["A"],
+                                     inp["Bm"], inp["C"], inp["init_state"])
+    return ssd_mod.ssd_backward(inp["x"], inp["dt"], inp["A"], inp["Bm"],
+                                inp["C"], dy, d_state, scratch,
+                                init_state=inp["init_state"])
+
+
+def check_ssd_backward():
+    """The SSD backward kernel (every input's gradient) against autograd
+    through ``ssd_plain`` at mamba2-780m's widths: bf16 and fp32; S = 512
+    (the train shape, 2 x 512), a ragged 300 and one chunk of 64; one and
+    two groups; with and without an initial state; with and without a
+    final-state cotangent.  Through the autograd wrapper once, with its
+    launch counts.  Two more runs give the same bits.  The train shape is
+    timed beside its bound (bf16: tensor-core peak; fp32: the fp32 peak,
+    the TF32 one printed beside), the plain version and the forward."""
+    cases = [("bf16 train 2x512", 2, 512, 1, torch.bfloat16, False, False),
+             ("fp32 train 2x512", 2, 512, 1, torch.float32, False, False),
+             ("bf16 ragged S=300 init", 1, 300, 1, torch.bfloat16, True,
+              True),
+             ("fp32 ragged S=300 init", 1, 300, 1, torch.float32, True, True),
+             ("bf16 G=2 S=512", 1, 512, 2, torch.bfloat16, False, True),
+             ("fp32 G=2 S=300", 1, 300, 2, torch.float32, True, False),
+             ("bf16 one chunk S=64 init", 1, 64, 1, torch.bfloat16, True,
+              False),
+             ("fp32 one chunk S=64", 2, 64, 1, torch.float32, False, True)]
+    timed = {"bf16 train 2x512", "fp32 train 2x512"}
+    print("ssd backward: case | kernel ms | bound ms (by) | tensor-core "
+          "bound ms | plain ms | forward ms | max err / largest, by "
+          "gradient (tolerance)")
+    errs, rels, times, row = [], [], {}, None
+    for i, (label, B, S, G, dtype, init, dst) in enumerate(cases):
+        inp = ssd_inputs(1100 + i, S, G, dtype, init, B=B)
+        g = gen(1150 + i)
+        dy = torch.randn(inp["x"].shape, generator=g, device="cuda"
+                         ).to(dtype)
+        d_state = (torch.randn((B, 48, 64, 128), generator=g, device="cuda")
+                   if dst else None)
+        got = ssd_bwd_call(inp, dy, d_state)
+        want = ssd_mod.ssd_backward_plain(**inp, dy=dy, d_state=d_state)
+        tol = SSD_TOL[dtype]
+        e = ssd_bwd_close(label, got, want, tol)
+        errs.append(max(a for a, _ in e.values()))
+        rels.append(max(r for _, r in e.values()))
+        for _ in range(2):
+            again = ssd_bwd_call(inp, dy, d_state)
+            require(all((a is None and b is None) or same_bits(a, b)
+                        for a, b in zip(again, got)),
+                    f"ssd backward {label}: two runs differ")
+        nbytes, flops = roofline.ssd_backward_cost(
+            B, S, 48, 64, G, 128, inp["x"].element_size(), init, dst)
+        fp32 = dtype == torch.float32
+        bms, by = bound(nbytes, flops, FP32_FLOPS if fp32 else BF16_FLOPS)
+        tcb = bound(nbytes, flops, TF32_FLOPS if fp32 else BF16_FLOPS)[0]
+        es = ", ".join(f"{k} {r:.2g}" for k, (_, r) in e.items())
+        if label not in timed:
+            print(f"ssd backward {label:24s} | - | {bms:.5f} ({by}) | "
+                  f"{tcb:.5f} | - | - | {es} ({tol:g})")
+            continue
+        n = copies(nbytes + 4 * inp["x"].numel() / 64 * 128)
+        sets = []
+        for j in range(n):
+            s_in = ssd_inputs(1200 + j, S, G, dtype, init, B=B)
+            s_dy = torch.randn(s_in["x"].shape, generator=gen(1300 + j),
+                               device="cuda").to(dtype)
+            s_sc = ssd_mod._forward(s_in["x"], s_in["dt"], s_in["A"],
+                                    s_in["Bm"], s_in["C"], None)[2]
+            sets.append((s_in, s_dy, s_sc))
+        ms = cuda_ms([lambda s=s: ssd_mod.ssd_backward(
+            s[0]["x"], s[0]["dt"], s[0]["A"], s[0]["Bm"], s[0]["C"], s[1],
+            None, s[2]) for s in sets], iters=max(10, 2 * n))
+        fwd = cuda_ms([lambda s=s: ssd_mod.ssd(**s[0]) for s in sets],
+                      iters=max(10, 2 * n))
+        plain = event_ms(lambda: ssd_mod.ssd_backward_plain(
+            **inp, dy=dy, d_state=d_state), iters=3)
+        us = kernel_us(lambda: ssd_mod.ssd_backward(
+            sets[0][0]["x"], sets[0][0]["dt"], sets[0][0]["A"],
+            sets[0][0]["Bm"], sets[0][0]["C"], sets[0][1], None,
+            sets[0][2]))
+        times[label] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                            bound_by=by, tensor_core_bound_ms=tcb,
+                            forward_ms=fwd, device_us=us)
+        print(f"ssd backward {label:24s} | {ms:.4f} | {bms:.5f} ({by}) | "
+              f"{tcb:.5f} | {plain:.4f} | {fwd:.4f} | {es} ({tol:g})")
+        print(f"ssd backward {label}: profiled µs per call by kernel {us}")
+        if label == "bf16 train 2x512":
+            row = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                       device_us=us, tensor_core_bound_ms=tcb,
+                       case="one layer's backward at mamba2-780m's train "
+                            "shape: x, dy (2,512,48,64) bf16, B/C "
+                            "(2,512,1,128) bf16, no final-state cotangent")
+    # through the autograd wrapper: one forward, one backward launch
+    inp = ssd_inputs(1400, 300, 1, torch.float32, True)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in inp.items()}
+    before = (ssd_mod.launches, ssd_mod.bwd_launches)
+    y, st = ssd_mod.ssd(**leaves)
+    dy = torch.randn(y.shape, generator=gen(1401), device="cuda")
+    got = torch.autograd.grad([y], list(leaves.values()), [dy])
+    require((ssd_mod.launches, ssd_mod.bwd_launches)
+            == (before[0] + 1, before[1] + 1),
+            "ssd under autograd: not one forward and one backward launch")
+    want = ssd_mod.ssd_backward_plain(**inp, dy=dy)
+    order = ("x", "dt", "A", "Bm", "C", "init_state")
+    ssd_bwd_close("autograd", [got[list(leaves).index(k)] for k in order],
+                  want, SSD_TOL[torch.float32])
+    print("ssd backward: two more runs of every case give the same bits; "
+          "autograd through the wrapper launches the kernels once each",
+          flush=True)
+    return dict(name="ssd_backward", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                replaces="src/repro/models/ssm.py:29",
+                note="no TPU kernel: the reference trains through "
+                     "ssd_chunked's autodiff",
+                max_abs_err=max(errs), max_err_over_largest=max(rels),
+                library_ms=None, kernels_per_call=4,
+                cases_checked=len(cases),
+                run_to_run_bitwise=2, timed_cases=times, **row)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
@@ -1157,7 +1338,8 @@ def dense_serve_launches(cfg, steps: int, prefills: int):
     return {"matmul": (7 * L + 1) * (steps + prefills),
             "attention": L * prefills, "attention_backward": 0,
             "paged_decode_attention": L * steps, "ssd": 0,
-            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+            "ssd_backward": 0, "quantize_int8": 0, "quantize_compress": 0,
+            "matmul_dequant": 0}
 
 
 def continuous_serve_launches(cfg, steps: int, fin):
@@ -1170,7 +1352,7 @@ def continuous_serve_launches(cfg, steps: int, fin):
     return {"matmul": (7 * L + 1) * (steps + chunks),
             "attention": L * chunks, "attention_backward": 0,
             "paged_decode_attention": L * steps, "ssd": 0,
-            "quantize_int8": 0, "quantize_compress": 0,
+            "ssd_backward": 0, "quantize_int8": 0, "quantize_compress": 0,
             "matmul_dequant": 0}, chunks
 
 
@@ -2120,8 +2302,8 @@ def serve_mamba():
     prefills = len(fin)
     expect = {"matmul": (5 * L + 1) * (prefills + steps), "attention": 0,
               "attention_backward": 0, "paged_decode_attention": 0,
-              "ssd": L * prefills, "quantize_int8": 0, "quantize_compress": 0,
-              "matmul_dequant": 0}
+              "ssd": L * prefills, "ssd_backward": 0, "quantize_int8": 0,
+              "quantize_compress": 0, "matmul_dequant": 0}
     print(f"mamba2 launches: {launches} (expected {expect}: {steps} decode "
           f"steps, {prefills} prefills)")
     require(launches["matmul"] > 0 and launches["ssd"] > 0,
@@ -2202,7 +2384,7 @@ def expected_train_launches(cfg, steps: int, int8: bool,
     return {"matmul": steps * (fwd + 7 * redo + 2 * fwd),
             "attention": steps * (L + redo),
             "attention_backward": steps * L,
-            "paged_decode_attention": 0, "ssd": 0,
+            "paged_decode_attention": 0, "ssd": 0, "ssd_backward": 0,
             "quantize_int8": steps * (len(BUCKETS) if int8 else 0),
             "quantize_compress": 0, "matmul_dequant": 0}
 
@@ -2847,16 +3029,17 @@ def same_on_every_rank(digest: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def step_agreement(got, want, p0, lr, what, quantized=False):
+def step_agreement(got, want, p0, lr, what, quantized=False,
+                   rms_bound=0.1):
     """The step tolerance of tests/test_torch_train.py, on the card: at
     step 1 AdamW moves every weight by about lr whatever its gradient's
     size, so every weight lies within 2 lr (+20%, + one bf16 ulp) of the
     other run's; an element moved the other way by more than half an lr
-    is rare (under 0.5% of the model), and the updates differ by under 10%
-    of their rms.  On the int8 wire a weight whose synced gradient rounds
-    to zero moves by its decay only, within lr of the fp32 result: the
-    same bound holds, the moves under half an lr are not counted, and the
-    rms rule does not apply."""
+    is rare (under 0.5% of the model), and the updates differ by under
+    ``rms_bound`` (10%) of their rms.  On the int8 wire a weight whose
+    synced gradient rounds to zero moves by its decay only, within lr of
+    the fp32 result: the same bound holds, the moves under half an lr are
+    not counted, and the rms rule does not apply."""
     worst = against = still = total = 0.0
     dd = uu = 0.0
     for name in got:
@@ -2879,7 +3062,8 @@ def step_agreement(got, want, p0, lr, what, quantized=False):
     require(against / total < 5e-3, f"{what}: too many weights moved the "
             "other way")
     if not quantized:
-        require(rel < 0.1, f"{what}: the updates differ by {rel:.1%} rms")
+        require(rel < rms_bound,
+                f"{what}: the updates differ by {rel:.1%} rms")
     return out
 
 
@@ -2898,6 +3082,7 @@ def device_breakdown(prof, busy=()):
             "attention_backward": ("attn_bwd",),
             "paged_decode_attention": ("paged_split", "paged_combine"),
             "ssd": ("ssd_chunk", "ssd_state_pass"),
+            "ssd_backward": ("ssd_bwd",),
             "quantize_int8": ("quantize",),
             "memcpy": ("emcpy",)}
     out = {k: 0.0 for k in fams}
@@ -3220,8 +3405,10 @@ def check_train_against_cpu(cfg):
             f"train card vs cpu: grad norm {nc} vs {np_}")
     for name in ("embed", "unembed", "layers.attn.wq", "layers.attn.wk",
                  "layers.attn.bv", "layers.mlp.out", "layers.ln1",
-                 "final_norm"):
-        if name not in gc:                 # gemma-2b has no QKV bias
+                 "final_norm", "layers.ssm.wx", "layers.ssm.wbc",
+                 "layers.ssm.A", "layers.ssm.dt_bias", "layers.ssm.conv_x",
+                 "layers.ssm.w_out"):
+        if name not in gc:          # each family's leaves; gemma-2b: no bias
             continue
         c, w = gc[name].float().cpu(), gp[name].float()
         rel = float((c - w).norm() / w.norm())
@@ -3446,6 +3633,175 @@ def train_gemma2b():
                    tokens_per_s_steps_2_3=[tokens / (w / 1e3)
                                            for w in walls[1:]],
                    peak_gib=peak / 2**30, remat_grads_bitwise=same,
+                   card_vs_cpu=cpu_check)
+    print("train " + json.dumps(summary), flush=True)
+    return summary, total
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: mamba2-780m trained on one rank at full width and depth
+# ---------------------------------------------------------------------------
+
+MAMBA_TRAIN_BATCH = 2                # 2 x 512 tokens a step
+MAMBA_TRAIN_PATH = f"{MAMBA} train (1 rank, 3 steps)"
+
+
+def expected_mamba_train_launches(cfg, steps: int):
+    """Per rank under ``remat="full"``: each layer's 5 products (wx, wz,
+    wbc, wdt, w_out) and one SSD forward, all run again by the backward's
+    recompute (its early stop comes inside the layer's last product,
+    after the launch), and the head's unembed once; two products for
+    each product's backward, one SSD backward call a layer."""
+    L = cfg.n_layers
+    fwd = 5 * L + 1
+    return {"matmul": steps * (fwd + 5 * L + 2 * fwd), "attention": 0,
+            "attention_backward": 0, "paged_decode_attention": 0,
+            "ssd": steps * 2 * L, "ssd_backward": steps * L,
+            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+
+
+def held_ssd_backward_call(real, label, x, dt, A, Bm, C, dy, d_state,
+                           scratch, *, init_state=None):
+    """``real``'s gradients of one SSD backward call and their largest
+    error over each gradient's largest magnitude against the plain
+    version on the same inputs and cotangents (held within SSD_TOL by
+    :func:`ssd_bwd_close`)."""
+    got = real(x, dt, A, Bm, C, dy, d_state, scratch, init_state=init_state)
+    want = ssd_mod.ssd_backward_plain(
+        x, dt, A, Bm, C, torch.zeros_like(x) if dy is None else dy, d_state,
+        init_state=init_state)
+    e = ssd_bwd_close(f"{label}, x {tuple(x.shape)} {x.dtype}", got, want,
+                      SSD_TOL[x.dtype])
+    return got, max(r for _, r in e.values())
+
+
+@contextlib.contextmanager
+def held_ssd_backward():
+    """Within the block every SSD backward call is held against the plain
+    version on its own inputs and cotangents (:func:`ssd_bwd_close`, each
+    gradient within SSD_TOL of its largest magnitude); yields ``held``,
+    whose ``errs`` lists each call's largest relative error and
+    ``shapes`` the distinct (x shape, dtype).  The plain version launches
+    nothing."""
+    real = ssd_mod.ssd_backward
+    held = types.SimpleNamespace(errs=[], shapes=set())
+
+    def call(x, *args, **kw):
+        got, err = held_ssd_backward_call(real, f"call {len(held.errs)}",
+                                          x, *args, **kw)
+        held.errs.append(err)
+        held.shapes.add((tuple(x.shape), str(x.dtype)))
+        return got
+
+    ssd_mod.ssd_backward = call
+    try:
+        yield held
+    finally:
+        ssd_mod.ssd_backward = real
+
+
+def profiled_step(step):
+    """One call of ``step`` under the profiler: (the profile, the host
+    window's start and end ns on the clock the device intervals use)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        lo = time.time_ns()
+        step()
+        torch.cuda.synchronize()
+        hi = time.time_ns()
+    return prof, lo, hi
+
+
+def train_mamba2():
+    """Phase 6c: mamba2-780m (48 layers, 857,293,056 parameters) through
+    ``Session`` on one rank (``comms="off"``, ``remat="full"``, AdamW at
+    its peak rate from step 1), 2 x 512 tokens of
+    ``SyntheticLM(structured=True)`` a step: three steps, the third on
+    the first batch again and its loss below the first; each step's
+    launches exactly the layer loop's (the SSD forward twice a layer,
+    its backward once); step ms and the peak; a fourth step profiled for
+    the card's idle share and the SSD kernels' busy ms; every SSD
+    backward call of one more forward and backward held against the plain
+    version at its own shapes; the card's 2-layer loss and gradients
+    against the CPU's.  Returns the summary and the three steps'
+    launches."""
+    from repro_torch.api import Session
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    cfg = get_config(MAMBA)
+    data = iter(SyntheticLM(cfg.vocab_size, MAMBA_TRAIN_BATCH, TRAIN_SEQ,
+                            seed=SEED, structured=True))
+    batches = [next(data), next(data)]
+    sess = Session(device="cuda")
+    plan = sess.plan(MAMBA, batch=MAMBA_TRAIN_BATCH, seq=TRAIN_SEQ,
+                     comms="off", microbatches=1,
+                     adamw=opt.AdamWConfig(
+                         lr=opt.warmup_cosine(TRAIN_PEAK, 0, 3)))
+    require(plan.path == "gspmd" and plan.model.mesh is None
+            and plan.model.remat == "full",
+            f"{MAMBA}: plan {plan.path}, remat {plan.model.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    sess.init_state(plan, seed=SEED)
+    params = sess.state["train_state"]["params"]
+    n_params = sum(p.numel() for p in params.values())
+    require(n_params == MAMBA_PARAMS and cfg.n_layers == 48,
+            f"{MAMBA}: {n_params} parameters in {cfg.n_layers} layers")
+    ops.reset_launches()
+    losses, walls, total = [], [], {}
+    expect = expected_mamba_train_launches(cfg, 1)
+    for batch in (batches[0], batches[1], batches[0]):
+        before = ops.dispatch_report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in sess.step(plan, batch).items()}
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        got = {k: v - before[k] for k, v in ops.dispatch_report().items()}
+        require(got == expect, f"{MAMBA} step launches {got}, expected "
+                               f"{expect}")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"{MAMBA}: non-finite metrics {m}")
+        losses.append(m["loss"])
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{MAMBA} steps (the third on the first batch again): losses "
+          f"{losses}, wall ms {walls}, peak {peak / 2**30:.2f} GiB; "
+          f"launches {total}", flush=True)
+    require(losses[2] < losses[0], f"{MAMBA}: the loss did not fall")
+    prof, lo, hi = profiled_step(lambda: sess.step(plan, batches[1]))
+    busy = union_ns(device_intervals(prof), lo, hi)
+    parts = device_breakdown(prof, busy=("gemm", "ssd", "ssd_backward"))
+    idle = 1 - busy / (hi - lo)
+    print(f"{MAMBA} profiled step: wall {(hi - lo) / 1e6:.1f} ms, device "
+          f"busy {busy / 1e6:.1f} ms, idle share {idle:.3f}; device ms by "
+          f"kernel family {json.dumps(parts)}", flush=True)
+    first = {k: torch.from_numpy(v).cuda().long()
+             for k, v in batches[0].items()}
+    with held_ssd_backward() as held:
+        step_mod.local_grads(plan.model, params, first)
+    require(len(held.errs) == cfg.n_layers,
+            f"{MAMBA}: {len(held.errs)} SSD backward calls held, expected "
+            f"{cfg.n_layers}")
+    print(f"{MAMBA}: every SSD backward call of a step ({len(held.errs)}, "
+          f"shapes {sorted(held.shapes)}) within SSD_TOL of its plain "
+          f"version; largest error / largest gradient {max(held.errs):.3g}",
+          flush=True)
+    del sess, params, plan, prof
+    torch.cuda.empty_cache()
+    cpu_check = check_train_against_cpu(cfg)
+    torch.cuda.empty_cache()
+    tokens = MAMBA_TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(arch=MAMBA, params=n_params, tokens_per_step=tokens,
+                   losses=losses, step_wall_ms=walls,
+                   tokens_per_s_steps_2_3=[tokens / (w / 1e3)
+                                           for w in walls[1:]],
+                   peak_gib=peak / 2**30, profiled_wall_ms=(hi - lo) / 1e6,
+                   device_busy_ms=busy / 1e6, device_idle_share=idle,
+                   device_ms=parts, ssd_backward_calls_held=len(held.errs),
+                   ssd_backward_max_rel_err=max(held.errs),
                    card_vs_cpu=cpu_check)
     print("train " + json.dumps(summary), flush=True)
     return summary, total
@@ -4343,14 +4699,32 @@ HYBRID_RANKS = 4
 # give the step wall, step 4 is timed with the collectives clocked
 # (``CollectiveClock`` synchronizes the card before each).
 HYBRID = (((2, 2), "head_tp", 4), ((1, 4), "sp", 4))
-HYBRID_PATH = f"{ARCH} hybrid train (4 ranks, gloo, (2,2) and (1,4))"
+# mamba2-780m at full width, cut to 8 of its 48 layers, on (2, 2) with the
+# sequence-parallel residual (the reference's forward_shardmap): (mesh,
+# layers, steps), held against the same cut's one-rank steps
+HYBRID_MAMBA = ((2, 2), 8, 2)
+HYBRID_PATH = (f"{ARCH} (2,2), (1,4) and {MAMBA} (2,2, 8 layers) hybrid "
+               "train (4 ranks, gloo)")
 HYBRID_DEVICE = "cuda"
 HYBRID_CLOCKED = 3                     # the step (from 0) whose wire is timed
 
 
-def hybrid_yard(t: int) -> Path:
-    """The yardstick's state after step ``t`` (from 1)."""
-    return TRAIN_DIR / f"hybrid_yardstick{t}.pt"
+def hybrid_yard(t: int, name: str = "") -> Path:
+    """The yardstick's state after step ``t`` (from 1); ``name`` tells
+    mamba2's from qwen2's."""
+    return TRAIN_DIR / f"hybrid_yardstick{name}{t}.pt"
+
+
+def hybrid_cells():
+    """Phase 10's cells: (tag, config, mesh, the plan's attention mode,
+    steps, the yardstick's name)."""
+    import dataclasses
+    shape, layers, steps = HYBRID_MAMBA
+    mcfg = dataclasses.replace(get_config(MAMBA), n_layers=layers)
+    return ([(f"{s[0]}x{s[1]}", get_config(ARCH), s, mode, n, "")
+             for s, mode, n in HYBRID]
+            + [(f"{MAMBA} {shape[0]}x{shape[1]}", mcfg, shape, "none", steps,
+                "_mamba2")])
 
 
 def hybrid_session(shape, cfg):
@@ -4367,22 +4741,49 @@ def hybrid_session(shape, cfg):
 
 
 class HeldKernels:
-    """Wraps ``ops.matmul`` and ``ops.attention`` in a rank: the first call
-    of each distinct case (shapes, dtypes, the flash arguments) is held
-    against its plain version on the same inputs (phase 3's rule); the
-    cases are kept for the backward checks.  The plain versions launch
-    nothing."""
+    """Wraps ``ops.matmul``, ``ops.attention``, ``ops.ssd`` and the SSD
+    backward in a rank: the first call of each distinct case (shapes,
+    dtypes, the flash arguments) is held against its plain version on the
+    same inputs (phase 3's rule; the SSD's SSD_TOL, of each output's
+    largest magnitude for the backward); the GEMM and flash cases are kept
+    for the backward checks.  The plain versions launch nothing."""
 
     def __init__(self):
         self.mm, self.att = ops.matmul, ops.attention
+        self.ssd, self.ssd_bwd = ops.ssd, ssd_mod.ssd_backward
         self.mm_cases, self.att_cases = {}, {}
-        self.calls = {"matmul": 0, "attention": 0}
+        self.ssd_cases, self.ssd_bwd_cases = {}, {}
+        self.calls = {"matmul": 0, "attention": 0, "ssd": 0}
 
     def install(self):
         ops.matmul, ops.attention = self.matmul, self.attention
+        ops.ssd, ssd_mod.ssd_backward = self.ssd_forward, self.ssd_backward
 
     def uninstall(self):
         ops.matmul, ops.attention = self.mm, self.att
+        ops.ssd, ssd_mod.ssd_backward = self.ssd, self.ssd_bwd
+
+    def ssd_forward(self, x, dt, A, Bm, C, **kw):
+        self.calls["ssd"] += 1
+        y, state = self.ssd(x, dt, A, Bm, C, **kw)
+        key = (tuple(x.shape), tuple(Bm.shape), str(x.dtype))
+        if key not in self.ssd_cases:
+            with torch.no_grad():
+                want = ssd_mod.ssd_plain(
+                    *(t.detach() for t in (x, dt, A, Bm, C)),
+                    init_state=kw.get("init_state"))
+            self.ssd_cases[key] = max(ssd_close(
+                f"hybrid {key}", (y.detach(), state.detach()), want,
+                SSD_TOL[x.dtype]))
+        return y, state
+
+    def ssd_backward(self, x, dt, A, Bm, C, *args, **kw):
+        key = (tuple(x.shape), tuple(Bm.shape), str(x.dtype))
+        if key in self.ssd_bwd_cases:
+            return self.ssd_bwd(x, dt, A, Bm, C, *args, **kw)
+        got, self.ssd_bwd_cases[key] = held_ssd_backward_call(
+            self.ssd_bwd, "hybrid", x, dt, A, Bm, C, *args, **kw)
+        return got
 
     def matmul(self, a, b, out_dtype=None):
         # counted before the call: under remat the recompute stops inside
@@ -4486,12 +4887,13 @@ def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
     (n - 1)/n of the tensor; a floating sum over n > 2 ranks gathers the
     line's tensors, over 2 one tensor).  Per layer the forward, its
     recompute under ``remat="full"`` (which stops after the last product
-    whose inputs the backward keeps: the MLP's reduce-scatter is not run
-    again) and the backward (each collective's transpose); the embedding's
+    whose inputs the backward keeps: the MLP's and the mamba2 mixer's
+    reduce-scatters are not run again) and the backward (each
+    collective's transpose); the embedding's
     all-to-all and the head's gather, each with its transpose; the loss's
     max and sums over the model axis; the gradient sync onto the ZeRO
-    blocks and the parameters' gather back, in bf16; the grad norm's
-    sum."""
+    blocks and the parameters' gather back, in each leaf's type (bf16;
+    mamba2's A, dt bias and D skip fp32); the grad norm's sum."""
     import collections
     from repro_torch.core.replication import zero_layout
     cfg, plan = model.cfg, model.plan
@@ -4512,7 +4914,19 @@ def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
 
     L = cfg.n_layers
     if tp > 1:
-        if plan.attn_mode == "head_tp":
+        if cfg.family == "ssm":
+            # the mixer (SP): gather the sequence, reduce-scatter back
+            # (the recompute stops inside the last product, before it);
+            # the gated norm's fp32 sum of squares in the forward, the
+            # recompute and its copy's transpose
+            for _ in range(L):
+                for _ in range(3):              # fwd, remat, the bwd's
+                    ag(act // tp, tp)
+                for _ in range(2):              # fwd, the gather's bwd
+                    rs(act, tp)
+                for _ in range(3):
+                    ps(b * seq * 4, tp)
+        elif plan.attn_mode == "head_tp":
             # attention and MLP: gather the sequence, reduce-scatter back;
             # the recompute runs all but the MLP's reduce-scatter
             for _ in range(L):
@@ -4541,7 +4955,8 @@ def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
     for name, spec in specs.items():
         storage = spec.layout
         zero = zero_layout(storage, spec.shape, mesh)
-        block = math.prod(storage.local_shape(spec.shape, mesh)) * 2
+        size = spec.dtype.itemsize          # bf16, the mixer's fp32 leaves
+        block = math.prod(storage.local_shape(spec.shape, mesh)) * size
         for a in model.grad_split_axes(name, batch):
             n = mesh.shape[a]
             if n == 1 or a in storage.mesh_axes_used():
@@ -4551,7 +4966,7 @@ def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
                 block //= n
             else:
                 ps(block, n)
-        zblock = math.prod(zero.local_shape(spec.shape, mesh)) * 2
+        zblock = math.prod(zero.local_shape(spec.shape, mesh)) * size
         for a in reversed([a for a in zero.mesh_axes_used()
                            if a not in storage.mesh_axes_used()]):
             ag(zblock, mesh.shape[a])
@@ -4561,17 +4976,31 @@ def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
     return dict(est)
 
 
-def hybrid_one_rank(cfg, batches, steps, keep=False):
+def hybrid_one_rank(cfg, batches, steps, keep=False, name="",
+                    on_mesh=False):
     """``steps`` one-rank steps on the card (path gspmd, no mesh) from the
     seed: their metrics; with ``keep``, the state after each step but the
-    last goes to :func:`hybrid_yard` (the fp32 master, from which the
-    step wrote the params, and the moments)."""
+    last goes to :func:`hybrid_yard` under ``name`` (the fp32 master, from
+    which the step wrote the params, and the moments).  ``on_mesh`` puts
+    the one-rank model on a (1, 1) mesh (no process group: every axis has
+    one rank), where it runs the mesh's code path: for mamba2 the
+    sequence-parallel mixer's bf16 convolutions and scan inputs, the
+    reference's one-device default (``forward_shardmap``), where the model
+    without a mesh runs ``ssm.forward``'s fp32 ones."""
+    import dataclasses
     from repro_torch.api import Session
+    from repro_torch.core.distributed import Mesh
+    from repro_torch.core.planner import plan_for
     sess = Session(device=HYBRID_DEVICE)
     plan = sess.plan(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, comms="off",
                      adamw=train_adamw(), microbatches=1)
     require(plan.path == "gspmd" and plan.model.mesh is None,
             "the yardstick is the one-rank path")
+    if on_mesh:
+        one = Mesh((1, 1), ("data", "model"))
+        plan = dataclasses.replace(plan, model=Model(
+            plan.cfg, device=HYBRID_DEVICE, mesh=one,
+            plan=plan_for(plan.cfg, one)))
     sess.init_state(plan, seed=SEED)
     metrics = []
     for t in range(steps):
@@ -4584,7 +5013,7 @@ def hybrid_one_rank(cfg, batches, steps, keep=False):
                         **{slot: {k: v.cpu() for k, v in
                                   opt_state[slot].items()}
                            for slot in ("master", "mu", "nu")}},
-                       hybrid_yard(t + 1))
+                       hybrid_yard(t + 1, name))
     del sess, plan
     torch.cuda.empty_cache()
     return metrics
@@ -4596,7 +5025,17 @@ def hybrid_yardstick(cfg, batches):
     for the ranks.  Then a witness: the same steps with every batch's rows
     reversed (the same loss and gradients, summed in another order); its
     relative distance from the yardstick at each step is what the sums'
-    order alone moves on one rank, free running (not a gate)."""
+    order alone moves on one rank, free running (not a gate).  mamba2's
+    cut gets a yardstick of its own, and a witness: the same steps without
+    a mesh, whose mixer keeps fp32 where the yardstick's rounds to bf16.
+    The witness's first update differs from the yardstick's by an rms
+    (the step rule's third reading) that is what placing the bf16
+    roundings moves there; the mesh places them otherwise again (each
+    rank's shares of a gradient rounded before their sum), so the cell's
+    mesh is held at twice that, and never tighter than the rule's 10%
+    (the first AdamW update is a sign, and the gradients of mamba2's
+    small leaves cross zero within their bf16 noise).  Returns the
+    yardsticks' metrics by cell, qwen2's drift and the rms bounds."""
     steps = max(n for _, _, n in HYBRID)
     metrics = hybrid_one_rank(cfg, batches, steps, keep=True)
     flipped = [{k: np.ascontiguousarray(np.asarray(v)[::-1])
@@ -4607,10 +5046,40 @@ def hybrid_yardstick(cfg, batches):
     print(f"hybrid yardstick (one rank): {metrics}", flush=True)
     print(f"hybrid one-rank witness, rows reversed, free running: relative "
           f"distance {drift}", flush=True)
-    return metrics, drift
+    yards = {tag: metrics for tag, *_ in hybrid_cells()[:len(HYBRID)]}
+    tag, mcfg, _, _, msteps, name = hybrid_cells()[-1]
+    mbatches = train_batches(mcfg)
+    yards[tag] = hybrid_one_rank(mcfg, mbatches, msteps, keep=True,
+                                 name=name, on_mesh=True)
+    fp32 = hybrid_one_rank(mcfg, mbatches, msteps, keep=True,
+                           name=name + "_fp32")
+    witness_rms = hybrid_update_rms(mcfg, name, yards[tag][0]["lr"])
+    gap = [{k: abs(w[k] / y[k] - 1) for k in ("loss", "grad_norm")}
+           for w, y in zip(fp32, yards[tag])]
+    print(f"hybrid yardstick, {tag} ({mcfg.n_layers} layers, one rank on "
+          f"a (1, 1) mesh, the SP mixer): {yards[tag]}; without a mesh "
+          f"(ssm.forward's fp32 mixer), relative distance {gap}, step-1 "
+          f"update rms {witness_rms:.4g}", flush=True)
+    return yards, drift, {tag: max(0.1, 2 * witness_rms)}
 
 
-def hybrid_after_step(sess, plan, mesh, yard, p_start, lr, what):
+def hybrid_update_rms(cfg, name, lr):
+    """The step rule between the yardstick's params after step 1 and the
+    fp32-mixer witness's, from the seed's params: the update rms."""
+    p0 = Model(cfg, device=HYBRID_DEVICE).init(SEED)
+
+    def params(t):
+        master = torch.load(t, mmap=True)["master"]
+        return {k: v.to(HYBRID_DEVICE, p0[k].dtype) for k, v in
+                master.items()}
+    return step_agreement(params(hybrid_yard(1, name + "_fp32")),
+                          params(hybrid_yard(1, name)), p0, lr,
+                          f"hybrid {cfg.name} one-rank witness, fp32 mixer, "
+                          "step 1", rms_bound=math.inf)["update_rel_rms"]
+
+
+def hybrid_after_step(sess, plan, mesh, yard, p_start, lr, what,
+                      rms_bound=0.1):
     """After a step from the yardstick's state (``p_start`` this rank's
     params then): this rank's param blocks within phase 6's step rule of
     the yardstick's blocks after the step, and its mu and nu blocks within
@@ -4626,7 +5095,7 @@ def hybrid_after_step(sess, plan, mesh, yard, p_start, lr, what):
     want = {k: zero.storage[k].block(yard["master"][k], mesh).to(dev, p.dtype)
             for k, p in st["params"].items()}
     rule = step_agreement({k: v.detach() for k, v in st["params"].items()},
-                          want, p_start, lr, what)
+                          want, p_start, lr, what, rms_bound=rms_bound)
     errs, fp32 = {}, {}
     for slot in ("mu", "nu"):
         err, past, past_rel, total = 0.0, 0, 0, 0
@@ -4667,7 +5136,7 @@ def hybrid_restart(sess, plan, mesh, yard):
         st["opt"]["step"].fill_(yard["step"])
 
 
-def hybrid_rank(rank, init, result_path, yard_metrics):
+def hybrid_rank(rank, init, result_path, yard_metrics, rms_bounds):
     """One rank of phase 10; writes its results as JSON to
     ``result_path`` with its number in place of ``{}``."""
     import torch.distributed as dist
@@ -4675,12 +5144,13 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
     torch.backends.cuda.matmul.allow_tf32 = False
     init_group(init, rank=rank, world_size=HYBRID_RANKS,
                device=HYBRID_DEVICE)
-    cfg = get_config(ARCH)
-    batches = train_batches(cfg)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     out = dict(rank=rank, meshes={})
-    for shape, mode, steps in HYBRID:
-        what = f"hybrid {shape[0]}x{shape[1]} rank {rank}"
+    for tag, cfg, shape, mode, steps, name in hybrid_cells():
+        batches = train_batches(cfg)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        ssm_family = cfg.family == "ssm"
+        clocked = HYBRID_CLOCKED if steps > HYBRID_CLOCKED else None
+        what = f"hybrid {tag} rank {rank}"
         sess, plan, mesh = hybrid_session(shape, cfg)
         require(plan.path == "gspmd" and plan.model.mesh is mesh
                 and plan.parallel.attn_mode == mode
@@ -4690,6 +5160,7 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
         sess.init_state(plan, seed=SEED)
         held = HeldKernels()
         walls, metrics, after = [], [], []
+        clocked_ms = None
         if HYBRID_DEVICE == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -4701,7 +5172,7 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
                        sess.state["train_state"]["params"].items()}
             WIRE.reset()
             dist.barrier()
-            with (CollectiveClock() if t == HYBRID_CLOCKED
+            with (CollectiveClock() if t == clocked
                   else contextlib.nullcontext()) as clock:
                 t0 = time.perf_counter()
                 m = sess.step(plan, batches[t])
@@ -4714,10 +5185,11 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
             metrics.append({k: float(v) for k, v in m.items()})
             if t + 1 < steps:
                 held.uninstall()
-                yard = torch.load(hybrid_yard(t + 1), mmap=True)
+                yard = torch.load(hybrid_yard(t + 1, name), mmap=True)
                 after.append(hybrid_after_step(
                     sess, plan, mesh, yard, p_start, metrics[t]["lr"],
-                    f"{what} after step {t + 1}"))
+                    f"{what} after step {t + 1}",
+                    rms_bound=rms_bounds.get(tag, 0.1)))
                 hybrid_restart(sess, plan, mesh, yard)
                 del yard
                 held.install()
@@ -4728,22 +5200,28 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
                 if HYBRID_DEVICE == "cuda" else 0.0)
         mm_bwd, att_bwd = held.backward_checks()
         dev = [{k: abs(got[k] / want[k] - 1) for k in ("loss", "grad_norm")}
-               for got, want in zip(metrics, yard_metrics)]
+               for got, want in zip(metrics, yard_metrics[tag])]
         print(f"{what}: relative distance from the one-rank step {dev}",
               flush=True)
-        for t, (got, want) in enumerate(zip(metrics, yard_metrics)):
+        for t, (got, want) in enumerate(zip(metrics, yard_metrics[tag])):
             for k in ("loss", "grad_norm", "lr"):
                 # each step from the yardstick's state before it: only
                 # the step's sums differ (their order, the wire's bf16)
                 require(math.isclose(got[k], want[k], rel_tol=1e-3),
                         f"{what} step {t + 1}: {k} {got[k]} against the "
                         f"one-rank {want[k]}")
+        if ssm_family:     # the CPU's backward is autograd's, no call
+            require(held.ssd_cases and (held.ssd_bwd_cases
+                                        or HYBRID_DEVICE != "cuda"),
+                    f"{what}: no SSD call was held")
         # the unclocked steps after the first
-        free = [w for t, w in enumerate(walls) if t and t != HYBRID_CLOCKED]
-        out["meshes"][f"{shape[0]}x{shape[1]}"] = dict(
-            mode=mode, steps=steps, metrics=metrics, walls_ms=walls,
-            clocked_step=HYBRID_CLOCKED + 1,
-            clocked_wall_ms=walls[HYBRID_CLOCKED], collective_ms=clocked_ms,
+        free = [w for t, w in enumerate(walls) if t and t != clocked]
+        out["meshes"][tag] = dict(
+            mode=mode, layers=cfg.n_layers, steps=steps, metrics=metrics,
+            walls_ms=walls,
+            clocked_step=None if clocked is None else clocked + 1,
+            clocked_wall_ms=None if clocked is None else walls[clocked],
+            collective_ms=clocked_ms,
             wall_ms_median=statistics.median(free),
             tokens_per_s=tokens / (statistics.median(free) / 1e3),
             peak_gib=peak, wire_bytes=wire,
@@ -4751,10 +5229,17 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
                                                TRAIN_SEQ),
             launches=launches, forward_calls=held.calls,
             distance_from_one_rank=dev,
-            expected=expected_train_launches(cfg, steps, int8=False),
+            expected=(expected_mamba_train_launches(cfg, steps)
+                      if ssm_family
+                      else expected_train_launches(cfg, steps, int8=False)),
             gemm_cases=len(held.mm_cases), flash_cases=len(held.att_cases),
+            ssd_cases=len(held.ssd_cases),
+            ssd_backward_cases=len(held.ssd_bwd_cases),
             gemm_max_abs_err=max(held.mm_cases.values()),
-            flash_max_abs_err=max(held.att_cases.values()),
+            flash_max_abs_err=max(held.att_cases.values(), default=0.0),
+            ssd_max_abs_err=max(held.ssd_cases.values(), default=0.0),
+            ssd_backward_max_rel_err=max(held.ssd_bwd_cases.values(),
+                                         default=0.0),
             gemm_backward_max_abs_err=mm_bwd,
             flash_backward_max_abs_err=att_bwd, after_step=after)
         del sess, plan
@@ -4766,9 +5251,10 @@ def hybrid_rank(rank, init, result_path, yard_metrics):
 
 
 def hybrid_phase():
-    """Phase 10: the one-rank yardstick (and its witness), then four ranks
-    spawned on the one card over gloo, each mesh in turn; returns the
-    summary and the ranks' launch counts summed over both meshes."""
+    """Phase 10: the one-rank yardsticks (and qwen2's witness), then four
+    ranks spawned on the one card over gloo, each cell in turn (qwen2's
+    meshes, then mamba2's cut on (2, 2)); returns the summary and the
+    ranks' launch counts summed over the cells."""
     import torch.multiprocessing as mp
     cfg = get_config(ARCH)
     init = f"file://{TRAIN_DIR / 'rendezvous_hybrid'}"
@@ -4777,12 +5263,16 @@ def hybrid_phase():
                for r in range(HYBRID_RANKS)]
     for f in results:
         f.unlink(missing_ok=True)
-    yards = [hybrid_yard(t) for t in range(1, max(n for _, _, n in HYBRID))]
+    yards = [hybrid_yard(t, name) for *_, steps, name in hybrid_cells()
+             for t in range(1, steps)]
+    yards += [hybrid_yard(1, name + "_fp32")
+              for *_, name in hybrid_cells() if name]
     try:
-        yard_metrics, witness = hybrid_yardstick(cfg, train_batches(cfg))
+        yard_metrics, witness, rms_bounds = hybrid_yardstick(
+            cfg, train_batches(cfg))
         mp.spawn(hybrid_rank,
                  args=(init, str(TRAIN_DIR / "hybrid_rank{}.json"),
-                       yard_metrics),
+                       yard_metrics, rms_bounds),
                  nprocs=HYBRID_RANKS, join=True)
     finally:
         for f in yards:
@@ -4791,28 +5281,32 @@ def hybrid_phase():
     for f in results:
         f.unlink()
     total = {}
+    qwen_tag = f"{HYBRID[0][0][0]}x{HYBRID[0][0][1]}"
     summary = dict(arch=ARCH, ranks=HYBRID_RANKS,
                    backend="gloo (host memory), one card",
                    tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
-                   yardstick=yard_metrics,
+                   yardstick=yard_metrics[qwen_tag],
                    one_rank_rows_reversed_distance=witness, meshes={})
-    for shape, mode, steps in HYBRID:
-        tag = f"{shape[0]}x{shape[1]}"
+    for tag, mcfg, shape, mode, steps, _ in hybrid_cells():
         rows = [r["meshes"][tag] for r in ranks]
         for r, row in zip(ranks, rows):
             got, want = row["launches"], row["expected"]
             print(f"hybrid {tag} rank {r['rank']}: launches {got} (expected "
-                  f"{want}); held {row['gemm_cases']} GEMM and "
-                  f"{row['flash_cases']} flash cases; peak "
+                  f"{want}); held {row['gemm_cases']} GEMM, "
+                  f"{row['flash_cases']} flash, {row['ssd_cases']} SSD and "
+                  f"{row['ssd_backward_cases']} SSD backward cases; peak "
                   f"{row['peak_gib']:.3f} GiB; wire per step "
                   f"{row['wire_bytes']} (estimate {row['wire_estimate']})",
                   flush=True)
             require(got == want, f"hybrid {tag} rank {r['rank']}: launches "
                     "do not match the layer structure")
+            require(row["wire_bytes"] == row["wire_estimate"],
+                    f"hybrid {tag} rank {r['rank']}: wire bytes per step "
+                    "differ from the layouts' estimate")
             for op, n in got.items():
                 total[op] = total.get(op, 0) + n
-        summary["meshes"][tag] = dict(
-            mode=mode, steps=steps,
+        cell = dict(
+            mode=mode, layers=mcfg.n_layers, steps=steps,
             metrics_rank0=rows[0]["metrics"],
             step_wall_ms_median_by_rank=[r["wall_ms_median"] for r in rows],
             step_walls_ms_rank0=rows[0]["walls_ms"],
@@ -4828,7 +5322,13 @@ def hybrid_phase():
                                             for r in rows],
             max_abs_err={k: max(r[k] for r in rows) for k in (
                 "gemm_max_abs_err", "flash_max_abs_err",
-                "gemm_backward_max_abs_err", "flash_backward_max_abs_err")})
+                "gemm_backward_max_abs_err", "flash_backward_max_abs_err",
+                "ssd_max_abs_err", "ssd_backward_max_rel_err")})
+        if mcfg.family == "ssm":
+            summary["mamba2"] = dict(cell, yardstick=yard_metrics[tag],
+                                     update_rms_bound=rms_bounds[tag])
+        else:
+            summary["meshes"][tag] = cell
     print("hybrid " + json.dumps(summary), flush=True)
     return summary, total
 
@@ -5306,14 +5806,20 @@ def session_serve(cfg):
 
     # (b) restart under the same name
     ptrs = {k: v.data_ptr() for k, v in params.items()}
+    requested = lambda: torch.cuda.memory_stats()[  # noqa: E731
+        "requested_bytes.all.current"]
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before, before_req = torch.cuda.memory_allocated(), requested()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA],
             record_shapes=True) as prof:
         eng2, restart_ms = timed_serve(sess, plan, name="qwen2")
-    grown = torch.cuda.memory_allocated() - before
+    # the bytes the restart asked for; the allocator may hand a request a
+    # cached block up to 1 MiB larger than it (a large block's remainder
+    # of 1 MiB or less is not split off), which memory_allocated counts
+    grown = requested() - before_req
+    grown_blocks = torch.cuda.memory_allocated() - before
     cache_bytes = mem_mod.tree_bytes(eng2.cache)
     htod = [e for e in prof.events() if "Memcpy HtoD" in e.name]
     copies_ = weight_copies(prof, params)
@@ -5322,8 +5828,9 @@ def session_serve(cfg):
     hits = {op: stats[op].hits for op in ("serve_decode", "serve_prefill")}
     print(f"session restart: cold start {cold_ms:.1f} ms, restart "
           f"{restart_ms:.1f} ms; params' storages the same: {same_ptrs}; "
-          f"memory_allocated grew {grown} bytes for a {cache_bytes}-byte "
-          f"cache; {len(htod)} host-to-device copies, {len(copies_)} of a "
+          f"the requested bytes grew {grown} (memory_allocated "
+          f"{grown_blocks}) for a {cache_bytes}-byte cache; {len(htod)} "
+          f"host-to-device copies, {len(copies_)} of a "
           f"weight's shape; op-cache hits {hits}", flush=True)
     print(sess.describe(), flush=True)
     require(same_ptrs, "the restarted engine's params are other tensors")
@@ -5343,7 +5850,8 @@ def session_serve(cfg):
             "tokens differ")
     del eng, eng2
     out.update(cold_start_ms=cold_ms, restart_ms=restart_ms,
-               restart_allocated=grown, cache_bytes=cache_bytes,
+               restart_allocated=grown, restart_blocks=grown_blocks,
+               cache_bytes=cache_bytes,
                htod_copies=len(htod), op_cache_hits=hits)
 
     # (a) continuous, on the same params
@@ -5588,6 +6096,7 @@ ALONE = {"d256": lambda: print(json.dumps(
              check_flash_d256(get_config(GEMMA2B)))),
          "4c": serve_gemma3, "4d": serve_gemma2b, "6b": train_gemma2b,
          "6": lambda: train_phase(get_config(ARCH)),
+         "6c": lambda: (check_ssd_backward(), train_mamba2()),
          "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
          "12": session_phase}
 
@@ -5713,6 +6222,12 @@ def main() -> int:
     _, g2b_train_launches = train_gemma2b()
     print(f"phase 6b: {time.perf_counter() - t6b:.1f} s", flush=True)
 
+    # 6c. mamba2-780m trained on one rank at full width and depth
+    t6c = time.perf_counter()
+    rows.append(check_ssd_backward())
+    _, mamba_train_launches = train_mamba2()
+    print(f"phase 6c: {time.perf_counter() - t6c:.1f} s", flush=True)
+
     # 7. compressed data-parallel SGD at full width, two ranks on the card
     t7 = time.perf_counter()
     rows += [check_quantize_compress(cfg), check_matmul_dequant(cfg)]
@@ -5765,10 +6280,20 @@ def main() -> int:
         bwd = next(r for r in rows if r["name"] == "attention_backward")
         bwd["max_abs_err"] = max(bwd["max_abs_err"],
                                  errs["flash_backward_max_abs_err"])
+    errs = hybrid["mamba2"]["max_abs_err"]
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                 errs["gemm_max_abs_err"],
+                                 errs["gemm_backward_max_abs_err"])
+    rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"],
+                                 errs["ssd_max_abs_err"])
+    ssd_bwd = next(r for r in rows if r["name"] == "ssd_backward")
+    ssd_bwd["max_err_over_largest"] = max(ssd_bwd["max_err_over_largest"],
+                                          errs["ssd_backward_max_rel_err"])
     names = {"gemm": "matmul", "flash_attention": "attention",
              "flash_attention_d256": "attention",
              "paged_decode_attention": "paged_decode_attention",
-             "ssd": "ssd", "quantize_int8": "quantize_int8",
+             "ssd": "ssd", "ssd_backward": "ssd_backward",
+             "quantize_int8": "quantize_int8",
              "attention_backward": "attention_backward",
              "attention_backward_d256": "attention_backward",
              "quantize_compress": "quantize_compress",
@@ -5777,7 +6302,8 @@ def main() -> int:
                   "steps)")
     paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
              f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
-             train_path: train_launches, DP_PATH: dp_launches,
+             train_path: train_launches,
+             MAMBA_TRAIN_PATH: mamba_train_launches, DP_PATH: dp_launches,
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
              SCHED_PATH: sched_launches, **session_launches}
     # gemma-2b's attention is the head-dim-256 rows' alone

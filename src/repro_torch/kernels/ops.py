@@ -22,7 +22,7 @@ from . import ssd_scan as _ssd
 matmul = _gemm.matmul                  # differentiable: dA, dB on the kernel
 attention = _fa.attention              # differentiable: the backward kernel
 paged_decode_attention = _paged.paged_decode_attention
-ssd = _ssd.ssd
+ssd = _ssd.ssd                         # differentiable: the backward kernel
 ssd_step = _ref.ssd_step     # single-token decode: plain PyTorch everywhere
 quantize_int8 = _fused.quantize_int8
 quantize_compress = _fused.quantize_compress
@@ -37,6 +37,7 @@ _KERNELS = {"matmul": (_gemm, "launches"), "attention": (_fa, "launches"),
             "attention_backward": (_fa, "bwd_launches"),
             "paged_decode_attention": (_paged, "launches"),
             "ssd": (_ssd, "launches"),
+            "ssd_backward": (_ssd, "bwd_launches"),
             "quantize_int8": (_fused, "launches"),
             "quantize_compress": (_fused, "compress_launches"),
             "matmul_dequant": (_gemm, "dequant_launches")}

@@ -67,7 +67,7 @@ def paged_decode_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             "paged_decode_attention: the kernel has no backward; "
-            "only the dense family's train path is ported")
+            "decode is a serving step, which trains nothing")
     if (q.device.type != "cuda" and not fake) \
             or any(t.device != q.device for t in tensors):
         raise ValueError("paged_decode_attention: the kernel needs every "

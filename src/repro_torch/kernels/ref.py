@@ -297,3 +297,103 @@ def ssd_step(
     new_state = decay * state.float() + upd
     y = torch.einsum("bhpn,bhn->bhp", new_state, Cf)
     return y.to(x.dtype), new_state
+
+
+def ssd_backward_chunks(
+    x: torch.Tensor,               # (B, S, H, P)
+    dt: torch.Tensor,              # (B, S, H)
+    A: torch.Tensor,               # (H,)
+    Bm: torch.Tensor,              # (B, S, G, N)
+    C: torch.Tensor,               # (B, S, G, N)
+    dy: torch.Tensor,              # (B, S, H, P)
+    d_state: Optional[torch.Tensor] = None,      # (B, H, P, N)
+    *,
+    init_state: Optional[torch.Tensor] = None,   # (B, H, P, N)
+    chunk: int = 64,
+):
+    """The gradients of the chunked SSD scan in the backward kernel's
+    order of work (``csrc/ssd_scan_bwd.cu``; used by tests only), fp32:
+    ``(dx, ddt, dA, dB, dC, d_init)``, ``d_init`` None without an
+    initial state.  Per chunk of ``chunk`` steps and head, with ``a`` the
+    inclusive cumsum of dt A, ``u = dt x``, ``L_ij = exp(a_i - a_j)`` on
+    j <= i and ``H_c`` the state entering the chunk:
+
+    1. the outputs' backward, every chunk at once: dC, dB, du and da from
+       the diagonal block and the state term, and ``dH_c`` from y;
+    2. the states' backward, a reverse recurrence over the chunks from
+       ``d_state``: the gradient of each chunk's own state and of its
+       total decay, and ``d_init``;
+    3. the chunk states' backward, every chunk at once: du, dB and da;
+       then dt A's gradient as the reverse cumsum of da, ddt, dx, dA.
+
+    dB and dC are summed over each group's heads."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    f = lambda t: torch.nn.functional.pad(
+        t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+    xf = f(x).reshape(Bsz, nc, chunk, H, P)
+    dyf = f(dy).reshape(Bsz, nc, chunk, H, P)
+    dtf = f(dt).reshape(Bsz, nc, chunk, H)
+    Bf = f(Bm).repeat_interleave(rep, 2).reshape(Bsz, nc, chunk, H, N)
+    Cf = f(C).repeat_interleave(rep, 2).reshape(Bsz, nc, chunk, H, N)
+    Af = A.float()
+    a = torch.cumsum(dtf * Af, dim=2)                       # (B,nc,Q,H)
+    aQ = a[:, :, -1]                                        # (B,nc,H)
+    ea = torch.exp(a)
+    w = torch.exp(aQ[:, :, None] - a)
+    u = dtf[..., None] * xf
+    # the states entering each chunk, as the forward leaves them
+    own = torch.einsum("bcjhn,bcjhp->bchpn", Bf * w[..., None], u)
+    h = (torch.zeros((Bsz, H, P, N), device=x.device) if init_state is None
+         else init_state.float())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(aQ[:, c])[..., None, None] * h + own[:, c]
+    h_in = torch.stack(h_in, 1)                             # (B,nc,H,P,N)
+
+    # 1. the outputs' backward
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    diff = a[:, :, :, None, :] - a[:, :, None, :, :]        # (B,nc,i,j,H)
+    L = torch.exp(diff.masked_fill(~causal, float("-inf")))
+    s_cb = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * L
+    du_dy = torch.einsum("bcihp,bcjhp->bcijh", dyf, u)      # dy_i . u_j
+    s_du = du_dy * L
+    E = torch.einsum("bcihp,bchpn->bcihn", dyf, h_in)
+    dC = ea[..., None] * E + torch.einsum("bcijh,bcjhn->bcihn", s_du, Bf)
+    dB = torch.einsum("bcijh,bcihn->bcjhn", s_du, Cf)
+    du = torch.einsum("bcijh,bcihp->bcjhp", s_cb, dyf)
+    dH = torch.einsum("bcihp,bcihn->bchpn", dyf * ea[..., None], Cf)
+    M = s_cb * du_dy
+    da = M.sum(3) - M.sum(2) + ea * (Cf * E).sum(-1)
+
+    # 2. the states' backward, in reverse chunk order
+    g = (torch.zeros((Bsz, H, P, N), device=x.device) if d_state is None
+         else d_state.float())
+    dS, daQ = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        f_c = torch.exp(aQ[:, c])[..., None, None]
+        dS[c] = g
+        daQ[c] = (g * f_c * h_in[:, c]).sum((-2, -1))
+        g = dH[:, c] + f_c * g
+    dS, daQ = torch.stack(dS, 1), torch.stack(daQ, 1)       # daQ (B,nc,H)
+
+    # 3. the chunk states' backward
+    T = torch.einsum("bcjhn,bchpn->bcjhp", Bf, dS)
+    du = du + w[..., None] * T
+    dB = dB + w[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", u, dS)
+    r = w * (u * T).sum(-1)
+    da = da - r
+    da[:, :, -1] += daQ + r.sum(2)
+    ddtA = torch.flip(torch.cumsum(torch.flip(da, [2]), 2), [2])
+    ddt = ddtA * Af + (du * xf).sum(-1)
+    dx = du * dtf[..., None]
+    dA = (ddtA * dtf).sum((0, 1, 2))
+    grp = lambda t: t.reshape(Bsz, nc * chunk, G, rep, N).sum(3)[:, :S]
+    return (dx.reshape(Bsz, nc * chunk, H, P)[:, :S],
+            ddt.reshape(Bsz, nc * chunk, H)[:, :S], dA, grp(dB), grp(dC),
+            None if init_state is None else g)

@@ -140,6 +140,26 @@ def ssd_cost(B: int, S: int, H: int, P: int, G: int, N: int,
     return nbytes, flops
 
 
+def ssd_backward_cost(B: int, S: int, H: int, P: int, G: int, N: int,
+                      itemsize: int, init_state: bool, d_state: bool,
+                      chunk: int = 64) -> Tuple[float, float]:
+    """The SSD scan's backward: x, dy and dx, B, C, dB and dC in the
+    inputs' type, dt, ddt, A and dA, the fp32 final-state cotangent (when
+    given) and d init_state (with an initial state) read or written once;
+    per chunk of q steps the five products on the causal triangle (C Bᵀ,
+    dy uᵀ, dC's and dB's diagonal terms, du's) and the four over the
+    whole (P, N) state (dy H, dH, B dSᵀ, dB's state term)."""
+    nbytes = itemsize * (3 * B * S * H * P + 4 * B * S * G * N) \
+        + 4 * (2 * B * S * H + 2 * H
+               + B * H * P * N * (int(init_state) + int(d_state)))
+    flops = 0.0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        tri = q * (q + 1) // 2
+        flops += B * H * (2 * tri * (3 * N + 2 * P) + 8 * q * N * P)
+    return nbytes, flops
+
+
 def quantize_int8_cost(n: int) -> Tuple[float, float]:
     """fp32 x read, int8 q written: 5 bytes and 3 operations an element."""
     return 5.0 * n, 3.0 * n

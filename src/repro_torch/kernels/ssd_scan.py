@@ -1,4 +1,5 @@
-"""Mamba2 SSD chunked scan on the card (CUDA source: ``csrc/ssd_scan.cu``).
+"""Mamba2 SSD chunked scan on the card (CUDA sources: ``csrc/ssd_scan.cu``,
+the forward, and ``csrc/ssd_scan_bwd.cu``, its backward).
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan.py::ssd``
 (``_ssd_kernel``).  On the serve path every prefill runs it once per
@@ -18,6 +19,18 @@ runs (``repro/models/ssm.py::ssd_chunked``), not the Pallas kernel:
 - an initial state is an input of the kernel, where the reference's
   ``ops.ssd`` falls back to its sequential oracle whenever one is given;
 - the state comes back as (B, H, P, N), the model cache's layout.
+
+Under autograd the wrapper is differentiable on the card: the forward
+keeps its pass-2 scratch (the state entering each chunk and each chunk's
+total decay, ``B * ceil(S/64) * H * (P*N + 1)`` fp32, 25.2 MB at
+mamba2-780m's train shape) for the backward kernel, which recomputes
+neither the chunks' states nor the recurrence.  The reference's Pallas
+kernel has no backward (its model trains through ``ssd_chunked`` under
+JAX autodiff); the backward kernel replaces none, and its plain version is
+autograd through :func:`ssd_plain` (:func:`ssd_backward_plain`), which
+the CPU takes.  A ``FakeTensor`` (a dry trace) goes to the kernels' shape
+functions, which allocate what the kernels allocate and record their
+costs in ``roofline.DRY``.
 """
 
 from __future__ import annotations
@@ -26,17 +39,22 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from . import _build
+from . import _build, roofline
 
 launches = 0     # calls that launched the kernels since the last reset
                  # (ops.reset_launches); a call runs three device kernels
+bwd_launches = 0  # backward calls, four device kernels each
 
 MAX_STATE = 256  # N the kernel's shared memory holds (two 64 x N tiles)
+MAX_STATE_BWD = 128  # N the backward's outputs pass holds (eight tiles)
 CHUNK = 64       # the kernel's chunk (Q in csrc/ssd_scan.cu)
 KERNELS_PER_CALL = 3    # chunk states, the recurrence, chunk outputs
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
 
 
 def ssd_plain(
@@ -105,34 +123,15 @@ def ssd_plain(
     return y.to(x.dtype), h
 
 
-def ssd(
-    x: torch.Tensor,
-    dt: torch.Tensor,
-    A: torch.Tensor,
-    Bm: torch.Tensor,
-    C: torch.Tensor,
-    *,
-    chunk: int = 256,
-    init_state: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, H, P), final state (B, H, P, N) fp32).
-
-    CPU tensors take the plain version (:func:`ssd_plain`, chunked by
-    ``chunk``).  CUDA tensors launch the kernels, which cut chunks of
-    their own length, :data:`CHUNK` (``chunk`` is accepted for the
-    reference's signature; the result does not depend on it), and take
-    contiguous x, B and C all bf16 or all fp32, fp32 dt, A and
-    ``init_state``; anything else raises."""
-    global launches
+def _check(x, dt, A, Bm, C, init_state) -> None:
+    """What the kernels take: contiguous x, B and C all bf16 or all fp32,
+    fp32 dt, A and ``init_state``, one CUDA device (or fake tensors),
+    N <= :data:`MAX_STATE`."""
     tensors = [x, dt, A, Bm, C] + ([init_state] if init_state is not None
                                    else [])
-    if all(t.device.type == "cpu" for t in tensors):
-        return ssd_plain(x, dt, A, Bm, C, chunk=chunk, init_state=init_state)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssd: the kernel has no backward; "
-            "only the dense family's train path is ported")
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+    if not isinstance(x, FakeTensor) and (
+            x.device.type != "cuda"
+            or any(t.device != x.device for t in tensors)):
         raise ValueError("ssd: the kernel needs every tensor on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
     if x.dtype not in (torch.bfloat16, torch.float32) \
@@ -161,16 +160,30 @@ def ssd(
                          f"got N = {N}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd kernel takes contiguous tensors")
+
+
+def _forward(x, dt, A, Bm, C, init_state):
+    """(y, final state, scratch): the forward kernels' outputs and their
+    pass-2 scratch, the states entering each chunk and the chunks' total
+    decays (None where nothing was launched)."""
+    global launches
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if Bsz * H * P * N == 0:
-        return y, state.zero_()
+        return y, state.zero_(), None
     if S == 0:
         return y, (state.zero_() if init_state is None
-                   else state.copy_(init_state))
+                   else state.copy_(init_state)), None
     nc = -(-S // CHUNK)
     scratch = torch.empty(Bsz * nc * H * (P * N + 1), dtype=torch.float32,
                           device=x.device)
+    if isinstance(x, FakeTensor):          # a dry trace: no launch
+        roofline.DRY.record("ssd", roofline.ssd_cost(
+            Bsz, S, H, P, G, N, x.element_size(), init_state is not None,
+            CHUNK))
+        return y, state, scratch
     per16 = 16 // x.element_size()
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, Bm, C))
     vec_x = int(aligned and P % per16 == 0)
@@ -185,4 +198,139 @@ def ssd(
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ssd")
     launches += 1
-    return y, state
+    return y, state, scratch
+
+
+def _bwd_work_floats(Bsz: int, S: int, H: int, P: int, N: int) -> int:
+    """The backward's fp32 scratch (``csrc/ssd_scan_bwd.cu``): per chunk
+    and head the states' gradients (P*N), du (64 P), dB and dC per head
+    (64 N each), da (64), the state pass's partial sums (one per 256 of
+    P*N) and dA's partial sum."""
+    nc = -(-S // CHUNK)
+    return Bsz * nc * H * (P * N + CHUNK * (P + 2 * N + 1)
+                           + -(-(P * N) // 256) + 1)
+
+
+def ssd_backward(x, dt, A, Bm, C, dy, d_state, scratch, *,
+                 init_state: Optional[torch.Tensor] = None):
+    """(dx, ddt, dA, dB, dC, d_init) of the forward kernel's call on these
+    inputs, for the cotangents ``dy`` (x's shape) and ``d_state`` ((B, H,
+    P, N) or None, a zero), from the forward's ``scratch``
+    (:func:`_forward`), by the backward kernel: dx, dB and dC in their
+    inputs' types, ddt, dA and d_init fp32 (d_init None without an
+    initial state).  CUDA tensors only: the CPU differentiates
+    :func:`ssd_plain`."""
+    global bwd_launches
+    _check(x, dt, A, Bm, C, init_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if N > MAX_STATE_BWD:
+        raise ValueError(f"ssd backward kernel takes a state of at most "
+                         f"{MAX_STATE_BWD}, got N = {N}")
+    dy = (torch.zeros_like(x) if dy is None
+          else dy.to(x.dtype).contiguous())
+    if d_state is not None:
+        d_state = d_state.float().contiguous()
+        if tuple(d_state.shape) != (Bsz, H, P, N):
+            raise ValueError(f"ssd backward: d_state {tuple(d_state.shape)}")
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, C))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    d_init = None if init_state is None else torch.empty_like(init_state)
+    if scratch is None:       # nothing was launched: an empty call
+        for t in (dx, dB, dC, ddt, dA):
+            t.zero_()
+        if d_init is not None:
+            d_init.copy_(d_state) if d_state is not None else d_init.zero_()
+        return dx, ddt, dA, dB, dC, d_init
+    work = torch.empty(_bwd_work_floats(Bsz, S, H, P, N),
+                       dtype=torch.float32, device=x.device)
+    if isinstance(x, FakeTensor):          # a dry trace: no launch
+        roofline.DRY.record("ssd_backward", roofline.ssd_backward_cost(
+            Bsz, S, H, P, G, N, x.element_size(), init_state is not None,
+            d_state is not None, CHUNK))
+        return dx, ddt, dA, dB, dC, d_init
+    fn = _build.function("dmath_ssd_scan_bwd", _BWD_ARGTYPES)
+    rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if d_state is None else d_state.data_ptr(),
+            scratch.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(),
+            None if d_init is None else d_init.data_ptr(), work.data_ptr(),
+            Bsz, S, H, G, P, N, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "ssd_backward")
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC, d_init
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernels, keeping their pass-2 scratch; the backward
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, C, init_state):
+        y, state, scratch = _forward(x, dt, A, Bm, C, init_state)
+        ctx.save_for_backward(x, dt, A, Bm, C, init_state, scratch)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        x, dt, A, Bm, C, init_state, scratch = ctx.saved_tensors
+        return ssd_backward(x, dt, A, Bm, C, dy, d_state, scratch,
+                            init_state=init_state)
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    C: torch.Tensor,
+    *,
+    chunk: int = 256,
+    init_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, H, P), final state (B, H, P, N) fp32).
+
+    CPU tensors take the plain version (:func:`ssd_plain`, chunked by
+    ``chunk``), which autograd differentiates.  CUDA tensors launch the
+    kernels, which cut chunks of their own length, :data:`CHUNK`
+    (``chunk`` is accepted for the reference's signature; the result does
+    not depend on it), and take contiguous x, B and C all bf16 or all
+    fp32, fp32 dt, A and ``init_state``; anything else raises.  With
+    autograd recording, the backward kernel gives every input's gradient
+    (N <= :data:`MAX_STATE_BWD`)."""
+    tensors = [x, dt, A, Bm, C] + ([init_state] if init_state is not None
+                                   else [])
+    if all(t.device.type == "cpu" for t in tensors) \
+            and not isinstance(x, FakeTensor):
+        return ssd_plain(x, dt, A, Bm, C, chunk=chunk, init_state=init_state)
+    _check(x, dt, A, Bm, C, init_state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _SSD.apply(x, dt, A, Bm, C, init_state)
+    return _forward(x, dt, A, Bm, C, init_state)[:2]
+
+
+def ssd_backward_plain(x, dt, A, Bm, C, dy, d_state=None, *,
+                       init_state: Optional[torch.Tensor] = None):
+    """The backward kernel's plain version: autograd through
+    :func:`ssd_plain` on copies of the inputs, (dx, ddt, dA, dB, dC,
+    d_init) in the inputs' types (d_init None without an initial
+    state).  For tests and ``chip_smoke.py``; the card's path never runs
+    it."""
+    ins = [t.detach().clone().requires_grad_(True)
+           for t in (x, dt, A, Bm, C)
+           + ((init_state,) if init_state is not None else ())]
+    with torch.enable_grad():
+        y, state = ssd_plain(*ins[:5], init_state=(
+            ins[5] if init_state is not None else None))
+        outs, cots = [y], [dy.to(y.dtype)]
+        if d_state is not None:
+            outs.append(state)
+            cots.append(d_state.float())
+        grads = torch.autograd.grad(outs, ins, cots, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(ins, grads)]
+    return (*grads[:5], grads[5] if init_state is not None else None)

@@ -29,7 +29,7 @@ their shape functions, so the numbers are the same.
 
 Cells the port cannot run on a mesh print ``SKIP`` with their ROADMAP
 item, never as passes: every prefill/decode/long_decode cell (serving
-on a mesh, queue 1, item 13), mamba2 on a mesh (item 11).  ``--pp`` > 1
+on a mesh, queue 1, item 13).  ``--pp`` > 1
 (the pipeline, item 10), ``--hlo-out`` (no HLO here) and ``--comms
 auto`` are refused: both production meshes have model = 16, so ``auto``
 plans the gspmd path, the same as ``off``.
@@ -94,9 +94,9 @@ def skip_reason(arch: str, shape_name: str) -> Optional[str]:
     if SHAPES[shape_name].kind != "train":
         return ("serving on a mesh (the sequence-sharded KV cache) is "
                 "ROADMAP queue 1, item 13")
-    if get_config(arch).family != "dense":
-        return (f"the {get_config(arch).family} family on a mesh "
-                "(ssm.forward_shardmap) is ROADMAP queue 1, item 11")
+    if get_config(arch).family not in ("dense", "ssm"):
+        return (f"the {get_config(arch).family} family is ROADMAP queue 1, "
+                "item 11")
     return None
 
 

@@ -1,46 +1,70 @@
-"""The Mamba2 (SSD) mixer, ported from the reference's ``models/ssm.py``
-for one device: the full-sequence ``forward`` (prefill) and the
+"""The Mamba2 (SSD) mixer, ported from the reference's ``models/ssm.py``:
+the full-sequence ``forward`` (prefill and the one-rank train path), its
+counterpart on a ``(data, model)`` mesh (``forward_mesh``) and the
 single-token ``decode_step``.
 
 ``forward`` runs the chunked scan through :func:`repro_torch.kernels.ops.ssd`
-(the CUDA kernel on the card), where the reference model runs its jnp
-``ssd_chunked``; ``decode_step`` runs :func:`repro_torch.kernels.ops.ssd_step`,
-plain PyTorch on every device, as in the reference.  Every product goes
-through :func:`repro_torch.core.precision.einsum` (the GEMM kernel on the
-card) and returns fp32, so the convolutions, the scan and the gated norm
-run on fp32 activations, as the reference's do.  The sequence-parallel
-``forward_shardmap`` comes with the distributed slices.
+(the CUDA kernels on the card, forward and backward), where the reference
+model runs its jnp ``ssd_chunked``; ``decode_step`` runs
+:func:`repro_torch.kernels.ops.ssd_step`, plain PyTorch on every device,
+as in the reference.  Every product goes through
+:func:`repro_torch.core.precision.einsum` (the GEMM kernel on the card)
+and returns fp32, so the convolutions, the scan and the gated norm run on
+fp32 activations, as the reference's ``forward`` does.
+
+``forward_mesh`` runs this rank's heads (``H / model``) on its blocks of
+the params in the planner's layouts (:func:`ssm_specs`): under the
+sequence-parallel residual the reference's ``forward_shardmap`` (one bf16
+all-gather of the residual, bf16 convolutions and scan inputs, one fp32
+sum of squares over the model axis for the gated norm, the bf16
+reduce-scatter of the output), else its head-TP ``forward`` on the
+replicated residual (fp32 convolutions, the output's shares summed in
+fp32).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import precision
+from repro_torch.core.layout import Layout
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, plan_layout
 
 
-def ssm_specs(cfg) -> Dict[str, ParamSpec]:
+def ssm_specs(cfg, plan=None, mesh=None) -> Dict[str, ParamSpec]:
+    """The mixer's leaves; given a plan and a mesh, with the plan's
+    layouts (the reference's ``ssm_specs``)."""
     D, di = cfg.d_model, cfg.d_inner
     H, G, N, W = cfg.n_ssm_heads, cfg.ssm_groups, cfg.ssm_state, cfg.conv_width
     out_scale = 0.02 / max(1, 2 * cfg.n_layers) ** 0.5
+    lay = functools.partial(plan_layout, plan, mesh)
+    whole = (lambda n: None) if plan is None else Layout.replicated
     return {
-        "wx": ParamSpec((D, di)),
-        "wz": ParamSpec((D, di)),
-        "wbc": ParamSpec((D, 2 * G * N)),
-        "wdt": ParamSpec((D, H)),
-        "dt_bias": ParamSpec((H,), dtype=torch.float32, init="dt_bias"),
-        "A": ParamSpec((H,), dtype=torch.float32, init="ssm_a"),
-        "D_skip": ParamSpec((H,), dtype=torch.float32, init="ones"),
-        "conv_x": ParamSpec((W, di), scale=0.5 / W),
-        "conv_bc": ParamSpec((W, 2 * G * N), scale=0.5 / W),
-        "gate_norm": ParamSpec((di,), init="ones"),
-        "w_out": ParamSpec((di, D), init="scaled", scale=out_scale),
+        "wx": ParamSpec((D, di), layout=lay("ffn_in", (D, di))),
+        "wz": ParamSpec((D, di), layout=lay("ffn_in", (D, di))),
+        "wbc": ParamSpec((D, 2 * G * N),
+                         layout=lay("router", (D, 2 * G * N))),
+        "wdt": ParamSpec((D, H), layout=lay("router", (D, H))),
+        "dt_bias": ParamSpec((H,), dtype=torch.float32, init="dt_bias",
+                             layout=lay("head_vector", (H,))),
+        "A": ParamSpec((H,), dtype=torch.float32, init="ssm_a",
+                       layout=lay("head_vector", (H,))),
+        "D_skip": ParamSpec((H,), dtype=torch.float32, init="ones",
+                            layout=lay("head_vector", (H,))),
+        "conv_x": ParamSpec((W, di), scale=0.5 / W,
+                            layout=lay("conv1d", (W, di))),
+        "conv_bc": ParamSpec((W, 2 * G * N), scale=0.5 / W,
+                             layout=whole(2)),
+        "gate_norm": ParamSpec((di,), init="ones", layout=whole(1)),
+        "w_out": ParamSpec((di, D), init="scaled", scale=out_scale,
+                           layout=lay("ffn_out", (di, D))),
     }
 
 
@@ -112,6 +136,56 @@ def forward(
     out = _gated_out(y, xh, z, p, cfg, policy)
     return out.to(x.dtype), ((conv_new, state, bc_conv_new) if with_state
                              else None)
+
+
+def forward_mesh(x: torch.Tensor, p: dict, cfg, plan, mesh, *,
+                 policy=precision.MIXED) -> torch.Tensor:
+    """The mixer on this rank's block ``x`` of the residual (the plan's
+    hidden layout) and its blocks ``p`` of the params at their use
+    layouts: the columns of this rank's heads of ``wx``, ``wz``,
+    ``conv_x`` and ``w_out``'s rows, its heads' ``dt_bias``, ``A`` and
+    ``D_skip``, and the whole of ``wbc``, ``wdt``, ``conv_bc`` and
+    ``gate_norm``, of which it takes its heads' columns.  Returns the
+    output in ``x``'s layout and dtype.
+
+    Where the line shares a value that enters work split over it, the
+    split's entry sums the ranks' shares in the backward (``copy_ad``:
+    the replicated residual; the norm's sum of squares, whose psum every
+    rank then uses on its own columns)."""
+    tp = plan.tp_axis
+    n, r = mesh.shape[tp], mesh.coords[tp]
+    H, P = cfg.n_ssm_heads, cfg.ssm_head_dim
+    G, N, di = cfg.ssm_groups, cfg.ssm_state, cfg.d_inner
+    h_loc = H // n                 # the model refuses H % n on a mesh
+    cols = slice(r * h_loc * P, (r + 1) * h_loc * P)
+    sp = plan.seq_parallel_residual
+    # SP: the bf16 wire and bf16 convolutions of forward_shardmap
+    xg = (dist_mod.all_gather_ad(x, mesh, tp, 1) if sp
+          else dist_mod.copy_ad(x, mesh, tp))
+    xz, z, bc, dt = _project(
+        xg, dict(p, wdt=p["wdt"][:, r * h_loc:(r + 1) * h_loc]), policy)
+    act = xg.dtype if sp else xz.dtype
+    xz, _ = _causal_conv(xz.to(act), p["conv_x"].to(act))
+    xz = F.silu(xz)
+    bc, _ = _causal_conv(bc.to(act), p["conv_bc"].to(act))
+    bc = F.silu(bc)
+    b, s = xg.shape[0], xg.shape[1]
+    xh = xz.reshape(b, s, h_loc, P)
+    Bm = bc[..., :G * N].reshape(b, s, G, N).contiguous()
+    Cm = bc[..., G * N:].reshape(b, s, G, N).contiguous()
+    y, _ = ops.ssd(xh, dt.contiguous(), p["A"].float(), Bm, Cm)
+    y = y + xh * p["D_skip"].float()[:, None].to(y.dtype)
+    y = y.reshape(b, s, h_loc * P)
+    # the gated RMSNorm over the whole d_inner: one fp32 sum of squares
+    v = (y * F.silu(z.float()).to(y.dtype)).float()
+    ss = dist_mod.psum_ad(torch.sum(v * v, -1, keepdim=True), mesh, tp)
+    ss = precision.div_count(dist_mod.copy_ad(ss, mesh, tp), di)
+    v = (v * torch.rsqrt(ss + cfg.norm_eps)
+         * p["gate_norm"][cols].float()).to(y.dtype)
+    out = precision.einsum("bse,ed->bsd", v, p["w_out"], policy=policy)
+    if sp:
+        return dist_mod.psum_scatter_ad(out.to(x.dtype), mesh, tp, 1)
+    return dist_mod.psum_ad(out, mesh, tp).to(x.dtype)
 
 
 def decode_step(

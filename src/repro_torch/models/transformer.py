@@ -1,7 +1,8 @@
 """The decoder LM, ported from the reference's ``models/transformer.py``:
-the dense family's full-sequence forward and loss (the train path), its
-steps on the dense KV cache (the static engine's default) and on the
-paged cache, and the ssm family (mamba2) on its dense cache.
+the dense family's and the ssm family's (mamba2) full-sequence forward and
+loss (the train path), the dense family's steps on the dense KV cache
+(the static engine's default) and on the paged cache, and the ssm
+family's on its dense cache.
 
 The reference scans one jitted layer body over the stacked params; PyTorch
 runs eagerly, so here a Python loop walks the ``L`` layers.  The train
@@ -13,9 +14,10 @@ reference's default, recomputes each layer in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` around the scanned
 body); ``remat="group:G"`` checkpoints each group of G layers and each
 layer inside it (the reference's sqrt-L double remat), and runs without
-remat when G does not divide L, as the reference does.  Parameters are
-passed explicitly, as in the reference, so both packages' steps take the
-same arguments.  Caches are updated in place
+remat when G does not divide L, as the reference does (the ssm family
+remats under ``"full"`` only, as the reference's ssm branch).
+Parameters are passed explicitly, as in the reference, so both packages'
+steps take the same arguments.  Caches are updated in place
 (the reference's jitted steps donate them and return new ones); the steps
 still return them.
 
@@ -36,12 +38,12 @@ reference's train forward on them: the D-sharded embedding relayed onto
 the residual's layout, ``_dense_block``'s routing (head-TP or SP
 attention; the local MLP under ``ffn_replicated``, the bf16
 gather/reduce-scatter MLP under ``seq_parallel_residual``, the
-GSPMD-style MLP otherwise), FSDP leaves gathered at use, the
-vocab-parallel head and loss.  ``forward`` and ``loss_fn`` take the
-global batch and run this rank's rows (all of them when the batch
-cannot split over the data axes, the reference's ``_maybe_batch``).
-Serving on a mesh, and the ssm family on any mesh, raise: ROADMAP queue
-1, items 13 and 11.
+GSPMD-style MLP otherwise) or ``_ssm_block``'s (the mixer on this rank's
+heads, :func:`repro_torch.models.ssm.forward_mesh`), FSDP leaves gathered
+at use, the vocab-parallel head and loss.  ``forward`` and ``loss_fn``
+take the global batch and run this rank's rows (all of them when the
+batch cannot split over the data axes, the reference's ``_maybe_batch``).
+Serving on a mesh raises: ROADMAP queue 1, item 13.
 """
 
 from __future__ import annotations
@@ -95,10 +97,11 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense and ssm families are ported so "
                 "far (ROADMAP queue 1, item 11)")
-        if mesh is not None and cfg.family != "dense":
-            raise NotImplementedError(
-                f"{cfg.name} on a mesh: the ssm family's sharded forward "
-                "(ssm.forward_shardmap) is ROADMAP queue 1, item 11")
+        if mesh is not None and cfg.family == "ssm" \
+                and cfg.n_ssm_heads % mesh.shape.get("model", 1):
+            raise ValueError(
+                f"{cfg.name} on a mesh: its {cfg.n_ssm_heads} SSD heads do "
+                f"not split over model = {mesh.shape['model']}")
         self.mesh = mesh
         self.plan = (plan if plan is not None or mesh is None
                      else plan_for(cfg, mesh))
@@ -138,8 +141,9 @@ class Model(nn.Module):
         out_scale = 0.02 / max(1, 2 * L) ** 0.5
         lay = functools.partial(plan_layout, plan, mesh)
         layer = {
-            "ln1": ParamSpec((D,), init="ones"),
-            **{f"ssm.{k}": s for k, s in ssm.ssm_specs(cfg).items()},
+            "ln1": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
+            **{f"ssm.{k}": s for k, s in
+               ssm.ssm_specs(cfg, plan, mesh).items()},
         } if cfg.family == "ssm" else {
             "ln1": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
             "ln2": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
@@ -484,21 +488,44 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # full sequence and the dense cache
     # ------------------------------------------------------------------
-    def _mixer_stack(self, params: Params, tokens: torch.Tensor,
-                     with_state: bool, write_state):
-        """Embed -> L x mixer; each layer's state goes to
-        ``write_state(i, (conv, ssm, bc_conv))``.  Returns the residual
-        stream (B, S, D) in bf16."""
+    def _ssm_block(self, x, lp, with_state: bool = False,
+                   rows: Tuple[str, ...] = ()):
+        """One ssm layer of the full-sequence forward: ``(x, the mixer's
+        (conv, ssm, bc_conv) state or None)``; on a mesh (no state) the
+        mixer on this rank's heads, ``rows`` being the axes the batch
+        splits over."""
         cfg = self.cfg
-        x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
-        x = x.to(torch.bfloat16)
-        for i in range(cfg.n_layers):
-            lp = self._layer(params, i)
+        if self.mesh is not None:
+            lp = self._use_layer(lp, rows)
             h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            y, state = ssm.forward(h, lp["ssm"], cfg, policy=self.policy,
-                                   with_state=with_state)
-            x = x + y
-            write_state(i, state)
+            return x + ssm.forward_mesh(h, lp["ssm"], cfg, self.plan,
+                                        self.mesh, policy=self.policy), None
+        h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, state = ssm.forward(h, lp["ssm"], cfg, policy=self.policy,
+                               with_state=with_state)
+        return x + y, state
+
+    def _ssm_layer(self, x, lp, rows: Tuple[str, ...] = ()):
+        return self._ssm_block(x, lp, False, rows)[0]
+
+    def _mixer_stack(self, params: Params, tokens: torch.Tensor,
+                     write_state=None) -> torch.Tensor:
+        """Embed -> L x mixer, each layer checkpointed under
+        ``remat="full"`` while autograd records; given ``write_state``,
+        each layer's state goes to ``write_state(i, (conv, ssm,
+        bc_conv))``.  Returns the residual stream (B, S, D) in bf16."""
+        rows = self.row_axes(tokens.shape[0])
+        x = self._embed(params, tokens, rows)
+        remat = self.remat == "full" and torch.is_grad_enabled()
+        for i, lp in enumerate(self._unbind_layers(params)):
+            if write_state is not None:
+                x, state = self._ssm_block(x, lp, True, rows)
+                write_state(i, state)
+            elif remat:
+                x = checkpoint(self._ssm_layer, x, lp, rows,
+                               use_reentrant=False)
+            else:
+                x = self._ssm_layer(x, lp, rows)
         return x
 
     def forward(self, params: Params, tokens: torch.Tensor,
@@ -507,27 +534,18 @@ class Model(nn.Module):
         the stacked per-layer caches or None).  With ``with_cache`` the
         dense family returns ``(k, v)``, each (L, B, S, Hkv, hd) in bf16,
         and the ssm family ``(conv, ssm, bc_conv)``."""
-        if self.cfg.family == "dense":
-            if with_cache:
-                self._servable("forward with_cache")
-            kvs = []
-            x = self._dense_stack(
-                params, tokens,
-                (lambda i, kv: kvs.append(kv)) if with_cache else None)
-            caches = (tuple(torch.stack(t) for t in zip(*kvs))
-                      if with_cache else None)
-            return (self._head(params, x, last_only,
-                               self.row_axes(tokens.shape[0])),
-                    torch.zeros((), dtype=torch.float32, device=x.device),
-                    caches)
-        states = []
-        x = self._mixer_stack(params, tokens, with_cache,
-                              lambda i, state: states.append(state))
-        if last_only:
-            x = x[:, -1:, :]
-        caches = (tuple(torch.stack(s) for s in zip(*states))
+        if with_cache:
+            self._servable("forward with_cache")
+        layer_caches = []
+        stack = (self._dense_stack if self.cfg.family == "dense"
+                 else self._mixer_stack)
+        x = stack(params, tokens,
+                  (lambda i, c: layer_caches.append(c)) if with_cache
+                  else None)
+        caches = (tuple(torch.stack(t) for t in zip(*layer_caches))
                   if with_cache else None)
-        return (self._head(params, x),
+        return (self._head(params, x, last_only,
+                           self.row_axes(tokens.shape[0])),
                 torch.zeros((), dtype=torch.float32, device=x.device),
                 caches)
 
@@ -642,7 +660,7 @@ class Model(nn.Module):
             for name, val in zip(("conv", "ssm", "bc_conv"), state):
                 cache[name][i, slot].copy_(val[0])
 
-        x = self._mixer_stack(params, tokens, True, write)
+        x = self._mixer_stack(params, tokens, write)
         return self._head(params, x[:, -1:] if last_only else x), cache
 
     def _ring_positions(self, S: int, device) -> torch.Tensor:

@@ -12,8 +12,10 @@ process group of torch's ``fake`` backend.  Held here:
 - a scaled-down qwen2 ``train_4k`` dry-runs on the 16x16 production mesh
   with a nonzero traced peak and the JSON keys of the reference's
   artifact;
-- serve and mamba2 cells print ``SKIP`` naming ROADMAP items 13 and 11,
-  and ``Session.dryrun`` refuses a serve plan naming item 13;
+- mamba2-780m's ``train_4k`` passes on both production meshes (the
+  mixer on each rank's SSD heads, the SSD kernels' shape functions);
+- serve cells, mamba2's among them, print ``SKIP`` naming ROADMAP item
+  13, and ``Session.dryrun`` refuses a serve plan naming item 13;
   ``--pp 2``, ``--hlo-out`` and ``--comms auto`` are refused;
 - a trace leaves ``WIRE``'s counts from before it as they were.
 
@@ -163,8 +165,7 @@ def test_a_scaled_qwen2_train_4k_dry_runs_on_the_16x16_mesh():
 def test_serve_and_mamba2_cells_skip_naming_their_items(tmp_path, capsys):
     for arch, shape, item in (("qwen2-0.5b", "decode_32k", "item 13"),
                               ("gemma3-27b", "prefill_32k", "item 13"),
-                              ("mamba2-780m", "long_500k", "item 13"),
-                              ("mamba2-780m", "train_4k", "item 11")):
+                              ("mamba2-780m", "long_500k", "item 13")):
         dryrun.main(["--arch", arch, "--shape", shape, "--out",
                      str(tmp_path), "--both-meshes"])
         out = capsys.readouterr().out.splitlines()
@@ -173,6 +174,27 @@ def test_serve_and_mamba2_cells_skip_naming_their_items(tmp_path, capsys):
         assert all(item in ln for ln in out[:2])
         assert out[-1] == "ALL DRY-RUN CELLS PASSED"
     assert not list(tmp_path.iterdir())
+
+
+def test_mamba2_train_4k_passes_on_both_production_meshes(tmp_path, capsys):
+    """mamba2-780m's ``train_4k`` at full width and depth on 16 x 16 and
+    2 x 16 x 16 (3 SSD heads a rank): the mixer's collectives traced, the
+    SSD forward and backward kernels' shape functions called once per
+    layer and per recompute, a result written for each mesh."""
+    dryrun.main(["--arch", "mamba2-780m", "--shape", "train_4k", "--out",
+                 str(tmp_path), "--both-meshes"])
+    out = capsys.readouterr().out.splitlines()
+    assert not any(ln.startswith("SKIP") for ln in out)
+    assert out[-1] == "ALL DRY-RUN CELLS PASSED"
+    files = sorted(f.name for f in tmp_path.iterdir())
+    assert files == ["mamba2-780m_train_4k_16x16.json",
+                     "mamba2-780m_train_4k_2x16x16.json"]
+    for name in files:
+        res = json.loads((tmp_path / name).read_text())
+        assert res["plan"]["attn_mode"] == "none"
+        assert res["plan"]["seq_parallel_residual"] is True
+        assert {"all_gather", "all_to_all"} <= set(res["collectives"])
+        assert res["memory"]["peak_bytes"] > res["memory"]["state_bytes"] > 0
 
 
 @pytest.mark.parametrize("argv,why", [

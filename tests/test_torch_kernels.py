@@ -1055,11 +1055,14 @@ def test_build_digest_follows_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["hopper.cuh"]
+    assert [h.name for h in headers] == ["hopper.cuh", "ssd_scan.cuh"]
     before = _build.source_digest(csrc)
     assert _build.source_digest(csrc) == before == _build.source_digest()
-    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
-    assert _build.source_digest(csrc) != before
+    for h in headers:
+        h.write_bytes(h.read_bytes() + b"\n")
+        after = _build.source_digest(csrc)
+        assert after != before
+        before = after
 
 
 def test_profiler_families_match_kernel_names():
