@@ -160,7 +160,9 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    cotangent, each within its dtype's SSD_TOL of its largest magnitude;
    two more runs bitwise; once through the autograd wrapper (one forward
    and one backward launch); the train shape timed beside its bound, the
-   plain version and the forward.  Then mamba2-780m trained on one rank
+   plain version and the forward, and its device µs by pass, which sum to
+   within 10% of its timed ms where ``within_10pct_of_ms`` says so (a
+   reading, not a gate).  Then mamba2-780m trained on one rank
    at full width and depth (48 layers) through ``Session``
    (``comms="off"``, ``remat="full"``, AdamW at its peak rate from step
    1, 2 x 512 tokens of ``SyntheticLM(structured=True)``): three steps,
@@ -440,6 +442,81 @@ def cuda_ms(calls, iters: int, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end) / iters)
     del graph
     return statistics.median(times)
+
+
+# each multi-kernel call's kernels in launch order, for pass_us
+ATTN_BWD_PASSES = ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq",
+                   "attn_bwd_sum")
+PAGED_PASSES = ("paged_split", "paged_combine")
+SSD_PASSES = ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out")
+
+
+def pass_us(calls, iters: int, passes, sessions: int = 3) -> dict:
+    """A multi-kernel call's device µs by pass: ``iters`` eager calls,
+    rotating over ``calls``, recorded by the profiler after a warm-up
+    cycle of as many (the profiler's ``schedule``: late in a whole run of
+    this script a session's first calls go unrecorded, and a short
+    session can record none).  ``passes`` names each kernel of a call, in
+    launch order, by a piece of its name; a call is a run of kernels that
+    match them in order, and only whole calls count (``calls``), so a
+    call of which the profiler dropped a kernel is left out, not read
+    short.  A session that records no whole call is made again, up to
+    ``sessions`` in all (``sessions``: the one read).  Each pass is
+    charged from the end of the pass before it (or its own start, if
+    later) to its own end, so a programmatic dependent, which opens while
+    the pass before it runs and waits, is not counted twice, and a call's
+    passes sum to its span on the device less the host's gaps;
+    ``between`` is the mean gap from one call's end to the next one's
+    start."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for session in range(1, sessions + 1):
+        kern = []
+
+        def ready(prof):
+            kern.extend((e.time_range.start, e.time_range.end, e.name)
+                        for e in prof.events()
+                        if "CUDA" in str(e.device_type)
+                        and any(p in e.name for p in passes))
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):           # the warm-up cycle, then the read
+                for i in range(iters):
+                    calls[i % len(calls)]()
+                torch.cuda.synchronize()
+                prof.step()
+        kern.sort()
+        out = {p: 0.0 for p in passes}
+        out["between"], prev_end, n, k = 0.0, None, 0, 0
+        while k + len(passes) <= len(kern):
+            call = kern[k:k + len(passes)]
+            if not all(p in c[2] for p, c in zip(passes, call)):
+                k += 1
+                continue
+            if prev_end is not None:
+                out["between"] += max(0.0, call[0][0] - prev_end)
+            end = call[0][0]
+            for p, (t0, t1, _) in zip(passes, call):
+                out[p] += t1 - max(t0, end)
+                end = max(end, t1)
+            prev_end, n, k = end, n + 1, k + len(passes)
+        if n:
+            out = {k: v / n for k, v in out.items()}
+            out["between"] = out["between"] * n / max(n - 1, 1)
+            out.update(calls=n, sessions=session)
+            return out
+    return dict(calls=0, sessions=sessions,
+                note="not measured: the profiler recorded no whole call")
+
+
+def us_text(us: dict) -> str:
+    """:func:`pass_us`'s reading as one line."""
+    if not us["calls"]:
+        return us["note"]
+    return (", ".join(f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in us.items()
+                      if k not in ("calls", "sessions"))
+            + f" (µs, {us['calls']} whole calls, session {us['sessions']})")
 
 
 def copies(nbytes: float) -> int:
@@ -885,14 +962,15 @@ def check_flash_d256(cfg):
                     *ls, is_causal=True, enable_gqa=True)
                 return torch.autograd.grad(o, ls, do)
             lib = event_ms(sdpa, iters=10, warmup=2)
-            split = kernel_us(lambda: fa_mod.attention_backward(
-                *sets[0][:3], outs[0][0], sets[0][3], outs[0][1]))
+            split = pass_us([lambda s=s, o=o: fa_mod.attention_backward(
+                *s[:3], o[0], s[3], o[1]) for s, o in zip(sets, outs)],
+                max(10, 2 * n), ATTN_BWD_PASSES)
             bms, by = bound(*roofline.attention_backward_cost(
                 q.shape, k.shape, pairs))
             print(f"attention backward D=256 train | {ms:.4f} ms | bound "
                   f"{bms:.4f} ({by}) | plain {plain:.4f} | sdpa backward "
-                  f"{lib:.4f} | forward with lse {fwd:.4f}; kernels µs: "
-                  + ", ".join(f"{k_} {v_:.2f}" for k_, v_ in split.items()))
+                  f"{lib:.4f} | forward with lse {fwd:.4f}; µs by pass: "
+                  + us_text(split))
             bwd_row = dict(ms=ms, plain_ms=plain, library_ms=lib,
                            bound_ms=bms, bound_by=by,
                            forward_with_lse_ms=fwd, kernels_us=split,
@@ -1033,8 +1111,9 @@ def check_paged(cfg):
                     for d in dense], iters=max(20, 2 * n))
     del dense
     bms, by = bound(nbytes, flops)
-    us = kernel_us(lambda: paged_mod.paged_decode_attention(q, *pools[0],
-                                                            *args), calls=20)
+    us = pass_us([lambda p=p: paged_mod.paged_decode_attention(q, *p, *args)
+                  for p in pools], max(20, 2 * n),
+                 PAGED_PASSES)
     grid_cases, grid_err = check_paged_grid()
     bits = check_paged_bits(q, pools[0], table, seq_lens)
     print(f"paged: B={SLOTS} seq_lens={lens.tolist()} | {ms:.4f} ms "
@@ -1042,7 +1121,7 @@ def check_paged(cfg):
           f"({by}) | plain {plain:.4f} ms | gathered SDPA {sdpa:.4f} ms | "
           f"{err:.3g}; {grid_cases} head-dim x group cases at lengths 1, "
           f"KS-1, KS, KS+1, full (max abs err {grid_err:.3g}); bitwise "
-          f"{bits}; profiled µs per call by kernel {us}", flush=True)
+          f"{bits}; profiled µs per call by pass: {us_text(us)}", flush=True)
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:71",
@@ -1135,8 +1214,10 @@ def check_ssd():
             print(f"ssd {label:22s} | {ms:.4f} | {bms:.5f} ({by}) | {tc} | "
                   f"{plain:.4f} | {e[0]:.3g}, {e[1]:.3g} ({tol:g})")
             if label == "fp32 S=512":    # what the serve path gives it
-                us = kernel_us(lambda: ssd_mod.ssd(**sets[0]), calls=20)
-                print(f"ssd {label}: profiled µs per call by kernel {us}")
+                us = pass_us([lambda s=s: ssd_mod.ssd(**s) for s in sets],
+                             max(20, 2 * n), SSD_PASSES)
+                print(f"ssd {label}: profiled µs per call by pass: "
+                      f"{us_text(us)}")
                 row = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                            device_us=us,
                            tensor_core_bound_ms=bound(nbytes, flops,
@@ -1171,6 +1252,7 @@ def check_ssd():
 # that gradient (the same math in another order; bf16 dx, dB and dC
 # stored in bf16, the bf16 path's products in one TF32 rounding).
 SSD_BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "d_init")
+SSD_BWD_PASSES = ("ssd_bwd_state", "ssd_bwd_chunk", "ssd_bwd_sum")
 
 
 def ssd_bwd_close(label, got, want, tol):
@@ -1272,16 +1354,20 @@ def check_ssd_backward():
                       iters=max(10, 2 * n))
         plain = event_ms(lambda: ssd_mod.ssd_backward_plain(
             **inp, dy=dy, d_state=d_state), iters=3)
-        us = kernel_us(lambda: ssd_mod.ssd_backward(
-            sets[0][0]["x"], sets[0][0]["dt"], sets[0][0]["A"],
-            sets[0][0]["Bm"], sets[0][0]["C"], sets[0][1], None,
-            sets[0][2]))
+        us = pass_us([lambda s=s: ssd_mod.ssd_backward(
+            s[0]["x"], s[0]["dt"], s[0]["A"], s[0]["Bm"], s[0]["C"], s[1],
+            None, s[2]) for s in sets], max(10, 2 * n), SSD_BWD_PASSES)
+        summed = sum(us.get(k, 0.0) for k in SSD_BWD_PASSES)
+        us["within_10pct_of_ms"] = bool(us["calls"]) and bool(
+            abs(summed / 1e3 - ms) <= 0.1 * ms)
         times[label] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
                             bound_by=by, tensor_core_bound_ms=tcb,
                             forward_ms=fwd, device_us=us)
         print(f"ssd backward {label:24s} | {ms:.4f} | {bms:.5f} ({by}) | "
               f"{tcb:.5f} | {plain:.4f} | {fwd:.4f} | {es} ({tol:g})")
-        print(f"ssd backward {label}: profiled µs per call by kernel {us}")
+        print(f"ssd backward {label}: profiled µs per call by pass (the "
+              f"timed calls, eager: the passes sum to {summed:.1f} µs "
+              f"against {1e3 * ms:.1f} timed) {us_text(us)}")
         if label == "bf16 train 2x512":
             row = dict(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                        device_us=us, tensor_core_bound_ms=tcb,
@@ -1311,7 +1397,8 @@ def check_ssd_backward():
                 note="no TPU kernel: the reference trains through "
                      "ssd_chunked's autodiff",
                 max_abs_err=max(errs), max_err_over_largest=max(rels),
-                library_ms=None, kernels_per_call=4,
+                library_ms=None,
+                kernels_per_call=ssd_mod.KERNELS_PER_BWD_CALL,
                 cases_checked=len(cases),
                 run_to_run_bitwise=2, timed_cases=times, **row)
 
@@ -2838,20 +2925,6 @@ def profile_calls(fn, calls: int):
     return prof
 
 
-def kernel_us(fn, calls: int = 10):
-    """Device µs per call of ``fn`` in each kernel it launches, by the
-    kernel's name (the profiler's sums over ``calls`` eager calls)."""
-    prof = profile_calls(fn, calls)
-    out = {}
-    for e in prof.key_averages():
-        name = re.search(r"(\w+)_kernel\b", e.key)
-        if "CUDA" in str(e.device_type) and name \
-                and e.self_device_time_total > 0:
-            out[name.group(1)] = (out.get(name.group(1), 0.0)
-                                  + e.self_device_time_total / calls)
-    return out
-
-
 def check_attention_backward(cfg):
     """The backward kernel against autograd through the plain attention
     at the train shape and at small ragged, window and softcap shapes,
@@ -2908,10 +2981,11 @@ def check_attention_backward(cfg):
                 *ls, is_causal=True, enable_gqa=True)
             return torch.autograd.grad(o, ls, do)
         lib = event_ms(sdpa, iters=10, warmup=2)
-        split = kernel_us(lambda: fa_mod.attention_backward(
-            *sets[0][:3], outs[0][0], sets[0][3], outs[0][1]))
-        print("attention backward kernels, device µs per call: "
-              + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+        split = pass_us([lambda s=s, o=o: fa_mod.attention_backward(
+            *s[:3], o[0], s[3], o[1]) for s, o in zip(sets, outs)],
+            max(10, 2 * n), ATTN_BWD_PASSES)
+        print("attention backward, device µs per call by pass: "
+              + us_text(split))
         pairs = S * (S + 1) // 2
         # recompute QK^T and dP (2 products), dV, dK, dQ (3): 5 products
         bms, by = bound(*roofline.attention_backward_cost(q.shape, k.shape,

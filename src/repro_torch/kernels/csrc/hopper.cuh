@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels: shared-memory
-// addresses, mbarriers, TMA and cp.async copies, wgmma descriptors of
-// 128-byte-swizzled tiles, wgmma products with B from shared memory and A
-// from shared memory or from registers, and the warp-level mma.sync and
-// ldmatrix of the small-tile kernels (paged decode, the SSD scan).
+// addresses, mbarriers, TMA (tiled and bulk) and cp.async copies, wgmma
+// descriptors of 128-byte-swizzled tiles, wgmma products with B from shared
+// memory and A from shared memory or from registers (bf16, and tf32 with A
+// from registers), and the warp-level mma.sync and ldmatrix of the
+// small-tile kernels (paged decode, the SSD scan's forward).
 //
 // A tile here is 64 rows of 64 bf16 (128 bytes a row), 128-byte swizzled,
 // 8 KB, 1024-byte aligned; a wider row is cut into such boxes placed 8 KB
@@ -82,6 +83,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory by the TMA engine, completing on ``bar`` as transaction
+// bytes: no tensor map, one instruction from one thread.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -301,6 +314,68 @@ __device__ __forceinline__ void fence_u32(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+// ---- wgmma m64nNk8 with A from registers, tf32 x tf32 -> fp32 ---------------
+// d (N/2 fp32 per thread) = A (64 x 8: four tf32 values per thread, the
+// m16n8k8 A fragment of the thread's warp, rows 16 (warp % 4) ..) * B
+// (8 x N, descriptor db of a K-major tile: tf32 has no transposed form)
+// (+ d when acc != 0).  A tf32 operand is an fp32 bit pattern whose low
+// 13 mantissa bits the tensor cores ignore.  Keep ``a`` live (fence_u32)
+// until the wait, as for wgmma_rs.
+
+__device__ __forceinline__ void wgmma_tf32_n16(float* d, const uint32_t* a,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},\n"
+      " {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15},\n"
+      " {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a,
+                                               uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31},\n"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
+                                           uint64_t db, int acc) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_tf32: N 16, 32, 64");
+  if constexpr (N == 16) wgmma_tf32_n16(d, a, db, acc);
+  else if constexpr (N == 32) wgmma_tf32_n32(d, a, db, acc);
+  else wgmma_tf32_n64(d, a, db, acc);
+}
+
 // Two fp32 values as one register of two bf16 (round to nearest even),
 // ``lo`` in the low half: one pair of an A fragment.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -386,6 +461,28 @@ cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link against
+// the driver library); null where the driver lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
 }
 
 // The card's streaming multiprocessors (looked up once), for grids of one

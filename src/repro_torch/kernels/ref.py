@@ -318,15 +318,14 @@ def ssd_backward_chunks(
     inclusive cumsum of dt A, ``u = dt x``, ``L_ij = exp(a_i - a_j)`` on
     j <= i and ``H_c`` the state entering the chunk:
 
-    1. the outputs' backward, every chunk at once: dC, dB, du and da from
-       the diagonal block and the state term, and ``dH_c`` from y;
-    2. the states' backward, a reverse recurrence over the chunks from
-       ``d_state``: the gradient of each chunk's own state and of its
-       total decay, and ``d_init``;
-    3. the chunk states' backward, every chunk at once: du, dB and da;
-       then dt A's gradient as the reverse cumsum of da, ddt, dx, dA.
-
-    dB and dC are summed over each group's heads."""
+    1. the states' backward, a reverse recurrence over the chunks from
+       ``d_state``: each chunk's ``dH_c`` from y, then the gradient of
+       each chunk's own state and of its total decay, and ``d_init``;
+    2. the chunks' backward, every chunk at once, from those gradients:
+       da's diagonal and state terms, dC and dB (both terms each), du
+       (both terms) and da's share of the chunk's own state; then dt A's
+       gradient as the reverse cumsum of da, ddt, dx and dA;
+    3. dB and dC summed over each group's heads."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
@@ -355,23 +354,8 @@ def ssd_backward_chunks(
         h = torch.exp(aQ[:, c])[..., None, None] * h + own[:, c]
     h_in = torch.stack(h_in, 1)                             # (B,nc,H,P,N)
 
-    # 1. the outputs' backward
-    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
-                                   device=x.device))[None, None, :, :, None]
-    diff = a[:, :, :, None, :] - a[:, :, None, :, :]        # (B,nc,i,j,H)
-    L = torch.exp(diff.masked_fill(~causal, float("-inf")))
-    s_cb = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * L
-    du_dy = torch.einsum("bcihp,bcjhp->bcijh", dyf, u)      # dy_i . u_j
-    s_du = du_dy * L
-    E = torch.einsum("bcihp,bchpn->bcihn", dyf, h_in)
-    dC = ea[..., None] * E + torch.einsum("bcijh,bcjhn->bcihn", s_du, Bf)
-    dB = torch.einsum("bcijh,bcihn->bcjhn", s_du, Cf)
-    du = torch.einsum("bcijh,bcihp->bcjhp", s_cb, dyf)
+    # 1. the states' backward, in reverse chunk order
     dH = torch.einsum("bcihp,bcihn->bchpn", dyf * ea[..., None], Cf)
-    M = s_cb * du_dy
-    da = M.sum(3) - M.sum(2) + ea * (Cf * E).sum(-1)
-
-    # 2. the states' backward, in reverse chunk order
     g = (torch.zeros((Bsz, H, P, N), device=x.device) if d_state is None
          else d_state.float())
     dS, daQ = [None] * nc, [None] * nc
@@ -382,10 +366,22 @@ def ssd_backward_chunks(
         g = dH[:, c] + f_c * g
     dS, daQ = torch.stack(dS, 1), torch.stack(daQ, 1)       # daQ (B,nc,H)
 
-    # 3. the chunk states' backward
+    # 2. the chunks' backward
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))[None, None, :, :, None]
+    diff = a[:, :, :, None, :] - a[:, :, None, :, :]        # (B,nc,i,j,H)
+    L = torch.exp(diff.masked_fill(~causal, float("-inf")))
+    s_cb = torch.einsum("bcihn,bcjhn->bcijh", Cf, Bf) * L
+    du_dy = torch.einsum("bcihp,bcjhp->bcijh", dyf, u)      # dy_i . u_j
+    s_du = du_dy * L
+    E = torch.einsum("bcihp,bchpn->bcihn", dyf, h_in)
+    M = s_cb * du_dy
+    da = M.sum(3) - M.sum(2) + ea * (Cf * E).sum(-1)
+    dC = ea[..., None] * E + torch.einsum("bcijh,bcjhn->bcihn", s_du, Bf)
+    dB = torch.einsum("bcijh,bcihn->bcjhn", s_du, Cf) \
+        + w[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", u, dS)
     T = torch.einsum("bcjhn,bchpn->bcjhp", Bf, dS)
-    du = du + w[..., None] * T
-    dB = dB + w[..., None] * torch.einsum("bcjhp,bchpn->bcjhn", u, dS)
+    du = w[..., None] * T + torch.einsum("bcijh,bcihp->bcjhp", s_cb, dyf)
     r = w * (u * T).sum(-1)
     da = da - r
     da[:, :, -1] += daQ + r.sum(2)

@@ -24,7 +24,10 @@ Under autograd the wrapper is differentiable on the card: the forward
 keeps its pass-2 scratch (the state entering each chunk and each chunk's
 total decay, ``B * ceil(S/64) * H * (P*N + 1)`` fp32, 25.2 MB at
 mamba2-780m's train shape) for the backward kernel, which recomputes
-neither the chunks' states nor the recurrence.  The reference's Pallas
+neither the chunks' states nor the recurrence.  The backward runs
+:data:`KERNELS_PER_BWD_CALL` device kernels: the states' gradients in
+reverse chunk order, one fused pass over every chunk and slice of heads,
+and the ordered sums of the slices' dB and dC.  The reference's Pallas
 kernel has no backward (its model trains through ``ssd_chunked`` under
 JAX autodiff); the backward kernel replaces none, and its plain version is
 autograd through :func:`ssd_plain` (:func:`ssd_backward_plain`), which
@@ -44,16 +47,21 @@ from torch._subclasses.fake_tensor import FakeTensor
 from . import _build, roofline
 
 launches = 0     # calls that launched the kernels since the last reset
-                 # (ops.reset_launches); a call runs three device kernels
-bwd_launches = 0  # backward calls, four device kernels each
+                 # (ops.reset_launches); KERNELS_PER_CALL device kernels each
+bwd_launches = 0  # backward calls, KERNELS_PER_BWD_CALL device kernels each
 
 MAX_STATE = 256  # N the kernel's shared memory holds (two 64 x N tiles)
-MAX_STATE_BWD = 128  # N the backward's outputs pass holds (eight tiles)
+MAX_STATE_BWD = 128  # N the backward's chunk pass holds (C and B whole)
+MAX_HEAD_BWD = 512   # P whose state-pass partial sums the chunk pass holds
 CHUNK = 64       # the kernel's chunk (Q in csrc/ssd_scan.cu)
 KERNELS_PER_CALL = 3    # chunk states, the recurrence, chunk outputs
+KERNELS_PER_BWD_CALL = 3  # states' gradients, the fused chunk pass, sums
+BWD_HEADS = 3    # heads per block of the backward's chunk pass (a slice),
+                 # fixed, not sized to the SM count: phase 10's moment gate
+                 # sits near its bound (ROADMAP.md queue 3)
 
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 8
                  + [ctypes.c_void_p])
 
 
@@ -201,14 +209,28 @@ def _forward(x, dt, A, Bm, C, init_state):
     return y, state, scratch
 
 
-def _bwd_work_floats(Bsz: int, S: int, H: int, P: int, N: int) -> int:
+def _bwd_slices(H: int, G: int) -> int:
+    """Slices of each group's heads in the backward's chunk pass (``csrc/
+    ssd_scan_bwd.cu``), :data:`BWD_HEADS` heads each, the last taking what
+    is left.  A slice's dB and dC are summed over its heads in head order,
+    then the slices in order, so the sums follow the heads' indices alone:
+    a call on the first half of the heads (a mesh rank's) gives bitwise
+    the whole call's partial sum of that half.  At mamba2-780m's 2 x 512
+    and 48 heads that is 256 blocks of one an SM, two waves of an H100's
+    132 SMs; at a (2, 2) mesh rank's 24 heads, one wave."""
+    return -(-(H // G) // BWD_HEADS)
+
+
+def _bwd_work_floats(Bsz: int, S: int, H: int, G: int, P: int,
+                     N: int) -> int:
     """The backward's fp32 scratch (``csrc/ssd_scan_bwd.cu``): per chunk
-    and head the states' gradients (P*N), du (64 P), dB and dC per head
-    (64 N each), da (64), the state pass's partial sums (one per 256 of
-    P*N) and dA's partial sum."""
+    and head the states' gradients dS (P*N), the state pass's partial
+    sums of the total decays' gradients (8 per 64 of P) and dA's partial
+    sum; per slice of heads its sums of dB and dC (64 N a chunk and
+    group each)."""
     nc = -(-S // CHUNK)
-    return Bsz * nc * H * (P * N + CHUNK * (P + 2 * N + 1)
-                           + -(-(P * N) // 256) + 1)
+    return Bsz * nc * H * (P * N + 8 * -(-P // 64) + 1) \
+        + 2 * _bwd_slices(H, G) * Bsz * nc * CHUNK * G * N
 
 
 def ssd_backward(x, dt, A, Bm, C, dy, d_state, scratch, *,
@@ -224,9 +246,10 @@ def ssd_backward(x, dt, A, Bm, C, dy, d_state, scratch, *,
     _check(x, dt, A, Bm, C, init_state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    if N > MAX_STATE_BWD:
+    if N > MAX_STATE_BWD or P > MAX_HEAD_BWD:
         raise ValueError(f"ssd backward kernel takes a state of at most "
-                         f"{MAX_STATE_BWD}, got N = {N}")
+                         f"{MAX_STATE_BWD} and heads of at most "
+                         f"{MAX_HEAD_BWD}, got N = {N}, P = {P}")
     dy = (torch.zeros_like(x) if dy is None
           else dy.to(x.dtype).contiguous())
     if d_state is not None:
@@ -243,7 +266,7 @@ def ssd_backward(x, dt, A, Bm, C, dy, d_state, scratch, *,
         if d_init is not None:
             d_init.copy_(d_state) if d_state is not None else d_init.zero_()
         return dx, ddt, dA, dB, dC, d_init
-    work = torch.empty(_bwd_work_floats(Bsz, S, H, P, N),
+    work = torch.empty(_bwd_work_floats(Bsz, S, H, G, P, N),
                        dtype=torch.float32, device=x.device)
     if isinstance(x, FakeTensor):          # a dry trace: no launch
         roofline.DRY.record("ssd_backward", roofline.ssd_backward_cost(
@@ -257,7 +280,7 @@ def ssd_backward(x, dt, A, Bm, C, dy, d_state, scratch, *,
             scratch.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
             dB.data_ptr(), dC.data_ptr(),
             None if d_init is None else d_init.data_ptr(), work.data_ptr(),
-            Bsz, S, H, G, P, N, int(x.dtype == torch.bfloat16),
+            Bsz, S, H, G, P, N, BWD_HEADS, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "ssd_backward")
     bwd_launches += 1
@@ -301,7 +324,7 @@ def ssd(
     not depend on it), and take contiguous x, B and C all bf16 or all
     fp32, fp32 dt, A and ``init_state``; anything else raises.  With
     autograd recording, the backward kernel gives every input's gradient
-    (N <= :data:`MAX_STATE_BWD`)."""
+    (N <= :data:`MAX_STATE_BWD`, P <= :data:`MAX_HEAD_BWD`)."""
     tensors = [x, dt, A, Bm, C] + ([init_state] if init_state is not None
                                    else [])
     if all(t.device.type == "cpu" for t in tensors) \

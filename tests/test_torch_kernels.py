@@ -1092,6 +1092,63 @@ def test_profiler_families_match_kernel_names():
                    if f != "memcpy") <= 1, n
 
 
+def _kernel_names_in_launch_order(path):
+    """``path``'s ``__global__`` kernels, in the order they are launched."""
+    src = path.read_text()
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        src)
+    return sorted(names, key=lambda n: src.rindex(n))
+
+
+@pytest.mark.parametrize("const, cu", [
+    ("ATTN_BWD_PASSES", "flash_attention_bwd.cu"),
+    ("PAGED_PASSES", "paged_attention.cu"),
+    ("SSD_PASSES", "ssd_scan.cu"),
+    ("SSD_BWD_PASSES", "ssd_scan_bwd.cu")])
+def test_profiled_passes_name_kernels_in_launch_order(const, cu):
+    """``chip_smoke.py``'s ``pass_us`` names a call's kernels in launch
+    order: each name of a pass list picks out exactly one kernel of its
+    source, and the list follows the order of the launches (the last
+    mention of each kernel's name in the file is at its launch)."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    passes = next(ast.literal_eval(n.value) for n in tree.body
+                  if isinstance(n, ast.Assign)
+                  and getattr(n.targets[0], "id", None) == const)
+    kernels = _kernel_names_in_launch_order(
+        ROOT / "src" / "repro_torch" / "kernels" / "csrc" / cu)
+    picked = []
+    for p in passes:
+        hits = [k for k in kernels if p in k]
+        assert len(hits) == 1, (p, hits)
+        picked.append(hits[0])
+    assert picked == [k for k in kernels if k in picked]
+
+
+def test_ssd_bwd_phase_marks_match_the_script():
+    """``scripts/ssd_bwd_phases.py`` names the phases that the SSD
+    backward's ``PHASE(k)`` marks close: each kernel opens its clock once
+    and closes phases 1, 2, ... in source order, one name each."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+           / "ssd_scan_bwd.cu").read_text()
+    script = ast.parse((ROOT / "scripts" / "ssd_bwd_phases.py").read_text())
+    named = {n.targets[0].id: ast.literal_eval(n.value) for n in script.body
+             if isinstance(n, ast.Assign)
+             and getattr(n.targets[0], "id", None) in ("STATE", "CHUNK")}
+    a = src.index("ssd_bwd_state_kernel(")
+    b = src.index("ssd_bwd_chunk_kernel(")
+    c = src.index("ssd_bwd_sum_kernel(")
+    for k, body, names in ((1, src[a:b], named["STATE"]),
+                           (0, src[b:c], named["CHUNK"])):
+        assert re.findall(r"PHASE_INIT\((\d+)\)", body) == [str(k)]
+        marks = [int(m) for m in re.findall(r"\bPHASE\((\d+)\)", body)]
+        assert marks == list(range(1, len(names) + 1))
+    # compiled out unless asked for
+    assert "#ifdef SSD_BWD_PHASES" in src
+    assert re.search(r"#else\s+#define PHASE_INIT\(K\)\s+#define PHASE\(k\)"
+                     r"\s+#endif", src)
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|repro)\b"
                      r"(?!_torch)", re.M)

@@ -110,6 +110,8 @@ SSD_CASES = [
     (2, 200, 4, 16, 2, 16, True, True),      # ragged, G < H, both states
     (1, 128, 4, 8, 1, 16, False, False),     # whole chunks, y alone
     (2, 37, 6, 8, 3, 8, False, True),        # shorter than a chunk
+    (2, 512, 20, 8, 1, 64, False, True),     # 20 heads: slices of 3 and 2
+    (1, 130, 6, 16, 2, 64, True, False),     # zamba2's state, N = 64
 ]
 
 
@@ -154,6 +156,27 @@ def test_ssd_gradients_match_jax_grad_of_ssd_chunked(J, B, S, H, P, G, N,
         for name, g, w in zip(names, got, want):
             assert torch.isfinite(g).all(), name
             _close(g, w, rtol=SSD_TOL, frac=SSD_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,G,slices", [
+    (2, 512, 48, 1, 16),       # mamba2-780m's train shape: 256 blocks
+    (2, 512, 24, 1, 8),        # a rank's 24 heads on a (2, 2) mesh
+    (2, 512, 20, 1, 7),        # 20 heads: six slices of 3, one of 2
+    (1, 300, 48, 2, 8),        # 2 groups of 24 heads
+    (1, 64, 2, 1, 1),          # fewer heads than a slice
+])
+def test_ssd_backward_slices_cover_every_head_once(B, S, H, G, slices):
+    """The backward's chunk pass cuts each group's heads into slices of
+    ``BWD_HEADS`` (the last may hold fewer, none is empty), whatever the
+    call's batch and length, so that a call on a leading part of the heads
+    sums dB and dC over the same slices as the whole call; its scratch
+    holds dS, the partial sums and each slice's dB and dC."""
+    rep, nc, hps = H // G, -(-S // 64), ssd_scan.BWD_HEADS
+    assert ssd_scan._bwd_slices(H, G) == slices
+    assert (slices - 1) * hps < rep <= slices * hps
+    P, N = 64, 128
+    assert ssd_scan._bwd_work_floats(B, S, H, G, P, N) == (
+        B * nc * H * (P * N + 8 + 1) + 2 * slices * B * nc * 64 * G * N)
 
 
 def test_ssd_wrapper_differentiates_the_plain_version_on_the_cpu():
@@ -291,6 +314,10 @@ def cuda():
     (1, 300, 48, 64, 1, 128, True, True),     # ragged, both states
     (2, 200, 4, 32, 2, 16, True, False),      # two groups
     (1, 37, 6, 20, 3, 24, False, True),       # P not a multiple of 64
+    (2, 512, 24, 64, 1, 128, False, True),    # a rank's heads on (2, 2)
+    (2, 512, 20, 8, 1, 64, False, True),      # slices of 3 and 2
+    (1, 130, 6, 16, 2, 64, True, False),      # zamba2's state, N = 64
+    (1, 64, 4, 96, 1, 32, True, True),        # P over two of 64
 ])
 def test_ssd_backward_kernel_matches_plain(cuda, B, S, H, P, G, N, init,
                                            dstate, dtype):
