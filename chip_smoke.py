@@ -2,8 +2,8 @@
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
-checks), ``6b``, ``6c``, ``9``, ``10``, ``11`` and ``12``, after phases 1
-and 2).
+checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12`` and ``13``, after
+phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -246,8 +246,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    width and depth on four ranks spawned on the one card over gloo,
    ``Session(mesh=...)`` with ``comms="off"`` (the gspmd path with the
    implicit gradient sync and ZeRO-1 AdamW), 4 x 512 tokens,
-   ``remat="full"``: 4 steps on (data=2, model=2) (head-TP with the
-   sequence-parallel residual) and 4 on (data=1, model=4) (SP with the
+   ``remat="full"``: 3 steps on (data=2, model=2) (head-TP with the
+   sequence-parallel residual) and 3 on (data=1, model=4) (SP with the
    local MLP).  Before the spawn, the one-rank step on the card from the
    same seed and batches is the yardstick, its state after each step
    saved; a rank starts each step from its blocks of the yardstick's
@@ -262,8 +262,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    structure's counts, no other kernel runs, every distinct local GEMM
    shape (forward, and dA/dB at the same shapes) and every flash case
    (forward and backward, the SP blocks at their ``q_offset``) is held
-   against its plain version; prints per mesh the step wall (median of
-   steps 2 and 3), the wall of step 4 with its host ms inside the
+   against its plain version; prints per mesh the step wall (step 2),
+   the wall of step 3 with its host ms inside the
    collectives (the card synchronized before each), tokens/s,
    each rank's peak memory and bytes received per step by collective,
    equal to the estimate from the layouts.  Then mamba2-780m at full
@@ -330,13 +330,44 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    ``hybrid_wire_estimate`` and 875,241,216 in all.  (g) The backend
    ``init_group`` picks: gloo for four ranks on one card, NCCL for one
    rank (an all-reduce on it).
-13. Print the ``kernels`` JSON line, the card's name and power limit, and
+13. The pipeline (also alone: ``python3 chip_smoke.py 13``): qwen2-0.5b
+   at full width and depth (24 layers, ``remat="full"``), 8 x 512 tokens
+   a step in one-row microbatches (M = 2 pp), four gloo ranks spawned on
+   the one card, on (data, pipe, model) = (1, 4, 1) and (2, 2, 1), each
+   under GPipe and 1F1B, 2 steps each from the seed (step 2 from the
+   one-rank yardstick's state after step 1); then mamba2-780m cut to 8
+   layers on (1, 4, 1) under 1F1B.  Each rank first runs one layer's
+   loss and gradients alone (its first kernel calls, which the pipeline
+   would queue stage after stage).  The yardstick is the port's one-rank
+   step at the same batch and one-row microbatches.  Gates: every step's
+   microbatch losses bitwise the yardstick's (the same rows through the
+   same row-invariant kernels; 1F1B's backward-slot recompute the same
+   bits as its forward slot); the step loss within 1e-6 relative, the
+   grad norm within 2^-9; after step 1 the params within phase 6's step
+   rule and the moments within phase 10's rule and, element by element,
+   within the reordered sum's bound (``moment_bounds``: the microbatches'
+   gradients are the same bits in both runs, summed in fp32 in another
+   order); the edge params bitwise the same on every rank; a pipe line's
+   ``send_recv`` bytes ``costs.boundary_wire_bytes`` (44,040,192 on
+   (1, 4, 1), 7,340,032 a data row on (2, 2, 1)) and every other
+   collective's bytes the layouts' estimate (``pipe_wire_estimate``);
+   launches per rank the stage's layer structure
+   (``expected_pipe_launches``); each kernel's first call of each case
+   held against its plain version.  Read, not gated: step walls, the
+   share of each step inside ``exchange``, the bubble, the card's idle
+   share (the profiled step 2), each rank's step-2 peak beside
+   ``stage_footprint``, 1F1B's peak over GPipe's, the headroom (each
+   rank's step-2 reserved peak and their sum, the card's free memory
+   after each step and after the checks, the parent's reserved memory
+   at the spawn).
+14. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import filecmp
 import itertools
 import json
@@ -3102,6 +3133,12 @@ def same_on_every_rank(digest: torch.Tensor) -> bool:
     return torch.equal(hi, lo)
 
 
+# elements a check reads of a leaf at once (its fp32 temporaries would
+# otherwise hold several copies of the largest leaves: four ranks share
+# the card in phases 10 and 13)
+CHECK_CHUNK = 1 << 22
+
+
 @torch.no_grad()
 def step_agreement(got, want, p0, lr, what, quantized=False,
                    rms_bound=0.1):
@@ -3113,20 +3150,24 @@ def step_agreement(got, want, p0, lr, what, quantized=False,
     ``rms_bound`` (10%) of their rms.  On the int8 wire a weight whose
     synced gradient rounds to zero moves by its decay only, within lr of
     the fp32 result: the same bound holds, the moves under half an lr are
-    not counted, and the rms rule does not apply."""
+    not counted, and the rms rule does not apply.  Each leaf is read
+    ``CHECK_CHUNK`` elements at a time."""
     worst = against = still = total = 0.0
     dd = uu = 0.0
     for name in got:
-        g, w, p = got[name].float(), want[name].float(), p0[name].float()
-        d = (g - w).abs()
-        worst = max(worst, float((d - w.abs() * 2.0 ** -7).max()))
-        ug, uw = g - p, w - p
-        big = (ug.abs() > lr / 2) & (uw.abs() > lr / 2)
-        against += float(((torch.sign(ug) != torch.sign(uw)) & big).sum())
-        still += float((ug.abs() <= lr / 2).sum())
-        total += g.numel()
-        dd += float(((ug - uw) ** 2).sum())
-        uu += float((uw ** 2).sum())
+        flat = [x[name].reshape(-1) for x in (got, want, p0)]
+        for i in range(0, flat[0].numel(), CHECK_CHUNK):
+            g, w, p = (x[i:i + CHECK_CHUNK].float() for x in flat)
+            d = (g - w).abs()
+            worst = max(worst, float((d - w.abs() * 2.0 ** -7).max()))
+            ug, uw = g - p, w - p
+            big = (ug.abs() > lr / 2) & (uw.abs() > lr / 2)
+            against += float(((torch.sign(ug) != torch.sign(uw))
+                              & big).sum())
+            still += float((ug.abs() <= lr / 2).sum())
+            total += g.numel()
+            dd += float(((ug - uw) ** 2).sum())
+            uu += float((uw ** 2).sum())
     rel = math.sqrt(dd / uu)
     out = dict(max_excess_over_ulp=worst, bound=2.4 * lr,
                moved_against_frac=against / total, update_rel_rms=rel,
@@ -4769,10 +4810,11 @@ HYBRID_RANKS = 4
 # from its blocks of the yardstick's state after each step), so each
 # step's loss and grad norm differ from the yardstick's by that step's
 # sums (their order, and the shares' bf16 roundings on the wire) alone,
-# and are held at rtol 1e-3.  Step 1 runs the plain checks, steps 2 and 3
-# give the step wall, step 4 is timed with the collectives clocked
-# (``CollectiveClock`` synchronizes the card before each).
-HYBRID = (((2, 2), "head_tp", 4), ((1, 4), "sp", 4))
+# and are held at rtol 1e-3.  Step 1 runs the plain checks, step 2 gives
+# the step wall, step 3 is timed with the collectives clocked
+# (``CollectiveClock`` synchronizes the card before each).  Three steps,
+# not four: the whole script stays inside its time limit.
+HYBRID = (((2, 2), "head_tp", 3), ((1, 4), "sp", 3))
 # mamba2-780m at full width, cut to 8 of its 48 layers, on (2, 2) with the
 # sequence-parallel residual (the reference's forward_shardmap): (mesh,
 # layers, steps), held against the same cut's one-rank steps
@@ -4780,7 +4822,7 @@ HYBRID_MAMBA = ((2, 2), 8, 2)
 HYBRID_PATH = (f"{ARCH} (2,2), (1,4) and {MAMBA} (2,2, 8 layers) hybrid "
                "train (4 ranks, gloo)")
 HYBRID_DEVICE = "cuda"
-HYBRID_CLOCKED = 3                     # the step (from 0) whose wire is timed
+HYBRID_CLOCKED = 2                     # the step (from 0) whose wire is timed
 
 
 def hybrid_yard(t: int, name: str = "") -> Path:
@@ -5050,6 +5092,19 @@ def hybrid_wire_estimate(model, mesh, batch: int, seq: int):
     return dict(est)
 
 
+def yard_state(opt_state) -> dict:
+    """A yardstick's AdamW state as saved for the ranks: the step, the
+    fp32 master and moments on the CPU, and each moment leaf's largest
+    magnitude (the gradient rule's atol scale, so that a rank need not
+    scan the whole leaf)."""
+    return {"step": int(opt_state["step"]),
+            **{slot: {k: v.cpu() for k, v in opt_state[slot].items()}
+               for slot in ("master", "mu", "nu")},
+            "absmax": {slot: {k: float(v.abs().max())
+                              for k, v in opt_state[slot].items()}
+                       for slot in ("mu", "nu")}}
+
+
 def hybrid_one_rank(cfg, batches, steps, keep=False, name="",
                     on_mesh=False):
     """``steps`` one-rank steps on the card (path gspmd, no mesh) from the
@@ -5083,11 +5138,7 @@ def hybrid_one_rank(cfg, batches, steps, keep=False, name="",
         if keep and t + 1 < steps:
             opt_state = sess.state["train_state"]["opt"]
             TRAIN_DIR.mkdir(parents=True, exist_ok=True)
-            torch.save({"step": int(opt_state["step"]),
-                        **{slot: {k: v.cpu() for k, v in
-                                  opt_state[slot].items()}
-                           for slot in ("master", "mu", "nu")}},
-                       hybrid_yard(t + 1, name))
+            torch.save(yard_state(opt_state), hybrid_yard(t + 1, name))
     del sess, plan
     torch.cuda.empty_cache()
     return metrics
@@ -5152,8 +5203,100 @@ def hybrid_update_rms(cfg, name, lr):
                           "step 1", rms_bound=math.inf)["update_rel_rms"]
 
 
+# unit roundoffs: bf16 and fp32
+BF16_U, FP32_U = 2.0 ** -9, 2.0 ** -24
+
+
+def gamma(n: int, u: float) -> float:
+    """The standard bound's gamma_n = n u / (1 - n u): n roundings of
+    unit roundoff u move a sum by at most gamma_n times the sum of its
+    terms' magnitudes."""
+    return n * u / (1 - n * u) if n > 0 else 0.0
+
+
+@dataclasses.dataclass
+class Terms:
+    """The terms a leaf's gradient on this rank's ZeRO block sums, as a
+    moment gate needs them: ``T`` the sum of their magnitudes (this
+    block's, in the gradient's units), ``k`` their count, ``u_sum`` the
+    unit roundoff they are summed in, ``m`` further bf16 roundings on a
+    term's way whose place differs between the two runs, ``u_leaf`` the
+    gradient's own storage rounding."""
+
+    T: torch.Tensor
+    k: int
+    u_sum: float
+    m: int
+    u_leaf: float
+
+
+def moment_bounds(terms: Terms, mu_r, mu_y, nu_r, nu_y, mu0, norms,
+                  adamw):
+    """Per-element bounds on ``|mu_r - mu_y|`` and ``|nu_r - nu_y|``
+    after one AdamW step from the same state (``mu0`` the first moment
+    before it), derived from a reordered sum.
+
+    Both runs' gradient element is g = t_1 + ... + t_k over the same k
+    terms (on a mesh the ranks' shares: a rank's heads and rows; on the
+    pipeline the microbatches' gradients), summed in another order.  Two
+    orders of a sum evaluated with n roundings of unit roundoff u differ
+    by at most 2 gamma_n sum|t_j| (Higham, *Accuracy and Stability of
+    Numerical Algorithms*, eq. 4.4, once for each order), so
+
+        |g_r - g_y| <= 2 (gamma_{k-1}(u_sum) + gamma_m(2^-9)) T
+                       + u_leaf (|g_r| + |g_y|),
+
+    T = sum|t_j| (the k - 1 additions; m bf16 roundings that sit in
+    other places along a term's way on a mesh, which perturb it by at
+    most gamma_m of its magnitude; each side's rounding of the result to
+    the gradient's type).  AdamW scales the gradient by c = min(1,
+    clip / ||g||) and sets mu = b1 mu0 + (1 - b1) c g, nu = b2 nu0 +
+    (1 - b2) (c g)^2, in fp32.  With gh = c g (recovered from the
+    yardstick's mu) and the two clip scales' relative difference rho
+    (from the two grad norms),
+
+        |gh_r - gh_y| <= d := c |g_r - g_y| + |gh_y| rho,
+        |mu_r - mu_y| <= (1 - b1) d + 4 u32 (|mu_r| + |mu_y|),
+        |nu_r - nu_y| <= (1 - b2) (2 |gh_y| d + d^2)
+                         + 4 u32 (|nu_r| + |nu_y|),
+
+    the last terms the moments' own fp32 roundings (u32 = 2^-24, a few
+    operations each).  ``norms``: (this run's grad norm, the yardstick's);
+    ``adamw``: the step's config."""
+    gn_r, gn_y = norms
+    clip = adamw.grad_clip or math.inf
+    c_r, c_y = min(1.0, clip / gn_r), min(1.0, clip / gn_y)
+    rho = abs(c_r / c_y - 1.0)
+    b1, b2 = adamw.b1, adamw.b2
+    gh_y = (mu_y - b1 * mu0) / (1.0 - b1)
+    g_abs = (gh_y.abs() + ((mu_r - b1 * mu0) / (1.0 - b1)).abs()) / c_y
+    dg = (2 * (gamma(terms.k - 1, terms.u_sum) + gamma(terms.m, BF16_U))
+          * terms.T + terms.u_leaf * g_abs)
+    d = c_y * dg + gh_y.abs() * rho
+    bmu = (1.0 - b1) * d + 4 * FP32_U * (mu_r.abs() + mu_y.abs())
+    bnu = ((1.0 - b2) * (2 * gh_y.abs() * d + d * d)
+           + 4 * FP32_U * (nu_r.abs() + nu_y.abs()))
+    return bmu, bnu
+
+
+def derived_ratio(terms: Terms, mu_r, mu_y, nu_r, nu_y, mu0, norms, adamw,
+                  slot: str) -> float:
+    """The largest ratio of ``slot``'s error to :func:`moment_bounds`'
+    bound over a leaf's block, ``CHECK_CHUNK`` elements at a time."""
+    flat = [x.reshape(-1) for x in (terms.T, mu_r, mu_y, nu_r, nu_y, mu0)]
+    worst = 0.0
+    for i in range(0, flat[0].numel(), CHECK_CHUNK):
+        T, a, b, c, d, m0 = (x[i:i + CHECK_CHUNK] for x in flat)
+        bmu, bnu = moment_bounds(dataclasses.replace(terms, T=T), a, b, c,
+                                 d, m0, norms, adamw)
+        e, bound = ((a - b).abs(), bmu) if slot == "mu" else ((c - d).abs(),
+                                                              bnu)
+        worst = max(worst, float((e / bound).nan_to_num(0.0, 0.0).max()))
+    return worst
+
+
 def hybrid_after_step(sess, plan, mesh, yard, p_start, lr, what,
-                      rms_bound=0.1):
+                      rms_bound=0.1, terms=None, before=None, norms=None):
     """After a step from the yardstick's state (``p_start`` this rank's
     params then): this rank's param blocks within phase 6's step rule of
     the yardstick's blocks after the step, and its mu and nu blocks within
@@ -5161,52 +5304,78 @@ def hybrid_after_step(sess, plan, mesh, yard, p_start, lr, what,
     rule (rtol 2e-5, atol 2e-5: ``fp32_rule`` at K = 64) is read beside
     it, not held: the moments come from bf16 gradients summed in another
     order, so only the rule's absolute atol can hold them, and whether it
-    does depends on the gradients' scale.  Returns the readings."""
-    from repro_torch.train import optimizer as opt
-    zero = opt.ZeroLayouts.of(plan.model.param_specs(), mesh)
+    does depends on the gradients' scale.
+
+    Given each leaf's :class:`Terms` (``before``: this rank's mu blocks
+    before the step; ``norms``: this run's grad norm and the
+    yardstick's), every element is also held to :func:`moment_bounds`,
+    the reordered sum's bound (the pipeline, whose terms are the same
+    bits in both runs; a mesh's are not, so phase 10 passes none: ROADMAP
+    queue 3).  Returns the
+    readings and this rank's blocks of the yardstick's state, read once,
+    in host memory (for :func:`hybrid_restart`; on the card every rank's
+    state and checks share one device)."""
+    zero = sess.zero_layouts(plan)
     st = sess.state["train_state"]
     dev = HYBRID_DEVICE
-    want = {k: zero.storage[k].block(yard["master"][k], mesh).to(dev, p.dtype)
+    blocks = {slot: {k: zero.zero[k].block(yard[slot][k], mesh)
+                     for k in st["opt"][slot]}
+              for slot in ("master", "mu", "nu")}
+    want = {k: zero.from_zero(k, blocks["master"][k].to(dev, p.dtype))
             for k, p in st["params"].items()}
     rule = step_agreement({k: v.detach() for k, v in st["params"].items()},
                           want, p_start, lr, what, rms_bound=rms_bound)
-    errs, fp32 = {}, {}
+    errs, fp32, ratios = {}, {}, {}
     for slot in ("mu", "nu"):
-        err, past, past_rel, total = 0.0, 0, 0, 0
+        err, ratio, past, past_rel, total = 0.0, 0.0, 0, 0, 0
         for k, got in st["opt"][slot].items():
-            full = yard[slot][k]
-            w = zero.zero[k].block(full, mesh).to(dev)
+            w = blocks[slot][k].to(dev)
             e = (got - w).abs()
-            atol = GRAD_ATOL_FRAC * float(full.abs().max())
+            atol = GRAD_ATOL_FRAC * yard["absmax"][slot][k]
             require(not bool((e > atol + GRAD_RTOL * w.abs()).any()),
                     f"{what}: {slot} {k} off the yardstick's block (max abs "
                     f"err {float(e.max()):.3g})")
+            if terms is not None:
+                r = derived_ratio(
+                    terms[k], st["opt"]["mu"][k], blocks["mu"][k].to(dev),
+                    st["opt"]["nu"][k], blocks["nu"][k].to(dev), before[k],
+                    norms, plan.adamw or train_adamw(), slot)
+                require(r <= 1.0,
+                        f"{what}: {slot} {k} off the yardstick's block by "
+                        f"more than the reordered sum's bound (max abs err "
+                        f"{float(e.max()):.3g}, error over bound {r:.3g})")
+                ratio = max(ratio, r)
             err = max(err, float(e.max()))
             past += int((e > 2e-5 * w.abs() + 2e-5).sum())
             past_rel += int((e > 2e-5 * w.abs()).sum())
             total += e.numel()
         errs[slot] = err
+        ratios[slot] = ratio if terms is not None else None
         fp32[slot] = dict(holds=past == 0, past_frac=past / total,
                           past_rtol_alone_frac=past_rel / total)
-    print(f"{what}: moments max abs err {errs}; fp32 rule (read, not held) "
-          f"{fp32}", flush=True)
+    derived = ("" if terms is None else "; largest error over the "
+               f"reordered sum's bound (held) {ratios}")
+    print(f"{what}: moments max abs err {errs}{derived}; fp32 rule (read, "
+          f"not held) {fp32}", flush=True)
     return dict(step_rule=rule, moments_max_abs_err=errs,
-                moments_fp32_rule=fp32)
+                moments_error_over_derived_bound=ratios,
+                moments_fp32_rule=fp32), blocks
 
 
-def hybrid_restart(sess, plan, mesh, yard):
+def hybrid_restart(sess, plan, yard, blocks):
     """Sets this rank's state to its blocks of the yardstick's state
-    ``yard``: master, moments and step, and the params cast from the
-    master as the step writes them."""
-    from repro_torch.train import optimizer as opt
-    zero = opt.ZeroLayouts.of(plan.model.param_specs(), mesh)
+    ``yard`` (``blocks``: those blocks of its master and moments, from
+    :func:`hybrid_after_step`): master, moments and step, and the params
+    cast from the master and gathered as the step writes them."""
+    zero = sess.zero_layouts(plan)
     st = sess.state["train_state"]
     with torch.no_grad():
         for slot in ("master", "mu", "nu"):
             for k, x in st["opt"][slot].items():
-                x.copy_(zero.zero[k].block(yard[slot][k], mesh))
+                x.copy_(blocks[slot][k])
         for k, p in st["params"].items():
-            p.copy_(zero.storage[k].block(yard["master"][k], mesh))
+            p.copy_(zero.from_zero(k, blocks["master"][k].to(p.device,
+                                                              p.dtype)))
         st["opt"]["step"].fill_(yard["step"])
 
 
@@ -5242,8 +5411,8 @@ def hybrid_rank(rank, init, result_path, yard_metrics, rms_bounds):
         ops.reset_launches()
         held.install()
         for t in range(steps):
-            p_start = {k: v.detach().clone() for k, v in
-                       sess.state["train_state"]["params"].items()}
+            st = sess.state["train_state"]
+            p_start = {k: v.detach().clone() for k, v in st["params"].items()}
             WIRE.reset()
             dist.barrier()
             with (CollectiveClock() if t == clocked
@@ -5260,12 +5429,15 @@ def hybrid_rank(rank, init, result_path, yard_metrics, rms_bounds):
             if t + 1 < steps:
                 held.uninstall()
                 yard = torch.load(hybrid_yard(t + 1, name), mmap=True)
-                after.append(hybrid_after_step(
+                reading, blocks = hybrid_after_step(
                     sess, plan, mesh, yard, p_start, metrics[t]["lr"],
                     f"{what} after step {t + 1}",
-                    rms_bound=rms_bounds.get(tag, 0.1)))
-                hybrid_restart(sess, plan, mesh, yard)
-                del yard
+                    rms_bound=rms_bounds.get(tag, 0.1))
+                after.append(reading)
+                hybrid_restart(sess, plan, yard, blocks)
+                del yard, blocks
+                if HYBRID_DEVICE == "cuda":
+                    torch.cuda.empty_cache()
                 held.install()
             del p_start
         held.uninstall()
@@ -5421,8 +5593,9 @@ FIT_SIZES = tuple(4096 * 4 ** k for k in range(7))     # 4 KiB .. 16 MiB
 CALIBRATION = TRAIN_DIR / "calibration.json"
 SCHED_DEVICE = "cuda"                 # "cpu" for a rehearsal off the card
 #: phase 10's peaks per rank as PERF.md records them (H100 80GB HBM3,
-#: 700 W), printed when phase 10 did not run in this invocation
-HYBRID_PEAK_RECORDED = {"2x2": 5.905, "1x4": 7.822}
+#: 700 W; the checks read leaves in chunks), printed when phase 10 did
+#: not run in this invocation
+HYBRID_PEAK_RECORDED = {"2x2": 4.446, "1x4": 4.970}
 
 
 def sched_cases():
@@ -6163,6 +6336,579 @@ def session_phase():
     return summary, {SESSION_PATH: serve_launches, TUNE_PATH: tune_launches}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 13: the pipeline, GPipe and 1F1B, four ranks
+# ---------------------------------------------------------------------------
+
+PIPE_RANKS = 4
+PIPE_BATCH = 8                         # 8 x 512 tokens, one-row microbatches
+PIPE_STEPS = 2
+# (data, pipe) meshes of qwen2-0.5b at full width and depth, each under
+# both schedules; M = 2 pp microbatches, one row each
+PIPE_MESHES = ((1, 4), (2, 2))
+PIPE_SCHEDULES = ("gpipe", "1f1b")
+# mamba2-780m at full width cut to 8 of its 48 layers: (mesh, layers,
+# schedule)
+PIPE_MAMBA = ((1, 4), 8, "1f1b")
+PIPE_PATH = (f"{ARCH} (1,4), (2,2) and {MAMBA} (1,4, 8 layers) pipeline "
+             "train (4 ranks, gloo)")
+PIPE_DEVICE = "cuda"
+PIPE_STEP_LOSS_RTOL = 1e-6
+PIPE_NORM_RTOL = 2.0 ** -9
+
+
+def pipe_cells():
+    """Phase 13's cells: (tag, config, (data, pipe), schedule, yardstick
+    name)."""
+    import dataclasses
+    shape, layers_, sched = PIPE_MAMBA
+    mcfg = dataclasses.replace(get_config(MAMBA), n_layers=layers_)
+    return ([(f"{d}x{p} {s}", get_config(ARCH), (d, p), s, "")
+             for d, p in PIPE_MESHES for s in PIPE_SCHEDULES]
+            + [(f"{MAMBA} {shape[0]}x{shape[1]} {sched}", mcfg, shape, sched,
+                "_mamba2")])
+
+
+def pipe_yard(name: str) -> Path:
+    """The one-rank yardstick's state after step 1."""
+    return TRAIN_DIR / f"pipe_yardstick{name}1.pt"
+
+
+def pipe_batches(cfg):
+    from repro_torch.data import SyntheticLM
+    data = iter(SyntheticLM(cfg.vocab_size, PIPE_BATCH, TRAIN_SEQ,
+                            seed=SEED, structured=True))
+    return [next(data) for _ in range(PIPE_STEPS)]
+
+
+class LossTape:
+    """Records the hex bits of every ``layers.lm_loss`` value while
+    installed, with whether autograd was recording (1F1B's forward slot
+    runs without it, its backward slot's recompute with it)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.real, self.seen = layers, layers.lm_loss, []
+
+    def __enter__(self):
+        def rec(logits, labels, **kw):
+            loss, den = self.real(logits, labels, **kw)
+            self.seen.append((float(loss.detach()).hex(),
+                              torch.is_grad_enabled()))
+            return loss, den
+        self.layers.lm_loss = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.lm_loss = self.real
+
+    def forward_losses(self, schedule: str):
+        """The microbatches' losses in order: 1F1B's forward slot's (its
+        recomputes must be the same bits), GPipe's one each."""
+        if schedule != "1f1b":
+            return [v for v, _ in self.seen]
+        fwd = [v for v, grad in self.seen if not grad]
+        require(fwd == [v for v, grad in self.seen if grad],
+                "1F1B: a backward slot's recomputed loss is not the "
+                "forward slot's bits")
+        return fwd
+
+
+def pipe_yardstick(cfg, name, batches):
+    """The one-rank step (path gspmd, no mesh) on the phase's batches in
+    one-row microbatches: per step its metrics and microbatch losses; its
+    state after step 1 saved for the ranks."""
+    from repro_torch.api import Session
+    sess = Session(device=PIPE_DEVICE)
+    plan = sess.plan(cfg, batch=PIPE_BATCH, seq=TRAIN_SEQ, comms="off",
+                     adamw=train_adamw(), microbatches=PIPE_BATCH)
+    require(plan.path == "gspmd" and plan.model.mesh is None
+            and plan.num_microbatches == PIPE_BATCH,
+            "the pipeline's yardstick is the one-rank path")
+    sess.init_state(plan, seed=SEED)
+    out = []
+    for t in range(PIPE_STEPS):
+        with LossTape() as tape:
+            m = sess.step(plan, batches[t])
+        out.append(dict({k: float(v) for k, v in m.items()},
+                        microbatch_losses=tape.forward_losses("gpipe")))
+        if t == 0:
+            opt_state = sess.state["train_state"]["opt"]
+            TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+            torch.save(yard_state(opt_state), pipe_yard(name))
+    del sess, plan
+    torch.cuda.empty_cache()
+    print(f"pipeline yardstick {cfg.name} ({cfg.n_layers} layers, one "
+          f"rank, {PIPE_BATCH} one-row microbatches): "
+          + json.dumps([{k: v for k, v in m.items()
+                         if k != "microbatch_losses"} for m in out]),
+          flush=True)
+    return out
+
+
+def expected_pipe_launches(cfg, n_local: int, last: bool, M: int,
+                           schedule: str, steps: int):
+    """Per rank: each of the M microbatches runs the stage's layers
+    forward (GPipe once with autograd; 1F1B once without it in the
+    forward slot and once with it in the backward slot), their recompute
+    in the backward (remat="full", each layer checkpointed) and their
+    backward; the last stage adds the head's unembed to each forward and
+    two products to each backward.  Dense layers run 7 products and one
+    attention, ssm layers 5 products and one SSD forward."""
+    per = 5 if cfg.family == "ssm" else 7
+    fwd = per * n_local + int(last)
+    runs = 2 if schedule == "1f1b" else 1
+    mm = M * (runs * fwd + per * n_local + 2 * fwd)
+    mix = M * (runs + 1) * n_local
+    dense = cfg.family != "ssm"
+    return {"matmul": steps * mm,
+            "attention": steps * mix if dense else 0,
+            "attention_backward": steps * M * n_local if dense else 0,
+            "paged_decode_attention": 0,
+            "ssd": 0 if dense else steps * mix,
+            "ssd_backward": 0 if dense else steps * M * n_local,
+            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+
+
+def pipe_wire_estimate(plan, mesh):
+    """Bytes this rank receives in one step besides the stage boundary's
+    ``send_recv``, by collective, from the layouts (``WIRE``'s
+    accounting, as :func:`hybrid_wire_estimate`'s): each edge leaf's
+    fp32 gradient broadcast over ``pipe`` from the stage that uses it;
+    the loss sums over ``pipe`` (3 fp32); over the data axis the
+    gradients' reduce-scatter onto their ZeRO blocks (fp32; a sum where
+    the ZeRO layout leaves the axis), the metrics' mean and the
+    parameters' gather back (bf16, mamba2's fp32 leaves fp32); the grad
+    norm's sum over every axis."""
+    import collections
+    from repro_torch.pipeline import pipeline_param_specs
+    from repro_torch.pipeline.schedule import _edge_stage
+    from repro_torch.core.replication import zero_layout
+    spec = plan.pipeline
+    pp, nd = mesh.shape["pipe"], mesh.shape["data"]
+    s = mesh.coords["pipe"]
+    est = collections.Counter()
+
+    def ps(nbytes, n):
+        est["all_reduce"] += ((n - 1) * nbytes if n > 2
+                              else nbytes if n == 2 else 0)
+
+    specs = pipeline_param_specs(plan.model, spec)
+    for name, sp in specs.items():
+        storage = sp.layout
+        zero = zero_layout(storage, sp.shape, mesh)
+        block = math.prod(storage.local_shape(sp.shape, mesh)) * 4
+        if not name.startswith("layers.") and pp > 1 \
+                and _edge_stage(name, pp) != s:
+            est["broadcast"] += block
+        if nd > 1:
+            if "data" in zero.mesh_axes_used():
+                est["all_to_all"] += (nd - 1) * block // nd
+                zblock = (math.prod(zero.local_shape(sp.shape, mesh))
+                          * sp.dtype.itemsize)
+                est["all_gather"] += (nd - 1) * zblock
+            else:
+                ps(block, nd)
+    ps(12, pp)                                  # the loss sums over pipe
+    ps(12, nd)                                  # the metrics' mean
+    for a in ("data", "pipe"):                  # the grad norm's sum
+        ps(4 * len(specs), mesh.shape[a])
+    return {k: v for k, v in est.items() if v}
+
+
+def card_free_bytes() -> int:
+    """The card's free bytes now, over every process on it (four ranks
+    and the parent share the one card): a reading of the headroom."""
+    return torch.cuda.mem_get_info()[0]
+
+
+class ExchangeClock:
+    """Host seconds inside ``distributed.exchange`` (the stage
+    boundary's sends and receives, waiting for the other stage
+    included)."""
+
+    def __init__(self):
+        from repro_torch.core import distributed as D
+        self.D, self.real, self.seconds = D, D.exchange, 0.0
+
+    def __enter__(self):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self.real(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        self.D.exchange = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.D.exchange = self.real
+
+
+class MicrobatchSums:
+    """While installed, each microbatch's gradients of the stage's
+    parameters (``torch.autograd.grad`` of the pipeline's leaves) add
+    their magnitudes to an fp32 sum; :meth:`terms` combines these as the
+    step combines the gradients (an edge leaf's from the stage that uses
+    it, over ``pipe``; the batch axes' sum onto the ZeRO blocks, and its
+    mean), ``WIRE``'s counts left as they were: each element's sum of
+    its terms' magnitudes, the M microbatches of every data row."""
+
+    def __init__(self, params):
+        self.params, self.sums = params, {}
+        self.names = list(params)
+        self.ids = [id(p) for p in params.values()]
+
+    def __enter__(self):
+        self.real = torch.autograd.grad
+
+        def grad(outputs, inputs, *a, **k):
+            out = self.real(outputs, inputs, *a, **k)
+            ins = list(inputs) if isinstance(inputs, (list, tuple)) \
+                else [inputs]
+            if [id(x) for x in ins[:len(self.ids)]] == self.ids:
+                for name, g in zip(self.names, out):
+                    if g is not None:
+                        mag = g.detach().abs().float()
+                        self.sums[name] = (self.sums[name] + mag
+                                           if name in self.sums else mag)
+            return out
+        torch.autograd.grad = grad
+        return self
+
+    def __exit__(self, *exc):
+        torch.autograd.grad = self.real
+
+    def terms(self, plan, mesh, zero):
+        from repro_torch.core import distributed as D
+        from repro_torch.core import precision
+        from repro_torch.pipeline.schedule import _edge_stage
+        from repro_torch.train import step as step_mod
+        spec = plan.pipeline
+        axes = step_mod.batch_axes_of(mesh)
+        n_rows = math.prod(mesh.shape[a] for a in axes)
+        saved = (D.WIRE.bytes, D.WIRE.calls, D.WIRE.dtypes)
+        D.WIRE.reset()
+        out = {}
+        try:
+            for name, p in self.params.items():
+                T = self.sums.get(name)
+                if T is None:
+                    T = torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                if not name.startswith("layers."):
+                    T = D.broadcast(T, mesh, spec.axis,
+                                    _edge_stage(name, spec.n_stages))
+                T = step_mod.sync_to_zero(T, zero.storage[name],
+                                          zero.zero[name], axes, mesh)
+                if n_rows > 1:
+                    T = precision.div_count(T, n_rows)
+                out[name] = Terms(T, spec.num_microbatches * n_rows, FP32_U,
+                                  0, FP32_U)
+        finally:
+            D.WIRE.bytes, D.WIRE.calls, D.WIRE.dtypes = saved
+        return out
+
+
+def pipe_warmup(cfg):
+    """A rank's first calls of the kernels and their plain versions, run
+    alone before the timed cells (one layer's loss and gradients on one
+    row, each product and attention call held against its plain version,
+    the results discarded): the pipeline would otherwise queue every
+    stage's first-call costs one after the other."""
+    model = Model(dataclasses.replace(cfg, n_layers=1), device=PIPE_DEVICE)
+    params = model.init(SEED)
+    for p in params.values():
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(np.asarray(v)[:1], device=PIPE_DEVICE)
+             for k, v in pipe_batches(cfg)[0].items()}
+    held = HeldKernels()
+    held.install()
+    try:
+        loss, _ = model.loss_fn(params, batch)
+        torch.autograd.grad(loss, list(params.values()))
+    finally:
+        held.uninstall()
+    torch.cuda.synchronize()
+    del model, params, held
+
+
+def pipe_rank(rank, init, result_path, yards):
+    """One rank of phase 13; writes its results as JSON to
+    ``result_path`` with its number in place of ``{}``."""
+    import torch.distributed as dist
+    from repro_torch.api import Session
+    from repro_torch.core.distributed import WIRE, close_group, init_group
+    from repro_torch.pipeline import costs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_group(init, rank=rank, world_size=PIPE_RANKS, device=PIPE_DEVICE)
+    out = dict(rank=rank, cells={})
+    t0 = time.perf_counter()
+    pipe_warmup(get_config(ARCH))
+    out["warmup_s"] = time.perf_counter() - t0
+    for tag, cfg, (dp, pp), sched, name in pipe_cells():
+        t_cell = time.perf_counter()
+        what = f"pipeline {tag} rank {rank}"
+        batches = pipe_batches(cfg)
+        sess = Session(device=PIPE_DEVICE, group=dist.group.WORLD, pp=pp)
+        mesh = sess.mesh
+        plan = sess.plan(cfg, batch=PIPE_BATCH, seq=TRAIN_SEQ, comms="off",
+                         adamw=train_adamw(), microbatches=2 * pp,
+                         pp_schedule=sched)
+        spec = plan.pipeline
+        require(plan.path == "pipeline" and spec.schedule == sched
+                and spec.num_microbatches == PIPE_BATCH // dp == 2 * pp
+                and dict(mesh.shape) == {"data": dp, "pipe": pp,
+                                         "model": 1},
+                f"{what}: plan {plan.path} {spec} {dict(mesh.shape)}")
+        sess.init_state(plan, seed=SEED)
+        setup_s = time.perf_counter() - t_cell
+        check_s = 0.0
+        s = mesh.coords["pipe"]
+        held = HeldKernels()
+        metrics, walls, waits, wires, losses, after = [], [], [], [], [], []
+        prof_rank = peak = reserved = None
+        free = []        # the card's free bytes after each step and check
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        for t in range(PIPE_STEPS):
+            st = sess.state["train_state"]
+            if t == 0:         # for the checks after step 1
+                p_start = {k: v.detach().clone()
+                           for k, v in st["params"].items()}
+                before = {k: v.clone() for k, v in st["opt"]["mu"].items()}
+            WIRE.reset()
+            held.install()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            profiled = t == PIPE_STEPS - 1
+            prof = (torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+                    if profiled else contextlib.nullcontext())
+            sums = (MicrobatchSums(st["params"]) if t == 0
+                    else contextlib.nullcontext())
+            with LossTape() as tape, ExchangeClock() as clock, prof, sums:
+                t0 = time.perf_counter()
+                lo = time.time_ns()
+                m = sess.step(plan, batches[t])
+                torch.cuda.synchronize()
+                hi = time.time_ns()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            held.uninstall()
+            if t == 1:      # step 2 holds no copy kept for the checks
+                peak = torch.cuda.max_memory_allocated()
+                reserved = torch.cuda.max_memory_reserved()
+            free.append(card_free_bytes())
+            if profiled:
+                prof_rank = dict(rank=rank, profiled_window_ns=[lo, hi],
+                                 device_intervals_ns=device_intervals(prof))
+            waits.append(1e3 * clock.seconds)
+            wires.append(dict(WIRE.bytes))
+            metrics.append({k: float(v) for k, v in m.items()})
+            losses.append(tape.forward_losses(sched)
+                          if s == pp - 1 else [])
+            if t == 0:
+                t_check = time.perf_counter()
+                yard = torch.load(pipe_yard(name), mmap=True)
+                reading, blocks = hybrid_after_step(
+                    sess, plan, mesh, yard, p_start, metrics[t]["lr"],
+                    f"{what} after step 1",
+                    terms=sums.terms(plan, mesh, sess.zero_layouts(plan)),
+                    before=before, norms=(metrics[t]["grad_norm"],
+                                          yards[name][t]["grad_norm"]))
+                after.append(reading)
+                # step 2 starts from the yardstick's state after step 1
+                hybrid_restart(sess, plan, yard, blocks)
+                free.append(card_free_bytes())
+                del yard, sums, p_start, before, blocks
+                torch.cuda.empty_cache()
+                check_s = time.perf_counter() - t_check
+        launches = ops.dispatch_report()
+        st = sess.state["train_state"]["params"]
+        edge_same = same_on_every_rank(params_digest(
+            {k: st[k] for k in ("embed", "unembed", "final_norm")}))
+        mm_bwd, att_bwd = held.backward_checks()
+        rows = PIPE_BATCH // dp // spec.num_microbatches
+        act = costs.boundary_act_bytes(rows, TRAIN_SEQ, cfg.d_model)
+        out["cells"][tag] = dict(
+            coords=mesh.coords, layers=cfg.n_layers, schedule=sched,
+            microbatches=spec.num_microbatches, metrics=metrics,
+            microbatch_losses=losses, walls_ms=walls, exchange_ms=waits,
+            wire_bytes=wires, wire_estimate=pipe_wire_estimate(plan, mesh),
+            boundary_wire_bytes=costs.boundary_wire_bytes(
+                act, pp, spec.num_microbatches),
+            bubble=spec.bubble_fraction(), peak_bytes=peak,
+            reserved_peak_bytes=reserved, card_free_bytes=free,
+            stage_footprint_bytes=plan.footprints[s].total,
+            launches=launches, edge_params_same_on_every_rank=edge_same,
+            expected=expected_pipe_launches(
+                cfg, cfg.n_layers // pp, s == pp - 1, spec.num_microbatches,
+                sched, PIPE_STEPS),
+            profiled=prof_rank, after_step=after,
+            gemm_cases=len(held.mm_cases), flash_cases=len(held.att_cases),
+            ssd_cases=len(held.ssd_cases),
+            ssd_backward_cases=len(held.ssd_bwd_cases),
+            gemm_max_abs_err=max(held.mm_cases.values()),
+            flash_max_abs_err=max(held.att_cases.values(), default=0.0),
+            ssd_max_abs_err=max(held.ssd_cases.values(), default=0.0),
+            ssd_backward_max_rel_err=max(held.ssd_bwd_cases.values(),
+                                         default=0.0),
+            gemm_backward_max_abs_err=mm_bwd,
+            flash_backward_max_abs_err=att_bwd,
+            cell_s=time.perf_counter() - t_cell, setup_s=setup_s,
+            check_s=check_s)
+        del sess, plan, st
+        torch.cuda.empty_cache()
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def pipe_check_cell(tag, cfg, shape, sched, ranks, yard):
+    """Phase 13's gates on one cell (the ranks' results, the yardstick's
+    steps) and its readings."""
+    dp, pp = shape
+    rows = sorted((r["cells"][tag] | {"rank": r["rank"]} for r in ranks),
+                  key=lambda r: r["rank"])
+    for t in range(PIPE_STEPS):
+        # step 1 from the seed, step 2 from the yardstick's state after
+        # step 1: the same rows through the same row-invariant kernels
+        last = sorted((r for r in rows if r["coords"]["pipe"] == pp - 1),
+                      key=lambda r: r["coords"]["data"])
+        got = [v for r in last for v in r["microbatch_losses"][t]]
+        require(got == yard[t]["microbatch_losses"],
+                f"pipeline {tag} step {t + 1}: the microbatch losses are not "
+                "the yardstick's bits")
+        for r in rows:
+            m, w = r["metrics"][t], yard[t]
+            require(math.isclose(m["loss"], w["loss"],
+                                 rel_tol=PIPE_STEP_LOSS_RTOL),
+                    f"pipeline {tag} rank {r['rank']} step {t + 1}: loss "
+                    f"{m['loss']} against the yardstick's {w['loss']}")
+            require(math.isclose(m["grad_norm"], w["grad_norm"],
+                                 rel_tol=PIPE_NORM_RTOL),
+                    f"pipeline {tag} rank {r['rank']} step {t + 1}: grad "
+                    f"norm {m['grad_norm']} against {w['grad_norm']}")
+            require(m["lr"] == w["lr"], f"pipeline {tag}: lr")
+    for r in rows:
+        require(r["edge_params_same_on_every_rank"],
+                f"pipeline {tag}: the edge params differ across ranks")
+        require(r["launches"] == r["expected"],
+                f"pipeline {tag} rank {r['rank']}: launches {r['launches']} "
+                f"against the stage's layer structure {r['expected']}")
+        for t, wire in enumerate(r["wire_bytes"]):
+            rest = {k: v for k, v in wire.items() if k != "send_recv"}
+            require(rest == r["wire_estimate"],
+                    f"pipeline {tag} rank {r['rank']} step {t + 1}: wire "
+                    f"{rest} against the layouts' estimate "
+                    f"{r['wire_estimate']}")
+    for d in range(dp):
+        line = [r for r in rows if r["coords"]["data"] == d]
+        for t in range(PIPE_STEPS):
+            got = sum(r["wire_bytes"][t].get("send_recv", 0) for r in line)
+            require(got == line[0]["boundary_wire_bytes"],
+                    f"pipeline {tag} data row {d} step {t + 1}: send_recv "
+                    f"{got} bytes against boundary_wire_bytes "
+                    f"{line[0]['boundary_wire_bytes']}")
+    ssm_family = cfg.family == "ssm"
+    # (the CPU's SSD backward is autograd's: no call to hold)
+    require(all(r["gemm_cases"] and (
+        (r["ssd_cases"] and (r["ssd_backward_cases"] or PIPE_DEVICE != "cuda"))
+        if ssm_family else r["flash_cases"]) for r in rows),
+            f"pipeline {tag}: a rank held no kernel call")
+    idle = profiled_idle([r["profiled"] for r in rows])
+    cell = dict(
+        mesh=f"{dp}x{pp}", schedule=sched, layers=cfg.n_layers,
+        microbatches=rows[0]["microbatches"], bubble=rows[0]["bubble"],
+        send_recv_bytes_per_line=rows[0]["boundary_wire_bytes"],
+        wire_bytes_by_rank=[r["wire_bytes"][0] for r in rows],
+        step_walls_ms_by_rank=[r["walls_ms"] for r in rows],
+        exchange_ms_by_rank=[r["exchange_ms"] for r in rows],
+        exchange_share_by_rank=[[e / w for e, w in
+                                 zip(r["exchange_ms"], r["walls_ms"])]
+                                for r in rows],
+        peak_gib_by_rank=[r["peak_bytes"] / 2**30 for r in rows],
+        reserved_peak_gib_by_rank=[r["reserved_peak_bytes"] / 2**30
+                                   for r in rows],
+        reserved_peak_gib_summed=sum(r["reserved_peak_bytes"]
+                                     for r in rows) / 2**30,
+        card_free_gib_by_rank=[[b / 2**30 for b in r["card_free_bytes"]]
+                               for r in rows],
+        card_free_gib_least=min(min(r["card_free_bytes"])
+                                for r in rows) / 2**30,
+        stage_footprint_gib_by_rank=[r["stage_footprint_bytes"] / 2**30
+                                     for r in rows],
+        cell_s_by_rank=[r["cell_s"] for r in rows],
+        setup_s_by_rank=[r["setup_s"] for r in rows],
+        check_s_by_rank=[r["check_s"] for r in rows],
+        card_idle=idle["card"], metrics_rank0=rows[0]["metrics"],
+        after_step_by_rank=[r["after_step"] for r in rows],
+        max_abs_err={k: max(r[k] for r in rows) for k in (
+            "gemm_max_abs_err", "flash_max_abs_err",
+            "gemm_backward_max_abs_err", "flash_backward_max_abs_err",
+            "ssd_max_abs_err", "ssd_backward_max_rel_err")})
+    print(f"pipeline {tag}: " + json.dumps(cell), flush=True)
+    return cell, rows
+
+
+def pipe_phase():
+    """Phase 13: the one-rank yardsticks, then four ranks spawned on the
+    one card over gloo, each cell in turn; returns the summary and the
+    ranks' launch counts summed over the cells."""
+    import torch.multiprocessing as mp
+    init = f"file://{TRAIN_DIR / 'rendezvous_pipe'}"
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    (TRAIN_DIR / "rendezvous_pipe").unlink(missing_ok=True)
+    results = [TRAIN_DIR / f"pipe_rank{r}.json" for r in range(PIPE_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    yards, files = {}, []
+    t0 = time.perf_counter()
+    try:
+        for tag, cfg, _, _, name in pipe_cells():
+            if name not in yards:
+                files.append(pipe_yard(name))
+                yards[name] = pipe_yardstick(cfg, name, pipe_batches(cfg))
+        print(f"pipeline yardsticks: {time.perf_counter() - t0:.1f} s; the "
+              f"parent holds {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+              f"reserved, the card {card_free_bytes() / 2**30:.3f} GiB "
+              "free at the spawn", flush=True)
+        mp.spawn(pipe_rank, args=(init, str(TRAIN_DIR / "pipe_rank{}.json"),
+                                  yards),
+                 nprocs=PIPE_RANKS, join=True)
+    finally:
+        for f in files:
+            f.unlink(missing_ok=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    for f in results:
+        f.unlink()
+    total, summary = {}, dict(arch=ARCH, ranks=PIPE_RANKS,
+                              backend="gloo (host memory), one card",
+                              tokens_per_step=PIPE_BATCH * TRAIN_SEQ,
+                              cells={})
+    for tag, cfg, shape, sched, name in pipe_cells():
+        cell, rows = pipe_check_cell(tag, cfg, shape, sched, ranks,
+                                     yards[name])
+        summary["cells"][tag] = cell
+        for r in rows:
+            for op, n in r["launches"].items():
+                total[op] = total.get(op, 0) + n
+    summary["warmup_s_by_rank"] = [r["warmup_s"] for r in ranks]
+    for d, p in PIPE_MESHES:
+        g, o = (summary["cells"][f"{d}x{p} {s}"] for s in PIPE_SCHEDULES)
+        ratio = [b / a if a else None for a, b in zip(
+            g["peak_gib_by_rank"], o["peak_gib_by_rank"])]
+        print(f"pipeline {d}x{p}: 1F1B's peak over GPipe's by rank {ratio}",
+              flush=True)
+    print("pipeline " + json.dumps({k: v for k, v in summary.items()
+                                    if k != "cells"}), flush=True)
+    return summary, total
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
@@ -6172,7 +6918,7 @@ ALONE = {"d256": lambda: print(json.dumps(
          "6": lambda: train_phase(get_config(ARCH)),
          "6c": lambda: (check_ssd_backward(), train_mamba2()),
          "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
-         "12": session_phase}
+         "12": session_phase, "13": pipe_phase}
 
 
 def main() -> int:
@@ -6335,6 +7081,11 @@ def main() -> int:
     _, session_launches = session_phase()
     print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
 
+    # 13. the pipeline: GPipe and 1F1B on (1, 4) and (2, 2), four ranks
+    t13 = time.perf_counter()
+    pipe, pipe_launches = pipe_phase()
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
     # results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
@@ -6354,6 +7105,21 @@ def main() -> int:
         bwd = next(r for r in rows if r["name"] == "attention_backward")
         bwd["max_abs_err"] = max(bwd["max_abs_err"],
                                  errs["flash_backward_max_abs_err"])
+    for cell in pipe["cells"].values():
+        errs = cell["max_abs_err"]
+        rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                     errs["gemm_max_abs_err"],
+                                     errs["gemm_backward_max_abs_err"])
+        rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"],
+                                     errs["flash_max_abs_err"])
+        bwd = next(r for r in rows if r["name"] == "attention_backward")
+        bwd["max_abs_err"] = max(bwd["max_abs_err"],
+                                 errs["flash_backward_max_abs_err"])
+        rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"],
+                                     errs["ssd_max_abs_err"])
+        ssd_bwd = next(r for r in rows if r["name"] == "ssd_backward")
+        ssd_bwd["max_err_over_largest"] = max(
+            ssd_bwd["max_err_over_largest"], errs["ssd_backward_max_rel_err"])
     errs = hybrid["mamba2"]["max_abs_err"]
     rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
                                  errs["gemm_max_abs_err"],
@@ -6379,7 +7145,8 @@ def main() -> int:
              train_path: train_launches,
              MAMBA_TRAIN_PATH: mamba_train_launches, DP_PATH: dp_launches,
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
-             SCHED_PATH: sched_launches, **session_launches}
+             SCHED_PATH: sched_launches, PIPE_PATH: pipe_launches,
+             **session_launches}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

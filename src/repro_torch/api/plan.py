@@ -3,10 +3,7 @@ reference's ``api/plan.py``.
 
 One documented dispatch rule: ``Session.train_step`` selects exactly one
 of the paths below from the mesh and the plan.  The matrix is the
-reference's, word for word: :data:`CAPABILITIES` holds the rows the port
-dispatches (``gspmd``, ``comms``), and the ``pipeline`` row stays
-documented in :data:`DOCUMENTED` and :func:`capability_table`, while
-:func:`select_path` refuses it (ROADMAP queue 1, item 10).
+reference's, word for word, and the port dispatches every row.
 """
 
 from __future__ import annotations
@@ -33,25 +30,23 @@ CAPABILITIES: Dict[str, Dict[str, Any]] = {
                   "ring | rsag | tree | hierarchical all-reduce",
         selected_when="a CommsPlan is attached and there is no pipe axis",
     ),
+    "pipeline": dict(
+        title="pipeline (GPipe / 1F1B)",
+        axes="pod x data x pipe — non-batch, non-pipe axes must be 1",
+        schedules=("gpipe", "1f1b"),
+        grad_sync="pmean over the batch axes, or the CommsPlan schedules "
+                  "when one is attached",
+        selected_when="the mesh has a pipe axis of size > 1 (or an "
+                      "explicit PipelineSpec is passed)",
+    ),
 }
-
-#: the reference's whole matrix: the dispatched rows and the pipeline's
-DOCUMENTED: Dict[str, Dict[str, Any]] = {**CAPABILITIES, "pipeline": dict(
-    title="pipeline (GPipe / 1F1B)",
-    axes="pod x data x pipe — non-batch, non-pipe axes must be 1",
-    schedules=("gpipe", "1f1b"),
-    grad_sync="pmean over the batch axes, or the CommsPlan schedules "
-              "when one is attached",
-    selected_when="the mesh has a pipe axis of size > 1 (or an "
-                  "explicit PipelineSpec is passed)",
-)}
 
 
 def capability_table() -> str:
     """The matrix rendered as a markdown table (README / --help)."""
     rows = ["| path | supported axes | schedules | gradient sync |",
             "|------|----------------|-----------|---------------|"]
-    for key, cap in DOCUMENTED.items():
+    for key, cap in CAPABILITIES.items():
         sched = ", ".join(cap["schedules"]) or "—"
         rows.append(f"| `{key}` ({cap['title']}) | {cap['axes']} | {sched} "
                     f"| {cap['grad_sync']} |")
@@ -60,14 +55,12 @@ def capability_table() -> str:
 
 def select_path(mesh, *, comms=None, pipeline=None) -> str:
     """The dispatch rule, as the reference's: a pipe axis (or a
-    PipelineSpec) wins (the pipeline path, not ported yet: this raises),
-    then an attached CommsPlan selects the explicit path, else the gspmd
-    path.  ``mesh`` is anything with a ``shape`` mapping (or the mapping
-    itself)."""
+    PipelineSpec) wins (the pipeline path), then an attached CommsPlan
+    selects the explicit path, else the gspmd path.  ``mesh`` is anything
+    with a ``shape`` mapping (or the mapping itself)."""
     shape = dict(mesh.shape) if hasattr(mesh, "shape") else dict(mesh)
     if pipeline is not None or shape.get("pipe", 1) > 1:
-        raise NotImplementedError("the pipeline path is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+        return "pipeline"
     return "comms" if comms is not None else "gspmd"
 
 
@@ -82,7 +75,7 @@ class ExecutablePlan:
 
     cfg: Any                              # ModelConfig
     model: Any                            # repro_torch.models.Model
-    path: str                             # gspmd | comms | <serve kind>
+    path: str                             # gspmd | comms | pipeline | <kind>
     shape: Any                            # ShapeConfig
     num_microbatches: int = 1
     adamw: Any = None
@@ -90,8 +83,8 @@ class ExecutablePlan:
     n_ranks: int = 1
     mesh: Any = None                      # the Session's mesh
     parallel: Any = None                  # ParallelPlan (plan_for)
-    schedule: str = "gpipe"               # pipeline schedule (none yet)
-    pipeline: Any = None                  # PipelineSpec (not ported)
+    schedule: str = "gpipe"               # pipeline schedule (if any)
+    pipeline: Any = None                  # PipelineSpec (resolved)
     budget: Any = None                    # MemoryBudget it was priced against
     footprints: Tuple = ()                # per-stage Footprints (train only)
     refused: Mapping = dataclasses.field(default_factory=dict)
@@ -130,6 +123,10 @@ class ExecutablePlan:
                  + (f" ({cap['title']})" if cap else ""),
                  f"  mesh {dict(self.mesh.shape)}  "
                  f"microbatches={self.num_microbatches}"]
+        if self.pipeline is not None:
+            lines.append(f"  pipeline: {self.pipeline.n_stages} stages "
+                         f"({self.pipeline.schedule}), bubble "
+                         f"{self.pipeline.bubble_fraction():.2f}")
         if self.comms is not None:
             lines.append(f"  comms: {self.comms.schedule} schedule, bucket "
                          f"{self.comms.bucket_bytes >> 20} MiB")

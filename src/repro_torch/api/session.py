@@ -2,12 +2,13 @@
 the device and steps, serves and dry-runs it, ported from the
 reference's ``api/session.py``.
 
-``Session(device=..., group=..., obs=..., mesh=..., hbm_gib=...,
+``Session(device=..., group=..., obs=..., mesh=..., pp=..., hbm_gib=...,
 opcache=..., state=..., tensors=...)`` holds the device, the process
 group (None: one rank, or the default group when one is initialized),
 the telemetry (:mod:`repro_torch.obs`, the disabled ``NULL`` by
-default), the mesh over the group (``make_host_mesh``'s (data=n,
-model=1) by default), the gradient-sync :attr:`topology`, the
+default), the mesh over the group (``make_host_mesh(pp)``'s (data=n,
+model=1), or (data=n/pp, pipe=pp, model=1), by default), the
+gradient-sync :attr:`topology`, the
 per-device memory :attr:`budget` (the card's entry of
 ``core.memory.HBM_BUDGETS`` by its name, ``cpu`` on the CPU, or
 ``hbm_gib``), the compiled-artifact cache :attr:`opcache` (an
@@ -21,7 +22,8 @@ table of its linalg surface (``tensors``; :meth:`Session.tensor` makes a
 ``SHAPES`` name or a ``ShapeConfig``) or ``batch=``/``seq=`` with
 ``kind=`` (``train``, ``prefill``, ``decode``, ``long_decode``).  A train
 cell resolves the layout plan (``plan_for`` on the mesh), the microbatch
-count, the CommsPlan and the dispatch path, and is priced with the
+count, the pipeline spec on a mesh with a ``pipe`` axis, the CommsPlan
+and the dispatch path (:func:`dispatch_train_step`), and is priced with the
 memory model before anything is allocated: one that does not fit raises
 :class:`~repro_torch.api.errors.PlanMemoryError`.  A serve cell's path
 is its kind, and it gets no footprint verdict.  :meth:`Session.init_state`
@@ -40,6 +42,7 @@ span closes after the card's work) and :meth:`Session.publish_metrics`.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable, Dict, Optional, Union
 
@@ -67,6 +70,33 @@ from .plan import ExecutablePlan, select_path
 from .state import StateRegistry
 
 
+def dispatch_train_step(model, mesh, *, adamw=None,
+                        num_microbatches: Optional[int] = None,
+                        comms=None, pipeline=None,
+                        path: Optional[str] = None, group=None) -> Callable:
+    """The train-step dispatcher, the reference's: one signature, three
+    paths.  Selects (or is told) the path by the capability matrix
+    (:func:`select_path`) and returns ``train_step(state, batch) ->
+    (state, metrics)``: ``gspmd`` on the model (one rank, or the model's
+    mesh), ``comms`` over ``mesh``'s batch axes (``group``: its process
+    group), ``pipeline`` on ``mesh``'s ``pipe`` axis.
+    :meth:`Session.train_step` builds it through the session's op
+    cache."""
+    if path is None:
+        path = select_path(mesh, comms=comms, pipeline=pipeline)
+    if path == "pipeline":
+        return step_mod.pipeline_train_step(
+            model, mesh, adamw, num_microbatches=num_microbatches,
+            pipeline=pipeline, comms=comms)
+    if path == "comms":
+        return step_mod.comms_train_step(model, adamw, num_microbatches or 1,
+                                         comms, group, mesh)
+    if path == "gspmd":
+        return step_mod.gspmd_train_step(model, adamw, num_microbatches or 1)
+    raise ValueError(f"unknown train-step path {path!r}; expected one of "
+                     "gspmd | comms | pipeline")
+
+
 class Session:
     """One device, one process group, one persistent state registry.
 
@@ -86,7 +116,7 @@ class Session:
                  group: Optional[dist.ProcessGroup] = None,
                  obs: Optional["obs_mod.Obs"] = None, mesh=None,
                  tensors: Optional[TensorRegistry] = None, *,
-                 hbm_gib: Optional[float] = None,
+                 pp: int = 1, hbm_gib: Optional[float] = None,
                  opcache: Optional[OpCache] = None,
                  state: Optional[StateRegistry] = None):
         self.device = resolve_device(device)
@@ -95,7 +125,7 @@ class Session:
         self.group = group
         self.n_ranks = dist.get_world_size(group) if group is not None else 1
         self.mesh = (mesh if mesh is not None
-                     else mesh_mod.make_host_mesh(group=group))
+                     else mesh_mod.make_host_mesh(pp, group=group))
         self.budget = mem_mod.budget_for(hbm_gib=hbm_gib, device=self.device)
         self.topology = grad_sync_topology(self.mesh)
         self.opcache = opcache if opcache is not None else OpCache("session")
@@ -119,15 +149,19 @@ class Session:
             self.obs.event(
                 "plan_resolved", arch=plan.cfg.name, shape=plan.shape.name,
                 path=plan.path, microbatches=plan.num_microbatches,
+                schedule=plan.schedule,
                 comms=(plan.comms.schedule if plan.comms is not None
-                       else None), pp=1, ranks=plan.n_ranks)
+                       else None),
+                pp=(plan.pipeline.n_stages if plan.pipeline is not None
+                    else 1), ranks=plan.n_ranks)
         return plan
 
     def _plan(self, arch, *, shape: Union[str, ShapeConfig, None] = None,
               batch: Optional[int] = None, seq: Optional[int] = None,
               kind: str = "train", comms="auto",
               adamw: Optional[opt.AdamWConfig] = None,
-              microbatches: Optional[int] = None, scale_down: int = 1,
+              microbatches: Optional[int] = None, pp_schedule: str = "gpipe",
+              scale_down: int = 1,
               model_kwargs=None, plan_kwargs=None,
               check_memory: bool = True, sweep: bool = False
               ) -> ExecutablePlan:
@@ -144,13 +178,19 @@ class Session:
         ``dp_only``), and otherwise selects the ``gspmd`` path, on one
         rank or on the mesh with the implicit gradient sync;
         ``"off"``/``None`` selects the ``gspmd`` path, and a ``CommsPlan``
-        is used as given.  The microbatch count defaults to the
-        reference's rule, clamped to the rows of a data coordinate.  A
-        serve cell's path is its kind.
+        is used as given (on a DP x PP mesh too, as the reference's).  The
+        microbatch count defaults to the reference's rule, clamped to the
+        rows of a data coordinate.  On a mesh with a ``pipe`` axis the
+        plan's :class:`~repro_torch.pipeline.PipelineSpec` takes
+        ``pp_schedule`` (``gpipe`` | ``1f1b``) and that count, lowered
+        until it divides a data coordinate's rows, as the reference does,
+        and the ``pipeline`` path runs every stage's layers on a model
+        without a mesh.  A serve cell's path is its kind.
 
         The memory verdict (train cells) is the reference's: the cell's
-        per-stage footprints (``core.memory.footprints_for_mesh``)
-        against :attr:`budget`.  ``check_memory`` (default) raises
+        per-stage footprints (``core.memory.footprints_for_mesh``, every
+        pipeline stage priced under its schedule) against :attr:`budget`.
+        ``check_memory`` (default) raises
         :class:`PlanMemoryError` for a cell that does not fit, with the
         sweep's per-candidate refusals when no factorization fits either;
         ``sweep=True`` always runs the sweep (``plan.scores``,
@@ -170,7 +210,7 @@ class Session:
         mesh = self.mesh
         parallel = plan_for(cfg, mesh, **(plan_kwargs or {}))
         train = shape.kind == "train"
-        nmb, comms_plan = 1, None
+        nmb, comms_plan, spec = 1, None, None
         footprints: tuple = ()
         refused: dict = {}
         scores = None
@@ -183,23 +223,33 @@ class Session:
             nmb = (microbatches if microbatches is not None
                    else default_microbatches(cfg, shape, mesh, parallel))
             nmb = max(1, min(nmb, batch // nb))
+            spec = parallel.pipeline
+            if spec is not None:
+                # microbatches split a data coordinate's rows on the pipe
+                while (batch // nb) % nmb:
+                    nmb -= 1
+                spec = dataclasses.replace(spec, schedule=pp_schedule,
+                                           num_microbatches=nmb)
+                parallel = dataclasses.replace(parallel, pipeline=spec)
             if (batch // nb) % nmb:
                 raise ValueError(f"{nmb} microbatches do not split a rank's "
                                  f"{batch // nb} rows")
             if comms == "auto":
                 dp_only = all(n == 1 for a, n in mesh.shape.items()
-                              if a not in parallel.batch_axes)
+                              if a not in parallel.batch_axes + ("pipe",))
                 if self.group is not None and dp_only:
                     comms_plan = comms_plan_for(cfg, mesh, topo=self.topology)
             elif comms not in (None, "off"):
                 comms_plan = comms
             footprints, refused, scores = self._verdict(
-                cfg, shape, nmb, adamw, check_memory, sweep)
-        path = select_path(mesh, comms=comms_plan) if train else shape.kind
+                cfg, shape, nmb, adamw, check_memory, sweep, pp_schedule)
+        path = (select_path(mesh, comms=comms_plan, pipeline=spec) if train
+                else shape.kind)
 
         # the gspmd path (and a serve cell, which raises at serving: item
-        # 13) runs the model on the mesh of several ranks
-        on_mesh = mesh.size > 1 and path != "comms"
+        # 13) runs the model on the mesh of several ranks; the comms and
+        # pipeline paths run it on each rank's own rows
+        on_mesh = mesh.size > 1 and path not in ("comms", "pipeline")
         model = Model(cfg, device=self.device,
                       mesh=mesh if on_mesh else None,
                       plan=parallel if on_mesh else None,
@@ -208,10 +258,12 @@ class Session:
                               num_microbatches=nmb, adamw=adamw,
                               comms=comms_plan, n_ranks=self.n_ranks,
                               mesh=mesh, parallel=parallel,
+                              schedule=pp_schedule, pipeline=spec,
                               budget=self.budget, footprints=footprints,
                               refused=refused, scores=scores)
 
-    def _verdict(self, cfg, shape, nmb, adamw, check_memory, sweep):
+    def _verdict(self, cfg, shape, nmb, adamw, check_memory, sweep,
+                 schedule="gpipe"):
         """A train cell's memory verdict: (footprints, refused, scores),
         raising :class:`PlanMemoryError` as :meth:`_plan` says."""
         mesh = self.mesh
@@ -219,7 +271,7 @@ class Session:
                            if adamw is not None else 4)
         footprints = tuple(mem_mod.footprints_for_mesh(
             cfg, mesh, global_batch=shape.global_batch,
-            seq_len=shape.seq_len, num_microbatches=nmb,
+            seq_len=shape.seq_len, num_microbatches=nmb, schedule=schedule,
             moment_itemsize=moment_itemsize))
         fits = all(f.fits(self.budget) for f in footprints)
         refused: dict = {}
@@ -227,8 +279,8 @@ class Session:
         if sweep or (check_memory and not fits):
             scores, refused = score_hybrid_candidates(
                 cfg, mesh.size, global_batch=shape.global_batch,
-                seq_len=shape.seq_len, hbm_budget=self.budget,
-                return_refused=True)
+                seq_len=shape.seq_len, schedule=schedule,
+                hbm_budget=self.budget, return_refused=True)
             if sweep and not scores:
                 raise PlanMemoryError.all_refused(refused, self.budget,
                                                   mesh.size)
@@ -261,11 +313,11 @@ class Session:
         def build():
             with self.obs.span("build_step", path=plan.path,
                                arch=plan.cfg.name):
-                return step_mod.dispatch_train_step(
-                    plan.model, adamw=plan.adamw,
+                return dispatch_train_step(
+                    plan.model, self.mesh, adamw=plan.adamw,
                     num_microbatches=plan.num_microbatches,
-                    comms=plan.comms, group=self.group, path=plan.path,
-                    mesh=self.mesh)
+                    comms=plan.comms, pipeline=plan.pipeline,
+                    path=plan.path, group=self.group)
 
         return self.opcache.get_or_build(self._step_key(plan, **extra),
                                          "train_step", build)
@@ -283,6 +335,13 @@ class Session:
 
     def _new_state(self, plan: ExecutablePlan, seed: int, params=None):
         model = plan.model
+        if plan.path == "pipeline":
+            from repro_torch.pipeline import pipeline_init_state
+            return pipeline_init_state(
+                model, self.mesh, plan.pipeline, seed,
+                adamw=plan.adamw, params=None if params is None else {
+                    k: v.to(self.device, copy=True)
+                    for k, v in params.items()})
         if params is None:
             params = model.init(seed)
         else:
@@ -297,8 +356,13 @@ class Session:
 
     def zero_layouts(self, plan: ExecutablePlan
                      ) -> Optional[opt.ZeroLayouts]:
-        """The plan's ZeRO-1 layouts (None for a model without a mesh)."""
+        """The plan's ZeRO-1 layouts (None for a model without a mesh off
+        the pipeline path)."""
         model = plan.model
+        if plan.path == "pipeline":
+            from repro_torch.pipeline import pipeline_param_specs
+            return opt.ZeroLayouts.of(
+                pipeline_param_specs(model, plan.pipeline), self.mesh)
         return (None if model.mesh is None
                 else opt.ZeroLayouts.of(model.param_specs(), model.mesh))
 
@@ -417,7 +481,8 @@ class Session:
             args = (self._new_state(plan, seed), batch)
             fn = self.train_step(plan, sharded=True)
             meta = {"step": "train_step", "path": plan.path,
-                    "microbatches": plan.num_microbatches, "pp": 1,
+                    "microbatches": plan.num_microbatches,
+                    "pp": self.mesh.shape.get("pipe", 1),
                     "moment_itemsize": (plan.adamw.moment_dtype.itemsize
                                         if plan.adamw else 4)}
             with self.obs.span("lower", step=meta["step"], arch=cfg.name,

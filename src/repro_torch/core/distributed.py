@@ -24,7 +24,8 @@ the card): ``all_gather`` and ``all_to_all_single`` take fp32 and bf16;
 ``all_reduce`` and ``reduce_scatter`` sum them, but at 4 ranks not in
 rank order; point-to-point sends of a CUDA tensor end the process
 (gloo's TCP transport reads the device pointer from the host), so
-:func:`exchange` copies through host memory itself.  A reduce-scatter is
+:func:`exchange` copies through host memory itself, and so does
+:func:`broadcast`.  A reduce-scatter is
 an all-to-all and then the rank-ordered sum of the pieces (the bytes of a
 ring reduce-scatter, and the reference's order of adds); an all-reduce is
 ``comms.schedules.group_reduce`` on the axis's group (rank order).
@@ -293,6 +294,26 @@ def pmax(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
     for name in reversed(_axes(axis)):
         if mesh.shape[name] > 1:
             x = all_gather(x[None], mesh, name, 0).amax(0)
+    return x
+
+
+def broadcast(x: torch.Tensor, mesh: Mesh, axis: str, src: int
+              ) -> torch.Tensor:
+    """The line's index-``src`` rank's ``x`` on every rank of the line
+    (written into ``x`` on the others, which pass a buffer of its shape
+    and dtype).  On a gloo group a CUDA tensor travels as a host copy, as
+    in :func:`exchange`.  A receiving rank counts the tensor's bytes."""
+    if mesh.shape[axis] == 1:
+        return x
+    group = mesh.axis_group(axis)
+    x = x.contiguous()
+    staged = dist.get_backend(group) == "gloo" and x.is_cuda
+    buf = x.cpu() if staged else x
+    dist.broadcast(buf, mesh.line_ranks(axis)[src], group=group)
+    if staged:
+        x.copy_(buf)
+    if mesh.coords[axis] != src:
+        WIRE.record("broadcast", _nbytes(x), x.dtype)
     return x
 
 

@@ -17,13 +17,14 @@ activation layout method); :func:`plan_for` and
 :func:`approx_param_count` are the reference's.  ``plan.comms`` is the
 cost model's gradient-sync :class:`~repro_torch.comms.plan.CommsPlan`
 (:func:`comms_plan_for`, scored over the batch axes by
-:func:`grad_sync_topology`); ``plan.pipeline`` is None (ROADMAP queue 1,
-item 10).  The hybrid sweep (:func:`score_hybrid_candidates`,
-:func:`best_hybrid`) scores every (dp, tp, pp) factorization with the
-alpha-beta links, ``pipeline/costs.py`` and the memory model, refusing
-what does not fit, pipeline candidates included though the port cannot
-run them yet.  Links, the FLOPs rate and the step overhead are the
-reference's nominals unless a calibration table is active.
+:func:`grad_sync_topology`); ``plan.pipeline`` is the
+:class:`~repro_torch.pipeline.PipelineSpec` of a mesh with a ``pipe``
+axis (:func:`pipeline_spec_for`), else None.  The hybrid sweep
+(:func:`score_hybrid_candidates`, :func:`best_hybrid`) scores every (dp,
+tp, pp) factorization with the alpha-beta links, ``pipeline/costs.py``
+and the memory model, refusing what does not fit.  Links, the FLOPs rate
+and the step overhead are the reference's nominals unless a calibration
+table is active.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class ParallelPlan:
     n_layers: int = 1                   # for per-tensor FSDP sizing
     fsdp_tensor_bytes: float = 4 * GiB  # FSDP only stacks bigger than this
     comms: Optional[object] = None      # repro_torch.comms.CommsPlan
-    pipeline: Optional[object] = None   # PipelineSpec (not ported)
+    pipeline: Optional[object] = None   # repro_torch.pipeline.PipelineSpec
 
     # ---- parameter layouts --------------------------------------------------
     def _maybe_fsdp(self, layout: Layout, shape, mesh, dim: int) -> Layout:
@@ -220,6 +221,29 @@ def comms_plan_for(cfg, mesh, *, wire_dtype: Optional[str] = None,
                      bucket_bytes=bucket_bytes, intra_axis="data")
 
 
+def pipeline_spec_for(cfg, mesh, *,
+                      num_microbatches: Optional[int] = None,
+                      schedule: str = "gpipe"):
+    """The :class:`~repro_torch.pipeline.PipelineSpec` of a cell, or None:
+    a spec exists iff the mesh has a ``pipe`` axis of size > 1.  The stage
+    boundaries are the uniform split (what the executable path needs, and
+    what the memory-balanced partitioner gives a homogeneous stack); the
+    default microbatch count 2 * pp keeps the bubble under 1/3."""
+    pp = mesh.shape.get("pipe", 1)
+    if pp <= 1:
+        return None
+    from repro_torch.pipeline import PipelineSpec
+
+    L = max(1, getattr(cfg, "n_layers", 1) or 1)
+    if L % pp:
+        raise ValueError(
+            f"n_layers={L} not divisible by pipe axis size {pp}")
+    return PipelineSpec(
+        n_stages=pp, axis="pipe", schedule=schedule,
+        num_microbatches=num_microbatches or 2 * pp,
+        boundaries=tuple(range(0, L + 1, L // pp)))
+
+
 def score_hybrid_candidates(cfg, n_devices: int, *, global_batch: int,
                             seq_len: int,
                             num_microbatches: Optional[int] = None,
@@ -383,5 +407,5 @@ def plan_for(cfg, mesh, *, fsdp_tensor_bytes: float = 4 * GiB,
         n_layers=max(1, getattr(cfg, "n_layers", 1)),
         fsdp_tensor_bytes=fsdp_tensor_bytes,
         comms=comms_plan_for(cfg, mesh),
-        pipeline=None,
+        pipeline=pipeline_spec_for(cfg, mesh),
     )

@@ -27,12 +27,21 @@ otherwise (autograd cannot take fake CUDA tensors without one); nothing
 runs on either, and the kernel wrappers take fake tensors of either to
 their shape functions, so the numbers are the same.
 
+``--pp N`` traces the pipeline path on the production mesh carved as
+the reference's (data = 256/N, pipe = N, model = 1; 2 pods: pod = 2
+before them): the first stage's rank (rank 0) and the last stage's
+(rank N - 1) are each traced on a fake group of their own, the result's
+``memory.peak_bytes`` is the larger peak (both are under
+``memory.stage_peak_bytes``), and ``pipeline`` holds each traced rank's
+``send_recv`` bytes against its share of ``costs.boundary_wire_bytes``
+(M activations received by the last stage, M cotangents by the first).
+Result names end in ``_pp{N}``, as the reference's do.
+
 Cells the port cannot run on a mesh print ``SKIP`` with their ROADMAP
 item, never as passes: every prefill/decode/long_decode cell (serving
-on a mesh, queue 1, item 13).  ``--pp`` > 1
-(the pipeline, item 10), ``--hlo-out`` (no HLO here) and ``--comms
-auto`` are refused: both production meshes have model = 16, so ``auto``
-plans the gspmd path, the same as ``off``.
+on a mesh, queue 1, item 13).  ``--hlo-out`` (no HLO here) and
+``--comms auto`` are refused: both production meshes have model = 16,
+so ``auto`` plans the gspmd path, the same as ``off``.
 ``--all`` runs every cell on both meshes (the reference's ``--all
 --both-meshes``), or on the 2x16x16 alone with ``--multi-pod``.  Results
 land in ``experiments/dryrun_torch/<cell>.json``.
@@ -43,6 +52,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -76,11 +86,11 @@ def default_device() -> str:
 
 
 @contextlib.contextmanager
-def fake_world(world_size: int):
-    """This process as rank 0 of a ``world_size``-rank group of torch's
+def fake_world(world_size: int, rank: int = 0):
+    """This process as ``rank`` of a ``world_size``-rank group of torch's
     ``fake`` backend (collectives return at once), for the block."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield dist.group.WORLD
@@ -124,26 +134,32 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              microbatches: Optional[int] = None, model_kwargs=None,
              plan_kwargs=None, hbm_gib: Optional[float] = None,
              obs: Optional["obs_mod.Obs"] = None,
-             scale_down: int = 1) -> Dict[str, Any]:
-    """One cell on the production mesh, on a fake group of its size.
+             scale_down: int = 1, pp: int = 1) -> Dict[str, Any]:
+    """One cell on the production mesh, on a fake group of its size (per
+    traced rank: with ``pp`` > 1 the first stage's and the last's).
     ``hbm_gib`` defaults to the H100's entry of the memory model."""
     obs = obs if obs is not None else obs_mod.Obs(name="dryrun")
     n_chips = 512 if multi_pod else 256
     if hbm_gib is None:
         hbm_gib = mem_mod.HBM_BUDGETS["h100"].hbm_bytes / mem_mod.GIB
-    with fake_world(n_chips):
-        mesh = make_production_mesh(multi_pod=multi_pod)
-        session = Session(device=default_device(), mesh=mesh,
-                          hbm_gib=hbm_gib, obs=obs)
-        trace, meta, plan = build_traced(
-            arch, shape_name, session, microbatches=microbatches,
-            model_kwargs=model_kwargs, plan_kwargs=plan_kwargs,
-            scale_down=scale_down)
+    traces = []
+    for rank in ((0, pp - 1) if pp > 1 else (0,)):
+        with fake_world(n_chips, rank):
+            mesh = make_production_mesh(multi_pod=multi_pod, pp=pp)
+            session = Session(device=default_device(), mesh=mesh,
+                              hbm_gib=hbm_gib, obs=obs)
+            trace, meta, plan = build_traced(
+                arch, shape_name, session, microbatches=microbatches,
+                model_kwargs=model_kwargs, plan_kwargs=plan_kwargs,
+                scale_down=scale_down)
+        traces.append(trace)
+    trace = max(traces, key=lambda t: t.peak_bytes)
     by_op = {op: {"count": trace.collective_calls.get(op, 0),
                   "wire_bytes": b} for op, b in trace.collectives.items()}
     result = {
         **meta,
-        "mesh": "2x16x16" if multi_pod else "16x16",
+        "mesh": ("2x16x16" if multi_pod else "16x16")
+                + (f"_pp{pp}" if pp > 1 else ""),
         "n_chips": n_chips,
         "device": str(session.device),
         "trace_s": round(trace.trace_s, 2),
@@ -157,6 +173,27 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "collective_wire_bytes": trace.wire_bytes,
         "n_collectives": sum(trace.collective_calls.values()),
     }
+    if pp > 1:
+        from repro_torch.pipeline import costs
+        spec = plan.pipeline
+        rows = plan.global_batch // math.prod(
+            mesh.shape[a] for a in plan.parallel.batch_axes)
+        act = costs.boundary_act_bytes(rows // spec.num_microbatches,
+                                       plan.seq_len, plan.cfg.d_model)
+        result["memory"]["stage_peak_bytes"] = {
+            "first": traces[0].peak_bytes, "last": traces[1].peak_bytes}
+        result["pipeline"] = {
+            "stages": pp, "schedule": spec.schedule,
+            "microbatches": spec.num_microbatches,
+            "bubble": spec.bubble_fraction(),
+            "boundary_wire_bytes": costs.boundary_wire_bytes(
+                act, pp, spec.num_microbatches),
+            "send_recv_bytes": {
+                "first": traces[0].collectives.get("send_recv", 0),
+                "last": traces[1].collectives.get("send_recv", 0)},
+            "send_recv_expected": spec.num_microbatches * act,
+            "wire_bytes": {"first": traces[0].wire_bytes,
+                           "last": traces[1].wire_bytes}}
     if meta.get("step") == "train_step":
         budget = session.budget
         fps = plan.footprints
@@ -187,8 +224,8 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages (refused above 1: ROADMAP queue "
-                         "1, item 10)")
+                    help="pipeline stages: carve a 'pipe' axis out of the "
+                         "production mesh (data=256/pp, pipe=pp, model=1)")
     ap.add_argument("--hbm-gib", type=float, default=None,
                     help="per-device HBM budget in GiB for the footprint "
                          "verdict (default: the H100's entry)")
@@ -201,9 +238,9 @@ def main(argv=None):
     ap.add_argument("--metrics", type=str, default=None, metavar="PATH",
                     help="also stream the plan/lower spans as JSONL to PATH")
     args = ap.parse_args(argv)
-    if args.pp > 1:
-        ap.error(f"--pp {args.pp}: the pipeline path is not ported yet "
-                 "(ROADMAP queue 1, item 10)")
+    if args.pp < 1 or 256 % args.pp:
+        ap.error(f"--pp {args.pp}: the pipe axis must divide the pod's 256 "
+                 "chips")
     if args.hlo_out:
         ap.error("--hlo-out: the port traces eagerly and lowers no HLO")
     if args.comms != "off":
@@ -226,6 +263,8 @@ def main(argv=None):
     for arch, shape in todo:
         for mp in meshes:
             tag = f"{arch}_{shape}_{'2x16x16' if mp else '16x16'}"
+            if args.pp > 1:
+                tag += f"_pp{args.pp}"
             why = skip_reason(arch, shape)
             if why is not None:
                 print(f"SKIP {tag}: {why}")
@@ -233,7 +272,7 @@ def main(argv=None):
             try:
                 res = run_cell(arch, shape, multi_pod=mp,
                                microbatches=args.microbatches,
-                               hbm_gib=args.hbm_gib, obs=obs)
+                               hbm_gib=args.hbm_gib, obs=obs, pp=args.pp)
                 with open(os.path.join(args.out, tag + ".json"), "w") as f:
                     json.dump(res, f, indent=1)
                 gib = res["memory"]["peak_bytes"] / 2**30

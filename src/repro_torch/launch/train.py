@@ -28,10 +28,15 @@ calibrated and raw, and ``torch.cuda.max_memory_allocated`` over the
 steps on the card) and the drift report (predicted vs measured step time
 and peak; the CPU measures no peak, so that row is left out).
 
-Not ported yet, and refused when set: ``--pp`` > 1 and ``--pp-schedule``
-(pipeline, ROADMAP queue 1, item 10); ``--resilient`` and ``--faults``
-(item 12).  The step-time watchdog waits for item 12: the loop runs
-without it.
+``--pp N`` trains on the pipeline path (:mod:`repro_torch.pipeline`):
+the ranks form a (data = n/N, pipe = N, model = 1) mesh and
+``--pp-schedule`` picks GPipe (the default) or 1F1B.  The ranks are
+processes started with ``RANK``, ``WORLD_SIZE`` and
+``DMATH_INIT_METHOD`` (a ``file://`` path or ``tcp://127.0.0.1:<port>``)
+in their environment; the CLI joins that process group when none is
+initialized.  Not ported yet, and refused when set: ``--resilient`` and
+``--faults`` (ROADMAP queue 1, item 12).  The step-time watchdog waits
+for item 12: the loop runs without it.
 """
 
 from __future__ import annotations
@@ -42,11 +47,13 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs as obs_mod
 from repro_torch.api import Session
 from repro_torch.checkpoint import CheckpointManager, state_from_tree, \
     state_tree
+from repro_torch.core import distributed as dist_mod
 from repro_torch.core import memory as mem_mod
 from repro_torch.data import Pipeline, SyntheticLM
 from repro_torch.kernels import ops
@@ -54,15 +61,12 @@ from repro_torch.obs import report as report_mod
 from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
 
 
-def _refuse_unported(*, pp, pp_schedule, resilient, faults) -> None:
-    waiting = [("--pp > 1", pp > 1, 10),
-               ("--pp-schedule", pp_schedule is not None, 10),
-               ("--resilient", resilient, 12),
-               ("--faults", faults is not None, 12)]
-    for flag, given, item in waiting:
+def _refuse_unported(*, resilient, faults) -> None:
+    for flag, given in (("--resilient", resilient),
+                        ("--faults", faults is not None)):
         if given:
             raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
+                f"{flag} is not ported yet (ROADMAP queue 1, item 12)")
 
 
 def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
@@ -74,8 +78,13 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         metrics_snapshot: Optional[str] = None,
         calibration: Optional[str] = None, resilient: bool = False,
         faults: Optional[str] = None, device: str = "cuda"):
-    _refuse_unported(pp=pp, pp_schedule=pp_schedule, resilient=resilient,
-                     faults=faults)
+    _refuse_unported(resilient=resilient, faults=faults)
+    # ranks started with RANK / WORLD_SIZE / DMATH_INIT_METHOD join their
+    # group here, unless the caller has already
+    joined = (not dist.is_initialized()
+              and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if joined:
+        dist_mod.init_group(device=device)
     # telemetry is strictly opt-in: without --metrics every obs call site
     # sees the NULL singleton, so numerics and stdout are unchanged
     obs = obs_mod.Obs(jsonl=metrics, name=f"train/{arch}") if metrics \
@@ -93,15 +102,17 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         return _run(arch, obs, steps=steps, batch=batch, seq=seq,
                     scale_down=scale_down, lr=lr, microbatches=microbatches,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
-                    log_every=log_every, seed=seed, comms=comms,
-                    hbm_gib=hbm_gib, metrics=metrics,
-                    metrics_snapshot=metrics_snapshot,
+                    log_every=log_every, seed=seed, comms=comms, pp=pp,
+                    pp_schedule=pp_schedule or "gpipe", hbm_gib=hbm_gib,
+                    metrics=metrics, metrics_snapshot=metrics_snapshot,
                     calibration=calibration, device=device)
     finally:
         if calibration:
             calibrate.set_active(prev_cal)
         obs_mod.set_active(prev_obs)
         obs.close()
+        if joined:
+            dist_mod.close_group()
 
 
 def _measure_peak(session, plan, obs) -> None:
@@ -118,16 +129,22 @@ def _measure_peak(session, plan, obs) -> None:
 
 
 def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
-         ckpt_dir, ckpt_every, resume, log_every, seed, comms, hbm_gib,
-         metrics, metrics_snapshot, calibration, device):
-    session = Session(device=device, obs=obs, hbm_gib=hbm_gib)
+         ckpt_dir, ckpt_every, resume, log_every, seed, comms, pp,
+         pp_schedule, hbm_gib, metrics, metrics_snapshot, calibration,
+         device):
+    session = Session(device=device, obs=obs, hbm_gib=hbm_gib, pp=pp)
     adamw = AdamWConfig(lr=warmup_cosine(lr, steps // 10 + 1, steps))
     plan = session.plan(arch, batch=batch, seq=seq, microbatches=microbatches,
-                        comms=comms, adamw=adamw, scale_down=scale_down)
+                        pp_schedule=pp_schedule, comms=comms, adamw=adamw,
+                        scale_down=scale_down)
     cfg = plan.cfg
     peak = mem_mod.peak_stage_footprint(plan.footprints)
     print(f"memory model: predicted peak {peak.total / mem_mod.GIB:.3f} "
           f"GiB/device vs {plan.budget.describe()} -> fits")
+    if plan.pipeline is not None:
+        print(f"pipeline: {plan.pipeline.n_stages} stages "
+              f"({plan.pipeline.schedule}, {plan.num_microbatches} "
+              f"microbatches), bubble {plan.pipeline.bubble_fraction():.2f}")
     if plan.comms is not None:
         print(f"comms: grad sync via {plan.comms.schedule} schedule "
               f"(bucket {plan.comms.bucket_bytes >> 20} MiB)")
@@ -201,7 +218,7 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
                      mesh=dict(session.mesh.shape), batch=batch, seq=seq,
                      scale_down=scale_down,
                      microbatches=plan.num_microbatches,
-                     pp_schedule="gpipe", calibration=calibration,
+                     pp_schedule=pp_schedule, calibration=calibration,
                      drift=drift.to_dict(),
                      kernel_launches=ops.dispatch_report())
         print(f"metrics: {metrics}  snapshot: {snap_path}")
@@ -227,9 +244,11 @@ def main():
                     help="route DP grad sync through repro_torch.comms "
                          "(one rank: no wire either way)")
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline-parallel degree (not ported yet)")
+                    help="pipeline-parallel degree: the ranks form a "
+                         "(data=n/pp, pipe=pp, model=1) mesh")
     ap.add_argument("--pp-schedule", choices=["gpipe", "1f1b"],
-                    default=None, help="not ported yet")
+                    default=None, help="the pipeline schedule (default "
+                                       "gpipe)")
     ap.add_argument("--hbm-gib", type=float, default=None,
                     help="per-device memory budget in GiB for the plan's "
                          "memory verdict (default: the card's entry, "

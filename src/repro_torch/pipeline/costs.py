@@ -6,10 +6,10 @@ the reference's ``pipeline/costs.py`` (it uses no framework).
 - **stage-boundary wire bytes**: each microbatch's activation block
   crosses every stage boundary once forward and once backward.
 
-``core/planner.py`` scores (dp, tp, pp) candidates with these formulas and
-``core/memory.py`` sizes a stage's stash with them, so pipeline
-candidates are scored even though the port's pipeline schedules are not
-ported yet (ROADMAP queue 1, item 10).  :data:`DEVICE_FLOPS` is the
+``core/planner.py`` scores (dp, tp, pp) candidates with these formulas,
+``core/memory.py`` sizes a stage's stash with them, and the schedules'
+point-to-point bytes are :func:`boundary_wire_bytes` exactly
+(``pipeline/schedule.py``).  :data:`DEVICE_FLOPS` is the
 reference's nominal per-device rate, not the H100's: a fitted rate comes
 in through :mod:`repro_torch.core.calibrate`.
 """

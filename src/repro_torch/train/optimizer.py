@@ -49,7 +49,10 @@ class ZeroLayouts:
 
     @classmethod
     def of(cls, specs: Mapping[str, Any], mesh) -> "ZeroLayouts":
-        """From a model's param specs (global shapes and layouts)."""
+        """From a model's param specs (global shapes and layouts).  A
+        layer stack whose dim 0 is on ``pipe`` (the pipeline's specs) keeps
+        it: the ZeRO shard over ``data`` is cut from the rank's stage
+        slice, so AdamW updates that stage alone."""
         return cls(mesh, {k: s.layout for k, s in specs.items()},
                    {k: zero_layout(s.layout, s.shape, mesh)
                     for k, s in specs.items()})

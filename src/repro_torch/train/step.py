@@ -14,13 +14,17 @@ rank differentiates its blocks, and each leaf's gradient is summed over
 the axes whose work was split and that the leaf's storage layout does not
 use (:meth:`Model.grad_split_axes`), by a reduce-scatter onto the leaf's
 ZeRO block wherever the ZeRO layout shards that axis, else by a sum.  The
-update is in place (the reference donates the state).  The reference's
-pipeline path waits for ROADMAP queue 1, item 10.
+update is in place (the reference donates the state).  The ``pipeline``
+path (:func:`pipeline_train_step`) runs the layer stack in stages over
+the mesh's ``pipe`` axis (:mod:`repro_torch.pipeline`) on a DP x PP mesh.
+:func:`repro_torch.api.session.dispatch_train_step` selects among the
+three.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -191,18 +195,73 @@ def comms_train_step(model, adamw: Optional[opt.AdamWConfig] = None,
     return train_step
 
 
-def dispatch_train_step(model, *, adamw=None, num_microbatches: int = 1,
-                        comms=None, group=None, path: str = "gspmd",
-                        mesh=None) -> Callable:
-    """The train-step dispatcher: ``gspmd`` (one rank, or the model's
-    mesh) or ``comms``."""
-    if path == "comms":
-        return comms_train_step(model, adamw, num_microbatches, comms, group,
-                                mesh)
-    if path == "gspmd":
-        return gspmd_train_step(model, adamw, num_microbatches)
-    if path == "pipeline":
-        raise NotImplementedError("the pipeline train path is not ported "
-                                  "yet (ROADMAP queue 1, item 10)")
-    raise ValueError(f"unknown train-step path {path!r}; expected gspmd | "
-                     "comms")
+def pipeline_train_step(model, mesh, adamw: Optional[opt.AdamWConfig] = None,
+                        num_microbatches: Optional[int] = None,
+                        pipeline=None, comms=None) -> Callable:
+    """The pipeline path, the reference's ``_pipeline_train_step``:
+    ``train_step(state, batch)`` on a DP x PP mesh.  Each rank holds its
+    stage's slice of every stacked layer leaf (dim 0 over ``pipe``) and
+    the edge leaves whole (``pipeline_param_specs``), runs its rows (its
+    data coordinate's) through the schedule the
+    :class:`~repro_torch.pipeline.PipelineSpec` names (``gpipe`` |
+    ``1f1b``), and gets every leaf's fp32 gradient of its stage.  The
+    gradients are averaged over the batch axes, the reference's ``pmean``
+    reduced onto each leaf's ZeRO-1 block (:func:`sync_to_zero`'s
+    reduce-scatter, the same rank-ordered sum, then the count's fl32
+    reciprocal), or through the CommsPlan's schedules when ``comms`` is
+    given (their block taken locally); the metrics are ``pmean``-ed;
+    AdamW runs ZeRO-1 on the stage.  ``model`` is a model without a mesh
+    (each stage runs its layers locally); every mesh axis but the batch
+    axes and ``pipe`` must have size 1."""
+    import dataclasses
+
+    from repro_torch import pipeline as pipe_mod
+    from repro_torch.core.planner import pipeline_spec_for
+    adamw = adamw or opt.AdamWConfig()
+    spec = pipeline or pipeline_spec_for(model.cfg, mesh,
+                                         num_microbatches=num_microbatches)
+    if spec is None:
+        raise ValueError("the pipeline train step needs a 'pipe' mesh axis "
+                         "or an explicit PipelineSpec")
+    if num_microbatches is not None \
+            and num_microbatches != spec.num_microbatches:
+        spec = dataclasses.replace(spec, num_microbatches=num_microbatches)
+    if mesh.shape.get(spec.axis, 1) != spec.n_stages:
+        raise ValueError(
+            f"PipelineSpec wants {spec.n_stages} stages but mesh axis "
+            f"{spec.axis!r} has size {mesh.shape.get(spec.axis, 1)}")
+    batch_axes = batch_axes_of(mesh)
+    bad = {a: n for a, n in mesh.shape.items()
+           if a not in batch_axes + (spec.axis,) and n > 1}
+    if bad:
+        raise ValueError(
+            "pipeline train step is DP x PP: non-batch, non-pipe mesh "
+            f"axes must have size 1, got {bad}")
+    zero = opt.ZeroLayouts.of(pipe_mod.pipeline_param_specs(model, spec),
+                              mesh)
+    sched_fn = pipe_mod.SCHEDULE_FNS[spec.schedule]
+    n_rows = math.prod(mesh.shape[a] for a in batch_axes)
+
+    def train_step(state, batch):
+        grads, metrics = sched_fn(model, spec, state["params"],
+                                  rows_of(batch, mesh), mesh)
+        if comms is not None:
+            grads = comms_plan_mod.sync_tree(grads, comms, mesh, batch_axes)
+            grads = {n: zero.to_zero(n, g) for n, g in grads.items()}
+        else:
+            grads = {n: sync_to_zero(g, zero.storage[n], zero.zero[n],
+                                     batch_axes, mesh)
+                     for n, g in grads.items()}
+            if n_rows > 1:
+                grads = {n: precision.div_count(g, n_rows)
+                         for n, g in grads.items()}
+        if n_rows > 1:
+            keys = sorted(metrics)
+            vec = precision.div_count(dist_mod.psum(
+                torch.stack([metrics[k] for k in keys]), mesh, batch_axes),
+                n_rows)
+            metrics = dict(zip(keys, vec.unbind()))
+        return _finish(state, opt.apply(adamw, state["opt"], grads,
+                                        state["params"], zero=zero), metrics)
+
+    return train_step

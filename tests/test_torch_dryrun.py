@@ -16,7 +16,12 @@ process group of torch's ``fake`` backend.  Held here:
   mixer on each rank's SSD heads, the SSD kernels' shape functions);
 - serve cells, mamba2's among them, print ``SKIP`` naming ROADMAP item
   13, and ``Session.dryrun`` refuses a serve plan naming item 13;
-  ``--pp 2``, ``--hlo-out`` and ``--comms auto`` are refused;
+  ``--pp 3`` (no pipe axis of 3 divides the pod), ``--hlo-out`` and
+  ``--comms auto`` are refused;
+- qwen2-0.5b's ``train_4k`` at ``--pp 4`` traces the pipeline path's
+  first and last stage (a result named ``_pp4``), each rank's
+  point-to-point bytes its share of the stage-boundary wire and the rest
+  of its wire the layouts' estimate (``chip_smoke.pipe_wire_estimate``);
 - a trace leaves ``WIRE``'s counts from before it as they were.
 
 The ``gpu`` test (the shape functions' bytes against the card's
@@ -197,8 +202,61 @@ def test_mamba2_train_4k_passes_on_both_production_meshes(tmp_path, capsys):
         assert res["memory"]["peak_bytes"] > res["memory"]["state_bytes"] > 0
 
 
+def test_pp4_passes_for_qwen2_train_4k(tmp_path, capsys):
+    """``--pp 4`` on the 16x16 pod's chips carved as (64, 4, 1): the
+    pipeline path's first and last stage traced, the larger peak
+    reported, and each traced rank's ``send_recv`` bytes are the M
+    activations (last stage) or cotangents (first) it receives."""
+    dryrun.main(["--arch", "qwen2-0.5b", "--shape", "train_4k", "--pp", "4",
+                 "--out", str(tmp_path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[-1] == "ALL DRY-RUN CELLS PASSED"
+    assert out[-2].startswith("OK   qwen2-0.5b_train_4k_16x16_pp4:")
+    files = [f.name for f in tmp_path.iterdir()]
+    assert files == ["qwen2-0.5b_train_4k_16x16_pp4.json"]
+    res = json.loads((tmp_path / files[0]).read_text())
+    assert res["path"] == "pipeline" and res["pp"] == 4
+    assert res["mesh"] == "16x16_pp4"
+    pipe = res["pipeline"]
+    assert pipe["send_recv_bytes"] == {"first": pipe["send_recv_expected"],
+                                       "last": pipe["send_recv_expected"]}
+    assert 2 * (pipe["stages"] - 1) * pipe["send_recv_expected"] \
+        == pipe["boundary_wire_bytes"]
+    peaks = res["memory"]["stage_peak_bytes"]
+    assert res["memory"]["peak_bytes"] == max(peaks.values())
+    assert peaks["last"] > peaks["first"] > 0     # the head's logits
+    # the rest of each traced rank's wire is the layouts' estimate
+    # (chip_smoke.pipe_wire_estimate: the edge gradients' broadcast, the
+    # data axis's reduce-scatter onto the ZeRO blocks and gather back, the
+    # loss, metrics and grad-norm sums); the reported trace is the last
+    # stage's
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    from types import SimpleNamespace
+    shape = {"data": 64, "pipe": 4, "model": 1}
+    sess = Session(device="cpu", mesh=make_mesh((64, 4, 1),
+                                                ("data", "pipe", "model")))
+    plan = sess.plan("qwen2-0.5b", shape="train_4k", comms="off",
+                     check_memory=False)
+    assert plan.path == "pipeline"
+    est = {s: chip_smoke.pipe_wire_estimate(plan, SimpleNamespace(
+        shape=shape, coords={"data": 0, "pipe": s, "model": 0}))
+        for s in (0, 3)}
+    got = {op: c["wire_bytes"] for op, c in res["collectives"].items()
+           if op != "send_recv"}
+    assert got == est[3]
+    assert pipe["wire_bytes"]["first"] \
+        == sum(est[0].values()) + pipe["send_recv_bytes"]["first"]
+    assert pipe["wire_bytes"]["last"] \
+        == sum(est[3].values()) + pipe["send_recv_bytes"]["last"]
+
+
 @pytest.mark.parametrize("argv,why", [
-    (["--all", "--pp", "2"], "item 10"),
+    (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--pp", "3"],
+     "must divide"),
     (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--hlo-out", "x.gz"],
      "HLO"),
     (["--arch", "qwen2-0.5b", "--shape", "train_4k", "--comms", "auto"],

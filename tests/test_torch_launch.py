@@ -1,6 +1,7 @@
 """The port's CLIs on the CPU: ``launch.train`` against the reference's
 ``launch/train.run``, its checkpoint resume, the flags that wait for
-later items, and ``launch.serve``'s dense default with ``--metrics``.
+later items, ``--pp`` on two CPU ranks, and ``launch.serve``'s dense
+default with ``--metrics``.
 
 The two train CLIs start from one state: the reference's CLI writes its
 initial state (``steps=0``) and the port's CLI resumes from that
@@ -23,7 +24,9 @@ import filecmp
 import json
 import os
 import shutil
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -103,6 +106,20 @@ def test_train_cli_resume_restores_the_saved_state_bitwise(tmp_path,
     ("faults", "[]", 12)])
 def test_train_cli_refuses_flags_that_wait_for_later_items(flag, value,
                                                            item):
+    """Item 12's flags raise naming it.  Item 10's (the pipeline) are
+    ported: on one rank ``--pp 2`` has no second stage to run (the mesh
+    refuses it) and ``--pp-schedule`` alone trains the one-stage path
+    (the ranks' ``--pp`` run is in
+    ``test_train_cli_main_writes_metrics_under_its_directory``)."""
+    if item == 10 and flag == "pp":
+        with pytest.raises(ValueError, match="pp=2 does not divide 1 ranks"):
+            ttrain.run(ARCH, steps=1, device="cpu", **{flag: value}, **KW)
+        return
+    if item == 10:
+        losses = ttrain.run(ARCH, steps=1, device="cpu", **{flag: value},
+                            **KW)
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1, item {item}"):
         ttrain.run(ARCH, steps=1, device="cpu", **{flag: value}, **KW)
@@ -183,10 +200,24 @@ def test_train_cli_main_writes_metrics_under_its_directory(tmp_path,
     events = [json.loads(line) for line in metrics.read_text().splitlines()]
     kinds = {e["kind"] for e in events}
     assert kinds == {"span", "plan_resolved", "metrics"}
-    monkeypatch.setattr(sys, "argv", ["train", "--arch", ARCH,
-                                      "--pp-schedule", "gpipe"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrain.main()
+    # --pp 2 --pp-schedule 1f1b: two CPU ranks from the environment
+    # (RANK, WORLD_SIZE, DMATH_INIT_METHOD) train on the pipeline path
+    env = dict(os.environ, WORLD_SIZE="2", OMP_NUM_THREADS="1",
+               DMATH_INIT_METHOD=f"file://{tmp_path / 'rendezvous'}",
+               PYTHONPATH=str(Path(ttrain.__file__).parents[2]) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    ranks = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+         "--pp", "2", "--pp-schedule", "1f1b", "--steps", "2", "--batch",
+         "4", "--seq", "32", "--microbatches", "2", "--device", "cpu"],
+        env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in ranks]
+    assert all(p.returncode == 0 for p in ranks), "\n".join(outs)
+    for out in outs:
+        assert "pipeline: 2 stages (1f1b, 2 microbatches)" in out
+        assert "step     1 loss" in out and "final loss" in out
+    assert outs[0].split("final loss")[1] == outs[1].split("final loss")[1]
 
 
 def test_serve_cli_dense_default_writes_its_snapshot(tmp_path, capsys):

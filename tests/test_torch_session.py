@@ -145,15 +145,23 @@ def test_plans_by_shape_and_kind_are_the_references(J, arch, kw):
 
 
 def test_capability_table_is_the_references(J):
-    """The table and every row's text are the reference's; the port
-    dispatches gspmd and comms and refuses the pipeline row."""
+    """The table and every row's text are the reference's, and the port
+    dispatches every row: a pipe axis (or a PipelineSpec) selects the
+    pipeline path, as the reference's ``select_path`` does."""
     from repro.api.plan import CAPABILITIES as JCAP
-    from repro_torch.api.plan import CAPABILITIES, DOCUMENTED, select_path
+    from repro.api.plan import select_path as jselect
+    from repro_torch.api.plan import CAPABILITIES, select_path
     assert capability_table() == J.capability_table()
-    assert DOCUMENTED == JCAP
-    assert set(CAPABILITIES) == {"gspmd", "comms"}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        select_path({"data": 1, "pipe": 2, "model": 1})
+    assert CAPABILITIES == JCAP
+    assert set(CAPABILITIES) == {"gspmd", "comms", "pipeline"}
+    for shape, kw in (({"data": 1, "pipe": 2, "model": 1}, {}),
+                      ({"data": 4, "model": 1}, {"pipeline": object()}),
+                      ({"data": 2, "pipe": 2, "model": 1},
+                       {"comms": object()}),
+                      ({"data": 4, "model": 1}, {"comms": object()}),
+                      ({"data": 4, "model": 1}, {})):
+        assert select_path(shape, **kw) == jselect(shape, **kw)
+    assert select_path({"data": 1, "pipe": 2, "model": 1}) == "pipeline"
 
 
 @pytest.mark.parametrize("mesh_shape", [(16, 16), (2, 16, 16), (4, 2),

@@ -472,7 +472,7 @@ def test_session_paths():
     sess = Session(device="cpu")
     auto = sess.plan("qwen2-0.5b", batch=2, seq=16, scale_down=16)
     assert auto.path == "gspmd" and auto.comms is None     # no group
-    assert set(CAPABILITIES) == {"gspmd", "comms"}
+    assert set(CAPABILITIES) == {"gspmd", "comms", "pipeline"}
     assert sess.plan("qwen2-0.5b", batch=2, seq=16, scale_down=16,
                      comms="off").path == "gspmd"
     int8 = CommsPlan(schedule="psum", wire_dtype="int8")
