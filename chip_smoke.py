@@ -2,8 +2,8 @@
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
-checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12`` and ``13``, after
-phases 1 and 2).
+checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12``, ``13`` and ``14``,
+after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -56,7 +56,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    step, one chunk) at the reference SSD test's tolerances, run to run
    bitwise, and bounded by fp32 or bf16 peak FLOP/s by its inputs' type;
    for fp32 inputs the TF32 tensor-core bound is printed beside it.
-4. Serve qwen2-0.5b at full width (random weights from a seed) through
+4. Serve qwen2-0.5b at full width, cut to 12 of its 24 layers
+   (``SERVE_LAYERS``; random weights from a seed), through
    ``ContinuousEngine``: 16 requests, prompts of 64-512 tokens, 64 new
    tokens each.  Launch counts are zeroed just before and read just after;
    each kernel must have run, exactly as often as the model's layer loop
@@ -66,8 +67,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    split into its host wall time and its device time.
 4b. Serve the same model, params and requests through the static
    ``Engine`` on the dense KV cache (the reference's default): launch
-   counts (``matmul`` 169 per prefill and per decode step, ``attention``
-   24 per prefill, ``paged_decode_attention`` 24 per decode step); the
+   counts (``matmul`` 85 per prefill and per decode step, ``attention``
+   12 per prefill, ``paged_decode_attention`` 12 per decode step); the
    dense decode attention (each slot's cache row one page of 1,024)
    bitwise the same K/V in 64-token pages, straight and permuted; the
    dense prefill and decode step against the CPU's at phase 4's
@@ -75,15 +76,15 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    paths teacher-forced along the paged streams, logits within phase 4's
    tolerance and a token parting only at a low-margin step; serve
    numbers and a decode step split as in phase 4.
-4c. Serve gemma3-27b at full width and depth (62 layers, 10 global,
-   window 1,024; 28.4 B parameters drawn on the card from the seed, every
-   earlier model freed) through the static ``Engine`` on its windowed
-   dense cache (8 slots, ``max_seq`` 2,048): 16 requests with prompts of
-   896-1,600 tokens and 64 new, so that rings wrap in prefill and in
-   decode.  Launch counts (``matmul`` 435 per prefill and per decode
-   step, ``attention`` 62 per prefill, ``paged_decode_attention`` 62 per
-   decode step); serve numbers and a decode step split into eager wall
-   and graph-replayed device time, beside the step's 17.0 ms bound;
+4c. Serve gemma3-27b at full width, cut to 13 of its 62 layers (2
+   global, window 1,024; 8.2 B parameters drawn on the card from the
+   seed, every earlier model freed) through the static ``Engine`` on its
+   windowed dense cache (8 slots, ``max_seq`` 2,048): 16 requests with
+   prompts of 896-1,600 tokens and 64 new, so that rings wrap in prefill
+   and in decode.  Launch counts (``matmul`` 92 per prefill and per
+   decode step, ``attention`` 13 per prefill, ``paged_decode_attention``
+   13 per decode step); serve numbers and a decode step split into eager
+   wall and graph-replayed device time, beside the step's weight bound;
    every kernel call of 8 one-slot prefills (prompts of 4-1,600 tokens,
    past the window) and of two decode steps (a ring of 5 live slots,
    before, at and past the wrap) against its plain version on the same inputs: each distinct
@@ -94,23 +95,23 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    layers (5 local, 1 global) with the model's own embed, norm
    and unembed against the CPU's plain versions (a 1,040-token prompt
    that wraps in the prefill, then 4 decode steps, phase 4's tolerance);
-   prefill-then-decode at full depth against the full windowed forward
+   prefill-then-decode at the cut's depth against the full windowed forward
    over the same tokens (5%, derived at ``G3_DEPTH_TOL``); the served
    tokens of two requests against that forward by the margin rule.  The
    model is freed before phase 4d.
-4d. Serve gemma-2b at full width and depth (18 layers, head dim 256,
-   MQA) on phase 4's requests: the dense default with its launch counts
-   (``matmul`` 127 per prefill and per decode step, ``attention`` 18 per
-   prefill, ``paged_decode_attention`` 18 per decode step), serve numbers
+4d. Serve gemma-2b at full width, cut to 9 of its 18 layers (head dim
+   256, MQA) on phase 4's requests: the dense default with its launch
+   counts (``matmul`` 64 per prefill and per decode step, ``attention`` 9
+   per prefill, ``paged_decode_attention`` 9 per decode step), serve numbers
    and a decode step split, every kernel call of 8 prefills and a decode
    step held against its plain version as in 4c (the flash calls at head
    dim 256), card vs CPU on the dense cache, and the same
    requests through the static paged ``Engine`` and ``ContinuousEngine``
    (equal tokens), the dense engine against them by the margin rule.
-5. Serve mamba2-780m at full width (48 layers) through the dense-cache
-   static ``Engine`` (8 slots, the same 16-request set), with its own
-   launch-count check (``matmul`` 241 per prefill and per decode step,
-   ``ssd`` 48 per prefill); hold the GEMM kernel against its plain
+5. Serve mamba2-780m at full width, cut to 24 of its 48 layers, through
+   the dense-cache static ``Engine`` (8 slots, the same 16-request set),
+   with its own launch-count check (``matmul`` 121 per prefill and per
+   decode step, ``ssd`` 24 per prefill); hold the GEMM kernel against its plain
    version at each mamba2 product's shape, at M = 8 (a decode step) and
    at a ragged prefill M = 300, and time them beside ``torch.matmul``;
    split a decode step into
@@ -141,7 +142,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    the wire's and a control without one rank's contribution that must
    differ; step, device, host, wire and optimizer times, tokens per
    second, wire bytes and peak memory per rank; then ``tree`` beside
-   ``psum`` on the int8 wire, interleaved psum, tree, tree, psum:
+   ``psum`` on the int8 wire, psum then tree:
    ``sync_tree`` alone on the same gradients (bitwise equal) and whole
    steps.
 6b. Train gemma-2b at full width and depth on one rank through
@@ -192,7 +193,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    PyTorch registers it for CUDA (the library call).  Then two ranks
    spawned on the card over gloo run
    ``train.compression.build_dp_sgd_step`` over the model's loss for the
-   schemes ``none``, ``onebit`` and ``int8``, 3 steps each from the seed
+   schemes ``none``, ``onebit`` and ``int8``, 2 steps each from the seed
    (lr 0.1, momentum 0.9, 4 x 512 tokens of
    ``SyntheticLM(structured=True)`` a step), each scheme a counted
    window: params and velocity bitwise equal on both ranks after every
@@ -243,7 +244,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    Each rank's ``matmul`` launches equal the local products its plans
    call for.  These are gloo-through-host-memory times on one card.
 10. Hybrid data x tensor/sequence parallel training: qwen2-0.5b at full
-   width and depth on four ranks spawned on the one card over gloo,
+   width (cut to 12 of its 24 layers, ``HYBRID_LAYERS``) on four ranks
+   spawned on the one card over gloo,
    ``Session(mesh=...)`` with ``comms="off"`` (the gspmd path with the
    implicit gradient sync and ZeRO-1 AdamW), 4 x 512 tokens,
    ``remat="full"``: 3 steps on (data=2, model=2) (head-TP with the
@@ -290,7 +292,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    (``WIRE``) beside ``allreduce_design``'s, equal where the dataflow is
    the modelled one (psum gathers, and says so); launches 5
    ``quantize_int8`` per rank.  Then every schedule timed at 4 KiB to
-   16 MiB by factors of 4 (median of 3 after a warm-up, the slowest
+   16 MiB by factors of 16 (median of 3 after a warm-up, the slowest
    rank's wall), each run a ``collective_sample`` event through ``obs``,
    one link fitted (``calibrate.fit_link``: alpha, bandwidth, residual;
    the table saved to ``build/chip_smoke/calibration.json``) and, per
@@ -331,7 +333,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    ``init_group`` picks: gloo for four ranks on one card, NCCL for one
    rank (an all-reduce on it).
 13. The pipeline (also alone: ``python3 chip_smoke.py 13``): qwen2-0.5b
-   at full width and depth (24 layers, ``remat="full"``), 8 x 512 tokens
+   at full width (cut to 8 of its 24 layers, ``PIPE_LAYERS``;
+   ``remat="full"``), 8 x 512 tokens
    a step in one-row microbatches (M = 2 pp), four gloo ranks spawned on
    the one card, on (data, pipe, model) = (1, 4, 1) and (2, 2, 1), each
    under GPipe and 1F1B, 2 steps each from the seed (step 2 from the
@@ -360,7 +363,35 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    rank's step-2 reserved peak and their sum, the card's free memory
    after each step and after the checks, the parent's reserved memory
    at the spawn).
-14. Print the ``kernels`` JSON line, the card's name and power limit, and
+14. The moe family (also alone: ``python3 chip_smoke.py 14``).  (a) The
+   GEMM's batched mode (one launch for an expert bank) at deepseek-moe-
+   16b's bank shapes (64 experts; 2048 x 1408 and 1408 x 2048) at
+   capacities 8, 15, 60 and 120 (a decode step, a paged chunk, a 512-
+   token prefill, a 2 x 512 train step) and dbrx-132b's (16 experts;
+   6144 x 10752 and 10752 x 6144) at 8 and 40: against the plain version,
+   every expert's slice bitwise the 2-D kernel on that expert, run to run
+   bitwise, the backward's dA and dB on the transposed views bitwise the
+   2-D kernel per expert; timed beside the bound, the plain version and
+   ``torch.bmm``.  (b) deepseek-moe-16b at full width and depth (28
+   layers, 16.9 B parameters drawn on the card a layer at a time, every
+   earlier model freed) on phase 4's requests through the static
+   ``Engine`` on the dense cache and ``ContinuousEngine``: launch counts
+   (``matmul`` 309 per prefill call and decode step: 4 attention
+   products, the router, 3 bank products, 3 shared-expert products a
+   layer and the unembed; ``attention`` 28 per prefill call,
+   ``paged_decode_attention`` 28 per decode step; 3 batched launches a
+   layer), serve numbers, a decode step split beside its weight bound,
+   every kernel call of 8 one-slot prefills and a decode step against its
+   plain version; the first 6 layers against the CPU's plain versions and
+   prefill-then-decode against the full forward by the routing rule
+   (the second run dispatches on the first's routes, and where its own
+   top-k set differs its k-th/(k+1)-th probability margin must be under
+   ``MOE_MARGIN``; every logit compared).  (c) Its 4-layer cut trained on one
+   rank through ``Session`` (2 x 512 tokens, ``remat="full"``, AdamW, 3
+   steps) after the memory model's verdict: gradients bitwise run to run,
+   the loss falling, aux printed, launches the layer loop's; the 2-layer
+   loss and gradients against the CPU's, the CPU on the card's routes.
+15. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -433,10 +464,17 @@ STATE_TOL = 1e-2
 ARCH = "qwen2-0.5b"
 MAMBA = "mamba2-780m"
 MAMBA_PARAMS = 857_293_056
+# mamba2-780m's depth in phase 5: 24 of its 48 layers, since phase 14 came
+# (phase 6c trains it at full depth)
+MAMBA_SERVE_LAYERS = 24
 PREFILL_M = 300                    # a ragged prompt: 4 GEMM row tiles + 44
 SEED = 0
 N_REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 512, 64
 SLOTS, MAX_SEQ, PAGE, CHUNK = 8, 1024, 64, 128
+# qwen2-0.5b's depth in phases 4 and 4b: 12 of its 24 layers, since phase
+# 14 came (the whole script stays inside its time limit; phases 6-8 and
+# 12 run it at full depth)
+SERVE_LAYERS = 12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1779,7 +1817,7 @@ def serve_dense(cfg, model, params, paged_fin):
     engine on the dense KV cache, its launch counts, the dense decode
     attention's bits, card against CPU, and tokens against the static
     paged engine's."""
-    serve(Engine, model, params, requests(cfg)[:2])              # warm-up
+    serve(Engine, model, params, requests(cfg, 2)[:2])           # warm-up
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -1812,9 +1850,9 @@ def serve_dense(cfg, model, params, paged_fin):
 # ---------------------------------------------------------------------------
 
 GEMMA3 = "gemma3-27b"
-# the config's param_count() (28,417,605,888) plus the qk-norm scales it
-# leaves out: 62 layers x 2 x 128
-GEMMA3_PARAMS = 28_417_621_760
+# gemma3-27b's depth in phase 4c: 13 of its 62 layers (2 global), since
+# phase 14 came (the whole script stays inside its time limit)
+G3_LAYERS = 13
 G3_MAX_SEQ, G3_PROMPTS = 2048, (896, 1600)
 # card against CPU: the first local:global group (layers 0-5, the global
 # one last), a prompt that wraps the 1,024-slot rings in the prefill, then
@@ -1973,7 +2011,7 @@ def g3_forward_logits(model, params, tokens, first):
     """fp32 logits of the full windowed forward over ``tokens`` (1, S) at
     positions ``first``.. (the last position's head only is skipped)."""
     with torch.no_grad():
-        x = model._dense_stack(params, tokens)
+        x, _ = model._dense_stack(params, tokens)
         return model._head(params, x[:, first:])[0].float()
 
 
@@ -1993,8 +2031,8 @@ def g3_depth_check(cfg, model, params):
         steps.append(logits[0, 0].float())
     full = g3_forward_logits(model, params, toks, G3_CPU_PROMPT)
     return agree(torch.stack(steps).cpu(), full.cpu(),
-                 f"prefill-then-decode vs the full forward ({cfg.name}, 62 "
-                 f"layers, {G3_CPU_PROMPT}-token prompt + {G3_DECODE} steps)",
+                 f"prefill-then-decode vs the full forward ({cfg.name}, "
+                 f"{cfg.n_layers} layers, {G3_CPU_PROMPT}-token prompt + {G3_DECODE} steps)",
                  tol=G3_DEPTH_TOL)
 
 
@@ -2031,14 +2069,15 @@ def g3_tokens_by_margin(cfg, model, params, fin):
 
 
 def serve_gemma3():
-    """Phase 4c: gemma3-27b at full width and depth (62 layers, 10 global)
+    """Phase 4c: gemma3-27b at full width, cut to ``G3_LAYERS`` (13, 2 of
+    them global)
     from seed 0, served by the static ``Engine`` on its windowed dense
     cache (8 slots, ``max_seq`` 2,048): launch counts, serve numbers, a
     decode step split, every local layer's ring attention against its
     plain version, the card against the CPU, prefill-then-decode against
     the full forward, and the served tokens by the margin rule.  Frees
     the model before it returns."""
-    cfg = get_config(GEMMA3)
+    cfg = dataclasses.replace(get_config(GEMMA3), n_layers=G3_LAYERS)
     model = Model(cfg, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2047,7 +2086,8 @@ def serve_gemma3():
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in params.values())
-    require(n_params == GEMMA3_PARAMS and cfg.n_layers == 62,
+    # the config's count leaves out the qk-norm scales: 2 x 128 a layer
+    require(n_params == cfg.param_count() + cfg.n_layers * 2 * cfg.d_head,
             f"{GEMMA3}: {n_params} parameters")
     print(f"{GEMMA3}: {n_params} parameters drawn on the card in "
           f"{init_s:.1f} s, peak {init_peak / 2**30:.2f} GiB", flush=True)
@@ -2104,6 +2144,9 @@ def serve_gemma3():
 
 GEMMA2B = "gemma-2b"
 GEMMA2B_PARAMS = 3_030_460_416
+# gemma-2b's depth in phase 4d: 9 of its 18 layers, since phase 14 came
+# (phase 6b trains it at full depth)
+G2B_SERVE_LAYERS = 9
 
 
 def serve_gemma2b():
@@ -2114,11 +2157,12 @@ def serve_gemma2b():
     ``ContinuousEngine``: those two token for token, the dense engine's
     against them by the margin rule.  Frees the model before it
     returns."""
-    cfg = get_config(GEMMA2B)
+    cfg = dataclasses.replace(get_config(GEMMA2B),
+                              n_layers=G2B_SERVE_LAYERS)
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     n_params = sum(p.numel() for p in params.values())
-    require(n_params == GEMMA2B_PARAMS and cfg.d_head == 256,
+    require(n_params == cfg.param_count() and cfg.d_head == 256,
             f"{GEMMA2B}: {n_params} parameters, head dim {cfg.d_head}")
     serve(Engine, model, params, requests(cfg, 2)[:2])          # warm-up
     ops.reset_launches()
@@ -2403,13 +2447,13 @@ def prefill_breakdown(model, params, reqs):
 def serve_mamba():
     """mamba2-780m at full width through ``Engine(paged=False)``; returns
     (the serve stats, the launch counts)."""
-    cfg = get_config(MAMBA)
+    cfg = dataclasses.replace(get_config(MAMBA), n_layers=MAMBA_SERVE_LAYERS)
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     n_params = sum(p.numel() for p in params.values())
-    require(n_params == MAMBA_PARAMS and cfg.n_layers == 48,
+    require(n_params == cfg.param_count(),
             f"mamba2: {n_params} parameters in {cfg.n_layers} layers")
-    serve(Engine, model, params, requests(cfg)[:2])             # warm-up
+    serve(Engine, model, params, requests(cfg, 2)[:2])          # warm-up
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -2454,7 +2498,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, RANKS = 4, 512, 6, 2
 # seen and on the first one seen again) while most bf16 weights of
 # magnitude <= 0.05 still change at step 1.
 TRAIN_PEAK, TRAIN_WARMUP = 1e-4, 2
-PROFILED = TRAIN_STEPS - 2          # the int8 step traced by the profiler
+# run 4's steps on the int8 wire: 4 of the schedule's 6 (6 until phase 14
+# came: the whole script stays inside its time limit)
+WIRE_STEPS = 4
+PROFILED = WIRE_STEPS - 2           # the int8 step traced by the profiler
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # bf16 gradients, card against plain: the kernels' products round their
 # operands (O, dO, the cotangent) to bf16 where the plain versions keep
@@ -3300,7 +3347,7 @@ def train_rank(rank, init, batches, run2_path, result_path):
         del p2, run2
     torch.cuda.empty_cache()
 
-    # run 4: the int8 wire, the main path, TRAIN_STEPS steps; its schedule
+    # run 4: the int8 wire, the main path, WIRE_STEPS steps; its schedule
     # resolved by the topology cost model (the reference's tree at 2)
     plan4 = sess.plan(ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                       comms=CommsPlan(schedule="auto", wire_dtype="int8"),
@@ -3314,7 +3361,7 @@ def train_rank(rank, init, batches, run2_path, result_path):
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     walls, losses, stats = [], [], []
-    for s in range(TRAIN_STEPS):
+    for s in range(WIRE_STEPS):
         torch.cuda.synchronize()
         prof = None
         if s == PROFILED:
@@ -3415,14 +3462,14 @@ def train_rank(rank, init, batches, run2_path, result_path):
 
 def tree_against_psum(sess, plan4, grads, batches):
     """Run 4's schedule (``tree``) beside ``psum`` on the same int8 wire in
-    this run, interleaved psum, tree, tree, psum: ``sync_tree`` alone on
-    the same gradients (the two must give the same bits: two addends
-    commute and the int8 wire sums int32), then whole steps on run 4's
-    state.  Returns the ms of each by schedule."""
+    this run, psum then tree: ``sync_tree`` alone on the same gradients
+    (the two must give the same bits: two addends commute and the int8
+    wire sums int32), then whole steps on run 4's state.  Returns the ms
+    of each by schedule."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.comms.plan import sync_tree
-    order = ("psum", "tree", "tree", "psum")
+    order = ("psum", "tree")
     comms = {s: dataclasses.replace(plan4.comms, schedule=s)
              for s in ("psum", "tree")}
     sync_ms = {s: [] for s in comms}
@@ -3606,9 +3653,9 @@ def train_phase(cfg):
     ranks = [json.loads(f.read_text()) for f in results]
     for f in results:
         f.unlink()
-    expect = expected_train_launches(cfg, TRAIN_STEPS, int8=True)
+    expect = expected_train_launches(cfg, WIRE_STEPS, int8=True)
     for r in ranks:
-        print(f"rank {r['rank']} launches over {TRAIN_STEPS} int8-wire "
+        print(f"rank {r['rank']} launches over {WIRE_STEPS} int8-wire "
               f"steps: {r['launches']} (expected {expect})")
         require(r["launches"]["quantize_int8"] > 0
                 and r["launches"]["attention_backward"] > 0,
@@ -3619,7 +3666,7 @@ def train_phase(cfg):
     require(all(r["losses"] == losses for r in ranks),
             "ranks report different losses")
     again = ranks[0]["first_batch_again"]
-    print(f"int8-wire losses over {TRAIN_STEPS} steps: {losses}; the first "
+    print(f"int8-wire losses over {WIRE_STEPS} steps: {losses}; the first "
           f"batch after them: {again}")
     print(f"int8 wire: schedule {ranks[0]['schedule']} (CommsPlan 'auto' "
           f"through the topology); sync_tree alone "
@@ -3640,7 +3687,7 @@ def train_phase(cfg):
     idle = profiled_idle(ranks)
     summary = dict(
         arch=ARCH, params=630_167_424, ranks=RANKS,
-        global_batch_tokens=tokens, steps=TRAIN_STEPS, losses=losses,
+        global_batch_tokens=tokens, steps=WIRE_STEPS, losses=losses,
         first_batch_loss_after=again,
         run2=run2, run3=ranks[0]["run3"],
         run3_vs_run2=ranks[0]["run3_vs_run2"],
@@ -3926,7 +3973,9 @@ def train_mamba2():
 # phase 7: compressed data-parallel SGD, qwen2-0.5b at full width
 # ---------------------------------------------------------------------------
 
-DP_SCHEMES, DP_STEPS = ("none", "onebit", "int8"), 3
+# 2 steps a scheme (3 until phase 14 came: the whole script stays inside
+# its time limit)
+DP_SCHEMES, DP_STEPS = ("none", "onebit", "int8"), 2
 # Plain SGD with momentum 0.9 moves a weight by lr times its gradient:
 # most of qwen2-0.5b's bf16 weights (|w| ~ 0.02, one ulp ~ 1e-4) keep
 # their value unless lr * |g| reaches half an ulp, so the rate is far
@@ -4815,12 +4864,17 @@ HYBRID_RANKS = 4
 # (``CollectiveClock`` synchronizes the card before each).  Three steps,
 # not four: the whole script stays inside its time limit.
 HYBRID = (((2, 2), "head_tp", 3), ((1, 4), "sp", 3))
+# qwen2-0.5b's depth in phase 10: 12 of its 24 layers since phase 14 came
+# (the whole script stays inside its time limit; at 8 layers the mesh's
+# reordered sums moved one rank's nu of the embedding past the moment
+# gate, ROADMAP queue 3)
+HYBRID_LAYERS = 12
 # mamba2-780m at full width, cut to 8 of its 48 layers, on (2, 2) with the
 # sequence-parallel residual (the reference's forward_shardmap): (mesh,
 # layers, steps), held against the same cut's one-rank steps
 HYBRID_MAMBA = ((2, 2), 8, 2)
-HYBRID_PATH = (f"{ARCH} (2,2), (1,4) and {MAMBA} (2,2, 8 layers) hybrid "
-               "train (4 ranks, gloo)")
+HYBRID_PATH = (f"{ARCH} (2,2), (1,4) ({HYBRID_LAYERS} layers) and {MAMBA} "
+               "(2,2, 8 layers) hybrid train (4 ranks, gloo)")
 HYBRID_DEVICE = "cuda"
 HYBRID_CLOCKED = 2                     # the step (from 0) whose wire is timed
 
@@ -4831,13 +4885,20 @@ def hybrid_yard(t: int, name: str = "") -> Path:
     return TRAIN_DIR / f"hybrid_yardstick{name}{t}.pt"
 
 
+def hybrid_qwen2():
+    """qwen2-0.5b at full width, cut to ``HYBRID_LAYERS``: phase 10's cells
+    and phase 11's memory verdict for them."""
+    import dataclasses
+    return dataclasses.replace(get_config(ARCH), n_layers=HYBRID_LAYERS)
+
+
 def hybrid_cells():
     """Phase 10's cells: (tag, config, mesh, the plan's attention mode,
     steps, the yardstick's name)."""
     import dataclasses
     shape, layers, steps = HYBRID_MAMBA
     mcfg = dataclasses.replace(get_config(MAMBA), n_layers=layers)
-    return ([(f"{s[0]}x{s[1]}", get_config(ARCH), s, mode, n, "")
+    return ([(f"{s[0]}x{s[1]}", hybrid_qwen2(), s, mode, n, "")
              for s, mode, n in HYBRID]
             + [(f"{MAMBA} {shape[0]}x{shape[1]}", mcfg, shape, "none", steps,
                 "_mamba2")])
@@ -5502,7 +5563,7 @@ def hybrid_phase():
     meshes, then mamba2's cut on (2, 2)); returns the summary and the
     ranks' launch counts summed over the cells."""
     import torch.multiprocessing as mp
-    cfg = get_config(ARCH)
+    cfg = hybrid_qwen2()
     init = f"file://{TRAIN_DIR / 'rendezvous_hybrid'}"
     (TRAIN_DIR / "rendezvous_hybrid").unlink(missing_ok=True)
     results = [TRAIN_DIR / f"hybrid_rank{r}.json"
@@ -5589,13 +5650,13 @@ SCHED_PATH = "comms schedules (4 ranks, gloo, int8 wire)"
 SCHED_ODD = 262_147                   # elements: padded at 4 and at 2
 SCHED_BYTES = 4 << 20                 # a 4 MiB bucket
 SCHED_FLAT = ("psum", "ring", "rsag", "tree")
-FIT_SIZES = tuple(4096 * 4 ** k for k in range(7))     # 4 KiB .. 16 MiB
+FIT_SIZES = tuple(4096 * 16 ** k for k in range(4))    # 4 KiB .. 16 MiB
 CALIBRATION = TRAIN_DIR / "calibration.json"
 SCHED_DEVICE = "cuda"                 # "cpu" for a rehearsal off the card
-#: phase 10's peaks per rank as PERF.md records them (H100 80GB HBM3,
-#: 700 W; the checks read leaves in chunks), printed when phase 10 did
-#: not run in this invocation
-HYBRID_PEAK_RECORDED = {"2x2": 4.446, "1x4": 4.970}
+#: phase 10's peaks per rank at ``HYBRID_LAYERS`` as PERF.md records them
+#: (H100 80GB HBM3, 700 W; the checks read leaves in chunks), printed when
+#: phase 10 did not run in this invocation
+HYBRID_PEAK_RECORDED = {"2x2": 3.600, "1x4": 3.713}
 
 
 def sched_cases():
@@ -5846,7 +5907,7 @@ def memory_verdict(hybrid=None):
     print(f"memory verdict: gemma3-27b, one rank, 2 x 512 tokens: refused "
           f"({peak:.1f} GiB per device vs {sess.budget.describe()}); "
           f"allocated before/after {before}/{after} bytes", flush=True)
-    cfg = get_config(ARCH)
+    cfg = hybrid_qwen2()
     meshes = {}
     for shape, _, _ in HYBRID:
         tag = f"{shape[0]}x{shape[1]}"
@@ -5861,10 +5922,11 @@ def memory_verdict(hybrid=None):
             meas, src = HYBRID_PEAK_RECORDED[tag], "phase 10, PERF.md"
         meshes[tag] = dict(predicted_gib=pred, measured_gib=meas,
                            measured_over_predicted=meas / pred, source=src)
-        print(f"  qwen2-0.5b hybrid {tag}, {TRAIN_BATCH} x {TRAIN_SEQ} "
-              f"tokens: the model's peak {pred:.3f} GiB per rank, measured "
+        print(f"  qwen2-0.5b ({HYBRID_LAYERS} layers) hybrid {tag}, "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: the model's peak {pred:.3f} GiB per rank, measured "
               f"{meas:.3f} ({src}), ratio {meas / pred:.3f}")
-    best = best_hybrid(cfg, 4, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+    best = best_hybrid(get_config(ARCH), 4, global_batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ,
                        hbm_budget=sess.budget)
     print(f"  best_hybrid(qwen2-0.5b, 4 devices, {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}) = (dp, tp, pp) {best}", flush=True)
@@ -6344,15 +6406,18 @@ def session_phase():
 PIPE_RANKS = 4
 PIPE_BATCH = 8                         # 8 x 512 tokens, one-row microbatches
 PIPE_STEPS = 2
-# (data, pipe) meshes of qwen2-0.5b at full width and depth, each under
-# both schedules; M = 2 pp microbatches, one row each
+# (data, pipe) meshes of qwen2-0.5b at full width, each under both
+# schedules; M = 2 pp microbatches, one row each.  Depth cut to 8 of its
+# 24 layers (2 a stage on (1, 4), 4 on (2, 2)) since phase 14 came: the
+# whole script stays inside its time limit
 PIPE_MESHES = ((1, 4), (2, 2))
+PIPE_LAYERS = 8
 PIPE_SCHEDULES = ("gpipe", "1f1b")
 # mamba2-780m at full width cut to 8 of its 48 layers: (mesh, layers,
 # schedule)
 PIPE_MAMBA = ((1, 4), 8, "1f1b")
-PIPE_PATH = (f"{ARCH} (1,4), (2,2) and {MAMBA} (1,4, 8 layers) pipeline "
-             "train (4 ranks, gloo)")
+PIPE_PATH = (f"{ARCH} (1,4), (2,2) ({PIPE_LAYERS} layers) and {MAMBA} "
+             "(1,4, 8 layers) pipeline train (4 ranks, gloo)")
 PIPE_DEVICE = "cuda"
 PIPE_STEP_LOSS_RTOL = 1e-6
 PIPE_NORM_RTOL = 2.0 ** -9
@@ -6364,7 +6429,8 @@ def pipe_cells():
     import dataclasses
     shape, layers_, sched = PIPE_MAMBA
     mcfg = dataclasses.replace(get_config(MAMBA), n_layers=layers_)
-    return ([(f"{d}x{p} {s}", get_config(ARCH), (d, p), s, "")
+    qcfg = dataclasses.replace(get_config(ARCH), n_layers=PIPE_LAYERS)
+    return ([(f"{d}x{p} {s}", qcfg, (d, p), s, "")
              for d, p in PIPE_MESHES for s in PIPE_SCHEDULES]
             + [(f"{MAMBA} {shape[0]}x{shape[1]} {sched}", mcfg, shape, sched,
                 "_mamba2")])
@@ -6909,6 +6975,511 @@ def pipe_phase():
     return summary, total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the moe family (deepseek-moe-16b; dbrx-132b's bank shapes)
+# ---------------------------------------------------------------------------
+
+MOE = "deepseek-moe-16b"
+DBRX = "dbrx-132b"
+# the specs' leaves summed: the config's param_count() (it counts the
+# router and the norms too)
+MOE_PARAMS = 16_879_568_896
+# Expert-bank products (E, cap, K) @ (E, K, N): deepseek's 64 experts at
+# the capacities its paths give (a decode step of 8 slots, a 128-token
+# paged chunk, a 512-token prefill, a 2 x 512 train step), dbrx's 16 at a
+# decode step and a 128-token chunk (its 6144 -> 10752 -> 6144 banks)
+MOE_BANKS = ((MOE, 64, ((2048, 1408), (1408, 2048)), (8, 15, 60, 120)),
+             (DBRX, 16, ((6144, 10752), (10752, 6144)), (8, 40)))
+# A (token, layer) top-k set may differ between two runs of the same
+# layers (card against CPU, prefill-then-decode against the forward) only
+# where the reference run's margin between the k-th and (k+1)-th
+# probability is under this.  The card's and the CPU's router inputs part
+# by bf16 roundings of the residual (phase 4: ~0.3% of the largest logit
+# at 2 layers, growing with depth); the fp32 router product over D = 2,048
+# with weights of std 0.02 turns a relative drift r of the residual into
+# router logits that move by ~0.02 * sqrt(2048) * r ~ 1e-2 at r = 1%, and
+# a top-6 probability near 1/30 by ~3e-4.  Held at 2e-3, six times that.
+MOE_MARGIN = 2e-3
+MOE_CPU_LAYERS, MOE_CPU_PROMPT, MOE_DECODE = 6, 96, 4
+# prefill-then-decode against the forward, 16 prompt tokens then 4 steps:
+# capacity is per call (the forward's from all 20 tokens, the prefill's
+# from 16, a decode step's from 1), and random weights route most tokens
+# of a deep model alike, so the forward drops where the decode steps do
+# not, by design (the reference's too).  The check runs the same weights
+# at capacity factor E / k, where every copy has a slot, to hold the
+# steps' numerics alone.
+MOE_DEPTH_PROMPT = 16
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH = 4, 2
+MOE_DEVICE = "cuda"                   # "cpu" for a rehearsal off the card
+
+
+def moe_products_per_layer(cfg) -> int:
+    """GEMM launches a moe layer makes per forward: q, k, v, o, the
+    router, the three bank products (one batched launch each) and the
+    shared experts' three."""
+    return 4 + 1 + 3 + (3 if cfg.n_shared_experts else 0)
+
+
+def moe_serve_launches(cfg, steps: int, calls: int, attention: int):
+    """Launches of an engine over ``steps`` decode steps and ``calls``
+    prefill calls (one-slot prefills, or paged chunks), ``attention``
+    flash calls a layer each: the layer loop's products and the unembed
+    per call and per step, one paged-decode call a layer per step."""
+    L = cfg.n_layers
+    return {"matmul": (moe_products_per_layer(cfg) * L + 1) * (steps + calls),
+            "attention": L * attention, "attention_backward": 0,
+            "paged_decode_attention": L * steps, "ssd": 0,
+            "ssd_backward": 0, "quantize_int8": 0, "quantize_compress": 0,
+            "matmul_dequant": 0}
+
+
+def expected_moe_train_launches(cfg, steps: int):
+    """Per step on one rank under ``remat="full"``: every layer's
+    products and flash call in the forward and again in the recompute,
+    two backward products (dA, dB) for each forward product, the unembed
+    not checkpointed, one attention backward a layer."""
+    L = cfg.n_layers
+    fwd = moe_products_per_layer(cfg) * L + 1
+    return {"matmul": steps * (fwd + (fwd - 1) + 2 * fwd),
+            "attention": steps * 2 * L, "attention_backward": steps * L,
+            "paged_decode_attention": 0, "ssd": 0, "ssd_backward": 0,
+            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+
+
+def check_expert_gemm():
+    """Phase 14 (a): the GEMM's batched mode at the expert-bank shapes:
+    each against its plain version (the 2-D plain version per expert),
+    bitwise the 2-D kernel expert by expert, the same bits run to run;
+    the backward's dA = dC·Bᵀ and dB = Aᵀ·dC on the transposed views,
+    bitwise the 2-D kernel per expert; each timed beside its bound, the
+    plain version and ``torch.bmm``.  Returns the row, headed by
+    deepseek's decode shape."""
+    shapes, errs = [], []
+    print("gemm batched: arch E cap K N | plan | kernel ms | bound ms (by) |"
+          " plain ms | torch.bmm ms | max abs err")
+    for arch, E, kns, caps in MOE_BANKS:
+        for K, N in kns:
+            n = copies(2 * E * K * N)
+            bs = [randn((E, K, N), 300 + K + j, 0.02) for j in range(n)]
+            for M in caps:
+                a = randn((E, M, K), 400 + M)
+                out = gemm_mod.matmul(a, bs[0], torch.float32)
+                what = f"gemm batched {arch} ({E}, {M}, {K}) @ ({K}, {N})"
+                err = max_err(out, ref.matmul(a, bs[0], torch.float32), what)
+                each = all(same_bits(out[e], gemm_mod.matmul(
+                    a[e], bs[0][e], torch.float32)) for e in range(E))
+                again = same_bits(out, gemm_mod.matmul(a, bs[0],
+                                                       torch.float32))
+                dc = randn((E, M, N), 500 + M)
+                da = gemm_mod.matmul(dc, bs[0].mT, torch.bfloat16)
+                db = gemm_mod.matmul(a.mT, dc, torch.bfloat16)
+                bwd_err = max(
+                    max_err(da, ref.matmul(dc, bs[0].mT, torch.bfloat16),
+                            what + " dA"),
+                    max_err(db, ref.matmul(a.mT, dc, torch.bfloat16),
+                            what + " dB"))
+                bwd_each = all(
+                    same_bits(da[e], gemm_mod.matmul(dc[e], bs[0][e].t(),
+                                                     torch.bfloat16))
+                    and same_bits(db[e], gemm_mod.matmul(a[e].t(), dc[e],
+                                                         torch.bfloat16))
+                    for e in range(E))
+                require(each and again and bwd_each,
+                        f"{what}: per expert bitwise {each}, run to run "
+                        f"{again}, backward per expert bitwise {bwd_each}")
+                del da, db, dc
+                ms = cuda_ms([lambda b=b: gemm_mod.matmul(a, b, torch.float32)
+                              for b in bs], iters=max(10, 2 * n))
+                plain = cuda_ms([lambda: ref.matmul(a, bs[0],
+                                                    torch.float32)],
+                                iters=2, warmup=1)
+                lib = cuda_ms([lambda b=b: torch.bmm(a, b) for b in bs],
+                              iters=max(10, 2 * n))
+                bms, by = bound(*roofline.matmul_cost(M, K, N, batch=E))
+                errs += [err, bwd_err]
+                shapes.append(dict(arch=arch, experts=E, cap=M, K=K, N=N,
+                                   ms=ms, bound_ms=bms, bound_by=by,
+                                   plain_ms=plain, library_ms=lib,
+                                   max_abs_err=max(err, bwd_err)))
+                print(f"gemm batched {arch} {E} {M:4d} {K:6d} {N:6d} | "
+                      f"{plan_label(M, K, N)} | {ms:.4f} | {bms:.4f} ({by}) "
+                      f"| {plain:.4f} | {lib:.4f} | {max(err, bwd_err):.3g}",
+                      flush=True)
+                del a
+            del bs
+            torch.cuda.empty_cache()
+    head = shapes[0]
+    print("gemm batched: every expert's slice bitwise the 2-D kernel, run to "
+          "run bitwise, forward and backward (transposed views)", flush=True)
+    return dict(name="gemm_batched", route="cuda",
+                source="src/repro_torch/kernels/csrc/gemm.cu",
+                replaces="src/repro/kernels/gemm.py:45",
+                case=(f"{MOE}'s gate bank at a decode step: (64, 8, 2048) @ "
+                      "(64, 2048, 1408), one launch"),
+                max_abs_err=max(errs), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
+                shapes=shapes)
+
+
+def moe_route_diff(got, want, what):
+    """Routes of a run forced onto another's (``moe.force_routes``;
+    ``want`` the forcing run's ``moe.record_routes`` list, ``got`` the
+    forced run's, in call order): where the forced run's own top-k set
+    differs from the one it was given, its own margin between the k-th and
+    (k+1)-th probability must be under ``MOE_MARGIN`` (the two runs' inputs
+    part by roundings alone, so only a near tie can flip); the experts it
+    dispatched to and kept are the forcing run's.  Returns a summary."""
+    require(len(got) == len(want), f"{what}: {len(got)} routed calls "
+                                   f"against {len(want)}")
+    flips, margins = 0, []
+    for g, w in zip(got, want):
+        require(torch.equal(g["kept"].sort(-1).values,
+                            w["kept"].sort(-1).values),
+                f"{what}: the forced run kept other experts")
+        bad = ~(g["idx"].sort(-1).values == w["idx"].sort(-1).values
+                ).all(-1)
+        flips += int(bad.sum())
+        margins += g["margin"][bad].tolist()
+        wide = g["margin"][bad & (g["margin"] >= MOE_MARGIN)]
+        require(not len(wide), f"{what}: top-k sets differ at margins "
+                               f"{wide.tolist()} >= {MOE_MARGIN}")
+    out = dict(calls=len(want), decisions=sum(len(w["idx"]) for w in want),
+               sets_differing=flips, their_margins=margins,
+               least_margin=min(float(g["margin"].min()) for g in got))
+    print(f"{what}: routes: {out}", flush=True)
+    return out
+
+
+def moe_against_cpu(cfg, params):
+    """The first 6 layers at full width with the model's own embed, norm
+    and unembed, on the card and through the plain versions on the CPU:
+    a 96-token prompt into a one-slot dense cache, then 4 decode steps
+    teacher-forced with the card's greedy tokens.  The CPU runs on the
+    card's routes (``moe.force_routes``): its own top-k sets may differ
+    only at near ties (:func:`moe_route_diff`), and every logit is held to
+    :func:`agree`."""
+    from repro_torch.models import moe as moe_mod
+    small = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS)
+    sub = {k: (v[:MOE_CPU_LAYERS] if k.startswith("layers.") else v)
+           for k, v in params.items()}
+    cpu_params = {k: v.cpu() for k, v in sub.items()}
+    prompt = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (1, MOE_CPU_PROMPT))
+    P, T = MOE_CPU_PROMPT, MOE_CPU_PROMPT + MOE_DECODE
+    toks = torch.from_numpy(prompt)
+
+    def run(m, p, tokens):
+        cache = m.init_cache(1, T)
+        logits, _ = m.prefill(p, tokens[:, :P].to(m.device),
+                              last_only=False, cache=cache, slot=0)
+        out = [logits[0].float().cpu()]
+        for s in range(MOE_DECODE):
+            if tokens.shape[1] == P + s:      # the card's run: greedy
+                tokens = torch.cat(
+                    [tokens, out[-1][-1:].argmax(-1, keepdim=True)], 1)
+            logits, _ = m.decode_step(
+                p, cache, tokens[:, P + s:P + s + 1].to(m.device),
+                torch.tensor([P + s], device=m.device))
+            out.append(logits[0].float().cpu())
+        return torch.cat(out), tokens
+
+    with torch.no_grad():
+        with moe_mod.record_routes() as card_routes:
+            card, toks = run(Model(small, device=MOE_DEVICE), sub, toks)
+        with moe_mod.record_routes() as cpu_routes, moe_mod.force_routes(
+                [r["idx"] for r in card_routes]):
+            cpu, _ = run(Model(small, device="cpu"), cpu_params, toks)
+    summary = moe_route_diff(cpu_routes, card_routes,
+                             f"card vs cpu ({cfg.name}, layers 0-5)")
+    summary["logits"] = agree(
+        card, cpu, f"card vs cpu logits ({cfg.name}, full width, layers "
+                   f"0-5, {P}-token prompt + {MOE_DECODE} steps, the CPU "
+                   "on the card's routes)")
+    return summary
+
+
+def moe_depth_check(cfg, params):
+    """Prefill-then-decode at full depth against the full forward over the
+    same tokens, teacher-forced, on the card: a 16-token prompt and 4
+    decode steps, at capacity factor E / k (every copy kept: see
+    ``MOE_DEPTH_PROMPT``), the prefill and the steps on the forward's
+    routes (:func:`moe_route_diff`), their logits held to phase 4's
+    tolerance."""
+    from repro_torch.models import moe as moe_mod
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    model = Model(cfg, device=MOE_DEVICE)
+    P, L = MOE_DEPTH_PROMPT, cfg.n_layers
+    toks = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab_size, (1, P + MOE_DECODE))).to(MOE_DEVICE)
+    cache = model.init_cache(1, toks.shape[1])
+    steps = []
+    with torch.no_grad():
+        with moe_mod.record_routes() as full_routes:
+            x, _ = model._dense_stack(params, toks)
+        full = model._head(params, x[:, P:])[0].float()
+        forced = [r["idx"][:P] for r in full_routes] + [
+            r["idx"][P + s:P + s + 1] for s in range(MOE_DECODE)
+            for r in full_routes]
+        want = [{k: v[:P] for k, v in r.items()} for r in full_routes] + [
+            {k: v[P + s:P + s + 1] for k, v in r.items()}
+            for s in range(MOE_DECODE) for r in full_routes]
+        with moe_mod.record_routes() as got, moe_mod.force_routes(forced):
+            model.prefill(params, toks[:, :P], cache=cache, slot=0)
+            for p in range(P, toks.shape[1]):
+                logits, _ = model.decode_step(
+                    params, cache, toks[:, p:p + 1],
+                    torch.tensor([p], device=MOE_DEVICE))
+                steps.append(logits[0, 0].float())
+    summary = moe_route_diff(
+        got, want, f"prefill-then-decode vs the forward ({cfg.name}, {L} "
+                   "layers)")
+    summary["logits"] = agree(
+        torch.stack(steps).cpu(), full.cpu(),
+        f"prefill-then-decode vs the full forward ({cfg.name}, {L} layers, "
+        f"{P}-token prompt + {MOE_DECODE} steps)")
+    return summary
+
+
+def serve_moe():
+    """Phase 14 (b): deepseek-moe-16b at full width and depth (28 layers,
+    64 routed experts top-6 and 2 shared, 16.9 B parameters drawn on the
+    card a layer at a time from the seed, every earlier model freed),
+    phase 4's 16 requests through the static ``Engine`` on the dense cache
+    (8 slots, ``max_seq`` 1,024) and through ``ContinuousEngine``: launch
+    counts (``matmul`` 309 per prefill call and decode step, ``attention``
+    28 per prefill call, ``paged_decode_attention`` 28 per decode step),
+    serve numbers, a decode step split beside its weight bound, every
+    kernel call of 8 one-slot prefills and a decode step against its
+    plain version, the first 6 layers against the CPU and
+    prefill-then-decode against the full forward (both by the routing
+    rule).  Frees the model before it returns."""
+    cfg = get_config(MOE)
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.values())
+    require(n_params == MOE_PARAMS and cfg.n_layers == 28,
+            f"{MOE}: {n_params} parameters")
+    print(f"{MOE}: {n_params} parameters drawn on the card in {init_s:.1f} "
+          f"s, peak {init_peak / 2**30:.2f} GiB", flush=True)
+    reqs = requests(cfg)
+    serve(Engine, model, params, requests(cfg, 2)[:2])          # warm-up
+    out, launches = {}, {}
+    for tag, cls in (("dense", Engine), ("continuous", ContinuousEngine)):
+        ops.reset_launches()
+        batched0 = gemm_mod.batched_launches
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fin, dt, steps = serve(cls, model, params, requests(cfg))
+        got = ops.dispatch_report()
+        batched = gemm_mod.batched_launches - batched0
+        peak = torch.cuda.max_memory_allocated()
+        if tag == "dense":
+            calls = attn = len(fin)
+        else:
+            calls = attn = sum(-(-len(r.prompt) // CHUNK) for r in fin)
+        expect = moe_serve_launches(cfg, steps, calls, attn)
+        print(f"{MOE} {tag} launches: {got} (expected {expect}: {steps} "
+              f"decode steps, {calls} prefill calls); batched bank "
+              f"launches {batched} (3 a layer a call: "
+              f"{3 * cfg.n_layers * (steps + calls)})", flush=True)
+        require(got == expect and got["attention"] > 0
+                and got["paged_decode_attention"] > 0,
+                f"{MOE} {tag} launch counts do not match the layer loop")
+        require(batched == 3 * cfg.n_layers * (steps + calls),
+                f"{MOE} {tag}: {batched} batched bank launches")
+        stats = serve_stats(MOE, n_params, fin, dt, got, peak, resident)
+        stats.update(decode_steps=steps, prefill_calls=calls,
+                     batched_launches=batched)
+        out[tag], launches[tag] = stats, dict(got, matmul_batched=batched)
+    stats = out["dense"]
+    stats["continuous"] = out["continuous"]
+    embed = cfg.padded_vocab * cfg.d_model
+    banks = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff_expert
+    stats.update(
+        init_s=init_s, init_peak_gib=init_peak / 2**30,
+        decode_step_bound_ms=bound(2 * (n_params - embed), 0)[0],
+        decode_step_bank_bound_ms=bound(2 * banks, 0)[0],
+        **step_breakdown(cfg, model, params, dense=True))
+    print(f"serve {MOE} " + json.dumps(stats), flush=True)
+    stats["kernel_calls_max_abs_err"] = check_layer_calls(
+        cfg, model, params, [len(r.prompt) for r in reqs[:SLOTS]],
+        steps=1, max_seq=MAX_SEQ)
+    stats["prefill_decode_vs_forward"] = moe_depth_check(cfg, params)
+    stats["card_vs_cpu"] = moe_against_cpu(cfg, params)
+    del model, params
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def moe_train_against_cpu(cfg, params_src):
+    """2 layers at full width, one sequence of 128 tokens: loss, aux, grad
+    norm and every leaf's gradient on the card against the plain versions
+    on the CPU from the same weights (phase 6's tolerances), the CPU on
+    the card's routes (``moe.force_routes``; :func:`moe_route_diff`)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    small = dataclasses.replace(cfg, n_layers=2)
+    toks = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, 129))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    params = {k: (v[:2] if k.startswith("layers.") else v).detach()
+              for k, v in params_src.items()}
+    runs, routes = [], []
+    for m, dev in ((Model(small, device=MOE_DEVICE, remat="none"),
+                    MOE_DEVICE),
+                   (Model(small, device="cpu", remat="none"), "cpu")):
+        p = {k: v.to(dev).clone().requires_grad_(True)
+             for k, v in params.items()}
+        forced = (moe_mod.force_routes([r["idx"] for r in routes[0]])
+                  if routes else contextlib.nullcontext())
+        with moe_mod.record_routes() as r, forced:
+            g, met = step_mod.local_grads(
+                m, p, {k: v.to(dev) for k, v in batch.items()})
+        routes.append(r)
+        runs.append(({k: v.float().cpu() for k, v in g.items()},
+                     float(met["loss"]), float(opt.global_norm(g)),
+                     float(met["aux"])))
+        del p, g
+    summary = moe_route_diff(routes[1], routes[0],
+                             f"train card vs cpu ({cfg.name}, 2 layers)")
+    (gc, lc, nc, ac), (gp, lp, np_, ap) = runs
+    out = dict(loss_card=lc, loss_cpu=lp, grad_norm_card=nc,
+               grad_norm_cpu=np_, aux_card=ac, aux_cpu=ap, routes=summary)
+    require(abs(lc - lp) <= CPU_LOSS_RTOL * abs(lp),
+            f"moe train card vs cpu: loss {lc} vs {lp}")
+    require(abs(ac - ap) <= CPU_LOSS_RTOL * abs(ap),
+            f"moe train card vs cpu: aux {ac} vs {ap}")
+    require(abs(nc - np_) <= CPU_NORM_RTOL * abs(np_),
+            f"moe train card vs cpu: grad norm {nc} vs {np_}")
+    for name in gc:
+        c, w = gc[name], gp[name]
+        rel = float((c - w).norm() / w.norm())
+        mx = float((c - w).abs().max() / w.abs().max())
+        out[name] = dict(rel_rms=rel, max_abs_frac=mx)
+        require(rel <= CPU_GRAD_TOL and mx <= CPU_GRAD_TOL,
+                f"moe train card vs cpu: {name} gradient relative rms "
+                f"{rel:.3g}, max {mx:.3g} of the largest (tolerance "
+                f"{CPU_GRAD_TOL})")
+    print(f"train card vs cpu ({cfg.name}, 2 layers, full width, 128 "
+          "tokens): " + json.dumps(out), flush=True)
+    return out
+
+
+def train_moe():
+    """Phase 14 (c): deepseek-moe-16b at full width cut to 4 layers (2.77 B
+    parameters), trained on one rank through ``Session`` (``comms="off"``,
+    ``remat="full"``, AdamW at its peak rate from step 1, 2 x 512 tokens
+    of ``SyntheticLM(structured=True)``), after the memory model's verdict
+    on the cut: the first batch's gradients twice from the same params,
+    bitwise equal; three steps, the third on the first batch again with
+    its loss below the first, each step's launches the layer loop's and
+    its aux printed; then the 2-layer loss and gradients against the
+    CPU's.  Returns the summary and the three steps' launch counts."""
+    from repro_torch.api import Session
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS)
+    sess = Session(device="cuda")
+    fp = mem_mod.estimate_stage_footprints(
+        cfg, local_batch=MOE_TRAIN_BATCH, seq_len=TRAIN_SEQ)[0]
+    print(f"{MOE} train cut ({cfg.n_layers} layers, {cfg.param_count()} "
+          f"parameters): the memory model's footprint "
+          f"{fp.total / 2**30:.2f} GiB against {sess.budget.usable / 2**30:.2f}"
+          f" usable: fits {fp.fits(sess.budget)}", flush=True)
+    require(fp.fits(sess.budget), f"{MOE}'s train cut does not fit")
+    data = iter(SyntheticLM(cfg.vocab_size, MOE_TRAIN_BATCH, TRAIN_SEQ,
+                            seed=SEED, structured=True))
+    batches = [next(data), next(data)]
+    adamw = opt.AdamWConfig(lr=opt.warmup_cosine(TRAIN_PEAK, 0, 3))
+    plan = sess.plan(cfg, batch=MOE_TRAIN_BATCH, seq=TRAIN_SEQ, comms="off",
+                     microbatches=1, adamw=adamw,
+                     model_kwargs={"remat": "full"})
+    torch.cuda.reset_peak_memory_stats()
+    sess.init_state(plan, seed=SEED)
+    params = sess.state["train_state"]["params"]
+    n_params = sum(p.numel() for p in params.values())
+    require(n_params == cfg.param_count(), f"{MOE} cut: {n_params}")
+    first = {k: torch.from_numpy(v).cuda().long()
+             for k, v in batches[0].items()}
+    grads = [step_mod.local_grads(plan.model, params, first)
+             for _ in range(2)]
+    same = all(same_bits(grads[0][0][k], grads[1][0][k]) for k in params) \
+        and same_bits(grads[0][1]["loss"], grads[1][1]["loss"])
+    print(f"{MOE} gradients twice from the same params and batch: bitwise "
+          f"equal {same}", flush=True)
+    require(same, f"{MOE}: gradients differ run to run")
+    del grads
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    batched0 = gemm_mod.batched_launches
+    losses, auxes, walls, total = [], [], [], {}
+    for batch in (batches[0], batches[1], batches[0]):
+        before = ops.dispatch_report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in sess.step(plan, batch).items()}
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        got = {k: v - before[k] for k, v in ops.dispatch_report().items()}
+        expect = expected_moe_train_launches(cfg, 1)
+        require(got == expect, f"{MOE} step launches {got}, expected "
+                               f"{expect}")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"{MOE}: non-finite metrics {m}")
+        losses.append(m["loss"])
+        auxes.append(m["aux"])
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    total["matmul_batched"] = gemm_mod.batched_launches - batched0
+    require(total["matmul_batched"] == 3 * 12 * cfg.n_layers,
+            f"{MOE}: {total['matmul_batched']} batched launches in 3 steps")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{MOE} steps (first batch, second, first again): losses "
+          f"{losses}, aux {auxes}, wall ms {walls}, peak "
+          f"{peak / 2**30:.2f} GiB; launches {total}", flush=True)
+    require(losses[2] < losses[0], f"{MOE}: the loss did not fall")
+    cpu_check = moe_train_against_cpu(cfg, params)
+    del sess, params, plan
+    torch.cuda.empty_cache()
+    tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(arch=MOE, layers=cfg.n_layers, params=n_params,
+                   model_footprint_gib=fp.total / 2**30,
+                   tokens_per_step=tokens, losses=losses, aux=auxes,
+                   step_wall_ms=walls,
+                   tokens_per_s_steps_2_3=[tokens / (w / 1e3)
+                                           for w in walls[1:]],
+                   peak_gib=peak / 2**30, grads_bitwise_run_to_run=same,
+                   card_vs_cpu=cpu_check)
+    print("train " + json.dumps(summary), flush=True)
+    return summary, total
+
+
+def moe_phase():
+    """Phase 14: the batched GEMM at the bank shapes, deepseek-moe-16b
+    served at full width and depth, and its 4-layer cut trained on one
+    rank.  Returns (the batched mode's row, the serve summary, the train
+    summary, each path's launches)."""
+    row = check_expert_gemm()
+    torch.cuda.empty_cache()
+    served, serve_launches = serve_moe()
+    trained, train_launches = train_moe()
+    paths = {f"{MOE} dense cache": serve_launches["dense"],
+             f"{MOE} continuous": serve_launches["continuous"],
+             f"{MOE} train ({MOE_TRAIN_LAYERS} layers, 1 rank, 3 steps)":
+                 train_launches}
+    return row, served, trained, paths
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
@@ -6918,7 +7489,7 @@ ALONE = {"d256": lambda: print(json.dumps(
          "6": lambda: train_phase(get_config(ARCH)),
          "6c": lambda: (check_ssd_backward(), train_mamba2()),
          "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
-         "12": session_phase, "13": pipe_phase}
+         "12": session_phase, "13": pipe_phase, "14": moe_phase}
 
 
 def main() -> int:
@@ -6964,19 +7535,20 @@ def main() -> int:
     rows += check_flash_d256(get_config(GEMMA2B))
     print(f"phase 3: {time.perf_counter() - t3:.1f} s", flush=True)
 
-    # 4. qwen2-0.5b at full width
+    # 4. qwen2-0.5b at full width, cut to SERVE_LAYERS (4 and 4b)
     t4 = time.perf_counter()
-    model = Model(cfg, device="cuda")
+    scfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
+    model = Model(scfg, device="cuda")
     params = model.init(SEED)
     n_params = sum(p.numel() for p in params.values())
-    serve(ContinuousEngine, model, params, requests(cfg)[:2])    # warm-up
+    serve(ContinuousEngine, model, params, requests(scfg, 2)[:2])  # warm-up
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    fin, dt, steps = serve(ContinuousEngine, model, params, requests(cfg))
+    fin, dt, steps = serve(ContinuousEngine, model, params, requests(scfg))
     launches = ops.dispatch_report()
     peak = torch.cuda.max_memory_allocated()
-    expect, chunks = continuous_serve_launches(cfg, steps, fin)
+    expect, chunks = continuous_serve_launches(scfg, steps, fin)
     print(f"launches: {launches} (expected {expect}: {steps} decode steps, "
           f"{chunks} prefill chunks)")
     require(all(launches[k] > 0 for k in
@@ -6986,22 +7558,22 @@ def main() -> int:
     serve_stats_q = serve_stats(ARCH, n_params, fin, dt, launches, peak,
                                 resident)
     serve_stats_q.update(decode_steps=steps, prefill_chunks=chunks,
-                         **step_breakdown(cfg, model, params))
+                         **step_breakdown(scfg, model, params))
     rows[2]["decode_step_ms"] = serve_stats_q["decode_step_profiled_ms"][
         "paged_decode_attention_busy"]
     print("serve " + json.dumps(serve_stats_q), flush=True)
 
-    static, _, _ = serve(Engine, model, params, requests(cfg), paged=True)
+    static, _, _ = serve(Engine, model, params, requests(scfg), paged=True)
     cont = {r.rid: r.out for r in fin}
     same = cont == {r.rid: r.out for r in static}
     print(f"static paged == continuous greedy tokens: {same}")
     require(same, "static paged and continuous engines disagree")
-    check_against_cpu(cfg, model, params)
+    check_against_cpu(scfg, model, params)
     print(f"phase 4: {time.perf_counter() - t4:.1f} s", flush=True)
 
     # 4b. qwen2-0.5b on the dense KV cache, the static engine's default
     t4b = time.perf_counter()
-    _, dense_launches = serve_dense(cfg, model, params, static)
+    _, dense_launches = serve_dense(scfg, model, params, static)
     print(f"phase 4b: {time.perf_counter() - t4b:.1f} s", flush=True)
     del model, params
     torch.cuda.empty_cache()
@@ -7086,14 +7658,25 @@ def main() -> int:
     pipe, pipe_launches = pipe_phase()
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
+    # 14. the moe family: the batched GEMM, deepseek-moe-16b served and
+    # trained
+    t14 = time.perf_counter()
+    moe_row, moe_served, _, moe_paths = moe_phase()
+    rows.append(moe_row)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
     # results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
+    moe_e = moe_served["kernel_calls_max_abs_err"]
     for row, err in ((rows[0], g3e["matmul"]), (rows[0], g2e["matmul"]),
                      (rows[1], g3e["attention"]),
                      (rows[4], g2e["attention"]),
                      (rows[2], max(g3e["paged"], g3e["ring"])),
-                     (rows[2], g2e["paged"])):
+                     (rows[2], g2e["paged"]), (rows[0], moe_e["matmul"]),
+                     (rows[1], moe_e["attention"]),
+                     (rows[2], moe_e["paged"]),
+                     (moe_row, moe_e["matmul"])):
         row["max_abs_err"] = max(row["max_abs_err"], err)
     for mesh_row in hybrid["meshes"].values():
         errs = mesh_row["max_abs_err"]
@@ -7137,8 +7720,9 @@ def main() -> int:
              "attention_backward": "attention_backward",
              "attention_backward_d256": "attention_backward",
              "quantize_compress": "quantize_compress",
-             "matmul_dequant": "matmul_dequant"}
-    train_path = (f"{ARCH} train ({RANKS} ranks, int8 wire, {TRAIN_STEPS} "
+             "matmul_dequant": "matmul_dequant",
+             "gemm_batched": "matmul_batched"}
+    train_path = (f"{ARCH} train ({RANKS} ranks, int8 wire, {WIRE_STEPS} "
                   "steps)")
     paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
              f"{GEMMA3} dense cache": g3_launches, MAMBA: mamba_launches,
@@ -7146,13 +7730,14 @@ def main() -> int:
              MAMBA_TRAIN_PATH: mamba_train_launches, DP_PATH: dp_launches,
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
              SCHED_PATH: sched_launches, PIPE_PATH: pipe_launches,
-             **session_launches}
+             **session_launches, **moe_paths}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}
     for row in rows:
         op = names[row["name"]]
-        use = (d256 if row["name"].endswith("_d256") else paths
+        use = (d256 if row["name"].endswith("_d256") else moe_paths
+               if op == "matmul_batched" else paths
                if op.startswith("attention") else {**paths, **d256})
         row["launches_by_path"] = {k: v[op] for k, v in use.items()}
         row["launches"] = sum(row["launches_by_path"].values())

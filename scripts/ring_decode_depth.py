@@ -75,7 +75,7 @@ def drift(model, params, tokens: torch.Tensor, prompt: int):
                 params, cache, tokens[:, p:p + 1],
                 torch.tensor([p], device=tokens.device))
             steps.append(logits[0, 0])
-        x = model._dense_stack(params, tokens)
+        x, _ = model._dense_stack(params, tokens)
         full = model._head(params, x[:, prompt:])[0]
     return torch.stack(steps).float().cpu(), full.float().cpu()
 

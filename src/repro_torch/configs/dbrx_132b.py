@@ -1,0 +1,11 @@
+"""dbrx-132b — MoE 16e top-4, GQA kv=8 [hf:databricks/dbrx-base; unverified]."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="dbrx-132b", family="moe",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8, head_dim=128,
+    d_ff=10752, vocab_size=100352,
+    n_experts=16, top_k=4, d_ff_expert=10752,
+    rope_theta=5e5,
+    source="hf:databricks/dbrx-base; unverified",
+))

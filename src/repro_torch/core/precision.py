@@ -78,24 +78,34 @@ def einsum(spec: str, a: torch.Tensor, b: torch.Tensor,
     """A two-operand einsum whose contracted indices are the trailing
     indices of ``a`` and the leading ones of ``b`` (``bsd,dhk->bshk``,
     ``bshk,hkd->bsd``, ``bsd,df->bsf``, ``bsf,fd->bsd``, ``bsd,dv->bsv``):
-    one ``(M, K) @ (K, N)`` GEMM with an ``accum_dtype`` result."""
+    one ``(M, K) @ (K, N)`` GEMM with an ``accum_dtype`` result.  A
+    leading index both operands share and the output keeps is a batch
+    (the expert banks' ``ecd,edf->ecf`` and ``ecf,efd->ecd``): one batched
+    GEMM, ``(E, M, K) @ (E, K, N)``, in one launch."""
     ins, out = spec.replace(" ", "").split("->")
     sa, sb = ins.split(",")
-    n = sum(c not in out for c in sa)
-    if n == 0 or any(c in out for c in sa[len(sa) - n:]) \
-            or sb[:n] != sa[len(sa) - n:] or out != sa[:len(sa) - n] + sb[n:]:
-        raise ValueError(f"einsum {spec!r} is not a trailing/leading "
-                         "contraction of two operands")
     if a.dim() != len(sa) or b.dim() != len(sb):
         raise ValueError(f"einsum {spec!r}: operand ranks {a.dim()}, "
                          f"{b.dim()}")
+    batch = sa[:1] if sa[:1] == sb[:1] == out[:1] != "" else ""
+    ra, rb, ro = sa[len(batch):], sb[len(batch):], out[len(batch):]
+    n = sum(c not in ro for c in ra)
+    if n == 0 or any(c in ro for c in ra[len(ra) - n:]) \
+            or rb[:n] != ra[len(ra) - n:] or ro != ra[:len(ra) - n] + rb[n:]:
+        raise ValueError(f"einsum {spec!r} is not a trailing/leading "
+                         "contraction of two operands")
     a, b = policy.cast_compute(a, b)
-    lead, trail = a.shape[:a.dim() - n], b.shape[n:]
+    e = a.shape[:len(batch)]
+    if batch and b.shape[0] != a.shape[0]:
+        raise ValueError(f"einsum {spec!r}: batch sizes {a.shape[0]}, "
+                         f"{b.shape[0]}")
+    lead = a.shape[len(batch):a.dim() - n]
+    trail = b.shape[len(batch) + n:]
     k = math.prod(a.shape[a.dim() - n:])
-    c = ops.matmul(a.reshape(-1, k).contiguous(),
-                   b.reshape(k, -1).contiguous(),
+    c = ops.matmul(a.reshape(*e, -1, k).contiguous(),
+                   b.reshape(*e, k, -1).contiguous(),
                    out_dtype=policy.accum_dtype)
-    return c.reshape(*lead, *trail)
+    return c.reshape(*e, *lead, *trail)
 
 
 def div_count(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -47,6 +47,17 @@
 // - The split's second pass is a programmatic dependent launch: its blocks
 //   are scheduled while the first pass runs and wait for its sums.
 //
+// Batched mode (the expert banks of the moe family): C[e] = A[e] @ B[e]
+// for e < batch, A (batch, M, K), B (batch, K, N), each slice stored as a
+// 2-D operand is (either layout), slices packed one after another.  One
+// launch: the persistent tile index runs over the experts too (the expert
+// slowest, then the split, the N tiles and the M tiles), the tensor maps
+// are 3-D (inner, outer, expert) so TMA zero-fills each slice's own edges,
+// and the split's scratch and second pass hold one set of group sums per
+// expert.  Every expert's tiles run the 2-D plan's K groups in the same
+// order, so slice e of C is bitwise the 2-D kernel on (A[e], B[e]).  A
+// 2-D product is batch 1 of the same code.
+//
 // matmul_dequant (replaces repro/kernels/gemm.py::matmul_dequant,
 // _matmul_dequant_kernel): C = (A @ B_q) * scale[N] with B_q int8, stored
 // (K, N), on the same kernels and the same plan.  bf16 A: the producer
@@ -101,6 +112,7 @@ struct Params {
   const float* scale;   // (N,) fp32 column scales (matmul_dequant), or null
   void* out;            // (M,N) row-major, fp32 or bf16
   float* scratch;       // (groups, M, N) group sums when split, else null
+  int batch;            // products in the launch (1: a 2-D product)
   int M, N, K;
   int kg;               // K group depth: a multiple of 256
   int groups;           // ceil(K / kg)
@@ -133,11 +145,11 @@ __device__ __forceinline__ int swz(int row, int col) {
 }
 
 // One output tile of the persistent loop: tile t counts M tiles fastest,
-// then N tiles, then the split, so the blocks working at one time share
-// their weight tiles (read from HBM once) and the activations (small)
-// come from L2.
+// then N tiles, then the split, then the expert (batch slice), so the
+// blocks working at one time share their weight tiles (read from HBM
+// once) and the activations (small) come from L2.
 struct Tile {
-  int m0, n0, g0, g1;
+  int m0, n0, g0, g1, e;
 };
 
 __device__ __forceinline__ Tile tile_of(int t, int mt, int nt, int bt,
@@ -146,7 +158,9 @@ __device__ __forceinline__ Tile tile_of(int t, int mt, int nt, int bt,
   r.m0 = (t % mt) * bt;
   t /= mt;
   r.n0 = (t % nt) * bn;
-  r.g0 = (t / nt) * p.groups_per_block;
+  t /= nt;
+  r.g0 = (t % p.splits) * p.groups_per_block;
+  r.e = t / p.splits;
   r.g1 = min(p.groups, r.g0 + p.groups_per_block);
   return r;
 }
@@ -184,7 +198,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
   const int tid = threadIdx.x;
   const int mt = (p.M + BT - 1) / BT;
   const int nt = (p.N + BN - 1) / BN;
-  const int total = mt * nt * p.splits;
+  const int total = mt * nt * p.splits * p.batch;
   const int nsteps = (p.K + BK - 1) / BK;
   const int spg = p.kg / BK;               // k-steps per K group
 
@@ -219,31 +233,33 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
           uint8_t* raw = st + NWG * BOX + X_BYTES;
           mbar_expect_tx(&raw_full[s], RAW_BYTES + X_BYTES);
           for (int w = 0; w < NWG; ++w)
-            tma_load_2d(raw + w * RAW, &map_w, &raw_full[s], tl.n0 + 64 * w,
-                        k0);
-          tma_load_2d(st + NWG * BOX, &map_x, &raw_full[s], k0, tl.m0);
+            tma_load_3d(raw + w * RAW, &map_w, &raw_full[s], tl.n0 + 64 * w,
+                        k0, tl.e);
+          tma_load_3d(st + NWG * BOX, &map_x, &raw_full[s], k0, tl.m0, tl.e);
         } else if (p.tma) {
           mbar_expect_tx(&full[s], STAGE_BYTES);
           for (int w = 0; w < NWG; ++w) {
             if (TA)
-              tma_load_2d(st + w * BOX, &map_w, &full[s], tl.n0 + 64 * w,
-                          k0);
+              tma_load_3d(st + w * BOX, &map_w, &full[s], tl.n0 + 64 * w,
+                          k0, tl.e);
             else
-              tma_load_2d(st + w * BOX, &map_w, &full[s], k0,
-                          tl.n0 + 64 * w);
+              tma_load_3d(st + w * BOX, &map_w, &full[s], k0,
+                          tl.n0 + 64 * w, tl.e);
           }
           uint8_t* xs = st + NWG * BOX;
           if (TB == 0) {
-            tma_load_2d(xs, &map_x, &full[s], k0, tl.m0);
+            tma_load_3d(xs, &map_x, &full[s], k0, tl.m0, tl.e);
           } else {
             for (int c = 0; c < BT / 64; ++c)
-              tma_load_2d(xs + c * BOX, &map_x, &full[s], tl.m0 + 64 * c,
-                          k0);
+              tma_load_3d(xs + c * BOX, &map_x, &full[s], tl.m0 + 64 * c,
+                          k0, tl.e);
           }
         } else {
           bf16* ws = reinterpret_cast<bf16*>(st);
           bf16* xs = reinterpret_cast<bf16*>(st + NWG * BOX);
           const bf16 zero = __float2bfloat16(0.0f);
+          const size_t wo = (size_t)tl.e * p.K * p.N;   // this expert's B
+          const bf16* xe = p.x + (size_t)tl.e * p.M * p.K;
           // weights: per consumer, a 64 x 64 tile (rows k if TA, else n)
           for (int e = ptid; e < NWG * 64 * 64; e += 128) {
             const int w = e / 4096, r = (e / 64) % 64, c = e % 64;
@@ -253,9 +269,10 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
             if (k < p.K && n < p.N) {
               if constexpr (WQ)
                 v = __float2bfloat16(
-                    static_cast<float>(p.wq[(size_t)k * p.N + n]));
+                    static_cast<float>(p.wq[wo + (size_t)k * p.N + n]));
               else
-                v = TA ? p.w[(size_t)k * p.N + n] : p.w[(size_t)n * p.K + k];
+                v = TA ? p.w[wo + (size_t)k * p.N + n]
+                       : p.w[wo + (size_t)n * p.K + k];
             }
             ws[w * 4096 + swz(r, c)] = v;
           }
@@ -272,7 +289,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
             }
             bf16 v = zero;
             if (k < p.K && m < p.M)
-              v = TB ? p.x[(size_t)k * p.M + m] : p.x[(size_t)m * p.K + k];
+              v = TB ? xe[(size_t)k * p.M + m] : xe[(size_t)m * p.K + k];
             xs[off + swz(r, c)] = v;
           }
           // generic-proxy writes, read by wgmma through the async proxy
@@ -365,7 +382,8 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
         if (lane == 0) mbar_arrive(&empty[prev]);
         if (p.scratch) {
           // split: this group's sum, for the ordered second pass
-          float* sg = p.scratch + (size_t)g * p.M * p.N;
+          float* sg =
+              p.scratch + ((size_t)tl.e * p.groups + g) * p.M * p.N;
 #pragma unroll
           for (int i = 0; i < NREG; ++i) {
             const int row = 16 * warp + lane / 4 + ((i & 2) ? 8 : 0);
@@ -382,13 +400,14 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
       if (p.scratch) continue;
       // wgmma's fragment: register i holds D[row][col], row a weight
       // column and col a token, as below
+      const size_t oe = (size_t)tl.e * p.M * p.N;     // this expert's C
 #pragma unroll
       for (int i = 0; i < NREG; ++i) {
         const int row = 16 * warp + lane / 4 + ((i & 2) ? 8 : 0);
         const int col = 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
         const int n = tl.n0 + 64 * wg + row, m = tl.m0 + col;
         if (m < p.M && n < p.N)
-          store_out(p.out, (size_t)m * p.N + n,
+          store_out(p.out, oe + (size_t)m * p.N + n,
                     WQ ? __fmul_rn(tot[i], __ldg(p.scale + n)) : tot[i],
                     p.out_f32);
       }
@@ -406,18 +425,22 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_w,
 constexpr int F_TILE = 64;
 constexpr int F_BK = 16;
 
+// Batched: blockIdx.z is expert * splits + split.
 template <bool WQ>
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ X, int x_t,
                 const void* __restrict__ Wv, int w_t, Params p) {
-  const float* W = static_cast<const float*>(Wv);
+  const int e = blockIdx.z / p.splits;
+  X += (size_t)e * p.M * p.K;
+  const float* W = static_cast<const float*>(Wv) + (size_t)e * p.K * p.N;
   const signed char* Wq = static_cast<const signed char*>(Wv);
   __shared__ float xs[F_BK][F_TILE + 1];
   __shared__ float ws[F_BK][F_TILE + 1];
   grid_launch_dependents();    // the split's second pass may start its launch
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int n0 = blockIdx.x * F_TILE, m0 = blockIdx.y * F_TILE;
-  const int g0 = blockIdx.z * p.groups_per_block;
+  const int g0 = (blockIdx.z % p.splits) * p.groups_per_block;
+  const size_t oe = (size_t)e * p.M * p.N;        // this expert's C
   const int g1 = min(p.groups, g0 + p.groups_per_block);
   float acc[4][4], tot[4][4];
 #pragma unroll
@@ -473,7 +496,8 @@ gemm_f32_kernel(const float* __restrict__ X, int x_t,
         const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
         if (p.scratch) {
           if (m < p.M && n < p.N)
-            p.scratch[((size_t)g * p.M + m) * p.N + n] = acc[i][j];
+            p.scratch[(((size_t)e * p.groups + g) * p.M + m) * p.N + n] =
+                acc[i][j];
         } else {
           tot[i][j] = g == g0 ? acc[i][j] : tot[i][j] + acc[i][j];
         }
@@ -486,24 +510,28 @@ gemm_f32_kernel(const float* __restrict__ X, int x_t,
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
       if (m < p.M && n < p.N)
-        store_out(p.out, (size_t)m * p.N + n,
+        store_out(p.out, oe + (size_t)m * p.N + n,
                   WQ ? __fmul_rn(tot[i][j], __ldg(p.scale + n)) : tot[i][j],
                   p.out_f32);
     }
 }
 
 // The split's second pass: C = ((s_0 + s_1) + s_2) + ..., group order,
-// times scale[n] where a scale is given (matmul_dequant).  A programmatic
-// dependent launch: its blocks wait for the first pass's sums.
+// times scale[n] where a scale is given (matmul_dequant); batched, each
+// expert's own sums.  A programmatic dependent launch: its blocks wait for
+// the first pass's sums.
 __global__ void reduce_groups_kernel(const float* __restrict__ s, void* out,
-                                     int out_f32, size_t MN, int groups,
+                                     int out_f32, size_t MN, size_t total,
+                                     int groups,
                                      const float* __restrict__ scale, int N) {
   grid_dependency_wait();
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float t = s[i];
-  for (int g = 1; g < groups; ++g) t += s[(size_t)g * MN + i];
-  if (scale != nullptr) t = __fmul_rn(t, scale[i % N]);
+  if (i >= total) return;
+  const size_t e = i / MN, j = i - e * MN;
+  s += e * groups * MN + j;
+  float t = s[0];
+  for (int g = 1; g < groups; ++g) t += s[(size_t)g * MN];
+  if (scale != nullptr) t = __fmul_rn(t, scale[j % N]);
   store_out(out, i, t, out_f32);
 }
 
@@ -513,45 +541,49 @@ __global__ void reduce_groups_kernel(const float* __restrict__ s, void* out,
 struct MapSlot {
   CUtensorMap map;
   const void* ptr;
-  int inner, outer, ld, box_outer, int8;
+  int inner, outer, ld, box_outer, int8, batch;
 };
 constexpr int MAP_SLOTS_LOG2 = 10;
 MapSlot map_cache[1 << MAP_SLOTS_LOG2];     // ptr == nullptr: empty
 std::mutex map_mutex;
 
-// A 2-D tensor map over a row-major (outer, inner) array whose rows are
-// ``ld`` elements apart, read in boxes of (box_outer, 64): bf16 with the
-// 128-byte swizzle, or (int8) bytes unswizzled; out-of-range elements
-// read as zeros.
+// A 3-D tensor map over ``batch`` row-major (outer, inner) arrays, one
+// after another, whose rows are ``ld`` elements apart, read in boxes of
+// (1, box_outer, 64): bf16 with the 128-byte swizzle, or (int8) bytes
+// unswizzled; out-of-range elements of each array read as zeros.
 bool make_map(CUtensorMap* map, const void* ptr, int inner, int outer,
-              int ld, int box_outer, int int8 = 0) {
+              int ld, int box_outer, int int8 = 0, int batch = 1) {
   uint64_t h = reinterpret_cast<uintptr_t>(ptr) ^ ((uint64_t)inner << 44) ^
                ((uint64_t)outer << 24) ^ ((uint64_t)ld << 4) ^ box_outer ^
-               ((uint64_t)int8 << 63);
+               ((uint64_t)int8 << 63) ^ ((uint64_t)batch << 54);
   MapSlot& slot =
       map_cache[(h * 0x9E3779B97F4A7C15ull) >> (64 - MAP_SLOTS_LOG2)];
   std::lock_guard<std::mutex> lock(map_mutex);
   if (slot.ptr == ptr && slot.inner == inner && slot.outer == outer &&
-      slot.ld == ld && slot.box_outer == box_outer && slot.int8 == int8) {
+      slot.ld == ld && slot.box_outer == box_outer && slot.int8 == int8 &&
+      slot.batch == batch) {
     *map = slot.map;
     return true;
   }
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * (int8 ? 1 : 2)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint64_t es = int8 ? 1 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * es,
+                                 (cuuint64_t)ld * outer * es};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_outer, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   if (fn(map,
          int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-         2, const_cast<void*>(ptr), dims, strides, box, elem,
+         3, const_cast<void*>(ptr), dims, strides, box, elem,
          CU_TENSOR_MAP_INTERLEAVE_NONE,
          int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  slot = MapSlot{*map, ptr, inner, outer, ld, box_outer, int8};
+  slot = MapSlot{*map, ptr, inner, outer, ld, box_outer, int8, batch};
   return true;
 }
 
@@ -574,16 +606,18 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   }
   CUtensorMap map_w, map_x;
   if (p.tma) {
+    const int nb = p.batch;
     const bool ok =
-        (WQ ? make_map(&map_w, p.wq, p.N, p.K, p.N, 64, 1)
-         : TA ? make_map(&map_w, p.w, p.N, p.K, p.N, 64)
-              : make_map(&map_w, p.w, p.K, p.N, p.K, 64)) &&
-        (TB ? make_map(&map_x, p.x, p.M, p.K, p.M, 64)
-            : make_map(&map_x, p.x, p.K, p.M, p.K, BT));
+        (WQ ? make_map(&map_w, p.wq, p.N, p.K, p.N, 64, 1, nb)
+         : TA ? make_map(&map_w, p.w, p.N, p.K, p.N, 64, 0, nb)
+              : make_map(&map_w, p.w, p.K, p.N, p.K, 64, 0, nb)) &&
+        (TB ? make_map(&map_x, p.x, p.M, p.K, p.M, 64, 0, nb)
+            : make_map(&map_x, p.x, p.K, p.M, p.K, BT, 0, nb));
     if (!ok) return cudaErrorInvalidValue;
   }
   const long tiles = (long)((p.M + BT - 1) / BT) *
-                     ((p.N + 64 * NWG - 1) / (64 * NWG)) * p.splits;
+                     ((p.N + 64 * NWG - 1) / (64 * NWG)) * p.splits *
+                     p.batch;
   const int grid = (int)std::min<long>(tiles, (long)sm_count() * per_sm);
   gemm_wgmma_kernel<NWG, BT, TA, TB, WQ>
       <<<grid, THREADS, SMEM, stream>>>(map_w, map_x, p);
@@ -610,9 +644,11 @@ cudaError_t launch_bt(const Params& p, int bt, int nwg, cudaStream_t s) {
 
 // The plan's common part of both entries; p.x, p.w or p.wq, p.out and
 // p.scale are set by the caller.
-bool set_plan(Params& p, void* scratch, int M, int N, int K, int kg,
-              int split, int out_f32, int tma) {
+bool set_plan(Params& p, void* scratch, int batch, int M, int N, int K,
+              int kg, int split, int out_f32, int tma) {
   p.scratch = split > 1 ? static_cast<float*>(scratch) : nullptr;
+  if (batch < 1) return false;
+  p.batch = batch;
   p.M = M;
   p.N = N;
   p.K = K;
@@ -630,37 +666,41 @@ bool set_plan(Params& p, void* scratch, int M, int N, int K, int kg,
 cudaError_t finish(const Params& p, cudaError_t e, int split,
                    cudaStream_t s) {
   if (e != cudaSuccess || split <= 1) return e;
-  const size_t MN = (size_t)p.M * p.N;
+  const size_t MN = (size_t)p.M * p.N, total = MN * p.batch;
   return launch_dependent(reduce_groups_kernel,
-                          dim3((unsigned)((MN + 255) / 256)), dim3(256), 0, s,
-                          static_cast<const float*>(p.scratch), p.out,
-                          p.out_f32, MN, p.groups, p.scale, p.N);
+                          dim3((unsigned)((total + 255) / 256)), dim3(256), 0,
+                          s, static_cast<const float*>(p.scratch), p.out,
+                          p.out_f32, MN, total, p.groups, p.scale, p.N);
 }
 
 }  // namespace
 
-// C = A @ B.  ``a`` is (M,K), or (K,M) stored when a_t; ``b`` is (K,N), or
-// (N,K) stored when b_t; both bf16 (f32 = 0) or both fp32 (f32 = 1).  The
-// plan comes from the wrapper: the K group depth ``kg``, the consumer
-// warpgroups ``nwg`` (1: tiles of 64 columns by ``bt`` = 8, 16, 32 or 64
-// tokens; 2: 128 columns by ``bt`` = 64 or 128), ``split`` (1, or one
-// block per group), ``tma``; ``scratch`` holds ceil(K/kg)·M·N fp32 when
-// split > 1.  Returns the launches' cudaGetLastError().
-extern "C" int dmath_gemm(const void* a, int a_t, const void* b, int b_t,
-                          void* c, int out_f32, void* scratch, int M, int N,
-                          int K, int f32, int kg, int bt, int nwg, int split,
-                          int tma, void* stream) {
+// C[e] = A[e] @ B[e] for e < batch, one launch (and the split's second
+// pass).  Each slice of ``a`` is (M,K), or (K,M) stored when a_t; of ``b``
+// (K,N), or (N,K) stored when b_t; slices packed one after another, both
+// bf16 (f32 = 0) or both fp32 (f32 = 1); ``c`` is (batch, M, N).  The plan
+// comes from the wrapper, the 2-D plan of one slice: the K group depth
+// ``kg``, the consumer warpgroups ``nwg`` (1: tiles of 64 columns by
+// ``bt`` = 8, 16, 32 or 64 tokens; 2: 128 columns by ``bt`` = 64 or 128),
+// ``split`` (1, or one block per group), ``tma``; ``scratch`` holds
+// batch·ceil(K/kg)·M·N fp32 when split > 1.  Returns the launches'
+// cudaGetLastError().
+extern "C" int dmath_gemm_batched(const void* a, int a_t, const void* b,
+                                  int b_t, void* c, int out_f32,
+                                  void* scratch, int batch, int M, int N,
+                                  int K, int f32, int kg, int bt, int nwg,
+                                  int split, int tma, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Params p = {};
   p.x = static_cast<const bf16*>(a);
   p.w = static_cast<const bf16*>(b);
   p.out = c;
-  if (!set_plan(p, scratch, M, N, K, kg, split, out_f32, tma))
+  if (!set_plan(p, scratch, batch, M, N, K, kg, split, out_f32, tma))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (f32) {
     const dim3 grid((N + F_TILE - 1) / F_TILE, (M + F_TILE - 1) / F_TILE,
-                    split);
+                    p.splits * batch);
     gemm_f32_kernel<false><<<grid, 256, 0, s>>>(static_cast<const float*>(a),
                                                 a_t, b, b_t, p);
     e = cudaGetLastError();
@@ -670,6 +710,15 @@ extern "C" int dmath_gemm(const void* a, int a_t, const void* b, int b_t,
     e = a_t ? launch_bt<1, 1>(p, bt, nwg, s) : launch_bt<1, 0>(p, bt, nwg, s);
   }
   return static_cast<int>(finish(p, e, split, s));
+}
+
+// C = A @ B: batch 1 of dmath_gemm_batched.
+extern "C" int dmath_gemm(const void* a, int a_t, const void* b, int b_t,
+                          void* c, int out_f32, void* scratch, int M, int N,
+                          int K, int f32, int kg, int bt, int nwg, int split,
+                          int tma, void* stream) {
+  return dmath_gemm_batched(a, a_t, b, b_t, c, out_f32, scratch, 1, M, N, K,
+                            f32, kg, bt, nwg, split, tma, stream);
 }
 
 // C = (A @ B_q) * scale[None, :].  ``a`` is (M,K) row-major, bf16 (f32 = 0)
@@ -688,12 +737,12 @@ extern "C" int dmath_gemm_dequant(const void* a, const void* bq,
   p.wq = static_cast<const signed char*>(bq);
   p.scale = static_cast<const float*>(scale);
   p.out = c;
-  if (!set_plan(p, scratch, M, N, K, kg, split, out_f32, tma))
+  if (!set_plan(p, scratch, 1, M, N, K, kg, split, out_f32, tma))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (f32) {
     const dim3 grid((N + F_TILE - 1) / F_TILE, (M + F_TILE - 1) / F_TILE,
-                    split);
+                    p.splits);
     gemm_f32_kernel<true><<<grid, 256, 0, s>>>(static_cast<const float*>(a),
                                                0, bq, 0, p);
     e = cudaGetLastError();

@@ -86,6 +86,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A box of a 3-D tensor map at (c0, c1, c2): the GEMM's operands are
+// (batch, outer, inner) arrays, a 2-D product being batch 1.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ``bytes`` (a multiple of 16, both addresses 16-byte aligned) from global
 // to shared memory by the TMA engine, completing on ``bar`` as transaction
 // bytes: no tensor map, one instruction from one thread.

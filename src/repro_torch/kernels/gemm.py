@@ -41,6 +41,17 @@ card's deviation.
 fp32 operands (and a bf16 operand beside an fp32 one, promoted as
 ``torch.promote_types`` does) take the fp32 kernel.
 
+Batched mode (the moe family's expert banks, ``ecd,edf->ecf``):
+``matmul(a (E, M, K), b (E, K, N))`` is one launch over all E products.
+The persistent kernel's tile index runs over the experts too, the tensor
+maps are 3-D, and every expert's tiles run :func:`plan` of (M, K, N), the
+2-D product's tiles and K groups, so slice e is bitwise the 2-D kernel on
+(a[e], b[e]) (row invariance and run-to-run bits carry over).  Its
+backward runs dA = dC·Bᵀ and dB = Aᵀ·dC batched on the same kernel
+through transposed views, as the 2-D backward does.  The plain version
+is the 2-D plain version per expert.  ``launches`` counts one batched
+call as one launch.
+
 :func:`matmul_dequant` (the same source) replaces the TPU kernel
 ``repro/kernels/gemm.py::matmul_dequant``: C = (A @ B_q) · scale[N] with
 int8 weights widened inside the kernel and the per-column scale applied
@@ -68,6 +79,7 @@ from torch._subclasses.fake_tensor import FakeTensor
 from . import _build, ref, roofline
 
 launches = 0     # matmul products since the last reset (ops.reset_launches)
+batched_launches = 0     # of those, batched (an expert bank in one launch)
 dequant_launches = 0     # matmul_dequant launches
 
 KG = 256          # the K group depth's unit: summed from zero, added in order
@@ -76,6 +88,7 @@ SMS = 132         # the H100's streaming multiprocessors
 SKINNY_TILES = (8, 16, 32, 64)
 _KINDS = (torch.bfloat16, torch.float32)
 _entry = None     # the C entries, looked up on first launch
+_batched_entry = None
 _dequant_entry = None
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -83,6 +96,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p]
+
+# dmath_gemm_batched: dmath_gemm's with the batch after the scratch
+_BATCHED_ARGTYPES = _ARGTYPES[:7] + [ctypes.c_int] + _ARGTYPES[7:]
 
 _DEQUANT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -150,29 +166,32 @@ def plan(M: int, K: int, N: int, *, f32: bool = False,
 
 def plan_of(a: torch.Tensor, b: torch.Tensor, a_transposed: bool = False
             ) -> Plan:
-    """The plan of the launch for ``a`` (M, K) @ ``b`` (K, N): the fp32
+    """The plan of the launch for ``a`` (M, K) @ ``b`` (K, N), or of each
+    expert's product for ``a`` (E, M, K) @ ``b`` (E, K, N): the fp32
     kernel when ``a`` is fp32.  The type of ``b`` plays no part, so an
     int8 ``b`` (:func:`matmul_dequant`) takes the plan of ``b`` widened to
     ``a``'s type."""
-    M, K = a.shape
-    return plan(M, K, b.shape[1], f32=a.dtype == torch.float32,
+    M, K = a.shape[-2:]
+    return plan(M, K, b.shape[-1], f32=a.dtype == torch.float32,
                 a_transposed=a_transposed)
 
 
 def uses_tma(a: torch.Tensor, b: torch.Tensor) -> bool:
     """True when both operands' stored rows are whole 16-byte multiples
     and their bases 16-byte aligned (TMA's rule); else the kernel's
-    element-load producer runs."""
+    element-load producer runs.  A batched operand's slices are packed,
+    so its slice stride is a multiple of its row stride."""
     return ((a.data_ptr() | b.data_ptr()) % 16 == 0
-            and a.element_size() * max(a.stride()) % 16 == 0
-            and b.element_size() * max(b.stride()) % 16 == 0)
+            and a.element_size() * max(a.stride()[-2:]) % 16 == 0
+            and b.element_size() * max(b.stride()[-2:]) % 16 == 0)
 
 
 def _layout(t: torch.Tensor, what: str) -> int:
-    """0: row-major contiguous; 1: the transpose of a contiguous array."""
+    """0: row-major contiguous; 1: the transpose of a contiguous array
+    (batched: of each packed slice)."""
     if t.is_contiguous():
         return 0
-    if t.t().is_contiguous():
+    if t.mT.is_contiguous():
         return 1
     raise ValueError(f"matmul kernel takes {what} row-major or as the "
                      "transpose of a contiguous array, got strides "
@@ -193,15 +212,16 @@ class _MatMul(torch.autograd.Function):
         g = dc.to(torch.promote_types(a.dtype, b.dtype)).contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = _product(g, b.t(), a.dtype)
+            da = _product(g, b.mT, a.dtype)
         if ctx.needs_input_grad[1]:
-            db = _product(a.t(), g, b.dtype)
+            db = _product(a.mT, g, b.dtype)
         return da, db, None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N) in ``out_dtype`` (default ``a.dtype``).
+    """(M, K) @ (K, N) -> (M, N) in ``out_dtype`` (default ``a.dtype``);
+    batched, (E, M, K) @ (E, K, N) -> (E, M, N), one launch.
 
     CPU tensors take the plain version (:func:`ref.matmul`); CUDA tensors
     launch the kernel, which takes bf16 or fp32 operands (a bf16 one
@@ -221,7 +241,7 @@ def _product(a: torch.Tensor, b: torch.Tensor,
     # tensor attributes (``is_cuda``, ``get_device``), the cached plan and
     # C entry, and the raw stream handle (``torch.cuda.current_stream``
     # builds a Stream object per call).
-    global launches, _entry
+    global launches, batched_launches, _entry, _batched_entry
     fake = isinstance(a, FakeTensor)       # a dry trace: no launch
     if not (a.is_cuda and b.is_cuda or fake):
         if a.device.type == "cpu" and b.device.type == "cpu":
@@ -236,35 +256,47 @@ def _product(a: torch.Tensor, b: torch.Tensor,
                         f"{a.dtype} @ {b.dtype}")
     if out_dtype not in _KINDS:
         raise TypeError(f"matmul kernel writes fp32 or bf16, not {out_dtype}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+    nd = a.dim()
+    if nd != b.dim() or nd not in (2, 3) or a.shape[-1] != b.shape[-2] \
+            or a.shape[:-2] != b.shape[:-2]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} do not chain")
     if a.dtype != b.dtype:                 # mixed: widen the bf16 operand
         a, b = a.float(), b.float()
     a_t, b_t = _layout(a, "A"), _layout(b, "B")
-    M, K = a.shape
-    N = b.shape[1]
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    if M == 0 or N == 0:
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    batch = a.shape[0] if nd == 3 else 1
+    out = torch.empty(a.shape[:-1] + (N,), dtype=out_dtype, device=a.device)
+    if M == 0 or N == 0 or batch == 0:
         return out
     if K == 0:
         return out.zero_()
     pl = plan_of(a, b, bool(a_t))
     if fake:
         return _dry(a, b, out, pl)
-    scratch = (torch.empty((pl.groups, M, N), dtype=torch.float32,
+    scratch = (torch.empty((batch, pl.groups, M, N), dtype=torch.float32,
                            device=a.device).data_ptr()
                if pl.split > 1 else None)
-    if _entry is None:
-        _entry = _build.function("dmath_gemm", _ARGTYPES)
-    rc = _entry(a.data_ptr(), a_t, b.data_ptr(), b_t, out.data_ptr(),
-                int(out_dtype == torch.float32), scratch, M, N, K,
-                int(a.dtype == torch.float32), pl.kg, pl.tile_m,
-                1 if pl.tile_n == 64 else 2, pl.split, int(uses_tma(a, b)),
-                torch._C._cuda_getCurrentRawStream(a.get_device()))
+    plan_args = (M, N, K, int(a.dtype == torch.float32), pl.kg, pl.tile_m,
+                 1 if pl.tile_n == 64 else 2, pl.split, int(uses_tma(a, b)),
+                 torch._C._cuda_getCurrentRawStream(a.get_device()))
+    head = (a.data_ptr(), a_t, b.data_ptr(), b_t, out.data_ptr(),
+            int(out_dtype == torch.float32), scratch)
+    if nd == 2:
+        if _entry is None:
+            _entry = _build.function("dmath_gemm", _ARGTYPES)
+        rc = _entry(*head, *plan_args)
+    else:
+        if _batched_entry is None:
+            _batched_entry = _build.function("dmath_gemm_batched",
+                                             _BATCHED_ARGTYPES)
+        rc = _batched_entry(*head, batch, *plan_args)
     if rc:
         _build.check(rc, "matmul")
     launches += 1
+    if nd == 3:
+        batched_launches += 1
     return out
 
 
@@ -272,13 +304,14 @@ def _dry(a, b, out, pl: Plan) -> torch.Tensor:
     """The launch's shape function, for fake tensors: the split's fp32
     scratch, as the kernel's wrapper allocates it (``out`` is allocated
     already), and the product's cost in ``roofline.DRY``."""
+    batch = a.shape[0] if a.dim() == 3 else 1
+    M, K = a.shape[-2:]
     if pl.split > 1:
-        torch.empty((pl.groups,) + tuple(out.shape), dtype=torch.float32,
-                    device=a.device)
-    M, K = a.shape
+        torch.empty((batch, pl.groups, M, out.shape[-1]),
+                    dtype=torch.float32, device=a.device)
     roofline.DRY.record("matmul", roofline.matmul_cost(
-        M, K, b.shape[1], a.element_size(), b.element_size(),
-        out.element_size()))
+        M, K, b.shape[-1], a.element_size(), b.element_size(),
+        out.element_size(), batch=batch))
     return out
 
 

@@ -51,3 +51,4 @@ def dispatch_report() -> Dict[str, int]:
 def reset_launches() -> None:
     for mod, attr in _KERNELS.values():
         setattr(mod, attr, 0)
+    _gemm.batched_launches = 0     # the batched share of matmul's count

@@ -36,8 +36,14 @@ import torch
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """C = A @ B with fp32 accumulation regardless of storage dtype."""
+    """C = A @ B with fp32 accumulation regardless of storage dtype;
+    batched, (E, M, K) @ (E, K, N), the 2-D product per slice."""
     out_dtype = out_dtype or a.dtype
+    if a.dim() == 3 or b.dim() == 3:
+        if a.shape[:-2] != b.shape[:-2] or a.shape[-1] != b.shape[-2]:
+            raise ValueError(f"matmul: shapes {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)} do not chain")
+        return torch.stack([matmul(x, y, out_dtype) for x, y in zip(a, b)])
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 

@@ -63,11 +63,13 @@ def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS
 # ---------------------------------------------------------------------------
 
 def matmul_cost(M: int, K: int, N: int, a_itemsize: int = 2,
-                b_itemsize: int = 2, c_itemsize: int = 4
+                b_itemsize: int = 2, c_itemsize: int = 4, batch: int = 1
                 ) -> Tuple[float, float]:
-    """(M, K) @ (K, N): A and B read, C written; 2MNK FLOPs."""
-    return (a_itemsize * M * K + b_itemsize * K * N + c_itemsize * M * N,
-            2.0 * M * N * K)
+    """(M, K) @ (K, N): A and B read, C written; 2MNK FLOPs.  ``batch``
+    such products (the batched mode: an expert bank)."""
+    return (batch * (a_itemsize * M * K + b_itemsize * K * N
+                     + c_itemsize * M * N),
+            2.0 * batch * M * N * K)
 
 
 def matmul_dequant_cost(M: int, K: int, N: int, a_itemsize: int

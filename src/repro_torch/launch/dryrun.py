@@ -104,7 +104,7 @@ def skip_reason(arch: str, shape_name: str) -> Optional[str]:
     if SHAPES[shape_name].kind != "train":
         return ("serving on a mesh (the sequence-sharded KV cache) is "
                 "ROADMAP queue 1, item 13")
-    if get_config(arch).family not in ("dense", "ssm"):
+    if get_config(arch).family not in ("dense", "moe", "ssm"):
         return (f"the {get_config(arch).family} family is ROADMAP queue 1, "
                 "item 11")
     return None

@@ -1,8 +1,11 @@
 """The decoder LM, ported from the reference's ``models/transformer.py``:
-the dense family's and the ssm family's (mamba2) full-sequence forward and
-loss (the train path), the dense family's steps on the dense KV cache
+the dense, moe and ssm (mamba2) families' full-sequence forward and loss
+(the train path), the dense and moe families' steps on the dense KV cache
 (the static engine's default) and on the paged cache, and the ssm
-family's on its dense cache.
+family's on its dense cache.  A moe layer is a dense layer whose MLP is
+:func:`repro_torch.models.moe.forward` (``forward_mesh`` on a mesh); its
+aux loss is summed over the layers and enters the loss as
+``router_aux_coef * aux / n_layers``.
 
 The reference scans one jitted layer body over the stacked params; PyTorch
 runs eagerly, so here a Python loop walks the ``L`` layers.  The train
@@ -43,6 +46,8 @@ heads, :func:`repro_torch.models.ssm.forward_mesh`), FSDP leaves gathered
 at use, the vocab-parallel head and loss.  ``forward`` and ``loss_fn``
 take the global batch and run this rank's rows (all of them when the
 batch cannot split over the data axes, the reference's ``_maybe_batch``).
+A moe layer's experts are row-blocked over the model axis and its
+router replicated (:func:`repro_torch.models.moe.forward_mesh`).
 Serving on a mesh raises: ROADMAP queue 1, item 13.
 """
 
@@ -62,7 +67,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import Layout, batch_block, constrain
 from repro_torch.core.planner import plan_for
 from repro_torch.core.replication import gathered
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.params import (ParamSpec, plan_layout, shard_tree,
                                       tree_init)
 
@@ -78,6 +83,9 @@ class Model(nn.Module):
       RMSNorm -> unembed, on the dense KV cache (``k``, ``v``; the
       windowed ``k_g``, ``v_g``, ``k_l``, ``v_l`` for gemma3) or the paged
       one;
+    - moe family: the dense family's layers with the gated MLP replaced
+      by routed experts (top-k of E, capacity-bounded) plus the shared
+      experts;
     - ssm family: embed -> L x [RMSNorm -> Mamba2 mixer] -> RMSNorm ->
       unembed, on the dense cache (``conv``, ``ssm``, ``bc_conv``).
 
@@ -93,10 +101,15 @@ class Model(nn.Module):
                  ssd_chunk: int = 256, remat: str = "full", mesh=None,
                  plan=None):
         super().__init__()
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and ssm families are ported so "
-                "far (ROADMAP queue 1, item 11)")
+                f"{cfg.name}: only the dense, moe and ssm families are "
+                "ported so far (ROADMAP queue 1, item 11)")
+        if mesh is not None and cfg.family == "moe" \
+                and cfg.n_experts % mesh.shape.get("model", 1):
+            raise ValueError(
+                f"{cfg.name} on a mesh: its {cfg.n_experts} experts do not "
+                f"split over model = {mesh.shape['model']}")
         if mesh is not None and cfg.family == "ssm" \
                 and cfg.n_ssm_heads % mesh.shape.get("model", 1):
             raise ValueError(
@@ -140,20 +153,21 @@ class Model(nn.Module):
         D, V, F, L = cfg.d_model, cfg.padded_vocab, cfg.d_ff, cfg.n_layers
         out_scale = 0.02 / max(1, 2 * L) ** 0.5
         lay = functools.partial(plan_layout, plan, mesh)
-        layer = {
-            "ln1": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
-            **{f"ssm.{k}": s for k, s in
-               ssm.ssm_specs(cfg, plan, mesh).items()},
-        } if cfg.family == "ssm" else {
-            "ln1": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
-            "ln2": ParamSpec((D,), init="ones", layout=lay("vector", (D,))),
-            **{f"attn.{k}": s for k, s in
-               attention.attn_specs(cfg, plan, mesh).items()},
-            "mlp.gate": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
-            "mlp.in": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
-            "mlp.out": ParamSpec((F, D), init="scaled", scale=out_scale,
-                                 layout=lay("ffn_out", (F, D))),
-        }
+        vec = ParamSpec((D,), init="ones", layout=lay("vector", (D,)))
+        if cfg.family == "ssm":
+            layer = {"ln1": vec, **{f"ssm.{k}": s for k, s in
+                                    ssm.ssm_specs(cfg, plan, mesh).items()}}
+        else:
+            layer = {"ln1": vec, "ln2": vec,
+                     **{f"attn.{k}": s for k, s in
+                        attention.attn_specs(cfg, plan, mesh).items()}}
+            layer.update({f"moe.{k}": s for k, s in
+                          moe.moe_specs(cfg, plan, mesh).items()}
+                         if cfg.family == "moe" else {
+                "mlp.gate": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
+                "mlp.in": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
+                "mlp.out": ParamSpec((F, D), init="scaled", scale=out_scale,
+                                     layout=lay("ffn_out", (F, D)))})
         return {
             "embed": ParamSpec((V, D), layout=lay("embed", (V, D))),
             "unembed": ParamSpec((D, V), layout=lay("unembed", (D, V))),
@@ -207,9 +221,11 @@ class Model(nn.Module):
         the model axis for a leaf the model axis replicates wherever each
         rank runs its own part of the sequence or heads with it (the norms
         on sequence-sharded residuals, every SP weight, qk-norm scales on
-        a rank's own heads).  A leaf every rank of the axis uses on the
-        same values (the norms and the local MLP on a replicated residual
-        under ``seq_parallel_residual=False``) is whole on each."""
+        a rank's own heads, a moe router, whose gradient each rank takes
+        from its own experts).  A leaf every rank of the axis uses on the
+        same values (the norms and the local MLP, or a moe layer's shared
+        experts, on a replicated residual under
+        ``seq_parallel_residual=False``) is whole on each."""
         plan, mesh = self.plan, self.mesh
         axes = list(self.row_axes(batch))
         tp = plan.tp_axis
@@ -218,7 +234,8 @@ class Model(nn.Module):
             leaf = name.split(".")[-1]
             same = not plan.seq_parallel_residual and (
                 leaf in ("ln1", "ln2", "final_norm")
-                or (plan.ffn_replicated and ".mlp." in name))
+                or (plan.ffn_replicated and (".mlp." in name
+                                             or ".moe.shared_" in name)))
             if not same:
                 axes.append(tp)
         return tuple(axes)
@@ -328,32 +345,44 @@ class Model(nn.Module):
 
     def _dense_block(self, x, lp, window, with_cache: bool = False,
                      rows: Tuple[str, ...] = ()):
-        """One dense layer of the full-sequence forward; with
-        ``with_cache`` returns ``(x, (k, v))``.  On a mesh ``rows`` are the
-        axes the batch splits over (:meth:`row_axes`)."""
+        """One dense or moe layer of the full-sequence forward: ``(x, the
+        moe layer's aux loss or None, (k, v) with ``with_cache`` else
+        None)``.  On a mesh ``rows`` are the axes the batch splits over
+        (:meth:`row_axes`)."""
         cfg = self.cfg
         if self.mesh is not None:
-            return self._dense_block_mesh(x, self._use_layer(lp, rows),
-                                          window, rows)
+            x, aux = self._dense_block_mesh(x, self._use_layer(lp, rows),
+                                            window, rows)
+            return x, aux, None
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
         a = attention.forward(h, lp["attn"], cfg, policy=self.policy,
                               window=window, with_cache=with_cache)
         a, kv = a if with_cache else (a, None)
         x = x + a
         h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + self._mlp(h, lp, wide=True)
-        return (x, kv) if with_cache else x
+        aux = None
+        if cfg.family == "moe":
+            f, aux = moe.forward(h, lp["moe"], cfg, policy=self.policy)
+        else:
+            f = self._mlp(h, lp, wide=True)
+        return x + f, aux, kv
 
     def _dense_block_mesh(self, x, lp, window, rows: Tuple[str, ...]):
         """``_dense_block`` on this rank's blocks (the reference's routing:
-        the local MLP under ``ffn_replicated``, the bf16 shard_map MLP
-        under ``seq_parallel_residual``, else the GSPMD-style one)."""
+        a moe layer's experts on this rank, the local MLP under
+        ``ffn_replicated``, the bf16 shard_map MLP under
+        ``seq_parallel_residual``, else the GSPMD-style one): ``(x, the
+        moe layer's aux loss or None)``."""
         cfg, plan, mesh = self.cfg, self.plan, self.mesh
         h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + attention.forward(h, lp["attn"], cfg, policy=self.policy,
                                   window=window, mesh=mesh, plan=plan,
                                   hidden=self._hidden(rows))
         h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.family == "moe":
+            f, aux = moe.forward_mesh(h, lp["moe"], cfg, plan, mesh,
+                                      rows=rows, policy=self.policy)
+            return x + f, aux
         w = (lp["mlp"]["gate"], lp["mlp"]["in"], lp["mlp"]["out"])
         if plan.ffn_replicated:
             f = layers.glu_mlp(h, *w, act=cfg.act, policy=self.policy)
@@ -363,13 +392,16 @@ class Model(nn.Module):
         else:
             f = layers.glu_mlp(h, *w, act=cfg.act, policy=self.policy,
                                mesh=mesh, tp_axis=plan.tp_axis)
-        return x + f
+        return x + f, None
 
     def _mlp(self, h, lp, wide: bool = False):
-        """The gated MLP.  The full-sequence forward (``_dense_block``)
+        """The gated MLP, or a moe layer's experts (its aux dropped: the
+        serving steps).  The full-sequence forward (``_dense_block``)
         takes the ``wide`` form, as the reference's default one-device plan
         runs ``glu_mlp_shardmap`` there; the paged steps take ``glu_mlp``'s
         rounding, as the reference's do."""
+        if self.cfg.family == "moe":
+            return moe.forward(h, lp["moe"], self.cfg, policy=self.policy)[0]
         return layers.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["in"],
                               lp["mlp"]["out"], act=self.cfg.act,
                               policy=self.policy, wide=wide)
@@ -399,10 +431,10 @@ class Model(nn.Module):
     # block-paged KV cache
     # ------------------------------------------------------------------
     def paged_supported(self) -> bool:
-        """Paged decode covers the dense family's uniform full-attention
-        layers: no sliding windows, no logit softcap."""
+        """Paged decode covers the dense and moe families' uniform
+        full-attention layers: no sliding windows, no logit softcap."""
         cfg = self.cfg
-        return (cfg.family == "dense" and cfg.window is None
+        return (cfg.family in ("dense", "moe") and cfg.window is None
                 and cfg.attn_softcap is None)
 
     def _pages(self, num_pages: int, page_size: int, device=None
@@ -530,61 +562,72 @@ class Model(nn.Module):
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 with_cache: bool = False, last_only: bool = False):
-        """Full-sequence forward: (fp32 logits (B, S or 1, V), aux loss 0,
-        the stacked per-layer caches or None).  With ``with_cache`` the
-        dense family returns ``(k, v)``, each (L, B, S, Hkv, hd) in bf16,
-        and the ssm family ``(conv, ssm, bc_conv)``."""
+        """Full-sequence forward: (fp32 logits (B, S or 1, V), the aux loss
+        (the moe layers' sum; 0 for the other families), the stacked
+        per-layer caches or None).  With ``with_cache`` the dense and moe
+        families return ``(k, v)``, each (L, B, S, Hkv, hd) in bf16, and
+        the ssm family ``(conv, ssm, bc_conv)``."""
         if with_cache:
             self._servable("forward with_cache")
         layer_caches = []
-        stack = (self._dense_stack if self.cfg.family == "dense"
-                 else self._mixer_stack)
-        x = stack(params, tokens,
-                  (lambda i, c: layer_caches.append(c)) if with_cache
-                  else None)
+        write = ((lambda i, c: layer_caches.append(c)) if with_cache
+                 else None)
+        aux = None
+        if self.cfg.family == "ssm":
+            x = self._mixer_stack(params, tokens, write)
+        else:
+            x, aux = self._dense_stack(params, tokens, write)
         caches = (tuple(torch.stack(t) for t in zip(*layer_caches))
                   if with_cache else None)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (self._head(params, x, last_only,
-                           self.row_axes(tokens.shape[0])),
-                torch.zeros((), dtype=torch.float32, device=x.device),
-                caches)
+                           self.row_axes(tokens.shape[0])), aux, caches)
 
     def _dense_stack(self, params: Params, tokens: torch.Tensor,
-                     write_kv=None) -> torch.Tensor:
-        """Embed -> L x dense block, each layer checkpointed under
+                     write_kv=None):
+        """Embed -> L x dense (or moe) block, each layer checkpointed under
         ``remat="full"`` while autograd records, and under ``"group:G"``
         each group of G layers too (when G divides L and no cache is
         written, as in the reference); given ``write_kv``, each layer's
         rotated keys and values go to ``write_kv(i, (k, v))``.  Returns
-        the residual stream (B, S, D) in bf16."""
+        the residual stream (B, S, D) in bf16 and the moe layers' aux loss
+        summed in layer order (None for dense)."""
         cfg = self.cfg
         rows = self.row_axes(tokens.shape[0])
         x = self._embed(params, tokens, rows)
         lps = self._unbind_layers(params)
         G = self._group
         if G and write_kv is None and torch.is_grad_enabled():
+            aux = None
             for i0 in range(0, cfg.n_layers, G):
-                x = checkpoint(self._dense_layers, x, lps[i0:i0 + G], i0,
-                               True, None, rows, use_reentrant=False)
-            return x
-        return self._dense_layers(
-            x, lps, 0, self.remat == "full" and torch.is_grad_enabled(),
-            write_kv, rows)
+                x, aux = checkpoint(self._dense_layers, x, lps[i0:i0 + G],
+                                    i0, True, None, rows, aux,
+                                    use_reentrant=False)
+        else:
+            x, aux = self._dense_layers(
+                x, lps, 0, self.remat == "full" and torch.is_grad_enabled(),
+                write_kv, rows)
+        return x, aux
 
     def _dense_layers(self, x, lps, i0: int, remat: bool, write_kv=None,
-                      rows: Tuple[str, ...] = ()):
+                      rows: Tuple[str, ...] = (), aux=None):
         """Layers ``i0 .. i0 + len(lps) - 1`` of the full-sequence
         forward, each checkpointed when ``remat``; given ``write_kv``,
         each layer's keys and values go to ``write_kv(i, (k, v))``.  The
-        batch splits over ``rows``, passed to each (re)computed block."""
+        batch splits over ``rows``, passed to each (re)computed block.
+        Returns ``(x, aux)``: the moe layers' aux losses added in layer
+        order onto ``aux`` (None for dense layers)."""
         for i, lp in enumerate(lps, start=i0):
             args = (x, lp, self._window(i), write_kv is not None, rows)
-            x = (checkpoint(self._dense_block, *args, use_reentrant=False)
-                 if remat else self._dense_block(*args))
+            x, a, kv = (checkpoint(self._dense_block, *args,
+                                   use_reentrant=False)
+                        if remat else self._dense_block(*args))
+            if a is not None:
+                aux = a if aux is None else aux + a
             if write_kv is not None:
-                x, kv = x
                 write_kv(i, kv)
-        return x
+        return x, aux
 
     def loss_fn(self, params: Params, batch: dict):
         """(mean token loss, metrics ``{loss, aux, tokens}``) of a batch
@@ -593,17 +636,33 @@ class Model(nn.Module):
         rank's rows' share of the mean (:func:`layers.lm_loss_sharded`),
         which the rank differentiates; the metrics hold the global
         mean."""
+        cfg = self.cfg
         logits, aux, _ = self.forward(params, batch["tokens"])
         if self.mesh is not None:
             rows = self.row_axes(batch["tokens"].shape[0])
             share, loss, denom = layers.lm_loss_sharded(
                 logits, batch_block(batch["labels"], self.mesh, rows),
-                vocab_real=self.cfg.vocab_size, mesh=self.mesh,
+                vocab_real=cfg.vocab_size, mesh=self.mesh,
                 tp_axis=self.plan.tp_axis, batch_axes=rows)
-            return share, {"loss": loss, "aux": aux, "tokens": denom}
+            if cfg.family == "moe":
+                # the aux term's gradient is split over the ranks by the
+                # layers' _AuxMean; its value is every rank's
+                share = share + self._aux_term(aux)
+                loss = loss + self._aux_term(aux.detach())
+            return share, {"loss": loss, "aux": aux.detach(),
+                           "tokens": denom}
         loss, denom = layers.lm_loss(logits, batch["labels"],
-                                     vocab_real=self.cfg.vocab_size)
+                                     vocab_real=cfg.vocab_size)
+        if cfg.family == "moe":
+            loss = loss + self._aux_term(aux)
         return loss, {"loss": loss, "aux": aux, "tokens": denom}
+
+    def _aux_term(self, aux: torch.Tensor) -> torch.Tensor:
+        """``router_aux_coef * aux / n_layers``, rounded as the
+        reference's (a multiply by the weak-typed coefficient, then the
+        division by the layer count as XLA compiles it)."""
+        return precision.div_count(self.cfg.router_aux_coef * aux,
+                                   self.cfg.n_layers)
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 last_only: bool = True, cache: dict = None,
@@ -627,7 +686,7 @@ class Model(nn.Module):
         self._servable("prefill")
         if cache is not None and tokens.shape[0] != 1:
             raise ValueError("prefill into a cache row takes one prompt")
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "moe"):
             S = tokens.shape[1]
             ring = (self._ring_positions(S, tokens.device)
                     if self._windowed() else None)
@@ -646,7 +705,7 @@ class Model(nn.Module):
                     if suffix == "_l":
                         cache[name][j, slot, n:].zero_()
 
-            x = self._dense_stack(params, tokens, write_kv)
+            x, _ = self._dense_stack(params, tokens, write_kv)
             logits = self._head(params, x[:, -1:] if last_only else x)
             if cache is None:
                 cache = {name: torch.stack(vals) for name, vals in out.items()}
@@ -689,7 +748,7 @@ class Model(nn.Module):
                     "v_g": ParamSpec(g, init="zeros"),
                     "k_l": ParamSpec(loc, init="zeros"),
                     "v_l": ParamSpec(loc, init="zeros")}
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
             return {"k": ParamSpec(shape, init="zeros"),
                     "v": ParamSpec(shape, init="zeros")}
@@ -716,11 +775,11 @@ class Model(nn.Module):
         (scalar or (B,)).  Returns fp32 logits (B, 1, V) and ``cache``,
         updated in place.
 
-        The dense family attends through the paged-decode kernel with each
-        slot's cache row as one page (``attention.decode``): its (B, 1)
-        ``block_table`` and ``seq_lens = pos + 1`` (int32) are built once
-        per step here unless the caller passes them (the engine keeps the
-        table across steps).  A windowed config's local layers attend on
+        The dense and moe families attend through the paged-decode kernel
+        with each slot's cache row as one page (``attention.decode``): its
+        (B, 1) ``block_table`` and ``seq_lens = pos + 1`` (int32) are built
+        once per step here unless the caller passes them (the engine keeps
+        the table across steps).  A windowed config's local layers attend on
         their rings (``attention.decode_ring``) under the same table with
         ``min(seq_lens, W)``, made once per step.  An SSM's step does not
         read ``pos`` (taken for the reference's signature)."""
@@ -728,7 +787,7 @@ class Model(nn.Module):
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             B = tokens.shape[0]
             if block_table is None:
                 block_table = torch.arange(B, dtype=torch.int32,

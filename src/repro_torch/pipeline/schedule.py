@@ -34,7 +34,12 @@ forward order).  The first stage alone embeds; the last alone runs
 ``final_norm -> unembed -> lm_loss`` (interior stages never allocate the
 fp32 ``(b_mb, T, V)`` logits).  Each stage runs its layers with their
 global indices (a windowed config's windows are the global layer's).
-The dense and ssm families run; the others are ROADMAP queue 1, item 11.
+The dense, moe and ssm families run; the others are ROADMAP queue 1, item
+11.  A moe stage carries its layers' aux loss as the reference's
+``_stage_apply`` does: its backward seeds each microbatch's aux with
+``router_aux_coef / (M * n_layers)`` (the reference's 1F1B cotangent
+scale), and the metrics' aux is its sum over the stages and the mean over
+the microbatches.
 """
 
 from __future__ import annotations
@@ -78,44 +83,46 @@ class _Geometry:
 
 def _stage_geometry(model, spec: PipelineSpec, mesh) -> _Geometry:
     cfg = model.cfg
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"pipeline schedules for the {cfg.family!r} family: only the "
-            "dense and ssm families are ported (ROADMAP queue 1, item 11)")
+            "dense, moe and ssm families are ported (ROADMAP queue 1, item "
+            "11)")
     n_local = cfg.n_layers // spec.n_stages
     s = mesh.coords[spec.axis]
     return _Geometry(s, spec.n_stages, s * n_local, n_local)
 
 
 def _stage_apply(model, params: Tensors, x: torch.Tensor,
-                 geo: _Geometry) -> torch.Tensor:
+                 geo: _Geometry):
     """This stage's layers, layer i0 + j taking its global index; each
     checkpointed while autograd records unless ``remat="none"`` (the
-    reference checkpoints its scanned stage body)."""
+    reference checkpoints its scanned stage body).  Returns ``(x, the
+    stage's moe aux loss or None)``."""
     remat = model.remat != "none" and torch.is_grad_enabled()
     lps = model._unbind_layers(params)
     if len(lps) != geo.n_local:
         raise ValueError(f"stage {geo.s} holds {len(lps)} layers; its "
                          f"stage has {geo.n_local}")
-    if model.cfg.family == "dense":
+    if model.cfg.family != "ssm":
         return model._dense_layers(x, lps, geo.i0, remat)
     for lp in lps:
         x = (checkpoint(model._ssm_layer, x, lp, use_reentrant=False)
              if remat else model._ssm_layer(x, lp))
-    return x
+    return x, None
 
 
 def _stage_fn(model, params: Tensors, x_in: Optional[torch.Tensor],
               mb: Tensors, geo: _Geometry):
-    """(the stage's output activation, lm loss, token count); the last
-    two are None off the last stage."""
+    """(the stage's output activation, its moe aux loss or None, lm loss,
+    token count); the last two are None off the last stage."""
     x = (model._embed(params, mb["tokens"], ()) if geo.is_first else x_in)
-    x = _stage_apply(model, params, x, geo)
+    x, aux = _stage_apply(model, params, x, geo)
     if not geo.is_last:
-        return x, None, None
+        return x, aux, None, None
     lm, denom = layers.lm_loss(model._head(params, x), mb["labels"],
                                vocab_real=model.cfg.vocab_size)
-    return x, lm, denom
+    return x, aux, lm, denom
 
 
 def _split_local_microbatches(batch: Tensors, m: int) -> List[Tensors]:
@@ -155,28 +162,38 @@ class _Stage:
         self.grads: Dict[str, torch.Tensor] = {}
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         self.lm_acc, self.den_acc = zero, zero.clone()
-        # the reference's cotangent of each microbatch's lm: d(lm_acc/M)
+        self.aux_acc = zero.clone()
+        # the reference's cotangent of each microbatch's lm: d(lm_acc/M),
+        # and of its aux: router_aux_coef / (M * n_layers)
         self.inv_m = torch.tensor(1.0 / self.M, dtype=torch.float32,
                                   device=self.device)
+        cfg = model.cfg
+        self.aux_cot = (torch.tensor(
+            cfg.router_aux_coef / (self.M * cfg.n_layers),
+            dtype=torch.float32, device=self.device)
+            if cfg.family == "moe" else None)
 
     def run(self, x_in, m: int):
         return _stage_fn(self.model, self.params, x_in, self.mbs[m],
                          self.geo)
 
-    def count(self, lm, den) -> None:
+    def count(self, aux, lm, den) -> None:
+        if aux is not None:
+            self.aux_acc = self.aux_acc + aux.detach().float()
         if lm is not None:
             self.lm_acc = self.lm_acc + lm.detach().float()
             self.den_acc = self.den_acc + den.detach().float()
 
-    def backward(self, x_in, out, lm, cot) -> Optional[torch.Tensor]:
+    def backward(self, x_in, out, aux, lm, cot) -> Optional[torch.Tensor]:
         """Accumulate the stage's parameter gradients of one microbatch;
         return the cotangent of its input (None on the first stage)."""
         inputs = self.leaves + ([x_in] if x_in is not None else [])
-        if self.geo.is_last:
-            grads = torch.autograd.grad(lm, inputs, self.inv_m,
-                                        allow_unused=True)
-        else:
-            grads = torch.autograd.grad(out, inputs, cot, allow_unused=True)
+        outs, cots = ([lm], [self.inv_m]) if self.geo.is_last \
+            else ([out], [cot])
+        if aux is not None:
+            outs.append(aux)
+            cots.append(self.aux_cot)
+        grads = torch.autograd.grad(outs, inputs, cots, allow_unused=True)
         for name, g in zip(self.names, grads):
             if g is None:
                 continue
@@ -204,8 +221,8 @@ class _Stage:
         cfg = self.model.cfg
         grads = (_combine_edge_grads(self.grads, self.params, self.spec,
                                      self.mesh) if combine else {})
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        sums = dist_mod.psum(torch.stack([self.lm_acc, aux, self.den_acc]),
+        sums = dist_mod.psum(torch.stack([self.lm_acc, self.aux_acc,
+                                          self.den_acc]),
                              self.mesh, self.spec.axis)
         lm_mean, aux_mean, den_mean = precision.div_count(
             sums, self.M).unbind()
@@ -234,9 +251,9 @@ def _gpipe_forward(st: "_Stage") -> List[Optional[tuple]]:
         m, sends = t - s, {}
         if 0 <= m < M:
             x_in = None if geo.is_first else _leaf(act)
-            out, lm, den = st.run(x_in, m)
-            live[m] = (x_in, out, lm)
-            st.count(lm, den)
+            out, aux, lm, den = st.run(x_in, m)
+            live[m] = (x_in, out, aux, lm)
+            st.count(aux, lm, den)
             if not geo.is_last:
                 sends[s + 1] = out
         nxt = t + 1 - s
@@ -276,9 +293,9 @@ def gpipe_grads(model, spec: PipelineSpec, params: Tensors, batch: Tensors,
     for t in reversed(range(M + S - 1)):
         m, sends = t - s, {}
         if 0 <= m < M:
-            x_in, out, lm = live[m]
+            x_in, out, aux, lm = live[m]
             live[m] = None
-            dx = st.backward(x_in, out, lm, cot)
+            dx = st.backward(x_in, out, aux, lm, cot)
             if dx is not None:
                 sends[s - 1] = dx
         nxt = t - 1 - s
@@ -319,8 +336,8 @@ def one_f_one_b_grads(model, spec: PipelineSpec, params: Tensors,
         mf = t - s                                   # forward slot
         if 0 <= mf < M:
             with torch.no_grad():
-                out, lm, den = st.run(act, mf)
-            st.count(lm, den)
+                out, aux, lm, den = st.run(act, mf)
+            st.count(aux, lm, den)
             if not geo.is_last:
                 sends[s + 1] = out
             if not geo.is_first:
@@ -329,8 +346,8 @@ def one_f_one_b_grads(model, spec: PipelineSpec, params: Tensors,
         if 0 <= mb < M:
             x_in = None if geo.is_first else _leaf(stash[mb % n_slots])
             with torch.enable_grad():
-                out, lm, _ = st.run(x_in, mb)
-                dx = st.backward(x_in, out, lm, cot)
+                out, aux, lm, _ = st.run(x_in, mb)
+                dx = st.backward(x_in, out, aux, lm, cot)
             if dx is not None:
                 sends[s - 1] = dx
         recv_from = []

@@ -195,7 +195,7 @@ class Engine:
         # host-to-device copy per step
         self._table = (torch.arange(batch_slots, dtype=torch.int32,
                                     device=self.device)[:, None]
-                       if not paged and model.cfg.family == "dense"
+                       if not paged and model.cfg.family in ("dense", "moe")
                        else None)
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
