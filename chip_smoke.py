@@ -2,8 +2,8 @@
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
-checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12``, ``13`` and ``14``,
-after phases 1 and 2).
+checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12``, ``13``, ``14`` and
+``15``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -210,7 +210,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
 8. The CLIs, as a user starts them, in a temporary directory removed at
    the end: ``python -m repro_torch.launch.serve`` on the dense default
    with ``--metrics`` (phase 4's request shape), then
-   ``python -m repro_torch.launch.train`` at full width on one rank (2 x
+   ``python -m repro_torch.launch.train`` on one rank at
+   ``--scale-down 16`` (``CLI_TRAIN_DOWN``: 2 layers, d_model 64; 2 x
    512 tokens, 4 steps, saves at steps 2 and 4, ``--metrics``), then a
    resume of a hard-linked copy of step 2 with nothing left to train,
    whose save must equal the original byte for byte; the JSONL streams
@@ -391,7 +392,43 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    steps) after the memory model's verdict: gradients bitwise run to run,
    the loss falling, aux printed, launches the layer loop's; the 2-layer
    loss and gradients against the CPU's, the CPU on the card's routes.
-15. Print the ``kernels`` JSON line, the card's name and power limit, and
+15. The Model's last three families (also alone: ``python3 chip_smoke.py
+   15``).  (b) zamba2-1.2b's kernels at its shapes: the SSD forward (bf16
+   and fp32) at a 512-token prefill and the 2 x 512 train shape with H =
+   64, P = 64, N = 64 and its backward at the train shape (slices of 3
+   heads: 21 and one of 1), flash forward and backward at MHA 32 heads of
+   64, paged decode on 8 slots; each against its plain version, timed
+   beside its bound, its plain version and SDPA where one computes it.
+   (a) zamba2-1.2b at full width and depth (38 layers, the shared block
+   at 6 sites, a 2-layer tail; 1,170,313,344 parameters) on phase 4's
+   requests through the static ``Engine`` on the dense cache, and the
+   first 8 to 32 new tokens through ``Session.serve`` (the Engine's first
+   tokens): launch counts (``matmul`` 233 per
+   prefill and decode step: 5 a mamba layer, 7 a site, the unembed;
+   ``ssd`` 38 and ``attention`` 6 per prefill; ``paged_decode_attention``
+   6 per decode step), serve numbers, the decode step's eager wall and
+   graph-replayed device time beside its bound (weights, states and the
+   sites' K/V read once); every kernel call of 8 one-slot prefills and a
+   decode step against its plain version (every SSD forward call too);
+   prefill-then-decode against the full forward; layers 0-6 (a site and a
+   tail layer) against the CPU's plain versions.  (c) It trains on one
+   rank from the served weights (2 x 512 tokens, ``remat="full"``, AdamW,
+   3 steps): gradients bitwise run to run, launches the layer loop's (the
+   nested checkpoints: a group's mamba layers run three times, its shared
+   block twice), the loss falling, the step wall, the idle share of a
+   profiled step and the peak beside the memory model's footprint; the
+   7-layer cut's loss and every gradient against the CPU's.  (d)
+   musicgen-medium at full width and depth (48 layers) on the first 8
+   of phase 4's requests to 32 new tokens through the static ``Engine``
+   on the dense cache, ``ContinuousEngine`` and the static paged
+   ``Engine`` (its tokens the continuous engine's), with their launch
+   counts.  (e) internvl2-26b at full width cut to 4 layers:
+   a forward over 1,024 nonzero vision embeddings ahead of 512 text
+   tokens (2 rows), the prefix moving the logits, the first layer's
+   residual and last logits against the CPU's; 2 train steps on one rank
+   after the memory model's verdict, their launches; the static
+   ``Engine`` on phase 4's requests as text.  Each part's seconds.
+16. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -419,7 +456,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, scale_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import gemm as gemm_mod  # noqa: E402
@@ -1958,7 +1995,9 @@ def check_layer_calls(cfg, model, params, lens, steps, max_seq):
                                                 (SLOTS, 1))).cuda()
             model.decode_step(params, cache, tok, held.pos)
     errs = held.errs
-    L = cfg.n_layers
+    # attention layers: every layer, or the hybrid's sites
+    L = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+         else cfg.n_layers)
     n_ring = sum(not cfg.is_global_layer(i) for i in range(L)) if W else 0
     require(len(errs["attention"]) == SLOTS * L
             and len(errs["ring"]) == steps * n_ring
@@ -4276,11 +4315,20 @@ def read_jsonl(path) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
+# phase 8's train CLI: qwen2-0.5b cut by scale_config(..., 16) (2 layers,
+# d_model 64, 2 heads of 32: the cuts by 2, 4 and 8 give head counts or
+# widths the kernels refuse) since phase 15 came (at full width its three
+# 8.8 GB saves took most of the phase; the whole script stays inside its
+# time limit; phase 11 still runs the train CLI at full width)
+CLI_TRAIN_DOWN = 16
+
+
 def cli_phase(cfg):
     """Serve the phase-4 request shape through ``repro_torch.launch.serve``
-    (the dense default) with ``--metrics``; train qwen2-0.5b at full width
-    through ``repro_torch.launch.train`` (one rank, 2 x 512 tokens, 4
-    steps, saves at step 2 and the final one) with ``--metrics``; resume a
+    (the dense default) with ``--metrics``; train qwen2-0.5b cut by
+    ``CLI_TRAIN_DOWN`` through ``repro_torch.launch.train`` (one rank, 2 x
+    512 tokens, 4 steps, saves at step 2 and the final one) with
+    ``--metrics``; resume a
     copy of the step-2 checkpoint with nothing left to train, so the
     state the session restored is saved again, and hold those files to
     the originals byte for byte (params, both moments, master, step).
@@ -4312,8 +4360,8 @@ def cli_phase(cfg):
 
         ck, ck2 = tmp / "ck", tmp / "ck2"
         train = ["repro_torch.launch.train", "--arch", ARCH,
-                 "--scale-down", "1", "--batch", "2", "--seq", "512",
-                 "--comms", "off"]
+                 "--scale-down", str(CLI_TRAIN_DOWN), "--batch", "2",
+                 "--seq", "512", "--comms", "off"]
         out, train_s = cli(train + ["--steps", "4", "--ckpt-every", "2",
                                     "--ckpt-dir", str(ck), "--metrics",
                                     str(tmp / "train.jsonl")], timeout=400)
@@ -4330,7 +4378,8 @@ def cli_phase(cfg):
                 and all(hist[f"span.{k}.s"]["count"] == 1
                         for k in ("plan", "build_step", "step_warmup"))
                 and snap["meta"]["kernel_launches"]
-                == expected_train_launches(cfg, 4, int8=False)
+                == expected_train_launches(scale_config(cfg, CLI_TRAIN_DOWN),
+                                           4, int8=False)
                 and kinds == {"span", "plan_resolved", "metrics"},
                 "the train CLI's checkpoints, snapshot or stream are not "
                 "what it ran")
@@ -7480,6 +7529,783 @@ def moe_phase():
     return row, served, trained, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the Model's last three families (hybrid, audio, vlm)
+# ---------------------------------------------------------------------------
+
+ZAMBA, MUSICGEN, INTERNVL = "zamba2-1.2b", "musicgen-medium", "internvl2-26b"
+ZAMBA_PARAMS = 1_170_313_344
+# zamba2 card against CPU at full width: the first site's group (6 mamba
+# layers and the shared block) and a 1-layer tail, from the full model's
+# weights
+ZAMBA_CPU_LAYERS = 7
+ZAMBA_TRAIN_BATCH = 2                 # 2 x 512 tokens a step
+ZAMBA_TRAIN_PATH = f"{ZAMBA} train (1 rank, 3 steps)"
+# internvl2-26b at full width cut to 4 of its 48 layers: 1,024 vision
+# embeddings ahead of 512 text tokens a row, 2 rows
+INTERNVL_LAYERS, INTERNVL_BATCH, INTERNVL_TEXT = 4, 2, 512
+# its card against CPU on the first layer (the CPU's fp32 products at
+# 6,144 x 16,384 over 3,072 positions take seconds a layer)
+INTERNVL_CPU_LAYERS = 1
+INTERNVL_TRAIN_PATH = f"{INTERNVL} train ({INTERNVL_LAYERS} layers, 1 rank)"
+# musicgen's three engines, and zamba2's Session.serve, on the first 8 of
+# phase 4's requests to 32 new tokens (one wave of 8 slots): the whole
+# script stays inside its time limit
+SHORT_REQUESTS, SHORT_NEW_TOKENS = SLOTS, 32
+
+
+def hybrid_products(cfg) -> int:
+    """GEMM launches of the hybrid's forward (a prefill call or a decode
+    step): 5 a mamba layer (wx, wz, wbc, wdt, w_out), 7 a site (q, k, v,
+    o, gate, in, out) and the unembed."""
+    return 5 * cfg.n_layers + 7 * (cfg.n_layers // cfg.attn_every) + 1
+
+
+def hybrid_serve_launches(cfg, steps: int, prefills: int):
+    """The static engine on the dense cache: the products per prefill and
+    per decode step, one SSD forward a layer and one flash call a site per
+    prefill, one paged-decode call a site per decode step (the mixer's
+    decode step is the plain ``ssd_step``)."""
+    sites = cfg.n_layers // cfg.attn_every
+    return {"matmul": hybrid_products(cfg) * (steps + prefills),
+            "attention": sites * prefills, "attention_backward": 0,
+            "paged_decode_attention": sites * steps,
+            "ssd": cfg.n_layers * prefills, "ssd_backward": 0,
+            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+
+
+def expected_hybrid_train_launches(cfg, steps: int):
+    """Per step on one rank under ``remat="full"``: the forward; the
+    backward's recompute of each site's group (its mamba layers, each
+    recomputed again by its own checkpoint, and the shared block) and of
+    each tail layer; two backward products for each forward product, one
+    SSD backward a layer and one attention backward a site."""
+    L, every = cfg.n_layers, cfg.attn_every
+    sites = L // every
+    tail = L - sites * every
+    fwd = hybrid_products(cfg)
+    recompute = 10 * sites * every + 7 * sites + 5 * tail
+    return {"matmul": steps * (fwd + recompute + 2 * fwd),
+            "attention": steps * 2 * sites,
+            "attention_backward": steps * sites,
+            "paged_decode_attention": 0,
+            "ssd": steps * (L + 2 * sites * every + tail),
+            "ssd_backward": steps * L, "quantize_int8": 0,
+            "quantize_compress": 0, "matmul_dequant": 0}
+
+
+def check_zamba_kernels(cfg):
+    """Phase 15 (b): the kernels at zamba2's shapes against their plain
+    versions.  The SSD forward (bf16 and fp32) at a 512-token prefill and
+    the train shape (2 x 512), H = 64, P = 64, N = 64, G = 1, and its
+    backward (the backward's slices of 3 heads: 21 and one of 1) at the
+    train shape; flash forward at the prefill (MHA, 32 heads of 64) and
+    its backward at the train shape, beside SDPA; paged decode at 8 slots
+    on 32 kv heads.  Each timed beside its bound and its plain version.
+    Returns {kernel row name: its zamba2 entry}."""
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    require((H, P, N, cfg.ssm_groups) == (64, 64, 64, 1)
+            and ssd_mod._bwd_slices(H, 1) == 22,
+            f"{ZAMBA}'s SSD shapes: H {H}, P {P}, N {N}")
+    out = {}
+    for label, B, dtype in (("prefill bf16", 1, torch.bfloat16),
+                            ("prefill fp32", 1, torch.float32),
+                            ("train bf16", 2, torch.bfloat16),
+                            ("train fp32", 2, torch.float32)):
+        inp = ssd_inputs(1600 + B, 512, 1, dtype, False, H=H, P=P, N=N, B=B)
+        got = ssd_mod.ssd(**inp)
+        want = ssd_mod.ssd_plain(**inp)
+        err = max(ssd_close(f"{ZAMBA} {label}", got, want, SSD_TOL[dtype]))
+        nbytes, flops, peak, _ = ssd_cost(inp)
+        bms, by = bound(nbytes, flops, peak)
+        n = copies(nbytes)
+        sets = [ssd_inputs(1650 + j, 512, 1, dtype, False, H=H, P=P, N=N,
+                           B=B) for j in range(n)]
+        ms = cuda_ms([lambda s=s: ssd_mod.ssd(**s) for s in sets],
+                     iters=max(10, 2 * n))
+        plain = cuda_ms([lambda: ssd_mod.ssd_plain(**inp)], iters=3,
+                        warmup=1)
+        entry = dict(ms=ms, bound_ms=bms, bound_by=by, plain_ms=plain,
+                     max_abs_err=err, case=f"x ({B},512,{H},{P}), B/C "
+                     f"({B},512,1,{N}) {str(dtype)[6:]}")
+        if B == 2:
+            g = gen(1700)
+            dy = torch.randn(inp["x"].shape, generator=g,
+                             device="cuda").to(dtype)
+            bgot = ssd_bwd_call(inp, dy, None)
+            bwant = ssd_mod.ssd_backward_plain(**inp, dy=dy)
+            e = ssd_bwd_close(f"{ZAMBA} {label}", bgot, bwant,
+                              SSD_TOL[dtype])
+            again = ssd_bwd_call(inp, dy, None)
+            require(all((a is None and b is None) or same_bits(a, b)
+                        for a, b in zip(again, bgot)),
+                    f"{ZAMBA} ssd backward {label}: two runs differ")
+            scr = [ssd_mod._forward(t["x"], t["dt"], t["A"], t["Bm"],
+                                    t["C"], None)[2] for t in sets]
+            bnb, bfl = roofline.ssd_backward_cost(
+                B, 512, H, P, 1, N, inp["x"].element_size(), False, False)
+            bbms, bby = bound(bnb, bfl, FP32_FLOPS
+                              if dtype == torch.float32 else BF16_FLOPS)
+            entry["backward"] = dict(
+                ms=cuda_ms([lambda t=t, c=c: ssd_mod.ssd_backward(
+                    t["x"], t["dt"], t["A"], t["Bm"], t["C"], dy, None, c)
+                    for t, c in zip(sets, scr)], iters=max(10, 2 * n)),
+                plain_ms=event_ms(lambda: ssd_mod.ssd_backward_plain(
+                    **inp, dy=dy), iters=3),
+                bound_ms=bbms, bound_by=bby,
+                max_err_over_largest=max(r for _, r in e.values()))
+        print(f"{ZAMBA} ssd {label}: " + json.dumps(entry), flush=True)
+        out[f"ssd {label}"] = entry
+        del inp, sets
+    # flash: the shared block at a 512-token prefill and the train shape
+    hq = cfg.n_heads
+    hd = cfg.d_head
+    q, k, v, do = bwd_inputs(1800, 1, hq, hq, 512, 512, hd)
+    err = max_err(fa_mod.attention(q, k, v, causal=True),
+                  ref.attention(q, k, v, causal=True),
+                  f"{ZAMBA} flash prefill")
+    pairs = 512 * 513 // 2
+    bms, by = bound(*roofline.attention_cost(q.shape, k.shape, pairs))
+    n = copies(4 * q.numel() * 2)
+    fsets = [bwd_inputs(1830 + 4 * j, 1, hq, hq, 512, 512, hd)[:3]
+             for j in range(n)]
+    flash = dict(
+        ms=cuda_ms([lambda s=s: fa_mod.attention(*s, causal=True)
+                    for s in fsets], iters=max(10, 2 * n)),
+        plain_ms=cuda_ms([lambda: ref.attention(q, k, v, causal=True)],
+                         iters=3, warmup=1),
+        library_ms=cuda_ms([lambda s=s: torch.nn.functional
+                            .scaled_dot_product_attention(*s, is_causal=True)
+                            for s in fsets], iters=max(10, 2 * n)),
+        bound_ms=bms, bound_by=by, max_abs_err=err,
+        case=f"q/k/v (1,{hq},512,{hd}), causal")
+    q, k, v, do = bwd_inputs(1810, ZAMBA_TRAIN_BATCH, hq, hq, TRAIN_SEQ,
+                             TRAIN_SEQ, hd)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(fa_mod.attention(*leaves, causal=True),
+                              leaves, do)
+    berr = grads_close(got, ref.attention_backward(q, k, v, do, causal=True),
+                       f"{ZAMBA} attention backward")
+    bbms, bby = bound(*roofline.attention_backward_cost(q.shape, k.shape,
+                                                        pairs))
+
+    def sdpa():
+        ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(torch.nn.functional
+                                   .scaled_dot_product_attention(
+                                       *ls, is_causal=True), ls, do)
+    n = copies(2 * 6 * q.numel())
+    bsets = [bwd_inputs(1850 + 4 * j, ZAMBA_TRAIN_BATCH, hq, hq, TRAIN_SEQ,
+                        TRAIN_SEQ, hd) for j in range(n)]
+    bouts = [fa_mod._forward(*s[:3], True, None, None, hd ** -0.5, 0,
+                             with_lse=True) for s in bsets]
+    backward = dict(
+        ms=cuda_ms([lambda s=s, o=o: fa_mod.attention_backward(
+            *s[:3], o[0], s[3], o[1]) for s, o in zip(bsets, bouts)],
+            iters=max(10, 2 * n)),
+        plain_ms=event_ms(lambda: ref.attention_backward(q, k, v, do,
+                                                         causal=True)),
+        library_ms=event_ms(sdpa, iters=10, warmup=2), bound_ms=bbms,
+        bound_by=bby, max_abs_err=berr,
+        case=f"q/k/v ({ZAMBA_TRAIN_BATCH},{hq},{TRAIN_SEQ},{hd}), causal")
+    print(f"{ZAMBA} flash prefill {json.dumps(flash)}; backward "
+          f"{json.dumps(backward)}", flush=True)
+    out["flash"], out["attention_backward"] = flash, backward
+    del fsets, bsets, bouts
+    # paged decode: 8 slots, one page of MAX_SEQ a slot (the dense cache)
+    rng = np.random.default_rng(SEED + 60)
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + NEW_TOKENS, SLOTS)
+    n = copies(2 * 2 * SLOTS * MAX_SEQ * hq * hd)
+    pools = [(randn((SLOTS, MAX_SEQ, hq, hd), 1860 + 2 * j),
+              randn((SLOTS, MAX_SEQ, hq, hd), 1861 + 2 * j))
+             for j in range(n)]
+    kc, vc = pools[0]
+    qd = randn((SLOTS, hq, hd), 1822)
+    table = torch.arange(SLOTS, dtype=torch.int32, device="cuda")[:, None]
+    sl = torch.from_numpy(lens.astype(np.int32)).cuda()
+    err = max_err(ops.paged_decode_attention(qd, kc, vc, table, sl),
+                  ref.paged_decode_attention(qd, kc, vc, table, sl),
+                  f"{ZAMBA} paged decode")
+    bms, by = bound(*roofline.paged_decode_cost(SLOTS, hq, hq, hd,
+                                                int(lens.sum()), SLOTS))
+    paged = dict(
+        ms=cuda_ms([lambda p=p: ops.paged_decode_attention(qd, *p, table,
+                                                           sl)
+                    for p in pools], iters=max(10, 2 * n)),
+        plain_ms=cuda_ms([lambda: ref.paged_decode_attention(
+            qd, kc, vc, table, sl)], iters=3, warmup=1),
+        bound_ms=bms, bound_by=by, max_abs_err=err,
+        case=f"q ({SLOTS},{hq},{hd}) on the dense cache's rows, "
+             f"{int(lens.sum())} live positions")
+    print(f"{ZAMBA} paged decode {json.dumps(paged)}", flush=True)
+    out["paged"] = paged
+    del kc, vc, pools
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def held_ssd_calls():
+    """Within the block every ``ops.ssd`` call is held against
+    ``ssd_plain`` on its inputs (SSD_TOL); yields the list of errors."""
+    real = ops.ssd
+    errs = []
+
+    def call(x, dt, A, Bm, C, **kw):
+        y, state = real(x, dt, A, Bm, C, **kw)
+        kw.pop("chunk", None)
+        want = ssd_mod.ssd_plain(x, dt, A, Bm, C, **kw)
+        errs.append(max(ssd_close(f"call {len(errs)} x {tuple(x.shape)}",
+                                  (y, state), want, SSD_TOL[x.dtype])))
+        return y, state
+
+    ops.ssd = call
+    try:
+        yield errs
+    finally:
+        ops.ssd = real
+
+
+def zamba_against_cpu(cfg, params):
+    """The first ``ZAMBA_CPU_LAYERS`` layers (a site after layer 6, then a
+    tail layer) at full width with the model's own embed, shared block,
+    norm and unembed, on the card and through the plain versions on the
+    CPU: a 96-token prompt into a one-slot dense cache, then 4 decode steps
+    teacher-forced with the CPU's greedy tokens, held to :func:`agree`;
+    the first layer's prefill states held within STATE_TOL of their
+    largest magnitude (the site's K/V, 6 layers deeper, printed: the
+    residual's drift, as phase 5 prints mamba2's deeper states)."""
+    small = dataclasses.replace(cfg, n_layers=ZAMBA_CPU_LAYERS)
+    sub = {k: (v[:ZAMBA_CPU_LAYERS] if k.startswith("layers.") else v)
+           for k, v in params.items()}
+    runs = []
+    prompt = np.random.default_rng(SEED + 61).integers(
+        0, cfg.vocab_size, (1, 96))
+    for m, p in ((Model(small, device="cuda"), sub),
+                 (Model(small, device="cpu"),
+                  {k: v.cpu() for k, v in sub.items()})):
+        cache = m.init_cache(1, 128)
+        with torch.no_grad():
+            logits, _ = m.prefill(p, torch.from_numpy(prompt).to(m.device),
+                                  cache=cache, slot=0)
+        runs.append((m, p, cache, [logits[0, -1].float().cpu()]))
+    drift = {k: float((runs[0][2][k][0].float().cpu()
+                       - runs[1][2][k][0].float()).abs().max()
+                      / runs[1][2][k][0].float().abs().max())
+             for k in ("conv", "ssm", "bc_conv", "k", "v")}
+    held = ("conv", "ssm", "bc_conv")
+    for s in range(4):
+        tok = int(torch.argmax(runs[1][3][-1]))
+        for m, p, cache, out in runs:
+            with torch.no_grad():
+                lg, _ = m.decode_step(p, cache,
+                                      torch.tensor([[tok]], device=m.device),
+                                      torch.tensor([96 + s], device=m.device))
+            out.append(lg[0, 0].float().cpu())
+    res = agree(torch.stack(runs[0][3]), torch.stack(runs[1][3]),
+                f"card vs cpu logits ({ZAMBA}, full width, layers 0-6: a "
+                "site and a tail layer, dense cache, 96-token prompt + 4 "
+                "steps)")
+    print(f"  prefill states card vs cpu, max abs diff over the largest: "
+          f"{json.dumps(drift)} (layer 0's {held} within {STATE_TOL:g}; the "
+          "site's k and v printed)", flush=True)
+    require(all(drift[k] <= STATE_TOL for k in held),
+            f"{ZAMBA} card vs cpu: a first-layer prefill state disagrees")
+    res["layer0_state_diff_frac"] = drift
+    return res
+
+
+def zamba_depth_check(cfg, model, params):
+    """Prefill-then-decode at full depth against the full forward over the
+    same tokens on the card: a 300-token prompt (ragged against the SSD
+    chunk), then 4 decode steps teacher-forced, held to :func:`agree`."""
+    toks = torch.from_numpy(np.random.default_rng(SEED + 62).integers(
+        0, cfg.vocab_size, (1, 304))).cuda()
+    with torch.no_grad():
+        full, _, _ = model.forward(params, toks)
+        cache = model.init_cache(1, 512)
+        model.prefill(params, toks[:, :300], cache=cache, slot=0)
+        steps = [model.decode_step(params, cache, toks[:, p:p + 1],
+                                   torch.tensor([p], device="cuda"))[0]
+                 [0, 0].float().cpu() for p in range(300, 304)]
+    return agree(torch.stack(steps), full[0, 300:304].float().cpu(),
+                 f"prefill-then-decode vs the full forward ({ZAMBA}, "
+                 f"{cfg.n_layers} layers, 300-token prompt + 4 steps)")
+
+
+def zamba_step_bound(cfg, params, lens):
+    """The decode step's least time at 8 slots: every weight but the
+    embedding table read once (the table's 8 rows), each layer's fp32
+    SSM state and bf16 convolution states read and written, each site's
+    K/V read over the live positions; over the card's HBM rate."""
+    n_params = sum(p.numel() for p in params.values())
+    embed = cfg.padded_vocab * cfg.d_model
+    weights = 2 * (n_params - embed + SLOTS * cfg.d_model)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    W, di = cfg.conv_width, cfg.d_inner
+    gn2 = 2 * cfg.ssm_groups * N
+    states = 2 * cfg.n_layers * SLOTS * (4 * H * P * N
+                                         + 2 * (W - 1) * (di + gn2))
+    sites = cfg.n_layers // cfg.attn_every
+    kv = sites * 2 * 2 * cfg.n_kv_heads * cfg.d_head * int(np.sum(lens))
+    total = weights + states + kv
+    return dict(decode_step_bound_ms=bound(total, 0)[0],
+                decode_step_bytes=dict(weights=weights, states=states,
+                                       kv=kv))
+
+
+def serve_zamba():
+    """Phase 15 (a): zamba2-1.2b at full width and depth (38 layers, the
+    shared block at 6 sites, a 2-layer tail; 1,170,313,344 parameters
+    drawn on the card from the seed) on phase 4's 16 requests through the
+    static ``Engine`` on the dense cache, and the first 8 to 32 new tokens
+    through ``Session.serve`` (the Engine's first tokens): launch counts,
+    serve numbers, the decode step split
+    beside its bound, every kernel call of 8 one-slot prefills and a
+    decode step against its plain version (the SSD forward's too),
+    prefill-then-decode against the forward, the first 7 layers against
+    the CPU.  Returns (stats, launches by path, the params; the model is
+    freed)."""
+    from repro_torch.api import Session
+    cfg = get_config(ZAMBA)
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    n_params = sum(p.numel() for p in params.values())
+    sites = cfg.n_layers // cfg.attn_every
+    require(n_params == ZAMBA_PARAMS and (cfg.n_layers, sites) == (38, 6),
+            f"{ZAMBA}: {n_params} parameters, {cfg.n_layers} layers")
+    serve(Engine, model, params, requests(cfg, 2)[:2])          # warm-up
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fin, dt, steps = serve(Engine, model, params, requests(cfg))
+    launches = ops.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    expect = hybrid_serve_launches(cfg, steps, len(fin))
+    print(f"{ZAMBA} launches: {launches} (expected {expect}: {steps} decode "
+          f"steps, {len(fin)} prefills; per call {hybrid_products(cfg)} "
+          f"products, {cfg.n_layers} SSD, {sites} flash or paged)",
+          flush=True)
+    require(all(launches[k] > 0 for k in ("matmul", "attention",
+                                          "paged_decode_attention", "ssd")),
+            f"a kernel of the {ZAMBA} serve path was never launched")
+    require(launches == expect,
+            f"{ZAMBA} launch counts do not match the layer loop")
+    stats = serve_stats(ZAMBA, n_params, fin, dt, launches, peak, resident)
+    stats.update(decode_steps=steps, prefills=len(fin))
+    # Session.serve on the same params, the first wave's requests to fewer
+    # tokens: the Engine's first tokens (a slot's decode reads its own
+    # row alone, and the GEMM's rows are invariant to the others')
+    sess = Session(device="cuda")
+    sess.put("serve/params", params, kind="params")
+    plan = sess.plan(cfg, batch=SLOTS, seq=MAX_SEQ, kind="decode")
+    ops.reset_launches()
+    eng = sess.serve(plan, batch_slots=SLOTS, max_seq=MAX_SEQ)
+    sfin, sdt, ssteps = drive(eng, requests(
+        cfg, SHORT_NEW_TOKENS)[:SHORT_REQUESTS])
+    session_launches = ops.dispatch_report()
+    first = {r.rid: r.out[:SHORT_NEW_TOKENS] for r in fin
+             if r.rid < SHORT_REQUESTS}
+    same = {r.rid: r.out for r in sfin} == first
+    print(f"{ZAMBA} Session.serve: {sum(len(r.out) for r in sfin) / sdt:.1f}"
+          f" tok/s, tokens equal to the Engine's {same}", flush=True)
+    require(same and session_launches == hybrid_serve_launches(
+        cfg, ssteps, len(sfin)), f"{ZAMBA} Session.serve differs")
+    stats["session_serve_tok_per_s"] = sum(len(r.out) for r in sfin) / sdt
+    del eng, sess
+    # step_breakdown's draws: the tokens, then the positions
+    rng = np.random.default_rng(SEED + 2)
+    rng.integers(0, cfg.vocab_size, (SLOTS, 1))
+    lens = rng.integers(PROMPT_MIN, PROMPT_MAX + NEW_TOKENS, SLOTS) + 1
+    stats.update(**step_breakdown(cfg, model, params, dense=True),
+                 **zamba_step_bound(cfg, params, lens))
+    print(f"serve {ZAMBA} " + json.dumps(stats), flush=True)
+    reqs = requests(cfg)
+    with held_ssd_calls() as ssd_errs:
+        stats["kernel_calls_max_abs_err"] = check_layer_calls(
+            cfg, model, params, [len(r.prompt) for r in reqs[:SLOTS]],
+            steps=1, max_seq=MAX_SEQ)
+    require(len(ssd_errs) == SLOTS * cfg.n_layers,
+            f"{ZAMBA}: {len(ssd_errs)} SSD calls held")
+    stats["kernel_calls_max_abs_err"]["ssd"] = max(ssd_errs)
+    stats["prefill_decode_vs_forward"] = zamba_depth_check(cfg, model,
+                                                           params)
+    stats["card_vs_cpu"] = zamba_against_cpu(cfg, params)
+    del model
+    torch.cuda.empty_cache()
+    return stats, {f"{ZAMBA} dense cache": launches,
+                   f"{ZAMBA} Session.serve": session_launches}, params
+
+
+def zamba_train_against_cpu(cfg, params_src):
+    """``ZAMBA_CPU_LAYERS`` layers (a site and a tail layer) at full width,
+    one sequence of 128 tokens: loss, grad norm and every leaf's gradient
+    (``shared.*`` among them, each the sum of its site's cotangents) on
+    the card against the plain versions on the CPU, phase 6's
+    tolerances."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    small = dataclasses.replace(cfg, n_layers=ZAMBA_CPU_LAYERS)
+    toks = np.random.default_rng(SEED + 63).integers(
+        0, cfg.vocab_size, (1, 129))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    params = {k: (v[:ZAMBA_CPU_LAYERS] if k.startswith("layers.")
+                  else v).detach() for k, v in params_src.items()}
+    runs = []
+    for dev in ("cuda", "cpu"):
+        m = Model(small, device=dev, remat="none")
+        p = {k: v.to(dev).clone().requires_grad_(True)
+             for k, v in params.items()}
+        g, met = step_mod.local_grads(
+            m, p, {k: v.to(dev) for k, v in batch.items()})
+        runs.append(({k: v.float().cpu() for k, v in g.items()},
+                     float(met["loss"]), float(opt.global_norm(g))))
+        del p, g
+    (gc, lc, nc), (gp, lp, np_) = runs
+    out = dict(loss_card=lc, loss_cpu=lp, grad_norm_card=nc,
+               grad_norm_cpu=np_)
+    require(abs(lc - lp) <= CPU_LOSS_RTOL * abs(lp)
+            and abs(nc - np_) <= CPU_NORM_RTOL * abs(np_),
+            f"{ZAMBA} train card vs cpu: loss {lc} / {lp}, norm {nc} / "
+            f"{np_}")
+    for name in gc:
+        c, w = gc[name], gp[name]
+        rel = float((c - w).norm() / w.norm())
+        mx = float((c - w).abs().max() / w.abs().max())
+        out[name] = dict(rel_rms=rel, max_abs_frac=mx)
+        require(rel <= CPU_GRAD_TOL and mx <= CPU_GRAD_TOL,
+                f"{ZAMBA} train card vs cpu: {name} gradient relative rms "
+                f"{rel:.3g}, max {mx:.3g} of the largest (tolerance "
+                f"{CPU_GRAD_TOL})")
+    print(f"train card vs cpu ({ZAMBA}, {ZAMBA_CPU_LAYERS} layers, full "
+          "width, 128 tokens): " + json.dumps(out), flush=True)
+    return out
+
+
+def train_zamba(params_src):
+    """Phase 15 (c): zamba2-1.2b at full width and depth trained on one
+    rank through ``Session`` (``comms="off"``, ``remat="full"``, AdamW at
+    its peak rate from step 1, 2 x 512 tokens of
+    ``SyntheticLM(structured=True)``) from the served model's weights:
+    the memory model's footprint; the first batch's gradients twice,
+    bitwise equal; three steps (the third on the first batch again, its
+    loss below the first), each step's launches the layer loop's; a
+    fourth step profiled for the card's idle share; the 7-layer cut's
+    loss and gradients against the CPU's.  Returns the summary and the
+    three steps' launches."""
+    from repro_torch.api import Session
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+    cfg = get_config(ZAMBA)
+    sess = Session(device="cuda")
+    fp = mem_mod.estimate_stage_footprints(
+        cfg, local_batch=ZAMBA_TRAIN_BATCH, seq_len=TRAIN_SEQ)[0]
+    data = iter(SyntheticLM(cfg.vocab_size, ZAMBA_TRAIN_BATCH, TRAIN_SEQ,
+                            seed=SEED, structured=True))
+    batches = [next(data), next(data)]
+    plan = sess.plan(ZAMBA, batch=ZAMBA_TRAIN_BATCH, seq=TRAIN_SEQ,
+                     comms="off", microbatches=1,
+                     adamw=opt.AdamWConfig(
+                         lr=opt.warmup_cosine(TRAIN_PEAK, 0, 3)))
+    require(plan.path == "gspmd" and plan.model.remat == "full",
+            f"{ZAMBA}: plan {plan.path}, remat {plan.model.remat}")
+    torch.cuda.reset_peak_memory_stats()
+    sess.init_state(plan, params={k: v.detach()
+                                  for k, v in params_src.items()})
+    params = sess.state["train_state"]["params"]
+    first = {k: torch.from_numpy(v).cuda().long()
+             for k, v in batches[0].items()}
+    grads = [step_mod.local_grads(plan.model, params, first)
+             for _ in range(2)]
+    same = all(same_bits(grads[0][0][k], grads[1][0][k]) for k in params)
+    print(f"{ZAMBA} gradients twice from the same params and batch: bitwise "
+          f"equal {same} (shared.* the sums over {cfg.n_layers // 6} sites)",
+          flush=True)
+    require(same, f"{ZAMBA}: gradients differ run to run")
+    del grads
+    ops.reset_launches()
+    losses, walls, total = [], [], {}
+    expect = expected_hybrid_train_launches(cfg, 1)
+    for batch in (batches[0], batches[1], batches[0]):
+        before = ops.dispatch_report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in sess.step(plan, batch).items()}
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        got = {k: v - before[k] for k, v in ops.dispatch_report().items()}
+        require(got == expect, f"{ZAMBA} step launches {got}, expected "
+                               f"{expect}")
+        require(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                f"{ZAMBA}: non-finite metrics {m}")
+        losses.append(m["loss"])
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    peak = torch.cuda.max_memory_allocated()
+    require(losses[2] < losses[0], f"{ZAMBA}: the loss did not fall")
+    prof, lo, hi = profiled_step(lambda: sess.step(plan, batches[1]))
+    busy = union_ns(device_intervals(prof), lo, hi)
+    parts = device_breakdown(prof, busy=("gemm", "ssd", "ssd_backward"))
+    idle = 1 - busy / (hi - lo)
+    print(f"{ZAMBA} steps (the third on the first batch again): losses "
+          f"{losses}, wall ms {walls}, peak {peak / 2**30:.2f} GiB against "
+          f"the memory model's {fp.total / 2**30:.2f}; launches {total}; "
+          f"profiled step wall {(hi - lo) / 1e6:.1f} ms, device busy "
+          f"{busy / 1e6:.1f} ms, idle share {idle:.3f}, by family "
+          f"{json.dumps(parts)}", flush=True)
+    trained = {k: v.detach() for k, v in params.items()}
+    del sess, plan, prof, params
+    torch.cuda.empty_cache()
+    cpu_check = zamba_train_against_cpu(cfg, trained)
+    del trained
+    torch.cuda.empty_cache()
+    tokens = ZAMBA_TRAIN_BATCH * TRAIN_SEQ
+    summary = dict(arch=ZAMBA, tokens_per_step=tokens, losses=losses,
+                   step_wall_ms=walls, peak_gib=peak / 2**30,
+                   model_footprint_gib=fp.total / 2**30,
+                   tokens_per_s_steps_2_3=[tokens / (w / 1e3)
+                                           for w in walls[1:]],
+                   profiled_wall_ms=(hi - lo) / 1e6,
+                   device_busy_ms=busy / 1e6, device_idle_share=idle,
+                   device_ms=parts, grads_bitwise_run_to_run=same,
+                   card_vs_cpu=cpu_check)
+    print("train " + json.dumps(summary), flush=True)
+    return summary, total
+
+
+def serve_musicgen():
+    """Phase 15 (d): musicgen-medium at full width and depth (48 layers,
+    MHA 24 heads of 64, vocab 2,048) on the first 8 of phase 4's requests
+    to 32 new tokens through the static ``Engine`` on the dense cache, the
+    static paged ``Engine`` and ``ContinuousEngine``: launch counts (the
+    dense family's), the paged and continuous tokens equal, serve
+    numbers.  Returns (stats, launches by path)."""
+    cfg = get_config(MUSICGEN)
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    n_params = sum(p.numel() for p in params.values())
+    require(cfg.n_layers == 48 and cfg.n_kv_heads == cfg.n_heads == 24,
+            f"{MUSICGEN}: {cfg.n_layers} layers")
+    serve(Engine, model, params, requests(cfg, 2)[:2])          # warm-up
+    out, launches = {}, {}
+    for tag, cls, kw in (("dense", Engine, {}),
+                         ("continuous", ContinuousEngine, {}),
+                         ("paged", Engine, dict(paged=True))):
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        fin, dt, steps = serve(cls, model, params, requests(
+            cfg, SHORT_NEW_TOKENS)[:SHORT_REQUESTS], **kw)
+        got = ops.dispatch_report()
+        peak = torch.cuda.max_memory_allocated()
+        if tag == "dense":
+            expect = dense_serve_launches(cfg, steps, len(fin))
+        else:
+            expect, _ = continuous_serve_launches(cfg, steps, fin)
+        require(got == expect and got["attention"] > 0
+                and got["paged_decode_attention"] > 0,
+                f"{MUSICGEN} {tag} launches {got}, expected {expect}")
+        out[tag] = serve_stats(MUSICGEN, n_params, fin, dt, got, peak,
+                               resident)
+        out[tag]["tokens_by_rid"] = {r.rid: r.out for r in fin}
+        out[tag]["decode_steps"] = steps
+        launches[tag] = got
+    same = out["paged"]["tokens_by_rid"] == out["continuous"][
+        "tokens_by_rid"]
+    print(f"{MUSICGEN}: static paged == continuous greedy tokens: {same}",
+          flush=True)
+    require(same, f"{MUSICGEN}: static paged and continuous disagree")
+    stats = {k: {kk: vv for kk, vv in v.items() if kk != "tokens_by_rid"}
+             for k, v in out.items()}
+    print(f"serve {MUSICGEN} " + json.dumps(stats), flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return stats, {f"{MUSICGEN} dense cache": launches["dense"],
+                   f"{MUSICGEN} continuous": launches["continuous"],
+                   f"{MUSICGEN} static paged": launches["paged"]}
+
+
+def internvl_batch(cfg, seed):
+    """2 rows of ``INTERNVL_TEXT`` text tokens behind 1,024 vision
+    embeddings (standard normal, nonzero), the prefix's labels -1."""
+    from repro_torch.data import SyntheticLM
+    nv = cfg.n_vision_tokens
+    item = next(iter(SyntheticLM(cfg.vocab_size, INTERNVL_BATCH,
+                                 nv + INTERNVL_TEXT, seed=seed,
+                                 structured=True)))
+    item["tokens"] = item["tokens"][:, :-nv]
+    item["labels"][:, :nv] = -1
+    item["vision_embeds"] = torch.randn(
+        (INTERNVL_BATCH, nv, cfg.d_model), generator=gen(seed + 7),
+        device="cuda").to(torch.bfloat16)
+    return item
+
+
+def internvl_phase():
+    """Phase 15 (e): internvl2-26b at full width cut to 4 layers (48 query
+    and 8 kv heads of 128, d_ff 16,384, the 92,672-column unembed): the
+    vision-prefixed forward (1,024 nonzero embeddings ahead of 512 text
+    tokens, 2 rows), its first layer's residual and last logits card
+    against CPU, the prefix used (the logits without it differ); 2 train
+    steps on one rank through ``Session`` (``remat="full"``: the dry
+    run's ``group:8`` remats nothing at 4 layers, as the reference does
+    when G does not divide L) after the memory model's verdict, their
+    launches the layer loop's; the static ``Engine`` on phase 4's
+    requests as text.  Returns (summary, launches by path)."""
+    from repro_torch.api import Session
+    from repro_torch.core import memory as mem_mod
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(get_config(INTERNVL),
+                              n_layers=INTERNVL_LAYERS)
+    sess = Session(device="cuda")
+    fp = mem_mod.estimate_stage_footprints(
+        cfg, local_batch=INTERNVL_BATCH,
+        seq_len=cfg.n_vision_tokens + INTERNVL_TEXT)[0]
+    print(f"{INTERNVL} cut ({cfg.n_layers} layers, {cfg.param_count()} "
+          f"parameters): the memory model's footprint {fp.total / 2**30:.2f}"
+          f" GiB against {sess.budget.usable / 2**30:.2f} usable: fits "
+          f"{fp.fits(sess.budget)}", flush=True)
+    require(fp.fits(sess.budget), f"{INTERNVL}'s cut does not fit")
+    plan = sess.plan(cfg, batch=INTERNVL_BATCH,
+                     seq=cfg.n_vision_tokens + INTERNVL_TEXT, comms="off",
+                     microbatches=1, adamw=opt.AdamWConfig(
+                         lr=opt.warmup_cosine(TRAIN_PEAK, 0, 2)),
+                     model_kwargs={"remat": "full"})
+    sess.init_state(plan, seed=SEED)
+    model = plan.model
+    params = sess.state["train_state"]["params"]
+    batch = internvl_batch(cfg, SEED)
+    toks = torch.from_numpy(batch["tokens"]).cuda().long()
+    ve = batch["vision_embeds"]
+    with torch.no_grad():
+        logits = model.forward(params, toks, ve)[0]
+        bare = model.forward(params, toks)[0]
+    S = cfg.n_vision_tokens + INTERNVL_TEXT
+    require(tuple(logits.shape) == (INTERNVL_BATCH, S, cfg.padded_vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{INTERNVL}: logits {tuple(logits.shape)}")
+    moved = float((logits[:, cfg.n_vision_tokens:] - bare).abs().max()
+                  / bare.abs().max())
+    require(moved > LOGIT_TOL, f"{INTERNVL}: the prefix moved the logits "
+                               f"by {moved:.3g} of the largest")
+    del logits, bare
+    # the first layer card vs cpu: its residual over every position and
+    # the last position's logits
+    small = dataclasses.replace(cfg, n_layers=INTERNVL_CPU_LAYERS)
+    sub = {k: (v[:INTERNVL_CPU_LAYERS] if k.startswith("layers.") else v)
+           .detach() for k, v in params.items()}
+    res = []
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        m = Model(small, device=dev)
+        p = {k: v.to(dev) for k, v in sub.items()}
+        with torch.no_grad():
+            x, _ = m._dense_stack(p, toks.to(dev), None, ve.to(dev))
+            res.append((x.float().cpu(), m._head(p, x[:, -1:])[:, 0]
+                        .float().cpu()))
+        del p
+    cpu_s = time.perf_counter() - t0
+    (xc, lc), (xp, lp) = res
+    x_rel = float((xc - xp).norm() / xp.norm())
+    x_max = float((xc - xp).abs().max() / xp.abs().max())
+    print(f"{INTERNVL} first layer's residual over the prefix and the text, "
+          f"card vs cpu: relative rms {x_rel:.3g}, max abs diff {x_max:.3g} "
+          f"of the largest ({cpu_s:.1f} s)", flush=True)
+    require(x_max <= STATE_TOL, f"{INTERNVL}: the residual disagrees")
+    cpu = agree(lc, lp, f"card vs cpu last logits ({INTERNVL}, full width, "
+                        "first layer, 1,024 vision + 512 text, 2 rows)")
+    del res, xc, xp, sub
+    # train: 2 steps
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.n_layers
+    fwd = 7 * L + 1
+    expect = {"matmul": fwd + (fwd - 1) + 2 * fwd, "attention": 2 * L,
+              "attention_backward": L, "paged_decode_attention": 0,
+              "ssd": 0, "ssd_backward": 0, "quantize_int8": 0,
+              "quantize_compress": 0, "matmul_dequant": 0}
+    losses, walls, total = [], [], {}
+    for seed in (SEED, SEED + 1):
+        b = internvl_batch(cfg, seed)
+        before = ops.dispatch_report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in sess.step(plan, b).items()}
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        got = {k: v - before[k] for k, v in ops.dispatch_report().items()}
+        require(got == expect, f"{INTERNVL} step launches {got}, expected "
+                               f"{expect}")
+        require(math.isfinite(m["loss"]), f"{INTERNVL}: metrics {m}")
+        losses.append(m["loss"])
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{INTERNVL} steps: losses {losses}, wall ms {walls}, peak "
+          f"{peak / 2**30:.2f} GiB against the model's "
+          f"{fp.total / 2**30:.2f}; launches {total}", flush=True)
+    # serve as text
+    serve_params = {k: v.detach() for k, v in params.items()}
+    del sess, plan
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    fin, dt, steps = serve(Engine, model, serve_params, requests(cfg))
+    slaunch = ops.dispatch_report()
+    require(slaunch == dense_serve_launches(cfg, steps, len(fin)),
+            f"{INTERNVL} serve launches {slaunch}")
+    sstats = serve_stats(INTERNVL, sum(p.numel() for p in
+                                       serve_params.values()),
+                         fin, dt, slaunch, torch.cuda.max_memory_allocated(),
+                         0)
+    print(f"serve {INTERNVL} ({L} layers, as text) " + json.dumps(sstats),
+          flush=True)
+    del model, serve_params
+    torch.cuda.empty_cache()
+    tokens = INTERNVL_BATCH * S
+    summary = dict(arch=INTERNVL, layers=L, prefix_moves_logits=moved,
+                   card_vs_cpu=dict(residual_rel_rms=x_rel,
+                                    residual_max_frac=x_max, **cpu),
+                   cpu_seconds=cpu_s, losses=losses, step_wall_ms=walls,
+                   tokens_per_step=tokens, peak_gib=peak / 2**30,
+                   model_footprint_gib=fp.total / 2**30, serve=sstats)
+    print("internvl " + json.dumps(summary), flush=True)
+    return summary, {INTERNVL_TRAIN_PATH: total,
+                     f"{INTERNVL} ({L} layers) dense cache": slaunch}
+
+
+def families_phase():
+    """Phase 15: zamba2-1.2b's kernels at its shapes, zamba2 served and
+    trained at full width and depth, musicgen-medium served at full width
+    and depth, internvl2-26b's vision-prefixed 4-layer cut.  Returns (the
+    kernel entries at zamba2's shapes, a summary, launches by path)."""
+    t = {}
+    t0 = time.perf_counter()
+    kernels = check_zamba_kernels(get_config(ZAMBA))
+    t["b_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served, paths, params = serve_zamba()
+    t["a_serve_zamba"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the served weights train: no second draw of 1.17 B parameters
+    trained, train_launches = train_zamba(params)
+    del params
+    torch.cuda.empty_cache()
+    paths[ZAMBA_TRAIN_PATH] = train_launches
+    t["c_train_zamba"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    music, mpaths = serve_musicgen()
+    paths.update(mpaths)
+    t["d_serve_musicgen"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vlm, vpaths = internvl_phase()
+    paths.update(vpaths)
+    t["e_internvl"] = time.perf_counter() - t0
+    print(f"phase 15 seconds by part: {json.dumps(t)}", flush=True)
+    return kernels, dict(zamba_serve=served, zamba_train=trained,
+                         musicgen=music, internvl=vlm, seconds=t), paths
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
@@ -7489,7 +8315,8 @@ ALONE = {"d256": lambda: print(json.dumps(
          "6": lambda: train_phase(get_config(ARCH)),
          "6c": lambda: (check_ssd_backward(), train_mamba2()),
          "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
-         "12": session_phase, "13": pipe_phase, "14": moe_phase}
+         "12": session_phase, "13": pipe_phase, "14": moe_phase,
+         "15": families_phase}
 
 
 def main() -> int:
@@ -7665,6 +8492,36 @@ def main() -> int:
     rows.append(moe_row)
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # 15. the Model's last three families: zamba2, musicgen, internvl2
+    t15 = time.perf_counter()
+    zk, families, family_paths = families_phase()
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+    ssd_bwd = next(r for r in rows if r["name"] == "ssd_backward")
+    attn_bwd = next(r for r in rows if r["name"] == "attention_backward")
+    rows[3]["zamba2"] = {k: {kk: vv for kk, vv in v.items()
+                             if kk != "backward"}
+                         for k, v in zk.items() if k.startswith("ssd")}
+    ssd_bwd["zamba2"] = {k: v["backward"] for k, v in zk.items()
+                         if "backward" in v}
+    rows[1]["zamba2"], attn_bwd["zamba2"] = zk["flash"], zk[
+        "attention_backward"]
+    rows[2]["zamba2"] = zk["paged"]
+    ze = families["zamba_serve"]["kernel_calls_max_abs_err"]
+    for row, err in ((rows[0], ze["matmul"]), (rows[1], ze["attention"]),
+                     (rows[2], ze["paged"]), (rows[3], ze["ssd"]),
+                     (rows[1], zk["flash"]["max_abs_err"]),
+                     (attn_bwd, zk["attention_backward"]["max_abs_err"]),
+                     (rows[2], zk["paged"]["max_abs_err"])):
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    for k, v in zk.items():
+        if k.startswith("ssd"):
+            rows[3]["max_abs_err"] = max(rows[3]["max_abs_err"],
+                                         v["max_abs_err"])
+            if "backward" in v:
+                ssd_bwd["max_err_over_largest"] = max(
+                    ssd_bwd["max_err_over_largest"],
+                    v["backward"]["max_err_over_largest"])
+
     # results; 4c's and 4d's kernel calls held at their own shapes
     g3e = g3_stats["kernel_calls_max_abs_err"]
     g2e = g2b_stats["kernel_calls_max_abs_err"]
@@ -7730,7 +8587,7 @@ def main() -> int:
              MAMBA_TRAIN_PATH: mamba_train_launches, DP_PATH: dp_launches,
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
              SCHED_PATH: sched_launches, PIPE_PATH: pipe_launches,
-             **session_launches, **moe_paths}
+             **session_launches, **moe_paths, **family_paths}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

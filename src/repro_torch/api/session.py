@@ -382,10 +382,10 @@ class Session:
              name: str = "train_state") -> Dict[str, torch.Tensor]:
         """One train step on the resident state with the global ``batch``
         (numpy arrays or tensors ``{"tokens", "labels"}``).  Returns the
-        metrics as 0-d tensors on the device."""
-        batch = {k: (torch.from_numpy(np.asarray(v)) if not
-                     isinstance(v, torch.Tensor) else v)
-                 .to(self.device, torch.long) for k, v in batch.items()}
+        metrics as 0-d tensors on the device.  A vlm batch's
+        ``vision_embeds`` (B, n_vision, D) go to the device in their own
+        floating dtype; the model casts them to bf16."""
+        batch = {k: _batch_leaf(v, self.device) for k, v in batch.items()}
         rows = next(iter(batch.values())).shape[0]
         if rows != plan.global_batch:
             raise ValueError(f"batch of {rows} rows for a plan of "
@@ -475,8 +475,9 @@ class Session:
                 "steps only; serving on a mesh is ROADMAP queue 1, item 13")
         specs, _ = plan.batch_specs()
         with dry.fake_mode():
-            batch = {k: torch.zeros(v.shape, dtype=torch.long,
-                                    device=self.device)
+            batch = {k: torch.zeros(v.shape, dtype=(
+                         v.dtype if v.dtype.is_floating_point
+                         else torch.long), device=self.device)
                      for k, v in specs.items()}
             args = (self._new_state(plan, seed), batch)
             fn = self.train_step(plan, sharded=True)
@@ -579,6 +580,13 @@ class Session:
                 f"{op}: {st.compiles} compiles / {st.hits} hits"
                 for op, st in sorted(stats.items())))
         return "\n".join(lines)
+
+
+def _batch_leaf(v, device: torch.device) -> torch.Tensor:
+    """One leaf of a train batch on ``device``: token ids and labels as
+    int64, a floating leaf (a vlm's ``vision_embeds``) in its dtype."""
+    t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+    return t.to(device) if t.is_floating_point() else t.to(device, torch.long)
 
 
 def _to_device(value, device: torch.device):

@@ -2,9 +2,8 @@
 
 A copy of the JAX reference's ``configs/base.py``; the port keeps its own
 copy so it never imports the reference.  ``cells`` is the reference's over
-the architectures whose config module is ported: the dense family,
-mamba2 and the moe family (the others come with ROADMAP queue 1, item
-11).
+the architectures whose config module is ported: every one but alexnet
+(the conv family, ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations

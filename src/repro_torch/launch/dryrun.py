@@ -39,9 +39,11 @@ Result names end in ``_pp{N}``, as the reference's do.
 
 Cells the port cannot run on a mesh print ``SKIP`` with their ROADMAP
 item, never as passes: every prefill/decode/long_decode cell (serving
-on a mesh, queue 1, item 13).  ``--hlo-out`` (no HLO here) and
-``--comms auto`` are refused: both production meshes have model = 16,
-so ``auto`` plans the gspmd path, the same as ``off``.
+on a mesh, queue 1, item 13), and alexnet's (the conv family, item 11).
+A vlm cell's fake batch carries its ``vision_embeds`` (bf16).
+``--hlo-out`` (no HLO here) and ``--comms auto`` are refused: both
+production meshes have model = 16, so ``auto`` plans the gspmd path, the
+same as ``off``.
 ``--all`` runs every cell on both meshes (the reference's ``--all
 --both-meshes``), or on the 2x16x16 alone with ``--multi-pod``.  Results
 land in ``experiments/dryrun_torch/<cell>.json``.
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -61,22 +64,48 @@ import torch.distributed as dist
 
 from repro_torch import obs as obs_mod
 from repro_torch.api import Session
-from repro_torch.configs import SHAPES, cells, get_config
+from repro_torch.configs import SHAPES, cells
 from repro_torch.core import memory as mem_mod
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.train.optimizer import AdamWConfig
 
-# Per-arch baseline overrides, the reference's (memory-driven), for the
-# ported architectures.
+# Per-arch baseline overrides, the reference's (memory-driven), entry for
+# entry; ``adamw_kwargs`` names the moment dtype as the reference's does
+# (a dtype name, turned into an AdamWConfig by ``adamw_from``).
 OVERRIDES: Dict[str, Dict[str, Any]] = {
+    # dbrx-132b: bf16 moments and sqrt-L remat bring train_4k under HBM;
+    # 16 microbatches; the low per-tensor FSDP bound keeps every
+    # multi-GiB stack sharded
+    "dbrx-132b": {"model_kwargs": {"remat": "group:8"},
+                  "adamw_kwargs": {"moment_dtype": "bfloat16"},
+                  "plan_kwargs": {"fsdp_tensor_bytes": 0.4 * 2**30},
+                  "train_microbatches": 16},
+    # internvl2-26b: FSDP the 3.6 GiB q/o stacks, sqrt-L remat
+    "internvl2-26b": {"model_kwargs": {"remat": "group:8"},
+                      "plan_kwargs": {"fsdp_tensor_bytes": 2 * 2**30},
+                      "train_microbatches": 8},
     # qwen3-14b: FSDP the 2.1 GiB q/o stacks; sqrt-L remat
     "qwen3-14b": {"model_kwargs": {"remat": "group:8"},
                   "plan_kwargs": {"fsdp_tensor_bytes": 1.5 * 2**30},
                   "train_microbatches": 8},
     # small archs fit at 1-2 microbatches
     "mamba2-780m": {"train_microbatches": 1},
+    "musicgen-medium": {"train_microbatches": 2},
     "gemma-2b": {"train_microbatches": 2,
                  "plan_kwargs": {"fsdp_tensor_bytes": 1 * 2**30}},
+    "zamba2-1.2b": {"train_microbatches": 1},
+    "deepseek-moe-16b": {"train_microbatches": 2},
 }
+
+
+def adamw_from(over: Dict[str, Any]) -> Optional[AdamWConfig]:
+    """The override's ``adamw_kwargs`` as an :class:`AdamWConfig` (the
+    moment dtype by its name), or None (the Session's default), as the
+    reference's ``_adamw_from``."""
+    kw = dict(over.get("adamw_kwargs", {}))
+    if "moment_dtype" in kw:
+        kw["moment_dtype"] = getattr(torch, kw["moment_dtype"])
+    return AdamWConfig(**kw) if kw else None
 
 
 def default_device() -> str:
@@ -101,12 +130,13 @@ def fake_world(world_size: int, rank: int = 0):
 def skip_reason(arch: str, shape_name: str) -> Optional[str]:
     """Why the port cannot dry-run a cell on a mesh, naming its ROADMAP
     item, or None."""
+    mod = arch.replace("-", "_").replace(".", "_")
+    if importlib.util.find_spec(f"repro_torch.configs.{mod}") is None:
+        return (f"{arch} (the conv family, models/convnet.py) is ROADMAP "
+                "queue 1, item 11")
     if SHAPES[shape_name].kind != "train":
         return ("serving on a mesh (the sequence-sharded KV cache) is "
                 "ROADMAP queue 1, item 13")
-    if get_config(arch).family not in ("dense", "moe", "ssm"):
-        return (f"the {get_config(arch).family} family is ROADMAP queue 1, "
-                "item 11")
     return None
 
 
@@ -122,7 +152,7 @@ def build_traced(arch: str, shape_name: str, session: Session, *,
         arch, shape=shape_name, scale_down=scale_down,
         microbatches=(microbatches if microbatches is not None
                       else over.get("train_microbatches")),
-        comms="off",
+        adamw=adamw_from(over), comms="off",
         model_kwargs={**over.get("model_kwargs", {}), **(model_kwargs or {})},
         plan_kwargs={**over.get("plan_kwargs", {}), **(plan_kwargs or {})},
         check_memory=False)

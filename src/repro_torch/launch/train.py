@@ -36,7 +36,9 @@ processes started with ``RANK``, ``WORLD_SIZE`` and
 in their environment; the CLI joins that process group when none is
 initialized.  Not ported yet, and refused when set: ``--resilient`` and
 ``--faults`` (ROADMAP queue 1, item 12).  The step-time watchdog waits
-for item 12: the loop runs without it.
+for item 12: the loop runs without it.  A vlm's batches pass the
+reference's ``vision_stub`` host stage (zero patch embeddings ahead of
+the text).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -55,7 +58,7 @@ from repro_torch.checkpoint import CheckpointManager, state_from_tree, \
     state_tree
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core import memory as mem_mod
-from repro_torch.data import Pipeline, SyntheticLM
+from repro_torch.data import Pipeline, Stage, SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.obs import report as report_mod
 from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
@@ -113,6 +116,26 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         obs.close()
         if joined:
             dist_mod.close_group()
+
+
+def vision_stub(cfg, batch: int) -> list:
+    """The host stages of a batch: for a vlm the reference's
+    ``vision_stub`` (the InternViT frontend is a stub: the last
+    ``n_vision_tokens`` tokens of each row make way for as many zero patch
+    embeddings ahead of the text, whose labels are -1), else none."""
+    if cfg.family != "vlm":
+        return []
+    nv = cfg.n_vision_tokens
+
+    def add_vision(item):
+        item = dict(item)
+        item["tokens"] = item["tokens"][:, :-nv]
+        item["labels"][:, :nv] = -1
+        item["vision_embeds"] = np.zeros((batch, nv, cfg.d_model),
+                                         np.float32)
+        return item
+
+    return [Stage("vision_stub", add_vision, "host")]
 
 
 def _measure_peak(session, plan, obs) -> None:
@@ -174,7 +197,7 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
 
     source = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed,
                          structured=True)
-    pipe = Pipeline(source, [], n_threads=2).start()
+    pipe = Pipeline(source, vision_stub(cfg, batch), n_threads=2).start()
     if session.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(session.device)
     losses = []

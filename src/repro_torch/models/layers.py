@@ -147,15 +147,18 @@ def decode_attention_ring(
 
 def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
             policy: precision.Policy = precision.MIXED,
-            wide: bool = False, mesh=None,
+            wide: bool = False, pinned: bool = False, mesh=None,
             tp_axis: Optional[str] = None) -> torch.Tensor:
     """Gated MLP: act(x @ w_gate) * (x @ w_in) @ w_out.
 
     By default ``act(g)`` and ``h`` are each rounded to ``x``'s dtype and
     multiplied there, as the reference's ``glu_mlp`` (its paged and decode
-    steps).  ``wide`` multiplies them in fp32 and rounds the product once,
-    as the reference's ``glu_mlp_shardmap`` (its full-sequence forward on
-    one device, where the default plan sets ``seq_parallel_residual``).
+    steps); ``pinned`` first rounds ``g`` and ``h`` to the activation
+    dtype, as its ``h_layout`` form does (zamba2's shared block on a
+    replicated residual).  ``wide`` multiplies them in fp32 and rounds
+    the product once, as the reference's ``glu_mlp_shardmap`` (its
+    full-sequence forward on one device, where the default plan sets
+    ``seq_parallel_residual``).
 
     With ``tp_axis`` (the reference's ``h_layout`` / ``out_layout`` MLP of
     the ``seq_parallel_residual=False`` plan): ``x`` is the residual every
@@ -167,7 +170,7 @@ def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
         x = dist_mod.copy_ad(x, mesh, tp_axis)
     g = precision.einsum("bsd,df->bsf", x, w_gate, policy=policy)
     h = precision.einsum("bsd,df->bsf", x, w_in, policy=policy)
-    if tp_axis is not None:
+    if tp_axis is not None or pinned:
         g, h = g.to(policy.activation_dtype), h.to(policy.activation_dtype)
     if wide:
         h = (act_fn(act)(g.float()) * h.float()).to(x.dtype)

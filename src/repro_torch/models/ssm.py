@@ -143,10 +143,11 @@ def forward_mesh(x: torch.Tensor, p: dict, cfg, plan, mesh, *,
     """The mixer on this rank's block ``x`` of the residual (the plan's
     hidden layout) and its blocks ``p`` of the params at their use
     layouts: the columns of this rank's heads of ``wx``, ``wz``,
-    ``conv_x`` and ``w_out``'s rows, its heads' ``dt_bias``, ``A`` and
-    ``D_skip``, and the whole of ``wbc``, ``wdt``, ``conv_bc`` and
-    ``gate_norm``, of which it takes its heads' columns.  Returns the
-    output in ``x``'s layout and dtype.
+    ``conv_x`` and ``w_out``'s rows (taken here where the plan keeps
+    ``wx``, ``wz`` and ``w_out`` whole, ``ffn_replicated``), its heads'
+    ``dt_bias``, ``A`` and ``D_skip``, and the whole of ``wbc``, ``wdt``,
+    ``conv_bc`` and ``gate_norm``, of which it takes its heads' columns.
+    Returns the output in ``x``'s layout and dtype.
 
     Where the line shares a value that enters work split over it, the
     split's entry sums the ranks' shares in the backward (``copy_ad``:
@@ -158,6 +159,11 @@ def forward_mesh(x: torch.Tensor, p: dict, cfg, plan, mesh, *,
     G, N, di = cfg.ssm_groups, cfg.ssm_state, cfg.d_inner
     h_loc = H // n                 # the model refuses H % n on a mesh
     cols = slice(r * h_loc * P, (r + 1) * h_loc * P)
+    if plan.ffn_replicated:
+        # the plan stores the d_inner products whole (the hybrid's SP
+        # attention keeps its FFNs replicated): this rank's heads' blocks
+        p = dict(p, wx=p["wx"][:, cols], wz=p["wz"][:, cols],
+                 w_out=p["w_out"][cols])
     sp = plan.seq_parallel_residual
     # SP: the bf16 wire and bf16 convolutions of forward_shardmap
     xg = (dist_mod.all_gather_ad(x, mesh, tp, 1) if sp

@@ -1,11 +1,23 @@
 """The decoder LM, ported from the reference's ``models/transformer.py``:
-the dense, moe and ssm (mamba2) families' full-sequence forward and loss
-(the train path), the dense and moe families' steps on the dense KV cache
-(the static engine's default) and on the paged cache, and the ssm
-family's on its dense cache.  A moe layer is a dense layer whose MLP is
-:func:`repro_torch.models.moe.forward` (``forward_mesh`` on a mesh); its
-aux loss is summed over the layers and enters the loss as
-``router_aux_coef * aux / n_layers``.
+one :class:`Model` for its six families.  The full-sequence forward and
+loss (the train path) of each; the dense, moe, audio and vlm families'
+steps on the dense KV cache (the static engine's default) and on the
+paged cache; the ssm and hybrid families' on their dense caches.  A moe
+layer is a dense layer whose MLP is :func:`repro_torch.models.moe.forward`
+(``forward_mesh`` on a mesh); its aux loss is summed over the layers and
+enters the loss as ``router_aux_coef * aux / n_layers``.  The audio
+family (musicgen over EnCodec codes) is the dense family's stack; the
+vlm family (internvl2) is too, with ``vision_embeds`` (B, n_vision, D)
+concatenated ahead of the text embeddings (in bf16) by the train forward
+and the prefill.  The hybrid family (zamba2) is the ssm family's stack
+with one shared attention + MLP block (``shared.*``, one set of weights)
+applied after every ``attn_every`` mamba layers: ``n_sites = L //
+attn_every`` static groups, then a mamba tail of the rest, as the
+reference's ``forward`` and ``decode_step`` split them.  The shared
+leaves' gradient is the sum of the sites' cotangents, which autograd
+adds in bf16 as they arrive, the last site's first, the order and dtype
+of the reference's scan transpose, which carries the closed-over leaf's
+cotangent in its own dtype through the reversed group scan.
 
 The reference scans one jitted layer body over the stacked params; PyTorch
 runs eagerly, so here a Python loop walks the ``L`` layers.  The train
@@ -17,8 +29,10 @@ reference's default, recomputes each layer in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` around the scanned
 body); ``remat="group:G"`` checkpoints each group of G layers and each
 layer inside it (the reference's sqrt-L double remat), and runs without
-remat when G does not divide L, as the reference does (the ssm family
-remats under ``"full"`` only, as the reference's ssm branch).
+remat when G does not divide L, as the reference does (the ssm and
+hybrid families remat under ``"full"`` only, as the reference's
+branches; the hybrid checkpoints each mamba layer and, around them, each
+site's group with its shared block, as the reference nests them).
 Parameters are passed explicitly, as in the reference, so both packages'
 steps take the same arguments.  Caches are updated in place
 (the reference's jitted steps donate them and return new ones); the steps
@@ -42,8 +56,14 @@ the residual's layout, ``_dense_block``'s routing (head-TP or SP
 attention; the local MLP under ``ffn_replicated``, the bf16
 gather/reduce-scatter MLP under ``seq_parallel_residual``, the
 GSPMD-style MLP otherwise) or ``_ssm_block``'s (the mixer on this rank's
-heads, :func:`repro_torch.models.ssm.forward_mesh`), FSDP leaves gathered
-at use, the vocab-parallel head and loss.  ``forward`` and ``loss_fn``
+heads, :func:`repro_torch.models.ssm.forward_mesh`), the hybrid's
+shared block as the reference's ``_shared_block`` routes it (the mesh
+attention, then the bf16 gather/reduce-scatter MLP under
+``seq_parallel_residual``, else the GSPMD-style one, on this rank's
+column and row blocks), FSDP leaves gathered at use, the vocab-parallel
+head and loss.  A vlm batch's vision prefix is split over the batch rows
+like the tokens and joins the text on this rank's D-column block before
+the residual is relaid onto its layout.  ``forward`` and ``loss_fn``
 take the global batch and run this rank's rows (all of them when the
 batch cannot split over the data axes, the reference's ``_maybe_batch``).
 A moe layer's experts are row-blocked over the model axis and its
@@ -72,6 +92,9 @@ from repro_torch.models.params import (ParamSpec, plan_layout, shard_tree,
                                       tree_init)
 
 Params = Dict[str, torch.Tensor]
+# the families whose every layer is attention + MLP (the reference's
+# "dense" branches): the dense, moe, audio and vlm ones
+ATTENTION_STACKS = ("dense", "moe", "audio", "vlm")
 
 
 class Model(nn.Module):
@@ -87,7 +110,13 @@ class Model(nn.Module):
       by routed experts (top-k of E, capacity-bounded) plus the shared
       experts;
     - ssm family: embed -> L x [RMSNorm -> Mamba2 mixer] -> RMSNorm ->
-      unembed, on the dense cache (``conv``, ``ssm``, ``bc_conv``).
+      unembed, on the dense cache (``conv``, ``ssm``, ``bc_conv``);
+    - hybrid family: the ssm family's layers with the shared block
+      (RMSNorm -> MHA -> RMSNorm -> gated MLP, one set of weights) after
+      every ``attn_every`` of them, on the dense cache holding the L
+      layers' states and the ``n_sites`` sites' ``k``/``v``;
+    - audio family: the dense family's; vlm family: the dense family's
+      behind a prefix of vision embeddings.
 
     ``ssd_chunk`` is accepted for the reference's signature only: the
     scan's chunk is a tiling choice of its implementations (the CUDA
@@ -101,16 +130,18 @@ class Model(nn.Module):
                  ssd_chunk: int = 256, remat: str = "full", mesh=None,
                  plan=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio",
+                              "vlm"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense, moe and ssm families are "
-                "ported so far (ROADMAP queue 1, item 11)")
+                f"{cfg.name}: the {cfg.family} family is not a decoder of "
+                "this Model (the conv family is models/convnet.py, ROADMAP "
+                "queue 1, item 11)")
         if mesh is not None and cfg.family == "moe" \
                 and cfg.n_experts % mesh.shape.get("model", 1):
             raise ValueError(
                 f"{cfg.name} on a mesh: its {cfg.n_experts} experts do not "
                 f"split over model = {mesh.shape['model']}")
-        if mesh is not None and cfg.family == "ssm" \
+        if mesh is not None and cfg.family in ("ssm", "hybrid") \
                 and cfg.n_ssm_heads % mesh.shape.get("model", 1):
             raise ValueError(
                 f"{cfg.name} on a mesh: its {cfg.n_ssm_heads} SSD heads do "
@@ -154,26 +185,34 @@ class Model(nn.Module):
         out_scale = 0.02 / max(1, 2 * L) ** 0.5
         lay = functools.partial(plan_layout, plan, mesh)
         vec = ParamSpec((D,), init="ones", layout=lay("vector", (D,)))
-        if cfg.family == "ssm":
+        mlp = {
+            "mlp.gate": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
+            "mlp.in": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
+            "mlp.out": ParamSpec((F, D), init="scaled", scale=out_scale,
+                                 layout=lay("ffn_out", (F, D)))}
+        attn = {"ln1": vec, "ln2": vec,
+                **{f"attn.{k}": s for k, s in
+                   attention.attn_specs(cfg, plan, mesh).items()}}
+        shared = {}
+        if cfg.family in ("ssm", "hybrid"):
             layer = {"ln1": vec, **{f"ssm.{k}": s for k, s in
                                     ssm.ssm_specs(cfg, plan, mesh).items()}}
+            if cfg.family == "hybrid":
+                # zamba2's shared block: one set of weights, unstacked
+                shared = {f"shared.{k}": s
+                          for k, s in {**attn, **mlp}.items()}
         else:
-            layer = {"ln1": vec, "ln2": vec,
-                     **{f"attn.{k}": s for k, s in
-                        attention.attn_specs(cfg, plan, mesh).items()}}
+            layer = dict(attn)
             layer.update({f"moe.{k}": s for k, s in
                           moe.moe_specs(cfg, plan, mesh).items()}
-                         if cfg.family == "moe" else {
-                "mlp.gate": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
-                "mlp.in": ParamSpec((D, F), layout=lay("ffn_in", (D, F))),
-                "mlp.out": ParamSpec((F, D), init="scaled", scale=out_scale,
-                                     layout=lay("ffn_out", (F, D)))})
+                         if cfg.family == "moe" else mlp)
         return {
             "embed": ParamSpec((V, D), layout=lay("embed", (V, D))),
             "unembed": ParamSpec((D, V), layout=lay("unembed", (D, V))),
             "final_norm": ParamSpec((D,), init="ones",
                                     layout=lay("vector", (D,))),
             **{f"layers.{k}": s.stacked(L) for k, s in layer.items()},
+            **shared,
         }
 
     def param_layouts(self) -> Dict[str, Layout]:
@@ -225,7 +264,8 @@ class Model(nn.Module):
         from its own experts).  A leaf every rank of the axis uses on the
         same values (the norms and the local MLP, or a moe layer's shared
         experts, on a replicated residual under
-        ``seq_parallel_residual=False``) is whole on each."""
+        ``seq_parallel_residual=False``) is whole on each; the hybrid's
+        shared MLP is never local (each rank takes its block of it)."""
         plan, mesh = self.plan, self.mesh
         axes = list(self.row_axes(batch))
         tp = plan.tp_axis
@@ -234,8 +274,8 @@ class Model(nn.Module):
             leaf = name.split(".")[-1]
             same = not plan.seq_parallel_residual and (
                 leaf in ("ln1", "ln2", "final_norm")
-                or (plan.ffn_replicated and (".mlp." in name
-                                             or ".moe.shared_" in name)))
+                or (plan.ffn_replicated and name.startswith("layers.")
+                    and (".mlp." in name or ".moe.shared_" in name)))
             if not same:
                 axes.append(tp)
         return tuple(axes)
@@ -277,24 +317,51 @@ class Model(nn.Module):
                     if isinstance(v, dict) else self._use(v, lays[k], rows))
                 for k, v in lp.items()}
 
+    def _shared(self, params: Params, rows: Tuple[str, ...] = ()) -> dict:
+        """The hybrid's shared block as the nested dict the blocks take
+        (``ln1``, ``ln2``, ``attn``, ``mlp``); on a mesh at their use
+        layouts."""
+        lays = self.param_layouts() if self.mesh is not None else {}
+        out: dict = {}
+        for name, val in params.items():
+            if not name.startswith("shared."):
+                continue
+            if self.mesh is not None:
+                val = self._use(val, lays[name], rows)
+            parts = name.split(".")[1:]
+            if len(parts) == 1:
+                out[parts[0]] = val
+            else:
+                out.setdefault(parts[0], {})[parts[1]] = val
+        return out
+
     def _embed(self, params: Params, tokens: torch.Tensor,
-               rows: Tuple[str, ...]) -> torch.Tensor:
-        """Embed -> bf16 residual: on a mesh, this rank's rows (those of
-        its coordinate on ``rows``) against its D-column block, relayed
-        onto the residual's layout (an all-to-all over the model axis onto
-        the sequence shards)."""
+               rows: Tuple[str, ...], vision_embeds=None) -> torch.Tensor:
+        """Embed -> bf16 residual, a vlm's ``vision_embeds`` (B, n_vision,
+        D) concatenated ahead of the text in the embedding's dtype (the
+        reference's ``_embed``): on a mesh, this rank's rows (those of its
+        coordinate on ``rows``) against its D-column block, the prefix's
+        block of the same rows and columns joined to them, relayed onto
+        the residual's layout (an all-to-all over the model axis onto the
+        sequence shards)."""
         cfg = self.cfg
         if self.mesh is None:
             x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
+            if vision_embeds is not None:
+                x = torch.cat([vision_embeds.to(x.dtype), x], 1)
             return x.to(torch.bfloat16)
         plan, mesh = self.plan, self.mesh
         table = self._use(params["embed"], self.param_layouts()["embed"],
                           rows)
+        cols = Layout((rows or None, None, plan.tp_axis))
         x = layers.embed_shard_map(
             batch_block(tokens, mesh, rows), table, mesh,
-            tp_axis=plan.tp_axis, scale=cfg.emb_scale).to(torch.bfloat16)
-        return constrain(x, self._hidden(rows), mesh,
-                         src=Layout((rows or None, None, plan.tp_axis)))
+            tp_axis=plan.tp_axis, scale=cfg.emb_scale)
+        if vision_embeds is not None:
+            x = torch.cat([cols.block(vision_embeds, mesh).to(x.dtype), x],
+                          1)
+        return constrain(x.to(torch.bfloat16), self._hidden(rows), mesh,
+                         src=cols)
 
     @staticmethod
     def _layer(params: Params, i: int) -> dict:
@@ -341,7 +408,7 @@ class Model(nn.Module):
         an O(window) ring instead of an O(seq) cache."""
         cfg = self.cfg
         return bool(cfg.window and cfg.local_global_pattern
-                    and cfg.family == "dense")
+                    and cfg.family in ATTENTION_STACKS)
 
     def _dense_block(self, x, lp, window, with_cache: bool = False,
                      rows: Tuple[str, ...] = ()):
@@ -431,10 +498,11 @@ class Model(nn.Module):
     # block-paged KV cache
     # ------------------------------------------------------------------
     def paged_supported(self) -> bool:
-        """Paged decode covers the dense and moe families' uniform
-        full-attention layers: no sliding windows, no logit softcap."""
+        """Paged decode covers the dense, moe, audio and vlm families'
+        uniform full-attention layers: no sliding windows, no logit
+        softcap (not the hybrid: the reference's neither)."""
         cfg = self.cfg
-        return (cfg.family in ("dense", "moe") and cfg.window is None
+        return (cfg.family in ATTENTION_STACKS and cfg.window is None
                 and cfg.attn_softcap is None)
 
     def _pages(self, num_pages: int, page_size: int, device=None
@@ -540,6 +608,109 @@ class Model(nn.Module):
     def _ssm_layer(self, x, lp, rows: Tuple[str, ...] = ()):
         return self._ssm_block(x, lp, False, rows)[0]
 
+    def _shared_block(self, x, sp, with_cache: bool = False,
+                      rows: Tuple[str, ...] = ()):
+        """The hybrid's shared attention + MLP block at one site (the
+        reference's ``_shared_block``): ``(x, (k, v) with ``with_cache``
+        else None)``.  On one rank its MLP is the reference's
+        replicated-residual form (``pinned``), whose one-device plan also
+        runs the mixer in fp32 as :func:`ssm.forward` does; on a mesh
+        (no cache) the reference's routing on this rank's blocks."""
+        cfg = self.cfg
+        if self.mesh is not None:
+            return self._shared_block_mesh(x, sp, rows), None
+        h = layers.rms_norm(x, sp["ln1"], cfg.norm_eps)
+        a = attention.forward(h, sp["attn"], cfg, policy=self.policy,
+                              with_cache=with_cache)
+        a, kv = a if with_cache else (a, None)
+        x = x + a
+        h = layers.rms_norm(x, sp["ln2"], cfg.norm_eps)
+        w = sp["mlp"]
+        f = layers.glu_mlp(h, w["gate"], w["in"], w["out"], act=cfg.act,
+                           policy=self.policy, pinned=True)
+        return x + f, kv
+
+    def _shared_block_mesh(self, x, sp, rows: Tuple[str, ...]):
+        """``_shared_block`` on this rank's blocks: the mesh attention,
+        then the bf16 gather/reduce-scatter MLP under
+        ``seq_parallel_residual``, else the GSPMD-style one, as the
+        reference routes it (never the local MLP: its ``_shared_block``
+        has no ``ffn_replicated`` branch).  Where the plan keeps the MLP
+        replicated (``ffn_replicated``), this rank takes its column and
+        row blocks of it, the split the reference's ``shard_map`` and
+        ``h_layout`` impose."""
+        cfg, plan, mesh = self.cfg, self.plan, self.mesh
+        h = layers.rms_norm(x, sp["ln1"], cfg.norm_eps)
+        x = x + attention.forward(h, sp["attn"], cfg, policy=self.policy,
+                                  mesh=mesh, plan=plan,
+                                  hidden=self._hidden(rows))
+        h = layers.rms_norm(x, sp["ln2"], cfg.norm_eps)
+        w = (sp["mlp"]["gate"], sp["mlp"]["in"], sp["mlp"]["out"])
+        if plan.ffn_replicated:
+            n, r = mesh.shape[plan.tp_axis], mesh.coords[plan.tp_axis]
+            f_loc = cfg.d_ff // n
+            cols = slice(r * f_loc, (r + 1) * f_loc)
+            w = (w[0][:, cols], w[1][:, cols], w[2][cols])
+        if plan.seq_parallel_residual:
+            f = layers.glu_mlp_shardmap(h, *w, act=cfg.act, mesh=mesh,
+                                        plan=plan, policy=self.policy)
+        else:
+            f = layers.glu_mlp(h, *w, act=cfg.act, policy=self.policy,
+                               mesh=mesh, tp_axis=plan.tp_axis)
+        return x + f
+
+    def _hybrid_group(self, x, lps, sp, rows: Tuple[str, ...], remat: bool):
+        """One site's group: its mamba layers (each checkpointed when
+        ``remat``), then the shared block."""
+        for lp in lps:
+            x = (checkpoint(self._ssm_layer, x, lp, rows, use_reentrant=False)
+                 if remat else self._ssm_layer(x, lp, rows))
+        return self._shared_block(x, sp, False, rows)[0]
+
+    def _hybrid_stack(self, params: Params, tokens: torch.Tensor,
+                      write_state=None, write_kv=None) -> torch.Tensor:
+        """Embed -> ``n_sites`` groups of ``attn_every`` mamba layers and
+        the shared block -> the mamba tail (the reference's static
+        groups).  Under ``remat="full"`` while autograd records, each
+        mamba layer is checkpointed and so is each group around them, as
+        the reference nests its checkpoints.  Given ``write_state`` and
+        ``write_kv``, layer i's (conv, ssm, bc_conv) state goes to
+        ``write_state(i, state)`` and site s's rotated keys and values to
+        ``write_kv(s, (k, v))``.  Returns the residual (B, S, D) in
+        bf16."""
+        cfg = self.cfg
+        rows = self.row_axes(tokens.shape[0])
+        x = self._embed(params, tokens, rows)
+        lps = self._unbind_layers(params)
+        sp = self._shared(params, rows)
+        every = cfg.attn_every
+        n_sites = cfg.n_layers // every
+        remat = (self.remat == "full" and torch.is_grad_enabled()
+                 and write_state is None)
+        for s in range(n_sites):
+            group = lps[s * every:(s + 1) * every]
+            if write_state is not None:
+                for i, lp in enumerate(group, start=s * every):
+                    x, state = self._ssm_block(x, lp, True, rows)
+                    write_state(i, state)
+                x, kv = self._shared_block(x, sp, True, rows)
+                write_kv(s, kv)
+            elif remat:
+                x = checkpoint(self._hybrid_group, x, group, sp, rows, True,
+                               use_reentrant=False)
+            else:
+                x = self._hybrid_group(x, group, sp, rows, False)
+        for i, lp in enumerate(lps[n_sites * every:], start=n_sites * every):
+            if write_state is not None:
+                x, state = self._ssm_block(x, lp, True, rows)
+                write_state(i, state)
+            elif remat:
+                x = checkpoint(self._ssm_layer, x, lp, rows,
+                               use_reentrant=False)
+            else:
+                x = self._ssm_layer(x, lp, rows)
+        return x
+
     def _mixer_stack(self, params: Params, tokens: torch.Tensor,
                      write_state=None) -> torch.Tensor:
         """Embed -> L x mixer, each layer checkpointed under
@@ -561,32 +732,45 @@ class Model(nn.Module):
         return x
 
     def forward(self, params: Params, tokens: torch.Tensor,
-                with_cache: bool = False, last_only: bool = False):
+                vision_embeds=None, with_cache: bool = False,
+                last_only: bool = False):
         """Full-sequence forward: (fp32 logits (B, S or 1, V), the aux loss
         (the moe layers' sum; 0 for the other families), the stacked
-        per-layer caches or None).  With ``with_cache`` the dense and moe
-        families return ``(k, v)``, each (L, B, S, Hkv, hd) in bf16, and
-        the ssm family ``(conv, ssm, bc_conv)``."""
+        per-layer caches or None).  A vlm's ``vision_embeds`` (B,
+        n_vision, D) lead the sequence (S = n_vision + the text's).  With
+        ``with_cache`` the dense, moe, audio and vlm families return ``(k,
+        v)``, each (L, B, S, Hkv, hd) in bf16, the ssm family ``(conv,
+        ssm, bc_conv)`` and the hybrid ``((conv, ssm, bc_conv), (k, v))``,
+        its K/V (n_sites, B, S, Hkv, hd)."""
         if with_cache:
             self._servable("forward with_cache")
-        layer_caches = []
+        layer_caches, site_caches = [], []
         write = ((lambda i, c: layer_caches.append(c)) if with_cache
                  else None)
         aux = None
-        if self.cfg.family == "ssm":
+        family = self.cfg.family
+        if family == "ssm":
             x = self._mixer_stack(params, tokens, write)
+        elif family == "hybrid":
+            x = self._hybrid_stack(
+                params, tokens, write,
+                (lambda s, c: site_caches.append(c)) if with_cache else None)
         else:
-            x, aux = self._dense_stack(params, tokens, write)
+            x, aux = self._dense_stack(params, tokens, write, vision_embeds)
         caches = (tuple(torch.stack(t) for t in zip(*layer_caches))
                   if with_cache else None)
+        if with_cache and family == "hybrid":
+            caches = (caches, tuple(torch.stack(t)
+                                    for t in zip(*site_caches)))
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return (self._head(params, x, last_only,
                            self.row_axes(tokens.shape[0])), aux, caches)
 
     def _dense_stack(self, params: Params, tokens: torch.Tensor,
-                     write_kv=None):
-        """Embed -> L x dense (or moe) block, each layer checkpointed under
+                     write_kv=None, vision_embeds=None):
+        """Embed (behind a vlm's ``vision_embeds``) -> L x dense (or moe)
+        block, each layer checkpointed under
         ``remat="full"`` while autograd records, and under ``"group:G"``
         each group of G layers too (when G divides L and no cache is
         written, as in the reference); given ``write_kv``, each layer's
@@ -595,7 +779,7 @@ class Model(nn.Module):
         summed in layer order (None for dense)."""
         cfg = self.cfg
         rows = self.row_axes(tokens.shape[0])
-        x = self._embed(params, tokens, rows)
+        x = self._embed(params, tokens, rows, vision_embeds)
         lps = self._unbind_layers(params)
         G = self._group
         if G and write_kv is None and torch.is_grad_enabled():
@@ -631,13 +815,15 @@ class Model(nn.Module):
 
     def loss_fn(self, params: Params, batch: dict):
         """(mean token loss, metrics ``{loss, aux, tokens}``) of a batch
-        ``{"tokens", "labels"}`` (B, S); labels < 0 are ignored.  On a
-        mesh the batch is the global one and the first value is this
+        ``{"tokens", "labels"}`` (B, S) and a vlm's ``vision_embeds``
+        (its labels cover the prefix with -1); labels < 0 are ignored.
+        On a mesh the batch is the global one and the first value is this
         rank's rows' share of the mean (:func:`layers.lm_loss_sharded`),
         which the rank differentiates; the metrics hold the global
         mean."""
         cfg = self.cfg
-        logits, aux, _ = self.forward(params, batch["tokens"])
+        logits, aux, _ = self.forward(params, batch["tokens"],
+                                      batch.get("vision_embeds"))
         if self.mesh is not None:
             rows = self.row_axes(batch["tokens"].shape[0])
             share, loss, denom = layers.lm_loss_sharded(
@@ -665,8 +851,9 @@ class Model(nn.Module):
                                    self.cfg.n_layers)
 
     def prefill(self, params: Params, tokens: torch.Tensor,
-                last_only: bool = True, cache: dict = None,
-                slot: int = 0) -> Tuple[torch.Tensor, dict]:
+                vision_embeds=None, last_only: bool = True,
+                cache: dict = None, slot: int = 0
+                ) -> Tuple[torch.Tensor, dict]:
         """Forward over the prompt ``tokens`` (B, S): fp32 logits (of the
         last position only, by default) and the decode-ready cache: the
         dense family's ``k``/``v`` (L, B, S, Hkv, hd) in bf16; the ssm
@@ -682,11 +869,18 @@ class Model(nn.Module):
         (W' = min(window, S) slots, slot j holding the last position p =
         j (mod W')), each gathered per layer as it is computed; written
         into a cache, a ring narrower than the cache's is padded with
-        zeros at its end, as the reference's one-slot prefill pads it."""
+        zeros at its end, as the reference's one-slot prefill pads it.
+
+        The hybrid gives every layer's states and its sites' ``k``/``v``
+        (n_sites, B, S, Hkv, hd); into a cache row, both kinds.  A vlm's
+        ``vision_embeds`` lead the prompt (its K/V cover them)."""
         self._servable("prefill")
         if cache is not None and tokens.shape[0] != 1:
             raise ValueError("prefill into a cache row takes one prompt")
-        if self.cfg.family in ("dense", "moe"):
+        if self.cfg.family == "hybrid":
+            return self._prefill_hybrid(params, tokens, last_only, cache,
+                                        slot)
+        if self.cfg.family in ATTENTION_STACKS:
             S = tokens.shape[1]
             ring = (self._ring_positions(S, tokens.device)
                     if self._windowed() else None)
@@ -705,7 +899,8 @@ class Model(nn.Module):
                     if suffix == "_l":
                         cache[name][j, slot, n:].zero_()
 
-            x, _ = self._dense_stack(params, tokens, write_kv)
+            x, _ = self._dense_stack(params, tokens, write_kv,
+                                     vision_embeds)
             logits = self._head(params, x[:, -1:] if last_only else x)
             if cache is None:
                 cache = {name: torch.stack(vals) for name, vals in out.items()}
@@ -722,6 +917,38 @@ class Model(nn.Module):
         x = self._mixer_stack(params, tokens, write)
         return self._head(params, x[:, -1:] if last_only else x), cache
 
+    def _prefill_hybrid(self, params, tokens, last_only, cache, slot):
+        """The hybrid's prefill: every layer's (conv, ssm, bc_conv) state
+        (L, B, ...) and the sites' K/V (n_sites, B, S, Hkv, hd), the
+        reference's flattened head groups with the tail appended; into
+        ``cache`` row ``slot``, the states whole and the K/V at positions
+        0..S-1."""
+        names = ("conv", "ssm", "bc_conv")
+        states, kvs = [], []
+
+        def write_state(i, state):
+            if cache is None:
+                states.append(state)
+                return
+            for name, val in zip(names, state):
+                cache[name][i, slot].copy_(val[0])
+
+        def write_kv(s, kv):
+            if cache is None:
+                kvs.append(kv)
+                return
+            for name, val in zip(("k", "v"), kv):
+                cache[name][s, slot, :val.shape[1]].copy_(val[0])
+
+        x = self._hybrid_stack(params, tokens, write_state, write_kv)
+        logits = self._head(params, x[:, -1:] if last_only else x)
+        if cache is None:
+            cache = {name: torch.stack(t)
+                     for name, t in zip(names, zip(*states))}
+            cache.update({name: torch.stack(t)
+                          for name, t in zip(("k", "v"), zip(*kvs))})
+        return logits, cache
+
     def _ring_positions(self, S: int, device) -> torch.Tensor:
         """The prompt position each ring slot holds after a prefill of S
         tokens: slot j of W' = min(window, S) holds the last p = j (mod
@@ -736,7 +963,8 @@ class Model(nn.Module):
         ``k_g``/``v_g`` for its n_g global layers and ``k_l``/``v_l``
         (n_l, batch, W, Hkv, hd), W = min(window, seq_len), for its local
         layers' rings); the ssm family's states, which do not grow with
-        ``seq_len``."""
+        ``seq_len``; the hybrid's states for its L layers and ``k``/``v``
+        (n_sites, batch, seq_len, Hkv, hd) for its sites."""
         cfg = self.cfg
         L = cfg.n_layers
         if self._windowed():
@@ -748,19 +976,25 @@ class Model(nn.Module):
                     "v_g": ParamSpec(g, init="zeros"),
                     "k_l": ParamSpec(loc, init="zeros"),
                     "v_l": ParamSpec(loc, init="zeros")}
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ATTENTION_STACKS:
             shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
             return {"k": ParamSpec(shape, init="zeros"),
                     "v": ParamSpec(shape, init="zeros")}
         H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         W, di = cfg.conv_width, cfg.d_inner
         GN2 = 2 * cfg.ssm_groups * cfg.ssm_state
-        return {
+        out = {
             "ssm": ParamSpec((L, batch, H, P, N), dtype=torch.float32,
                              init="zeros"),
             "conv": ParamSpec((L, batch, W - 1, di), init="zeros"),
             "bc_conv": ParamSpec((L, batch, W - 1, GN2), init="zeros"),
         }
+        if cfg.family == "hybrid":
+            shape = (L // cfg.attn_every, batch, seq_len, cfg.n_kv_heads,
+                     cfg.d_head)
+            out.update(k=ParamSpec(shape, init="zeros"),
+                       v=ParamSpec(shape, init="zeros"))
+        return out
 
     def init_cache(self, batch: int, seq_len: int, device=None
                    ) -> Dict[str, torch.Tensor]:
@@ -782,18 +1016,24 @@ class Model(nn.Module):
         the table across steps).  A windowed config's local layers attend on
         their rings (``attention.decode_ring``) under the same table with
         ``min(seq_lens, W)``, made once per step.  An SSM's step does not
-        read ``pos`` (taken for the reference's signature)."""
+        read ``pos`` (taken for the reference's signature); the hybrid's
+        sites attend as the dense family's layers do, on their ``k``/``v``
+        under the same table."""
         self._servable("decode_step")
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family != "ssm":
             B = tokens.shape[0]
             if block_table is None:
                 block_table = torch.arange(B, dtype=torch.int32,
                                            device=x.device)[:, None]
             if seq_lens is None:
                 seq_lens = (pos.expand(B) + 1).to(torch.int32)
+        if cfg.family == "hybrid":
+            return self._decode_hybrid(params, cache, x, pos, block_table,
+                                       seq_lens)
+        if cfg.family in ATTENTION_STACKS:
             ring_lens = (torch.clamp(seq_lens, max=cache["k_l"].shape[2])
                          if "k_l" in cache else None)
             for i in range(cfg.n_layers):
@@ -812,13 +1052,45 @@ class Model(nn.Module):
                 x = x + self._mlp(h, lp)
             return self._head(params, x), cache
         for i in range(cfg.n_layers):
-            lp = self._layer(params, i)
-            h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            y, conv, state, bc = ssm.decode_step(
-                h, lp["ssm"], cfg, cache["conv"][i], cache["ssm"][i],
-                cache["bc_conv"][i], policy=self.policy)
-            cache["conv"][i].copy_(conv)
-            cache["ssm"][i].copy_(state)
-            cache["bc_conv"][i].copy_(bc)
-            x = x + y
+            x = self._decode_mamba(params, cache, x, i)
+        return self._head(params, x), cache
+
+    def _decode_mamba(self, params, cache, x, i: int):
+        """Mamba layer ``i``'s decode step on the dense cache's states,
+        updated in place."""
+        cfg = self.cfg
+        lp = self._layer(params, i)
+        h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, conv, state, bc = ssm.decode_step(
+            h, lp["ssm"], cfg, cache["conv"][i], cache["ssm"][i],
+            cache["bc_conv"][i], policy=self.policy)
+        cache["conv"][i].copy_(conv)
+        cache["ssm"][i].copy_(state)
+        cache["bc_conv"][i].copy_(bc)
+        return x + y
+
+    def _decode_hybrid(self, params, cache, x, pos, block_table, seq_lens):
+        """The hybrid's decode step, in the reference's static groups: each
+        site's mamba layers, then the shared block attending on the site's
+        ``k``/``v`` through the paged-decode kernel (each slot's row one
+        page) and its MLP in ``glu_mlp``'s bf16 product; then the tail."""
+        cfg = self.cfg
+        sp = self._shared(params)
+        every = cfg.attn_every
+        n_sites = cfg.n_layers // every
+        for s in range(n_sites):
+            for i in range(s * every, (s + 1) * every):
+                x = self._decode_mamba(params, cache, x, i)
+            h = layers.rms_norm(x, sp["ln1"], cfg.norm_eps)
+            a, _, _ = attention.decode(
+                h, sp["attn"], cfg, cache["k"][s], cache["v"][s], pos,
+                policy=self.policy, block_table=block_table,
+                seq_lens=seq_lens)
+            x = x + a
+            h = layers.rms_norm(x, sp["ln2"], cfg.norm_eps)
+            w = sp["mlp"]
+            x = x + layers.glu_mlp(h, w["gate"], w["in"], w["out"],
+                                   act=cfg.act, policy=self.policy)
+        for i in range(n_sites * every, cfg.n_layers):
+            x = self._decode_mamba(params, cache, x, i)
         return self._head(params, x), cache

@@ -34,9 +34,10 @@ forward order).  The first stage alone embeds; the last alone runs
 ``final_norm -> unembed -> lm_loss`` (interior stages never allocate the
 fp32 ``(b_mb, T, V)`` logits).  Each stage runs its layers with their
 global indices (a windowed config's windows are the global layer's).
-The dense, moe and ssm families run; the others are ROADMAP queue 1, item
-11.  A moe stage carries its layers' aux loss as the reference's
-``_stage_apply`` does: its backward seeds each microbatch's aux with
+The dense, moe, audio and ssm families run; the hybrid and vlm families
+are refused, as the reference's ``_stage_apply`` refuses them.  A moe
+stage carries its layers' aux loss as the reference's ``_stage_apply``
+does: its backward seeds each microbatch's aux with
 ``router_aux_coef / (M * n_layers)`` (the reference's 1F1B cotangent
 scale), and the metrics' aux is its sum over the stages and the mean over
 the microbatches.
@@ -83,11 +84,13 @@ class _Geometry:
 
 def _stage_geometry(model, spec: PipelineSpec, mesh) -> _Geometry:
     cfg = model.cfg
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "audio", "ssm"):
+        # the reference's _stage_apply refuses them too: the hybrid's
+        # shared block cannot sit in one stage, and its stage body has no
+        # vision prefix
         raise NotImplementedError(
-            f"pipeline schedules for the {cfg.family!r} family: only the "
-            "dense, moe and ssm families are ported (ROADMAP queue 1, item "
-            "11)")
+            f"pipeline schedules do not support family {cfg.family!r} (nor "
+            "does the reference's pipeline)")
     n_local = cfg.n_layers // spec.n_stages
     s = mesh.coords[spec.axis]
     return _Geometry(s, spec.n_stages, s * n_local, n_local)

@@ -9,9 +9,11 @@
   ``Model.decode_step`` over all slots; the dense family's step attends
   through the paged-decode kernel with each slot's row as one page, under
   a (B, 1) table the engine makes once; a windowed config's local layers
-  the same way on their rings); ``paged=True`` gives each slot a
-  slot-major row of pages and prefills prompts chunk by chunk, and
-  refuses a windowed config, as the reference's does.
+  and the hybrid's sites the same way on their rings and K/V);
+  ``paged=True`` gives each slot a slot-major row of pages and prefills
+  prompts chunk by chunk, and refuses a windowed config and the ssm and
+  hybrid families, as the reference's does.  A vlm is served as text, as
+  the reference's engines serve it (``prefill`` without a prefix).
 - :class:`ContinuousEngine` — continuous batching: per-tick admission
   through the budget-governed :class:`~repro_torch.serve.scheduler.Scheduler`,
   one prefill chunk per tick for every mid-prefill sequence, lazy page
@@ -190,12 +192,12 @@ class Engine:
             self._decode = step("serve_decode", lambda: model.decode_step)
             self._prefill_one = step("serve_prefill",
                                      lambda: _make_prefill_fn(model))
-        # the dense KV cache (and a windowed config's rings) as one page
-        # per slot: the table is made once, seq_lens (pos + 1) is one
-        # host-to-device copy per step
+        # the dense KV cache (a windowed config's rings, the hybrid's
+        # sites) as one page per slot: the table is made once, seq_lens
+        # (pos + 1) is one host-to-device copy per step
         self._table = (torch.arange(batch_slots, dtype=torch.int32,
                                     device=self.device)[:, None]
-                       if not paged and model.cfg.family in ("dense", "moe")
+                       if not paged and model.cfg.family != "ssm"
                        else None)
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots

@@ -194,7 +194,8 @@ def test_input_specs_are_the_references(J, mesh_shape):
 def test_cells_are_the_references_filtered_to_the_ported_archs(J):
     ported = set(ported_archs())
     assert ported == {"qwen2-0.5b", "gemma-2b", "gemma3-27b", "qwen3-14b",
-                      "dbrx-132b", "deepseek-moe-16b", "mamba2-780m"}
+                      "dbrx-132b", "deepseek-moe-16b", "mamba2-780m",
+                      "zamba2-1.2b", "musicgen-medium", "internvl2-26b"}
     for skipped in (False, True):
         want = [c for c in J.cells(include_skipped=skipped)
                 if c[0] in ported]
