@@ -2,8 +2,8 @@
 """Drive the PyTorch/H100 port once on the card: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
-checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12``, ``13``, ``14`` and
-``15``, after phases 1 and 2).
+checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12``, ``13``, ``14``,
+``15`` and ``16``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -375,9 +375,9 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    2-D kernel per expert; timed beside the bound, the plain version and
    ``torch.bmm``.  (b) deepseek-moe-16b at full width and depth (28
    layers, 16.9 B parameters drawn on the card a layer at a time, every
-   earlier model freed) on phase 4's requests through the static
-   ``Engine`` on the dense cache and ``ContinuousEngine``: launch counts
-   (``matmul`` 309 per prefill call and decode step: 4 attention
+   earlier model freed) on the first 8 of phase 4's requests to 32 new
+   tokens through the static ``Engine`` on the dense cache and
+   ``ContinuousEngine``: launch counts (``matmul`` 309 per prefill call and decode step: 4 attention
    products, the router, 3 bank products, 3 shared-expert products a
    layer and the unembed; ``attention`` 28 per prefill call,
    ``paged_decode_attention`` 28 per decode step; 3 batched launches a
@@ -400,9 +400,9 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    64, paged decode on 8 slots; each against its plain version, timed
    beside its bound, its plain version and SDPA where one computes it.
    (a) zamba2-1.2b at full width and depth (38 layers, the shared block
-   at 6 sites, a 2-layer tail; 1,170,313,344 parameters) on phase 4's
-   requests through the static ``Engine`` on the dense cache, and the
-   first 8 to 32 new tokens through ``Session.serve`` (the Engine's first
+   at 6 sites, a 2-layer tail; 1,170,313,344 parameters) on the first 8
+   of phase 4's requests to 32 new tokens through the static ``Engine``
+   on the dense cache and through ``Session.serve`` (the Engine's
    tokens): launch counts (``matmul`` 233 per
    prefill and decode step: 5 a mamba layer, 7 a site, the unembed;
    ``ssd`` 38 and ``attention`` 6 per prefill; ``paged_decode_attention``
@@ -428,7 +428,44 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    residual and last logits against the CPU's; 2 train steps on one rank
    after the memory model's verdict, their launches; the static
    ``Engine`` on phase 4's requests as text.  Each part's seconds.
-16. Print the ``kernels`` JSON line, the card's name and power limit, and
+16. AlexNet, the paper's Table 1 network, and the robustness layer (also
+   alone: ``python3 chip_smoke.py 16``).  (a) AlexNet at full width on
+   one rank (224², 1,000 classes, fc 4,096, 62,369,152 parameters from
+   the seed): at 8 images the loss and every gradient leaf against the
+   CPU's plain versions, the FC leaves at tests/test_torch_convnet.py's
+   rule (the bf16 rule for all but 0.5% of a leaf, 5e-2 relative rms:
+   phase 6's rms; its largest-error rule fails where a ReLU or a pool
+   routes a row's gradient elsewhere), each conv's
+   output, input gradient and fp32 weight gradient on the same input and
+   upstream gradient at an fp32 rule (1e-4 of the largest: TF32 is off;
+   the conv leaves end to end printed: the pools' argmax moves where a
+   bf16 activation rounds the other way); at
+   128 images the ``value_and_grad`` step's median wall after the first,
+   images/s, the idle share of a profiled step, the peak, 9 GEMM
+   launches a step (3 forward, 6 backward), the conv stack's forward and
+   backward ms beside its fp32 CUDA-core bound, the FC head's 9 products
+   on the GEMM kernel beside ``torch.matmul``'s (timed only).  (b) The
+   same weights and batch on a (2,2) data x model mesh, four gloo ranks
+   on the card: the loss and every rank's FC gradient blocks against
+   (a)'s by that rule, its conv leaves against half the sum of one rank's
+   gradients on each data coordinate's 64 rows (the convs at the mesh's
+   batch) and printed against (a)'s; the bytes each rank received equal to
+   ``convnet.wire_bytes`` (the layouts' estimate).  (c) qwen2-0.5b at
+   full width cut to 4 layers, one rank, 8 steps of 2 x 256 tokens: the
+   no-fault oracle; a NaN step and a collective timeout recovered with
+   the oracle's losses bitwise (the rollback snapshot refreshed every 2
+   steps; the other runs take one an attempt); a torn checkpoint
+   (``ckpt_every=2``) restarted by ``ElasticRunner`` from step 4 with
+   the oracle's losses;
+   a straggler burst escalated to ``StepAbort("watchdog_escalation")``
+   with an early checkpoint (its only one), then restarted; ``recovery_s``,
+   ``steps_lost``, the snapshot's bytes and ms a step, each checkpoint's
+   write ms.  (d) Phase 4's model and requests on the
+   ``ContinuousEngine`` under an ``arm_engine`` pool storm (every free
+   page for 24 ticks) with two already-expired requests: preemptions
+   counted, the two shed with ``DeadlineExceeded``, every admitted
+   request's tokens bitwise a storm-free run's.  Each part's seconds.
+17. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -456,6 +493,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, scale_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
@@ -7294,9 +7332,10 @@ def moe_depth_check(cfg, params):
 def serve_moe():
     """Phase 14 (b): deepseek-moe-16b at full width and depth (28 layers,
     64 routed experts top-6 and 2 shared, 16.9 B parameters drawn on the
-    card a layer at a time from the seed, every earlier model freed),
-    phase 4's 16 requests through the static ``Engine`` on the dense cache
-    (8 slots, ``max_seq`` 1,024) and through ``ContinuousEngine``: launch
+    card a layer at a time from the seed, every earlier model freed), the
+    first 8 of phase 4's requests to 32 new tokens (``SHORT_REQUESTS``)
+    through the static ``Engine`` on the dense cache (8 slots,
+    ``max_seq`` 1,024) and through ``ContinuousEngine``: launch
     counts (``matmul`` 309 per prefill call and decode step, ``attention``
     28 per prefill call, ``paged_decode_attention`` 28 per decode step),
     serve numbers, a decode step split beside its weight bound, every
@@ -7325,7 +7364,8 @@ def serve_moe():
         batched0 = gemm_mod.batched_launches
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        fin, dt, steps = serve(cls, model, params, requests(cfg))
+        fin, dt, steps = serve(cls, model, params, requests(
+            cfg, SHORT_NEW_TOKENS)[:SHORT_REQUESTS])
         got = ops.dispatch_report()
         batched = gemm_mod.batched_launches - batched0
         peak = torch.cuda.max_memory_allocated()
@@ -7548,8 +7588,9 @@ INTERNVL_LAYERS, INTERNVL_BATCH, INTERNVL_TEXT = 4, 2, 512
 # 6,144 x 16,384 over 3,072 positions take seconds a layer)
 INTERNVL_CPU_LAYERS = 1
 INTERNVL_TRAIN_PATH = f"{INTERNVL} train ({INTERNVL_LAYERS} layers, 1 rank)"
-# musicgen's three engines, and zamba2's Session.serve, on the first 8 of
-# phase 4's requests to 32 new tokens (one wave of 8 slots): the whole
+# musicgen's three engines, zamba2's Engine and Session.serve, and
+# deepseek-moe-16b's two engines (phase 14), on the first 8
+# of phase 4's requests to 32 new tokens (one wave of 8 slots): the whole
 # script stays inside its time limit
 SHORT_REQUESTS, SHORT_NEW_TOKENS = SLOTS, 32
 
@@ -7857,9 +7898,9 @@ def zamba_step_bound(cfg, params, lens):
 def serve_zamba():
     """Phase 15 (a): zamba2-1.2b at full width and depth (38 layers, the
     shared block at 6 sites, a 2-layer tail; 1,170,313,344 parameters
-    drawn on the card from the seed) on phase 4's 16 requests through the
-    static ``Engine`` on the dense cache, and the first 8 to 32 new tokens
-    through ``Session.serve`` (the Engine's first tokens): launch counts,
+    drawn on the card from the seed) on the first 8 of phase 4's requests
+    to 32 new tokens through the static ``Engine`` on the dense cache, and
+    through ``Session.serve`` (the Engine's tokens): launch counts,
     serve numbers, the decode step split
     beside its bound, every kernel call of 8 one-slot prefills and a
     decode step against its plain version (the SSD forward's too),
@@ -7878,7 +7919,8 @@ def serve_zamba():
     ops.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
-    fin, dt, steps = serve(Engine, model, params, requests(cfg))
+    fin, dt, steps = serve(Engine, model, params, requests(
+        cfg, SHORT_NEW_TOKENS)[:SHORT_REQUESTS])
     launches = ops.dispatch_report()
     peak = torch.cuda.max_memory_allocated()
     expect = hybrid_serve_launches(cfg, steps, len(fin))
@@ -8306,6 +8348,634 @@ def families_phase():
                          musicgen=music, internvl=vlm, seconds=t), paths
 
 
+# ---------------------------------------------------------------------------
+# phase 16: AlexNet (the paper's Table 1 network) and the robustness layer
+# ---------------------------------------------------------------------------
+
+ALEX_PARAMS, ALEX_CONV_PARAMS = 62_369_152, 3_747_200
+ALEX_CHECK_BATCH, ALEX_BATCH, ALEX_STEPS = 8, 128, 6
+ALEX_MESH, ALEX_RANKS = (2, 2), 4
+ALEX_PATH = "alexnet (1 rank, 128 images)"
+ALEX_MESH_PATH = "alexnet ((2,2) mesh, 4 ranks, 128 images)"
+# tests/test_torch_convnet.py's gradient rule: the bf16 rule (2e-2 of
+# each value plus 2e-2 of the leaf's largest) for all but 0.5% of each
+# leaf's elements, and CPU_GRAD_TOL relative rms.  fp32 sums in another
+# order round some bf16 activations the other way, and a ReLU input or a
+# max-pool window's top two within that ulp pass or send a whole row's
+# gradient elsewhere: phase 6's rule on the largest error does not hold
+# here (on an H100, fc2_w's largest error card against CPU was 13.4% of
+# the largest, on 0.02% of its elements, at 1.7% relative rms)
+ALEX_RULE, ALEX_OUTSIDE = 2e-2, 5e-3
+# each conv, card against CPU on the same input and the same upstream
+# gradient: its fp32 output, input gradient and weight gradient, as a
+# fraction of the largest of each: fp32 sums of up to 8 x 56 x 56
+# products in another order; a TF32 product (10 mantissa bits) would
+# miss it.  End to end the conv leaves part by more than either rule
+# (on an H100 conv0_w parted by 5.7% rms card against CPU, and by 4.5%
+# at (2,2) against one rank, whose convs run at another batch): where
+# about 2% of
+# the bf16 activations round the other way, the 3 x 3 max-pools' argmax
+# moves wherever a window's top two sit within an ulp and sends that
+# window's gradient to another position.  They are printed; at (2,2)
+# they are held by the rule against the one-rank gradients of each
+# rank's own rows (the same convs at the same batch), summed over data
+CONV_FP32_TOL = 1e-4
+# the reference's own spread, its (2,2) against its (1,1) at scale_down 8
+# on the CPU (4 fake devices, tests/test_torch_convnet.py's inputs): the
+# loss equal, every gradient within 0.28% of its leaf's largest
+REF_MESH_SPREAD = 2.8e-3
+# the drills: qwen2-0.5b at full width cut to 4 layers, one rank.  Its
+# 4.65 GB train state takes seconds to write to a checkpoint (1.4-2.9 s
+# on an H100's host) and its first two pinned snapshots ~2 s each, so
+# the NaN drill refreshes the snapshot every DRILL_SNAPSHOT_EVERY steps,
+# the drills that never roll back take one an attempt
+# (snapshot_every=0), and only the torn drill checkpoints every
+# DRILL_EVERY steps (the straggler drill's one checkpoint is its
+# escalation's)
+DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY = 4, 8, 2
+DRILL_SNAPSHOT_EVERY = 2
+DRILL_BATCH, DRILL_SEQ = 2, 256
+DRILL_PATH = (f"{ARCH} drills ({DRILL_LAYERS} layers, 1 rank, "
+              f"{DRILL_STEPS} steps a run)")
+# the serve drill: phase 4's model and requests; every free page stolen at
+# tick 30 for 24 ticks (two preemptions in a CPU run of the same lengths)
+STORM = dict(seam="serve.pool_storm", step=30, magnitude=128, duration=24)
+STORM_PATH = f"{ARCH} serve drill (pool storm, {SERVE_LAYERS} layers)"
+ROBUST_DIR = TRAIN_DIR / "robust"
+
+
+def alex_plan():
+    from repro_torch.core.planner import ParallelPlan
+    return ParallelPlan(batch_axes=("data",), tp_axis="model",
+                        attn_mode="none", fsdp=False,
+                        seq_parallel_residual=False)
+
+
+def alex_batch(n: int, seed: int):
+    """``n`` NHWC 224² images (bf16, from the seed) and their labels."""
+    return (randn((n, 224, 224, 3), seed),
+            torch.randint(0, 1000, (n,), generator=gen(seed + 1),
+                          device="cuda"))
+
+
+def conv_flops(batch: int, img: int = 224) -> float:
+    """FLOPs of the conv stack's products for a forward and backward on
+    ``batch`` images: 2 per multiply-add, forward, weight gradient and
+    (but for the first, whose input is the images) input gradient."""
+    from repro_torch.models import convnet
+    h, c_in, flops = img, 3, 0.0
+    for i, (c_out, k, s, pool) in enumerate(convnet.CONV_STAGES):
+        h = -(-h // s)
+        macs = batch * h * h * c_out * k * k * c_in
+        flops += 2 * macs * (3 if i else 2)
+        if pool:
+            h = (h - convnet.POOL) // convnet.POOL_STRIDE + 1
+        c_in = c_out
+    return flops
+
+
+def fc_products(batch: int, params):
+    """The FC head's 9 products a step, (M, K, N) with their operands'
+    roles: 3 forward, then each one's dA = dC Bᵀ and dB = Aᵀ dC."""
+    dims = [tuple(params[f"fc{i}_w"].shape) for i in (1, 2, 3)]
+    fwd = [(batch, k, n) for k, n in dims]
+    bwd = [p for (m, k, n) in fwd for p in ((m, n, k), (k, m, n))]
+    return fwd + bwd
+
+
+def leaf_stats(got: torch.Tensor, want: torch.Tensor, what: str) -> dict:
+    """Relative rms, the largest error over the largest value, and the
+    share of elements outside :data:`ALEX_RULE`."""
+    got, want = got.float(), want.float()
+    require(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    d = (got - want).abs()
+    big = float(want.abs().max())
+    return dict(rel_rms=float((got - want).norm() / want.norm()),
+                max_abs_frac=float(d.max()) / big,
+                outside_frac=float((d > ALEX_RULE * (want.abs() + big))
+                                   .float().mean()))
+
+
+def convnet_rule(got: torch.Tensor, want: torch.Tensor, what: str,
+                 failed: list) -> dict:
+    """:data:`ALEX_RULE` for all but :data:`ALEX_OUTSIDE` of the elements
+    and ``CPU_GRAD_TOL`` relative rms; a miss is appended to ``failed``."""
+    out = leaf_stats(got, want, what)
+    if out["outside_frac"] > ALEX_OUTSIDE or out["rel_rms"] > CPU_GRAD_TOL:
+        failed.append(f"{what}: {out} (rule {ALEX_RULE}, outside <= "
+                      f"{ALEX_OUTSIDE}, rms <= {CPU_GRAD_TOL})")
+    return out
+
+
+def conv_stages_against_cpu(params, images, failed: list) -> dict:
+    """Each conv on the card against the CPU on the same NCHW input (the
+    card's previous stage, moved) and the same upstream gradient (seeded,
+    fp32): its output, input gradient and fp32 weight gradient, each as a
+    fraction of the largest, held to :data:`CONV_FP32_TOL`."""
+    from repro_torch.models import convnet
+    x = images.permute(0, 3, 1, 2)
+    out = {}
+    for i, (_, _, _, pool) in enumerate(convnet.CONV_STAGES):
+        name = f"conv{i}_w"
+        res = []
+        for dev in ("cuda", "cpu"):
+            w = params[name].float().to(dev).requires_grad_(True)
+            xin = x.float().to(dev).requires_grad_(True)
+            y = convnet.conv_stage({name: w}, i, xin)
+            g = randn(y.shape, SEED + 80 + i, dtype=torch.float32).to(dev)
+            dx, dw = torch.autograd.grad(y, (xin, w), g)
+            res.append([t.detach().cpu() for t in (y, dx, dw)])
+        errs = {k: float((c - p).abs().max() / p.abs().max())
+                for k, c, p in zip(("output", "input_grad", "weight_grad"),
+                                   *res)}
+        out[f"conv{i}"] = errs
+        if max(errs.values()) > CONV_FP32_TOL:
+            failed.append(f"conv{i}: card against CPU {errs} of the largest "
+                          f"(tolerance {CONV_FP32_TOL})")
+        with torch.no_grad():
+            y = convnet.conv_stage(params, i, x)
+            b = params[f"conv{i}_b"].float()
+            x = torch.relu(y + b[:, None, None]).to(torch.bfloat16)
+            if pool:
+                x = torch.nn.functional.max_pool2d(x, 3, 2)
+    return out
+
+
+def alexnet_one_rank(failed: list):
+    """Phase 16 (a): AlexNet at full width on one rank; saves the batch's
+    gradients for (b).  Returns (summary, launches of one step); the
+    checks that miss are appended to ``failed``."""
+    from repro_torch.kernels.roofline import FP32_FLOPS, matmul_cost
+    from repro_torch.models import convnet
+    plan = alex_plan()
+    params = convnet.init(SEED, plan, None, device="cuda")
+    n = sum(v.numel() for v in params.values())
+    n_conv = sum(v.numel() for k, v in params.items() if k.startswith("conv"))
+    require((n, n_conv) == (ALEX_PARAMS, ALEX_CONV_PARAMS),
+            f"alexnet: {n} parameters, {n_conv} in the conv stack")
+    out = dict(params=n, conv_params=n_conv)
+    # card against the CPU's plain versions at 8 images
+    t0 = time.perf_counter()
+    imgs, labels = alex_batch(ALEX_CHECK_BATCH, SEED + 60)
+    out["conv_fp32_err_by_stage"] = conv_stages_against_cpu(params, imgs,
+                                                             failed)
+    lc, gc = convnet.value_and_grad(params, imgs, labels, plan)
+    lp, gp = convnet.value_and_grad({k: v.cpu() for k, v in params.items()},
+                                    imgs.cpu(), labels.cpu(), plan)
+    lc, lp = float(lc), float(lp)
+    if abs(lc - lp) > CPU_LOSS_RTOL * abs(lp):
+        failed.append(f"alexnet card vs cpu: loss {lc} vs {lp}")
+    out["against_cpu"] = dict(
+        batch=ALEX_CHECK_BATCH, loss_card=lc, loss_cpu=lp,
+        fc_leaves={k: convnet_rule(gc[k].cpu(), gp[k], f"alexnet {k}",
+                                   failed)
+                   for k in gc if k.startswith("fc")},
+        conv_leaves_printed={k: leaf_stats(gc[k].cpu(), gp[k], k)
+                             for k in gc if k.startswith("conv")},
+        seconds=time.perf_counter() - t0)
+    del gc, gp
+    # the step at 128 images
+    imgs, labels = alex_batch(ALEX_BATCH, SEED + 61)
+
+    def step():
+        return convnet.value_and_grad(params, imgs, labels, plan)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(ALEX_STEPS):
+        if i == ALEX_STEPS - 1:
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    launches = ops.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["matmul"] != 9 or any(
+            v for k, v in launches.items() if k != "matmul"):
+        failed.append(f"alexnet: launches {launches}, expected 9 GEMM "
+                      "products a step (3 forward, 6 backward)")
+    wall = statistics.median(walls[1:])
+    prof, lo, hi = profiled_step(step)
+    busy = union_ns(device_intervals(prof), lo, hi)
+    fams = device_breakdown(prof, busy=("gemm",))
+    # the conv stack's forward and backward alone (bias, ReLU and pools
+    # with it), device ms by CUDA events
+    conv_leaves = {k: v.detach().requires_grad_(k.startswith("conv"))
+                   for k, v in params.items()}
+    names = [k for k in conv_leaves if k.startswith("conv")]
+
+    def conv_fwd_bwd():
+        feats = convnet._features(conv_leaves, imgs)
+        return torch.autograd.grad(feats.float().sum(),
+                                   [conv_leaves[k] for k in names])
+
+    conv_fwd_bwd()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        conv_fwd_bwd()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    flops = conv_flops(ALEX_BATCH)
+    # the FC head's 9 products: the GEMM in the step, and torch.matmul's
+    # time for the same products (timed only)
+    prods = fc_products(ALEX_BATCH, params)
+    ab = [(randn((m, k), SEED + 70 + i), randn((k, nn), SEED + 90 + i))
+          for i, (m, k, nn) in enumerate(prods)]
+    kernel_ms = sum(cuda_ms([lambda a=a, b=b: ops.matmul(a, b, torch.float32)
+                             ], 5) for a, b in ab)
+    torch_ms = sum(cuda_ms([lambda a=a, b=b: torch.matmul(a, b)], 5)
+                   for a, b in ab)
+    fc_bytes, fc_flops = (sum(c) for c in zip(*(matmul_cost(*p)
+                                                 for p in prods)))
+    ops.reset_launches()
+    out.update(
+        loss=float(loss), step_wall_ms_median=wall, step_wall_ms=walls,
+        images_per_s=ALEX_BATCH / wall * 1e3,
+        device_busy_ms=busy / 1e6, device_idle_share=1 - busy / (hi - lo),
+        device_ms_by_family=fams, peak_gib=peak / 2**30, launches=launches,
+        conv_stack_fwd_bwd_ms=statistics.median(times),
+        conv_stack_gflop=flops / 1e9,
+        conv_stack_fp32_bound_ms=flops / FP32_FLOPS * 1e3,
+        fc_products=[list(p) for p in prods],
+        fc_gemm_kernel_ms=kernel_ms, fc_torch_matmul_ms=torch_ms,
+        fc_bound_ms=roofline.bound(fc_bytes, fc_flops)[0])
+    ROBUST_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save({"loss": loss.cpu(),
+                "grads": {k: v.cpu() for k, v in grads.items()}},
+               ROBUST_DIR / "alexnet_one_rank.pt")
+    print("alexnet one rank " + json.dumps(out), flush=True)
+    del params, grads, conv_leaves, ab
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def alexnet_rank(rank, init, result_path):
+    """One rank of phase 16 (b): AlexNet on the (2,2) mesh at 128 images,
+    against (a)'s one-rank gradients; writes JSON to ``result_path``."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.core.distributed import Mesh, close_group, init_group
+    from repro_torch.core.layout import batch_block
+    from repro_torch.models import convnet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_group(init, rank=rank, world_size=ALEX_RANKS)
+    mesh = Mesh(ALEX_MESH, ("data", "model"), dist.group.WORLD)
+    plan = alex_plan()
+    params = convnet.init(SEED, plan, mesh, device="cuda")
+    imgs, labels = alex_batch(ALEX_BATCH, SEED + 61)
+    walls = []
+    for i in range(3):
+        if i == 2:
+            ops.reset_launches()
+            D.WIRE.reset()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = convnet.value_and_grad(params, imgs, labels, plan,
+                                             mesh=mesh)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    launches = ops.dispatch_report()
+    wire = dict(D.WIRE.bytes)
+    one = torch.load(ROBUST_DIR / "alexnet_one_rank.pt")
+    lays = convnet.param_layouts(plan)
+    leaves, spread = {}, 0.0
+    for k, g in grads.items():
+        want = lays[k].block(one["grads"][k], mesh)
+        leaves[k] = leaf_stats(g.cpu(), want, f"alexnet (2,2) rank {rank} {k}")
+        spread = max(spread, leaves[k]["max_abs_frac"])
+    # one rank's step on this rank's own rows (whole weights, no mesh):
+    # its conv leaves' gradients, for the sum over data
+    rows = [batch_block(t, mesh, plan.batch_axes) for t in (imgs, labels)]
+    _, g_rows = convnet.value_and_grad(
+        convnet.init(SEED, plan, None, device="cuda"), *rows, plan)
+    torch.save({k: (grads[k].cpu(), g_rows[k].cpu()) for k in grads
+                if k.startswith("conv")},
+               ROBUST_DIR / f"alexnet_conv_rank{rank}.pt")
+    out = dict(rank=rank, coords=mesh.coords, loss=float(loss),
+               loss_one_rank=float(one["loss"]), step_wall_ms=walls,
+               launches=launches, wire_bytes=wire,
+               wire_estimate=convnet.wire_bytes(params, ALEX_BATCH, plan,
+                                                mesh),
+               leaves=leaves, max_abs_frac=spread)
+    Path(result_path.format(rank)).write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def alexnet_mesh(failed: list):
+    """Phase 16 (b): four gloo ranks on the card, (data=2, model=2); the
+    checks that miss are appended to ``failed``."""
+    import torch.multiprocessing as mp
+    init = f"file://{ROBUST_DIR / 'rendezvous_alexnet'}"
+    (ROBUST_DIR / "rendezvous_alexnet").unlink(missing_ok=True)
+    results = [ROBUST_DIR / f"alexnet_rank{r}.json"
+               for r in range(ALEX_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(alexnet_rank,
+             args=(init, str(ROBUST_DIR / "alexnet_rank{}.json")),
+             nprocs=ALEX_RANKS, join=True)
+    ranks = [json.loads(f.read_text()) for f in results]
+    convs = [torch.load(ROBUST_DIR / f"alexnet_conv_rank{r}.pt")
+             for r in range(ALEX_RANKS)]
+    for f in results + [ROBUST_DIR / "alexnet_one_rank.pt"] + [
+            ROBUST_DIR / f"alexnet_conv_rank{r}.pt"
+            for r in range(ALEX_RANKS)]:
+        f.unlink()
+    # each rank's conv leaves against half the sum of the one-rank
+    # gradients of the two data coordinates' rows (each a mean over 64)
+    by_data = {r["coords"]["data"]: convs[i] for i, r in enumerate(ranks)}
+    summed = []
+    for i, r in enumerate(ranks):
+        st = {}
+        for k, (mesh_g, _) in convs[i].items():
+            want = 0.5 * (by_data[0][k][1].float() + by_data[1][k][1].float())
+            st[k] = convnet_rule(mesh_g, want, f"alexnet (2,2) rank "
+                                 f"{r['rank']} {k} against its rows'", failed)
+        summed.append(max(v["rel_rms"] for v in st.values()))
+    for r in ranks:
+        what = f"alexnet (2,2) rank {r['rank']}"
+        if abs(r["loss"] - r["loss_one_rank"]) \
+                > CPU_LOSS_RTOL * abs(r["loss_one_rank"]):
+            failed.append(f"{what}: loss {r['loss']} against one rank's "
+                          f"{r['loss_one_rank']}")
+        if r["wire_bytes"] != r["wire_estimate"]:
+            failed.append(f"{what}: bytes {r['wire_bytes']} against the "
+                          f"layouts' {r['wire_estimate']}")
+        if r["launches"]["matmul"] != 9:
+            failed.append(f"{what}: launches {r['launches']}")
+        for k, st in r["leaves"].items():
+            if k.startswith("fc") and (st["outside_frac"] > ALEX_OUTSIDE
+                                       or st["rel_rms"] > CPU_GRAD_TOL):
+                failed.append(f"{what} {k}: {st} (rule {ALEX_RULE}, outside "
+                              f"<= {ALEX_OUTSIDE}, rms <= {CPU_GRAD_TOL})")
+    if len({r["loss"] for r in ranks}) != 1:
+        failed.append("alexnet (2,2): the ranks' losses differ")
+    out = dict(mesh=dict(zip(("data", "model"), ALEX_MESH)),
+               backend="gloo (host memory), one card",
+               loss=ranks[0]["loss"], loss_one_rank=ranks[0]["loss_one_rank"],
+               step_wall_ms_by_rank=[r["step_wall_ms"] for r in ranks],
+               wire_bytes_by_rank=[r["wire_bytes"] for r in ranks],
+               wire_estimate_by_rank=[r["wire_estimate"] for r in ranks],
+               max_abs_frac_by_rank=[r["max_abs_frac"] for r in ranks],
+               conv_against_rows_worst_rel_rms_by_rank=summed,
+               reference_own_spread=REF_MESH_SPREAD,
+               worst_leaf_by_rank=[max(r["leaves"].items(),
+                                       key=lambda kv: kv[1]["rel_rms"])
+                                   for r in ranks],
+               seconds=time.perf_counter() - t0)
+    print("alexnet (2,2) " + json.dumps(out), flush=True)
+    return out, {k: sum(r["launches"][k] for r in ranks)
+                 for k in ranks[0]["launches"]}
+
+
+class TimedCheckpoints(CheckpointManager):
+    """A ``CheckpointManager`` that records each snapshot's write (the
+    disk part, on the writer thread or blocking) in ms by step."""
+
+    def __init__(self, directory):
+        super().__init__(str(directory))
+        self.write_ms = {}
+
+    def _write(self, step, manifest, host):
+        t0 = time.perf_counter()
+        super()._write(step, manifest, host)
+        self.write_ms[step] = 1e3 * (time.perf_counter() - t0)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def drills():
+    """Phase 16 (c): the train drills on qwen2-0.5b at full width, cut to
+    ``DRILL_LAYERS`` layers, one rank: a no-fault oracle; a NaN step and
+    a collective timeout recovered bitwise; a torn checkpoint restarted by
+    ``ElasticRunner``; a straggler burst escalated and restarted.
+    Returns (summary, launches over the runs)."""
+    from repro_torch import faults as F
+    from repro_torch import obs as obs_mod
+    from repro_torch.api import Session
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import (ElasticRunner, ResilienceConfig,
+                                   ResilientStepLoop, StepTimeWatchdog)
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=DRILL_LAYERS)
+    adamw = opt.AdamWConfig(lr=opt.warmup_cosine(TRAIN_PEAK, TRAIN_WARMUP,
+                                                 DRILL_STEPS))
+    snap_ms = []
+
+    class Timed(Session):
+        def snapshot_state(self, name="train_state"):
+            t0 = time.perf_counter()
+            out = super().snapshot_state(name)
+            snap_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+    def factory(obs):
+        def make(attempt):
+            sess = Timed(device="cuda", obs=obs)
+            return sess, sess.plan(cfg, batch=DRILL_BATCH, seq=DRILL_SEQ,
+                                   comms="off", adamw=adamw)
+        return make
+
+    def data():
+        return SyntheticLM(cfg.vocab_size, DRILL_BATCH, DRILL_SEQ,
+                           seed=SEED, structured=True)
+
+    rcfg = dict(backoff_base_s=0.05)
+    counters = ("resil.retries", "resil.nonfinite", "resil.rollbacks",
+                "resil.anomalies", "resil.aborts", "resil.skipped_steps",
+                "resil.torn_checkpoints")
+    out = {}
+    ops.reset_launches()
+    # the oracle, and the NaN step + the timeout on one loop
+    runs = {}
+    for name, specs, every in (("oracle", [], 0), ("nonfinite_timeout", [
+            F.FaultSpec("train.nonfinite", step=2),
+            F.FaultSpec("comms.timeout", step=3)], DRILL_SNAPSHOT_EVERY)):
+        obs = obs_mod.Obs(name=f"drill/{name}")
+        sess, plan = factory(obs)(0)
+        sess.init_state(plan, seed=SEED)
+        faults = F.FaultPlan(specs) if specs else None
+        t0 = time.perf_counter()
+        res = ResilientStepLoop(
+            sess, plan, faults=faults,
+            config=ResilienceConfig(**rcfg, snapshot_every=every)).run(
+            iter(data()), start_step=0, steps=DRILL_STEPS)
+        runs[name] = res
+        out[name] = dict(losses=res["losses"], skipped=res["skipped"],
+                         counters={k: obs.counter(k).value
+                                   for k in counters},
+                         seconds=time.perf_counter() - t0)
+        if name == "oracle":
+            out["snapshot_bytes"] = tree_bytes(sess.get("train_state"))
+        del sess, plan
+    oracle = runs["oracle"]["losses"]
+    got = out["nonfinite_timeout"]
+    require(got["losses"] == oracle and got["skipped"] == [],
+            f"drill: the NaN and timeout run's losses {got['losses']} are "
+            f"not the oracle's {oracle}")
+    require(got["counters"]["resil.rollbacks"] == 1
+            and got["counters"]["resil.retries"] == 1,
+            f"drill: counters {got['counters']}")
+    # the torn checkpoint, and the straggler burst, through ElasticRunner
+    for name, specs, every, kw in (
+            ("torn_checkpoint", [F.FaultSpec("checkpoint.torn", step=6)],
+             DRILL_EVERY, {}),
+            ("straggler_escalation", [
+                F.FaultSpec("train.straggler", step=5, magnitude=0.5),
+                F.FaultSpec("train.straggler", step=6, magnitude=1.5)],
+             0, dict(anomaly_window=8, anomaly_limit=2))):
+        obs = obs_mod.Obs(name=f"drill/{name}")
+        d = ROBUST_DIR / name
+        shutil.rmtree(d, ignore_errors=True)
+        mgr = TimedCheckpoints(d)
+        faults = F.FaultPlan(specs)
+        t0 = time.perf_counter()
+        res = ElasticRunner(
+            factory(obs), data, ckpt=mgr, steps=DRILL_STEPS,
+            ckpt_every=every,
+            config=ResilienceConfig(**rcfg, **kw, snapshot_every=0),
+            faults=faults,
+            seed=SEED,
+            watchdog_factory=lambda: StepTimeWatchdog(warmup_steps=3)
+        ).run()
+        mgr.wait()
+        out[name] = dict(
+            losses=res["losses"], skipped=res["skipped"],
+            restarts=res["restarts"], attempts=res["attempts"],
+            counters={k: obs.counter(k).value for k in counters},
+            checkpoint_write_ms=mgr.write_ms, valid=mgr.valid_steps(),
+            seconds=time.perf_counter() - t0)
+        shutil.rmtree(d, ignore_errors=True)
+        require(res["losses"] == oracle and res["attempts"] == 2,
+                f"drill {name}: losses {res['losses']} against the "
+                f"oracle's {oracle}, attempts {res['attempts']}")
+    rec = out["torn_checkpoint"]["restarts"][0]
+    require((rec["reason"], rec["abort_step"], rec["restored_step"])
+            == ("checkpoint.torn", 6, 4), f"drill torn: {rec}")
+    rec = out["straggler_escalation"]["restarts"][0]
+    require(rec["reason"] == "watchdog_escalation"
+            and rec["checkpoint_step"] == rec["abort_step"] + 1
+            == rec["restored_step"],
+            f"drill straggler: {rec} (an escalation with an early "
+            "checkpoint, restored)")
+    launches = ops.dispatch_report()
+    out.update(snapshot_ms=snap_ms,
+               snapshot_ms_median=statistics.median(snap_ms),
+               recovery_s={k: out[k]["restarts"][0]["recovery_s"]
+                           for k in ("torn_checkpoint",
+                                     "straggler_escalation")},
+               steps_lost={k: out[k]["restarts"][0]["steps_lost"]
+                           for k in ("torn_checkpoint",
+                                     "straggler_escalation")},
+               launches=launches)
+    print("drills " + json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def storm_drive(eng, reqs):
+    """Drive ``eng`` to completion (preemptions allowed); the ticks."""
+    for r in reqs:
+        eng.submit(r)
+    ticks = 0
+    while eng.queue or any(r is not None for r in eng.active):
+        eng.step()
+        ticks += 1
+    torch.cuda.synchronize()
+    return ticks
+
+
+def serve_drill():
+    """Phase 16 (d): phase 4's model and requests on the
+    ``ContinuousEngine`` under an ``arm_engine`` pool storm, with two
+    already-expired requests; against a storm-free run of the same
+    requests.  Returns (summary, launches of the storm run)."""
+    from repro_torch import faults as F
+    from repro_torch.serve import DeadlineExceeded
+    scfg = dataclasses.replace(get_config(ARCH), n_layers=SERVE_LAYERS)
+    model = Model(scfg, device="cuda")
+    params = model.init(SEED)
+    kw = dict(batch_slots=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+              prefill_chunk=CHUNK)
+    clean = requests(scfg)
+    t0 = time.perf_counter()
+    clean_ticks = storm_drive(ContinuousEngine(model, params, **kw), clean)
+    clean_s = time.perf_counter() - t0
+    reqs = requests(scfg) + [
+        Request(rid=100 + i, prompt=np.zeros(64, np.int32),
+                max_new_tokens=8, deadline_s=1e-9) for i in range(2)]
+    eng = ContinuousEngine(model, params, **kw)
+    plan = F.FaultPlan([F.FaultSpec(**STORM)])
+    F.arm_engine(plan, eng)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    ticks = storm_drive(eng, reqs)
+    storm_s = time.perf_counter() - t0
+    launches = ops.dispatch_report()
+    preempted = {r.rid: r.n_preempted for r in reqs if r.n_preempted}
+    want = {r.rid: r.out for r in clean}
+    got = {r.rid: r.out for r in eng.finished}
+    out = dict(storm=STORM, injected=plan.injected(), ticks=ticks,
+               clean_ticks=clean_ticks, preemptions=sum(preempted.values()),
+               preempted=preempted, shed=sorted(r.rid for r in eng.shed),
+               refused=[r.rid for r in eng.refused],
+               seconds=storm_s, clean_seconds=clean_s, launches=launches)
+    print("serve drill " + json.dumps(out), flush=True)
+    require(plan.injected() == 1 and sum(preempted.values()) >= 1,
+            "serve drill: the storm preempted nothing")
+    require(out["shed"] == [100, 101] and all(
+        isinstance(r.refusal, DeadlineExceeded) for r in eng.shed),
+        "serve drill: the expired requests were not shed")
+    require(not eng.refused and got == want,
+            "serve drill: an admitted request's tokens differ from the "
+            "storm-free run's")
+    require(launches["matmul"] > 0 and launches["attention"] > 0
+            and launches["paged_decode_attention"] > 0,
+            f"serve drill: launches {launches}")
+    del model, params, eng
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def robust_phase():
+    """Phase 16: (a)-(d); returns (summary, launches by path)."""
+    t = {}
+    failed = []          # (a)'s and (b)'s misses, raised after (d)
+    t0 = time.perf_counter()
+    one, one_launches = alexnet_one_rank(failed)
+    t["a_alexnet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh, mesh_launches = alexnet_mesh(failed)
+    t["b_alexnet_mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drill, drill_launches = drills()
+    t["c_drills"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    storm, storm_launches = serve_drill()
+    t["d_serve_drill"] = time.perf_counter() - t0
+    print(f"phase 16 seconds by part: {json.dumps(t)}", flush=True)
+    require(not failed, "phase 16: " + "; ".join(failed))
+    return (dict(alexnet=one, alexnet_mesh=mesh, drills=drill,
+                 serve_drill=storm, seconds=t),
+            {ALEX_PATH: one_launches, ALEX_MESH_PATH: mesh_launches,
+             DRILL_PATH: drill_launches, STORM_PATH: storm_launches})
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
@@ -8316,7 +8986,7 @@ ALONE = {"d256": lambda: print(json.dumps(
          "6c": lambda: (check_ssd_backward(), train_mamba2()),
          "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
          "12": session_phase, "13": pipe_phase, "14": moe_phase,
-         "15": families_phase}
+         "15": families_phase, "16": robust_phase}
 
 
 def main() -> int:
@@ -8496,6 +9166,13 @@ def main() -> int:
     t15 = time.perf_counter()
     zk, families, family_paths = families_phase()
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # 16. AlexNet at full width and the robustness layer
+    t16 = time.perf_counter()
+    _, robust_paths = robust_phase()
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # 17. results
     ssd_bwd = next(r for r in rows if r["name"] == "ssd_backward")
     attn_bwd = next(r for r in rows if r["name"] == "attention_backward")
     rows[3]["zamba2"] = {k: {kk: vv for kk, vv in v.items()
@@ -8587,7 +9264,8 @@ def main() -> int:
              MAMBA_TRAIN_PATH: mamba_train_launches, DP_PATH: dp_launches,
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
              SCHED_PATH: sched_launches, PIPE_PATH: pipe_launches,
-             **session_launches, **moe_paths, **family_paths}
+             **session_launches, **moe_paths, **family_paths,
+             **robust_paths}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}

@@ -38,6 +38,11 @@ fake tensors (:mod:`repro_torch.core.dry`) without running it;
 cache.  The reference's telemetry sites are here: the ``plan``,
 ``build_step``, ``lower`` and ``step`` / ``step_warmup`` spans (a step
 span closes after the card's work) and :meth:`Session.publish_metrics`.
+:meth:`Session.snapshot_state` and :meth:`Session.restore_state` keep
+and put back a host copy of a persistent tree (the resilient loop's
+rollback point; a restore re-blocks global arrays onto the session's
+mesh), and :attr:`Session.last_step_compiled` says whether the last step
+built its op-cache entry.
 """
 
 from __future__ import annotations
@@ -51,10 +56,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import obs as obs_mod
+from repro_torch.checkpoint.manager import blocks_of
 from repro_torch.configs import (SHAPES, ShapeConfig, default_microbatches,
                                  get_config, scale_config)
 from repro_torch.core import memory as mem_mod
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import host_copy, resolve_device
 from repro_torch.core.dtensor import DistTensor, TensorRegistry
 from repro_torch.core.layout import Layout
 from repro_torch.core.opcache import OpCache
@@ -136,6 +142,9 @@ class Session:
         # spans and gauges flow through here; the NULL default keeps every
         # site a no-op (no timing, no synchronize) with telemetry off
         self.obs = obs if obs is not None else obs_mod.NULL
+        # whether the last step built its op-cache entry (the reference's
+        # compile-bearing step): the resilient loop's watchdog skips it
+        self.last_step_compiled = False
 
     def plan(self, arch, **kwargs) -> ExecutablePlan:
         """Plan one cell under the ``plan`` span; see :meth:`_plan` for
@@ -396,6 +405,7 @@ class Session:
                            path=plan.path) as sp:
             state, metrics = fn(self.state.get(name), batch)
             sp.block(metrics)
+        self.last_step_compiled = not warm
         self.state.update(name, state)
         if self.obs.enabled:
             self._publish_state()
@@ -449,6 +459,45 @@ class Session:
 
     def evict(self, name: str):
         return self.state.evict(name)
+
+    # ------------------------------------------------------------------
+    # resilience: host snapshots and rollback
+    # ------------------------------------------------------------------
+    def snapshot_state(self, name: str = "train_state"):
+        """A host copy of a persistent tree (CPU tensors; on a mesh, this
+        rank's blocks), the rollback point
+        :class:`repro_torch.train.resilience.ResilientStepLoop` keeps
+        between checkpoints.  Every leaf is cloned, on the CPU too: the
+        step updates the state in place, so a snapshot that shared its
+        storage would follow the state and make a rollback a no-op.  On
+        the card the copy is pinned (:func:`host_copy`)."""
+        snap = _map_tensors(host_copy, self.state.get(name))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return snap
+
+    def restore_state(self, snapshot, *, mesh=None, layouts=None,
+                      name: str = "train_state"):
+        """Put a host snapshot back on the session's device (copied, so
+        the snapshot stays a rollback point) and refresh the registry
+        entry.  Given a ``mesh`` and ``layouts`` (a tree of the snapshot's
+        structure, a :class:`Layout` per leaf), the snapshot holds global
+        arrays and each rank keeps its block: the re-shard onto another
+        mesh that ``CheckpointManager.restore(mesh=, layouts=)`` takes.
+        The params are marked to take gradients, as :meth:`init_state`
+        leaves them."""
+        if mesh is not None:
+            snapshot = blocks_of(snapshot, mesh, layouts)
+        value = _map_tensors(
+            lambda x: x.detach().to(self.device, copy=True), snapshot)
+        if isinstance(value, dict) and "params" in value:
+            for p in value["params"].values():
+                p.requires_grad_(True)
+        if name in self.state:
+            self.state.update(name, value)
+        else:
+            self.state.put(name, value, kind="train_state")
+        return value
 
     # ------------------------------------------------------------------
     # dryrun: trace the dispatched step on fake tensors
@@ -589,13 +638,19 @@ def _batch_leaf(v, device: torch.device) -> torch.Tensor:
     return t.to(device) if t.is_floating_point() else t.to(device, torch.long)
 
 
+def _map_tensors(fn, value):
+    """``value`` with ``fn`` applied to every tensor of its nested dicts,
+    lists and tuples."""
+    if isinstance(value, torch.Tensor):
+        return fn(value)
+    if isinstance(value, dict):
+        return {k: _map_tensors(fn, v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_map_tensors(fn, v) for v in value)
+    return value
+
+
 def _to_device(value, device: torch.device):
     """``value`` with every tensor on ``device`` (tensors already there are
     kept, not copied)."""
-    if isinstance(value, torch.Tensor):
-        return value.detach().to(device)
-    if isinstance(value, dict):
-        return {k: _to_device(v, device) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return type(value)(_to_device(v, device) for v in value)
-    return value
+    return _map_tensors(lambda x: x.detach().to(device), value)

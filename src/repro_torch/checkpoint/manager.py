@@ -41,6 +41,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.core.device import host_copy
 from repro_torch.models.params import flat_names, nest_names
 
 # dtypes numpy has no type for: moved as their bits
@@ -55,14 +56,25 @@ def _dtype_name(x) -> str:
 
 def _to_host(x) -> np.ndarray:
     """A copy of a tensor (or array) in host memory, as numpy: bf16 and
-    fp8 as their bits."""
-    if isinstance(x, np.ndarray):
+    fp8 as their bits.  A tensor on the card is copied into pinned memory
+    (:func:`~repro_torch.core.device.host_copy`); the caller synchronizes
+    before the copy is read."""
+    if isinstance(x, (np.ndarray, np.generic)):
         return np.array(x, copy=True)
-    t = x.detach().to("cpu", copy=True)
+    t = host_copy(x)
     name = _dtype_name(t)
     if name in _BITS:
         t = t.view(_BITS[name][1])
     return t.numpy()
+
+
+def _host_leaves(tree) -> Dict[str, np.ndarray]:
+    """Every leaf of ``tree`` copied to host memory by its key, the
+    copies from the card finished."""
+    host = {k: _to_host(v) for k, v in _flatten(tree).items()}
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return host
 
 
 def _encode(arr: np.ndarray) -> np.ndarray:
@@ -157,6 +169,12 @@ def _atexit_wait(ref: "weakref.ref") -> None:
         print(f"checkpoint: final async save failed at exit: {e}")
 
 
+def blocks_of(tree, mesh, layouts):
+    """This rank's block of every global leaf of ``tree`` in its layout
+    (``layouts``: the same structure, a :class:`Layout` per leaf)."""
+    return _map_leaves(lambda x, lay: lay.block(x, mesh), tree, layouts)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -186,13 +204,13 @@ class CheckpointManager:
             whole = _map_leaves(lambda x, lay: _global(x, lay, mesh), state,
                                 layouts)
             if mesh.rank == 0:
-                host = {k: _to_host(v) for k, v in _flatten(whole).items()}
+                host = _host_leaves(whole)
                 self._write(step, _manifest_of(whole), host)
                 self._gc()
             dist.barrier(group=mesh.group)
             return
         manifest = _manifest_of(state)
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        host = _host_leaves(state)
 
         def _write():
             try:
@@ -345,8 +363,7 @@ class CheckpointManager:
             flat[node["key"]] = _decode(raw, node["dtype"], node["shape"])
         state = _unflatten(flat, manifest["tree"])
         if mesh is not None:
-            state = _map_leaves(lambda x, lay: lay.block(x, mesh), state,
-                                layouts)
+            state = blocks_of(state, mesh, layouts)
         if device is not None:
             state = _map_leaves(lambda x, _: x.to(device), state, state)
         return state

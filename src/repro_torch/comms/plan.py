@@ -86,6 +86,13 @@ def sync_tree(grads: Mapping[str, torch.Tensor], plan: CommsPlan, mesh,
     axes = tuple(axes)
     if not axes:
         return dict(grads)
+    # fault seam: an armed FaultPlan (faults.set_active) raises
+    # CollectiveTimeout HERE, before any bucket is packed or any
+    # collective is entered.  The port runs eagerly, so the plan is
+    # consulted at every call; every rank holds the same seeded plan, so
+    # all ranks raise together and none waits in a collective.
+    from repro_torch import faults as faults_mod
+    faults_mod.trace_seam("comms.sync_tree")
     sched = plan.resolve(mesh, sum(4 * g.numel() for g in grads.values()))
     bplan = bucketer.plan_buckets(grads, plan.bucket_bytes)
     fused = plan.wire_dtype in ("bf16", "int8")

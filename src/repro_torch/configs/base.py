@@ -1,9 +1,9 @@
 """Model/shape config schema + registry (``--arch <id>`` selection).
 
 A copy of the JAX reference's ``configs/base.py``; the port keeps its own
-copy so it never imports the reference.  ``cells`` is the reference's over
-the architectures whose config module is ported: every one but alexnet
-(the conv family, ROADMAP queue 1, item 11).
+copy so it never imports the reference.  ``cells`` is the reference's:
+over :data:`ARCH_IDS`, which lists no alexnet in either package (its
+config is ``configs/alexnet.py``, its network ``models/convnet.py``).
 """
 
 from __future__ import annotations

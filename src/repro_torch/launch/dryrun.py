@@ -37,9 +37,10 @@ before them): the first stage's rank (rank 0) and the last stage's
 (M activations received by the last stage, M cotangents by the first).
 Result names end in ``_pp{N}``, as the reference's do.
 
-Cells the port cannot run on a mesh print ``SKIP`` with their ROADMAP
-item, never as passes: every prefill/decode/long_decode cell (serving
-on a mesh, queue 1, item 13), and alexnet's (the conv family, item 11).
+Cells the port does not run on a mesh print ``SKIP`` with the reason,
+never as passes: every prefill/decode/long_decode cell (serving on a
+mesh, ROADMAP queue 1, item 13), and alexnet's (the conv family, which
+the reference's ``cells()`` lists in no cell).
 A vlm cell's fake batch carries its ``vision_embeds`` (bf16).
 ``--hlo-out`` (no HLO here) and ``--comms auto`` are refused: both
 production meshes have model = 16, so ``auto`` plans the gspmd path, the
@@ -53,7 +54,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib.util
 import json
 import math
 import os
@@ -64,7 +64,7 @@ import torch.distributed as dist
 
 from repro_torch import obs as obs_mod
 from repro_torch.api import Session
-from repro_torch.configs import SHAPES, cells
+from repro_torch.configs import SHAPES, cells, get_config
 from repro_torch.core import memory as mem_mod
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train.optimizer import AdamWConfig
@@ -128,12 +128,10 @@ def fake_world(world_size: int, rank: int = 0):
 
 
 def skip_reason(arch: str, shape_name: str) -> Optional[str]:
-    """Why the port cannot dry-run a cell on a mesh, naming its ROADMAP
-    item, or None."""
-    mod = arch.replace("-", "_").replace(".", "_")
-    if importlib.util.find_spec(f"repro_torch.configs.{mod}") is None:
-        return (f"{arch} (the conv family, models/convnet.py) is ROADMAP "
-                "queue 1, item 11")
+    """Why the port does not dry-run a cell on a mesh, or None."""
+    if get_config(arch).family == "conv":
+        return (f"{arch} (the conv family, models/convnet.py) is in no "
+                "dry-run cell: the reference's cells() lists none")
     if SHAPES[shape_name].kind != "train":
         return ("serving on a mesh (the sequence-sharded KV cache) is "
                 "ROADMAP queue 1, item 13")

@@ -34,16 +34,25 @@ the ranks form a (data = n/N, pipe = N, model = 1) mesh and
 processes started with ``RANK``, ``WORLD_SIZE`` and
 ``DMATH_INIT_METHOD`` (a ``file://`` path or ``tcp://127.0.0.1:<port>``)
 in their environment; the CLI joins that process group when none is
-initialized.  Not ported yet, and refused when set: ``--resilient`` and
-``--faults`` (ROADMAP queue 1, item 12).  The step-time watchdog waits
-for item 12: the loop runs without it.  A vlm's batches pass the
-reference's ``vision_stub`` host stage (zero patch embeddings ahead of
-the text).
+initialized.  A vlm's batches pass the reference's ``vision_stub`` host
+stage (zero patch embeddings ahead of the text).
+
+Every run has the :class:`~repro_torch.train.StepTimeWatchdog`, whose
+``on_anomaly`` records a ``watchdog_anomaly`` event and cuts an early
+checkpoint (with ``--ckpt-dir``).  ``--resilient`` runs the
+:class:`~repro_torch.train.ResilientStepLoop` (rollback and retry of a
+non-finite step, backoff on a collective timeout, watchdog escalation
+to a structured abort) on a one-worker ``Pipeline``, so that the batch
+order is deterministic.  ``--faults`` (a JSON file or inline JSON, see
+:func:`load_fault_plan`) installs a :class:`~repro_torch.faults.FaultPlan`
+as the process-active one for the run (the ``comms.sync_tree`` seam),
+hands it to the resilient loop, and prints ``faults: {summary}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 from typing import Optional
@@ -52,24 +61,34 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import faults as faults_mod
 from repro_torch import obs as obs_mod
 from repro_torch.api import Session
-from repro_torch.checkpoint import CheckpointManager, state_from_tree, \
-    state_tree
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core import memory as mem_mod
 from repro_torch.data import Pipeline, Stage, SyntheticLM
 from repro_torch.kernels import ops
 from repro_torch.obs import report as report_mod
+from repro_torch.train import ResilientStepLoop, StepTimeWatchdog
 from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+from repro_torch.train.resilience import StateCheckpoints
 
 
-def _refuse_unported(*, resilient, faults) -> None:
-    for flag, given in (("--resilient", resilient),
-                        ("--faults", faults is not None)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1, item 12)")
+def load_fault_plan(spec: Optional[str]):
+    """``--faults``: a JSON file path or inline JSON — either a list of
+    FaultSpec dicts or ``{"seed": ..., "specs": [...]}``."""
+    if not spec:
+        return None
+    from repro_torch.faults import FaultPlan, FaultSpec
+    text = spec
+    if os.path.exists(spec):
+        with open(spec) as f:
+            text = f.read()
+    doc = json.loads(text)
+    seed, specs = (doc.get("seed", 0), doc.get("specs", [])) \
+        if isinstance(doc, dict) else (0, doc)
+    return FaultPlan([FaultSpec(**d) for d in specs], seed=seed)
 
 
 def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
@@ -81,7 +100,7 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         metrics_snapshot: Optional[str] = None,
         calibration: Optional[str] = None, resilient: bool = False,
         faults: Optional[str] = None, device: str = "cuda"):
-    _refuse_unported(resilient=resilient, faults=faults)
+    fault_plan = load_fault_plan(faults)
     # ranks started with RANK / WORLD_SIZE / DMATH_INIT_METHOD join their
     # group here, unless the caller has already
     joined = (not dist.is_initialized()
@@ -101,15 +120,22 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
         table = calibrate.load(calibration)
         prev_cal = calibrate.set_active(table)
         print(f"calibration: {table.describe()}  [{calibration}]")
+    prev_faults = faults_mod.set_active(fault_plan)
     try:
-        return _run(arch, obs, steps=steps, batch=batch, seq=seq,
-                    scale_down=scale_down, lr=lr, microbatches=microbatches,
-                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, resume=resume,
-                    log_every=log_every, seed=seed, comms=comms, pp=pp,
-                    pp_schedule=pp_schedule or "gpipe", hbm_gib=hbm_gib,
-                    metrics=metrics, metrics_snapshot=metrics_snapshot,
-                    calibration=calibration, device=device)
+        losses = _run(arch, obs, steps=steps, batch=batch, seq=seq,
+                      scale_down=scale_down, lr=lr,
+                      microbatches=microbatches, ckpt_dir=ckpt_dir,
+                      ckpt_every=ckpt_every, resume=resume,
+                      log_every=log_every, seed=seed, comms=comms, pp=pp,
+                      pp_schedule=pp_schedule or "gpipe", hbm_gib=hbm_gib,
+                      metrics=metrics, metrics_snapshot=metrics_snapshot,
+                      calibration=calibration, device=device,
+                      resilient=resilient, fault_plan=fault_plan)
+        if fault_plan is not None:
+            print("faults:", json.dumps(fault_plan.summary()))
+        return losses
     finally:
+        faults_mod.set_active(prev_faults)
         if calibration:
             calibrate.set_active(prev_cal)
         obs_mod.set_active(prev_obs)
@@ -154,7 +180,7 @@ def _measure_peak(session, plan, obs) -> None:
 def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
          ckpt_dir, ckpt_every, resume, log_every, seed, comms, pp,
          pp_schedule, hbm_gib, metrics, metrics_snapshot, calibration,
-         device):
+         device, resilient=False, fault_plan=None):
     session = Session(device=device, obs=obs, hbm_gib=hbm_gib, pp=pp)
     adamw = AdamWConfig(lr=warmup_cosine(lr, steps // 10 + 1, steps))
     plan = session.plan(arch, batch=batch, seq=seq, microbatches=microbatches,
@@ -175,31 +201,57 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     # on a mesh the checkpoint holds the global arrays: each rank's blocks
     # are gathered at a save and taken again at a restore
-    lays = session.state_layouts(plan)
-    on_mesh = ({} if lays is None else
-               dict(mesh=session.mesh, layouts=state_tree(lays)))
-    start_step = 0
-    if resume and mgr is not None:
-        # restore() walks back past torn/missing snapshots to the newest
-        # complete one, and returns None when nothing valid survives: the
-        # run then starts fresh rather than crashing
-        tree = mgr.restore(device=session.device, **on_mesh)
-        if tree is not None:
-            state = session.put("train_state", state_from_tree(tree),
-                                kind="train_state")
-            valid = mgr.valid_steps()
-            start_step = valid[-1] if valid else int(state["opt"]["step"])
-            print(f"resumed from step {start_step}")
-        else:
-            session.init_state(plan, seed=seed)
+    io = StateCheckpoints(mgr, session, plan) if mgr is not None else None
+    # the newest complete snapshot (torn or missing ones are walked past);
+    # with none the run starts fresh rather than crashing
+    valid = mgr.valid_steps() if resume and mgr is not None else []
+    start_step = valid[-1] if valid else 0
+    resumed = bool(valid)
+    if resumed:
+        io.restore(start_step)
+        print(f"resumed from step {start_step}")
     else:
         session.init_state(plan, seed=seed)
 
     source = SyntheticLM(cfg.vocab_size, batch, seq, seed=seed,
                          structured=True)
-    pipe = Pipeline(source, vision_stub(cfg, batch), n_threads=2).start()
+    # the resilient loop needs deterministic batch order (a restart
+    # replays the stream to the restored step); 2-thread prefetch
+    # reorders, so it drops to a single worker
+    pipe = Pipeline(source, vision_stub(cfg, batch),
+                    n_threads=1 if resilient else 2).start()
     if session.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(session.device)
+
+    def on_anomaly(step, dt, msg):
+        # anomaly -> action (the watchdog's contract): record the event
+        # and cut the early checkpoint a restart depends on, not just a
+        # log line.  Fires with or without --metrics.
+        obs.event("watchdog_anomaly", step=step, dt_s=dt, msg=msg)
+        if io is not None:
+            io.save(step + 1, session.get("train_state"))
+            obs.event("watchdog_checkpoint", step=step + 1)
+            print(f"WATCHDOG: early checkpoint at step {step + 1}")
+
+    dog = StepTimeWatchdog(on_anomaly=on_anomaly)
+    if resumed:
+        # restart hygiene: never judge the resumed run against a
+        # step-time distribution learned before the interruption
+        dog.reset()
+    if resilient:
+        loop = ResilientStepLoop(session, plan, ckpt=mgr,
+                                 ckpt_every=ckpt_every, watchdog=dog,
+                                 faults=fault_plan)
+        try:
+            out = loop.run(pipe, start_step=start_step, steps=steps)
+        finally:
+            pipe.stop()
+        if out["skipped"]:
+            print(f"resilience: skipped steps {out['skipped']} "
+                  f"(loss scale {out['loss_scale']:.4g})")
+        if obs.enabled:
+            session.publish_metrics()
+        return [out["losses"][i] for i in sorted(out["losses"])]
     losses = []
     try:
         for i in range(start_step, steps):
@@ -209,15 +261,16 @@ def _run(arch: str, obs, *, steps, batch, seq, scale_down, lr, microbatches,
             loss = float(metrics_out["loss"])
             dt = time.perf_counter() - t0
             losses.append(loss)
+            msg = dog.observe(i, dt)
+            if msg:
+                print("WATCHDOG:", msg)
             if (i + 1) % log_every == 0 or i == start_step:
                 print(f"step {i + 1:5d} loss {loss:.4f} ({dt * 1e3:.0f} ms)")
-            if mgr is not None and (i + 1) % ckpt_every == 0:
-                mgr.save(i + 1, state_tree(session.get("train_state")),
-                         **on_mesh)
-        if mgr is not None:
+            if io is not None and (i + 1) % ckpt_every == 0:
+                io.save(i + 1, session.get("train_state"))
+        if io is not None:
             t0 = time.perf_counter()
-            mgr.save(steps, state_tree(session.get("train_state")),
-                     blocking=True, **on_mesh)
+            io.save(steps, session.get("train_state"), blocking=True)
             d = os.path.join(ckpt_dir, f"step_{steps}")
             nbytes = sum(os.path.getsize(os.path.join(d, f))
                          for f in os.listdir(d))
@@ -288,9 +341,14 @@ def main():
                          "repro_torch.fit) the planner and the drift report "
                          "use for this run")
     ap.add_argument("--resilient", action="store_true",
-                    help="fault-tolerant step loop (not ported yet)")
+                    help="run the fault-tolerant step loop (rollback/retry "
+                         "on non-finite or timed-out steps, watchdog "
+                         "escalation to a structured abort); forces "
+                         "single-threaded data for deterministic replay")
     ap.add_argument("--faults", type=str, default=None, metavar="JSON",
-                    help="fault-injection plan (not ported yet)")
+                    help="fault-injection plan for drills: a JSON file or "
+                         "inline JSON list of FaultSpec dicts, e.g. "
+                         '\'[{"seam": "train.nonfinite", "step": 3}]\'')
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args()

@@ -1,3 +1,4 @@
+from . import convnet
 from .transformer import Model
 
-__all__ = ["Model"]
+__all__ = ["Model", "convnet"]

@@ -134,8 +134,7 @@ class Model(nn.Module):
                               "vlm"):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not a decoder of "
-                "this Model (the conv family is models/convnet.py, ROADMAP "
-                "queue 1, item 11)")
+                "this Model (the conv family is models/convnet.py)")
         if mesh is not None and cfg.family == "moe" \
                 and cfg.n_experts % mesh.shape.get("model", 1):
             raise ValueError(

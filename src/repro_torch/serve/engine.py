@@ -46,7 +46,7 @@ update the cache in place, so the entry never needs refreshing.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -390,6 +390,10 @@ class ContinuousEngine:
         self.pos = np.zeros(batch_slots, np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.finished: List[Request] = []
+        # fault/chaos seams: called as hook(tick) at the top of every
+        # step() — repro_torch.faults.arm_engine registers pool storms here
+        self.tick_hooks: List[Callable[[int], None]] = []
+        self._tick = 0
 
     # ------------------------------------------------------------------
     @property
@@ -511,6 +515,9 @@ class ContinuousEngine:
     def step(self) -> int:
         """One engine tick: admit, prefill one chunk each, extend/preempt,
         decode one token for every ready slot, retire finished."""
+        for hook in self.tick_hooks:
+            hook(self._tick)
+        self._tick += 1
         self._admit()
         self._prefill_tick()
         ready = [b for b, r in enumerate(self.active)

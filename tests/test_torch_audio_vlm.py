@@ -120,12 +120,12 @@ def test_audio_and_vlm_configs_match_reference_field_by_field(J, arch):
 
 def test_every_family_but_conv_is_a_model():
     """The Model takes the reference's six families; the conv family
-    (alexnet, a model of its own) names its ROADMAP item."""
+    (alexnet, a model of its own) names its module."""
     for arch in ("qwen2-0.5b", "deepseek-moe-16b", "mamba2-780m",
                  "zamba2-1.2b", AUDIO, VLM):
         Model(scale_config(get_config(arch), 64), device="cpu")
     conv = dataclasses.replace(AUDIO_TINY, family="conv")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="models/convnet.py"):
         Model(conv, device="cpu")
 
 
@@ -538,4 +538,4 @@ def test_only_alexnet_skips_for_its_family():
     skipped = {a for a in tuple(base.ARCH_IDS) + ("alexnet",)
                if dryrun.skip_reason(a, "train_4k") is not None}
     assert skipped == {"alexnet"}
-    assert "item 11" in dryrun.skip_reason("alexnet", "train_4k")
+    assert "lists none" in dryrun.skip_reason("alexnet", "train_4k")

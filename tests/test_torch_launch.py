@@ -105,12 +105,14 @@ def test_train_cli_resume_restores_the_saved_state_bitwise(tmp_path,
     ("pp", 2, 10), ("pp_schedule", "1f1b", 10), ("resilient", True, 12),
     ("faults", "[]", 12)])
 def test_train_cli_refuses_flags_that_wait_for_later_items(flag, value,
-                                                           item):
-    """Item 12's flags raise naming it.  Item 10's (the pipeline) are
-    ported: on one rank ``--pp 2`` has no second stage to run (the mesh
-    refuses it) and ``--pp-schedule`` alone trains the one-stage path
-    (the ranks' ``--pp`` run is in
-    ``test_train_cli_main_writes_metrics_under_its_directory``)."""
+                                                           item, capsys):
+    """Every flag is ported.  Item 10's (the pipeline): on one rank
+    ``--pp 2`` has no second stage to run (the mesh refuses it) and
+    ``--pp-schedule`` alone trains the one-stage path (the ranks' ``--pp``
+    run is in ``test_train_cli_main_writes_metrics_under_its_directory``).
+    Item 12's: ``--resilient --faults`` with a NaN step rolls it back and
+    retries it, and the run's losses are an unfaulted run's, bit for
+    bit (each flag's case runs both)."""
     if item == 10 and flag == "pp":
         with pytest.raises(ValueError, match="pp=2 does not divide 1 ranks"):
             ttrain.run(ARCH, steps=1, device="cpu", **{flag: value}, **KW)
@@ -120,9 +122,15 @@ def test_train_cli_refuses_flags_that_wait_for_later_items(flag, value,
                             **KW)
         assert len(losses) == 1 and np.isfinite(losses[0])
         return
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, item {item}"):
-        ttrain.run(ARCH, steps=1, device="cpu", **{flag: value}, **KW)
+    plan = '[{"seam": "train.nonfinite", "step": 1}]'
+    clean = ttrain.run(ARCH, steps=3, device="cpu", **KW)
+    capsys.readouterr()
+    got = ttrain.run(ARCH, steps=3, device="cpu", resilient=True,
+                     faults=plan, **KW)
+    out = capsys.readouterr().out
+    assert got == clean and len(got) == 3
+    assert 'faults: {"train.nonfinite": {"planned": 1, "injected": 1, ' \
+        '"pending": 0}}' in out
 
 
 def test_train_cli_hbm_gib_is_the_plans_budget(capsys):
