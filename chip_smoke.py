@@ -3,7 +3,7 @@
 (``python3 chip_smoke.py 4c 4d`` runs only the phases named, of
 ``d256``, ``4c``, ``4d``, ``6`` (its train runs, without phase 6's kernel
 checks), ``6b``, ``6c``, ``9``, ``10``, ``11``, ``12``, ``13``, ``14``,
-``15`` and ``16``, after phases 1 and 2).
+``15``, ``16`` and ``17``, after phases 1 and 2).
 
 Run from the root of a checkout, on a machine with one NVIDIA H100, the
 CUDA toolkit (``nvcc``) and PyTorch built for CUDA.  Imports nothing of JAX
@@ -56,7 +56,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    step, one chunk) at the reference SSD test's tolerances, run to run
    bitwise, and bounded by fp32 or bf16 peak FLOP/s by its inputs' type;
    for fp32 inputs the TF32 tensor-core bound is printed beside it.
-4. Serve qwen2-0.5b at full width, cut to 12 of its 24 layers
+4. Serve qwen2-0.5b at full width, cut to 8 of its 24 layers
    (``SERVE_LAYERS``; random weights from a seed), through
    ``ContinuousEngine``: 16 requests, prompts of 64-512 tokens, 64 new
    tokens each.  Launch counts are zeroed just before and read just after;
@@ -76,8 +76,8 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    paths teacher-forced along the paged streams, logits within phase 4's
    tolerance and a token parting only at a low-margin step; serve
    numbers and a decode step split as in phase 4.
-4c. Serve gemma3-27b at full width, cut to 13 of its 62 layers (2
-   global, window 1,024; 8.2 B parameters drawn on the card from the
+4c. Serve gemma3-27b at full width, cut to 7 of its 62 layers (1
+   global, window 1,024; 5.7 B parameters drawn on the card from the
    seed, every earlier model freed) through the static ``Engine`` on its
    windowed dense cache (8 slots, ``max_seq`` 2,048): 16 requests with
    prompts of 896-1,600 tokens and 64 new, so that rings wrap in prefill
@@ -108,7 +108,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    dim 256), card vs CPU on the dense cache, and the same
    requests through the static paged ``Engine`` and ``ContinuousEngine``
    (equal tokens), the dense engine against them by the margin rule.
-5. Serve mamba2-780m at full width, cut to 24 of its 48 layers, through
+5. Serve mamba2-780m at full width, cut to 12 of its 48 layers, through
    the dense-cache static ``Engine`` (8 slots, the same 16-request set),
    with its own launch-count check (``matmul`` 121 per prefill and per
    decode step, ``ssd`` 24 per prefill); hold the GEMM kernel against its plain
@@ -334,7 +334,7 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    ``init_group`` picks: gloo for four ranks on one card, NCCL for one
    rank (an all-reduce on it).
 13. The pipeline (also alone: ``python3 chip_smoke.py 13``): qwen2-0.5b
-   at full width (cut to 8 of its 24 layers, ``PIPE_LAYERS``;
+   at full width (cut to 4 of its 24 layers, ``PIPE_LAYERS``;
    ``remat="full"``), 8 x 512 tokens
    a step in one-row microbatches (M = 2 pp), four gloo ranks spawned on
    the one card, on (data, pipe, model) = (1, 4, 1) and (2, 2, 1), each
@@ -465,7 +465,28 @@ or of the JAX package.  Phases, in order; any failure exits non-zero:
    page for 24 ticks) with two already-expired requests: preemptions
    counted, the two shed with ``DeadlineExceeded``, every admitted
    request's tokens bitwise a storm-free run's.  Each part's seconds.
-17. Print the ``kernels`` JSON line, the card's name and power limit, and
+17. Serving on a mesh (also alone: ``python3 chip_smoke.py 17``).  The
+   paged kernel's shard mode on each of 4 shards of qwen2's 8 slots of
+   2,048 positions (512 each) against its plain version (partials m, l
+   at 1e-3, o at the bf16 rule), the combine of the 4 ranks' partials
+   against the plain combine, both bitwise run to run, and the shards'
+   combine bitwise the one-rank call over the whole rows; each timed
+   beside the one-rank call, its bound and its plain version.  Flash
+   attention (bf16 and fp32 forward, backward) and the paged decode at
+   head dims 40, 42, 48, 56, 160 and 168 against their plain versions,
+   each timed.  Then qwen2-0.5b at full width and depth (24 layers,
+   random weights from the seed) on one rank and on (1,4) and (2,2) over
+   four gloo ranks on the card, the static ``Engine`` on the dense cache
+   and the ``ContinuousEngine`` (page 64, chunk 128), 8 slots of 2,048,
+   phase 4's first 8 requests to 32 new tokens: every rank's tokens and
+   logits the same; the decode logits within 5% of the largest one-rank
+   logit wherever the slot was fed alike; the shard and combine kernels
+   launched 24 times a decode step on every rank, the paged one-rank
+   call never; each rank's cache 1/4 of 201,326,592 bytes, its pool
+   ceil(pages / 4) pages; a decode step's, a 512-token prefill's and a
+   128-token chunk's bytes by collective equal to the layouts' estimate;
+   tok/s, the decode step's wall and the card's idle share.
+18. Print the ``kernels`` JSON line, the card's name and power limit, and
    last the ``{"ok": true, ...}`` line.
 """
 
@@ -539,17 +560,17 @@ STATE_TOL = 1e-2
 ARCH = "qwen2-0.5b"
 MAMBA = "mamba2-780m"
 MAMBA_PARAMS = 857_293_056
-# mamba2-780m's depth in phase 5: 24 of its 48 layers, since phase 14 came
-# (phase 6c trains it at full depth)
-MAMBA_SERVE_LAYERS = 24
+# mamba2-780m's depth in phase 5: 12 of its 48 layers since phase 17 came
+# (24 since phase 14; phase 6c trains it at full depth)
+MAMBA_SERVE_LAYERS = 12
 PREFILL_M = 300                    # a ragged prompt: 4 GEMM row tiles + 44
 SEED = 0
 N_REQUESTS, PROMPT_MIN, PROMPT_MAX, NEW_TOKENS = 16, 64, 512, 64
 SLOTS, MAX_SEQ, PAGE, CHUNK = 8, 1024, 64, 128
-# qwen2-0.5b's depth in phases 4 and 4b: 12 of its 24 layers, since phase
-# 14 came (the whole script stays inside its time limit; phases 6-8 and
-# 12 run it at full depth)
-SERVE_LAYERS = 12
+# qwen2-0.5b's depth in phases 4 and 4b: 8 of its 24 layers since phase
+# 17 came (12 since phase 14: the whole script stays inside its time
+# limit; phases 6-8, 12 and 17 run it at full depth)
+SERVE_LAYERS = 8
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1561,16 +1582,20 @@ def requests(cfg, new_tokens=NEW_TOKENS, prompts=(PROMPT_MIN, PROMPT_MAX)):
             for i, n in enumerate(lens)]
 
 
+def launch_counts(**counts) -> dict:
+    """A launch report (``ops.dispatch_report``'s keys) with every op at 0
+    but ``counts``."""
+    return {**dict.fromkeys(ops.dispatch_report(), 0), **counts}
+
+
 def dense_serve_launches(cfg, steps: int, prefills: int):
     """Launches of the static engine on the dense cache: 7 products a
     layer and the unembed per prefill and per decode step, one flash call
     a layer per prefill, one paged-decode call a layer per decode step."""
     L = cfg.n_layers
-    return {"matmul": (7 * L + 1) * (steps + prefills),
-            "attention": L * prefills, "attention_backward": 0,
-            "paged_decode_attention": L * steps, "ssd": 0,
-            "ssd_backward": 0, "quantize_int8": 0, "quantize_compress": 0,
-            "matmul_dequant": 0}
+    return launch_counts(matmul=(7 * L + 1) * (steps + prefills),
+                         attention=L * prefills,
+                         paged_decode_attention=L * steps)
 
 
 def continuous_serve_launches(cfg, steps: int, fin):
@@ -1580,11 +1605,9 @@ def continuous_serve_launches(cfg, steps: int, fin):
     paged-decode call a layer per decode step; and the chunks."""
     chunks = sum(-(-len(r.prompt) // CHUNK) for r in fin)
     L = cfg.n_layers
-    return {"matmul": (7 * L + 1) * (steps + chunks),
-            "attention": L * chunks, "attention_backward": 0,
-            "paged_decode_attention": L * steps, "ssd": 0,
-            "ssd_backward": 0, "quantize_int8": 0, "quantize_compress": 0,
-            "matmul_dequant": 0}, chunks
+    return launch_counts(matmul=(7 * L + 1) * (steps + chunks),
+                         attention=L * chunks,
+                         paged_decode_attention=L * steps), chunks
 
 
 def serve(engine_cls, model, params, reqs, max_seq=MAX_SEQ, **kw):
@@ -1925,9 +1948,10 @@ def serve_dense(cfg, model, params, paged_fin):
 # ---------------------------------------------------------------------------
 
 GEMMA3 = "gemma3-27b"
-# gemma3-27b's depth in phase 4c: 13 of its 62 layers (2 global), since
-# phase 14 came (the whole script stays inside its time limit)
-G3_LAYERS = 13
+# gemma3-27b's depth in phase 4c: 7 of its 62 layers (one 5:1 group and a
+# local tail) since phase 17 came (13 since phase 14): the whole script
+# stays inside its time limit
+G3_LAYERS = 7
 G3_MAX_SEQ, G3_PROMPTS = 2048, (896, 1600)
 # card against CPU: the first local:global group (layers 0-5, the global
 # one last), a prompt that wraps the 1,024-slot rings in the prefill, then
@@ -2146,7 +2170,7 @@ def g3_tokens_by_margin(cfg, model, params, fin):
 
 
 def serve_gemma3():
-    """Phase 4c: gemma3-27b at full width, cut to ``G3_LAYERS`` (13, 2 of
+    """Phase 4c: gemma3-27b at full width, cut to ``G3_LAYERS`` (7, one of
     them global)
     from seed 0, served by the static ``Engine`` on its windowed dense
     cache (8 slots, ``max_seq`` 2,048): launch counts, serve numbers, a
@@ -2539,10 +2563,8 @@ def serve_mamba():
     peak = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
     prefills = len(fin)
-    expect = {"matmul": (5 * L + 1) * (prefills + steps), "attention": 0,
-              "attention_backward": 0, "paged_decode_attention": 0,
-              "ssd": L * prefills, "ssd_backward": 0, "quantize_int8": 0,
-              "quantize_compress": 0, "matmul_dequant": 0}
+    expect = launch_counts(matmul=(5 * L + 1) * (prefills + steps),
+                           ssd=L * prefills)
     print(f"mamba2 launches: {launches} (expected {expect}: {steps} decode "
           f"steps, {prefills} prefills)")
     require(launches["matmul"] > 0 and launches["ssd"] > 0,
@@ -2623,12 +2645,10 @@ def expected_train_launches(cfg, steps: int, int8: bool,
     if remat.startswith("group:"):
         G = int(remat.split(":")[1])
         redo = L + (L // G) * (G - 1) if L % G == 0 else 0
-    return {"matmul": steps * (fwd + 7 * redo + 2 * fwd),
-            "attention": steps * (L + redo),
-            "attention_backward": steps * L,
-            "paged_decode_attention": 0, "ssd": 0, "ssd_backward": 0,
-            "quantize_int8": steps * (len(BUCKETS) if int8 else 0),
-            "quantize_compress": 0, "matmul_dequant": 0}
+    return launch_counts(matmul=steps * (fwd + 7 * redo + 2 * fwd),
+                         attention=steps * (L + redo),
+                         attention_backward=steps * L,
+                         quantize_int8=steps * (len(BUCKETS) if int8 else 0))
 
 
 def event_ms(fn, iters: int = 5, warmup: int = 1) -> float:
@@ -3893,10 +3913,8 @@ def expected_mamba_train_launches(cfg, steps: int):
     each product's backward, one SSD backward call a layer."""
     L = cfg.n_layers
     fwd = 5 * L + 1
-    return {"matmul": steps * (fwd + 5 * L + 2 * fwd), "attention": 0,
-            "attention_backward": 0, "paged_decode_attention": 0,
-            "ssd": steps * 2 * L, "ssd_backward": steps * L,
-            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+    return launch_counts(matmul=steps * (fwd + 5 * L + 2 * fwd),
+                         ssd=steps * 2 * L, ssd_backward=steps * L)
 
 
 def held_ssd_backward_call(real, label, x, dt, A, Bm, C, dy, d_state,
@@ -6494,11 +6512,11 @@ PIPE_RANKS = 4
 PIPE_BATCH = 8                         # 8 x 512 tokens, one-row microbatches
 PIPE_STEPS = 2
 # (data, pipe) meshes of qwen2-0.5b at full width, each under both
-# schedules; M = 2 pp microbatches, one row each.  Depth cut to 8 of its
-# 24 layers (2 a stage on (1, 4), 4 on (2, 2)) since phase 14 came: the
-# whole script stays inside its time limit
+# schedules; M = 2 pp microbatches, one row each.  Depth cut to 4 of its
+# 24 layers (1 a stage on (1, 4), 2 on (2, 2)) since phase 17 came (8
+# since phase 14): the whole script stays inside its time limit
 PIPE_MESHES = ((1, 4), (2, 2))
-PIPE_LAYERS = 8
+PIPE_LAYERS = 4
 PIPE_SCHEDULES = ("gpipe", "1f1b")
 # mamba2-780m at full width cut to 8 of its 48 layers: (mesh, layers,
 # schedule)
@@ -6615,13 +6633,12 @@ def expected_pipe_launches(cfg, n_local: int, last: bool, M: int,
     mm = M * (runs * fwd + per * n_local + 2 * fwd)
     mix = M * (runs + 1) * n_local
     dense = cfg.family != "ssm"
-    return {"matmul": steps * mm,
-            "attention": steps * mix if dense else 0,
-            "attention_backward": steps * M * n_local if dense else 0,
-            "paged_decode_attention": 0,
-            "ssd": 0 if dense else steps * mix,
-            "ssd_backward": 0 if dense else steps * M * n_local,
-            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+    return launch_counts(matmul=steps * mm,
+                         attention=steps * mix if dense else 0,
+                         attention_backward=(steps * M * n_local if dense
+                                             else 0),
+                         ssd=0 if dense else steps * mix,
+                         ssd_backward=0 if dense else steps * M * n_local)
 
 
 def pipe_wire_estimate(plan, mesh):
@@ -7113,11 +7130,9 @@ def moe_serve_launches(cfg, steps: int, calls: int, attention: int):
     flash calls a layer each: the layer loop's products and the unembed
     per call and per step, one paged-decode call a layer per step."""
     L = cfg.n_layers
-    return {"matmul": (moe_products_per_layer(cfg) * L + 1) * (steps + calls),
-            "attention": L * attention, "attention_backward": 0,
-            "paged_decode_attention": L * steps, "ssd": 0,
-            "ssd_backward": 0, "quantize_int8": 0, "quantize_compress": 0,
-            "matmul_dequant": 0}
+    return launch_counts(
+        matmul=(moe_products_per_layer(cfg) * L + 1) * (steps + calls),
+        attention=L * attention, paged_decode_attention=L * steps)
 
 
 def expected_moe_train_launches(cfg, steps: int):
@@ -7127,10 +7142,9 @@ def expected_moe_train_launches(cfg, steps: int):
     not checkpointed, one attention backward a layer."""
     L = cfg.n_layers
     fwd = moe_products_per_layer(cfg) * L + 1
-    return {"matmul": steps * (fwd + (fwd - 1) + 2 * fwd),
-            "attention": steps * 2 * L, "attention_backward": steps * L,
-            "paged_decode_attention": 0, "ssd": 0, "ssd_backward": 0,
-            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+    return launch_counts(matmul=steps * (fwd + (fwd - 1) + 2 * fwd),
+                         attention=steps * 2 * L,
+                         attention_backward=steps * L)
 
 
 def check_expert_gemm():
@@ -7608,11 +7622,10 @@ def hybrid_serve_launches(cfg, steps: int, prefills: int):
     prefill, one paged-decode call a site per decode step (the mixer's
     decode step is the plain ``ssd_step``)."""
     sites = cfg.n_layers // cfg.attn_every
-    return {"matmul": hybrid_products(cfg) * (steps + prefills),
-            "attention": sites * prefills, "attention_backward": 0,
-            "paged_decode_attention": sites * steps,
-            "ssd": cfg.n_layers * prefills, "ssd_backward": 0,
-            "quantize_int8": 0, "quantize_compress": 0, "matmul_dequant": 0}
+    return launch_counts(matmul=hybrid_products(cfg) * (steps + prefills),
+                         attention=sites * prefills,
+                         paged_decode_attention=sites * steps,
+                         ssd=cfg.n_layers * prefills)
 
 
 def expected_hybrid_train_launches(cfg, steps: int):
@@ -7626,13 +7639,11 @@ def expected_hybrid_train_launches(cfg, steps: int):
     tail = L - sites * every
     fwd = hybrid_products(cfg)
     recompute = 10 * sites * every + 7 * sites + 5 * tail
-    return {"matmul": steps * (fwd + recompute + 2 * fwd),
-            "attention": steps * 2 * sites,
-            "attention_backward": steps * sites,
-            "paged_decode_attention": 0,
-            "ssd": steps * (L + 2 * sites * every + tail),
-            "ssd_backward": steps * L, "quantize_int8": 0,
-            "quantize_compress": 0, "matmul_dequant": 0}
+    return launch_counts(matmul=steps * (fwd + recompute + 2 * fwd),
+                         attention=steps * 2 * sites,
+                         attention_backward=steps * sites,
+                         ssd=steps * (L + 2 * sites * every + tail),
+                         ssd_backward=steps * L)
 
 
 def check_zamba_kernels(cfg):
@@ -8264,10 +8275,8 @@ def internvl_phase():
     torch.cuda.reset_peak_memory_stats()
     L = cfg.n_layers
     fwd = 7 * L + 1
-    expect = {"matmul": fwd + (fwd - 1) + 2 * fwd, "attention": 2 * L,
-              "attention_backward": L, "paged_decode_attention": 0,
-              "ssd": 0, "ssd_backward": 0, "quantize_int8": 0,
-              "quantize_compress": 0, "matmul_dequant": 0}
+    expect = launch_counts(matmul=fwd + (fwd - 1) + 2 * fwd, attention=2 * L,
+                           attention_backward=L)
     losses, walls, total = [], [], {}
     for seed in (SEED, SEED + 1):
         b = internvl_batch(cfg, seed)
@@ -8976,6 +8985,655 @@ def robust_phase():
              DRILL_PATH: drill_launches, STORM_PATH: storm_launches})
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving on a mesh (the dense family), four ranks on the card
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_DIR = TRAIN_DIR / "mesh_serve"
+MESH_SHAPES = ((1, 4), (2, 2))
+MESH_RANKS = 4
+MESH_SLOTS, MESH_MAX_SEQ, MESH_NEW = 8, 2048, 32
+MESH_REQUESTS = 8                   # the first 8 of phase 4's requests
+MESH_ENGINES = ("dense", "continuous")
+MESH_LOGIT_TOL = 0.05               # of the largest one-rank logit
+MESH_LOGIT_STEPS = 8                # decode steps whose logits are held
+MESH_PROMPT = 512                   # the one-slot prefill whose wire counts
+# qwen2's K/V: 24 layers x 2 (k, v) x 2 kv heads x 64 x 2 bytes = 12,288
+# B a token; 8 slots of 2,048 positions, 201 MB
+MESH_KV_BYTES = 12_288 * MESH_SLOTS * MESH_MAX_SEQ
+ODD_HEAD_DIMS = (40, 42, 48, 56, 160, 168)
+MESH_DEVICE = "cuda"                # a CPU rehearsal sets "cpu"
+
+
+def mesh_engine(kind, model, params):
+    """Phase 17's engines: the static one on the dense cache, the
+    continuous one on pages of ``PAGE`` with ``CHUNK``-token chunks."""
+    if kind == "dense":
+        return Engine(model, params, batch_slots=MESH_SLOTS,
+                      max_seq=MESH_MAX_SEQ)
+    return ContinuousEngine(model, params, batch_slots=MESH_SLOTS,
+                            max_seq=MESH_MAX_SEQ, page_size=PAGE,
+                            prefill_chunk=CHUNK)
+
+
+def mesh_warm(kind, model, params, cfg):
+    """One short request through a new engine of ``kind`` (its first
+    calls: the allocator's and the group's first buffers)."""
+    warm = mesh_engine(kind, model, params)
+    warm.submit(Request(rid=0, prompt=requests(cfg, 2)[0].prompt[:PAGE],
+                        max_new_tokens=2))
+    warm.run()
+
+
+def recorded(eng):
+    """Wrap ``eng``'s decode step: each step's wall (synchronized), the
+    (tokens, positions) it was fed, and the first ``MESH_LOGIT_STEPS``
+    steps' logits on the host."""
+    inner, rec = eng._decode, dict(walls=[], fed=[], logits=[])
+
+    def step(params, cache, tokens, pos, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = inner(params, cache, tokens, pos, **kw)
+        torch.cuda.synchronize()
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["fed"].append((tokens[:, 0].tolist(), pos.tolist()))
+        if len(rec["logits"]) < MESH_LOGIT_STEPS:
+            rec["logits"].append(logits[:, 0].float().cpu())
+        return logits, cache
+
+    eng._decode = step
+    return rec
+
+
+def mesh_serve_run(kind, model, params, cfg):
+    """One engine over phase 17's requests: (tokens by rid, seconds, the
+    decode record, the cache's bytes on this rank)."""
+    eng = mesh_engine(kind, model, params)
+    rec = recorded(eng)
+    nbytes = sum(t.numel() * t.element_size() for t in eng.cache.values()
+                 if t.dtype == torch.bfloat16)
+    for r in requests(cfg, MESH_NEW)[:MESH_REQUESTS]:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {str(r.rid): [int(t) for t in r.out] for r in fin}, dt, rec, \
+        nbytes, eng
+
+
+def mesh_wire_estimate(cfg, plan, mesh, B, what: str, S: int = 1,
+                       T: int = None):
+    """Bytes this rank receives, by collective, for one serving call on
+    the mesh, from the layouts: ``what`` is ``decode`` (the dense cache of
+    B slots of T), ``paged`` (a pool's decode step), ``prefill`` (a
+    one-slot prefill of S tokens) or ``chunk`` (a paged chunk of S tokens
+    at the start of a row of pages 1, 2, ..., whose ``ceil(S / PAGE)``
+    live pages lie on consecutive ranks).  Each all-gather
+    receives (n - 1) blocks; a floating psum over n > 2 ranks gathers the
+    others' tensors, over 2 it is gloo's all-reduce, 2 (n - 1) / n of
+    one."""
+    T = MESH_MAX_SEQ if T is None else T
+    shape = mesh.shape
+    tp = shape[plan.tp_axis]
+    hd, H, Hkv, D, V = (cfg.d_head, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_model, cfg.padded_vocab)
+    L = cfg.n_layers
+    rows = (what == "decode" and B % shape["data"] == 0
+            and B >= shape["data"])
+    b = B // shape["data"] if rows else B
+    n_seq = tp * (1 if rows else shape["data"])
+    head_tp = plan.attn_mode == "head_tp"
+    gather = 0
+    reduce = 0
+
+    def psum(nbytes):
+        return (tp - 1) * nbytes if tp > 2 else 2 * (tp - 1) * nbytes // tp
+
+    tokens = b * S
+    gather += (tp - 1) * tokens * (D // tp) * 2             # the embedding
+    gather += (tp - 1) * (b if what != "chunk" and what != "prefill"
+                          else (1 if what == "prefill" else S)) \
+        * (V // tp) * 4                                       # the logits
+    if rows:
+        gather += (shape["data"] - 1) * b * V * 4
+    per_layer = 0
+    if head_tp:
+        heads = (H + 2 * Hkv) if what in ("decode", "paged") else 2 * Hkv
+        per_layer += (tp - 1) * tokens * (heads // tp) * hd * 2
+        reduce += L * psum(tokens * D * 4)                    # wo's shares
+    if not plan.ffn_replicated:
+        reduce += L * psum(tokens * D * 4)                    # the MLP's
+    if what == "decode":
+        splits = -(-(T // n_seq) // paged_mod.SPLIT)
+        per_layer += (n_seq - 1) * b * H * splits * (hd + 2) * 4
+    elif what == "paged":
+        splits = paged_mod.splits_of(-(-T // PAGE), PAGE)
+        per_layer += (n_seq - 1) * b * H * splits * (hd + 2) * 4
+    elif what == "chunk":
+        # each rank sends its held pages of the row, padded to the most
+        # any rank holds: ceil(n_live / n) of pages 1 .. n_live
+        held = -(-(-(-S // PAGE)) // n_seq)
+        per_layer += (n_seq - 1) * 2 * held * PAGE * Hkv * hd * 2
+    gather += L * per_layer
+    out = {"all_gather": gather}
+    if reduce:
+        out["all_reduce"] = reduce
+    return out
+
+
+def mesh_serve_rank(rank, init, result_dir):
+    """One rank of phase 17: qwen2-0.5b at full width and depth on each
+    mesh, both engines over phase 17's requests, then one decode step,
+    one prefill and one chunk by themselves for their bytes by
+    collective, one decode step profiled; results to ``result_dir``."""
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.core.distributed import Mesh, close_group, init_group
+    init_group(init, rank=rank, world_size=MESH_RANKS,
+               device=MESH_DEVICE)
+    cfg = get_config(ARCH)
+    out, logits = {}, {}
+    for shape in MESH_SHAPES:
+        tag = "x".join(map(str, shape))
+        mesh = Mesh(shape, ("data", "model"), dist.group.WORLD)
+        model = Model(cfg, device=MESH_DEVICE, mesh=mesh)
+        params = model.init(SEED)
+        for kind in MESH_ENGINES:
+            mesh_warm(kind, model, params, cfg)
+        for kind in MESH_ENGINES:
+            dist.barrier()
+            ops.reset_launches()
+            D.WIRE.reset()
+            toks, dt, rec, nbytes, eng = mesh_serve_run(kind, model, params,
+                                                        cfg)
+            launches = ops.dispatch_report()
+            run_wire = dict(D.WIRE.bytes)
+            B = MESH_SLOTS
+            tok = torch.zeros((B, 1), dtype=torch.long,
+                              device=MESH_DEVICE)
+            pos = torch.full((B,), 1000, dtype=torch.long,
+                             device=MESH_DEVICE)
+            paged = kind == "continuous"
+            decode = (model.decode_step_paged if paged
+                      else model.decode_step)
+            D.WIRE.reset()
+            decode(params, eng.cache, tok, pos)
+            step_wire = dict(D.WIRE.bytes)
+            prompt = torch.zeros((1, MESH_PROMPT if not paged else CHUNK),
+                                 dtype=torch.long, device=MESH_DEVICE)
+            D.WIRE.reset()
+            if paged:
+                row = torch.arange(1, MESH_MAX_SEQ // PAGE + 1,
+                                   dtype=torch.int32, device=MESH_DEVICE)
+                model.prefill_chunk_paged(params, eng.cache, prompt, row, 0)
+            else:
+                model.prefill(params, prompt, cache=eng.cache, slot=0)
+            prefill_wire = dict(D.WIRE.bytes)
+            dist.barrier()
+            prof, lo, hi = profiled_step(
+                lambda: decode(params, eng.cache, tok, pos))
+            est = dict(
+                decode=mesh_wire_estimate(cfg, model.plan, mesh, B,
+                                          "paged" if paged else "decode"),
+                prefill=mesh_wire_estimate(
+                    cfg, model.plan, mesh, 1, "chunk" if paged else
+                    "prefill", S=CHUNK if paged else MESH_PROMPT))
+            logits[f"{tag}/{kind}"] = torch.stack(rec["logits"])
+            out[f"{tag}/{kind}"] = dict(
+                tokens=toks, seconds=dt, steps=len(rec["walls"]),
+                step_walls_ms=[1e3 * w for w in rec["walls"]],
+                fed=rec["fed"][:MESH_LOGIT_STEPS], cache_bytes=nbytes,
+                pool_pages=(eng.blocks.num_pages if paged else None),
+                launches=launches, run_wire=run_wire,
+                decode_wire=step_wire, prefill_wire=prefill_wire,
+                wire_estimate=est, rank=rank, coords=mesh.coords,
+                profiled_window_ns=[lo, hi],
+                device_intervals_ns=device_intervals(prof),
+                logits_hash=float(logits[f"{tag}/{kind}"].double().sum()))
+            del eng
+        del model, params
+        torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(logits, Path(result_dir) / "logits_mesh.pt")
+    Path(result_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    close_group()
+
+
+def live_split_count(key_live: torch.Tensor) -> int:
+    """The (sequence, split) pairs of ``key_live`` (B, T) bool, one rank's
+    live keys, that hold a live key: the splits whose o the shard kernel
+    writes and the combine reads."""
+    B, T = key_live.shape
+    splits = -(-T // paged_mod.SPLIT)
+    pad = torch.nn.functional.pad(key_live,
+                                  (0, splits * paged_mod.SPLIT - T))
+    return int(pad.reshape(B, splits, paged_mod.SPLIT).any(-1).sum())
+
+
+def page_sharded_pools(cfg, lens):
+    """The continuous engine's pool in phase 17's mesh layout: 8 slots of
+    ``MESH_MAX_SEQ`` positions on pages of ``PAGE``, each row's live pages
+    (up to ``lens``) drawn from the global pool in a shuffled order, as an
+    allocator hands them out, its tail on the NULL page.  Rank r holds
+    the pages ``attention.page_shard`` gives it, so about three of four
+    entries of its table are -1.  Returns the global table, K and V pools,
+    and per rank (its table, its K and V pools, its live keys (B, T))."""
+    from repro_torch.models import attention as attn_mod
+    Hkv, hd = cfg.n_kv_heads, cfg.d_head
+    B, n, nb = MESH_SLOTS, MESH_RANKS, MESH_MAX_SEQ // PAGE
+    used = [-(-int(x) // PAGE) for x in lens.tolist()]
+    ids = np.random.default_rng(SEED + 171).permutation(sum(used)) + 1
+    table = np.zeros((B, nb), dtype=np.int32)
+    for b, u in enumerate(used):
+        table[b, :u] = ids[sum(used[:b]):sum(used[:b]) + u]
+    table = torch.from_numpy(table).cuda()
+    P = sum(used) + 1
+    kg, vg = randn((P, PAGE, Hkv, hd), 1710), randn((P, PAGE, Hkv, hd), 1711)
+    keys = torch.arange(nb * PAGE, device="cuda")[None] < lens[:, None]
+    ranks = []
+    for r in range(n):
+        held, local = attn_mod.page_shard(table, n, r)
+        mine = torch.arange(r + 1, P, n, device="cuda")
+        pools = []
+        for whole in (kg, vg):
+            pool = torch.zeros((attn_mod.local_pages(P, n),) + whole.shape[1:],
+                               dtype=whole.dtype, device="cuda")
+            pool[(mine - 1) // n + 1] = whole[mine]
+            pools.append(pool)
+        ranks.append((torch.where(held, local, -1).to(torch.int32), *pools,
+                      keys & held.repeat_interleave(PAGE, 1)))
+    return table, kg, vg, ranks
+
+
+def check_shards(q, shards, what):
+    """The shard-mode kernel on each rank's ``shards`` entry (K pool, V
+    pool, table, lengths) against its plain version: o at the bf16 rule
+    where l > 0 (o where l = 0 is left unwritten and read by no one), m
+    and l at fp32 rounding of bf16 products, the same bits run to run;
+    the combine of the ranks' partials against the plain combine, the
+    same bits run to run.  Returns (the partials (n, ...), splits, their
+    max abs err, the combine's output, its max abs err)."""
+    B, H, hd = q.shape
+    splits = paged_mod.splits_of(shards[0][2].shape[1], shards[0][0].shape[1])
+    per = B * H * splits
+
+    def partials():
+        return torch.stack([paged_mod.paged_decode_partials(q, kp, vp, tb, ls)
+                            for kp, vp, tb, ls in shards])
+
+    def live(parts):
+        return ref.live_partials(parts, B, H, hd, splits)
+
+    parts = partials()
+    err = 0.0
+    for r, (kp, vp, tb, ls) in enumerate(shards):
+        got = live(parts[r])
+        want = ref.paged_decode_partials(q, kp, vp, tb, ls)
+        err = max(err, max_err(got[:per * hd], want[:per * hd],
+                               f"{what}: shard {r}'s partial outputs"))
+        m, l = got[per * hd:per * (hd + 1)], got[per * (hd + 1):]
+        mw, lw = want[per * hd:per * (hd + 1)], want[per * (hd + 1):]
+        on = lw > 0
+        require(torch.equal(l > 0, on) and bool(torch.isinf(m[~on]).all())
+                and bool(torch.allclose(m[on], mw[on], rtol=1e-3,
+                                        atol=1e-3))
+                and bool(torch.allclose(l[on], lw[on], rtol=1e-3)),
+                f"{what}: shard {r}'s m and l disagree with the plain "
+                "version's")
+    require(same_bits(live(partials()), live(parts)),
+            f"{what}: shard mode: two runs differ")
+    comb = paged_mod.paged_decode_combine(parts, B, H, hd, splits)
+    err_comb = max_err(comb, ref.paged_decode_combine(parts, B, H, hd,
+                                                      splits),
+                       f"{what}: combine")
+    require(same_bits(paged_mod.paged_decode_combine(parts, B, H, hd,
+                                                     splits), comb),
+            f"{what}: combine: two runs differ")
+    return parts, splits, err, comb, err_comb
+
+
+def check_mesh_decode_kernels(cfg):
+    """The shard-mode kernel and the combine at phase 17's shapes, qwen2's
+    decode (8 slots, 14 heads on 2 kv heads of 64) on 4 ranks, in both
+    layouts the engines run: the static engine's dense cache cut into
+    (1,4)'s shards (512 positions of 2,048 each, lengths from phase 4's
+    prompts), whose combine is bitwise the one-rank call over the whole
+    rows, and the continuous engine's pool sharded by page
+    (:func:`page_sharded_pools`), whose combine is held to the one-rank
+    plain decode.  Each rank and the combine against their plain
+    versions (:func:`check_shards`); device ms beside the one-rank
+    call's, the bounds from this run's live keys and splits, plain ms."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    B, T, n = MESH_SLOTS, MESH_MAX_SEQ, MESH_RANKS
+    t = T // n
+    rng = np.random.default_rng(SEED + 17)
+    lens = torch.from_numpy(rng.integers(
+        PROMPT_MIN, PROMPT_MAX * 3, B).astype(np.int32)).cuda()
+    q = randn((B, H, hd), 1700)
+    k, v = randn((B, T, Hkv, hd), 1701), randn((B, T, Hkv, hd), 1702)
+    table = torch.arange(B, dtype=torch.int32, device="cuda")[:, None]
+    shards = [(k[:, r * t:(r + 1) * t].contiguous(),
+               v[:, r * t:(r + 1) * t].contiguous(), table,
+               (lens.long() - r * t).clamp(0, t).to(torch.int32))
+              for r in range(n)]
+    parts, splits, err_part, comb, err_comb = check_shards(
+        q, shards, "dense shards")
+    one = paged_mod.paged_decode_attention(q, k, v, table, lens)
+    require(torch.equal(comb, one), "the dense shards' combine is not the "
+            "one-rank call's bits")
+    dense_live = [live_split_count(torch.arange(t, device="cuda")[None]
+                                   < ls[:, None]) for *_, ls in shards]
+
+    # the continuous engine's pool sharded by page: edges of a page and of
+    # the row among the lengths
+    plens = torch.tensor([1, PAGE, PAGE + 1] + sorted(rng.integers(
+        PAGE + 2, T, 4).tolist()) + [T], dtype=torch.int32, device="cuda")
+    ptable, kg, vg, pranks = page_sharded_pools(cfg, plens)
+    pshards = [(kp, vp, tb, plens) for tb, kp, vp, _ in pranks]
+    pparts, psplits, perr_part, pcomb, perr_comb = check_shards(
+        q, pshards, "page shards")
+    perr_one = max_err(pcomb, ref.paged_decode_attention(q, kg, vg, ptable,
+                                                         plens),
+                       "the page shards' combine against the one-rank "
+                       "plain decode")
+    paged_live = [live_split_count(keys) for *_, keys in pranks]
+
+    kp1, vp1, tb1, _ = pshards[1]
+    ks, vs, _, ls = shards[1]
+    shard_ms = cuda_ms([lambda: paged_mod.paged_decode_partials(
+        q, ks, vs, table, ls)], iters=40)
+    shard_plain = cuda_ms([lambda: ref.paged_decode_partials(
+        q, ks, vs, table, ls)], iters=5, warmup=1)
+    pshard_ms = cuda_ms([lambda: paged_mod.paged_decode_partials(
+        q, kp1, vp1, tb1, plens)], iters=40)
+    pshard_plain = cuda_ms([lambda: ref.paged_decode_partials(
+        q, kp1, vp1, tb1, plens)], iters=5, warmup=1)
+    comb_ms = cuda_ms([lambda: paged_mod.paged_decode_combine(
+        parts, B, H, hd, splits)], iters=40)
+    comb_plain = cuda_ms([lambda: ref.paged_decode_combine(
+        parts, B, H, hd, splits)], iters=3, warmup=1)
+    pcomb_ms = cuda_ms([lambda: paged_mod.paged_decode_combine(
+        pparts, B, H, hd, psplits)], iters=40)
+    pcomb_plain = cuda_ms([lambda: ref.paged_decode_combine(
+        pparts, B, H, hd, psplits)], iters=3, warmup=1)
+    one_ms = cuda_ms([lambda: paged_mod.paged_decode_attention(
+        q, k, v, table, lens)], iters=40)
+    pone_ms = cuda_ms([lambda: paged_mod.paged_decode_attention(
+        q, kg, vg, ptable, plens)], iters=40)
+    live = int(ls.sum())
+    plive = int(pranks[1][3].sum())
+    s_bound, s_by = bound(*roofline.paged_partials_cost(
+        B, H, Hkv, hd, live, B, splits, dense_live[1]))
+    c_bound, c_by = bound(*roofline.paged_combine_cost(
+        n, B, H, hd, splits, sum(dense_live)))
+    o_bound, _ = bound(*roofline.paged_decode_cost(
+        B, H, Hkv, hd, int(lens.sum()), B))
+    ps_bound, ps_by = bound(*roofline.paged_partials_cost(
+        B, H, Hkv, hd, plive, ptable.numel(), psplits, paged_live[1]))
+    pc_bound, pc_by = bound(*roofline.paged_combine_cost(
+        n, B, H, hd, psplits, sum(paged_live)))
+    po_bound, _ = bound(*roofline.paged_decode_cost(
+        B, H, Hkv, hd, int(plens.sum()), ptable.numel()))
+    print(f"mesh decode kernels, dense shards: shard (rank 1's, {live} live "
+          f"of {int(lens.sum())}, {dense_live[1]} live splits of "
+          f"{B * splits}) {shard_ms:.4f} ms, bound {s_bound:.5f} ({s_by}), "
+          f"plain {shard_plain:.4f}; combine of {n} ranks ({sum(dense_live)}"
+          f" live of {n * B * splits} splits) {comb_ms:.4f} ms, bound "
+          f"{c_bound:.5f} ({c_by}), plain {comb_plain:.4f}; the one-rank "
+          f"call over the whole rows {one_ms:.4f} ms (bound {o_bound:.5f}); "
+          "shards' combine bitwise the one-rank call", flush=True)
+    print(f"mesh decode kernels, page shards: shard (rank 1's, {plive} live "
+          f"of {int(plens.sum())}, {paged_live[1]} live splits of "
+          f"{B * psplits}) {pshard_ms:.4f} ms, bound {ps_bound:.5f} "
+          f"({ps_by}), plain {pshard_plain:.4f}; combine of {n} ranks "
+          f"({sum(paged_live)} live of {n * B * psplits} splits) "
+          f"{pcomb_ms:.4f} ms, bound {pc_bound:.5f} ({pc_by}), plain "
+          f"{pcomb_plain:.4f}; the one-rank call {pone_ms:.4f} ms (bound "
+          f"{po_bound:.5f}); combine against the one-rank plain decode: "
+          f"max abs err {perr_one:.3g}", flush=True)
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/csrc/paged_attention.cu",
+                  replaces="src/repro/kernels/paged_attention.py:71",
+                  library_ms=None, one_rank_call_ms=one_ms,
+                  one_rank_bound_ms=o_bound)
+    return [dict(name="paged_decode_partials",
+                 max_abs_err=max(err_part, perr_part),
+                 ms=shard_ms, plain_ms=shard_plain, bound_ms=s_bound,
+                 bound_by=s_by,
+                 case=f"rank 1 of 4 dense shards: q ({B},{H},{hd}) against "
+                      f"({B},{t},{Hkv},{hd}), {live} live positions",
+                 page_sharded=dict(
+                     ms=pshard_ms, plain_ms=pshard_plain, bound_ms=ps_bound,
+                     bound_by=ps_by, max_abs_err=perr_part,
+                     one_rank_call_ms=pone_ms, one_rank_bound_ms=po_bound,
+                     case=f"rank 1 of 4 page shards of a ({B},{T // PAGE}) "
+                          f"table of pages of {PAGE}, {plive} live "
+                          "positions"),
+                 **common),
+            dict(name="paged_decode_combine",
+                 max_abs_err=max(err_comb, perr_comb),
+                 ms=comb_ms, plain_ms=comb_plain, bound_ms=c_bound,
+                 bound_by=c_by,
+                 case=f"{n} ranks x {splits} splits of ({B},{H},{hd})",
+                 page_sharded=dict(
+                     ms=pcomb_ms, plain_ms=pcomb_plain, bound_ms=pc_bound,
+                     bound_by=pc_by, max_abs_err=perr_comb,
+                     max_abs_err_one_rank=perr_one,
+                     case=f"{n} ranks x {psplits} splits of "
+                          f"({B},{H},{hd})"),
+                 **common)]
+
+
+def check_head_dims():
+    """Flash attention (forward bf16 and fp32, backward) and the paged
+    decode at head dims 40, 42, 48, 56, 160 and 168 (on the tile of the
+    next width, columns past D masked; 42 loads element by element)
+    against their plain versions; each timed.  Returns per-D errors and
+    ms."""
+    out = {}
+    for d in ODD_HEAD_DIMS:
+        q, k, v = (randn((1, 14, 128, d), 1800), randn((1, 2, 512, d), 1801),
+                   randn((1, 2, 512, d), 1802))
+        kw = dict(causal=True, q_offset=384)
+        e_fwd = max_err(ops.attention(q, k, v, **kw),
+                        ref.attention(q, k, v, **kw), f"flash D={d}")
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        got = ops.attention(qf, kf, vf, **kw)
+        e_f32 = float((got - ref.attention(qf, kf, vf, **kw)).abs().max())
+        require(e_f32 <= 2e-2, f"flash fp32 D={d}: max abs err {e_f32:.3g}")
+        qt, kt, vt = (randn((2, 14, 512, d), 1803), randn((2, 2, 512, d),
+                                                          1804),
+                      randn((2, 2, 512, d), 1805))
+        dout = randn((2, 14, 512, d), 1806)
+        leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+        got = torch.autograd.grad(ops.attention(*leaves, causal=True),
+                                  leaves, dout)
+        want = ref.attention_backward(qt, kt, vt, dout, causal=True)
+        o_t, lse_t = fa_mod._forward(qt, kt, vt, True, None, None,
+                                     d ** -0.5, 0, with_lse=True)
+        e_bwd = 0.0
+        for g, w in zip(got, want):
+            g, w = g.float(), w.float()
+            tol = 3e-2 * w.abs() + 2e-2 * float(w.abs().max()) + 1e-6
+            require(bool(((g - w).abs() <= tol).all()),
+                    f"flash backward D={d}: disagrees with its plain version")
+            e_bwd = max(e_bwd, float((g - w).abs().max()))
+        P, nb = 8 * 16 + 1, 16
+        pq = randn((8, 14, d), 1807)
+        pool = (randn((P, PAGE, 2, d), 1808), randn((P, PAGE, 2, d), 1809))
+        table = (torch.arange(8 * nb, dtype=torch.int32, device="cuda")
+                 + 1).reshape(8, nb)
+        lens = torch.tensor([1, 127, 128, 129, 500, 700, 900, nb * PAGE],
+                            dtype=torch.int32, device="cuda")
+        e_paged = max_err(paged_mod.paged_decode_attention(pq, *pool, table,
+                                                           lens),
+                          ref.paged_decode_attention(pq, *pool, table, lens),
+                          f"paged D={d}")
+        ms = dict(
+            flash_prefill=cuda_ms([lambda: ops.attention(q, k, v, **kw)],
+                                  iters=40),
+            flash_fp32=cuda_ms([lambda: ops.attention(qf, kf, vf, **kw)],
+                               iters=10),
+            flash_backward=cuda_ms([lambda: fa_mod.attention_backward(
+                qt, kt, vt, o_t, dout, lse_t, causal=True)], iters=20),
+            paged=cuda_ms([lambda: paged_mod.paged_decode_attention(
+                pq, *pool, table, lens)], iters=40))
+        out[d] = dict(max_abs_err=dict(flash=e_fwd, flash_fp32=e_f32,
+                                       flash_backward=e_bwd, paged=e_paged),
+                      ms=ms)
+    print("head dims " + json.dumps(out), flush=True)
+    return out
+
+
+def mesh_one_rank(cfg):
+    """Phase 17's yardstick: the one-rank engines on the same weights and
+    requests, their tokens, decode records and tok/s."""
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    for kind in MESH_ENGINES:
+        mesh_warm(kind, model, params, cfg)
+    out = {}
+    for kind in MESH_ENGINES:
+        toks, dt, rec, nbytes, _ = mesh_serve_run(kind, model, params, cfg)
+        out[kind] = dict(tokens=toks, seconds=dt, rec=rec, cache_bytes=nbytes)
+    del model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_logits_check(one, mesh_logits, mesh_fed, what):
+    """The mesh engine's decode logits against the one-rank engine's,
+    per slot over the steps whose fed tokens and positions agree so far
+    (greedy streams may part at a near-tie): (largest |diff| over the
+    largest one-rank logit, compared (slot, step) pairs).  A slot parked
+    at position 0 (idle, or mid-prefill on the continuous engine) decodes
+    garbage on the NULL page, which the mesh's ranks do not hold: it is
+    left out."""
+    one_logits, one_fed = one["rec"]["logits"], one["rec"]["fed"]
+    n_steps = min(len(one_logits), len(mesh_logits))
+    worst, scale, pairs = 0.0, 0.0, 0
+    for b in range(MESH_SLOTS):
+        for s in range(n_steps):
+            same = all(one_fed[j][0][b] == mesh_fed[j][0][b]
+                       and one_fed[j][1][b] == mesh_fed[j][1][b]
+                       for j in range(s + 1))
+            if not same:
+                break
+            if one_fed[s][1][b] == 0:
+                continue
+            worst = max(worst, float((mesh_logits[s][b]
+                                      - one_logits[s][b]).abs().max()))
+            scale = max(scale, float(one_logits[s][b].abs().max()))
+            pairs += 1
+    require(pairs > 0, f"{what}: no decode step fed alike to compare")
+    frac = worst / max(scale, 1e-30)
+    require(frac <= MESH_LOGIT_TOL,
+            f"{what}: logits part by {frac:.4f} of the largest one-rank "
+            f"logit (limit {MESH_LOGIT_TOL})")
+    return frac, pairs
+
+
+def mesh_serve_phase():
+    """Phase 17: qwen2-0.5b (24 layers, full width) served on (1,4) and
+    (2,2) by four gloo ranks on the card, both engines; the shard-mode
+    kernel and the combine at their shapes; the attention kernels at the
+    non-power-of-two head dims.  Returns (the two kernel rows, the head
+    dims' readings, the summary, the launches by path)."""
+    import torch.multiprocessing as mp
+    cfg = get_config(ARCH)
+    require(cfg.n_layers == 24, f"{ARCH}: {cfg.n_layers} layers")
+    t = {}
+    t0 = time.perf_counter()
+    rows = check_mesh_decode_kernels(cfg)
+    heads = check_head_dims()
+    t["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = mesh_one_rank(cfg)
+    t["one_rank"] = time.perf_counter() - t0
+    MESH_SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    init = f"file://{MESH_SERVE_DIR / 'rendezvous'}"
+    (MESH_SERVE_DIR / "rendezvous").unlink(missing_ok=True)
+    results = [MESH_SERVE_DIR / f"rank{r}.json" for r in range(MESH_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(mesh_serve_rank, args=(init, str(MESH_SERVE_DIR)),
+             nprocs=MESH_RANKS, join=True)
+    t["ranks"] = time.perf_counter() - t0
+    ranks = [json.loads(f.read_text()) for f in results]
+    logits = torch.load(MESH_SERVE_DIR / "logits_mesh.pt")
+    shutil.rmtree(MESH_SERVE_DIR)
+    summary, paths = {}, {}
+    L = cfg.n_layers
+    for key in ranks[0]:
+        tag, kind = key.split("/")
+        runs = [r[key] for r in ranks]
+        what = f"{ARCH} on ({tag.replace('x', ',')}) {kind}"
+        require(all(r["tokens"] == runs[0]["tokens"] for r in runs),
+                f"{what}: the ranks' tokens differ")
+        require(all(r["logits_hash"] == runs[0]["logits_hash"]
+                    for r in runs), f"{what}: the ranks' logits differ")
+        ref_toks = one[kind]["tokens"]
+        frac, pairs = mesh_logits_check(one[kind], logits[key],
+                                        runs[0]["fed"], what)
+        same_tokens = sum(runs[0]["tokens"][k] == v
+                          for k, v in ref_toks.items())
+        for r in runs:
+            for part in ("decode", "prefill"):
+                got = r[f"{part}_wire"]
+                require(got == r["wire_estimate"][part],
+                        f"{what} rank {r['rank']}: {part} bytes {got} "
+                        f"against the layouts' {r['wire_estimate'][part]}")
+        steps = runs[0]["steps"]
+        n_tok = sum(len(v) for v in runs[0]["tokens"].values())
+        launches = {k: sum(r["launches"][k] for r in runs)
+                    for k in runs[0]["launches"]}
+        require(launches["paged_decode_partials"] == MESH_RANKS * L * steps
+                and launches["paged_decode_combine"]
+                == MESH_RANKS * L * steps
+                and launches["paged_decode_attention"] == 0
+                and launches["matmul"] > 0 and launches["attention"] > 0,
+                f"{what}: launches {launches} ({steps} decode steps)")
+        if kind == "dense":
+            require(all(r["cache_bytes"] * MESH_RANKS == MESH_KV_BYTES
+                        for r in runs),
+                    f"{what}: cache bytes {[r['cache_bytes'] for r in runs]}"
+                    f" against {MESH_KV_BYTES} over {MESH_RANKS}")
+        else:
+            pages = runs[0]["pool_pages"]
+            page_bytes = 2 * L * PAGE * cfg.n_kv_heads * cfg.d_head * 2
+            require(all(r["cache_bytes"] == -(-pages // MESH_RANKS)
+                        * page_bytes for r in runs),
+                    f"{what}: pool bytes {[r['cache_bytes'] for r in runs]}")
+        walls = sorted(w for r in runs for w in r["step_walls_ms"][1:])
+        idle = profiled_idle(runs)
+        summary[key] = dict(
+            tok_per_s=n_tok / runs[0]["seconds"],
+            one_rank_tok_per_s=sum(len(v) for v in ref_toks.values())
+            / one[kind]["seconds"],
+            decode_steps=steps, decode_step_wall_ms_median=walls[
+                len(walls) // 2], decode_step_wall_ms_range=[walls[0],
+                                                             walls[-1]],
+            device_idle_share=idle["card"]["device_idle_share"],
+            idle=idle, logits_max_frac=frac, logits_pairs=pairs,
+            requests_same_tokens_as_one_rank=same_tokens,
+            cache_bytes_per_rank=runs[0]["cache_bytes"],
+            one_rank_cache_bytes=one[kind]["cache_bytes"],
+            decode_wire=runs[0]["decode_wire"],
+            prefill_wire=runs[0]["prefill_wire"],
+            run_wire=runs[0]["run_wire"], launches=launches)
+        paths[f"{what} (mesh, {MESH_RANKS} ranks)"] = launches
+        print(f"mesh serve {what}: " + json.dumps(
+            {k: v for k, v in summary[key].items() if k != "idle"}),
+            flush=True)
+    print(f"phase 17 seconds by part: {json.dumps(t)}", flush=True)
+    return rows, heads, summary, paths
+
+
 # phases that also run alone, ``python3 chip_smoke.py 4c 4d``: after the
 # device facts and the build, each with the same checks and lines, then
 # its seconds; no kernels line and no ok line
@@ -8986,7 +9644,7 @@ ALONE = {"d256": lambda: print(json.dumps(
          "6c": lambda: (check_ssd_backward(), train_mamba2()),
          "9": linalg_phase, "10": hybrid_phase, "11": sched_phase,
          "12": session_phase, "13": pipe_phase, "14": moe_phase,
-         "15": families_phase, "16": robust_phase}
+         "15": families_phase, "16": robust_phase, "17": mesh_serve_phase}
 
 
 def main() -> int:
@@ -9172,7 +9830,19 @@ def main() -> int:
     _, robust_paths = robust_phase()
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
-    # 17. results
+    # 17. serving on a mesh: qwen2-0.5b at full width and depth on (1, 4)
+    # and (2, 2), four ranks; the attention kernels at the other head dims
+    t17 = time.perf_counter()
+    mesh_rows, head_dims, _, mesh_paths = mesh_serve_phase()
+    rows += mesh_rows
+    rows[1]["head_dims"] = {d: dict(ms=v["ms"]["flash_prefill"],
+                                    fp32_ms=v["ms"]["flash_fp32"])
+                            for d, v in head_dims.items()}
+    rows[2]["head_dims"] = {d: v["ms"]["paged"]
+                            for d, v in head_dims.items()}
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # results
     ssd_bwd = next(r for r in rows if r["name"] == "ssd_backward")
     attn_bwd = next(r for r in rows if r["name"] == "attention_backward")
     rows[3]["zamba2"] = {k: {kk: vv for kk, vv in v.items()
@@ -9246,6 +9916,14 @@ def main() -> int:
     ssd_bwd = next(r for r in rows if r["name"] == "ssd_backward")
     ssd_bwd["max_err_over_largest"] = max(ssd_bwd["max_err_over_largest"],
                                           errs["ssd_backward_max_rel_err"])
+    for d, v in head_dims.items():
+        e = v["max_abs_err"]
+        rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], e["flash"],
+                                     e["flash_fp32"])
+        rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], e["paged"])
+        attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"],
+                                      e["flash_backward"])
+        attn_bwd.setdefault("head_dims", {})[d] = v["ms"]["flash_backward"]
     names = {"gemm": "matmul", "flash_attention": "attention",
              "flash_attention_d256": "attention",
              "paged_decode_attention": "paged_decode_attention",
@@ -9255,7 +9933,9 @@ def main() -> int:
              "attention_backward_d256": "attention_backward",
              "quantize_compress": "quantize_compress",
              "matmul_dequant": "matmul_dequant",
-             "gemm_batched": "matmul_batched"}
+             "gemm_batched": "matmul_batched",
+             "paged_decode_partials": "paged_decode_partials",
+             "paged_decode_combine": "paged_decode_combine"}
     train_path = (f"{ARCH} train ({RANKS} ranks, int8 wire, {WIRE_STEPS} "
                   "steps)")
     paths = {ARCH: launches, f"{ARCH} dense cache": dense_launches,
@@ -9265,7 +9945,7 @@ def main() -> int:
              LINALG_PATH: linalg_launches, HYBRID_PATH: hybrid_launches,
              SCHED_PATH: sched_launches, PIPE_PATH: pipe_launches,
              **session_launches, **moe_paths, **family_paths,
-             **robust_paths}
+             **robust_paths, **mesh_paths}
     # gemma-2b's attention is the head-dim-256 rows' alone
     d256 = {f"{GEMMA2B} dense cache": g2b_launches,
             f"{GEMMA2B} train (1 rank, 3 steps)": g2b_train_launches}
@@ -9274,7 +9954,8 @@ def main() -> int:
         use = (d256 if row["name"].endswith("_d256") else moe_paths
                if op == "matmul_batched" else paths
                if op.startswith("attention") else {**paths, **d256})
-        row["launches_by_path"] = {k: v[op] for k, v in use.items()}
+        row["launches_by_path"] = {k: v.get(op, 0)
+                                   for k, v in use.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}))
     print(smi)

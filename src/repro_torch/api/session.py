@@ -255,9 +255,9 @@ class Session:
         path = (select_path(mesh, comms=comms_plan, pipeline=spec) if train
                 else shape.kind)
 
-        # the gspmd path (and a serve cell, which raises at serving: item
-        # 13) runs the model on the mesh of several ranks; the comms and
-        # pipeline paths run it on each rank's own rows
+        # the gspmd path and a serve cell run the model on the mesh of
+        # several ranks; the comms and pipeline paths run it on each
+        # rank's own rows
         on_mesh = mesh.size > 1 and path not in ("comms", "pipeline")
         model = Model(cfg, device=self.device,
                       mesh=mesh if on_mesh else None,
@@ -510,18 +510,19 @@ class Session:
         Train cells trace the SAME dispatched train step
         :meth:`train_step` builds, through the same op cache, on fake
         params, optimizer state and batch (``FakeTensorMode``: nothing is
-        allocated).  Serve cells raise ``NotImplementedError``: serving on
-        a mesh is ROADMAP queue 1, item 13.  On a mesh the session's group
-        should be torch's ``fake`` backend (``launch/dryrun.py``), so that
-        the collectives return at once; their bytes are counted all the
-        same."""
+        allocated).  Serve cells of the dense family trace the reference's
+        ``prefill_step`` (``Model.prefill`` over the cell's prompts) or
+        ``serve_step`` (one ``Model.decode_step`` against a cache of the
+        cell's length) on fake params and cache; the other families'
+        raise, naming what ROADMAP queue 1, item 13 still waits for.  On a
+        mesh the session's group should be torch's ``fake`` backend
+        (``launch/dryrun.py``), so that the collectives return at once;
+        their bytes are counted all the same."""
         from repro_torch.core import dry
 
         cfg, shape = plan.cfg, plan.shape
         if shape.kind != "train":
-            raise NotImplementedError(
-                f"dryrun of a {shape.kind!r} cell: the port traces train "
-                "steps only; serving on a mesh is ROADMAP queue 1, item 13")
+            return self._dryrun_serve(plan, seed)
         specs, _ = plan.batch_specs()
         with dry.fake_mode():
             batch = {k: torch.zeros(v.shape, dtype=(
@@ -546,6 +547,55 @@ class Session:
             "batch_axes": list(plan.parallel.batch_axes)})
         return trace, meta
 
+    def _dryrun_serve(self, plan: ExecutablePlan, seed: int):
+        """:meth:`dryrun` of a serve cell: the prefill over the cell's
+        prompts, or one decode step of its batch at the cache's last
+        position; the step's state (params, and the cache for a decode)
+        counts as live from the start."""
+        from repro_torch.core import dry
+
+        from repro_torch.models.transformer import MESH_SERVING_WAITS
+
+        cfg, shape, model = plan.cfg, plan.shape, plan.model
+        if cfg.family != "dense" or model._windowed():
+            raise NotImplementedError(
+                f"dryrun of a {shape.kind!r} cell of {cfg.name}: the port "
+                "traces the dense family's serve cells; the rest waits for "
+                f"ROADMAP queue 1, item 13: {MESH_SERVING_WAITS}")
+        B, S = shape.global_batch, shape.seq_len
+        decode = shape.is_decode
+        with dry.fake_mode(), torch.no_grad():
+            params = model.init(seed)
+            if decode:
+                cache = model.init_cache(B, S)
+                tokens = torch.zeros((B, 1), dtype=torch.long,
+                                     device=self.device)
+                pos = torch.full((B,), S - 1, dtype=torch.long,
+                                 device=self.device)
+                args = (params, cache)
+                meta = {"step": "serve_step", "path": "serve"}
+            else:
+                tokens = torch.zeros((B, S), dtype=torch.long,
+                                     device=self.device)
+                args = (params,)
+                meta = {"step": "prefill_step", "path": "serve"}
+            with self.obs.span("lower", step=meta["step"], arch=cfg.name,
+                               shape=shape.name):
+                with dry.traced(args) as trace:
+                    if decode:
+                        model.decode_step(params, cache, tokens, pos)
+                    else:
+                        _, cache = model.prefill(params, tokens)
+            # this rank's K/V: the cache the step reads, or the prefill's
+            meta["kv_cache_bytes"] = sum(t.numel() * t.element_size()
+                                         for t in cache.values())
+        meta.update(arch=cfg.name, shape=shape.name, plan={
+            "attn_mode": plan.parallel.attn_mode,
+            "fsdp": plan.parallel.fsdp,
+            "seq_parallel_residual": plan.parallel.seq_parallel_residual,
+            "batch_axes": list(plan.parallel.batch_axes)})
+        return trace, meta
+
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
@@ -561,6 +611,11 @@ class Session:
         across engines: restarting a server never re-initializes or
         re-uploads weights); the engine's prefill/decode steps come from
         the session's compiled-artifact cache.
+
+        On a mesh the engine serves on it: each rank holds its blocks of
+        the params and its shard of the KV cache or page pool, and every
+        rank runs the same ticks (the dense family; the others raise,
+        naming ROADMAP queue 1, item 13).
 
         ``scheduler="static"`` (default) builds the fixed-slot
         :class:`~repro_torch.serve.Engine` with its KV cache registered
@@ -588,9 +643,11 @@ class Session:
             params = self.state.get(pname)
             # the registry key is caller-chosen: refuse to hand one
             # model's weights to a different architecture/scale
-            want = model.param_specs()
+            want = {k: (spec.shape if model.mesh is None
+                        else spec.layout.local_shape(spec.shape, model.mesh))
+                    for k, spec in model.param_specs().items()}
             same = (set(params) == set(want)
-                    and all(tuple(params[k].shape) == tuple(want[k].shape)
+                    and all(tuple(params[k].shape) == tuple(want[k])
                             for k in want))
             if not same:
                 raise ValueError(

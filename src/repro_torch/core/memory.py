@@ -324,6 +324,63 @@ def footprints_for_mesh(cfg, mesh, *, global_batch: int, seq_len: int,
         moment_itemsize=moment_itemsize)
 
 
+def kv_cache_bytes(cfg, *, batch: int, seq_len: int, mesh=None,
+                   plan=None) -> int:
+    """A dense KV cache's bytes on one rank: (L, batch, seq_len, Hkv, hd)
+    bf16 for k and for v, over the shards of ``plan.kv_cache`` on
+    ``mesh`` (the slots over the data axes where they divide, the
+    sequence over the model axis, or over every axis)."""
+    whole = 2 * 2 * cfg.n_layers * batch * seq_len * cfg.n_kv_heads \
+        * cfg.d_head
+    if mesh is None or plan is None:
+        return whole
+    return whole // plan.kv_cache(batch, mesh).num_shards(mesh)
+
+
+def param_bytes_per_rank(specs, mesh=None) -> int:
+    """The bytes of one rank's blocks of the leaves ``specs`` (name ->
+    ``ParamSpec``, their layouts on ``mesh``; whole without a mesh)."""
+    total = 0
+    for spec in specs.values():
+        shape = (spec.shape if mesh is None or spec.layout is None
+                 else spec.layout.local_shape(spec.shape, mesh))
+        total += nbytes(shape, spec.dtype)
+    return total
+
+
+def serve_footprint(cfg, *, batch: int, seq_len: int, decode: bool,
+                    mesh=None, plan=None, param_bytes: Optional[int] = None,
+                    param_itemsize: int = 2) -> Footprint:
+    """Predicted per-device bytes of a serve cell on a mesh: a prefill of
+    ``batch`` prompts of ``seq_len`` (``decode=False``: the K/V it
+    returns) or a decode step against a ``seq_len`` cache (``decode``):
+
+    - **params**: ``param_bytes`` (this rank's blocks,
+      :func:`param_bytes_per_rank`), else the whole model over the model
+      axis, as the train cells' term;
+    - **kv_cache**: :func:`kv_cache_bytes`, this rank's block;
+    - **logits**: the last position's fp32 logits, whole on every rank;
+    - **activations**: the residual of the rank's rows and one layer's
+      K/V over every head (gathered before a rank keeps its shard);
+    - **workspace**: the layer body's transient term."""
+    tp = mesh.shape.get("model", 1) if mesh is not None else 1
+    D = cfg.d_model
+    V = getattr(cfg, "padded_vocab", None) or cfg.vocab_size
+    S = 1 if decode else seq_len
+    params = (param_bytes if param_bytes is not None
+              else int(param_itemsize * (_layer_param_count(cfg)
+                                         + _edge_param_count(cfg)) / tp))
+    kv = kv_cache_bytes(cfg, batch=batch, seq_len=seq_len, mesh=mesh,
+                        plan=plan)
+    rows = batch * S
+    activations = rows * D * 2 + 2 * rows * cfg.n_kv_heads * cfg.d_head * 2
+    f_eff = max(D, getattr(cfg, "d_ff", 0) or 0)
+    workspace = WORKSPACE_BLOCKS * rows * max(D, f_eff // tp) * 2
+    return Footprint(params=params, kv_cache=int(kv),
+                     logits=batch * V * 4, activations=int(activations),
+                     workspace=int(workspace))
+
+
 def peak_stage_footprint(footprints: Sequence[Footprint]) -> Footprint:
     """The stage with the largest total: the per-device peak."""
     return max(footprints, key=lambda f: f.total)

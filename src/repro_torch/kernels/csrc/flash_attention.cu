@@ -38,9 +38,14 @@
 //   Key tiles are aligned at key 0 in every call, every row's reductions
 //   run in the same order, and a tile fully masked for a row leaves its m,
 //   l and accumulator bitwise unchanged (alpha = 2^0 = 1, P = 0).
-// - D = 32 rows are padded to 64 in shared memory (the padding is never
-//   read by QKᵀ, and P·V's padded output columns are not stored); D = 128
-//   rows are two 64-wide boxes, D = 256 rows (gemma-2b) four.  At D = 256
+// - Any head dim D <= 256 runs on the tile of the next width DT of 32, 64,
+//   128 and 256: the columns past D load as zeros, which leave QKᵀ exact,
+//   and P·V's columns past D are not stored (the scale is the caller's,
+//   1/sqrt(D) of the real D).  A D that is a multiple of 8 loads by 16-byte
+//   cp.async; any other D element by element (load_chunk8).  DT = 32 rows
+//   are padded to 64 in shared memory (the padding is never read by QKᵀ,
+//   and P·V's padded output columns are not stored); DT = 128 rows are two
+//   64-wide boxes, DT = 256 rows (gemma-2b) four.  At D = 256
 //   the Q tile and three K/V stages take 230,400 of the 232,448 bytes a
 //   block may have, and the O accumulator 128 of a thread's registers
 //   (64 x 256 fp32 over 128 threads; ptxas: 255 in all, 124 bytes
@@ -69,41 +74,42 @@ constexpr int BN = 64;                 // keys per tile
 constexpr int BOX = 64 * 64 * 2;       // one 64 x 64 bf16 tile, 8 KB
 constexpr int STAGES = 3;              // K/V ring
 
-template <int D>
+template <int DT>
 struct Dims {
-  static constexpr int NB = D > 64 ? D / 64 : 1;  // 64-wide boxes per row
+  static constexpr int NB = DT > 64 ? DT / 64 : 1;  // 64-wide boxes per row
   static constexpr int DP = 64 * NB;              // row width in smem
   static constexpr int TILE = NB * BOX;           // one 64-row tile
   static constexpr int SMEM = 1024 + TILE + STAGES * 2 * TILE;
   static_assert(SMEM <= 232448, "a block's shared memory on sm_90");
 };
 
-// cp.async rows [r0, r0 + 64) of a (rows, D) bf16 array into a swizzled
-// tile; rows at or past ``nrows`` read as zeros.
-template <int D>
+// Rows [r0, r0 + 64) of a (rows, D) bf16 array into a swizzled tile DT
+// wide; rows at or past ``nrows`` and columns at or past D read as zeros.
+template <int DT>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
-                                          int r0, int nrows, int tid) {
-  constexpr int CPR = D / 8;           // 16-byte chunks per row
+                                          int r0, int nrows, int tid, int D) {
+  constexpr int CPR = DT / 8;          // 16-byte chunks per row
 #pragma unroll
   for (int it = 0; it < CPR / 2; ++it) {
     const int e = tid + 128 * it;
     const int r = e / CPR, c = e % CPR;
     const bool ok = r0 + r < nrows;
-    cp_async16(dst + (c / 8) * BOX + swz128(r, c % 8),
-               src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok);
+    load_chunk8(dst + (c / 8) * BOX + swz128(r, c % 8),
+                src + (size_t)(ok ? r0 + r : 0) * D, c * 8, D, ok);
   }
 }
 
-template <int D>
+template <int DT, bool EXACT>
 __global__ void __launch_bounds__(128)
 flash_attention_wgmma_kernel(const bf16* __restrict__ q,
                              const bf16* __restrict__ k,
                              const bf16* __restrict__ v,
                              bf16* __restrict__ o, float* __restrict__ lse,
-                             int Hq, int Hkv, int S, int T, int causal,
-                             int window, float softcap, float scale,
-                             int q_offset) {
-  using Dm = Dims<D>;
+                             int Hq, int Hkv, int S, int T, int d_arg,
+                             int causal, int window, float softcap,
+                             float scale, int q_offset) {
+  const int D = EXACT ? DT : d_arg;    // a tile's own width: constant
+  using Dm = Dims<DT>;
   constexpr int DP = Dm::DP, TILE = Dm::TILE;
   constexpr int NO = DP / 2;           // O accumulator floats per thread
   extern __shared__ uint8_t dyn[];
@@ -129,12 +135,13 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
 
   // Q and the first STAGES - 1 K/V tiles, one commit group each (Q rides
   // with the first); empty groups keep the count uniform
-  load_tile<D>(Qs, q + (size_t)bh * S * D, q0, S, tid);
+  load_tile<DT>(Qs, q + (size_t)bh * S * D, q0, S, tid, D);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < ntiles) {
-      load_tile<D>(ring + 2 * s * TILE, kb, kv_begin + s * BN, T, tid);
-      load_tile<D>(ring + (2 * s + 1) * TILE, vb, kv_begin + s * BN, T, tid);
+      load_tile<DT>(ring + 2 * s * TILE, kb, kv_begin + s * BN, T, tid, D);
+      load_tile<DT>(ring + (2 * s + 1) * TILE, vb, kv_begin + s * BN, T, tid,
+                    D);
     }
     cp_async_commit();
   }
@@ -158,8 +165,8 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
       const int tn = t + STAGES - 1;   // into the stage tile t-1 used
       if (tn < ntiles) {
         uint8_t* st = ring + 2 * (tn % STAGES) * TILE;
-        load_tile<D>(st, kb, kv_begin + tn * BN, T, tid);
-        load_tile<D>(st + TILE, vb, kv_begin + tn * BN, T, tid);
+        load_tile<DT>(st, kb, kv_begin + tn * BN, T, tid, D);
+        load_tile<DT>(st + TILE, vb, kv_begin + tn * BN, T, tid, D);
       }
       cp_async_commit();
     }
@@ -170,7 +177,7 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
     // S = Q Kᵀ
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DT / 16; ++kk) {
       const int off = (kk / 4) * BOX + (kk % 4) * 32;
       wgmma<64, 0, 0>(sacc, make_desc(Qs + off, 16, 1024),
                       make_desc(Ks + off, 16, 1024), kk > 0 ? 1 : 0);
@@ -267,9 +274,16 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < DP / 8; ++g) {
       const int col = 8 * g + c0;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(ob + col) = __floats2bfloat162_rn(
-            oacc[4 * g + 2 * rr] * inv, oacc[4 * g + 2 * rr + 1] * inv);
+      const float x = oacc[4 * g + 2 * rr] * inv;
+      const float y = oacc[4 * g + 2 * rr + 1] * inv;
+      if ((D & 1) == 0) {              // the pair is 4-byte aligned
+        if (col < D)
+          *reinterpret_cast<__nv_bfloat162*>(ob + col) =
+              __floats2bfloat162_rn(x, y);
+      } else {
+        if (col < D) ob[col] = __float2bfloat16(x);
+        if (col + 1 < D) ob[col + 1] = __float2bfloat16(y);
+      }
     }
     if (lse != nullptr && lane % 4 == 0)
       lse[(size_t)bh * S + qi] =
@@ -277,26 +291,26 @@ flash_attention_wgmma_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int DT, bool EXACT>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                void* lse, int B, int Hq, int Hkv, int S, int T, int causal,
-                int window, float softcap, float scale, int q_offset,
-                cudaStream_t s) {
-  constexpr int SMEM = Dims<D>::SMEM;
+                void* lse, int B, int Hq, int Hkv, int S, int T, int D,
+                int causal, int window, float softcap, float scale,
+                int q_offset, cudaStream_t s) {
+  constexpr int SMEM = Dims<DT>::SMEM;
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<D>,
+        flash_attention_wgmma_kernel<DT, EXACT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
   const dim3 grid((S + BM - 1) / BM, B * Hq);
-  flash_attention_wgmma_kernel<D><<<grid, 128, SMEM, s>>>(
+  flash_attention_wgmma_kernel<DT, EXACT><<<grid, 128, SMEM, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), Hq, Hkv, S, T, causal, window, softcap, scale,
-      q_offset);
+      static_cast<float*>(lse), Hq, Hkv, S, T, D, causal, window, softcap,
+      scale, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -307,29 +321,33 @@ constexpr int F_BKV = 64;
 constexpr int F_THREADS = 128;
 constexpr int TPR = F_THREADS / F_BQ;   // lanes per query row
 
-template <int D>
+// DT, one of 32, 64, 128 and 256, is the tile's width: the real head dim
+// D <= DT strides the global rows, and columns past it are zeros in shared
+// memory (they add exact zeros to the scores and are not stored).
+template <int DT>
 constexpr size_t f32_smem_bytes() {
-  // Qs (BQ x D+1) + Ks (BKV x D+1) + Vs (BKV x D) + Ps (BQ x BKV+1), fp32
-  return sizeof(float) *
-         (F_BQ * (D + 1) + F_BKV * (D + 1) + F_BKV * D + F_BQ * (F_BKV + 1));
+  // Qs (BQ x DT+1) + Ks (BKV x DT+1) + Vs (BKV x DT) + Ps (BQ x BKV+1), fp32
+  return sizeof(float) * (F_BQ * (DT + 1) + F_BKV * (DT + 1) + F_BKV * DT +
+                          F_BQ * (F_BKV + 1));
 }
 
-template <int D>
+template <int DT, bool EXACT>
 __global__ void __launch_bounds__(F_THREADS)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ o, float* __restrict__ lse,
-                           int Hq, int Hkv, int S, int T, int causal,
-                           int window, float softcap, float scale,
+                           int Hq, int Hkv, int S, int T, int d_arg,
+                           int causal, int window, float softcap, float scale,
                            int q_offset) {
-  constexpr int DP = D + 1;
+  const int D = EXACT ? DT : d_arg;    // a tile's own width: constant
+  constexpr int DP = DT + 1;
   constexpr int PP = F_BKV + 1;
   extern __shared__ float smem[];
   float* Qs = smem;
   float* Ks = Qs + F_BQ * DP;
   float* Vs = Ks + F_BKV * DP;
-  float* Ps = Vs + F_BKV * D;
+  float* Ps = Vs + F_BKV * DT;
 
   const int bh = blockIdx.y;                 // b * Hq + h
   const int b = bh / Hq;
@@ -344,11 +362,12 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   const float* kb = k + (size_t)(b * Hkv + hk) * T * D;
   const float* vb = v + (size_t)(b * Hkv + hk) * T * D;
 
-  for (int idx = tid; idx < F_BQ * D; idx += F_THREADS) {
-    const int rr = idx / D;
-    const int d = idx % D;
+  for (int idx = tid; idx < F_BQ * DT; idx += F_THREADS) {
+    const int rr = idx / DT;
+    const int d = idx % DT;
     const int qi = q0 + rr;
-    Qs[rr * DP + d] = qi < S ? qb[(size_t)qi * D + d] * scale : 0.0f;
+    Qs[rr * DP + d] =
+        qi < S && d < D ? qb[(size_t)qi * D + d] * scale : 0.0f;
   }
 
   const int qi = q0 + r;
@@ -362,23 +381,23 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
   float m = -INFINITY;
   float l = 0.0f;
-  float acc[D / TPR];
+  float acc[DT / TPR];
 #pragma unroll
-  for (int e = 0; e < D / TPR; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < DT / TPR; ++e) acc[e] = 0.0f;
 
   for (int j0 = kv_begin; j0 < kv_end; j0 += F_BKV) {
     __syncthreads();            // Qs written / last tile's readers done
-    for (int idx = tid; idx < F_BKV * D; idx += F_THREADS) {
-      const int jj = idx / D;
-      const int d = idx % D;
+    for (int idx = tid; idx < F_BKV * DT; idx += F_THREADS) {
+      const int jj = idx / DT;
+      const int d = idx % DT;
       const int j = j0 + jj;
       float kx = 0.0f, vx = 0.0f;
-      if (j < T) {
+      if (j < T && d < D) {
         kx = kb[(size_t)j * D + d];
         vx = vb[(size_t)j * D + d];
       }
       Ks[jj * DP + d] = kx;
-      Vs[jj * D + d] = vx;
+      Vs[jj * DT + d] = vx;
     }
     __syncthreads();
 
@@ -391,7 +410,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       const int j = j0 + jj;
       float dot = 0.0f;
 #pragma unroll 16
-      for (int d = 0; d < D; ++d) dot += Qs[r * DP + d] * Ks[jj * DP + d];
+      for (int d = 0; d < DT; ++d) dot += Qs[r * DP + d] * Ks[jj * DP + d];
       if (softcap > 0.0f) dot = softcap * tanhf(dot / softcap);
       bool ok = (j < T) && (qi < S);
       if (causal) ok = ok && (j <= qpos);
@@ -422,11 +441,11 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     __syncwarp();               // the row's Ps entries come from its 4 lanes
 
 #pragma unroll
-    for (int e = 0; e < D / TPR; ++e) {
+    for (int e = 0; e < DT / TPR; ++e) {
       const int d = e * TPR + sub;
       float a = acc[e] * alpha;
 #pragma unroll 16
-      for (int jj = 0; jj < F_BKV; ++jj) a += Ps[r * PP + jj] * Vs[jj * D + d];
+      for (int jj = 0; jj < F_BKV; ++jj) a += Ps[r * PP + jj] * Vs[jj * DT + d];
       acc[e] = a;
     }
   }
@@ -435,51 +454,74 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;
     float* ob = o + ((size_t)bh * S + qi) * D;
 #pragma unroll
-    for (int e = 0; e < D / TPR; ++e) ob[e * TPR + sub] = acc[e] * inv;
+    for (int e = 0; e < DT / TPR; ++e)
+      if (e * TPR + sub < D) ob[e * TPR + sub] = acc[e] * inv;
     if (lse != nullptr && sub == 0)
       lse[(size_t)bh * S + qi] = l > 0.0f ? m + logf(l) : -INFINITY;
   }
 }
 
-template <int D>
+template <int DT, bool EXACT>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               void* lse, int B, int Hq, int Hkv, int S, int T, int causal,
-               int window, float softcap, float scale, int q_offset,
-               cudaStream_t s) {
-  constexpr size_t bytes = f32_smem_bytes<D>();
+               void* lse, int B, int Hq, int Hkv, int S, int T, int D,
+               int causal, int window, float softcap, float scale,
+               int q_offset, cudaStream_t s) {
+  constexpr size_t bytes = f32_smem_bytes<DT>();
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_f32_kernel<D>,
+        flash_attention_f32_kernel<DT, EXACT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
   const dim3 grid((S + F_BQ - 1) / F_BQ, B * Hq);
-  flash_attention_f32_kernel<D><<<grid, F_THREADS, bytes, s>>>(
+  flash_attention_f32_kernel<DT, EXACT><<<grid, F_THREADS, bytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), Hq, Hkv, S, T, causal, window, softcap, scale,
-      q_offset);
+      static_cast<float*>(lse), Hq, Hkv, S, T, D, causal, window, softcap,
+      scale, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, void*, void*,
-                      int, int, int, int, int, int, int, float, float, int,
-                      cudaStream_t);
+                      int, int, int, int, int, int, int, int, float, float,
+                      int, cudaStream_t);
 
-int dispatch(Launch l32, Launch l64, Launch l128, Launch l256, const void* q,
-             const void* k, const void* v, void* o, void* lse, int B, int Hq,
-             int Hkv, int S, int T, int D, int causal, int window,
-             float softcap, float scale, int q_offset, void* stream) {
-  const Launch fn = D == 32    ? l32
-                    : D == 64  ? l64
-                    : D == 128 ? l128
-                    : D == 256 ? l256
-                               : nullptr;
+// The launch for head dim D: a power-of-two D on its own tile with D a
+// compile-time constant (strides, masks and the 16-byte loads fold away),
+// any other D <= 256 on the tile of the next width with the columns past
+// it masked.
+template <Launch (*PICK)(int, bool)>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             void* lse, int B, int Hq, int Hkv, int S, int T, int D,
+             int causal, int window, float softcap, float scale, int q_offset,
+             void* stream) {
+  const int width = D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+  const Launch fn = D <= 0 || D > 256 ? nullptr : PICK(width, D == width);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, lse, B, Hq, Hkv, S, T, causal, window, softcap, scale,
-            q_offset, static_cast<cudaStream_t>(stream));
+  return fn(q, k, v, o, lse, B, Hq, Hkv, S, T, D, causal, window, softcap,
+            scale, q_offset, static_cast<cudaStream_t>(stream));
+}
+
+Launch pick_bf16(int width, bool exact) {
+  switch (width) {
+    case 32: return exact ? launch_bf16<32, true> : launch_bf16<32, false>;
+    case 64: return exact ? launch_bf16<64, true> : launch_bf16<64, false>;
+    case 128:
+      return exact ? launch_bf16<128, true> : launch_bf16<128, false>;
+    default:
+      return exact ? launch_bf16<256, true> : launch_bf16<256, false>;
+  }
+}
+
+Launch pick_f32(int width, bool exact) {
+  switch (width) {
+    case 32: return exact ? launch_f32<32, true> : launch_f32<32, false>;
+    case 64: return exact ? launch_f32<64, true> : launch_f32<64, false>;
+    case 128: return exact ? launch_f32<128, true> : launch_f32<128, false>;
+    default: return exact ? launch_f32<256, true> : launch_f32<256, false>;
+  }
 }
 
 }  // namespace
@@ -493,9 +535,8 @@ extern "C" int dmath_flash_attention_bf16(const void* q, const void* k,
                                           int causal, int window,
                                           float softcap, float scale,
                                           int q_offset, void* stream) {
-  return dispatch(launch_bf16<32>, launch_bf16<64>, launch_bf16<128>,
-                  launch_bf16<256>, q, k, v, o, lse, B, Hq, Hkv, S, T, D,
-                  causal, window, softcap, scale, q_offset, stream);
+  return dispatch<pick_bf16>(q, k, v, o, lse, B, Hq, Hkv, S, T, D, causal,
+                             window, softcap, scale, q_offset, stream);
 }
 
 // The same for fp32 q, k, v and out, on CUDA cores.
@@ -506,7 +547,6 @@ extern "C" int dmath_flash_attention_f32(const void* q, const void* k,
                                          int causal, int window,
                                          float softcap, float scale,
                                          int q_offset, void* stream) {
-  return dispatch(launch_f32<32>, launch_f32<64>, launch_f32<128>,
-                  launch_f32<256>, q, k, v, o, lse, B, Hq, Hkv, S, T, D,
-                  causal, window, softcap, scale, q_offset, stream);
+  return dispatch<pick_f32>(q, k, v, o, lse, B, Hq, Hkv, S, T, D, causal,
+                            window, softcap, scale, q_offset, stream);
 }

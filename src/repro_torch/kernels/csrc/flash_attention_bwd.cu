@@ -50,7 +50,11 @@
 // -inf - -inf is formed.  Masks are applied only on tile pairs that
 // straddle the causal/window horizon or the end of S or T.  Tiles are
 // 128-byte-swizzled 64 x 64 bf16 boxes (hopper.cuh); D = 32 rows are padded
-// to 64 in shared memory and the padding's output columns not stored.
+// to 64 in shared memory and the padding's output columns not stored.  Any
+// other D <= 256 runs on the tile of the next width DT of 32, 64, 128 and
+// 256, its columns past D loaded as zeros (every product over the head dim
+// stays exact) and not stored; a D that is not a multiple of 8 loads
+// element by element (hopper.cuh's load_chunk8).
 //
 // What bounds it: at the train shape (q (2,14,512,64), causal) its five
 // products are ~2.4 µs of bf16 tensor-core work and its bytes ~1.3 µs, so
@@ -68,9 +72,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BOX = 64 * 64 * 2;       // one 64 x 64 bf16 tile, 8 KB
 constexpr int BT = 64;                 // rows of every tile (keys, queries)
 
-template <int D>
+template <int DT>
 struct Dims {
-  static constexpr int NB = D > 64 ? D / 64 : 1;  // 64-wide boxes per row
+  static constexpr int NB = DT > 64 ? DT / 64 : 1;  // 64-wide boxes per row
   static constexpr int DP = 64 * NB;              // row width in smem
   static constexpr int TILE = NB * BOX;
   static constexpr int DC = DP > 128 ? 128 : DP;  // dK/dV columns a block
@@ -95,29 +99,43 @@ __device__ __forceinline__ bool straddles(int j0, int i0, int S, int T,
          (window > 0 && j0 <= q_offset + i0 + BT - 1 - window);
 }
 
-// cp.async rows [r0, r0 + 64) of a (rows, D) bf16 array into a swizzled
-// tile; rows at or past ``nrows`` read as zeros.
-template <int D>
+// Rows [r0, r0 + 64) of a (rows, D) bf16 array into a swizzled tile DT
+// wide (DT the next of 32, 64, 128, 256 at or above D); rows at or past
+// ``nrows`` and columns at or past D read as zeros, which leave every
+// product over the head dim exact.
+template <int DT>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const bf16* src,
-                                          int r0, int nrows, int tid) {
-  constexpr int CPR = D / 8;           // 16-byte chunks per row
+                                          int r0, int nrows, int tid, int D) {
+  constexpr int CPR = DT / 8;          // 16-byte chunks per row
 #pragma unroll
   for (int it = 0; it < CPR / 2; ++it) {
     const int e = tid + 128 * it;
     const int r = e / CPR, c = e % CPR;
     const bool ok = r0 + r < nrows;
-    cp_async16(dst + (c / 8) * BOX + swz128(r, c % 8),
-               src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok);
+    load_chunk8(dst + (c / 8) * BOX + swz128(r, c % 8),
+                src + (size_t)(ok ? r0 + r : 0) * D, c * 8, D, ok);
   }
 }
 
-// A = X·Yᵀ for two 64-row tiles in shared memory (both K-major, depth D):
+// Two fp32 of a row at an even column: a float2 store where the row's
+// length D is even (the pair 8-byte aligned), else one at a time.
+__device__ __forceinline__ void store_pair(float* row, int col, int D,
+                                           float x, float y) {
+  if ((D & 1) == 0) {
+    if (col < D) *reinterpret_cast<float2*>(row + col) = make_float2(x, y);
+    return;
+  }
+  if (col < D) row[col] = x;
+  if (col + 1 < D) row[col + 1] = y;
+}
+
+// A = X·Yᵀ for two 64-row tiles in shared memory (both K-major, depth DT):
 // 32 fp32 per thread, wgmma's m64n64 fragment.
-template <int D>
+template <int DT>
 __device__ __forceinline__ void issue_xyt(float* acc, const uint8_t* x,
                                           const uint8_t* y) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DT / 16; ++kk) {
     const int off = (kk / 4) * BOX + (kk % 4) * 32;
     wgmma<64, 0, 0>(acc, make_desc(x + off, 16, 1024),
                     make_desc(y + off, 16, 1024), kk > 0 ? 1 : 0);
@@ -167,30 +185,31 @@ __global__ void attn_bwd_delta_kernel(const bf16* __restrict__ o,
 constexpr int KV_STAGES = 2;
 
 // one stage of the ring: Q, dO, then lse and delta
-template <int D>
+template <int DT>
 __host__ __device__ constexpr int dkdv_stage() {
-  return 2 * Dims<D>::TILE + 1024;
+  return 2 * Dims<DT>::TILE + 1024;
 }
 
-template <int D>
+template <int DT>
 __host__ __device__ constexpr int dkdv_smem() {
-  return 1024 + 2 * Dims<D>::TILE + KV_STAGES * dkdv_stage<D>();
+  return 1024 + 2 * Dims<DT>::TILE + KV_STAGES * dkdv_stage<DT>();
 }
 static_assert(dkdv_smem<256>() <= 232448, "a block's shared memory");
 
-template <int D>
-__global__ void __launch_bounds__(128, D > 64 ? 1 : 3)
+template <int DT, bool EXACT>
+__global__ void __launch_bounds__(128, DT > 64 ? 1 : 3)
 attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      float* __restrict__ part_k, float* __restrict__ part_v,
-                     int Hq, int Hkv, int S, int T, int causal, int window,
-                     float softcap, float scale, int q_offset) {
-  using Dm = Dims<D>;
+                     int Hq, int Hkv, int S, int T, int d_arg, int causal,
+                     int window, float softcap, float scale, int q_offset) {
+  const int D = EXACT ? DT : d_arg;    // a tile's own width: constant
+  using Dm = Dims<DT>;
   constexpr int TILE = Dm::TILE, DC = Dm::DC, NO = DC / 2;
-  constexpr int STAGE = dkdv_stage<D>();
+  constexpr int STAGE = dkdv_stage<DT>();
   extern __shared__ uint8_t dyn[];
   uint8_t* Ks = dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
   uint8_t* Vs = Ks + TILE;
@@ -224,8 +243,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_stage = [&](int s, int i0) {
     uint8_t* st = ring + s * STAGE;
-    load_tile<D>(st, qb, i0, S, tid);
-    load_tile<D>(st + TILE, dob, i0, S, tid);
+    load_tile<DT>(st, qb, i0, S, tid, D);
+    load_tile<DT>(st + TILE, dob, i0, S, tid, D);
     float* rows = reinterpret_cast<float*>(st + 2 * TILE);
     const int ii = tid % 64;
     const bool ok = i0 + ii < S;
@@ -233,8 +252,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async4(rows + tid, src, ok);      // lse[0..64), then delta[0..64)
   };
 
-  load_tile<D>(Ks, k + (size_t)bkv * T * D, j0, T, tid);
-  load_tile<D>(Vs, v + (size_t)bkv * T * D, j0, T, tid);
+  load_tile<DT>(Ks, k + (size_t)bkv * T * D, j0, T, tid, D);
+  load_tile<DT>(Vs, v + (size_t)bkv * T * D, j0, T, tid, D);
   if (ntiles > 0) load_stage(0, first * BT);
   cp_async_commit();
 
@@ -262,8 +281,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // Sᵀ = K Qᵀ, dPᵀ = V dOᵀ
     wg_fence();
-    issue_xyt<D>(sacc, Ks, Qs);
-    issue_xyt<D>(pacc, Vs, dOs);
+    issue_xyt<DT>(sacc, Ks, Qs);
+    issue_xyt<DT>(pacc, Vs, dOs);
     wg_commit();
     wg_wait_all();
 #pragma unroll
@@ -331,11 +350,17 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < DC / 8; ++g) {
       const int col = c_lo + 8 * g + c0;
-      if (col < D) {
-        *reinterpret_cast<float2*>(pk + col) = make_float2(
-            dk[4 * g + 2 * rr] * scale, dk[4 * g + 2 * rr + 1] * scale);
-        *reinterpret_cast<float2*>(pv + col) =
-            make_float2(dv[4 * g + 2 * rr], dv[4 * g + 2 * rr + 1]);
+      if ((D & 1) == 0) {              // both pairs 8-byte aligned
+        if (col < D) {
+          *reinterpret_cast<float2*>(pk + col) = make_float2(
+              dk[4 * g + 2 * rr] * scale, dk[4 * g + 2 * rr + 1] * scale);
+          *reinterpret_cast<float2*>(pv + col) =
+              make_float2(dv[4 * g + 2 * rr], dv[4 * g + 2 * rr + 1]);
+        }
+      } else {
+        store_pair(pk, col, D, dk[4 * g + 2 * rr] * scale,
+                   dk[4 * g + 2 * rr + 1] * scale);
+        store_pair(pv, col, D, dv[4 * g + 2 * rr], dv[4 * g + 2 * rr + 1]);
       }
     }
   }
@@ -380,30 +405,31 @@ __global__ void attn_bwd_sum_kernel(const float* __restrict__ part_k,
 
 // ---- dQ --------------------------------------------------------------------
 
-// the K/V ring's stages: two at D = 256, where three do not fit
-template <int D>
+// the K/V ring's stages: two at DT = 256, where three do not fit
+template <int DT>
 __host__ __device__ constexpr int dq_stages() {
-  return D > 128 ? 2 : 3;
+  return DT > 128 ? 2 : 3;
 }
 
-template <int D>
+template <int DT>
 __host__ __device__ constexpr int dq_smem() {
-  return 1024 + 2 * Dims<D>::TILE + dq_stages<D>() * 2 * Dims<D>::TILE;
+  return 1024 + 2 * Dims<DT>::TILE + dq_stages<DT>() * 2 * Dims<DT>::TILE;
 }
 static_assert(dq_smem<256>() <= 232448, "a block's shared memory");
 
-template <int D>
+template <int DT, bool EXACT>
 __global__ void __launch_bounds__(128)
 attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    float* __restrict__ part_q, int Hq, int Hkv, int S, int T,
-                   int causal, int window, float softcap, float scale,
-                   int q_offset) {
-  using Dm = Dims<D>;
+                   int d_arg, int causal, int window, float softcap,
+                   float scale, int q_offset) {
+  const int D = EXACT ? DT : d_arg;    // a tile's own width: constant
+  using Dm = Dims<DT>;
   constexpr int DP = Dm::DP, TILE = Dm::TILE, NO = DP / 2;
-  constexpr int DQ_STAGES = dq_stages<D>();
+  constexpr int DQ_STAGES = dq_stages<DT>();
   extern __shared__ uint8_t dyn[];
   uint8_t* Qs = dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
   uint8_t* dOs = Qs + TILE;
@@ -429,14 +455,14 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int first = tau0 + (par - tau0 % 2 + 2) % 2;
   const int ntiles = first < tau1 ? (tau1 - first + 1) / 2 : 0;
 
-  load_tile<D>(Qs, q + (size_t)bh * S * D, q0, S, tid);
-  load_tile<D>(dOs, dout + (size_t)bh * S * D, q0, S, tid);
+  load_tile<DT>(Qs, q + (size_t)bh * S * D, q0, S, tid, D);
+  load_tile<DT>(dOs, dout + (size_t)bh * S * D, q0, S, tid, D);
 #pragma unroll
   for (int s = 0; s < DQ_STAGES - 1; ++s) {
     if (s < ntiles) {
       const int j0 = (first + 2 * s) * BT;
-      load_tile<D>(ring + 2 * s * TILE, kb, j0, T, tid);
-      load_tile<D>(ring + (2 * s + 1) * TILE, vb, j0, T, tid);
+      load_tile<DT>(ring + 2 * s * TILE, kb, j0, T, tid, D);
+      load_tile<DT>(ring + (2 * s + 1) * TILE, vb, j0, T, tid, D);
     }
     cp_async_commit();
   }
@@ -464,8 +490,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int tn = t + DQ_STAGES - 1;
       if (tn < ntiles) {
         uint8_t* st = ring + 2 * (tn % DQ_STAGES) * TILE;
-        load_tile<D>(st, kb, (first + 2 * tn) * BT, T, tid);
-        load_tile<D>(st + TILE, vb, (first + 2 * tn) * BT, T, tid);
+        load_tile<DT>(st, kb, (first + 2 * tn) * BT, T, tid, D);
+        load_tile<DT>(st + TILE, vb, (first + 2 * tn) * BT, T, tid, D);
       }
       cp_async_commit();
     }
@@ -475,8 +501,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // S = Q Kᵀ, dP = dO Vᵀ
     wg_fence();
-    issue_xyt<D>(sacc, Qs, Ks);
-    issue_xyt<D>(pacc, dOs, Vs);
+    issue_xyt<DT>(sacc, Qs, Ks);
+    issue_xyt<DT>(pacc, dOs, Vs);
     wg_commit();
     wg_wait_all();
 #pragma unroll
@@ -531,10 +557,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  ((size_t)bh * S + qi) * D;
 #pragma unroll
     for (int g = 0; g < DP / 8; ++g) {
-      const int col = 8 * g + c0;
-      if (col < D)
-        *reinterpret_cast<float2*>(out + col) =
-            make_float2(dqa[4 * g + 2 * rr], dqa[4 * g + 2 * rr + 1]);
+      store_pair(out, 8 * g + c0, D, dqa[4 * g + 2 * rr],
+                 dqa[4 * g + 2 * rr + 1]);
     }
   }
 }
@@ -548,13 +572,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool& ready) {
   return err;
 }
 
-template <int D>
+template <int DT, bool EXACT>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* part,
            void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int S,
-           int T,
-           int causal, int window, float softcap, float scale, int q_offset,
-           cudaStream_t s) {
+           int T, int D, int causal, int window, float softcap, float scale,
+           int q_offset, cudaStream_t s) {
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
   const bf16* V = static_cast<const bf16*>(v);
@@ -569,24 +592,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   static bool kv_ready = false, q_ready = false;
-  err = allow_smem(attn_bwd_dkdv_kernel<D>, dkdv_smem<D>(), kv_ready);
+  err = allow_smem(attn_bwd_dkdv_kernel<DT, EXACT>, dkdv_smem<DT>(),
+                   kv_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* part_k = static_cast<float*>(part);
   float* part_v = part_k + 2 * (size_t)B * Hq * T * D;
   float* part_q = part_v + 2 * (size_t)B * Hq * T * D;
-  attn_bwd_dkdv_kernel<D><<<dim3((T + BT - 1) / BT, B * Hq,
-                                 2 * Dims<D>::NSPLIT),
-                            128, dkdv_smem<D>(), s>>>(
-      Q, K, V, dO, L, Dl, part_k, part_v, Hq, Hkv, S, T, causal, window,
+  attn_bwd_dkdv_kernel<DT, EXACT><<<dim3((T + BT - 1) / BT, B * Hq,
+                                         2 * Dims<DT>::NSPLIT),
+                                    128, dkdv_smem<DT>(), s>>>(
+      Q, K, V, dO, L, Dl, part_k, part_v, Hq, Hkv, S, T, D, causal, window,
       softcap, scale, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = allow_smem(attn_bwd_dq_kernel<D>, dq_smem<D>(), q_ready);
+  err = allow_smem(attn_bwd_dq_kernel<DT, EXACT>, dq_smem<DT>(), q_ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<D><<<dim3((S + BT - 1) / BT, B * Hq, 2), 128,
-                          dq_smem<D>(), s>>>(
-      Q, K, V, dO, L, Dl, part_q, Hq, Hkv, S, T, causal, window, softcap,
+  attn_bwd_dq_kernel<DT, EXACT><<<dim3((S + BT - 1) / BT, B * Hq, 2), 128,
+                                  dq_smem<DT>(), s>>>(
+      Q, K, V, dO, L, Dl, part_q, Hq, Hkv, S, T, D, causal, window, softcap,
       scale, q_offset);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -616,24 +640,14 @@ extern "C" int dmath_flash_attention_bwd_bf16(
     int causal, int window, float softcap, float scale, int q_offset,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return launch<32>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq,
-                        Hkv, S, T, causal, window, softcap, scale, q_offset,
-                        s);
-    case 64:
-      return launch<64>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq,
-                        Hkv, S, T, causal, window, softcap, scale, q_offset,
-                        s);
-    case 128:
-      return launch<128>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq,
-                         Hkv, S, T, causal, window, softcap, scale, q_offset,
-                         s);
-    case 256:
-      return launch<256>(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq,
-                         Hkv, S, T, causal, window, softcap, scale, q_offset,
-                         s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  // a power-of-two D on its own tile, D a compile-time constant; any
+  // other D <= 256 on the tile of the next width, columns past D masked
+  if (D <= 0 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const auto fn =
+      D == 32 ? launch<32, true> : D < 32 ? launch<32, false>
+      : D == 64 ? launch<64, true> : D < 64 ? launch<64, false>
+      : D == 128 ? launch<128, true> : D < 128 ? launch<128, false>
+      : D == 256 ? launch<256, true> : launch<256, false>;
+  return fn(q, k, v, o, dout, lse, delta, part, dq, dk, dv, B, Hq, Hkv, S, T,
+            D, causal, window, softcap, scale, q_offset, s);
 }

@@ -530,6 +530,30 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
+// Eight bf16 at columns [c, c + 8) of one row of D into 16 bytes of shared
+// memory, columns at or past D (and the whole chunk when !row_ok) as zeros:
+// one cp.async when D is a multiple of 8 (every chunk 16-byte aligned), else
+// element by element (a synchronous store, ordered by the same barriers).
+__device__ __forceinline__ void load_chunk8(void* dst,
+                                            const __nv_bfloat16* row, int c,
+                                            int D, bool row_ok) {
+  if ((D & 7) == 0) {
+    const bool ok = row_ok && c < D;
+    cp_async16(dst, ok ? row + c : row, ok);
+    return;
+  }
+  const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int j = c + 2 * e;
+    const uint32_t lo = row_ok && j < D ? r[j] : 0u;
+    const uint32_t hi = row_ok && j + 1 < D ? r[j + 1] : 0u;
+    w[e] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

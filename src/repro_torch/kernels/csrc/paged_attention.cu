@@ -5,8 +5,10 @@
 // Replaces the TPU kernel repro/kernels/paged_attention.py::
 // paged_decode_attention (_paged_decode_kernel).  q (B,Hq,hd), pages
 // (P,page,Hkv,hd) bf16, block_table (B,n_pages) int32, seq_lens (B,) int32,
-// out (B,Hq,hd) bf16; hd 32, 64, 128 or 256, g = Hq/Hkv <= 16 query heads
-// per kv head.  fp32 softmax and accumulators.
+// out (B,Hq,hd) bf16; any hd <= 256 (on the tile of the next width DT of
+// 32, 64, 128, 256: columns past hd load as zeros and are not stored; an
+// hd that is not a multiple of 8 loads element by element), g = Hq/Hkv <=
+// 16 query heads per kv head.  fp32 softmax and accumulators.
 //
 // What bounds it: a decode step's call at the serve shape (8 sequences,
 // ~2,000 live keys, 2 kv heads of 64) reads ~1 MB of K/V and does ~8
@@ -44,6 +46,22 @@
 //   split is never read, and a warp with no live key contributes an exact
 //   0 with weight 0, never a NaN).  No atomics.
 //
+// Shard mode (serving on a mesh, the KV cache sharded on the sequence): a
+// table entry < 0 marks a page this rank does not hold, whose keys are
+// masked, and seq_lens are the caller's (a shard of a dense row passes its
+// live length clipped to the shard).  The split kernel alone runs, every
+// split writing its (acc, m, l): the caller's partials
+// (dmath_paged_partials).  A split with no live key on this rank (past
+// the length, or on pages held elsewhere) loads nothing and writes only m
+// = -inf and l = 0; its acc is left unwritten, and no reader of the
+// partials reads acc where l = 0.  The ranks all-gather them in rank
+// order and the combine kernel adds n ranks' partials, rank by rank and
+// split by split, skipping those with l = 0 (dmath_paged_combine_ranks);
+// the one-rank call is its n = 1 case, which reads the live splits
+// alone, known from the lengths.  A row sharded at multiples of KS gives
+// each split to one rank, so the ranks' partials are the one-rank call's
+// splits and the combine's sums are the one-rank call's, bit for bit.
+//
 // So a call runs two kernels; the combine is launched as a programmatic
 // dependent of the splits (Hopper's griddepcontrol), so its launch overlaps
 // them and it waits for their writes.  (The last split to arrive doing the
@@ -75,7 +93,7 @@ static_assert(THREADS == KS, "one table lookup per thread");
 // warps' fp32 partial outputs, (WARPS x 16) rows of hd + 8, reuse K's
 // space (exactly its size).
 template <int HD>
-struct Layout {
+struct Layout {                      // HD: the tile's width (DT)
   static constexpr int LD = HD + 8;
   static constexpr int CH = HD / 8;          // 16-byte chunks per row
   static constexpr int LDR = HD + 8;
@@ -88,15 +106,16 @@ struct Layout {
                 "the partials fit in K's space");
 };
 
-template <int HD>
+template <int HD, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 paged_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    const bf16* __restrict__ vp,
                    const int* __restrict__ table,
                    const int* __restrict__ lens, float* __restrict__ part_o,
                    float* __restrict__ part_m, float* __restrict__ part_l,
-                   int Hq, int Hkv, int page, int n_pages, int n_splits,
-                   float scale_log2) {
+                   int Hq, int Hkv, int d_arg, int page, int n_pages,
+                   int n_splits, float scale_log2, int shard) {
+  const int D = EXACT ? HD : d_arg;    // a tile's own width: constant
   using L = Layout<HD>;
   constexpr int LD = L::LD, CH = L::CH, LDR = L::LDR;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -116,41 +135,55 @@ paged_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int g = Hq / Hkv;
   const int n = min(lens[b], n_pages * page);
   const int k0 = s * KS;
-  if (k0 >= n) return;                 // a split wholly past the length
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gr = lane / 4, tq = lane % 4;
+  const size_t row0 = (size_t)b * Hq + (size_t)hk * g;
+  if (k0 >= n && !shard) return;       // the one-rank combine skips it
 
-  // Q's g rows (the rest zero), and each key's row in the pool (-1 past n)
-  const bf16* qb = q + ((size_t)b * Hq + (size_t)hk * g) * HD;
-  for (int i = tid; i < MAXG * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    cp_async16(Qs + r * LD + c * 8, qb + (r < g ? r * HD + c * 8 : 0),
-               r < g);
-  }
+  // each key's row in the pool: -1 past n and on a page this rank does
+  // not hold
+  long long key_off = -1;
   {
     const int p = k0 + tid;
-    long long off = -1;
     if (p < n) {
       const int ph = table[(size_t)b * n_pages + p / page];
-      off = (((long long)ph * page + p % page) * Hkv + hk) * HD;
+      if (ph >= 0)
+        key_off = (((long long)ph * page + p % page) * Hkv + hk) * D;
     }
-    row_off[tid] = off;
+    row_off[tid] = key_off;
   }
-  __syncthreads();
+  // a split with no live key (shard mode only: on one rank key k0 is
+  // live) writes m = -inf and l = 0 and no o, which the combine never
+  // reads where l = 0
+  if (!__syncthreads_or(key_off >= 0)) {
+    if (tid < g) {
+      part_m[(row0 + tid) * n_splits + s] = -INFINITY;
+      part_l[(row0 + tid) * n_splits + s] = 0.0f;
+    }
+    return;
+  }
+
+  // Q's g rows (the rest zero)
+  const bf16* qb = q + row0 * D;
+  for (int i = tid; i < MAXG * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    load_chunk8(Qs + r * LD + c * 8, qb + (size_t)(r < g ? r : 0) * D, c * 8,
+                D, r < g);
+  }
 #pragma unroll 4
   for (int i = tid; i < KS * CH; i += THREADS) {
     const long long off = row_off[i / CH];
     const int c = (i % CH) * 8;
-    cp_async16(Ks + (i / CH) * LD + c, kp + (off >= 0 ? off + c : 0),
-               off >= 0);
+    load_chunk8(Ks + (i / CH) * LD + c, kp + (off >= 0 ? off : 0), c, D,
+                off >= 0);
   }
   cp_async_commit();                   // group: Q and K
 #pragma unroll 4
   for (int i = tid; i < KS * CH; i += THREADS) {
     const long long off = row_off[i / CH];
     const int c = (i % CH) * 8;
-    cp_async16(Vs + (i / CH) * LD + c, vp + (off >= 0 ? off + c : 0),
-               off >= 0);
+    load_chunk8(Vs + (i / CH) * LD + c, vp + (off >= 0 ? off : 0), c, D,
+                off >= 0);
   }
   cp_async_commit();                   // group: V
   cp_async_wait<1>();
@@ -179,14 +212,16 @@ paged_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     }
   }
 
-  // scale after the product, mask past the length, softmax in log2 units
+  // scale after the product, mask the keys with no row (past the length,
+  // or not on this rank), softmax in log2 units
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int nt = 0; nt < KW / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int key = k0 + kw0 + nt * 8 + 2 * tq + (e & 1);
-      const float v = key < n ? sc[nt][e] * scale_log2 : -INFINITY;
+      const int key = kw0 + nt * 8 + 2 * tq + (e & 1);
+      const float v =
+          row_off[key] >= 0 ? sc[nt][e] * scale_log2 : -INFINITY;
       sc[nt][e] = v;
       mx[e / 2] = fmaxf(mx[e / 2], v);
     }
@@ -274,9 +309,9 @@ paged_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     }
   }
   __syncthreads();
-  const size_t row0 = (size_t)b * Hq + (size_t)hk * g;
   for (int i = tid; i < g * (HD / 4); i += THREADS) {
     const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    if (c >= D) continue;
     float4 v = *reinterpret_cast<const float4*>(red + r * LDR + c);
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) {
@@ -287,8 +322,15 @@ paged_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       v.z += u.z;
       v.w += u.w;
     }
-    *reinterpret_cast<float4*>(part_o + ((row0 + r) * n_splits + s) * HD +
-                               c) = v;
+    float* dst = part_o + ((row0 + r) * n_splits + s) * D + c;
+    if ((D & 3) == 0) {                // 16-byte aligned
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < D) dst[j] = e[j];
+    }
   }
   if (tid < g) {
     part_m[(row0 + tid) * n_splits + s] = Ms[tid];
@@ -296,61 +338,105 @@ paged_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
 }
 
-// One block per (query head, sequence): the live splits added in split
-// order, rescaled to their common max.
+// One block per (query head, sequence): n ranks' partials added rank by
+// rank, each rank's splits in split order, rescaled to their common max.
+// parts holds n blocks of (o (rows, n_splits, hd), m (rows, n_splits), l
+// (rows, n_splits)), rows = B * Hq.  With ``lens`` (the one-rank call, n
+// = 1) only the splits below ceil(lens[b] / KS) are read, the others
+// never written; without, every split's m and l are, and a split with l
+// = 0 (no live key, its o unwritten) is skipped.  Both add a live
+// split's terms alike, so the shards of a row cut at multiples of KS
+// combine to the one-rank call's bits.
 __global__ void __launch_bounds__(COMBINE_THREADS)
-paged_combine_kernel(const float* __restrict__ part_o,
-                     const float* __restrict__ part_m,
-                     const float* __restrict__ part_l,
+paged_combine_kernel(const float* __restrict__ parts,
                      const int* __restrict__ lens, bf16* __restrict__ o,
-                     int Hq, int hd, int n_max, int n_splits) {
+                     int n, int rows, int hd, int n_splits, int n_max) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const int n = min(lens[b], n_max);
-  const int ns = n > 0 ? (n + KS - 1) / KS : 0;
+  const int Hq = gridDim.x;
   const size_t row = (size_t)b * Hq + h;
+  const size_t per = (size_t)rows * n_splits;      // entries of one rank
+  const size_t stride = per * (hd + 2);            // one rank's block
+  int ns = n_splits;
+  if (lens != nullptr) {
+    const int len = min(lens[b], n_max);
+    ns = len > 0 ? (len + KS - 1) / KS : 0;
+  }
   grid_dependency_wait();              // the splits are written
-  const float* pm = part_m + row * n_splits;
-  const float* pl = part_l + row * n_splits;
   float M = -INFINITY;
-  for (int s = 0; s < ns; ++s) M = fmaxf(M, pm[s]);
+  for (int r = 0; r < n; ++r) {
+    const float* pm = parts + r * stride + per * hd + row * n_splits;
+    for (int s = 0; s < ns; ++s) M = fmaxf(M, pm[s]);
+  }
   float l = 0.0f;
-  for (int s = 0; s < ns; ++s) l += pl[s] * exp2f(pm[s] - M);
+  for (int r = 0; r < n; ++r) {
+    const float* pm = parts + r * stride + per * hd + row * n_splits;
+    const float* pl = pm + per;
+    for (int s = 0; s < ns; ++s)
+      if (pl[s] > 0.0f) l += pl[s] * exp2f(pm[s] - M);
+  }
   const float inv = l > 0.0f ? 1.0f / l : 0.0f;
   for (int d = threadIdx.x; d < hd; d += COMBINE_THREADS) {
     float acc = 0.0f;
-    for (int s = 0; s < ns; ++s)
-      acc += part_o[(row * n_splits + s) * hd + d] * exp2f(pm[s] - M);
+    for (int r = 0; r < n; ++r) {
+      const float* po = parts + r * stride + row * n_splits * hd;
+      const float* pm = parts + r * stride + per * hd + row * n_splits;
+      const float* pl = pm + per;
+      for (int s = 0; s < ns; ++s)
+        if (pl[s] > 0.0f) acc += po[s * hd + d] * exp2f(pm[s] - M);
+    }
     o[row * hd + d] = __float2bfloat16(acc * inv);
   }
 }
 
-template <int HD>
-int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* table,
-           const int* lens, float* scratch, bf16* o, int B, int Hq, int Hkv,
-           int page, int n_pages, float scale, cudaStream_t s) {
+template <int HD, bool EXACT>
+int launch_splits(const bf16* q, const bf16* kp, const bf16* vp,
+                  const int* table, const int* lens, float* part, int B,
+                  int Hq, int Hkv, int D, int page, int n_pages, float scale,
+                  int shard, cudaStream_t s) {
   using L = Layout<HD>;
   static bool ready = false;
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_split_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_split_kernel<HD, EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L::BYTES));
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
-  const int n_max = n_pages * page;
-  const int n_splits = (n_max + KS - 1) / KS;
+  const int n_splits = (n_pages * page + KS - 1) / KS;
   const size_t rows = (size_t)B * Hq * n_splits;
-  float* part_o = scratch;
-  float* part_m = part_o + rows * HD;
+  float* part_o = part;
+  float* part_m = part_o + rows * D;
   float* part_l = part_m + rows;
-  paged_split_kernel<HD><<<dim3(n_splits, Hkv, B), THREADS, L::BYTES, s>>>(
-      q, kp, vp, table, lens, part_o, part_m, part_l, Hq, Hkv, page,
-      n_pages, n_splits, scale * LOG2E);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_dependent(
-      paged_combine_kernel, dim3(Hq, B), dim3(COMBINE_THREADS), 0, s,
-      part_o, part_m, part_l, lens, o, Hq, HD, n_max, n_splits));
+  paged_split_kernel<HD, EXACT>
+      <<<dim3(n_splits, Hkv, B), THREADS, L::BYTES, s>>>(
+      q, kp, vp, table, lens, part_o, part_m, part_l, Hq, Hkv, D, page,
+      n_pages, n_splits, scale * LOG2E, shard);
+  return static_cast<int>(cudaGetLastError());
+}
+
+typedef int (*SplitLaunch)(const bf16*, const bf16*, const bf16*, const int*,
+                           const int*, float*, int, int, int, int, int, int,
+                           float, int, cudaStream_t);
+
+// a power-of-two hd on its own tile, hd a compile-time constant; any
+// other hd <= 256 on the tile of the next width, columns past hd masked
+SplitLaunch split_launch(int hd) {
+  return hd <= 0      ? nullptr
+         : hd == 32   ? launch_splits<32, true>
+         : hd < 32    ? launch_splits<32, false>
+         : hd == 64   ? launch_splits<64, true>
+         : hd < 64    ? launch_splits<64, false>
+         : hd == 128  ? launch_splits<128, true>
+         : hd < 128   ? launch_splits<128, false>
+         : hd == 256  ? launch_splits<256, true>
+         : hd < 256   ? launch_splits<256, false>
+                      : nullptr;
+}
+
+bool bad_shape(int Hq, int Hkv, int page, int n_pages) {
+  return Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || n_pages <= 0 ||
+         page <= 0;
 }
 
 }  // namespace
@@ -363,31 +449,53 @@ extern "C" int dmath_paged_decode_bf16(const void* q, const void* kp,
                                        void* o, int B, int Hq, int Hkv,
                                        int hd, int page, int n_pages,
                                        float scale, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > MAXG || n_pages <= 0 ||
-      page <= 0)
+  const SplitLaunch fn = split_launch(hd);
+  if (fn == nullptr || bad_shape(Hq, Hkv, page, n_pages))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(kp);
-  const bf16* vb = static_cast<const bf16*>(vp);
-  const int* tb = static_cast<const int*>(table);
-  const int* lb = static_cast<const int*>(lens);
-  float* sc = static_cast<float*>(scratch);
-  bf16* ob = static_cast<bf16*>(o);
-  switch (hd) {
-    case 32:
-      return launch<32>(qb, kb, vb, tb, lb, sc, ob, B, Hq, Hkv, page,
-                        n_pages, scale, s);
-    case 64:
-      return launch<64>(qb, kb, vb, tb, lb, sc, ob, B, Hq, Hkv, page,
-                        n_pages, scale, s);
-    case 128:
-      return launch<128>(qb, kb, vb, tb, lb, sc, ob, B, Hq, Hkv, page,
-                         n_pages, scale, s);
-    case 256:
-      return launch<256>(qb, kb, vb, tb, lb, sc, ob, B, Hq, Hkv, page,
-                         n_pages, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  float* part = static_cast<float*>(scratch);
+  const int rc = fn(static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+                    static_cast<const bf16*>(vp),
+                    static_cast<const int*>(table),
+                    static_cast<const int*>(lens), part, B, Hq, Hkv, hd,
+                    page, n_pages, scale, 0, s);
+  if (rc != 0) return rc;
+  const int n_splits = (n_pages * page + KS - 1) / KS;
+  return static_cast<int>(launch_dependent(
+      paged_combine_kernel, dim3(Hq, B), dim3(COMBINE_THREADS), 0, s,
+      static_cast<const float*>(part), static_cast<const int*>(lens),
+      static_cast<bf16*>(o), 1, B * Hq, hd, n_splits, n_pages * page));
+}
+
+// Shard mode: the split kernel alone, its partials (the scratch layout
+// above) written to ``part``; table entries < 0 are pages this rank does
+// not hold.
+extern "C" int dmath_paged_partials_bf16(const void* q, const void* kp,
+                                         const void* vp, const void* table,
+                                         const void* lens, void* part, int B,
+                                         int Hq, int Hkv, int hd, int page,
+                                         int n_pages, float scale,
+                                         void* stream) {
+  const SplitLaunch fn = split_launch(hd);
+  if (fn == nullptr || bad_shape(Hq, Hkv, page, n_pages))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+            static_cast<const bf16*>(vp), static_cast<const int*>(table),
+            static_cast<const int*>(lens), static_cast<float*>(part), B, Hq,
+            Hkv, hd, page, n_pages, scale, 1,
+            static_cast<cudaStream_t>(stream));
+}
+
+// The combine of n ranks' partials, gathered in rank order: parts (n, B *
+// Hq * n_splits * (hd + 2)) fp32, o (B, Hq, hd) bf16.
+extern "C" int dmath_paged_combine_ranks_bf16(const void* parts, void* o,
+                                              int n, int B, int Hq, int hd,
+                                              int n_splits, void* stream) {
+  if (n <= 0 || B <= 0 || Hq <= 0 || hd <= 0 || hd > 256 || n_splits <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  paged_combine_kernel<<<dim3(Hq, B), COMBINE_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(parts), nullptr, static_cast<bf16*>(o), n,
+      B * Hq, hd, n_splits, 0);
+  return static_cast<int>(cudaGetLastError());
 }

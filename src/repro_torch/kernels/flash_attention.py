@@ -13,8 +13,10 @@ aligned at key 0 through a cp.async ring, key tiles beyond the
 causal/window horizon skipped (the TPU kernel walks every tile and
 masks).  fp32 q, k, v take a CUDA-core kernel of the same semantics.
 ``q_offset``, ``window`` and ``softcap`` are runtime arguments, where the
-TPU kernel compiles one variant per value.  Head dims 32, 64, 128 and 256
-(gemma-2b), where the TPU kernel takes any.
+TPU kernel compiles one variant per value.  Any head dim up to 256, as
+the TPU kernel takes any: 32, 64, 128 and 256 (gemma-2b) on their own
+tiles, the rest on the tile of the next of them with the columns past D
+loaded as zeros (QKᵀ stays exact) and not stored.
 
 A row's output and log-sum-exp do not depend on S, on its query tile or
 on which prefill chunk it sits in (bitwise, on the card): the dense
@@ -48,7 +50,7 @@ from . import _build, ref, roofline
 launches = 0       # forward launches since the last reset (ops.reset_launches)
 bwd_launches = 0   # backward calls (four kernels each), the same way
 
-HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = 256   # any D up to it: the tile of the next of 32, 64, 128, 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
@@ -75,9 +77,9 @@ def _check(q, k, v) -> None:
     if k.shape[0] != B or k.shape[3] != D or Hq % k.shape[1]:
         raise ValueError(f"attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"attention kernel takes head dim in {HEAD_DIMS}, "
-                         f"got {D}")
+    if not 0 < D <= MAX_HEAD_DIM:
+        raise ValueError(f"attention kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {D}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("attention kernel takes contiguous q, k, v")
 
@@ -206,8 +208,9 @@ def attention(
 ) -> torch.Tensor:
     """CPU tensors take the plain version (:func:`ref.attention`, which
     autograd differentiates); CUDA tensors launch the kernel (contiguous,
-    all bf16 or all fp32, head dim 32/64/128/256) and raise on anything
-    else.
+    all bf16 or all fp32, any head dim up to 256: the tile of the next of
+    32, 64, 128 and 256 with the columns past D masked, a D that is not a
+    multiple of 8 loading element by element) and raise on anything else.
     With autograd recording (bf16 only), the forward keeps its
     log-sum-exp and the backward kernel gives the gradients."""
     if all(t.device.type == "cpu" for t in (q, k, v)) \

@@ -22,6 +22,9 @@ from . import ssd_scan as _ssd
 matmul = _gemm.matmul                  # differentiable: dA, dB on the kernel
 attention = _fa.attention              # differentiable: the backward kernel
 paged_decode_attention = _paged.paged_decode_attention
+# serving on a mesh: a rank's shard of the sequence, the ranks' combine
+paged_decode_partials = _paged.paged_decode_partials
+paged_decode_combine = _paged.paged_decode_combine
 ssd = _ssd.ssd                         # differentiable: the backward kernel
 ssd_step = _ref.ssd_step     # single-token decode: plain PyTorch everywhere
 quantize_int8 = _fused.quantize_int8
@@ -36,6 +39,9 @@ quantize_int8_per_channel = _ref.quantize_int8_per_channel
 _KERNELS = {"matmul": (_gemm, "launches"), "attention": (_fa, "launches"),
             "attention_backward": (_fa, "bwd_launches"),
             "paged_decode_attention": (_paged, "launches"),
+            # serving on a mesh: the shard mode and the ranks' combine
+            "paged_decode_partials": (_paged, "shard_launches"),
+            "paged_decode_combine": (_paged, "combine_launches"),
             "ssd": (_ssd, "launches"),
             "ssd_backward": (_ssd, "bwd_launches"),
             "quantize_int8": (_fused, "launches"),

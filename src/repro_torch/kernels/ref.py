@@ -7,7 +7,9 @@ The wrappers in ``gemm.py``, ``flash_attention.py``,
 tensors on the CPU;
 on the card they only serve as the comparison in tests and
 ``chip_smoke.py``.  ``paged_decode_split_combine`` is the paged
-kernel's split-and-combine order, for tests.  ``attention_backward`` is
+kernel's split-and-combine order, for tests; ``paged_decode_partials``
+and ``paged_decode_combine`` are its shard mode (a rank's shard of the
+sequence) and the combine of the ranks' partials.  ``attention_backward`` is
 autograd through the plain
 ``attention``: the definition the backward kernel is held against.  ``ssd`` is
 the sequential definition of the SSD scan, which tests hold the chunked
@@ -253,6 +255,105 @@ def paged_decode_split_combine(
             used[:, None, None, j, None], acc[:, :, :, j], 0.0)
     out = out / torch.where(den > 0, den, 1.0)[..., None]
     return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+
+
+def paged_decode_partials(
+    q: torch.Tensor,              # (B, Hq, hd)
+    k_pages: torch.Tensor,        # (P, page, Hkv, hd) this rank's pages
+    v_pages: torch.Tensor,        # (P, page, Hkv, hd)
+    block_table: torch.Tensor,    # (B, n_pages) int32, < 0: not held here
+    seq_lens: torch.Tensor,       # (B,) int32
+    *,
+    scale: Optional[float] = None,
+    split: int = 128,
+) -> torch.Tensor:
+    """The shard-mode decode on one rank's shard of the sequence: a table
+    entry < 0 is a page this rank does not hold, whose keys are masked
+    with those at or past ``seq_lens`` (a shard of a dense row passes its
+    live length clipped to the shard).  Each sequence's keys are cut at
+    fixed positions ``[s * split, (s + 1) * split)`` of the table row, and
+    every split gives, per query head, the max ``m`` of its scaled scores
+    in log2 units (``scale * log2 e`` times q·k; -inf with no live key),
+    ``l = sum 2^(score - m)`` and the unnormalised ``o = sum 2^(score - m)
+    v``, all fp32.  Returns them flat, ``o`` (B, Hq, ns, hd), then ``m``
+    and ``l`` (B, Hq, ns), ns = ceil(n_pages * page / split): the layout
+    the ranks all-gather and :func:`paged_decode_combine` reads.  ``o``
+    of a split with ``l = 0`` means nothing: zeros here, left unwritten
+    by the kernel (:func:`live_partials` compares the two)."""
+    B, Hq, hd = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    g = Hq // Hkv
+    T = block_table.shape[1] * page
+    ns = -(-T // split)
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+
+    tbl = block_table.long()
+    held = (tbl >= 0).repeat_interleave(page, 1)             # (B, T)
+    pad = (0, 0, 0, 0, 0, ns * split - T)
+    kf = torch.nn.functional.pad(
+        k_pages[tbl.clamp(min=0)].reshape(B, T, Hkv, hd).float(), pad)
+    vf = torch.nn.functional.pad(
+        v_pages[tbl.clamp(min=0)].reshape(B, T, Hkv, hd).float(), pad)
+    live = torch.nn.functional.pad(held, (0, ns * split - T)) & (
+        torch.arange(ns * split, device=q.device)[None, :]
+        < seq_lens[:, None])
+    qf = q.float().reshape(B, Hkv, g, hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qf, kf) * (scale * LOG2E)
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    s = s.reshape(B, Hkv, g, ns, split)
+    m = s.amax(-1)                                        # (B,Hkv,g,ns)
+    p = torch.exp2(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bkgst,bstkd->bkgsd", p,
+                     vf.reshape(B, ns, split, Hkv, hd))
+    return torch.cat([o.reshape(-1), m.reshape(-1), l.reshape(-1)])
+
+
+def paged_decode_combine(
+    parts: torch.Tensor,          # (n, B * Hq * ns * (hd + 2)) fp32
+    B: int, Hq: int, hd: int, splits: int,
+    *,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The ordered combine of ``n`` ranks' :func:`paged_decode_partials`,
+    in rank order: every (rank, split) of a query head rescaled to their
+    common max and added rank by rank, each rank's splits in split order,
+    a split with ``l = 0`` (no live key) contributing nothing; a head with
+    no live key anywhere gives zeros.  Returns (B, Hq, hd) in
+    ``out_dtype``."""
+    n = parts.shape[0]
+    per = B * Hq * splits
+    o = parts[:, :per * hd].reshape(n, B, Hq, splits, hd)
+    m = parts[:, per * hd:per * (hd + 1)].reshape(n, B, Hq, splits)
+    l = parts[:, per * (hd + 1):].reshape(n, B, Hq, splits)
+    M = m.amax((0, 3))                                    # (B, Hq)
+    out = torch.zeros((B, Hq, hd), dtype=torch.float32, device=parts.device)
+    den = torch.zeros((B, Hq), dtype=torch.float32, device=parts.device)
+    for r in range(n):                                   # in rank order
+        for j in range(splits):                          # in split order
+            used = l[r, :, :, j] > 0
+            f = torch.where(used, torch.exp2(m[r, :, :, j] - M), 0.0)
+            den = den + f * l[r, :, :, j]
+            out = out + f[..., None] * torch.where(
+                used[..., None], o[r, :, :, j], 0.0)
+    out = out / torch.where(den > 0, den, 1.0)[..., None]
+    return out.to(out_dtype)
+
+
+def live_partials(parts: torch.Tensor, B: int, Hq: int, hd: int,
+                  splits: int) -> torch.Tensor:
+    """``parts`` (..., B * Hq * splits * (hd + 2)), partials as
+    :func:`paged_decode_partials` lays them out, with ``o`` zeroed on the
+    splits with ``l = 0``: the part of them that has a meaning, which
+    two runs of the kernel, or the kernel and this plain version, share."""
+    per = B * Hq * splits
+    o = parts[..., :per * hd].unflatten(-1, (per, hd))
+    live = (parts[..., per * (hd + 1):] > 0)[..., None]
+    return torch.cat([torch.where(live, o, 0.0).flatten(-2),
+                      parts[..., per * hd:]], -1)
 
 
 def ssd(

@@ -125,6 +125,31 @@ def paged_decode_cost(B: int, Hq: int, Hkv: int, hd: int, live: int,
             + 4 * (table_numel + B), 4.0 * Hq * hd * live)
 
 
+def paged_partials_cost(B: int, Hq: int, Hkv: int, hd: int, live: int,
+                        table_numel: int, splits: int, live_splits: int
+                        ) -> Tuple[float, float]:
+    """The shard-mode call of the paged decode (one rank's shard of the
+    sequence): q read, K and V of this rank's ``live`` positions, the
+    table and lengths; every split's fp32 m and l written, o only for the
+    ``live_splits`` (sequence, split) pairs with a live key on this rank
+    (a dead split's o is never written); QKᵀ and PV."""
+    return (2 * B * Hq * hd + 2 * 2 * live * Hkv * hd
+            + 4 * (table_numel + B) + 4 * 2 * B * Hq * splits
+            + 4 * Hq * live_splits * hd,
+            4.0 * Hq * hd * live)
+
+
+def paged_combine_cost(n: int, B: int, Hq: int, hd: int, splits: int,
+                       live_splits: int) -> Tuple[float, float]:
+    """The combine of ``n`` ranks' partials: every split's m and l read,
+    o only for the ``live_splits`` (rank, sequence, split) triples with a
+    live key (l > 0), the bf16 output written; a rescale and add per o
+    element read."""
+    return (4 * 2 * n * B * Hq * splits + 4 * Hq * live_splits * hd
+            + 2 * B * Hq * hd,
+            3.0 * Hq * live_splits * hd)
+
+
 def ssd_cost(B: int, S: int, H: int, P: int, G: int, N: int,
              itemsize: int, init_state: bool, chunk: int = 64
              ) -> Tuple[float, float]:

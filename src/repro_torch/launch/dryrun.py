@@ -12,14 +12,17 @@ port's counterpart, for rank 0 of the same mesh, without running it:
 - ``Session.plan`` plans the cell as the reference's ``build_lowered``
   does (per-arch overrides, ``check_memory=False``: the dry run reports
   the verdict), and ``Session.dryrun`` traces the dispatched train step
-  on fake params, optimizer state and batch (:mod:`repro_torch.core.dry`);
+  on fake params, optimizer state and batch (:mod:`repro_torch.core.dry`),
+  or a serve cell's ``prefill_step`` / ``serve_step`` on fake params and
+  KV cache (this rank's shard of the sequence);
 - each cell's JSON has the reference's keys where the meaning is the
   same: ``memory.peak_bytes`` (the traced peak of live bytes),
   ``cost.flops`` and ``cost.bytes_accessed`` (the plain operators' and
   the kernels' counts), ``collectives`` (count and bytes received by
   collective, ``core.distributed.WIRE``), ``collective_wire_bytes``,
   ``n_collectives`` and ``memory_model`` (the memory model's predicted
-  peak against the traced one, and ``fits``); the reference's
+  peak against the traced one, and ``fits``; a serve cell's with its
+  per-rank ``kv_cache_bytes``); the reference's
   ``lower_s`` and ``compile_s`` are ``trace_s``.
 
 The traced device is ``cuda`` where a card is present and ``cpu``
@@ -38,9 +41,11 @@ before them): the first stage's rank (rank 0) and the last stage's
 Result names end in ``_pp{N}``, as the reference's do.
 
 Cells the port does not run on a mesh print ``SKIP`` with the reason,
-never as passes: every prefill/decode/long_decode cell (serving on a
-mesh, ROADMAP queue 1, item 13), and alexnet's (the conv family, which
-the reference's ``cells()`` lists in no cell).
+never as passes: the prefill/decode/long_decode cells of every family
+but the dense one without sliding windows (serving on a mesh for them is
+the rest of ROADMAP queue 1, item 13, named in the reason), and
+alexnet's (the conv family, which the reference's ``cells()`` lists in
+no cell).
 A vlm cell's fake batch carries its ``vision_embeds`` (bf16).
 ``--hlo-out`` (no HLO here) and ``--comms auto`` are refused: both
 production meshes have model = 16, so ``auto`` plans the gspmd path, the
@@ -132,9 +137,13 @@ def skip_reason(arch: str, shape_name: str) -> Optional[str]:
     if get_config(arch).family == "conv":
         return (f"{arch} (the conv family, models/convnet.py) is in no "
                 "dry-run cell: the reference's cells() lists none")
-    if SHAPES[shape_name].kind != "train":
-        return ("serving on a mesh (the sequence-sharded KV cache) is "
-                "ROADMAP queue 1, item 13")
+    cfg = get_config(arch)
+    windowed = bool(cfg.window and cfg.local_global_pattern)
+    if SHAPES[shape_name].kind != "train" and (cfg.family != "dense"
+                                               or windowed):
+        from repro_torch.models.transformer import MESH_SERVING_WAITS
+        return (f"serving on a mesh runs the dense family; {arch} waits for "
+                f"the rest of ROADMAP queue 1, item 13: {MESH_SERVING_WAITS}")
     return None
 
 
@@ -222,6 +231,21 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
             "send_recv_expected": spec.num_microbatches * act,
             "wire_bytes": {"first": traces[0].wire_bytes,
                            "last": traces[1].wire_bytes}}
+    if meta.get("step") != "train_step":
+        fp = mem_mod.serve_footprint(
+            plan.cfg, batch=plan.shape.global_batch,
+            seq_len=plan.shape.seq_len, decode=plan.shape.is_decode,
+            mesh=mesh, plan=plan.parallel,
+            param_bytes=mem_mod.param_bytes_per_rank(
+                plan.model.param_specs(), mesh))
+        print(f"memory model ({arch} {shape_name}, per rank):")
+        print(fp.report())
+        result["memory_model"] = {
+            "kv_cache_bytes": fp.kv_cache,
+            "terms": {k: getattr(fp, k) for k in fp._FIELDS},
+            "predicted_peak_bytes": fp.total,
+            "measured_peak_bytes": trace.peak_bytes,
+            "fits": fp.fits(session.budget)}
     if meta.get("step") == "train_step":
         budget = session.budget
         fps = plan.footprints

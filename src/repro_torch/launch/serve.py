@@ -14,7 +14,9 @@ length from [LO, HI].  ``--metrics PATH`` streams the engine's spans and
 latency histograms as JSONL to PATH, prints their p50/p99 and writes a
 ``BENCH_serve_metrics.json`` snapshot beside PATH.  Runs on the card
 unless ``--device cpu`` is given; ``--scale-down 1`` keeps the published
-width.
+width.  ``run(mesh=)`` serves on a mesh (the reference's): every rank of
+the mesh's process group calls it, each holding its blocks of the params
+and its shard of the KV cache, and prints the same tokens.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
         metrics: Optional[str] = None, paged: bool = False,
         page_size: int = 64, scheduler: str = "static",
         prefill_chunk: int = 32, num_pages: Optional[int] = None,
-        device: str = "cuda"):
+        device: str = "cuda", mesh=None):
     dev = resolve_device(device)
     # --metrics: stream spans + per-request prefill/decode latency
     # histograms as JSONL; off -> NULL obs, output unchanged
@@ -52,7 +54,8 @@ def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
                     prompt_len=prompt_len, new_tokens=new_tokens,
                     scale_down=scale_down, seed=seed, metrics=metrics,
                     paged=paged, page_size=page_size, scheduler=scheduler,
-                    prefill_chunk=prefill_chunk, num_pages=num_pages)
+                    prefill_chunk=prefill_chunk, num_pages=num_pages,
+                    mesh=mesh)
     finally:
         obs_mod.set_active(prev_obs)
         obs.close()
@@ -60,8 +63,8 @@ def run(arch: str, *, n_requests: int = 8, batch_slots: int = 4,
 
 def _run(arch, obs, dev, *, n_requests, batch_slots, max_seq, prompt_len,
          new_tokens, scale_down, seed, metrics, paged, page_size, scheduler,
-         prefill_chunk, num_pages):
-    session = Session(device=dev)
+         prefill_chunk, num_pages, mesh):
+    session = Session(device=dev, mesh=mesh)
     plan = session.plan(arch, batch=batch_slots, seq=max_seq, kind="decode",
                         scale_down=scale_down)
     cfg = plan.cfg

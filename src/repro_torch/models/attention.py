@@ -11,6 +11,10 @@ row) raise here instead.  The dense cache's decode step, and the ring's,
 attend through the paged-decode kernel, each slot's cache row (or ring)
 being one page.
 
+Serving on a mesh (the dense family) has functions of its own at the
+end of this module: the residual whole on every rank of the model axis,
+the KV cache sharded on the sequence, flash-decoding over the shards.
+
 On a ``(data, model)`` mesh :func:`forward` dispatches on the plan's
 ``attn_mode`` as the reference's does: head-TP over the sequence-sharded
 residual (:func:`_tp_attention_shardmap`: the bf16 residual gathered
@@ -26,6 +30,7 @@ axis.  qk-norm, windows and the softcap apply as on one rank.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -113,8 +118,8 @@ def forward(
     the decode cache.  The reference's single-device ``head_tp`` branch;
     Given a ``mesh`` and its ``plan``, ``x`` is this rank's block of the
     residual in the ``hidden`` layout and ``p`` this rank's blocks; the
-    result is in the same layout (no cache: serving on a mesh raises in
-    the model)."""
+    result is in the same layout (no cache: serving on a mesh runs
+    :func:`prefill_mesh` and the decode functions below)."""
     if mesh is not None:
         return _forward_mesh(x, p, cfg, plan, mesh, hidden, policy=policy,
                              window=window)
@@ -378,3 +383,224 @@ def prefill_chunk_paged(
     ).transpose(1, 2)                                          # (1,C,H,hd)
     y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
     return y.to(x.dtype), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: the KV cache sharded on the sequence
+# ---------------------------------------------------------------------------
+#
+# Every rank of the model axis holds the whole residual (B, S, D) of its
+# rows; the projections take the plan's layouts (this rank's heads under
+# head-TP, whole heads under SP), and the KV cache holds a shard of the
+# sequence with every kv head.  The new tokens' K/V (and a decode's q) are
+# gathered over the heads once, only the rank that owns a position writes
+# it, and attention over the shards is flash-decoding: each rank's
+# shard-mode partials, all-gathered in rank order and combined by the
+# kernel (the reference's GSPMD psum of the softmax statistics).  Under
+# head-TP the output projection takes this rank's heads and the fp32
+# shares are summed over the model axis.
+
+def flat_index(mesh, axes) -> int:
+    """This rank's index over ``axes`` (major first), the order in which
+    ``distributed.all_gather`` concatenates their blocks."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + mesh.coords[a]
+    return i
+
+
+def page_shard(table: torch.Tensor, n: int, r: int):
+    """Physical page p > 0 of the global pool lives on rank (p - 1) % n
+    of the ``n`` sequence shards, at local page (p - 1) // n + 1; every
+    rank's local page 0 is its own NULL page (the global NULL page 0 is
+    held nowhere).  Returns (held, local): whether this rank ``r`` holds
+    each entry of ``table`` and its local page (0 where not held)."""
+    held = (table > 0) & (torch.remainder(table - 1, n) == r)
+    local = torch.where(held, torch.div(table - 1, n, rounding_mode="floor")
+                        + 1, torch.zeros_like(table))
+    return held, local
+
+
+def local_pages(num_pages: int, n: int) -> int:
+    """The pages of one rank's shard of a global pool of ``num_pages``
+    (the NULL page included): its own NULL page and ceil((num_pages -
+    1) / n), i.e. ceil(num_pages / n) when n divides num_pages - 1."""
+    return 1 + -(-(num_pages - 1) // n)
+
+
+def _heads_whole(ts, plan, mesh):
+    """Tensors (B, S, H_i, hd) of this rank's heads -> of every head:
+    under head-TP each rank projected its block of the heads, all of them
+    gathered over the model axis in one all-gather (the blocks side by
+    side, split back by rank); under SP every rank projected them all."""
+    if plan.attn_mode != "head_tp":
+        return ts
+    n = mesh.shape[plan.tp_axis]
+    sizes = [t.shape[2] for t in ts]
+    every = dist_mod.all_gather(torch.cat(ts, 2).contiguous(), mesh,
+                                plan.tp_axis, 2)
+    every = every.unflatten(2, (n, sum(sizes)))
+    return [p.flatten(2, 3) for p in every.split(sizes, 3)]
+
+
+def _local_heads(t, plan, mesh):
+    """This rank's block of the heads (dim 2) under head-TP, else all."""
+    if plan.attn_mode != "head_tp":
+        return t
+    n, r = mesh.shape[plan.tp_axis], mesh.coords[plan.tp_axis]
+    h = t.shape[2] // n
+    return t[:, :, r * h:(r + 1) * h]
+
+
+def _out_proj(out, p, plan, mesh, policy, dtype):
+    """``out`` (B, S, H_rank, hd), this rank's heads under head-TP (all
+    heads under SP), against ``p["wo"]``'s block: under head-TP the fp32
+    shares summed over the model axis in rank order, then rounded once."""
+    y = precision.einsum("bshk,hkd->bsd", out, p["wo"], policy=policy)
+    if plan.attn_mode == "head_tp":
+        y = dist_mod.psum(y.float().contiguous(), mesh, plan.tp_axis)
+    return y.to(dtype)
+
+
+def _combine_shards(q, k_rows, v_rows, table, lens, mesh, seq_axes):
+    """Flash-decoding over the sequence shards: this rank's shard-mode
+    partials, all-gathered over ``seq_axes`` in rank order, combined by
+    the kernel.  q (B, H, hd) -> (B, H, hd) bf16, the same bits on every
+    rank."""
+    B, H, hd = q.shape
+    part = ops.paged_decode_partials(q, k_rows, v_rows, table, lens)
+    parts = dist_mod.all_gather(part[None], mesh, seq_axes, 0)
+    splits = part.numel() // (B * H * (hd + 2))
+    return ops.paged_decode_combine(parts.contiguous(), B, H, hd, splits)
+
+
+def decode_mesh(x, p, cfg, k_rows, v_rows, pos, *, plan, mesh, seq_axes,
+                offset: int, policy=precision.MIXED):
+    """:func:`decode` on a rank's shard of the dense cache: ``k_rows``
+    (B, T_loc, Hkv, hd) hold positions ``[offset, offset + T_loc)`` of this
+    rank's rows ``x`` (B, 1, D) at positions ``pos`` (B,).  The rank that
+    owns ``pos`` writes the new K/V; the shard-mode kernel reads the live
+    positions of the shard (the lengths clipped to it) and the ranks'
+    partials are combined over ``seq_axes``."""
+    B = x.shape[0]
+    T_loc = k_rows.shape[1]
+    q, k, v = _heads_whole(_qkv(x, p, cfg, pos[:, None], policy), plan,
+                               mesh)
+    loc = pos - offset
+    own = ((loc >= 0) & (loc < T_loc))[:, None, None]
+    rows = torch.arange(B, device=x.device)
+    idx = loc.clamp(0, T_loc - 1)
+    for cache, new in ((k_rows, k), (v_rows, v)):
+        cache.index_put_((rows, idx), torch.where(
+            own, new[:, 0].to(cache.dtype), cache[rows, idx]))
+    table = rows.to(torch.int32)[:, None]
+    lens = (loc + 1).clamp(0, T_loc).to(torch.int32)
+    out = _combine_shards(q[:, 0].to(k_rows.dtype).contiguous(), k_rows,
+                          v_rows, table, lens, mesh, seq_axes)
+    out = _local_heads(out[:, None].to(q.dtype), plan, mesh)
+    return _out_proj(out, p, plan, mesh, policy, x.dtype)
+
+
+def decode_paged_mesh(x, p, cfg, k_pages, v_pages, block_table, pos, *,
+                      plan, mesh, seq_axes, policy=precision.MIXED):
+    """:func:`decode_paged` on a rank's shard of the page pool
+    (:func:`page_shard`: the global table's pages this rank holds, -1 for
+    the rest): the owner of the new token's page writes it (the others
+    write their own NULL page, never read), then the shard-mode partials
+    are combined over ``seq_axes``."""
+    B = x.shape[0]
+    page = k_pages.shape[1]
+    n, r = math.prod(mesh.shape[a] for a in seq_axes), flat_index(
+        mesh, seq_axes)
+    q, k, v = _heads_whole(_qkv(x, p, cfg, pos[:, None], policy), plan,
+                               mesh)
+    phys = block_table[torch.arange(B, device=x.device), pos // page]
+    _, dst = page_shard(phys, n, r)
+    k_pages.index_put_((dst.long(), pos % page), k[:, 0].to(k_pages.dtype))
+    v_pages.index_put_((dst.long(), pos % page), v[:, 0].to(v_pages.dtype))
+    held, local = page_shard(block_table, n, r)
+    table = torch.where(held, local, -1).to(torch.int32)
+    out = _combine_shards(q[:, 0].to(k_pages.dtype).contiguous(), k_pages,
+                          v_pages, table, (pos + 1).to(torch.int32), mesh,
+                          seq_axes)
+    out = _local_heads(out[:, None].to(q.dtype), plan, mesh)
+    return _out_proj(out, p, plan, mesh, policy, x.dtype)
+
+
+def prefill_mesh(x, p, cfg, *, plan, mesh, policy=precision.MIXED):
+    """The dense prefill's attention on a mesh: the whole prompt on every
+    rank of the model axis, this rank's heads under head-TP, flash over
+    them, the output projection summed over the axis.  Returns ``y`` and
+    the prompt's K/V (B, S, Hkv, hd) with every kv head (gathered over
+    the axis under head-TP: the relayout onto the cache's sequence
+    shards, of which the caller keeps its own)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions, policy)
+    out = _flash(q, k, v, cfg, None)
+    y = _out_proj(out, p, plan, mesh, policy, x.dtype)
+    return y, tuple(_heads_whole((k, v), plan, mesh))
+
+
+def held_pages(live_pages, n: int):
+    """The live pages of a table row (host ints, logical order) by owner:
+    for each of the ``n`` ranks the logical indices of the pages it holds
+    (page p > 0 on rank (p - 1) % n, :func:`page_shard`).  The NULL page
+    0 is held by none."""
+    return [[j for j, p in enumerate(live_pages)
+             if p > 0 and (p - 1) % n == r] for r in range(n)]
+
+
+def prefill_chunk_paged_mesh(x, p, cfg, k_pages, v_pages, table_row, start,
+                             *, plan, mesh, seq_axes, live_pages=None,
+                             policy=precision.MIXED):
+    """:func:`prefill_chunk_paged` on a rank's shard of the page pool: the
+    chunk's K/V (every head) written by the owners of their pages, then
+    the row's live pages gathered from their owners for flash over this
+    rank's heads.  Each rank sends only the pages it holds
+    (:func:`held_pages`), padded to the most any rank holds, so a rank
+    receives (n - 1) times that many pages, about ceil(n_live / n), not
+    the whole row.  A NULL entry (the end padding of a chunk past the
+    prompt's last page) is read as zeros: its keys lie past every real
+    query.  ``live_pages`` is the row's live pages on the host
+    (``table_row[:ceil((start + C) / page)]``; read here when not given,
+    one device-to-host copy: a caller stepping every layer passes it)."""
+    C = x.shape[1]
+    page = k_pages.shape[1]
+    n_pages = table_row.shape[0]
+    if start < 0 or start + C > n_pages * page:
+        raise ValueError(
+            f"prefill chunk [{start}, {start + C}) runs past the table row "
+            f"({n_pages} pages of {page}); the chunk size must divide the "
+            "row length")
+    n, r = math.prod(mesh.shape[a] for a in seq_axes), flat_index(
+        mesh, seq_axes)
+    positions = start + torch.arange(C, device=x.device)
+    q, k, v = _qkv(x, p, cfg, positions, policy)               # (1,C,H,hd)
+    _, dst = page_shard(table_row[positions // page], n, r)
+    for pages, new in zip((k_pages, v_pages),
+                          _heads_whole((k, v), plan, mesh)):
+        pages.index_put_((dst.long(), positions % page),
+                         new[0].to(pages.dtype))
+
+    n_live = -(-(start + C) // page)
+    if live_pages is None:
+        live_pages = table_row[:n_live].tolist()
+    owned = held_pages(live_pages, n)
+    most = max(len(o) for o in owned)
+    # this rank's held pages (K and V), padded with its NULL page, in one
+    # all-gather; then each logical page taken from its owner's block
+    mine = torch.tensor([(live_pages[j] - 1) // n + 1 for j in owned[r]]
+                        + [0] * (most - len(owned[r])), device=x.device)
+    every = dist_mod.all_gather(
+        torch.stack([k_pages[mine], v_pages[mine]], 1)[None].contiguous(),
+        mesh, seq_axes, 0).flatten(0, 1)     # (n * most, 2, page, Hkv, hd)
+    every = torch.cat([every, every.new_zeros((1,) + every.shape[1:])])
+    src = {j: o * most + i for o, js in enumerate(owned)
+           for i, j in enumerate(js)}
+    got = every[torch.tensor([src.get(j, n * most) for j in range(n_live)],
+                             device=x.device)]
+    kv_rows = [_local_heads(got[:, j].reshape(
+        (1, n_live * page) + got.shape[3:]), plan, mesh).contiguous()
+        for j in (0, 1)]
+    out = _flash(q, kv_rows[0], kv_rows[1], cfg, None, q_offset=start)
+    return _out_proj(out, p, plan, mesh, policy, x.dtype)

@@ -147,7 +147,7 @@ def decode_attention_ring(
 
 def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
             policy: precision.Policy = precision.MIXED,
-            wide: bool = False, pinned: bool = False, mesh=None,
+            wide: bool = False, pinned: Optional[bool] = None, mesh=None,
             tp_axis: Optional[str] = None) -> torch.Tensor:
     """Gated MLP: act(x @ w_gate) * (x @ w_in) @ w_out.
 
@@ -165,12 +165,17 @@ def glu_mlp(x, w_gate, w_in, w_out, *, act: str = "silu",
     rank of the axis holds, the weights are this rank's column (gate,
     in) and row (out) blocks, ``g`` and ``h`` are pinned in the
     activation dtype, and the row products' shares are summed over the
-    axis in fp32 (the reference's constraint on the fp32 product)."""
+    axis in fp32 (the reference's constraint on the fp32 product);
+    ``pinned=False`` leaves ``g`` and ``h`` as the one-device form rounds
+    them (serving on a mesh, whose tokens are the one-device ones).
+    ``pinned`` defaults to whether ``tp_axis`` is given."""
+    if pinned is None:
+        pinned = tp_axis is not None
     if tp_axis is not None:
         x = dist_mod.copy_ad(x, mesh, tp_axis)
     g = precision.einsum("bsd,df->bsf", x, w_gate, policy=policy)
     h = precision.einsum("bsd,df->bsf", x, w_in, policy=policy)
-    if tp_axis is not None or pinned:
+    if pinned:
         g, h = g.to(policy.activation_dtype), h.to(policy.activation_dtype)
     if wide:
         h = (act_fn(act)(g.float()) * h.float()).to(x.dtype)

@@ -68,7 +68,21 @@ take the global batch and run this rank's rows (all of them when the
 batch cannot split over the data axes, the reference's ``_maybe_batch``).
 A moe layer's experts are row-blocked over the model axis and its
 router replicated (:func:`repro_torch.models.moe.forward_mesh`).
-Serving on a mesh raises: ROADMAP queue 1, item 13.
+Serving on a mesh runs for the dense family (qwen2, gemma-2b, qwen3: no
+sliding window): each rank holds the whole residual of its rows, the
+projections take the plan's layouts (head-TP blocks or whole heads), and
+the dense KV cache is this rank's block of ``plan.kv_cache`` (the slots
+over the data axes where they divide, the sequence over the model axis,
+or over every axis where the slots do not divide), a :class:`MeshCache`
+that records where its block sits.  A page pool is sharded by page over
+every rank (``attention.page_shard``) under the global block table.
+Decode is flash-decoding over the sequence shards (the shard-mode kernel,
+the partials all-gathered in rank order, the combine kernel); the
+prefill's K/V are gathered over the heads once and each rank keeps its
+shard; the logits are gathered whole onto every rank, so greedy tokens
+are the same on every rank without a broadcast.  The other families,
+and gemma3's windowed rings, still raise on a mesh: the rest of ROADMAP
+queue 1, item 13.
 """
 
 from __future__ import annotations
@@ -84,7 +98,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core import precision
 from repro_torch.core.device import resolve_device
-from repro_torch.core.layout import Layout, batch_block, constrain
+from repro_torch.core.layout import Layout, axis_names, batch_block, constrain
 from repro_torch.core.planner import plan_for
 from repro_torch.core.replication import gathered
 from repro_torch.models import attention, layers, moe, ssm
@@ -95,6 +109,23 @@ Params = Dict[str, torch.Tensor]
 # the families whose every layer is attention + MLP (the reference's
 # "dense" branches): the dense, moe, audio and vlm ones
 ATTENTION_STACKS = ("dense", "moe", "audio", "vlm")
+# what serving on a mesh still waits for (ROADMAP queue 1, item 13)
+MESH_SERVING_WAITS = (
+    "mamba2-780m's long_500k (the SSM state's heads over model), gemma3's "
+    "windowed rings, the moe family's routing on every model rank, the "
+    "hybrid's states and sites, audio, and the vlm's vision_embeds")
+
+
+class MeshCache(dict):
+    """A rank's block of the dense KV cache on a mesh (``k``, ``v``: (L,
+    B_rank, T_rank, Hkv, hd)) and where it sits: the slots split over the
+    mesh axes ``rows`` (none when they do not divide), the sequence over
+    ``seq_axes``, this rank's first position ``offset``."""
+
+    def __init__(self, tensors, *, rows, seq_axes, offset: int):
+        super().__init__(tensors)
+        self.rows, self.seq_axes = tuple(rows), tuple(seq_axes)
+        self.offset = offset
 
 
 class Model(nn.Module):
@@ -280,13 +311,18 @@ class Model(nn.Module):
         return tuple(axes)
 
     def _servable(self, what: str) -> None:
-        """The serving entry points run one rank's code path on whole
-        leaves: on a mesh they raise."""
-        if self.mesh is not None:
+        """On a mesh the serving entry points run for the dense family
+        (no sliding window); every other family raises, naming what
+        ROADMAP queue 1, item 13 still waits for."""
+        cfg = self.cfg
+        if self.mesh is not None and (cfg.family != "dense"
+                                      or self._windowed()):
             raise NotImplementedError(
-                f"{what} on a mesh: serving on a mesh (the sequence-sharded "
-                "KV cache, flash-decoding's psum) is ROADMAP queue 1, item "
-                "13; serve from a Model without one")
+                f"{what} on a mesh: serving on a mesh runs the dense family "
+                f"(qwen2, gemma-2b, qwen3); {cfg.name} ({cfg.family}"
+                f"{', windowed' if self._windowed() else ''}) waits for the "
+                f"rest of ROADMAP queue 1, item 13: {MESH_SERVING_WAITS}; "
+                "serve it from a Model without a mesh")
 
     def _hidden(self, rows: Tuple[str, ...]) -> Layout:
         """The residual's layout for a batch split over ``rows`` (the
@@ -465,12 +501,19 @@ class Model(nn.Module):
         serving steps).  The full-sequence forward (``_dense_block``)
         takes the ``wide`` form, as the reference's default one-device plan
         runs ``glu_mlp_shardmap`` there; the paged steps take ``glu_mlp``'s
-        rounding, as the reference's do."""
+        rounding, as the reference's do.  Serving on a mesh, on a whole
+        residual, the MLP is local where the plan keeps it replicated
+        (``ffn_replicated``), else this rank's column and row blocks with
+        the fp32 shares summed over the model axis in rank order, rounded
+        as on one rank (``g`` and ``h`` not pinned)."""
         if self.cfg.family == "moe":
             return moe.forward(h, lp["moe"], self.cfg, policy=self.policy)[0]
+        tp = self.mesh is not None and not self.plan.ffn_replicated
         return layers.glu_mlp(h, lp["mlp"]["gate"], lp["mlp"]["in"],
                               lp["mlp"]["out"], act=self.cfg.act,
-                              policy=self.policy, wide=wide)
+                              policy=self.policy, wide=wide, pinned=False,
+                              mesh=self.mesh if tp else None,
+                              tp_axis=self.plan.tp_axis if tp else None)
 
     def _head(self, params: Params, x: torch.Tensor,
               last_only: bool = False,
@@ -494,6 +537,168 @@ class Model(nn.Module):
         return layers.unembed(x, w, policy=self.policy)
 
     # ------------------------------------------------------------------
+    # serving on a mesh (the dense family)
+    # ------------------------------------------------------------------
+    def _kv_place(self, lay: Layout, seq_len: int):
+        """(rows, seq_axes, offset) of this rank's block of a dense cache
+        in ``lay`` (``plan.kv_cache``) over ``seq_len`` positions."""
+        rows = axis_names(lay.dims[1])
+        seq_axes = axis_names(lay.dims[2])
+        n = math.prod(self.mesh.shape[a] for a in seq_axes)
+        if seq_len % n:
+            raise ValueError(
+                f"a dense cache of {seq_len} positions does not split over "
+                f"the {n} sequence shards of {seq_axes}")
+        return rows, seq_axes, attention.flat_index(
+            self.mesh, seq_axes) * (seq_len // n)
+
+    def _pool_axes(self) -> Tuple[str, ...]:
+        """A page pool's shards: every axis (the pool has no batch dim)."""
+        return tuple(self.plan.batch_axes) + (self.plan.tp_axis,)
+
+    def _embed_whole(self, params: Params, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+        """Serving's residual: ``tokens`` (this rank's rows) against the
+        table's column block, gathered whole over the model axis, bf16."""
+        cfg, plan, mesh = self.cfg, self.plan, self.mesh
+        table = self._use(params["embed"], self.param_layouts()["embed"], ())
+        if table.shape[1] == cfg.d_model:
+            x = layers.embed(tokens, table, scale=cfg.emb_scale)
+            return x.to(torch.bfloat16)
+        x = layers.embed_shard_map(tokens, table, mesh, tp_axis=plan.tp_axis,
+                                   scale=cfg.emb_scale)
+        return dist_mod.all_gather(x.to(torch.bfloat16), mesh, plan.tp_axis,
+                                   2)
+
+    def _head_whole(self, params: Params, x: torch.Tensor,
+                    rows: Tuple[str, ...]) -> torch.Tensor:
+        """Serving's logits, whole on every rank: this rank's vocab block
+        gathered over the model axis, its rows over ``rows``."""
+        cfg, plan, mesh = self.cfg, self.plan, self.mesh
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        w = self._use(params["unembed"], self.param_layouts()["unembed"], ())
+        logits = layers.unembed(x, w, policy=self.policy)
+        if w.shape[1] != cfg.padded_vocab:
+            logits = dist_mod.all_gather(logits, mesh, plan.tp_axis, 2)
+        return dist_mod.all_gather(logits, mesh, rows, 0) if rows else logits
+
+    def _serve_layers(self, params: Params, x, attend, wide: bool = False):
+        """The serving stack of the attention families, on one rank or a
+        mesh: per layer, ``attend(i, h, attn params)`` (this step's
+        attention on layer i's cache) then the MLP (:meth:`_mlp`)."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            lp = self._layer(params, i)
+            if self.mesh is not None:
+                lp = self._use_layer(lp, ())
+            h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            x = x + attend(i, h, lp["attn"])
+            h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + self._mlp(h, lp, wide)
+        return x
+
+    def _prefill_mesh(self, params, tokens, last_only, cache, slot):
+        """:meth:`prefill` on a mesh: the prompt's rows on every rank of
+        the model axis (a one-prompt prefill into a cache row on every
+        rank), the wide MLP as on one rank; each layer's K/V gathered over
+        the heads and this rank's sequence shard kept: written into its
+        block of ``cache`` where it holds row ``slot``, or returned as
+        the block of a new :class:`MeshCache` (the prompt's length must
+        split over the sequence shards)."""
+        B, S = tokens.shape
+        plan, mesh = self.plan, self.mesh
+        if cache is None:
+            rows = self.row_axes(B)
+            lay = plan.kv_cache(B, mesh)
+            _, seq_axes, offset = self._kv_place(lay, S)
+            n_loc = S // math.prod(mesh.shape[a] for a in seq_axes)
+            row_lo, keep = 0, True
+            out = {"k": [], "v": []}
+        else:
+            if not isinstance(cache, MeshCache):
+                raise TypeError("prefill on a mesh writes into a MeshCache "
+                                "(Model.init_cache on the same mesh)")
+            rows = ()
+            seq_axes, offset = cache.seq_axes, cache.offset
+            n_loc = cache["k"].shape[2]
+            b_loc = cache["k"].shape[1]
+            row_lo = (attention.flat_index(mesh, cache.rows) * b_loc
+                      if cache.rows else 0)
+            keep = row_lo <= slot < row_lo + b_loc
+        n_own = max(0, min(S - offset, n_loc))
+
+        def attend(i, h, p):
+            y, (k, v) = attention.prefill_mesh(h, p, self.cfg, plan=plan,
+                                               mesh=mesh, policy=self.policy)
+            for name, val in (("k", k), ("v", v)):
+                if cache is None:
+                    out[name].append(val[:, offset:offset + n_loc]
+                                     .to(torch.bfloat16))
+                elif keep and n_own:
+                    cache[name][i, slot - row_lo, :n_own].copy_(
+                        val[0, offset:offset + n_own])
+            return y
+
+        x = self._serve_layers(
+            params, self._embed_whole(params, batch_block(tokens, mesh,
+                                                          rows)),
+            attend, wide=True)
+        logits = self._head_whole(params, x[:, -1:] if last_only else x,
+                                  rows)
+        if cache is None:
+            cache = MeshCache({name: torch.stack(vals)
+                               for name, vals in out.items()},
+                              rows=rows, seq_axes=seq_axes, offset=offset)
+        return logits, cache
+
+    def _decode_step_mesh(self, params, cache, tokens, pos):
+        """:meth:`decode_step` on a mesh: this rank's rows of the slots
+        against its block of the dense cache (``attention.decode_mesh``);
+        the whole (B, 1, V) logits on every rank."""
+        if not isinstance(cache, MeshCache):
+            raise TypeError("decode_step on a mesh takes a MeshCache "
+                            "(Model.init_cache or prefill on the same mesh)")
+        B = tokens.shape[0]
+        rows = cache.rows
+        pos = batch_block(pos.expand(B), self.mesh, rows)
+
+        def attend(i, h, p):
+            return attention.decode_mesh(
+                h, p, self.cfg, cache["k"][i], cache["v"][i], pos,
+                plan=self.plan, mesh=self.mesh, seq_axes=cache.seq_axes,
+                offset=cache.offset, policy=self.policy)
+
+        x = self._serve_layers(params, self._embed_whole(
+            params, batch_block(tokens, self.mesh, rows)), attend)
+        return self._head_whole(params, x, rows), cache
+
+    def _paged_step_mesh(self, params, cache, tokens, pos=None,
+                         table_row=None, start: int = 0):
+        """The paged steps on a mesh, every rank running every row against
+        its shard of the pool: a decode step (``pos``) or one prefill
+        chunk (``table_row``, ``start``)."""
+        plan, mesh, axes = self.plan, self.mesh, self._pool_axes()
+        if table_row is not None:       # the chunk's live pages, read once
+            page = cache["k_pages"].shape[2]
+            live = table_row[:-(-(start + tokens.shape[1]) // page)].tolist()
+
+        def attend(i, h, p):
+            kp, vp = cache["k_pages"][i], cache["v_pages"][i]
+            if table_row is not None:
+                return attention.prefill_chunk_paged_mesh(
+                    h, p, self.cfg, kp, vp, table_row, start, plan=plan,
+                    mesh=mesh, seq_axes=axes, live_pages=live,
+                    policy=self.policy)
+            return attention.decode_paged_mesh(
+                h, p, self.cfg, kp, vp, cache["table"],
+                pos.expand(tokens.shape[0]), plan=plan, mesh=mesh,
+                seq_axes=axes, policy=self.policy)
+
+        x = self._serve_layers(params, self._embed_whole(params, tokens),
+                               attend)
+        return self._head_whole(params, x, ()), cache
+
+    # ------------------------------------------------------------------
     # block-paged KV cache
     # ------------------------------------------------------------------
     def paged_supported(self) -> bool:
@@ -506,6 +711,8 @@ class Model(nn.Module):
 
     def _pages(self, num_pages: int, page_size: int, device=None
                ) -> Dict[str, torch.Tensor]:
+        """The pool of ``num_pages`` pages; on a mesh this rank's shard of
+        it (``attention.local_pages``)."""
         self._servable("the paged cache")
         device = self.device if device is None else device
         cfg = self.cfg
@@ -513,6 +720,8 @@ class Model(nn.Module):
             raise ValueError(f"paged decode unsupported for family="
                              f"{cfg.family!r} window={cfg.window} "
                              f"softcap={cfg.attn_softcap}")
+        if self.mesh is not None:
+            num_pages = attention.local_pages(num_pages, self.mesh.size)
         shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads,
                  cfg.d_head)
         return {"k_pages": torch.zeros(shape, dtype=torch.bfloat16,
@@ -528,9 +737,11 @@ class Model(nn.Module):
         cache constructor takes ``device="meta"`` for its stand-in (shapes
         and dtypes, no storage)."""
         nb = -(-seq_len // page_size)
-        cache = self._pages(batch * nb, page_size, device)
+        # on a mesh page 0 is the NULL page every rank keeps for itself
+        first = 0 if self.mesh is None else 1
+        cache = self._pages(batch * nb + first, page_size, device)
         cache["table"] = torch.arange(
-            batch * nb, dtype=torch.int32,
+            first, batch * nb + first, dtype=torch.int32,
             device=self.device if device is None else device
         ).reshape(batch, nb)
         return cache
@@ -549,18 +760,18 @@ class Model(nn.Module):
         absolute position of ``tokens[0, 0]``.  Returns fp32 logits
         (1, C, V) and ``cache``, whose pages were updated in place."""
         self._servable("prefill_chunk_paged")
+        if self.mesh is not None:
+            return self._paged_step_mesh(params, cache, tokens, start=start,
+                                         table_row=table_row)
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
-        x = x.to(torch.bfloat16)
-        for i in range(cfg.n_layers):
-            lp = self._layer(params, i)
-            h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            a, _, _ = attention.prefill_chunk_paged(
-                h, lp["attn"], cfg, cache["k_pages"][i], cache["v_pages"][i],
-                table_row, start, policy=self.policy)
-            x = x + a
-            h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + self._mlp(h, lp)
+
+        def attend(i, h, p):
+            return attention.prefill_chunk_paged(
+                h, p, cfg, cache["k_pages"][i], cache["v_pages"][i],
+                table_row, start, policy=self.policy)[0]
+
+        x = self._serve_layers(params, x.to(torch.bfloat16), attend)
         return self._head(params, x), cache
 
     def decode_step_paged(self, params: Params, cache: dict,
@@ -570,18 +781,17 @@ class Model(nn.Module):
         (scalar or (B,)), against ``cache["table"]``.  Returns fp32 logits
         (B, 1, V) and ``cache``, whose pages were updated in place."""
         self._servable("decode_step_paged")
+        if self.mesh is not None:
+            return self._paged_step_mesh(params, cache, tokens, pos=pos)
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
-        x = x.to(torch.bfloat16)
-        for i in range(cfg.n_layers):
-            lp = self._layer(params, i)
-            h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            a, _, _ = attention.decode_paged(
-                h, lp["attn"], cfg, cache["k_pages"][i], cache["v_pages"][i],
-                cache["table"], pos, policy=self.policy)
-            x = x + a
-            h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + self._mlp(h, lp)
+
+        def attend(i, h, p):
+            return attention.decode_paged(
+                h, p, cfg, cache["k_pages"][i], cache["v_pages"][i],
+                cache["table"], pos, policy=self.policy)[0]
+
+        x = self._serve_layers(params, x.to(torch.bfloat16), attend)
         return self._head(params, x), cache
 
     # ------------------------------------------------------------------
@@ -743,6 +953,12 @@ class Model(nn.Module):
         its K/V (n_sites, B, S, Hkv, hd)."""
         if with_cache:
             self._servable("forward with_cache")
+            if self.mesh is not None:
+                logits, cache = self.prefill(params, tokens,
+                                             last_only=last_only)
+                zero = torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+                return logits, zero, (cache["k"], cache["v"])
         layer_caches, site_caches = [], []
         write = ((lambda i, c: layer_caches.append(c)) if with_cache
                  else None)
@@ -876,6 +1092,8 @@ class Model(nn.Module):
         self._servable("prefill")
         if cache is not None and tokens.shape[0] != 1:
             raise ValueError("prefill into a cache row takes one prompt")
+        if self.mesh is not None:
+            return self._prefill_mesh(params, tokens, last_only, cache, slot)
         if self.cfg.family == "hybrid":
             return self._prefill_hybrid(params, tokens, last_only, cache,
                                         slot)
@@ -958,7 +1176,8 @@ class Model(nn.Module):
 
     def cache_specs(self, batch: int, seq_len: int) -> Dict[str, ParamSpec]:
         """The dense cache of ``batch`` slots: the dense family's ``k``
-        and ``v``, (L, batch, seq_len, Hkv, hd) bf16 (a windowed config's
+        and ``v``, (L, batch, seq_len, Hkv, hd) bf16, on a mesh in the
+        plan's ``kv_cache`` layout (a windowed config's
         ``k_g``/``v_g`` for its n_g global layers and ``k_l``/``v_l``
         (n_l, batch, W, Hkv, hd), W = min(window, seq_len), for its local
         layers' rings); the ssm family's states, which do not grow with
@@ -977,8 +1196,10 @@ class Model(nn.Module):
                     "v_l": ParamSpec(loc, init="zeros")}
         if cfg.family in ATTENTION_STACKS:
             shape = (L, batch, seq_len, cfg.n_kv_heads, cfg.d_head)
-            return {"k": ParamSpec(shape, init="zeros"),
-                    "v": ParamSpec(shape, init="zeros")}
+            lay = (None if self.mesh is None
+                   else self.plan.kv_cache(batch, self.mesh))
+            return {"k": ParamSpec(shape, init="zeros", layout=lay),
+                    "v": ParamSpec(shape, init="zeros", layout=lay)}
         H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
         W, di = cfg.conv_width, cfg.d_inner
         GN2 = 2 * cfg.ssm_groups * cfg.ssm_state
@@ -997,9 +1218,20 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, seq_len: int, device=None
                    ) -> Dict[str, torch.Tensor]:
+        """The dense cache of ``batch`` slots of ``seq_len`` positions
+        (:meth:`cache_specs`); on a mesh this rank's block of it, a
+        :class:`MeshCache`."""
         self._servable("init_cache")
-        return tree_init(0, self.cache_specs(batch, seq_len),
-                         self.device if device is None else device)
+        device = self.device if device is None else device
+        if self.mesh is None:
+            return tree_init(0, self.cache_specs(batch, seq_len), device)
+        specs = self.cache_specs(batch, seq_len)
+        lay = specs["k"].layout
+        rows, seq_axes, offset = self._kv_place(lay, seq_len)
+        return MeshCache({name: torch.zeros(
+            lay.local_shape(spec.shape, self.mesh), dtype=torch.bfloat16,
+            device=device) for name, spec in specs.items()},
+            rows=rows, seq_axes=seq_axes, offset=offset)
 
     def decode_step(self, params: Params, cache: dict, tokens: torch.Tensor,
                     pos: torch.Tensor, *, block_table=None, seq_lens=None
@@ -1019,6 +1251,8 @@ class Model(nn.Module):
         sites attend as the dense family's layers do, on their ``k``/``v``
         under the same table."""
         self._servable("decode_step")
+        if self.mesh is not None:
+            return self._decode_step_mesh(params, cache, tokens, pos)
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], scale=cfg.emb_scale)
         x = x.to(torch.bfloat16)
@@ -1035,21 +1269,19 @@ class Model(nn.Module):
         if cfg.family in ATTENTION_STACKS:
             ring_lens = (torch.clamp(seq_lens, max=cache["k_l"].shape[2])
                          if "k_l" in cache else None)
-            for i in range(cfg.n_layers):
-                lp = self._layer(params, i)
-                h = layers.rms_norm(x, lp["ln1"], cfg.norm_eps)
+
+            def attend(i, h, p):
                 suffix, j = self._kv_leaf[i]
                 step = attention.decode_ring if suffix == "_l" \
                     else attention.decode
-                a, _, _ = step(
-                    h, lp["attn"], cfg, cache["k" + suffix][j],
+                return step(
+                    h, p, cfg, cache["k" + suffix][j],
                     cache["v" + suffix][j], pos, policy=self.policy,
                     block_table=block_table,
-                    seq_lens=ring_lens if suffix == "_l" else seq_lens)
-                x = x + a
-                h = layers.rms_norm(x, lp["ln2"], cfg.norm_eps)
-                x = x + self._mlp(h, lp)
-            return self._head(params, x), cache
+                    seq_lens=ring_lens if suffix == "_l" else seq_lens)[0]
+
+            return self._head(params, self._serve_layers(params, x,
+                                                         attend)), cache
         for i in range(cfg.n_layers):
             x = self._decode_mamba(params, cache, x, i)
         return self._head(params, x), cache

@@ -27,6 +27,17 @@ steps update the caches in place; nothing crosses to the host per token
 but the sampled ids.  Greedy sampling is an ``argmax`` on the device;
 temperature sampling draws from an explicit ``torch.Generator``.
 
+On a mesh (a ``Model`` built on one, the dense family) both engines run
+over it: every rank runs the same ticks on the same requests, the model
+steps take this rank's rows and its shard of the KV cache or page pool,
+and their logits are whole and the same bits on every rank, so the
+greedy tokens are the same without a broadcast (temperature sampling
+draws from each rank's generator, seeded alike).  The block manager's
+accounting stays global (its pages are the pool's, sharded by page over
+the ranks), as in the reference.  The static engine's one-slot prefill
+runs on every rank whether or not the batch of one splits over ``data``
+(the reference's raises there).
+
 The Session's arguments, as in the reference: ``opcache`` (an
 :class:`~repro_torch.core.opcache.OpCache`) hands out the prefill and
 decode step callables under the reference's ops and keys, so a second
@@ -359,9 +370,12 @@ class ContinuousEngine:
             # registry's remaining budget
             num_pages = 1 + batch_slots * n_row
             if registry is not None and registry.capacity is not None:
+                # on a mesh a rank holds 1/size of the pool's pages
+                mesh = getattr(model, "mesh", None)
+                shards = mesh.size if mesh is not None else 1
                 headroom = registry.capacity - registry.total_bytes()
                 num_pages = min(num_pages, pool_pages_for_budget(
-                    headroom, model.cfg, page_size))
+                    headroom * shards, model.cfg, page_size))
         self.blocks = BlockManager(model.cfg, num_pages=num_pages,
                                    page_size=page_size, max_seq=max_seq)
         self.sched = Scheduler(self.blocks, policy=policy)

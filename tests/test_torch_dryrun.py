@@ -168,17 +168,42 @@ def test_a_scaled_qwen2_train_4k_dry_runs_on_the_16x16_mesh():
 
 
 def test_serve_and_mamba2_cells_skip_naming_their_items(tmp_path, capsys):
-    for arch, shape, item in (("qwen2-0.5b", "decode_32k", "item 13"),
+    """The serve cells of the families serving on a mesh still waits for
+    skip naming item 13 (gemma3's windowed rings, mamba2's long_500k);
+    the dense family's, the reference's contract cell qwen2-0.5b
+    ``decode_32k`` among them, are traced: a pass line and a JSON with
+    the memory model's per-rank K/V beside the traced peak."""
+    for arch, shape, item in (("qwen2-0.5b", "decode_32k", None),
+                              ("qwen2-0.5b", "prefill_32k", None),
                               ("gemma3-27b", "prefill_32k", "item 13"),
                               ("mamba2-780m", "long_500k", "item 13")):
         dryrun.main(["--arch", arch, "--shape", shape, "--out",
                      str(tmp_path), "--both-meshes"])
         out = capsys.readouterr().out.splitlines()
-        assert [ln.split(":")[0] for ln in out[:2]] == [
-            f"SKIP {arch}_{shape}_16x16", f"SKIP {arch}_{shape}_2x16x16"]
-        assert all(item in ln for ln in out[:2])
+        tags = [f"{arch}_{shape}_16x16", f"{arch}_{shape}_2x16x16"]
+        if item is None:
+            assert [ln.split(":")[0] for ln in out
+                    if ln.startswith("OK")] == [f"OK   {t}" for t in tags]
+            for t in tags:
+                res = json.loads((tmp_path / f"{t}.json").read_text())
+                mm = res["memory_model"]
+                assert res["step"] == {"decode_32k": "serve_step",
+                                       "prefill_32k": "prefill_step"}[shape]
+                assert mm["kv_cache_bytes"] == res["kv_cache_bytes"] > 0
+                assert mm["fits"]
+                assert mm["measured_peak_bytes"] == \
+                    res["memory"]["peak_bytes"] > mm["kv_cache_bytes"]
+                assert res["collectives"]["all_gather"]["count"] > 0
+                assert res["memory"]["state_bytes"] > 0
+        else:
+            assert [ln.split(":")[0] for ln in out[:2]] == [
+                f"SKIP {t}" for t in tags]
+            assert all(item in ln for ln in out[:2])
         assert out[-1] == "ALL DRY-RUN CELLS PASSED"
-    assert not list(tmp_path.iterdir())
+    assert sorted(f.name for f in tmp_path.iterdir()) == [
+        f"qwen2-0.5b_{shape}_{mesh}.json"
+        for shape in ("decode_32k", "prefill_32k")
+        for mesh in ("16x16", "2x16x16")]
 
 
 def test_mamba2_train_4k_passes_on_both_production_meshes(tmp_path, capsys):
@@ -270,11 +295,19 @@ def test_unported_flags_are_refused(argv, why, capsys):
 
 
 def test_session_dryrun_refuses_a_serve_plan():
+    """A family serving still waits for (mamba2) is refused naming item
+    13; the dense family's serve plans trace their step."""
     sess = Session(device="cpu")
-    plan = sess.plan("qwen2-0.5b", batch=2, seq=32, kind="decode",
+    plan = sess.plan("mamba2-780m", batch=2, seq=32, kind="decode",
                      scale_down=16)
     with pytest.raises(NotImplementedError, match="item 13"):
         sess.dryrun(plan)
+    for kind, step in (("decode", "serve_step"), ("prefill", "prefill_step")):
+        plan = sess.plan("qwen2-0.5b", batch=2, seq=32, kind=kind,
+                         scale_down=16)
+        trace, meta = sess.dryrun(plan)
+        assert meta["step"] == step and trace.peak_bytes > trace.state_bytes
+        assert trace.kernel_calls["matmul"] > 0
 
 
 def test_a_trace_keeps_the_wire_counts_from_before_it():

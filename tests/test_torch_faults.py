@@ -22,9 +22,10 @@ reference's (``repro.faults``, ``repro.train.resilience``).
   updates round apart);
   and the port's losses must equal its own no-fault run's bit for bit
   wherever the fault was recovered.  The restart driver's watchdog sees
-  a fixed 10 ms for every step but the injected stragglers (its own
-  guards are tested above), so no case depends on this machine's
-  timing.
+  10 ms for every step (its own guards are tested above), and at an
+  injected straggler 10 ms plus the delay, but only where the step's
+  measured wall time shows the seam's sleep ran (else 10 ms, so a dead
+  seam fails the case): no case depends on how loaded this machine is.
 - ``arm_engine``'s pool storm on both packages' ``ContinuousEngine``:
   the same preemptions and sheds, and the admitted requests' tokens
   bitwise a storm-free run's in each package.
@@ -359,11 +360,16 @@ def test_snapshot_is_a_copy_that_a_step_leaves_alone():
 
 def _fixed_dog(dog_cls, stragglers):
     """A watchdog factory of either package whose dog sees 10 ms for
-    every step but the ``stragglers``, and their own times: the cases do
-    not depend on this machine's timing."""
+    every step, plus the injected delay on the ``stragglers`` (step ->
+    seconds) where the measured ``dt`` shows that the delay ran (else 10
+    ms too, so a seam that did not fire escalates nothing): the cases do
+    not depend on this machine's load.  (A straggler step's own
+    wall time under a loaded machine once took the second straggler's
+    z-score under the threshold, and no escalation came.)"""
     class Fixed(dog_cls):
         def observe(self, step, dt):
-            return super().observe(step, dt if step in stragglers else 0.01)
+            m = stragglers.get(step, 0.0)
+            return super().observe(step, 0.01 + (m if dt >= m else 0.0))
     return lambda: Fixed(warmup_steps=3)
 
 
@@ -509,7 +515,7 @@ def _run(side, R, specs, tmp, *, elastic, cfg_kw):
                 factory, data, ckpt=ckpt_cls(str(tmp / side)), steps=STEPS,
                 ckpt_every=EVERY, config=config, faults=faults, seed=0,
                 watchdog_factory=_fixed_dog(dog_cls, {
-                    s["step"] for s in specs
+                    s["step"]: s["magnitude"] for s in specs
                     if s["seam"] == "train.straggler"}))
             out = runner.run()
         else:

@@ -642,10 +642,10 @@ def test_paged_kernel_bits_follow_the_sequence_alone(cuda):
 @pytest.mark.gpu
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     t = _paged_cuda(_paged_case(31, 2, 4, 2, 64, 16, 2), cuda)
-    with pytest.raises(ValueError):              # head dim 48
-        ops.paged_decode_attention(t[0][..., :48].contiguous(),
-                                   t[1][..., :48].contiguous(),
-                                   t[2][..., :48].contiguous(), *t[3:])
+    with pytest.raises(ValueError):              # head dim 264 (> 256)
+        ops.paged_decode_attention(
+            *(torch.cat([x] * 5, -1)[..., :264].contiguous()
+              for x in t[:3]), *t[3:])
     wide = _paged_cuda(_paged_case(31, 2, 17, 1, 64, 16, 2), cuda)
     with pytest.raises(ValueError):              # 17 query heads a kv head
         ops.paged_decode_attention(*wide)

@@ -849,9 +849,11 @@ def test_from_jax_and_constrain_on_a_mesh():
 def test_session_paths_on_a_mesh():
     """``comms="auto"`` takes the gspmd path on a mesh with a model axis
     (with the mesh model), the one-rank path on one rank; serving entry
-    points on a mesh raise naming ROADMAP queue 1, item 13; the ssm
-    family builds on a mesh (its train path), and its serving entry points
-    raise the same way."""
+    points on a mesh take the plan's KV layout for the dense family, and
+    raise naming ROADMAP queue 1, item 13 for a family serving on a mesh
+    still waits for (gemma3's windowed rings); the ssm family builds on a
+    mesh (its train path), and its serving entry points raise the same
+    way."""
     from repro_torch.api import Session
     mesh = Mesh((2, 2), ("data", "model"))
     plan = Session(device="cpu", mesh=mesh).plan(
@@ -862,9 +864,12 @@ def test_session_paths_on_a_mesh():
     one = Session(device="cpu").plan("qwen2-0.5b", batch=4, seq=64,
                                      scale_down=16)
     assert one.path == "gspmd" and one.model.mesh is None
-    for call in (lambda: plan.model.init_cache(1, 16),
-                 lambda: plan.model.init_paged_pool(4),
-                 lambda: plan.model.prefill({}, torch.zeros(1, 4).long())):
+    assert plan.model.cache_specs(8, 16)["k"].layout == \
+        plan.parallel.kv_cache(8, mesh)
+    g3 = Model(get_config("gemma3-27b"), device="cpu", mesh=mesh)
+    for call in (lambda: g3.init_cache(1, 16),
+                 lambda: g3.init_paged_pool(4),
+                 lambda: g3.prefill({}, torch.zeros(1, 4).long())):
         with pytest.raises(NotImplementedError, match="queue 1, item 13"):
             call()
     ssm = Model(get_config("mamba2-780m"), device="cpu", mesh=mesh)
